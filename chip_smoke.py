@@ -1,0 +1,526 @@
+"""Smoke run of the PyTorch port on one NVIDIA GPU (Hopper, sm_90a).
+
+    python3 chip_smoke.py
+
+Phases, each of which fails the run (non-zero exit, no result line):
+
+1. the card's name and power limit (nvidia-smi) and the torch version;
+2. build every CUDA kernel from ``src/repro_torch/kernels/csrc/`` with
+   nvcc, one process per source, all at once;
+3. hold each kernel against its plain PyTorch version on the card at
+   the main path's shapes (``mgqe_decode``: bit-identical rows;
+   ``dpq_assign``: identical codes except between distances equal to
+   within ``ASSIGN_TOL``);
+4. drive the main path at full width: deepfm's ``CONFIG`` -> its 10M-row
+   MGQE field -> init on the card -> export (``dpq_assign``) ->
+   ``ServingEngine`` over 200 random requests (``mgqe_decode``), with
+   every kernel's launch count set to 0 just before and read just
+   after; then check the served rows and exported codes against the
+   plain versions, and a small table end to end against the CPU; then
+   export and serve once more under torch.profiler, for the device
+   time of each kernel;
+5. time each kernel, its plain version and, where one PyTorch call
+   computes the same function, that call, with CUDA events at the
+   main path's shapes, beside the least time the card could take;
+6. print one ``{"kernels": [...]}`` JSON line, then, last, the
+   ``{"ok": true, "device": ...}`` line.
+
+It needs one card and no arguments, imports nothing of JAX, and runs
+the port from the ``src/`` directory beside this file.
+"""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, f32 FLOP/s outside
+# the tensor cores.  The least time for a call is the larger of its
+# bytes over the first and its operations over the second.
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
+
+# dpq_assign: the kernel's fused dot may round differently in the last
+# bit from the plain version's matmul, so a code may differ only where
+# the two candidates' distances are equal to within this (distances
+# are O(1) at these scales; f32 rounding is ~1e-7 of that).
+ASSIGN_TOL = 1e-5
+
+RAGGED_BATCH = 257                     # decode: beside serve_bulk's
+ASSIGN_BATCH = 65536                   # export_codes' batch
+N_REQUESTS, REQ_BATCH = 200, 64
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+
+
+def log(*args) -> None:
+    print(*args, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60).stdout
+    return out.strip().splitlines()[0]
+
+
+def time_ms(fn, iters: int = 100, warmup: int = 5, hold: bool = True):
+    """(device ms, host ms) of one ``fn()``, averaged over ``iters``
+    calls after ``warmup``.
+
+    A kernel of a few microseconds is shorter than the Python call that
+    launches it, so back-to-back launches would time the host.  The
+    card is first kept busy (``torch.cuda._sleep``) while the host
+    queues all ``iters`` calls; the CUDA events around them then time
+    the device alone.  The sleep doubles until it outlasts the
+    queueing.  The host figure is the wall time to queue one call.
+
+    ``hold=False`` is for calls of many launches each far longer than
+    its host work (the plain versions): the launch queue's depth would
+    stall the host behind the sleep, and the card stays busy without
+    it.  The check that the host kept ahead then is host < device."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    if not hold:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        host = time.perf_counter() - t0
+        ev[1].record()
+        torch.cuda.synchronize()
+        device = ev[0].elapsed_time(ev[1]) / iters
+        need(host * 1e3 / iters < device, "the host queued ahead of the card")
+        return device, host * 1e3 / iters
+    cycles = 50_000_000
+    for _ in range(6):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        torch.cuda._sleep(cycles)
+        ev[1].record()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        host = time.perf_counter() - t0
+        ev[2].record()
+        torch.cuda.synchronize()
+        if ev[0].elapsed_time(ev[1]) > host * 1e3:
+            return ev[1].elapsed_time(ev[2]) / iters, host * 1e3 / iters
+        cycles *= 2
+    raise RuntimeError("the host could not queue the calls ahead of the "
+                       "card; device time not measurable this way")
+
+
+def serve_bulk_batch() -> int:
+    """The recsys bulk-serving batch (262,144 rows)."""
+    from repro_torch.configs.base import RECSYS_SHAPES
+    return next(s.batch for s in RECSYS_SHAPES if s.name == "serve_bulk")
+
+
+def need(cond: bool, what: str) -> None:
+    if not cond:
+        raise RuntimeError(f"check failed: {what}")
+
+
+# ----------------------------------------------------------------------
+# inputs at the main path's shapes
+# ----------------------------------------------------------------------
+
+def decode_inputs(b, d, k, s, dtype, seed, code_hi=None):
+    """codes (b, d) uint8 drawn up to ``code_hi`` (past K-1: clamped,
+    as private_k lanes of other tiers carry) and centroids (d, k, s)."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    hi = k if code_hi is None else code_hi + 1
+    codes = torch.randint(0, hi, (b, d), generator=g, device="cuda",
+                          dtype=torch.int32).to(torch.uint8)
+    cent = torch.randn((d, k, s), generator=g, device="cuda").to(dtype)
+    return codes, cent
+
+
+def assign_inputs(b, d, k, s, seed, k_small):
+    """e_sub (b, d, s), centroids (d, k, s) at the init's scale, and a
+    mixed k_limit: 10% of rows, scattered at random, at K (head tier),
+    the rest at k_small."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    scale = (d * s) ** -0.5
+    e = torch.randn((b, d, s), generator=g, device="cuda") * scale
+    cent = torch.randn((d, k, s), generator=g, device="cuda") * scale
+    head = torch.rand((b,), generator=g, device="cuda") < 0.1
+    lim = torch.where(head, k, k_small).to(torch.int32)
+    return e, cent, lim
+
+
+def assign_gap(e, cent, lim, got, want) -> float:
+    """Largest distance gap (float64) between the kernel's pick and the
+    plain version's; 0.0 when every code agrees."""
+    import torch
+    e64, c64 = e.double(), cent.double()
+    dist = (torch.sum(c64 * c64, -1)[None]
+            - 2.0 * torch.einsum("bds,dks->bdk", e64, c64))
+    a = dist.gather(-1, got.long()[..., None])
+    b = dist.gather(-1, want.long()[..., None])
+    if lim is not None:
+        need(bool((got < lim[:, None]).all()), "codes respect k_limit")
+    return float((a - b).abs().max())
+
+
+# ----------------------------------------------------------------------
+# phases
+# ----------------------------------------------------------------------
+
+def build_kernels():
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    reports = build.build()
+    log(f"build: {sorted(reports) or 'already built'} in "
+        f"{time.perf_counter() - t0:.1f}s -> {build.BUILD_DIR}")
+    for name, text in sorted(reports.items()):
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas {name}: {line.strip()}")
+    for name in build.sources():
+        build.library(name)
+
+
+def check_kernels() -> dict:
+    """Each kernel against its plain version on the card; returns
+    ``{name: max_abs_err}`` over every case."""
+    import torch
+    from repro_torch.kernels.dpq_assign import dpq_assign, dpq_assign_ref
+    from repro_torch.kernels.mgqe_decode import mgqe_decode, mgqe_decode_ref
+
+    errs = {"mgqe_decode": 0.0, "dpq_assign": 0.0}
+    for b in (serve_bulk_batch(), RAGGED_BATCH):
+        for dtype in (torch.float32, torch.bfloat16):
+            for k, hi in ((256, 255), (64, 255)):     # in range, clamped
+                codes, cent = decode_inputs(b, 5, k, 2, dtype, seed=b + k,
+                                            code_hi=hi)
+                got = mgqe_decode(codes, cent)
+                want = mgqe_decode_ref(codes, cent)
+                torch.cuda.synchronize()
+                need(got.shape == want.shape == (b, 10),
+                     f"mgqe_decode shape at B={b}")
+                same = torch.equal(got.view(torch.int16 if dtype ==
+                                            torch.bfloat16 else torch.int32),
+                                   want.view(torch.int16 if dtype ==
+                                             torch.bfloat16 else torch.int32))
+                err = float((got.float() - want.float()).abs().max())
+                log(f"check mgqe_decode B={b} K={k} codes<= {hi} {dtype}: "
+                    f"bit-identical={same} max_abs_err={err}")
+                need(same, f"mgqe_decode bit-identical at B={b} {dtype}")
+                errs["mgqe_decode"] = max(errs["mgqe_decode"], err)
+
+    for (b, d, k, s, k_small) in ((ASSIGN_BATCH, 5, 256, 2, 64),
+                                  (ASSIGN_BATCH, 8, 256, 8, 64)):
+        e, cent, lim = assign_inputs(b, d, k, s, seed=d, k_small=k_small)
+        got = dpq_assign(e, cent, lim)
+        want = dpq_assign_ref(e, cent, lim)
+        torch.cuda.synchronize()
+        need(got.shape == want.shape == (b, d), "dpq_assign shape")
+        mism = int((got != want).sum())
+        gap = assign_gap(e, cent, lim, got, want)
+        log(f"check dpq_assign B={b} D={d} K={k} S={s} k_limit {k}/{k_small}:"
+            f" {mism} of {b * d} codes differ, max distance gap {gap:.3g} "
+            f"(tolerance {ASSIGN_TOL})")
+        need(gap <= ASSIGN_TOL, f"dpq_assign within {ASSIGN_TOL}")
+        errs["dpq_assign"] = max(errs["dpq_assign"], gap)
+    return errs
+
+
+def small_table_against_cpu():
+    """A small MGQE table end to end on the card (kernels) and on the
+    CPU (plain versions), same params: codes equal except at near-ties,
+    rows equal wherever the codes are, engine counters equal."""
+    import numpy as np
+    import torch
+    from repro_torch.core import Embedding, EmbeddingConfig
+    from repro_torch.launch.engine import ServingEngine, drive_random_stream
+
+    cfg = EmbeddingConfig(vocab_size=5000, dim=10, kind="mgqe",
+                          num_subspaces=5, num_centroids=256,
+                          tier_boundaries=(500,),
+                          tier_num_centroids=(256, 64))
+    cpu = Embedding(cfg, device="cpu")
+    params = cpu.init(cpu.generator(1))
+    art_cpu = cpu.export(params)
+    card = Embedding(cfg)
+    art = card.export({k: v.cuda() for k, v in params.items()})
+    same = (art["codes"].cpu() == art_cpu["codes"]).all(1)
+    need(float(same.float().mean()) > 0.99, "small table: codes agree")
+    ids = np.arange(0, 5000, 3)
+    got = ServingEngine(card, art).lookup(ids).cpu()
+    want = ServingEngine(cpu, art_cpu, device="cpu").lookup(ids)
+    need(torch.equal(got[same[ids]], want[same[ids]]),
+         "small table: rows agree where codes do")
+    st_card = drive_random_stream(ServingEngine(card, art, max_queue=512),
+                                  5000, 60, 48, seed=3)
+    st_cpu = drive_random_stream(
+        ServingEngine(cpu, art_cpu, max_queue=512, device="cpu"),
+        5000, 60, 48, seed=3)
+    for c in ("requests", "lookups", "padded_lookups", "flushes"):
+        need(getattr(st_card, c) == getattr(st_cpu, c), f"counter {c}")
+    log(f"small table vs CPU: {int((~same).sum())} of 5000 rows' codes "
+        f"differ at near-ties; rows and engine counters agree")
+
+
+def main_path():
+    """deepfm at full width: init -> export -> serve, on the card."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.core import Embedding
+    from repro_torch.kernels.dpq_assign import dpq_assign, dpq_assign_ref
+    from repro_torch.kernels.mgqe_decode import mgqe_decode, mgqe_decode_ref
+    from repro_torch.core.mgqe import k_limit_for_all_rows
+    from repro_torch.launch.engine import (ServingEngine, drive_random_stream,
+                                           embedding_config_of_arch)
+
+    family, cfg = get_arch("deepfm", smoke=False)
+    ecfg = embedding_config_of_arch(family, cfg)
+    log(f"main path: deepfm field vocab={ecfg.vocab_size} dim={ecfg.dim} "
+        f"D={ecfg.num_subspaces} K={ecfg.num_centroids} "
+        f"tiers={ecfg.tier_boundaries} K_i={ecfg.tier_num_centroids}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    dpq_assign.launches = 0
+    mgqe_decode.launches = 0
+    t0 = time.perf_counter()
+    emb = Embedding(ecfg)
+    params = emb.init(emb.generator(0))
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    artifact = emb.export(params)
+    torch.cuda.synchronize()
+    t_export = time.perf_counter() - t0
+    engine = ServingEngine(emb, artifact, max_queue=4096)
+    st = drive_random_stream(engine, ecfg.vocab_size, N_REQUESTS, REQ_BATCH)
+    launches = {"dpq_assign": dpq_assign.launches,
+                "mgqe_decode": mgqe_decode.launches}
+    peak = torch.cuda.max_memory_allocated()
+
+    log(f"main path: init {t_init:.3f}s, export {t_export:.3f}s; engine "
+        f"{st.requests} requests / {st.lookups} lookups in {st.flushes} "
+        f"flushes ({st.padded_lookups} padded), {st.seconds:.6f}s -> "
+        f"{st.lookups_per_s:,.0f} lookups/s; launches {launches}; "
+        f"peak device memory {peak / 2**20:.1f} MiB")
+    for name, n in launches.items():
+        need(n > 0, f"{name} launched on the main path")
+    need(st.requests == N_REQUESTS, "every request served")
+
+    codes, cent = artifact["codes"], artifact["centroids"]
+    need(codes.dtype == torch.uint8
+         and tuple(codes.shape) == (ecfg.vocab_size, ecfg.num_subspaces),
+         "codes (n, D) uint8")
+    # served rows: finite, right shape, and bit-identical to the plain
+    # decode of the artifact
+    rng = np.random.default_rng(7)
+    ids = rng.integers(0, ecfg.vocab_size, 4099)
+    rows = engine.lookup(ids)
+    ids_t = torch.from_numpy(ids).cuda()
+    want = mgqe_decode_ref(codes.index_select(0, ids_t), cent)
+    need(tuple(rows.shape) == (4099, ecfg.dim), "served rows (n, dim)")
+    need(bool(torch.isfinite(rows).all()), "served rows finite")
+    need(torch.equal(rows, want), "served rows == plain decode")
+    # exported codes of a head and a tail slice against the plain
+    # assignment of the same rows under the same tier budgets
+    lim_all = k_limit_for_all_rows(ecfg, "cuda")
+    gap = 0.0
+    for start in (0, ecfg.tier_boundaries[0] - ASSIGN_BATCH // 2,
+                  ecfg.vocab_size - ASSIGN_BATCH):
+        rows_e = params["emb"][start:start + ASSIGN_BATCH].reshape(
+            ASSIGN_BATCH, ecfg.num_subspaces, -1)
+        lim = lim_all[start:start + ASSIGN_BATCH]
+        plain = dpq_assign_ref(rows_e, cent, lim)
+        got = codes[start:start + ASSIGN_BATCH].to(torch.int32)
+        gap = max(gap, assign_gap(rows_e, cent, lim, got, plain))
+    need(gap <= ASSIGN_TOL, "exported codes == plain assignment")
+    tail = codes[ecfg.tier_boundaries[0]:]
+    need(int(tail.max()) < ecfg.tier_num_centroids[1],
+         "tail tier codes < K_tail")
+    log(f"main path checks: rows bit-identical to the plain decode, "
+        f"export codes within {gap:.3g} of the plain assignment, tail "
+        f"codes < {ecfg.tier_num_centroids[1]}")
+
+    # where the time goes: device time by kernel under the profiler
+    # (which slows the host, so the busy shares are lower bounds)
+    profile_phase("export", lambda: emb.export(params))
+    profile_phase("serve (warm + measured pass)", lambda: drive_random_stream(
+        engine, ecfg.vocab_size, N_REQUESTS, REQ_BATCH))
+    return launches, st
+
+
+def profile_phase(what: str, fn) -> None:
+    """Wall time of ``fn()`` under torch.profiler and the device time of
+    each kernel and copy it ran, largest first."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    device = {}
+    for ev in prof.key_averages():
+        # device-side events only: a host op's entry repeats the time
+        # of the kernels it launched
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0.0)
+        if us > 0:
+            device[ev.key] = (us / 1e3, ev.count)
+    busy = sum(ms for ms, _ in device.values())
+    log(f"profile {what}: wall {wall_ms:.3f} ms, device busy {busy:.3f} ms "
+        f"({100 * busy / wall_ms:.1f}%)")
+    for name, (ms, n) in sorted(device.items(), key=lambda kv: -kv[1][0])[:6]:
+        log(f"  {ms:9.3f} ms  {n:5d}x  {name[:90]}")
+
+
+def time_kernels(errs: dict, launches: dict) -> list:
+    """The ``kernels`` entries: times at the main path's shapes."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.dpq_assign import dpq_assign, dpq_assign_ref
+    from repro_torch.kernels.mgqe_decode import (decode, mgqe_decode,
+                                                 mgqe_decode_ref)
+
+    out = []
+    # mgqe_decode: deepfm table (D=5, K=256, S=2, f32), serve_bulk batch
+    b, d, k, s = serve_bulk_batch(), 5, 256, 2
+    codes, cent = decode_inputs(b, d, k, s, torch.float32, seed=11)
+    offs = (codes.long() + torch.arange(d, device="cuda") * k).contiguous()
+    flat = cent.reshape(d * k, s)
+    ms, host = time_ms(lambda: mgqe_decode(codes, cent))
+    plain, _ = time_ms(lambda: mgqe_decode_ref(codes, cent))
+    lib, lib_host = time_ms(lambda: F.embedding(offs, flat))
+    nbytes = b * d * 1 + d * k * s * 4 + b * d * s * 4
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    out.append({"name": "mgqe_decode", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/mgqe_decode.cu",
+                "replaces": "src/repro/kernels/mgqe_decode/mgqe_decode.py:54",
+                "launches": launches["mgqe_decode"],
+                "max_abs_err": errs["mgqe_decode"], "ms": ms,
+                "plain_ms": plain, "bound_ms": bound, "bound_by": "bytes",
+                "library_ms": lib})
+    log(f"time mgqe_decode B={b} D={d} K={k} S={s} f32: kernel {ms:.5f} ms, "
+        f"plain {plain:.5f} ms, F.embedding {lib:.5f} ms, bound {bound:.5f} "
+        f"ms ({nbytes} bytes); host time to launch: wrapper {host:.5f} ms, "
+        f"F.embedding {lib_host:.5f} ms")
+
+    # mgqe_decode at the size of one engine flush (max_queue 4,096 ids
+    # padded to block_b), and the host time of the dispatched op
+    fb = 4352
+    f_codes, f_cent = codes[:fb].contiguous(), cent
+    f_ms, _ = time_ms(lambda: mgqe_decode(f_codes, f_cent))
+    _, op_host = time_ms(lambda: decode(f_codes, f_cent))
+    log(f"time mgqe_decode B={fb} (one engine flush): kernel {f_ms:.5f} ms, "
+        f"bound {(fb * d * 9 + d * k * s * 4) / HBM_BYTES_PER_S * 1e3:.5f} "
+        f"ms; host time to launch through dispatch {op_host:.5f} ms")
+
+    # dpq_assign: deepfm's export, batch by batch as export_codes runs
+    # it (65,536 rows, budgets of the sorted ids: 15 batches at K=256,
+    # one that straddles the tier boundary, 137 at K=64)
+    from repro_torch.configs import get_arch
+    from repro_torch.core.mgqe import k_limit_for_all_rows
+    from repro_torch.launch.engine import embedding_config_of_arch
+    ecfg = embedding_config_of_arch(*get_arch("deepfm", smoke=False))
+    n, d, k = ecfg.vocab_size, ecfg.num_subspaces, ecfg.num_centroids
+    s = ecfg.dim // d
+    g = torch.Generator(device="cuda").manual_seed(12)
+    scale = (d * s) ** -0.5
+    e_all = torch.randn((n, d, s), generator=g, device="cuda") * scale
+    cent = torch.randn((d, k, s), generator=g, device="cuda") * scale
+    lim_all = k_limit_for_all_rows(ecfg, "cuda")
+    starts = list(range(0, n, ASSIGN_BATCH))
+    batches = [(e_all[i:i + ASSIGN_BATCH], lim_all[i:i + ASSIGN_BATCH])
+               for i in starts]
+
+    def export_pass(fn):
+        for e, lim in batches:
+            fn(e, cent, lim)
+
+    per_pass, _ = time_ms(lambda: export_pass(dpq_assign), iters=5,
+                          warmup=1)
+    plain_pass, _ = time_ms(lambda: export_pass(dpq_assign_ref), iters=1,
+                            warmup=1, hold=False)
+    ms, plain = per_pass / len(batches), plain_pass / len(batches)
+    evaluated = int(lim_all.clamp(max=k).long().sum()) * d
+    flops = evaluated * s * 2
+    nbytes = n * d * s * 4 + len(batches) * d * k * s * 4 + n * 4 + n * d * 4
+    t_ops = flops / F32_FLOP_PER_S * 1e3 / len(batches)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3 / len(batches)
+    out.append({"name": "dpq_assign", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/dpq_assign.cu",
+                "replaces": "src/repro/kernels/dpq_assign/dpq_assign.py:44",
+                "launches": launches["dpq_assign"],
+                "max_abs_err": errs["dpq_assign"], "ms": ms,
+                "plain_ms": plain, "bound_ms": max(t_ops, t_bytes),
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                "library_ms": None})
+    log(f"time dpq_assign over deepfm's export ({len(batches)} batches of "
+        f"{ASSIGN_BATCH} rows, D={d} K={k} S={s}), per launch: kernel "
+        f"{ms:.5f} ms, plain {plain:.5f} ms, bound {max(t_ops, t_bytes):.5f}"
+        f" ms ({flops} FLOP over {evaluated} centroid evaluations, {nbytes} "
+        f"bytes, for the whole export)")
+    boundary = ecfg.tier_boundaries[0]
+    for what, i in (("head tier (all K=256)", 0),
+                    ("straddling the tier boundary",
+                     starts[boundary // ASSIGN_BATCH]),
+                    ("tail tier (all K=64)", starts[-2])):
+        e, lim = e_all[i:i + ASSIGN_BATCH], lim_all[i:i + ASSIGN_BATCH]
+        t, host = time_ms(lambda: dpq_assign(e, cent, lim))
+        n_head = int((lim == k).sum())
+        log(f"time dpq_assign one batch {what}, rows {i}..{i + ASSIGN_BATCH}"
+            f" ({n_head} at K={k}): kernel {t:.5f} ms; host time to launch: "
+            f"wrapper {host:.5f} ms")
+    return out
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the card",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.join(REPO, "src"))
+    import repro_torch  # noqa: F401  (fails outside a checkout)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    log(card)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"device {torch.cuda.get_device_name(0)} "
+        f"count {torch.cuda.device_count()}")
+    t0 = time.perf_counter()
+    build_kernels()
+    errs = check_kernels()
+    small_table_against_cpu()
+    launches, _ = main_path()
+    kernels = time_kernels(errs, launches)
+    log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f}"
+        f" MiB; total {time.perf_counter() - t0:.1f}s")
+    log(card)
+    log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,165 @@
+"""Differentiable Product Quantization (DPQ) — VQ variant (paper §1.1).
+
+Training keeps a full embedding table ``emb`` of shape (n, d).  Each row
+is viewed as D subvectors of dim S = d/D.  Per subspace there are K
+learnable centroids; each subvector snaps to its nearest centroid
+(argmin over L2 distance).  At serving time the full table is
+discarded; only the integer codes and the centroid tables remain.
+
+This slice ports the export-and-serve half: initialisation, the
+nearest-centroid assignment, code export over the whole vocabulary
+(the ``dpq_assign`` op) and the serving lookup (the ``mgqe_decode``
+op).  The straight-through training forward (``quantize``,
+``lookup_train``) is the training slice in ROADMAP.md.
+
+MGQE (mgqe.py) reuses every function here via the ``k_limit`` argument:
+items restricted to the first K_i centroids mask distance slots
+k >= K_i to +inf before the argmin.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels.dpq_assign import assign
+from repro_torch.kernels.mgqe_decode import decode
+
+
+def init_centroids(gen: torch.Generator, num_subspaces: int,
+                   num_centroids: int, subspace_dim: int, scale: float = 1.0,
+                   dtype=torch.float32) -> torch.Tensor:
+    """Centroid tables, shape (D, K, S), on the generator's device."""
+    return torch.randn((num_subspaces, num_centroids, subspace_dim),
+                       generator=gen, dtype=dtype, device=gen.device) * scale
+
+
+def init_full_table(gen: torch.Generator, vocab_size: int, dim: int,
+                    scale: Optional[float] = None,
+                    dtype=torch.float32) -> torch.Tensor:
+    if scale is None:
+        scale = dim ** -0.5
+    return torch.randn((vocab_size, dim), generator=gen, dtype=dtype,
+                       device=gen.device) * scale
+
+
+# ----------------------------------------------------------------------
+# Quantization primitives (shape-polymorphic over leading batch dims).
+# ----------------------------------------------------------------------
+
+def subspace_distances(e_sub: torch.Tensor,
+                       centroids: torch.Tensor) -> torch.Tensor:
+    """Squared-L2 distances from subvectors to centroids.
+
+    e_sub:     (..., D, S)
+    centroids: (D, K, S)
+    returns    (..., D, K)
+
+    ||e - c||^2 = ||e||^2 - 2 e.c + ||c||^2; the ||e||^2 term is
+    constant w.r.t. the argmin so it is dropped.
+    """
+    dots = torch.einsum("...ds,dks->...dk", e_sub, centroids)
+    c_sq = torch.sum(torch.square(centroids), dim=-1)     # (D, K)
+    return c_sq - 2.0 * dots
+
+
+def assign_codes(e_sub: torch.Tensor, centroids: torch.Tensor,
+                 k_limit: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Nearest-centroid codes, shape (..., D), int32.
+
+    k_limit: optional per-item centroid budget (broadcastable to the
+    leading dims of e_sub).  Slots k >= k_limit are masked to +inf —
+    the MGQE shared-variable-K rule ("use only the first K_i
+    centroids").  Ties go to the first index.
+    """
+    dist = subspace_distances(e_sub, centroids)
+    if k_limit is not None:
+        k = dist.shape[-1]
+        slot = torch.arange(k, dtype=torch.int32, device=dist.device)
+        lim = torch.broadcast_to(k_limit, dist.shape[:-2])[..., None, None]
+        dist = dist.masked_fill(slot >= lim, float("inf"))
+    return torch.argmin(dist, dim=-1).to(torch.int32)
+
+
+def decode_codes(codes: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
+    """codes (..., D) -> concatenated centroid vectors (..., D, S)."""
+    d = centroids.shape[0]
+    flat = codes.reshape(-1, d).long()        # widen: uint8 would mask
+    sub = torch.arange(d, device=codes.device)[None, :]
+    return centroids[sub, flat].reshape(codes.shape + (centroids.shape[-1],))
+
+
+def quantize(*args, **kwargs):
+    """The straight-through training forward — not ported yet."""
+    raise NotImplementedError(
+        "dpq.quantize (STE training forward) waits for the training "
+        "slice in ROADMAP.md")
+
+
+def lookup_train(*args, **kwargs):
+    """The training-path lookup — not ported yet."""
+    raise NotImplementedError(
+        "dpq.lookup_train (training-path lookup) waits for the training "
+        "slice in ROADMAP.md")
+
+
+# ----------------------------------------------------------------------
+# Table-level API used by the model layers.
+# ----------------------------------------------------------------------
+
+def init(gen: torch.Generator, vocab_size: int, dim: int, num_subspaces: int,
+         num_centroids: int, dtype=torch.float32) -> dict:
+    """Full table first, then centroids, both drawn from ``gen``."""
+    emb = init_full_table(gen, vocab_size, dim, dtype=dtype)
+    # Centroids init'd at the scale of the embeddings so early argmins
+    # spread over the codebook rather than collapsing to one centroid.
+    cent = init_centroids(gen, num_subspaces, num_centroids,
+                          dim // num_subspaces, scale=dim ** -0.5,
+                          dtype=dtype)
+    return {"emb": emb, "centroids": cent}
+
+
+def export_codes(params: dict, k_limit_per_row: Optional[torch.Tensor] = None,
+                 batch: int = 65536,
+                 backend: Optional[str] = None) -> torch.Tensor:
+    """Materialize serving codes for the whole vocab, shape (n, D) int32.
+
+    Batched over rows so exporting a 10M-row table never holds more
+    than one batch of work at once.  The nearest-centroid search runs
+    through the dispatched ``dpq_assign`` op (the CUDA kernel for a
+    table on the card).
+    """
+    emb = params["emb"]
+    centroids = params["centroids"]
+    n = emb.shape[0]
+    num_sub, _, sub_dim = centroids.shape
+    outs = []
+    for start in range(0, n, batch):
+        rows = emb[start:start + batch]
+        lim = None
+        if k_limit_per_row is not None:
+            lim = k_limit_per_row[start:start + batch]
+        e_sub = rows.reshape(rows.shape[0], num_sub, sub_dim)
+        outs.append(assign(e_sub, centroids, lim, backend=backend))
+    return torch.cat(outs, dim=0)
+
+
+def serving_lookup(codes_table: torch.Tensor, centroids: torch.Tensor,
+                   ids: torch.Tensor, backend: Optional[str] = None,
+                   block_b: Optional[int] = None) -> torch.Tensor:
+    """Serving-path lookup: codes + centroids only (full table gone).
+
+    The decode runs through the kernel dispatch layer: the CUDA
+    ``mgqe_decode`` kernel for an artifact on the card, the plain
+    version on the CPU.  ``backend``/``block_b`` usually come from
+    ``EmbeddingConfig.kernel_backend`` / ``decode_block_b``; left as
+    None, ``block_b`` resolves through the autotune cache.  Ids must
+    lie in [0, vocab): on the card an out-of-range row index is a
+    device-side fault.
+    """
+    # gather at the STORED dtype (uint8 for K<=256); the op widens the
+    # codes itself — an int32 batch here quadruples gather traffic
+    codes = codes_table.index_select(0, ids.reshape(-1))   # (N, D)
+    flat = decode(codes, centroids, block_b=block_b, backend=backend)
+    return flat.reshape(tuple(ids.shape)
+                        + (centroids.shape[0] * centroids.shape[-1],))

@@ -1,0 +1,261 @@
+"""Scheme plugin protocol + registry.
+
+A *scheme* is one embedding-compression technique — the paper's
+DPQ/MGQE or a baseline they are compared against.  Each scheme is ONE
+class registered under its ``EmbeddingConfig.kind`` string:
+
+    @register_scheme("dpq")
+    class DifferentiableProductQuantization(QuantizedScheme):
+        ...
+
+Every integration layer (``Embedding`` in core/api.py, the
+``ServingEngine``) resolves schemes through this registry instead of
+``cfg.kind ==`` chains.
+
+The single source of truth for a scheme's serving artifact is
+:meth:`Scheme.artifact_spec`: a tree (dicts and lists) of
+:class:`ArtifactLeaf` carrying shape, torch dtype, row placement and the
+*logical* (packed) bit count per leaf.  ``serving_artifact_struct()``
+(meta-device tensors) and ``serving_size_bits()`` (the paper's
+§1.1/§3.5 accounting, float widths taken from the leaf dtype) are
+derived from it on the base class, so they cannot drift.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, List, Optional, Tuple, Type
+
+import torch
+
+
+def log2ceil(k: int) -> int:
+    """Bits to address k code slots (min 1)."""
+    return max(1, math.ceil(math.log2(k)))
+
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    """``param_dtype`` string -> torch dtype."""
+    try:
+        return _DTYPES[name]
+    except KeyError:
+        raise ValueError(f"unknown param_dtype {name!r}; expected one of "
+                         f"{sorted(_DTYPES)}") from None
+
+
+# ``QuantizedScheme.decode`` block_b sentinel: pin the decode kernel's
+# row tile to ``cfg.decode_block_b`` (the engine pads every flush to a
+# multiple of it).  ``block_b=None`` defers to the autotune cache.
+PIN_TO_CONFIG: Any = "pin-to-config"
+
+
+@dataclasses.dataclass(frozen=True)
+class ArtifactLeaf:
+    """One leaf of a serving artifact, fully described.
+
+    ``rows=True`` marks O(vocab) leaves (row-sharded once the
+    distributed slice lands); everything else is replicated.
+    ``logical_bits`` overrides the storage-derived bit count for the
+    size accounting — code tables are *stored* at uint8/int32
+    granularity but *accounted* at their packed width (``log2ceil(K)``
+    bits per code, paper §1.1).
+    """
+
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+    rows: bool = False
+    logical_bits: Optional[int] = None
+
+    @property
+    def storage_bits(self) -> int:
+        return math.prod(self.shape) * self.dtype.itemsize * 8
+
+    @property
+    def size_bits(self) -> int:
+        return self.storage_bits if self.logical_bits is None \
+            else self.logical_bits
+
+
+def tree_leaves(tree) -> list:
+    """Leaves of a tree of dicts/lists/tuples, in key order for dicts."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+def tree_map(fn, tree):
+    """``fn`` applied to every leaf, keeping the dict/list structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+class Scheme:
+    """Protocol every embedding scheme implements.
+
+    Required overrides: ``init`` / ``export`` / ``serve`` /
+    ``cold_artifact_spec`` / ``training_param_count`` (plus the
+    ``validate`` classmethod where the default doesn't fit).  ``apply``
+    (training) is a later slice.
+    ``artifact_spec``, ``serving_artifact_struct``, ``serving_size_bits``
+    and ``attach_hot_rows`` are derived — do not override them.
+    """
+
+    kind: str = "?"                    # set by @register_scheme
+
+    def __init__(self, cfg):
+        self.cfg = cfg
+
+    # ------------------------------------------------------- class hooks
+    @classmethod
+    def validate(cls, cfg) -> None:
+        """Kind-specific config validation (EmbeddingConfig.__post_init__
+        calls this through the registry)."""
+
+    # --------------------------------------------------------- required
+    def init(self, gen: torch.Generator, dtype: torch.dtype) -> dict:
+        raise NotImplementedError
+
+    def apply(self, params: dict, ids: torch.Tensor):
+        """Training path — not ported yet."""
+        raise NotImplementedError(
+            f"{type(self).__name__}.apply (training path) waits for the "
+            f"training slice in ROADMAP.md")
+
+    def export(self, params: dict) -> dict:
+        raise NotImplementedError
+
+    def serve(self, artifact: dict, ids: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def cold_artifact_spec(self):
+        """Tree of :class:`ArtifactLeaf` matching the scheme's own
+        ``export()`` leaf-for-leaf.  "Cold" because the optional
+        hot-row cache leaf is composed on top by :meth:`artifact_spec`."""
+        raise NotImplementedError
+
+    def training_param_count(self) -> int:
+        raise NotImplementedError
+
+    # ------------------------------------------------- hot-row cache
+    @property
+    def hot_dtype(self) -> torch.dtype:
+        """dtype of ``serve()``'s output rows (the hot block's dtype)."""
+        return torch_dtype(self.cfg.param_dtype)
+
+    def attach_hot_rows(self, artifact: dict) -> dict:
+        """The artifact unchanged when the config asks for no hot-row
+        cache; the cache itself is the hot-row slice in ROADMAP.md."""
+        if not self.cfg.hot_rows:
+            return artifact
+        raise NotImplementedError(
+            f"hot_rows={self.cfg.hot_rows}: the hot-row cache waits for "
+            f"the hot-row slice in ROADMAP.md")
+
+    # ---------------------------------------------------------- derived
+    def artifact_spec(self):
+        """Full artifact spec: the cold spec plus, when ``cfg.hot_rows``
+        > 0, the dense ``hot`` leaf the size accounting charges."""
+        spec = self.cold_artifact_spec()
+        if self.cfg.hot_rows:
+            spec = dict(spec, hot=ArtifactLeaf(
+                (self.cfg.hot_rows, self.cfg.dim), self.hot_dtype))
+        return spec
+
+    @property
+    def variant_label(self) -> str:
+        """Active variant for reporting ("" when the scheme has none)."""
+        return ""
+
+    def artifact_leaves(self) -> List[ArtifactLeaf]:
+        return tree_leaves(self.artifact_spec())
+
+    def serving_artifact_struct(self):
+        """The artifact's structure as meta-device tensors (shape and
+        dtype, no storage) — what ``export`` must produce."""
+        return tree_map(
+            lambda leaf: torch.empty(leaf.shape, dtype=leaf.dtype,
+                                     device="meta"),
+            self.artifact_spec())
+
+    def serving_size_bits(self) -> int:
+        """Paper §1.1/§3.5 serving-size accounting, summed over the
+        artifact spec (packed code widths, dtype-true float widths)."""
+        return sum(leaf.size_bits for leaf in self.artifact_leaves())
+
+
+class QuantizedScheme(Scheme):
+    """Base for codes+codebooks schemes (dpq, mgqe).
+
+    Serving decodes through the dispatched ``mgqe_decode`` op."""
+
+    @property
+    def code_dtype(self) -> torch.dtype:
+        return torch.uint8 if self.cfg.num_centroids <= 256 else torch.int32
+
+    def serve(self, artifact: dict, ids: torch.Tensor) -> torch.Tensor:
+        if self.cfg.sharded_codes:
+            raise NotImplementedError(
+                "sharded_codes serving waits for the distributed slice in "
+                "ROADMAP.md")
+        return self.decode(artifact, ids)
+
+    def resolve_block_b(self, block_b) -> Optional[int]:
+        """Map the ``decode`` block_b argument to a concrete value:
+        :data:`PIN_TO_CONFIG` -> ``cfg.decode_block_b``; anything else
+        (None = autotune cache, or an explicit int) passes through."""
+        return self.cfg.decode_block_b if block_b is PIN_TO_CONFIG \
+            else block_b
+
+    def decode(self, artifact: dict, ids: torch.Tensor,
+               tier_ids: Optional[torch.Tensor] = None,
+               block_b=PIN_TO_CONFIG) -> torch.Tensor:
+        """Decode ``ids`` against the artifact's code tables.
+        ``tier_ids`` defaults to ``ids``; any frequency-rank-dependent
+        blending keys on it.  ``block_b``: see :meth:`resolve_block_b`."""
+        raise NotImplementedError
+
+
+# ----------------------------------------------------------------------
+# registry
+# ----------------------------------------------------------------------
+
+_REGISTRY: Dict[str, Type[Scheme]] = {}
+
+
+def register_scheme(kind: str):
+    """Class decorator: register a Scheme under its kind string."""
+    def deco(cls: Type[Scheme]) -> Type[Scheme]:
+        prev = _REGISTRY.get(kind)
+        if prev is not None and prev is not cls:
+            raise ValueError(
+                f"scheme kind {kind!r} already registered to {prev}")
+        cls.kind = kind
+        _REGISTRY[kind] = cls
+        return cls
+    return deco
+
+
+def registered_kinds() -> Tuple[str, ...]:
+    return tuple(sorted(_REGISTRY))
+
+
+def scheme_class(kind: str) -> Type[Scheme]:
+    try:
+        return _REGISTRY[kind]
+    except KeyError:
+        raise KeyError(
+            f"unknown embedding kind {kind!r}; registered schemes: "
+            f"{', '.join(registered_kinds()) or '(none)'}") from None
+
+
+def get_scheme(cfg) -> Scheme:
+    """Resolve a config to its scheme instance."""
+    return scheme_class(cfg.kind)(cfg)

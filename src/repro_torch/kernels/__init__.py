@@ -1,0 +1,17 @@
+"""Hand-written CUDA kernels for Hopper, one per op of the ported path.
+
+Each subpackage ships <name>.py (the ctypes wrapper of the kernel in
+``csrc/<name>.cu``), ops.py (dispatch-registered public op) and ref.py
+(the plain PyTorch version):
+
+  mgqe_decode     codes + centroids -> embeddings (serving hot path)
+  dpq_assign      nearest-centroid search (export hot path)
+
+Backend selection (cuda | torch) is centralized in ``dispatch.py``;
+``build.py`` compiles the sources with nvcc at first use.  Nothing here
+builds or loads a kernel at import time.
+"""
+from repro_torch.kernels import dispatch  # noqa: F401  (must import first)
+from repro_torch.kernels import dpq_assign, mgqe_decode
+
+__all__ = ["dispatch", "dpq_assign", "mgqe_decode"]

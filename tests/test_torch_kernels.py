@@ -1,0 +1,180 @@
+"""The port's two ops against the JAX package's references.
+
+On the CPU the plain PyTorch versions (``repro_torch.kernels.*.ref``)
+are held to the JAX oracles (``repro.kernels.*.ref``) on identical numpy
+inputs: codes identical, decoded rows bit-identical.  The CUDA kernels
+are held to the plain versions on the card in ``test_torch_gpu.py``.
+"""
+import jax.numpy as jnp
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.dpq_assign.ref import (dpq_assign_blocked_ref as
+                                          jax_assign_blocked,
+                                          dpq_assign_ref as jax_assign)
+from repro.kernels.mgqe_decode.ref import mgqe_decode_ref as jax_decode
+from repro_torch.convert import tensor_from_numpy
+from repro_torch.kernels import build
+from repro_torch.kernels.dpq_assign import (assign, dpq_assign,
+                                            dpq_assign_blocked_ref,
+                                            dpq_assign_ref)
+from repro_torch.kernels.mgqe_decode import (decode, mgqe_decode,
+                                             mgqe_decode_ref)
+
+
+def _bits(x) -> np.ndarray:
+    """Raw bits of a float array/tensor, for bit-identity checks."""
+    if isinstance(x, torch.Tensor):
+        x = x.cpu()
+        return (x.view(torch.int16) if x.dtype == torch.bfloat16
+                else x.view(torch.int32)).numpy()
+    x = np.asarray(x)
+    return x.view(np.int16 if x.dtype.itemsize == 2 else np.int32)
+
+
+# (code dtype, K, largest code drawn): in range, clamped (codes past K,
+# as private_k lanes of other tiers carry), and int32 codes for K > 256
+CODE_CASES = {
+    "uint8": (np.uint8, 256, 255),
+    "uint8_clamped": (np.uint8, 64, 255),
+    "int32": (np.int32, 300, 299),
+    "int32_clamped": (np.int32, 300, 1000),
+}
+
+
+def _decode_inputs(b, d, s, case, dtype, seed=0):
+    code_dt, k, hi = CODE_CASES[case]
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, hi + 1, (b, d)).astype(code_dt)
+    cent = rng.normal(size=(d, k, s)).astype(np.float32)
+    if dtype == "bfloat16":
+        cent = cent.astype(ml_dtypes.bfloat16)
+    return codes, cent
+
+
+@pytest.mark.parametrize("case", sorted(CODE_CASES))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b", [1, 37, 257])
+def test_mgqe_decode_plain_matches_jax(b, dtype, case):
+    codes, cent = _decode_inputs(b, 5, 2, case, dtype)
+    want = jax_decode(jnp.asarray(codes), jnp.asarray(cent))
+    got = mgqe_decode_ref(tensor_from_numpy(codes, "cpu"),
+                          tensor_from_numpy(cent, "cpu"))
+    assert tuple(got.shape) == (b, 10)
+    assert got.dtype == (torch.bfloat16 if dtype == "bfloat16"
+                         else torch.float32)
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+
+
+def test_mgqe_decode_op_on_cpu_is_plain_version():
+    codes, cent = _decode_inputs(64, 8, 8, "uint8", "float32")
+    c, t = tensor_from_numpy(codes, "cpu"), tensor_from_numpy(cent, "cpu")
+    for backend in (None, "auto", "torch"):
+        np.testing.assert_array_equal(_bits(decode(c, t, backend=backend)),
+                                      _bits(mgqe_decode_ref(c, t)))
+
+
+# (B, D, K, S): the deepfm export shape, a wide one, a long-S one
+ASSIGN_SHAPES = [(4096, 5, 256, 2), (4096, 8, 256, 8), (2048, 4, 64, 16)]
+
+
+def _assign_inputs(b, d, k, s, seed=0):
+    rng = np.random.default_rng(seed)
+    e = (rng.normal(size=(b, d, s)) * (d * s) ** -0.5).astype(np.float32)
+    cent = (rng.normal(size=(d, k, s)) * (d * s) ** -0.5).astype(np.float32)
+    # mixed tier budgets, the shared_k mask: K and K/4
+    klim = np.where(rng.random(b) < 0.1, k, k // 4).astype(np.int32)
+    return e, cent, klim
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["all_k", "k_limit"])
+@pytest.mark.parametrize("shape", ASSIGN_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_dpq_assign_plain_matches_jax(shape, masked):
+    e, cent, klim = _assign_inputs(*shape)
+    lim_j = jnp.asarray(klim) if masked else None
+    lim_t = torch.from_numpy(klim) if masked else None
+    want = np.asarray(jax_assign(jnp.asarray(e), jnp.asarray(cent), lim_j))
+    et, ct = torch.from_numpy(e), torch.from_numpy(cent)
+    flat = dpq_assign_ref(et, ct, lim_t)
+    blocked = dpq_assign_blocked_ref(et, ct, lim_t, block_b=500)
+    assert flat.dtype == torch.int32 and tuple(flat.shape) == shape[:2]
+    np.testing.assert_array_equal(flat.numpy(), want)
+    np.testing.assert_array_equal(blocked.numpy(), want)
+    if masked:
+        assert (flat.numpy() < klim[:, None]).all()
+
+
+def test_dpq_assign_blocked_matches_jax_blocked():
+    e, cent, klim = _assign_inputs(1000, 5, 256, 2, seed=3)
+    want = np.asarray(jax_assign_blocked(jnp.asarray(e), jnp.asarray(cent),
+                                         jnp.asarray(klim), block_b=128))
+    got = dpq_assign_blocked_ref(torch.from_numpy(e), torch.from_numpy(cent),
+                                 torch.from_numpy(klim), block_b=128)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_dpq_assign_ties_go_to_first_index():
+    """Duplicated centroids tie exactly; both packages keep the first."""
+    rng = np.random.default_rng(1)
+    cent = rng.normal(size=(3, 8, 2)).astype(np.float32)
+    cent[:, 5] = cent[:, 2]
+    e = np.repeat(cent[None, :, 2, :], 4, axis=0)      # nearest: 2 == 5
+    got = assign(torch.from_numpy(e), torch.from_numpy(cent))
+    want = np.asarray(jax_assign(jnp.asarray(e), jnp.asarray(cent)))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (got.numpy() == 2).all()
+
+
+def test_dpq_assign_zero_budget_gives_code_zero():
+    e, cent, _ = _assign_inputs(16, 2, 8, 2)
+    lim = np.zeros(16, np.int32)
+    got = assign(torch.from_numpy(e), torch.from_numpy(cent),
+                 torch.from_numpy(lim))
+    want = np.asarray(jax_assign(jnp.asarray(e), jnp.asarray(cent),
+                                 jnp.asarray(lim)))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("op", ["mgqe_decode", "dpq_assign"])
+def test_cuda_wrappers_refuse_cpu_tensors(op):
+    """No silent fallback: the kernel wrapper raises on CPU tensors, and
+    so does the op when the cuda backend is pinned."""
+    if op == "mgqe_decode":
+        codes, cent = _decode_inputs(8, 5, 2, "uint8", "float32")
+        args = (torch.from_numpy(codes), torch.from_numpy(cent))
+        wrapper, public = mgqe_decode, decode
+    else:
+        e, cent, _ = _assign_inputs(8, 5, 16, 2)
+        args = (torch.from_numpy(e), torch.from_numpy(cent))
+        wrapper, public = dpq_assign, assign
+    before = wrapper.launches
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        wrapper(*args)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        public(*args, backend="cuda")
+    assert wrapper.launches == before
+
+
+def test_kernel_sources_are_listed_and_hashed(tmp_path, monkeypatch):
+    assert build.sources() == ["dpq_assign", "mgqe_decode"]
+    p = build.library_path("mgqe_decode")
+    assert p == build.library_path("mgqe_decode")          # deterministic
+    assert p != build.library_path("dpq_assign")
+    assert p.parent == build.BUILD_DIR
+    # every source names the TPU kernel it replaces
+    for name in build.sources():
+        text = (build.CSRC / f"{name}.cu").read_text()
+        assert f"src/repro/kernels/{name}/{name}.py" in text
+        assert f'extern "C" int {name}_launch' in text
+
+
+def test_build_without_nvcc_raises(tmp_path, monkeypatch):
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(build.os.path, "exists", lambda p: False)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.build(["mgqe_decode"])
+    assert list(tmp_path.iterdir()) == []
