@@ -11,18 +11,34 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the main path's shapes (``mgqe_decode``: bit-identical rows;
    ``dpq_assign``: identical codes except between distances equal to
    within ``ASSIGN_TOL``);
-4. drive the main path at full width: deepfm's ``CONFIG`` -> its 10M-row
-   MGQE field -> init on the card -> export (``dpq_assign``) ->
+4. drive the first main path at full width: deepfm's ``CONFIG`` -> its
+   10M-row MGQE field -> init on the card -> export (``dpq_assign``) ->
    ``ServingEngine`` over 200 random requests (``mgqe_decode``), with
    every kernel's launch count set to 0 just before and read just
    after; then check the served rows and exported codes against the
    plain versions, and a small table end to end against the CPU; then
    export and serve once more under torch.profiler, for the device
    time of each kernel;
-5. time each kernel, its plain version and, where one PyTorch call
-   computes the same function, that call, with CUDA events at the
+5. time each of its kernels, its plain version and, where one PyTorch
+   call computes the same function, that call, with CUDA events at the
    main path's shapes, beside the least time the card could take;
-6. print one ``{"kernels": [...]}`` JSON line, then, last, the
+6. free the card and drive the second main path at full width:
+   two-tower retrieval at ``configs/two_tower_retrieval.py::CONFIG``
+   (50M users, 10M items, embed_dim 256, towers 1024-512-256) through
+   ``launch.serve.serve_retrieval`` — init, the ``flat_pq`` index over
+   1,000,000 candidates (``dpq_assign``), the engine stream twice
+   (``pq_topk``), recall@100 against the exact dense scan — then the
+   stream once more keeping each flush's results, ``FlatPQ.scores``
+   over the flush's queries (``pq_score_batched``) and one user's
+   ``retrieval_scores_adc`` (``pq_score``), all counts set to 0 just
+   before and read just after; then hold every flush against the
+   plain ``pq_topk_ref`` and a stable sort of the oracle scores, bit
+   for bit, hold the index's codes (and ``dpq_assign`` run again on
+   the same tower outputs) against the plain assignment, as in 3, and
+   print the peak device memory;
+7. time the pq kernels at that path's shapes (and ``dpq_assign`` at
+   the index's), as in 5;
+8. print one ``{"kernels": [...]}`` JSON line, then, last, the
    ``{"ok": true, "device": ...}`` line.
 
 It needs one card and no arguments, imports nothing of JAX, and runs
@@ -30,6 +46,7 @@ the port from the ``src/`` directory beside this file.
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -51,6 +68,11 @@ ASSIGN_TOL = 1e-5
 RAGGED_BATCH = 257                     # decode: beside serve_bulk's
 ASSIGN_BATCH = 65536                   # export_codes' batch
 N_REQUESTS, REQ_BATCH = 200, 64
+TOPK = 100                             # serve_retrieval's top-k
+# the engine's scores may differ from one user's own ADC scores only
+# by the user tower's and the LUT build's f32 rounding at another batch
+# size (the same LUT gives the same bits)
+ADC_TOL = 1e-5
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -123,6 +145,27 @@ def serve_bulk_batch() -> int:
     return next(s.batch for s in RECSYS_SHAPES if s.name == "serve_bulk")
 
 
+def retrieval_candidates() -> int:
+    """The recsys retrieval corpus (1,000,000 candidates)."""
+    from repro_torch.configs.base import RECSYS_SHAPES
+    return next(s.n_candidates for s in RECSYS_SHAPES
+                if s.name == "retrieval_cand")
+
+
+def bits(t):
+    """A float32 tensor's bits, for bit-for-bit comparisons (-inf and
+    -0.0 included)."""
+    import torch
+    return t.contiguous().view(torch.int32)
+
+
+def finite_err(a, b) -> float:
+    """Largest |a - b| where both are finite; 0.0 when none is."""
+    import torch
+    ok = torch.isfinite(a) & torch.isfinite(b)
+    return float((a[ok] - b[ok]).abs().max()) if bool(ok.any()) else 0.0
+
+
 def need(cond: bool, what: str) -> None:
     if not cond:
         raise RuntimeError(f"check failed: {what}")
@@ -160,16 +203,30 @@ def assign_inputs(b, d, k, s, seed, k_small):
 
 def assign_gap(e, cent, lim, got, want) -> float:
     """Largest distance gap (float64) between the kernel's pick and the
-    plain version's; 0.0 when every code agrees."""
+    plain version's; 0.0 when every code agrees.  Runs over blocks of
+    ASSIGN_BATCH rows, so its float64 distances stay small at 1M rows."""
     import torch
-    e64, c64 = e.double(), cent.double()
-    dist = (torch.sum(c64 * c64, -1)[None]
-            - 2.0 * torch.einsum("bds,dks->bdk", e64, c64))
-    a = dist.gather(-1, got.long()[..., None])
-    b = dist.gather(-1, want.long()[..., None])
+    c64 = cent.double()
+    c_sq = torch.sum(c64 * c64, -1)[None]
+    gap = 0.0
+    for i in range(0, e.shape[0], ASSIGN_BATCH):
+        dist = c_sq - 2.0 * torch.einsum(
+            "bds,dks->bdk", e[i:i + ASSIGN_BATCH].double(), c64)
+        a = dist.gather(-1, got[i:i + ASSIGN_BATCH].long()[..., None])
+        b = dist.gather(-1, want[i:i + ASSIGN_BATCH].long()[..., None])
+        gap = max(gap, float((a - b).abs().max()))
     if lim is not None:
         need(bool((got < lim[:, None]).all()), "codes respect k_limit")
-    return float((a - b).abs().max())
+    return gap
+
+
+def blocked_assign_ref(e, cent):
+    """The plain assignment over blocks of ASSIGN_BATCH rows (its
+    (rows, D, K) distances at 1M rows would take gigabytes)."""
+    import torch
+    from repro_torch.kernels.dpq_assign import dpq_assign_ref
+    return torch.cat([dpq_assign_ref(e[i:i + ASSIGN_BATCH], cent)
+                      for i in range(0, e.shape[0], ASSIGN_BATCH)])
 
 
 # ----------------------------------------------------------------------
@@ -232,6 +289,48 @@ def check_kernels() -> dict:
             f"(tolerance {ASSIGN_TOL})")
         need(gap <= ASSIGN_TOL, f"dpq_assign within {ASSIGN_TOL}")
         errs["dpq_assign"] = max(errs["dpq_assign"], gap)
+    errs.update(check_pq_kernels())
+    return errs
+
+
+def check_pq_kernels() -> dict:
+    """The pq kernels against their plain versions at the retrieval
+    index's shape (N = 1M, D = 8, K = 64, k = 100), normal and tie-heavy
+    LUTs: bit-identical."""
+    import torch
+    from repro_torch.kernels.pq_score import (pq_score, pq_score_batched,
+                                              pq_score_batched_ref,
+                                              pq_score_ref, pq_topk,
+                                              pq_topk_ref)
+    errs = {"pq_score": 0.0, "pq_score_batched": 0.0, "pq_topk": 0.0}
+    n, d, k = retrieval_candidates(), 8, 64
+    g = torch.Generator(device="cuda").manual_seed(21)
+    codes = torch.randint(0, k, (n, d), generator=g, device="cuda",
+                          dtype=torch.int32).to(torch.uint8)
+    for b in (1, 16):
+        for ties in (False, True):
+            luts = torch.randn((b, d, k), generator=g, device="cuda")
+            if ties:                 # multiples of 1/8 from 9 values
+                luts = torch.round(luts * 2.0).clamp(-4, 4) / 8.0
+            got = pq_score_batched(luts, codes)
+            want = pq_score_batched_ref(luts, codes)
+            s1 = pq_score(luts[0].contiguous(), codes)
+            w1 = pq_score_ref(luts[0], codes)
+            ts, ti = pq_topk(luts, codes, TOPK)
+            ws, wi = pq_topk_ref(luts, codes, TOPK)
+            torch.cuda.synchronize()
+            same = (torch.equal(bits(got), bits(want))
+                    and torch.equal(bits(s1), bits(w1))
+                    and torch.equal(bits(ts), bits(ws))
+                    and torch.equal(ti, wi))
+            log(f"check pq kernels N={n} B={b} D={d} K={k} k={TOPK} "
+                f"{'tie-heavy' if ties else 'normal'} LUTs: "
+                f"bit-identical={same}")
+            need(same, f"pq kernels bit-identical at B={b}")
+            errs["pq_score_batched"] = max(errs["pq_score_batched"],
+                                           finite_err(got, want))
+            errs["pq_score"] = max(errs["pq_score"], finite_err(s1, w1))
+            errs["pq_topk"] = max(errs["pq_topk"], finite_err(ts, ws))
     return errs
 
 
@@ -490,6 +589,267 @@ def time_kernels(errs: dict, launches: dict) -> list:
     return out
 
 
+def pq_counters() -> dict:
+    """Every kernel wrapper of the port, by name (each keeps its own
+    ``launches`` count)."""
+    from repro_torch.kernels.dpq_assign import dpq_assign
+    from repro_torch.kernels.mgqe_decode import mgqe_decode
+    from repro_torch.kernels.pq_score import (pq_score, pq_score_batched,
+                                              pq_topk)
+    return {"mgqe_decode": mgqe_decode, "dpq_assign": dpq_assign,
+            "pq_score": pq_score, "pq_score_batched": pq_score_batched,
+            "pq_topk": pq_topk}
+
+
+def drive_keeping_flushes(engine, requests) -> list:
+    """The request stream through the engine once more, flushing where
+    ``serve_stream`` flushes; returns, per flush, its queries padded as
+    ``run_flat`` pads them, its real row count and its (scores, ids)."""
+    import numpy as np
+    import torch
+    out, pending = [], []
+
+    def flush():
+        res = engine.flush()
+        flat = np.concatenate(pending)
+        n_valid = flat.shape[0]
+        pad = (-n_valid) % engine.pad_multiple
+        flat = np.pad(flat, ((0, pad), (0, 0)))
+        out.append((torch.from_numpy(flat).cuda(), n_valid,
+                    torch.cat([s for s, _ in res]),
+                    torch.cat([i for _, i in res])))
+        pending.clear()
+
+    for r in requests:
+        engine.submit(r)
+        pending.append(r)
+        if engine.should_flush():
+            flush()
+    flush()
+    return out
+
+
+def retrieval_path():
+    """two-tower retrieval at full width: serve_retrieval, then the
+    stream kept per flush, the exactness oracle and one user's ADC
+    scores; checks (a)-(d), and the index's codes against the plain
+    assignment.  Returns (launches, errs, timing inputs)."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.dpq_assign import dpq_assign
+    from repro_torch.kernels.pq_score import (build_lut_batch, pq_score,
+                                              pq_score_batched_ref,
+                                              pq_score_ref, pq_topk_ref)
+    from repro_torch.launch.serve import serve_retrieval
+
+    _, cfg = get_arch("two-tower-retrieval", smoke=False)
+    n_cand = retrieval_candidates()
+    log(f"retrieval path: {cfg.name} users={cfg.n_users} items="
+        f"{cfg.n_items} embed_dim={cfg.embed_dim} towers={cfg.tower_mlp} "
+        f"D={cfg.num_subspaces}; flat_pq D=8 K=64 over {n_cand} "
+        f"candidates, top-{TOPK}")
+    counters = pq_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    run = serve_retrieval(cfg, n_cand, topk=TOPK)
+    flushes = drive_keeping_flushes(run.engine, run.requests)
+    oracle = [run.index.scores(run.artifact, q) for q, _, _, _ in flushes]
+    user0 = torch.tensor([int(run.users[0][0])], device="cuda")
+    adc = run.model.retrieval_scores_adc(run.params, run.artifact, user0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    st = run.stats
+    log(f"retrieval path: {wall:.1f}s (index build {run.build_seconds:.3f}s);"
+        f" engine {st.requests} requests / {st.lookups} queries in "
+        f"{st.flushes} flushes ({st.padded_lookups} padded), "
+        f"{st.seconds:.6f}s -> {st.lookups_per_s:,.1f} queries/s; "
+        f"recall@{TOPK} vs the dense scan {run.recall:.3f}; launches "
+        f"{launches}; peak device memory {peak / 2**30:.2f} GiB "
+        f"({peak} bytes) of {torch.cuda.get_device_properties(0).total_memory / 2**30:.2f} GiB")
+    for name in ("dpq_assign", "pq_score", "pq_score_batched", "pq_topk"):
+        need(launches[name] > 0, f"{name} launched on the retrieval path")
+    need(st.requests == 50, "every retrieval request served")
+
+    codes, cent = run.artifact["codes"], run.artifact["centroids"]
+    n = codes.shape[0]
+    need(codes.dtype == torch.uint8 and tuple(codes.shape) == (n_cand, 8)
+         and tuple(cent.shape) == (8, 64, cfg.tower_mlp[-1] // 8),
+         "index codes (N, 8) uint8, centroids (8, 64, S)")
+    errs = {"pq_score": 0.0, "pq_score_batched": 0.0, "pq_topk": 0.0}
+    for (q, n_valid, s, i), scores in zip(flushes, oracle):
+        need(tuple(s.shape) == tuple(i.shape) == (n_valid, TOPK),
+             "flush results (rows, k)")
+        need(bool(torch.isfinite(s).all()), "top-k scores finite")
+        need(bool((i >= 0).all() and (i < n).all()), "top-k ids in range")
+        need(bool((s[:, 1:] <= s[:, :-1]).all()), "top-k scores descend")
+        luts = build_lut_batch(q, cent).contiguous()
+        for c0 in range(0, n_valid, 32):
+            c1 = min(c0 + 32, n_valid)
+            # (a) the plain top-k of the same LUTs, bit for bit
+            ws, wi = pq_topk_ref(luts[c0:c1], codes, TOPK)
+            need(torch.equal(bits(s[c0:c1]), bits(ws))
+                 and torch.equal(i[c0:c1], wi), "(a) flush == pq_topk_ref")
+            errs["pq_topk"] = max(errs["pq_topk"], finite_err(s[c0:c1], ws))
+            # (b) a stable descending sort of the oracle's scores
+            srt = torch.sort(scores[c0:c1], dim=1, descending=True,
+                             stable=True)
+            need(torch.equal(bits(s[c0:c1]), bits(srt.values[:, :TOPK]))
+                 and torch.equal(i[c0:c1].long(), srt.indices[:, :TOPK]),
+                 "(b) flush == stable sort of FlatPQ.scores")
+            # the oracle (pq_score_batched) against its plain version
+            want = pq_score_batched_ref(luts[c0:c1], codes)
+            need(torch.equal(bits(scores[c0:c1]), bits(want)),
+                 "pq_score_batched == plain")
+            errs["pq_score_batched"] = max(errs["pq_score_batched"],
+                                           finite_err(scores[c0:c1], want))
+    # (c) one user's ADC scores (pq_score) == that user's oracle row;
+    # the same LUT through pq_score gives the oracle row's bits
+    row = oracle[0][0]
+    adc_err = float((adc - row).abs().max())
+    adc_same = int((bits(adc) == bits(row)).sum())
+    need(adc_err <= ADC_TOL, f"(c) retrieval_scores_adc within {ADC_TOL}")
+    lut0 = build_lut_batch(flushes[0][0], cent)[0].contiguous()
+    k_row = pq_score(lut0, codes)
+    need(torch.equal(bits(k_row), bits(row)),
+         "(c) pq_score == pq_score_batched on one LUT")
+    w_row = pq_score_ref(lut0, codes)
+    need(torch.equal(bits(k_row), bits(w_row)), "pq_score == plain")
+    errs["pq_score"] = finite_err(k_row, w_row)
+    log(f"retrieval checks: {len(flushes)} flush(es), {sum(f[1] for f in flushes)}"
+        f" queries: (a) top-k bit-identical to pq_topk_ref, (b) to a stable"
+        f" sort of FlatPQ.scores; (c) user {int(user0)}'s "
+        f"retrieval_scores_adc within {adc_err:.3g} of its oracle row "
+        f"({adc_same} of {n} scores bit-identical; pq_score on the oracle's "
+        f"LUT: all bit-identical); (d) launches {launches}")
+
+    # the index's codes came from the path's one dpq_assign launch over
+    # all N tower outputs (D = 8, K = 64, S = 32: the kernel's generic
+    # S branch, which deepfm's S = 2 never takes); hold them, and the
+    # kernel run again on the same outputs, against the plain assignment
+    e = run.model.encode_items(run.params, torch.arange(n, device="cuda"))
+    e = e.reshape(n, cent.shape[0], cent.shape[2]).contiguous()
+    want = blocked_assign_ref(e, cent)
+    again = dpq_assign(e, cent)
+    gap = max(assign_gap(e, cent, None, codes, want),
+              assign_gap(e, cent, None, again, want))
+    agree = int((codes.long() == want.long()).sum())
+    log(f"retrieval check dpq_assign B={n} D={cent.shape[0]} "
+        f"K={cent.shape[1]} S={cent.shape[2]}: the index's codes and a "
+        f"fresh launch against the plain assignment, {agree} of "
+        f"{codes.numel()} codes equal, largest distance gap {gap:.3g} "
+        f"(tolerance {ASSIGN_TOL})")
+    need(gap <= ASSIGN_TOL, f"index codes within {ASSIGN_TOL} of the plain "
+         f"assignment")
+    errs["dpq_assign"] = gap
+    del e, want, again
+
+    # where the time goes: device time by kernel under the profiler
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    ids = torch.arange(n, device="cuda")
+    profile_phase("index build", lambda: run.model.build_index(
+        gen, run.params, ids, run.index.cfg))
+    profile_phase("retrieval serve (one pass)", lambda: run.engine.serve_stream(
+        run.requests))
+    timing = (luts_of(flushes[0][0], cent), codes)
+    del run, flushes, oracle, adc
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, errs, timing
+
+
+def luts_of(queries, cent):
+    from repro_torch.kernels.pq_score import build_lut_batch
+    return build_lut_batch(queries, cent).contiguous()
+
+
+def time_pq_kernels(errs: dict, launches: dict, luts, codes) -> tuple:
+    """The pq kernels' ``kernels`` entries at the retrieval path's
+    shapes: N = 1M candidates, D = 8, K = 64, k = 100, B = the flush's
+    padded size (1 for pq_score); and dpq_assign at the index shape,
+    held against its plain version there.  Returns (entries,
+    dpq_assign's distance gap)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.dpq_assign import dpq_assign, dpq_assign_ref
+    from repro_torch.kernels.pq_score import (pq_score, pq_score_batched,
+                                              pq_score_batched_ref,
+                                              pq_score_ref, pq_topk,
+                                              pq_topk_ref)
+    b, d, k = luts.shape
+    n = codes.shape[0]
+    src = "src/repro_torch/kernels/csrc/pq_score.cu"
+    tpu = "src/repro/kernels/pq_score/pq_score.py"
+    offs = (codes.long() + torch.arange(d, device="cuda") * k).contiguous()
+    table = luts.permute(1, 2, 0).reshape(d * k, b).contiguous()
+    lut1 = luts[0].contiguous()
+    table1 = lut1.reshape(d * k, 1).contiguous()
+
+    def bound(nbytes, ops):
+        t_b = nbytes / HBM_BYTES_PER_S * 1e3
+        t_o = ops / F32_FLOP_PER_S * 1e3
+        return max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+
+    out = []
+    cases = [
+        ("pq_score", 62, lambda: pq_score(lut1, codes),
+         lambda: pq_score_ref(lut1, codes),
+         lambda: F.embedding_bag(offs, table1, mode="sum"),
+         n * d + d * k * 4 + n * 4, n * d, 1),
+        ("pq_score_batched", 93, lambda: pq_score_batched(luts, codes),
+         lambda: pq_score_batched_ref(luts, codes),
+         lambda: F.embedding_bag(offs, table, mode="sum"),
+         n * d + b * d * k * 4 + b * n * 4, b * n * d, b),
+        ("pq_topk", 146, lambda: pq_topk(luts, codes, TOPK),
+         lambda: pq_topk_ref(luts, codes, TOPK), None,
+         n * d + b * d * k * 4 + b * TOPK * 8, b * n * d, b),
+    ]
+    for name, line, kern, plain_fn, lib_fn, nbytes, ops, bb in cases:
+        ms, host = time_ms(kern, iters=20, warmup=2)
+        plain, _ = time_ms(plain_fn, iters=3, warmup=1, hold=False)
+        lib = None
+        if lib_fn is not None:
+            lib, _ = time_ms(lib_fn, iters=20, warmup=2)
+        t, by = bound(nbytes, ops)
+        out.append({"name": name, "route": "cuda", "source": src,
+                    "replaces": f"{tpu}:{line}",
+                    "launches": launches[name], "max_abs_err": errs[name],
+                    "ms": ms, "plain_ms": plain, "bound_ms": t,
+                    "bound_by": by, "library_ms": lib})
+        log(f"time {name} N={n} B={bb} D={d} K={k}"
+            + (f" k={TOPK}" if name == "pq_topk" else "")
+            + f": kernel {ms:.5f} ms, plain {plain:.5f} ms, library "
+            + (f"{lib:.5f} ms (F.embedding_bag)" if lib is not None
+               else "none")
+            + f", bound {t:.5f} ms by {by} ({nbytes} bytes, {ops} adds); "
+            f"host time to launch {host:.5f} ms")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # dpq_assign at the index shape: the build encodes all 1M tower
+    # outputs in one launch (D = 8, K = 64, S = 32, no budget)
+    g = torch.Generator(device="cuda").manual_seed(13)
+    s = 32
+    e = torch.randn((n, d, s), generator=g, device="cuda") * 0.06
+    cent = torch.randn((d, k, s), generator=g, device="cuda") * 0.06
+    ms, _ = time_ms(lambda: dpq_assign(e, cent), iters=10, warmup=2)
+    plain, _ = time_ms(lambda: dpq_assign_ref(e, cent), iters=2, warmup=1,
+                       hold=False)
+    t, by = bound(n * d * s * 4 + d * k * s * 4 + n * d * 4, n * d * k * s * 2)
+    gap = assign_gap(e, cent, None, dpq_assign(e, cent),
+                     blocked_assign_ref(e, cent))
+    need(gap <= ASSIGN_TOL, f"dpq_assign at the index shape within "
+         f"{ASSIGN_TOL}")
+    log(f"time dpq_assign at the index shape B={n} D={d} K={k} S={s}: "
+        f"kernel {ms:.5f} ms, plain {plain:.5f} ms, bound {t:.5f} ms by {by}"
+        f"; against the plain version: largest distance gap {gap:.3g}")
+    return out, gap
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -512,8 +872,20 @@ def main() -> int:
     small_table_against_cpu()
     launches, _ = main_path()
     kernels = time_kernels(errs, launches)
-    log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f}"
-        f" MiB; total {time.perf_counter() - t0:.1f}s")
+    gc.collect()
+    torch.cuda.empty_cache()                 # free the card for two-tower
+    r_launches, r_errs, (luts, codes) = retrieval_path()
+    pq_errs = {name: max(errs[name], err) for name, err in r_errs.items()}
+    pq_kernels, assign_err = time_pq_kernels(pq_errs, r_launches, luts,
+                                             codes)
+    for entry in kernels:                    # both paths' launches and errs
+        name = entry["name"]
+        entry["launches"] += r_launches[name]
+        if name == "dpq_assign":
+            entry["max_abs_err"] = max(entry["max_abs_err"],
+                                       pq_errs[name], assign_err)
+    kernels += pq_kernels
+    log(f"total {time.perf_counter() - t0:.1f}s")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

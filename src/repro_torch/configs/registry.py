@@ -11,6 +11,8 @@ from typing import Dict, Tuple
 
 ARCHS: Dict[str, Tuple[str, str]] = {
     # arch id            family    config module
+    "two-tower-retrieval": ("recsys",
+                            "repro_torch.configs.two_tower_retrieval"),
     "deepfm":            ("recsys", "repro_torch.configs.deepfm"),
 }
 

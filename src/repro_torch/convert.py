@@ -50,3 +50,38 @@ def artifact_from_numpy(artifact: dict, cfg: EmbeddingConfig, device) -> dict:
         raise ValueError(f"artifact {got} does not match the spec of "
                          f"{cfg.kind}: {want}")
     return out
+
+
+def mlp_from_numpy(layers, device) -> list:
+    """An MLP stack — a list of ``{w, b}`` dicts — as tensors."""
+    return [{name: tensor_from_numpy(a, device) for name, a in layer.items()}
+            for layer in layers]
+
+
+def two_tower_params_from_numpy(params: dict, model, device) -> dict:
+    """The JAX ``TwoTower`` params (numpy leaves) as the port's: both
+    embedding param trees, checked against the model's configs, and both
+    MLP stacks."""
+    return {
+        "user_emb": params_from_numpy(params["user_emb"], model.user_emb.cfg,
+                                      device),
+        "item_emb": params_from_numpy(params["item_emb"], model.item_emb.cfg,
+                                      device),
+        "user_mlp": mlp_from_numpy(params["user_mlp"], device),
+        "item_mlp": mlp_from_numpy(params["item_mlp"], device),
+    }
+
+
+def flat_pq_artifact_from_numpy(artifact: dict, device) -> dict:
+    """A ``flat_pq`` artifact — codes (N, D) uint8/int32 and centroids
+    (D, K, S) float32 — as tensors on ``device``."""
+    codes = tensor_from_numpy(artifact["codes"], device)
+    cent = tensor_from_numpy(artifact["centroids"], device)
+    if (codes.dim() != 2 or codes.dtype not in (torch.uint8, torch.int32)
+            or cent.dim() != 3 or cent.dtype != torch.float32
+            or codes.shape[1] != cent.shape[0]):
+        raise ValueError(f"want codes (N, D) uint8/int32 and centroids "
+                         f"(D, K, S) float32, got {tuple(codes.shape)} "
+                         f"{codes.dtype} and {tuple(cent.shape)} "
+                         f"{cent.dtype}")
+    return {"codes": codes, "centroids": cent}

@@ -6,11 +6,12 @@ learnable centroids; each subvector snaps to its nearest centroid
 (argmin over L2 distance).  At serving time the full table is
 discarded; only the integer codes and the centroid tables remain.
 
-This slice ports the export-and-serve half: initialisation, the
-nearest-centroid assignment, code export over the whole vocabulary
-(the ``dpq_assign`` op) and the serving lookup (the ``mgqe_decode``
-op).  The straight-through training forward (``quantize``,
-``lookup_train``) is the training slice in ROADMAP.md.
+Ported: initialisation, the nearest-centroid assignment, the
+straight-through forward (``quantize``, ``lookup_train``; the plain
+assignment, as in the JAX package), code export over the whole
+vocabulary (the ``dpq_assign`` op) and the serving lookup (the
+``mgqe_decode`` op).  The backward tests, the loss and the training
+loop are the training slice in ROADMAP.md.
 
 MGQE (mgqe.py) reuses every function here via the ``k_limit`` argument:
 items restricted to the first K_i centroids mask distance slots
@@ -18,7 +19,7 @@ k >= K_i to +inf before the argmin.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -29,18 +30,24 @@ from repro_torch.kernels.mgqe_decode import decode
 def init_centroids(gen: torch.Generator, num_subspaces: int,
                    num_centroids: int, subspace_dim: int, scale: float = 1.0,
                    dtype=torch.float32) -> torch.Tensor:
-    """Centroid tables, shape (D, K, S), on the generator's device."""
-    return torch.randn((num_subspaces, num_centroids, subspace_dim),
-                       generator=gen, dtype=dtype, device=gen.device) * scale
+    """Centroid tables, shape (D, K, S), on the generator's device.
+    Scaled in place: the peak is one table, not two."""
+    cent = torch.randn((num_subspaces, num_centroids, subspace_dim),
+                       generator=gen, dtype=dtype, device=gen.device)
+    return cent.mul_(scale)
 
 
 def init_full_table(gen: torch.Generator, vocab_size: int, dim: int,
                     scale: Optional[float] = None,
                     dtype=torch.float32) -> torch.Tensor:
+    """(vocab, dim) table drawn from ``gen`` and scaled in place, so
+    the peak is one table: two-tower's 50M-row user table is 51.2 GB,
+    and a scaled copy beside it would not fit an 80 GB card."""
     if scale is None:
         scale = dim ** -0.5
-    return torch.randn((vocab_size, dim), generator=gen, dtype=dtype,
-                       device=gen.device) * scale
+    emb = torch.randn((vocab_size, dim), generator=gen, dtype=dtype,
+                      device=gen.device)
+    return emb.mul_(scale)
 
 
 # ----------------------------------------------------------------------
@@ -89,18 +96,58 @@ def decode_codes(codes: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
     return centroids[sub, flat].reshape(codes.shape + (centroids.shape[-1],))
 
 
-def quantize(*args, **kwargs):
-    """The straight-through training forward — not ported yet."""
-    raise NotImplementedError(
-        "dpq.quantize (STE training forward) waits for the training "
-        "slice in ROADMAP.md")
+def quantize(e: torch.Tensor, centroids: torch.Tensor,
+             k_limit: Optional[torch.Tensor] = None,
+             beta: float = 0.25
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Full DPQ forward for pre-gathered rows.
+
+    e: (..., d) full-table rows;  centroids: (D, K, S) with D*S == d.
+    Returns (quantized (..., d), codes (..., D), aux_loss scalar).
+    """
+    num_sub, _, sub_dim = centroids.shape
+    lead = tuple(e.shape[:-1])
+    e_sub = e.reshape(lead + (num_sub, sub_dim))
+    codes = assign_codes(e_sub, centroids, k_limit)
+    c_sel = decode_codes(codes, centroids)        # (..., D, S)
+    # Straight-through: forward value is the centroid, gradient hits e.
+    # Written as the JAX package writes it, so the forward value is
+    # bit-identical to it wherever the codes agree.
+    q_sub = e_sub + (c_sel - e_sub).detach()
+    # Codebook + commitment losses (gradients: codebook term ->
+    # centroids via the differentiable gather in c_sel; commitment -> e).
+    codebook = torch.mean(torch.sum(
+        torch.square(e_sub.detach() - c_sel), dim=-1))
+    commit = torch.mean(torch.sum(
+        torch.square(e_sub - c_sel.detach()), dim=-1))
+    aux = codebook + beta * commit
+    return q_sub.reshape(e.shape), codes, aux
 
 
-def lookup_train(*args, **kwargs):
-    """The training-path lookup — not ported yet."""
-    raise NotImplementedError(
-        "dpq.lookup_train (training-path lookup) waits for the training "
-        "slice in ROADMAP.md")
+def row_gather(table: torch.Tensor, ids: torch.Tensor,
+               sharded: bool = False) -> torch.Tensor:
+    """Rows ``table[ids]``, shape ids.shape + (d,).  Model-parallel
+    row gathers (``sharded``) are the distributed slice in ROADMAP.md."""
+    if sharded:
+        raise NotImplementedError(
+            "sharded_rows gathers wait for the distributed slice in "
+            "ROADMAP.md")
+    rows = table.index_select(0, ids.reshape(-1).long())
+    return rows.reshape(tuple(ids.shape) + (table.shape[-1],))
+
+
+def lookup_train(params: dict, ids: torch.Tensor,
+                 k_limit: Optional[torch.Tensor] = None,
+                 beta: float = 0.25,
+                 sharded_rows: bool = False
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Training-path lookup: gather full rows, quantize, STE.
+
+    ids: (...,) int; returns (emb (..., d), aux_loss scalar).
+    """
+    e = row_gather(params["emb"], ids, sharded=sharded_rows)
+    q, _, aux = quantize(e, params["centroids"], k_limit=k_limit, beta=beta)
+    return q, aux
 
 
 # ----------------------------------------------------------------------

@@ -14,10 +14,13 @@ Three variants, all built on dpq.py:
   dim d/D_i (K fixed).  Static python loop over tiers.
 
 Tier membership is pure arithmetic over frequency-sorted ids
-(partition.tier_of_ids) — no membership table.  This slice ports init
-and export; the training lookup is the training slice in ROADMAP.md.
+(partition.tier_of_ids) — no membership table.  Ported: init, the
+training-path forward (``lookup_train``) and export; the backward
+tests and the training loop are the training slice in ROADMAP.md.
 """
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
@@ -71,6 +74,34 @@ def init(gen: torch.Generator, cfg: EmbeddingConfig,
                                scale=cfg.dim ** -0.5, dtype=dtype)
             for i in range(cfg.num_tiers)]
     return params
+
+
+# ----------------------------------------------------------------------
+# training lookup
+# ----------------------------------------------------------------------
+
+def lookup_train(params: dict, ids: torch.Tensor,
+                 cfg: EmbeddingConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (embeddings (..., d), aux_loss scalar)."""
+    if cfg.mgqe_variant == "shared_k":
+        k_limit = _tier_k_limits(cfg, ids)
+        return dpq.lookup_train(params, ids, k_limit=k_limit, beta=cfg.beta,
+                                sharded_rows=cfg.sharded_rows)
+
+    # private variants: static loop over tiers, blend with masks
+    e = dpq.row_gather(params["emb"], ids, sharded=cfg.sharded_rows)
+    tiers = tier_of_ids(ids, cfg.tier_boundaries)       # (...,)
+    out = torch.zeros_like(e)
+    aux = torch.zeros((), dtype=torch.float32, device=e.device)
+    for i, cent in enumerate(params["centroids"]):
+        q_i, _, aux_i = dpq.quantize(e, cent, beta=cfg.beta)
+        mask = tiers == i
+        out = torch.where(mask[..., None], q_i, out)
+        # weight tier aux by the fraction of items in the tier so the
+        # total matches the masked-mean of per-item losses
+        frac = torch.mean(mask.to(torch.float32))
+        aux = aux + aux_i * frac
+    return out, aux
 
 
 # ----------------------------------------------------------------------

@@ -100,10 +100,9 @@ def tree_map(fn, tree):
 class Scheme:
     """Protocol every embedding scheme implements.
 
-    Required overrides: ``init`` / ``export`` / ``serve`` /
+    Required overrides: ``init`` / ``apply`` / ``export`` / ``serve`` /
     ``cold_artifact_spec`` / ``training_param_count`` (plus the
-    ``validate`` classmethod where the default doesn't fit).  ``apply``
-    (training) is a later slice.
+    ``validate`` classmethod where the default doesn't fit).
     ``artifact_spec``, ``serving_artifact_struct``, ``serving_size_bits``
     and ``attach_hot_rows`` are derived — do not override them.
     """
@@ -124,10 +123,9 @@ class Scheme:
         raise NotImplementedError
 
     def apply(self, params: dict, ids: torch.Tensor):
-        """Training path — not ported yet."""
-        raise NotImplementedError(
-            f"{type(self).__name__}.apply (training path) waits for the "
-            f"training slice in ROADMAP.md")
+        """Training-path forward: ids (...,) -> (rows (..., d), aux
+        loss scalar)."""
+        raise NotImplementedError
 
     def export(self, params: dict) -> dict:
         raise NotImplementedError

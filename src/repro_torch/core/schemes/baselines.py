@@ -18,6 +18,9 @@ class FullEmbedding(Scheme):
     def init(self, gen, dtype):
         return baselines.full_init(gen, self.cfg, dtype)
 
+    def apply(self, params, ids):
+        return baselines.full_lookup(params, ids, self.cfg)
+
     def export(self, params):
         return params  # nothing to strip
 

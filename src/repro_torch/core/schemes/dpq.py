@@ -23,6 +23,11 @@ class DifferentiableProductQuantization(QuantizedScheme):
         return dpq.init(gen, cfg.vocab_size, cfg.dim, cfg.num_subspaces,
                         cfg.num_centroids, dtype=dtype)
 
+    def apply(self, params, ids):
+        cfg = self.cfg
+        return dpq.lookup_train(params, ids, beta=cfg.beta,
+                                sharded_rows=cfg.sharded_rows)
+
     def export(self, params):
         codes = dpq.export_codes(params, backend=self.cfg.kernel_backend)
         return {"codes": codes.to(self.code_dtype),

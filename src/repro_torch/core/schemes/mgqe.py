@@ -63,6 +63,9 @@ class MultiGranularQuantizedEmbedding(QuantizedScheme):
     def init(self, gen, dtype):
         return mgqe.init(gen, self.cfg, dtype=dtype)
 
+    def apply(self, params, ids):
+        return mgqe.lookup_train(params, ids, self.cfg)
+
     # ------------------------------------------------------------ serve
     def export(self, params):
         return mgqe.export_serving(params, self.cfg)

@@ -5,13 +5,15 @@ Each subpackage ships <name>.py (the ctypes wrapper of the kernel in
 (the plain PyTorch version):
 
   mgqe_decode     codes + centroids -> embeddings (serving hot path)
-  dpq_assign      nearest-centroid search (export hot path)
+  dpq_assign      nearest-centroid search (export and index build)
+  pq_score        ADC scoring of a PQ-coded corpus: pq_score,
+                  pq_score_batched, pq_topk (retrieval hot path)
 
 Backend selection (cuda | torch) is centralized in ``dispatch.py``;
 ``build.py`` compiles the sources with nvcc at first use.  Nothing here
 builds or loads a kernel at import time.
 """
 from repro_torch.kernels import dispatch  # noqa: F401  (must import first)
-from repro_torch.kernels import dpq_assign, mgqe_decode
+from repro_torch.kernels import dpq_assign, mgqe_decode, pq_score
 
-__all__ = ["dispatch", "dpq_assign", "mgqe_decode"]
+__all__ = ["dispatch", "dpq_assign", "mgqe_decode", "pq_score"]

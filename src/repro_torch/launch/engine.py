@@ -12,11 +12,20 @@ into a single decode call:
     ``run_flat`` device leg — one pinned host-to-device copy, one
     decode call, one synchronise before the clock stops — and splits
     results back per request;
-  * the synchronous helper ``lookup`` is submit + flush.
+  * the synchronous helpers (``lookup`` / ``search``) are submit +
+    flush.
 
-Stats accumulate across flushes; ``stats()`` reports lookups/second.
-The hot-row cache, the sharded (mesh) path and the retrieval engine are
-later slices in ROADMAP.md.
+Two engines share that plumbing (``_MicroBatchEngine``):
+
+  ``ServingEngine``    id lookups -> embedding rows over one exported
+                       quantized table (the ``mgqe_decode`` kernel);
+  ``RetrievalEngine``  query vectors -> (top-k scores, candidate ids)
+                       over a built retrieval index (the ``pq_topk``
+                       kernel, retrieval/).
+
+Stats accumulate across flushes; ``stats()`` reports requests/second.
+The hot-row cache, the sharded (mesh) paths and host-staged retrieval
+are later slices in ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -65,8 +74,8 @@ class _MicroBatchEngine:
 
     Subclasses define ``_coerce_host`` (request -> numpy array with a
     leading batch dim) and ``_run`` (padded flat batch on the device ->
-    tensor with the same leading dim); everything
-    else — queueing, padding to ``pad_multiple``, stats, splitting
+    a tensor, or a tuple of tensors, with the same leading dim);
+    everything else — queueing, padding to ``pad_multiple``, stats, splitting
     results back per request — lives here.
     """
 
@@ -106,9 +115,10 @@ class _MicroBatchEngine:
         return self._queued >= self.max_queue
 
     # --------------------------------------------------------- serve
-    def flush(self) -> List[torch.Tensor]:
+    def flush(self) -> List:
         """Process every queued request in one padded micro-batch and
-        return each request's rows, in submit order."""
+        return each request's result, in submit order: its rows, or a
+        tuple of its rows of each output (retrieval's scores and ids)."""
         if not self._queue:
             return []
         reqs, self._queue = self._queue, []
@@ -116,10 +126,14 @@ class _MicroBatchEngine:
         self._queued = 0
         flat = np.concatenate(reqs) if n_req > 1 else reqs[0]
         out = self.run_flat(flat, n_rows, n_requests=n_req)
-        return list(torch.split(out[:n_rows], [r.shape[0] for r in reqs]))
+        sizes = [r.shape[0] for r in reqs]
+        if isinstance(out, tuple):
+            pieces = [torch.split(o[:n_rows], sizes) for o in out]
+            return [tuple(p[i] for p in pieces) for i in range(n_req)]
+        return list(torch.split(out[:n_rows], sizes))
 
     def run_flat(self, flat: np.ndarray, n_valid: Optional[int] = None,
-                 n_requests: int = 1) -> torch.Tensor:
+                 n_requests: int = 1):
         """One call over a HOST-assembled flat batch.
 
         Padding happens in numpy BEFORE the single host-to-device copy
@@ -217,6 +231,58 @@ class ServingEngine(_MicroBatchEngine):
         return self.flush()[handle]
 
 
+class RetrievalEngine(_MicroBatchEngine):
+    """Micro-batching top-k retrieval over one built index.
+
+    Requests are query-vector batches (B_i, d); every flush pads the
+    concatenated queries to ``block_q`` and runs ONE batched search
+    (``Index.search``), returning per request ``(scores (B_i, k),
+    candidate ids (B_i, k))``.  The artifact is moved to ``device`` once
+    (the card by default; with no card present construction raises —
+    pass ``device="cpu"``).
+
+    Single device only: ``mesh`` (a distributed corpus) and
+    ``host_staged`` (list tables kept in host memory, an IVF feature)
+    raise, naming their slices in ROADMAP.md.
+    """
+
+    def __init__(self, index, artifact: dict, k: int,
+                 block_q: int = 64, max_queue: int = 4096, mesh=None,
+                 host_staged: Optional[bool] = None, device="cuda"):
+        if mesh is not None:
+            raise NotImplementedError(
+                "a retrieval mesh (sharded corpus) waits for the "
+                "distributed slice in ROADMAP.md")
+        if host_staged is None:
+            host_staged = index.cfg.host_staged
+        if host_staged:
+            raise NotImplementedError(
+                "host-staged retrieval waits for the IVF slice in "
+                "ROADMAP.md")
+        self.index, self.k = index, k
+        self.block_q = block_q
+        device = resolve_device(device)
+        super().__init__(pad_multiple=block_q, max_queue=max_queue,
+                         device=device)
+        # device-resident once; requests only ship (B, d) f32 queries
+        self.artifact = {name: leaf.to(device)
+                         for name, leaf in artifact.items()}
+
+    def _coerce_host(self, queries) -> np.ndarray:
+        q = np.asarray(queries, np.float32)
+        return q[None] if q.ndim == 1 else q
+
+    def _run(self, flat: torch.Tensor):
+        return self.index.search(self.artifact, flat, self.k)
+
+    def search(self, queries):
+        """Synchronous single-request path (submit + flush): queries
+        (B, d) or (d,) -> (scores, ids).  Flushes whatever else is
+        queued too and returns THIS request's results."""
+        handle = self.submit(queries)
+        return self.flush()[handle]
+
+
 def drive_random_stream(engine: ServingEngine, vocab_size: int,
                         n_requests: int, req_batch: int,
                         seed: int = 0) -> EngineStats:
@@ -247,6 +313,20 @@ def drive_zipf_stream(engine: ServingEngine, vocab_size: int,
     return engine.serve_stream(reqs)
 
 
+def drive_random_query_stream(engine: RetrievalEngine, dim: int,
+                              n_requests: int, req_batch: int,
+                              seed: int = 0) -> EngineStats:
+    """Retrieval twin of :func:`drive_random_stream`: random-size
+    query-vector requests, warm pass first."""
+    rng = np.random.default_rng(seed)
+    reqs = [rng.normal(size=(int(rng.integers(1, req_batch + 1)), dim)
+                       ).astype(np.float32)
+            for _ in range(n_requests)]
+    engine.serve_stream(reqs)          # warm pass
+    engine.stats_ = EngineStats()
+    return engine.serve_stream(reqs)
+
+
 def embedding_config_of_arch(family: str, cfg):
     """Pick the arch's main large-vocab EmbeddingConfig (engine demo)."""
     from repro_torch.models.recsys.fields import field_embedding_config
@@ -254,8 +334,11 @@ def embedding_config_of_arch(family: str, cfg):
         raise NotImplementedError(
             f"family {family!r} waits for its slice in ROADMAP.md; the "
             f"port serves recsys archs")
+    if cfg.model == "two_tower":       # the item table, as in JAX
+        return field_embedding_config(cfg, cfg.n_items)
     return field_embedding_config(cfg, max(cfg.field_vocab_sizes))
 
 
-__all__ = ["EngineStats", "ServingEngine", "drive_random_stream",
+__all__ = ["EngineStats", "RetrievalEngine", "ServingEngine",
+           "drive_random_query_stream", "drive_random_stream",
            "drive_zipf_stream", "embedding_config_of_arch"]

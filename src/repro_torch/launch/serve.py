@@ -1,18 +1,31 @@
-"""Serving launcher: export a quantized artifact, then serve a stream of
-batched requests through the micro-batching engine on the paper's
-Figure-1 path (codes + centroids, full table discarded).
+"""Serving launcher, two paths:
+
+* ``--engine``: export a quantized artifact, then serve a stream of
+  batched requests through the micro-batching engine on the paper's
+  Figure-1 path (codes + centroids, full table discarded);
+* ``--arch two-tower-retrieval`` without ``--engine``: build a
+  ``flat_pq`` index over the item tower's outputs and serve top-k
+  retrieval for a stream of user batches through the RetrievalEngine.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch deepfm \\
         --full --engine --requests 200 --req-batch 64
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch two-tower-retrieval --full --candidates 1000000
 
-runs on the card and reports lookups/second; ``--device cpu`` runs the
-same path on the CPU with the plain PyTorch ops.  Only the ``--engine``
-path is ported; the LM, retrieval, async, hot-row and mesh paths of the
-JAX package's CLI are later slices in ROADMAP.md.
+run on the card and report lookups/second or queries/second;
+``--device cpu`` runs the same paths on the CPU with the plain PyTorch
+ops.  The LM, CTR, async, hot-row, mesh, ``ivf_pq`` and host-staged
+paths of the JAX package's CLI are later slices in ROADMAP.md.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import time
+from typing import Any, List
+
+import numpy as np
+import torch
 
 from repro_torch.configs.registry import get_arch
 from repro_torch.core.types import KERNEL_BACKENDS
@@ -54,14 +67,108 @@ def serve_engine(family, cfg, n_requests: int, req_batch: int,
     return st
 
 
+@dataclasses.dataclass
+class RetrievalRun:
+    """What :func:`serve_retrieval` built and measured."""
+
+    model: Any
+    params: dict
+    index: Any
+    artifact: dict
+    engine: Any
+    users: List[np.ndarray]         # the stream's user ids, per request
+    requests: List[np.ndarray]      # their query vectors
+    stats: Any                      # EngineStats of the measured pass
+    recall: float
+    build_seconds: float
+
+
+def serve_retrieval(cfg, n_candidates: int, index_kind: str = "flat_pq",
+                    topk: int = 100, n_requests: int = 50,
+                    req_batch: int = 16, backend=None, device="cuda",
+                    seed: int = 0) -> RetrievalRun:
+    """Top-k candidate retrieval through the index registry and the
+    micro-batching RetrievalEngine: build the index over the item
+    tower's outputs for ``n_candidates`` items, stream ``n_requests``
+    batches of 1..``req_batch`` users through the engine (a warm pass,
+    then the measured one), and measure recall@``topk`` against the
+    exact dense scan."""
+    from repro_torch.core.api import resolve_device
+    from repro_torch.launch.engine import EngineStats, RetrievalEngine
+    from repro_torch.models.recsys.two_tower import TwoTower
+    from repro_torch.retrieval import IndexConfig
+
+    device = resolve_device(device)
+    model = TwoTower(cfg, device=device)
+    params = model.init(torch.Generator(device=device).manual_seed(seed))
+    n = min(n_candidates, cfg.n_items)
+    item_ids = torch.arange(n, device=device)
+    icfg = IndexConfig(kind=index_kind, num_subspaces=8, num_centroids=64,
+                       kernel_backend=backend)
+
+    # offline: build the index over the PQ-coded candidate tower outputs
+    t0 = time.perf_counter()
+    index, artifact = model.build_index(
+        torch.Generator(device=device).manual_seed(seed + 1), params,
+        item_ids, icfg)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    build_s = time.perf_counter() - t0
+    code_mb = sum(artifact[name].numel() * artifact[name].element_size()
+                  for name in index.rows_leaves) / 1e6
+    print(f"{index_kind} index built in {build_s:.1f}s: {code_mb:.1f} MB "
+          f"corpus rows vs {n * cfg.tower_mlp[-1] * 4 / 1e6:.1f} MB dense")
+
+    # online: stream user batches through the engine; top-k ids + scores
+    engine = RetrievalEngine(index, artifact, k=topk, block_q=16,
+                             device=device)
+    rng = np.random.default_rng(0)
+    users = [rng.integers(0, cfg.n_users, int(rng.integers(1, req_batch + 1)))
+             for _ in range(n_requests)]
+    reqs = [model.user_vec(params, torch.from_numpy(u).to(device))[0]
+            .cpu().numpy() for u in users]
+    engine.serve_stream(reqs)                  # warm pass
+    engine.stats_ = EngineStats()
+    st = engine.serve_stream(reqs)
+    print(f"engine: {st.requests} requests / {st.lookups} queries in "
+          f"{st.flushes} flushes, {st.seconds:.6f}s on {device} -> "
+          f"{st.lookups_per_s:,.0f} queries/s x top-{topk}")
+
+    # recall vs the exact dense scan, one probe batch
+    probe = torch.arange(8, device=device)
+    _, ids = model.retrieval_topk(params, index, artifact, probe, topk)
+    cand_vecs = model.encode_items(params, item_ids)
+    u8, _ = model.user_vec(params, probe)
+    ex = torch.topk(u8 @ cand_vecs.T, min(topk, n), dim=1).indices.cpu()
+    ids = ids.cpu()
+    rec = float(np.mean([len(set(ids[b].tolist()) & set(ex[b].tolist()))
+                         / topk for b in range(8)]))
+    print(f"recall@{topk} vs exact dense scan: {rec:.3f}")
+    # a copy: later flushes of the same engine keep adding to its stats
+    return RetrievalRun(model, params, index, artifact, engine, users, reqs,
+                        dataclasses.replace(st), rec, build_s)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true", default=True)
     ap.add_argument("--full", dest="smoke", action="store_false")
     ap.add_argument("--engine", action="store_true",
-                    help="drive the micro-batching ServingEngine (the "
-                         "only ported serving path)")
+                    help="drive the micro-batching ServingEngine")
+    ap.add_argument("--candidates", type=int, default=10000,
+                    help="two-tower retrieval: items in the index")
+    ap.add_argument("--retrieval", default="flat_pq",
+                    help="retrieval index kind for two-tower serving "
+                         "(ported: flat_pq)")
+    ap.add_argument("--nprobe", type=int, default=None,
+                    help="ivf_pq: coarse lists probed per query (not "
+                         "ported: IVF is a later slice)")
+    ap.add_argument("--topk", type=int, default=100,
+                    help="candidates returned per retrieval query")
+    ap.add_argument("--host-staged", action="store_true",
+                    help="retrieval: keep the list tables in host memory "
+                         "(not ported: IVF is a later slice)")
     ap.add_argument("--requests", type=int, default=200)
     ap.add_argument("--req-batch", type=int, default=64)
     ap.add_argument("--zipf-a", type=float, default=0.0,
@@ -74,15 +181,27 @@ def main(argv=None):
                          "'cpu' runs the plain PyTorch ops)")
     args = ap.parse_args(argv)
 
-    if not args.engine:
-        ap.error("only the --engine serving path is ported; pass --engine")
     if args.zipf_a and args.zipf_a <= 1.0:
         ap.error(f"--zipf-a must be > 1.0 (the truncated power law "
                  f"diverges at a <= 1), got {args.zipf_a}")
+    if args.nprobe is not None or args.host_staged:
+        ap.error("--nprobe and --host-staged belong to ivf_pq, which waits "
+                 "for the IVF slice in ROADMAP.md")
     family, cfg = get_arch(args.arch, smoke=args.smoke)
-    return serve_engine(family, cfg, args.requests, args.req_batch,
-                        backend=args.kernel_backend, zipf_a=args.zipf_a,
-                        device=args.device)
+    if args.engine:
+        return serve_engine(family, cfg, args.requests, args.req_batch,
+                            backend=args.kernel_backend, zipf_a=args.zipf_a,
+                            device=args.device)
+    if cfg.model != "two_tower":
+        ap.error("the ported serving paths are --engine and two-tower "
+                 "retrieval; pass --engine")
+    from repro_torch.retrieval import registered_index_kinds
+    if args.retrieval not in registered_index_kinds():
+        ap.error(f"unknown index kind {args.retrieval!r}; registered "
+                 f"indexes: {', '.join(registered_index_kinds())}")
+    return serve_retrieval(cfg, args.candidates, index_kind=args.retrieval,
+                           topk=args.topk, backend=args.kernel_backend,
+                           device=args.device)
 
 
 if __name__ == "__main__":

@@ -235,9 +235,12 @@ def test_not_ported_paths_raise():
     cfg = EmbeddingConfig(**CONFIGS["shared_k"])
     temb = Embedding(cfg, device="cpu")
     params = temb.init()
-    for fn in (lambda: dpq.quantize(params["emb"], params["centroids"]),
-               lambda: dpq.lookup_train(params, torch.arange(3)),
-               lambda: temb.apply(params, torch.arange(3))):
+    # the training forward is ported; its model-parallel row gather is not
+    rows = Embedding(dataclasses.replace(cfg, sharded_rows=True),
+                     device="cpu")
+    for fn in (lambda: dpq.lookup_train(params, torch.arange(3),
+                                        sharded_rows=True),
+               lambda: rows.apply(params, torch.arange(3))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             fn()
     hot = Embedding(dataclasses.replace(cfg, hot_rows=4), device="cpu")

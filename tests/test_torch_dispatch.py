@@ -26,7 +26,9 @@ def _clean(monkeypatch):
 def test_backends_are_cuda_and_torch():
     assert dispatch.BACKENDS == ("auto", "cuda", "torch")
     assert KERNEL_BACKENDS == dispatch.BACKENDS
-    assert set(dispatch.registered_ops()) == {"dpq_assign", "mgqe_decode"}
+    assert set(dispatch.registered_ops()) == {
+        "dpq_assign", "mgqe_decode", "pq_score", "pq_score_batched",
+        "pq_topk"}
     for impls in dispatch.registered_ops().values():
         assert set(impls) == {"cuda", "torch"}
 

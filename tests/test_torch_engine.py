@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from repro.configs import deepfm as jax_deepfm
+from repro.configs import two_tower_retrieval as jax_two_tower
 from repro.core import Embedding as JaxEmbedding
 from repro.core import EmbeddingConfig as JaxConfig
 from repro.launch import engine as jax_engine
@@ -120,19 +121,28 @@ def test_serving_engine_defaults_to_the_card():
         engine.ServingEngine(emb, emb.export(emb.init()))
 
 
-@pytest.mark.parametrize("smoke", [True, False], ids=["smoke", "full"])
-def test_embedding_config_of_arch_equal_to_jax(smoke):
-    family, cfg = get_arch("deepfm", smoke=smoke)
-    jcfg = jax_deepfm.smoke_config() if smoke else jax_deepfm.CONFIG
+@pytest.mark.parametrize("arch,smoke", [
+    ("deepfm", True), ("deepfm", False),
+    ("two-tower-retrieval", True), ("two-tower-retrieval", False)],
+    ids=["smoke", "full", "two-tower-smoke", "two-tower-full"])
+def test_embedding_config_of_arch_equal_to_jax(arch, smoke):
+    family, cfg = get_arch(arch, smoke=smoke)
+    jmod = {"deepfm": jax_deepfm, "two-tower-retrieval": jax_two_tower}[arch]
+    jcfg = jmod.smoke_config() if smoke else jmod.CONFIG
     assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
     got = engine.embedding_config_of_arch(family, cfg)
     want = jax_engine.embedding_config_of_arch("recsys", jcfg)
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
-    if not smoke:
+    if not smoke and arch == "deepfm":
         # the full-width table the card serves
         assert (got.vocab_size, got.dim, got.num_subspaces) == \
             (10_000_000, 10, 5)
         assert got.tier_boundaries == (1_000_000,)
+        assert got.tier_num_centroids == (256, 64)
+    if not smoke and arch == "two-tower-retrieval":
+        # the item table: n_items rows at the towers' width
+        assert (got.vocab_size, got.dim, got.num_subspaces) == \
+            (10_000_000, 256, 16)
         assert got.tier_num_centroids == (256, 64)
     assert deepfm.CONFIG.field_vocab_sizes == jax_deepfm.CONFIG.field_vocab_sizes
 
@@ -155,6 +165,10 @@ def test_cli_smoke_counters_equal_to_jax(capsys):
     ["--arch", "deepfm", "--engine", "--mesh", "data=2"],       # not ported
     ["--arch", "deepfm", "--engine", "--kernel-backend", "xla"],
     ["--arch", "deepfm", "--engine", "--zipf-a", "0.5"],
+    ["--arch", "two-tower-retrieval", "--device", "cpu",
+     "--retrieval", "ivf_pq"],                                  # not ported
+    ["--arch", "two-tower-retrieval", "--device", "cpu", "--host-staged"],
+    ["--arch", "two-tower-retrieval", "--device", "cpu", "--nprobe", "4"],
 ])
 def test_cli_refuses_unported_or_bad_flags(argv):
     with pytest.raises(SystemExit):

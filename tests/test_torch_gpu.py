@@ -16,7 +16,12 @@ import torch
 from repro_torch.core import Embedding, EmbeddingConfig
 from repro_torch.kernels.dpq_assign import dpq_assign, dpq_assign_ref
 from repro_torch.kernels.mgqe_decode import mgqe_decode, mgqe_decode_ref
+from repro_torch.kernels.pq_score import (INVALID_ID, pq_score,
+                                          pq_score_batched,
+                                          pq_score_batched_ref, pq_score_ref,
+                                          pq_topk, pq_topk_ref)
 from repro_torch.launch import engine
+from repro_torch.retrieval import IndexConfig, get_index
 
 # dpq_assign: the kernel's fused dot may round differently in the last
 # bit from the plain version's matmul, so codes may differ only between
@@ -162,3 +167,231 @@ def test_engine_on_card_matches_cpu(cuda):
     same = (art["codes"].cpu() == art_cpu["codes"]).all(1)[ids]
     assert float(same.float().mean()) > 0.99
     assert torch.equal(got[same], want[same])
+
+
+# ---------------------------------------------------------- pq kernels
+# Each pq kernel sums in the plain version's order: scores bit-identical,
+# top-k ids and scores bit-identical, ties (scores drawn from few LUT
+# values) included.
+
+PQ_SHAPES = [(8, 64), (8, 256), (16, 64), (16, 256)]        # (D, K)
+
+
+def _pq_inputs(cuda, b, n, d, k, code_dt, ties, seed=0):
+    rng = np.random.default_rng(seed)
+    if ties:           # multiples of 1/8 from few values: many equal sums
+        luts = rng.integers(-4, 5, (b, d, k)) / 8.0
+    else:
+        luts = rng.normal(size=(b, d, k))
+    codes = rng.integers(0, k, (n, d)).astype(code_dt)
+    return (torch.from_numpy(luts.astype(np.float32)).to(cuda),
+            torch.from_numpy(codes).to(cuda))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ties", [False, True], ids=["normal", "ties"])
+@pytest.mark.parametrize("code_dt", [np.uint8, np.int32],
+                         ids=["uint8", "int32"])
+@pytest.mark.parametrize("dk", PQ_SHAPES, ids=lambda s: "D%dK%d" % s)
+@pytest.mark.parametrize("b", [1, 16, 64])
+@pytest.mark.parametrize("n", [257, 1_000_000])
+def test_pq_score_batched_kernel_matches_plain(cuda, n, b, dk, code_dt, ties):
+    luts, codes = _pq_inputs(cuda, b, n, *dk, code_dt, ties)
+    before = pq_score_batched.launches
+    got = pq_score_batched(luts, codes)
+    torch.cuda.synchronize()
+    assert pq_score_batched.launches == before + 1
+    assert tuple(got.shape) == (b, n)
+    np.testing.assert_array_equal(_bits(got),
+                                  _bits(pq_score_batched_ref(luts, codes)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("code_dt", [np.uint8, np.int32],
+                         ids=["uint8", "int32"])
+@pytest.mark.parametrize("dk", PQ_SHAPES, ids=lambda s: "D%dK%d" % s)
+@pytest.mark.parametrize("n", [257, 1_000_000])
+def test_pq_score_kernel_matches_plain(cuda, n, dk, code_dt):
+    luts, codes = _pq_inputs(cuda, 1, n, *dk, code_dt, ties=False)
+    before = pq_score.launches
+    got = pq_score(luts[0], codes)
+    torch.cuda.synchronize()
+    assert pq_score.launches == before + 1
+    np.testing.assert_array_equal(_bits(got),
+                                  _bits(pq_score_ref(luts[0], codes)))
+
+
+def _check_topk(luts, codes, k, block_n=None):
+    before = pq_topk.launches
+    s, i = pq_topk(luts, codes, k, block_n=block_n)
+    torch.cuda.synchronize()
+    assert pq_topk.launches == before + 1
+    ws, wi = pq_topk_ref(luts, codes, k)
+    np.testing.assert_array_equal(_bits(s), _bits(ws))
+    np.testing.assert_array_equal(i.cpu().numpy(), wi.cpu().numpy())
+    # and a stable descending sort of the batched kernel's own scores
+    order = torch.sort(pq_score_batched(luts, codes), dim=1,
+                       descending=True, stable=True)
+    m = min(k, codes.shape[0])
+    np.testing.assert_array_equal(_bits(s[:, :m]),
+                                  _bits(order.values[:, :m]))
+    np.testing.assert_array_equal(i[:, :m].cpu().numpy(),
+                                  order.indices[:, :m].cpu().numpy())
+    return s, i
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ties", [False, True], ids=["normal", "ties"])
+@pytest.mark.parametrize("k", [1, 100])
+@pytest.mark.parametrize("dk", PQ_SHAPES, ids=lambda s: "D%dK%d" % s)
+@pytest.mark.parametrize("b", [1, 16, 64])
+@pytest.mark.parametrize("n", [257, 1_000_000])
+def test_pq_topk_kernel_matches_plain(cuda, n, b, dk, k, ties):
+    luts, codes = _pq_inputs(cuda, b, n, *dk, np.uint8, ties)
+    _check_topk(luts, codes, k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [257, 1_000_000])
+def test_pq_kernels_score_minus_zero_terms_as_plus_zero(cuda, n):
+    """LUTs of -0.0 and +0.0: every sum starts from +0.0, as the plain
+    version's (and the JAX package's) does, so no score is -0.0 and
+    the top-k is a pure tie, in id order."""
+    luts, codes = _pq_inputs(cuda, 4, n, 8, 64, np.uint8, ties=False)
+    luts = torch.where(luts < 1.0, -0.0, 0.0).to(torch.float32)
+    got = pq_score_batched(luts, codes)
+    np.testing.assert_array_equal(_bits(got),
+                                  _bits(pq_score_batched_ref(luts, codes)))
+    assert not bool(torch.signbit(got).any())
+    s, i = _check_topk(luts, codes, 100)
+    assert not bool(torch.signbit(s).any())
+    np.testing.assert_array_equal(i.cpu().numpy(),
+                                  np.broadcast_to(np.arange(100), (4, 100)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("code_dt", [np.uint8, np.int32],
+                         ids=["uint8", "int32"])
+@pytest.mark.parametrize("n,k", [(257, 300), (3, 5), (0, 4), (1, 1)])
+def test_pq_topk_kernel_pads_past_n(cuda, n, k, code_dt):
+    luts, codes = _pq_inputs(cuda, 4, n, 8, 64, code_dt, ties=True)
+    s, i = pq_topk(luts, codes, k)
+    ws, wi = pq_topk_ref(luts, codes, k)
+    np.testing.assert_array_equal(_bits(s), _bits(ws))
+    np.testing.assert_array_equal(i.cpu().numpy(), wi.cpu().numpy())
+    assert (s[:, n:].cpu() == -np.inf).all()
+    assert (i[:, n:].cpu() == INVALID_ID).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("block_n", [128, 1024, 8192])
+def test_pq_topk_kernel_merge_rounds(cuda, block_n):
+    """Small tiles leave more partial lists than one merge block takes:
+    1M candidates in 128-wide tiles merge in three rounds."""
+    luts, codes = _pq_inputs(cuda, 16, 1_000_000, 8, 64, np.uint8, True)
+    s, i = _check_topk(luts, codes, 100, block_n=block_n)
+    same = s[:, 1:] == s[:, :-1]
+    assert bool(same.any())                          # the ties are there
+    assert bool((i[:, 1:] > i[:, :-1])[same].all())  # and in id order
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [6, 8])
+def test_pq_kernels_unaligned_and_odd_width_codes(cuda, d):
+    """Codes whose rows are not 8-byte aligned (or whose width is not a
+    multiple of 8) take the byte-wise load."""
+    luts, codes = _pq_inputs(cuda, 3, 5000, d, 64, np.uint8, ties=False)
+    raw = torch.empty(5000 * d + 3, dtype=torch.uint8, device=cuda)
+    shifted = raw[3:].view(5000, d)
+    shifted.copy_(codes)
+    assert shifted.data_ptr() % 8 != 0 and shifted.is_contiguous()
+    np.testing.assert_array_equal(
+        _bits(pq_score_batched(luts, shifted)),
+        _bits(pq_score_batched_ref(luts, codes)))
+    _check_topk(luts, shifted, 50)
+
+
+@pytest.mark.gpu
+def test_pq_kernels_refuse_what_they_do_not_take(cuda):
+    luts, codes = _pq_inputs(cuda, 2, 100, 8, 64, np.uint8, ties=False)
+    with pytest.raises(ValueError, match="k <= block_n"):
+        pq_topk(luts, codes, 200, block_n=128)
+    with pytest.raises(TypeError, match="float32"):
+        pq_score_batched(luts.double(), codes)
+    with pytest.raises(TypeError, match="uint8 or int32"):
+        pq_score_batched(luts, codes.long())
+    with pytest.raises(ValueError, match="subspaces"):
+        pq_topk(luts, codes[:, :4].contiguous(), 5)
+    with pytest.raises(ValueError, match="contiguous"):
+        pq_score_batched(luts.transpose(1, 2).contiguous().transpose(1, 2),
+                         codes)
+    # shapes past the kernels' own limits: refused by csrc/pq_score.cu
+    big_luts, big_codes = _pq_inputs(cuda, 1, 20_000, 8, 64, np.uint8,
+                                     ties=False)
+    with pytest.raises(RuntimeError, match="limits: csrc/pq_score.cu"):
+        pq_topk(big_luts, big_codes, 5, block_n=16384)
+    with pytest.raises(RuntimeError, match="limits: csrc/pq_score.cu"):
+        pq_score_batched(torch.zeros((1, 8, 4096), device=cuda), codes)
+    with pytest.raises(RuntimeError, match="limits: csrc/pq_score.cu"):
+        pq_topk(torch.zeros((1, 8, 4096), device=cuda), codes, 5)
+
+
+@pytest.mark.gpu
+def test_dpq_assign_kernel_at_the_index_shape(cuda):
+    """flat_pq's corpus encode: D=8, K=64, S=32 (the kernel's generic
+    S branch), every row at the full budget."""
+    b, d, k, s = 65536, 8, 64, 32
+    rng = np.random.default_rng(3)
+    e = torch.from_numpy((rng.normal(size=(b, d, s)) * 0.06
+                          ).astype(np.float32)).to(cuda)
+    c = torch.from_numpy((rng.normal(size=(d, k, s)) * 0.06
+                          ).astype(np.float32)).to(cuda)
+    got = dpq_assign(e, c)
+    want = dpq_assign_ref(e, c)
+    torch.cuda.synchronize()
+    e64, c64 = e.double(), c.double()
+    dist = (torch.sum(c64 * c64, -1)[None]
+            - 2.0 * torch.einsum("bds,dks->bdk", e64, c64))
+    gap = (dist.gather(-1, got.long()[..., None])
+           - dist.gather(-1, want.long()[..., None])).abs()
+    assert float(gap.max()) <= ASSIGN_TOL
+    assert float((got == want).float().mean()) > 0.999
+
+
+@pytest.mark.gpu
+def test_retrieval_engine_on_card_matches_cpu(cuda):
+    """Dyadic queries and centroids make every LUT exact in any order,
+    so the card's engine and the CPU's return the same bits."""
+    rng = np.random.default_rng(4)
+    n, d, k = 20_000, 8, 64
+    art_cpu = {
+        "codes": torch.from_numpy(rng.integers(0, k, (n, d)
+                                               ).astype(np.uint8)),
+        "centroids": torch.from_numpy(
+            (rng.integers(-4, 5, (d, k, 4)) / 4.0).astype(np.float32))}
+    index = get_index(IndexConfig(num_subspaces=d, num_centroids=k))
+    card = engine.RetrievalEngine(index, art_cpu, k=100, block_q=16,
+                                  max_queue=64)
+    cpu = engine.RetrievalEngine(index, art_cpu, k=100, block_q=16,
+                                 max_queue=64, device="cpu")
+    reqs = [(rng.integers(-4, 5, (int(m), 32)) / 4.0).astype(np.float32)
+            for m in rng.integers(1, 17, 20)]
+    outs = []
+    for eng in (card, cpu):
+        got = []
+        for r in reqs:
+            eng.submit(r)
+            if eng.should_flush():
+                got += eng.flush()
+        got += eng.flush()
+        outs.append(got)
+    before, flushes = pq_topk.launches, card.stats().flushes
+    st_card = card.serve_stream(reqs)
+    assert pq_topk.launches - before == st_card.flushes - flushes > 0
+    st_cpu = cpu.serve_stream(reqs)
+    for c in ("requests", "lookups", "padded_lookups", "flushes"):
+        assert getattr(st_card, c) == getattr(st_cpu, c), c
+    assert len(outs[0]) == len(outs[1]) == len(reqs)
+    for (cs, ci), (ps, pi) in zip(*outs):
+        np.testing.assert_array_equal(_bits(cs), _bits(ps))
+        np.testing.assert_array_equal(ci.cpu().numpy(), pi.numpy())

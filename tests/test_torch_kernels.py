@@ -159,16 +159,19 @@ def test_cuda_wrappers_refuse_cpu_tensors(op):
 
 
 def test_kernel_sources_are_listed_and_hashed(tmp_path, monkeypatch):
-    assert build.sources() == ["dpq_assign", "mgqe_decode"]
+    assert build.sources() == ["dpq_assign", "mgqe_decode", "pq_score"]
     p = build.library_path("mgqe_decode")
     assert p == build.library_path("mgqe_decode")          # deterministic
     assert p != build.library_path("dpq_assign")
     assert p.parent == build.BUILD_DIR
-    # every source names the TPU kernel it replaces
+    # every source names the TPU kernels it replaces and its entry points
+    launches = {"dpq_assign": ["dpq_assign"], "mgqe_decode": ["mgqe_decode"],
+                "pq_score": ["pq_score_batched", "pq_topk"]}
     for name in build.sources():
         text = (build.CSRC / f"{name}.cu").read_text()
         assert f"src/repro/kernels/{name}/{name}.py" in text
-        assert f'extern "C" int {name}_launch' in text
+        for fn in launches[name]:
+            assert f'extern "C" int {fn}_launch' in text
 
 
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):
