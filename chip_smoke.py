@@ -8,9 +8,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
 2. build every CUDA kernel from ``src/repro_torch/kernels/csrc/`` with
    nvcc, one process per source, all at once;
 3. hold each kernel against its plain PyTorch version on the card at
-   the main path's shapes (``mgqe_decode``: bit-identical rows;
-   ``dpq_assign``: identical codes except between distances equal to
-   within ``ASSIGN_TOL``);
+   the paths' shapes (``mgqe_decode``, ``rq_decode_stages``,
+   ``packed_decode`` and the pq kernels: bit-identical; ``dpq_assign``:
+   identical codes except between distances equal to within
+   ``ASSIGN_TOL``);
 4. drive the first main path at full width: deepfm's ``CONFIG`` -> its
    10M-row MGQE field -> init on the card -> export (``dpq_assign``) ->
    ``ServingEngine`` over 200 random requests (``mgqe_decode``), with
@@ -22,7 +23,19 @@ Phases, each of which fails the run (non-zero exit, no result line):
 5. time each of its kernels, its plain version and, where one PyTorch
    call computes the same function, that call, with CUDA events at the
    main path's shapes, beside the least time the card could take;
-6. free the card and drive the second main path at full width:
+6. drive the third path at full width on the same 10M-row field:
+   ``rq`` (deepfm's ``CONFIG`` with embed_kind="rq", M=5, K=256)
+   through ``launch.serve.serve_engine`` (``rq_decode_stages``), then
+   ``mpe`` (tiers at 5% and 25% of the ids, 8/4/2-bit packed codes)
+   through ``Embedding`` and ``ServingEngine`` (export: ``dpq_assign``;
+   serve: ``packed_decode``, one launch per tier), each with the counts
+   set to 0 just before and read just after; hold every flush's rows
+   against the plain decode of its ids, bit for bit, the mpe codes
+   against the plain assignment, and small rq and mpe tables against
+   the CPU; then serve the lrf, sq and hash baselines once each through
+   ``serve_engine`` and print every scheme's size and lookups/s;
+7. time ``rq_decode_stages`` and ``packed_decode`` as in 5;
+8. free the card and drive the retrieval path at full width:
    two-tower retrieval at ``configs/two_tower_retrieval.py::CONFIG``
    (50M users, 10M items, embed_dim 256, towers 1024-512-256) through
    ``launch.serve.serve_retrieval`` — init, the ``flat_pq`` index over
@@ -36,10 +49,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    for bit, hold the index's codes (and ``dpq_assign`` run again on
    the same tower outputs) against the plain assignment, as in 3, and
    print the peak device memory;
-7. time the pq kernels at that path's shapes (and ``dpq_assign`` at
+9. time the pq kernels at that path's shapes (and ``dpq_assign`` at
    the index's), as in 5;
-8. print one ``{"kernels": [...]}`` JSON line, then, last, the
-   ``{"ok": true, "device": ...}`` line.
+10. print one ``{"kernels": [...]}`` JSON line (launches summed over
+   every path), then, last, the ``{"ok": true, "device": ...}`` line.
 
 It needs one card and no arguments, imports nothing of JAX, and runs
 the port from the ``src/`` directory beside this file.
@@ -153,10 +166,11 @@ def retrieval_candidates() -> int:
 
 
 def bits(t):
-    """A float32 tensor's bits, for bit-for-bit comparisons (-inf and
-    -0.0 included)."""
+    """A float32 or bfloat16 tensor's bits, for bit-for-bit comparisons
+    (-inf and -0.0 included)."""
     import torch
-    return t.contiguous().view(torch.int32)
+    return t.contiguous().view(torch.int16 if t.dtype == torch.bfloat16
+                               else torch.int32)
 
 
 def finite_err(a, b) -> float:
@@ -265,10 +279,7 @@ def check_kernels() -> dict:
                 torch.cuda.synchronize()
                 need(got.shape == want.shape == (b, 10),
                      f"mgqe_decode shape at B={b}")
-                same = torch.equal(got.view(torch.int16 if dtype ==
-                                            torch.bfloat16 else torch.int32),
-                                   want.view(torch.int16 if dtype ==
-                                             torch.bfloat16 else torch.int32))
+                same = torch.equal(bits(got), bits(want))
                 err = float((got.float() - want.float()).abs().max())
                 log(f"check mgqe_decode B={b} K={k} codes<= {hi} {dtype}: "
                     f"bit-identical={same} max_abs_err={err}")
@@ -289,8 +300,68 @@ def check_kernels() -> dict:
             f"(tolerance {ASSIGN_TOL})")
         need(gap <= ASSIGN_TOL, f"dpq_assign within {ASSIGN_TOL}")
         errs["dpq_assign"] = max(errs["dpq_assign"], gap)
+    errs.update(check_decode_kernels())
     errs.update(check_pq_kernels())
     return errs
+
+
+def check_decode_kernels() -> dict:
+    """rq_decode_stages and packed_decode against their plain versions
+    on the card, bit for bit: at the third path's shapes (M=5, K=256,
+    d=10; D=5, S=2 at 8, 4 and 2 bits) and the JAX bench's d = 64 shapes
+    (M=4, K=256; D=8, S=8), B = 257 and 262,144, float32 and bfloat16."""
+    import torch
+    from repro_torch.kernels.mgqe_decode import (rq_decode_stages,
+                                                 rq_decode_stages_ref)
+    from repro_torch.kernels.packed_decode import (pack_codes, packed_decode,
+                                                   packed_decode_ref)
+    errs = {"rq_decode_stages": 0.0, "packed_decode": 0.0}
+    g = torch.Generator(device="cuda").manual_seed(31)
+    for b in (RAGGED_BATCH, serve_bulk_batch()):
+        for dtype in (torch.float32, torch.bfloat16):
+            for m, k, d in ((5, 256, 10), (4, 256, 64)):
+                codes, cbs = rq_inputs(b, m, k, d, dtype, g)
+                got = rq_decode_stages(codes, cbs)
+                want = rq_decode_stages_ref(codes, cbs)
+                torch.cuda.synchronize()
+                need(got.shape == want.shape == (b, d), "rq shape")
+                same = torch.equal(bits(got), bits(want))
+                err = float((got.float() - want.float()).abs().max())
+                log(f"check rq_decode_stages B={b} M={m} K={k} d={d} "
+                    f"{dtype}: bit-identical={same} max_abs_err={err}")
+                need(same, f"rq_decode_stages bit-identical at B={b} "
+                     f"d={d} {dtype}")
+                errs["rq_decode_stages"] = max(errs["rq_decode_stages"], err)
+            for d, s in ((5, 2), (8, 8)):
+                for nb in (8, 4, 2):
+                    codes = torch.randint(0, 2 ** nb, (b, d), generator=g,
+                                          device="cuda", dtype=torch.int32)
+                    packed = pack_codes(codes, nb)
+                    cent = torch.randn((d, 2 ** nb, s), generator=g,
+                                       device="cuda").to(dtype)
+                    got = packed_decode(packed, cent, nb)
+                    want = packed_decode_ref(packed, cent, nb)
+                    torch.cuda.synchronize()
+                    same = torch.equal(bits(got), bits(want))
+                    err = float((got.float() - want.float()).abs().max())
+                    log(f"check packed_decode B={b} D={d} S={s} bits={nb} "
+                        f"W={packed.shape[1]} {dtype}: bit-identical={same} "
+                        f"max_abs_err={err}")
+                    need(same, f"packed_decode bit-identical at B={b} "
+                         f"D={d} bits={nb} {dtype}")
+                    errs["packed_decode"] = max(errs["packed_decode"], err)
+    return errs
+
+
+def rq_inputs(b, m, k, d, dtype, g):
+    """codes (b, m) uint8 and stacked codebooks (m, k, d), stage m at
+    the init's scale d**-0.5 * 0.5**m."""
+    import torch
+    codes = torch.randint(0, k, (b, m), generator=g, device="cuda",
+                          dtype=torch.int32).to(torch.uint8)
+    scale = d ** -0.5 * 0.5 ** torch.arange(m, device="cuda")
+    cbs = torch.randn((m, k, d), generator=g, device="cuda")
+    return codes, (cbs * scale[:, None, None]).to(dtype)
 
 
 def check_pq_kernels() -> dict:
@@ -334,40 +405,47 @@ def check_pq_kernels() -> dict:
     return errs
 
 
-def small_table_against_cpu():
-    """A small MGQE table end to end on the card (kernels) and on the
-    CPU (plain versions), same params: codes equal except at near-ties,
-    rows equal wherever the codes are, engine counters equal."""
+def small_table_against_cpu(cfg=None):
+    """A small table end to end on the card (kernels) and on the CPU
+    (plain versions), same params: codes equal except at near-ties, rows
+    equal wherever every code of the row is, engine counters equal.
+    Default: an MGQE table."""
     import numpy as np
     import torch
     from repro_torch.core import Embedding, EmbeddingConfig
+    from repro_torch.core.schemes.base import tree_leaves, tree_map
     from repro_torch.launch.engine import ServingEngine, drive_random_stream
 
-    cfg = EmbeddingConfig(vocab_size=5000, dim=10, kind="mgqe",
-                          num_subspaces=5, num_centroids=256,
-                          tier_boundaries=(500,),
-                          tier_num_centroids=(256, 64))
+    if cfg is None:
+        cfg = EmbeddingConfig(vocab_size=5000, dim=10, kind="mgqe",
+                              num_subspaces=5, num_centroids=256,
+                              tier_boundaries=(500,),
+                              tier_num_centroids=(256, 64))
     cpu = Embedding(cfg, device="cpu")
     params = cpu.init(cpu.generator(1))
     art_cpu = cpu.export(params)
     card = Embedding(cfg)
-    art = card.export({k: v.cuda() for k, v in params.items()})
-    same = (art["codes"].cpu() == art_cpu["codes"]).all(1)
-    need(float(same.float().mean()) > 0.99, "small table: codes agree")
-    ids = np.arange(0, 5000, 3)
+    art = card.export(tree_map(lambda t: t.cuda(), params))
+    same = torch.ones(cfg.vocab_size, dtype=torch.bool)
+    for c, w in zip(tree_leaves(art["codes"]), tree_leaves(art_cpu["codes"])):
+        same &= (c.cpu() == w).all(1)
+    need(float(same.float().mean()) > 0.99, f"small {cfg.kind} table: codes "
+         f"agree")
+    ids = np.arange(0, cfg.vocab_size, 3)
     got = ServingEngine(card, art).lookup(ids).cpu()
     want = ServingEngine(cpu, art_cpu, device="cpu").lookup(ids)
-    need(torch.equal(got[same[ids]], want[same[ids]]),
-         "small table: rows agree where codes do")
+    need(torch.equal(bits(got[same[ids]]), bits(want[same[ids]])),
+         f"small {cfg.kind} table: rows agree where codes do")
     st_card = drive_random_stream(ServingEngine(card, art, max_queue=512),
-                                  5000, 60, 48, seed=3)
+                                  cfg.vocab_size, 60, 48, seed=3)
     st_cpu = drive_random_stream(
         ServingEngine(cpu, art_cpu, max_queue=512, device="cpu"),
-        5000, 60, 48, seed=3)
+        cfg.vocab_size, 60, 48, seed=3)
     for c in ("requests", "lookups", "padded_lookups", "flushes"):
         need(getattr(st_card, c) == getattr(st_cpu, c), f"counter {c}")
-    log(f"small table vs CPU: {int((~same).sum())} of 5000 rows' codes "
-        f"differ at near-ties; rows and engine counters agree")
+    log(f"small {cfg.kind} table vs CPU: {int((~same).sum())} of "
+        f"{cfg.vocab_size} rows' codes differ at near-ties; rows and "
+        f"engine counters agree")
 
 
 def main_path():
@@ -589,35 +667,321 @@ def time_kernels(errs: dict, launches: dict) -> list:
     return out
 
 
-def pq_counters() -> dict:
+def compressed_paths() -> tuple:
+    """The third path: deepfm's 10M-row field served by the remaining
+    schemes.  ``rq`` through ``launch.serve.serve_engine`` (deepfm's
+    CONFIG with embed_kind="rq"), then ``mpe`` through ``Embedding`` and
+    ``ServingEngine`` (no arch selects it): init, export, the engine
+    stream twice and once more keeping each flush, each scheme with
+    every launch count set to 0 just before and read just after; every
+    flush's rows held against the plain decode of its ids, the mpe codes
+    against the plain assignment, small tables against the CPU; then the
+    lrf/sq/hash baselines once each through serve_engine.  Returns
+    (launches summed over rq and mpe, errs, the rq flush's padded
+    size)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.core import Embedding, EmbeddingConfig
+    from repro_torch.core.partition import frequency_boundaries, tier_of_ids
+    from repro_torch.kernels.dpq_assign import dpq_assign_ref
+    from repro_torch.kernels.mgqe_decode import rq_decode_stages_ref
+    from repro_torch.kernels.packed_decode import (packed_decode_ref,
+                                                   unpack_codes)
+    from repro_torch.launch.engine import (ServingEngine, drive_stream,
+                                           random_requests)
+    from repro_torch.launch.serve import serve_engine
+
+    _, cfg = get_arch("deepfm", smoke=False)
+    n = max(cfg.field_vocab_sizes)
+    full_bits = n * cfg.embed_dim * 32
+    errs = {"rq_decode_stages": 0.0, "packed_decode": 0.0, "dpq_assign": 0.0}
+
+    def counts():
+        return {name: fn.launches for name, fn in kernel_counters().items()}
+
+    def hold_flushes(kind, kept, plain):
+        """Every kept flush's rows against plain(ids), bit for bit."""
+        for flat, res in kept:
+            ids = torch.from_numpy(flat).cuda()
+            rows = torch.cat(res)
+            need(tuple(rows.shape) == (flat.shape[0], cfg.embed_dim)
+                 and bool(torch.isfinite(rows).all()),
+                 f"{kind} rows (n, dim), finite")
+            need(torch.equal(bits(rows), bits(plain(ids))),
+                 f"{kind} flush rows == plain decode")
+
+    # ---------------------------------------------------------------- rq
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    run = serve_engine("recsys", dataclasses.replace(cfg, embed_kind="rq"),
+                       N_REQUESTS, REQ_BATCH, max_queue=4096)
+    kept = drive_keeping_flushes(run.engine, run.requests)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rq_launches = counts()
+    ecfg, st = run.emb.cfg, run.stats
+    flushes = 2 * st.flushes + len(kept)        # warm, measured, kept
+    log(f"rq path: deepfm field vocab={ecfg.vocab_size} dim={ecfg.dim} "
+        f"M={ecfg.num_levels} K={ecfg.num_centroids}; {wall:.3f}s in all; "
+        f"artifact {run.emb.serving_size_bits() / 8e6:.2f} MB "
+        f"({100 * run.emb.serving_size_bits() / full_bits:.2f}% of full); "
+        f"engine {st.requests} requests / {st.lookups} lookups in "
+        f"{st.flushes} flushes ({st.padded_lookups} padded), "
+        f"{st.seconds:.6f}s -> {st.lookups_per_s:,.0f} lookups/s; launches "
+        f"{rq_launches} over {flushes} flushes; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    need(st.requests == N_REQUESTS, "every rq request served")
+    need(rq_launches["rq_decode_stages"] == flushes,
+         "rq_decode_stages launched once per flush")
+    codes, cbs = run.artifact["codes"], run.artifact["codebooks"]
+    need(codes.dtype == torch.uint8 and tuple(codes.shape)
+         == (n, ecfg.num_levels), "rq codes (n, M) uint8")
+    hold_flushes("rq", kept, lambda ids: rq_decode_stages_ref(
+        codes.index_select(0, ids), cbs))
+    flush_b = st.padded_lookups // st.flushes
+    profile_phase("rq serve (warm + measured pass)",
+                  lambda: drive_stream(run.engine, run.requests))
+    del run, kept, codes, cbs
+    small_table_against_cpu(EmbeddingConfig(
+        vocab_size=5000, dim=10, kind="rq", num_levels=5, num_centroids=256))
+
+    # --------------------------------------------------------------- mpe
+    mcfg = EmbeddingConfig(vocab_size=n, dim=cfg.embed_dim, kind="mpe",
+                           num_subspaces=cfg.num_subspaces,
+                           tier_boundaries=frequency_boundaries(
+                               n, (0.05, 0.25)),
+                           tier_bits=(8, 4, 2))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    emb = Embedding(mcfg)
+    params = emb.init(emb.generator(0))
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    art = emb.export(params)
+    torch.cuda.synchronize()
+    t_export = time.perf_counter() - t0
+    engine = ServingEngine(emb, art, max_queue=4096)
+    reqs = random_requests(n, N_REQUESTS, REQ_BATCH)
+    # a copy: the kept pass below adds to the engine's own stats
+    st = dataclasses.replace(drive_stream(engine, reqs))
+    kept = drive_keeping_flushes(engine, reqs)
+    torch.cuda.synchronize()
+    mpe_launches = counts()
+    flushes = 2 * st.flushes + len(kept)
+    tiers = len(mcfg.tier_bits)
+    batches = -(-n // ASSIGN_BATCH)
+    log(f"mpe path: vocab={n} dim={mcfg.dim} D={mcfg.num_subspaces} "
+        f"tiers={mcfg.tier_boundaries} bits={mcfg.tier_bits} W="
+        f"{[c.shape[1] for c in art['codes']]}; init {t_init:.3f}s, export "
+        f"{t_export:.3f}s; artifact {emb.serving_size_bits() / 8e6:.2f} MB "
+        f"({100 * emb.serving_size_bits() / full_bits:.2f}% of full); "
+        f"engine {st.requests} requests / {st.lookups} lookups in "
+        f"{st.flushes} flushes ({st.padded_lookups} padded), "
+        f"{st.seconds:.6f}s -> {st.lookups_per_s:,.0f} lookups/s; launches "
+        f"{mpe_launches} over {flushes} flushes; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    need(st.requests == N_REQUESTS, "every mpe request served")
+    need(mpe_launches["packed_decode"] == tiers * flushes,
+         "packed_decode launched once per tier per flush")
+    need(mpe_launches["dpq_assign"] == tiers * batches,
+         "dpq_assign launched once per tier per export batch")
+    cents = art["centroids"]
+
+    def mpe_plain(ids):
+        tier = tier_of_ids(ids, mcfg.tier_boundaries)
+        out = None
+        for i, (b_i, cent) in enumerate(zip(mcfg.tier_bits, cents)):
+            rows = packed_decode_ref(art["codes"][i].index_select(0, ids),
+                                     cent, b_i)
+            out = rows if out is None else torch.where(
+                (tier == i)[:, None], rows, out)
+        return out
+
+    hold_flushes("mpe", kept, mpe_plain)
+    # each tier's codes, unpacked, of a head slice, the slices across both
+    # tier boundaries and the tail, against the plain assignment
+    gap = 0.0
+    starts = [0] + [b - ASSIGN_BATCH // 2 for b in mcfg.tier_boundaries] \
+        + [n - ASSIGN_BATCH]
+    for i, (b_i, cent) in enumerate(zip(mcfg.tier_bits, cents)):
+        for start in starts:
+            e = params["emb"][start:start + ASSIGN_BATCH].reshape(
+                ASSIGN_BATCH, mcfg.num_subspaces, -1)
+            got = unpack_codes(art["codes"][i][start:start + ASSIGN_BATCH],
+                               b_i, mcfg.num_subspaces).to(torch.int32)
+            gap = max(gap, assign_gap(e, cent, None, got,
+                                      dpq_assign_ref(e, cent)))
+    need(gap <= ASSIGN_TOL, "mpe codes == plain assignment")
+    errs["dpq_assign"] = gap
+    log(f"third path checks: every rq and mpe flush bit-identical to the "
+        f"plain decode of its ids; mpe codes of every tier within {gap:.3g}"
+        f" of the plain assignment")
+    profile_phase("mpe export", lambda: emb.export(params))
+    profile_phase("mpe serve (warm + measured pass)",
+                  lambda: drive_stream(engine, reqs))
+    del params, art, engine, kept, emb
+    small_table_against_cpu(EmbeddingConfig(
+        vocab_size=5000, dim=10, kind="mpe", num_subspaces=5,
+        tier_boundaries=(250, 1250), tier_bits=(8, 4, 2)))
+
+    # --------------------------------------------------------- baselines
+    # the paper's comparison (§3.4) on the same field; no kernel runs
+    reset_counts()
+    for kind in ("lrf", "sq", "hash"):
+        run = serve_engine("recsys", dataclasses.replace(cfg,
+                                                         embed_kind=kind),
+                           N_REQUESTS, REQ_BATCH, max_queue=4096)
+        rows = run.engine.lookup(run.requests[0])
+        need(run.stats.requests == N_REQUESTS
+             and tuple(rows.shape) == (len(run.requests[0]), cfg.embed_dim)
+             and bool(torch.isfinite(rows).all()),
+             f"{kind}: every request served, rows finite")
+        log(f"baseline {kind}: artifact "
+            f"{run.emb.serving_size_bits() / 8e6:.2f} MB "
+            f"({100 * run.emb.serving_size_bits() / full_bits:.2f}% of full),"
+            f" {run.stats.lookups_per_s:,.0f} lookups/s")
+        del run
+    need(not any(counts().values()), "the baselines launch no kernel")
+    launches = {name: rq_launches[name] + mpe_launches[name]
+                for name in rq_launches}
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, errs, flush_b
+
+
+def time_decode_kernels(errs: dict, launches: dict, flush_b: int) -> list:
+    """The ``kernels`` entries of rq_decode_stages and packed_decode,
+    timed at the third path's shapes: B = 262,144 (the bulk-serving
+    batch), beside the bound, the plain version and, for rq,
+    ``F.embedding_bag``; then at one engine flush and at B = 256."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.mgqe_decode import (decode_stages,
+                                                 rq_decode_stages,
+                                                 rq_decode_stages_ref)
+    from repro_torch.kernels.packed_decode import (pack_codes, packed_decode,
+                                                   packed_decode_ref,
+                                                   packed_width)
+
+    def bound(nbytes, ops):
+        t_b = nbytes / HBM_BYTES_PER_S * 1e3
+        t_o = ops / F32_FLOP_PER_S * 1e3
+        return max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+
+    out = []
+    g = torch.Generator(device="cuda").manual_seed(41)
+    b, m, k, d = serve_bulk_batch(), 5, 256, 10
+    codes, cbs = rq_inputs(b, m, k, d, torch.float32, g)
+    offs = (codes.long() + torch.arange(m, device="cuda") * k).contiguous()
+    flat = cbs.reshape(m * k, d)
+    ms, host = time_ms(lambda: rq_decode_stages(codes, cbs))
+    plain, _ = time_ms(lambda: rq_decode_stages_ref(codes, cbs), iters=50)
+    lib, lib_host = time_ms(lambda: F.embedding_bag(offs, flat, mode="sum"))
+    nbytes = b * m + m * k * d * 4 + b * d * 4
+    t, by = bound(nbytes, b * (m - 1) * d)
+    out.append({"name": "rq_decode_stages", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/rq_decode_stages.cu",
+                "replaces": "src/repro/kernels/mgqe_decode/mgqe_decode.py:103",
+                "launches": launches["rq_decode_stages"],
+                "max_abs_err": errs["rq_decode_stages"], "ms": ms,
+                "plain_ms": plain, "bound_ms": t, "bound_by": by,
+                "library_ms": lib})
+    log(f"time rq_decode_stages B={b} M={m} K={k} d={d} f32: kernel "
+        f"{ms:.5f} ms, plain {plain:.5f} ms, F.embedding_bag {lib:.5f} ms, "
+        f"bound {t:.5f} ms by {by} ({nbytes} bytes); host time to launch: "
+        f"wrapper {host:.5f} ms, F.embedding_bag {lib_host:.5f} ms")
+    for fb in (flush_b, 256):
+        f_codes = codes[:fb].contiguous()
+        f_ms, _ = time_ms(lambda: rq_decode_stages(f_codes, cbs))
+        _, op_host = time_ms(lambda: decode_stages(f_codes, cbs))
+        log(f"time rq_decode_stages B={fb}: kernel {f_ms:.5f} ms, bound "
+            f"{(fb * (m + d * 4) + m * k * d * 4) / HBM_BYTES_PER_S * 1e3:.5f}"
+            f" ms; host time to launch through dispatch {op_host:.5f} ms")
+    # the bench's d = 64: 256 KB of codebooks, tiled over columns
+    c64, cb64 = rq_inputs(b, 4, 256, 64, torch.float32, g)
+    ms64, _ = time_ms(lambda: rq_decode_stages(c64, cb64))
+    t64, _ = bound(b * 4 + 4 * 256 * 64 * 4 + b * 64 * 4, b * 3 * 64)
+    log(f"time rq_decode_stages B={b} M=4 K=256 d=64 f32: kernel "
+        f"{ms64:.5f} ms, bound {t64:.5f} ms")
+    del codes, cbs, offs, c64, cb64
+
+    # packed_decode: one launch per mpe tier, D=5, S=2, K = 2**bits
+    dd, s = 5, 2
+    rows = {}
+    for nb in (8, 4, 2):
+        raw = torch.randint(0, 2 ** nb, (b, dd), generator=g, device="cuda",
+                            dtype=torch.int32)
+        packed = pack_codes(raw, nb)
+        cent = torch.randn((dd, 2 ** nb, s), generator=g, device="cuda")
+        t_k, host = time_ms(lambda: packed_decode(packed, cent, nb))
+        t_p, _ = time_ms(lambda: packed_decode_ref(packed, cent, nb),
+                         iters=50)
+        w = packed_width(dd, nb)
+        nbytes = b * w + dd * 2 ** nb * s * 4 + b * dd * s * 4
+        t_b, by = bound(nbytes, 0)
+        f_packed = packed[:flush_b].contiguous()
+        t_f, _ = time_ms(lambda: packed_decode(f_packed, cent, nb))
+        rows[nb] = (t_k, t_p, t_b)
+        log(f"time packed_decode B={b} D={dd} S={s} bits={nb} W={w}: kernel "
+            f"{t_k:.5f} ms, plain {t_p:.5f} ms, bound {t_b:.5f} ms by {by} "
+            f"({nbytes} bytes); at one flush (B={flush_b}) {t_f:.5f} ms; "
+            f"host time to launch: wrapper {host:.5f} ms")
+    mean = [sum(r[i] for r in rows.values()) / len(rows) for i in range(3)]
+    out.append({"name": "packed_decode", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/packed_decode.cu",
+                "replaces": "src/repro/kernels/packed_decode/packed_decode.py:57",
+                "launches": launches["packed_decode"],
+                "max_abs_err": errs["packed_decode"], "ms": mean[0],
+                "plain_ms": mean[1], "bound_ms": mean[2], "bound_by": "bytes",
+                "library_ms": None})
+    log(f"packed_decode per launch, mean of the three tiers at B={b}: "
+        f"kernel {mean[0]:.5f} ms, plain {mean[1]:.5f} ms, bound "
+        f"{mean[2]:.5f} ms")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def kernel_counters() -> dict:
     """Every kernel wrapper of the port, by name (each keeps its own
     ``launches`` count)."""
     from repro_torch.kernels.dpq_assign import dpq_assign
-    from repro_torch.kernels.mgqe_decode import mgqe_decode
+    from repro_torch.kernels.mgqe_decode import mgqe_decode, rq_decode_stages
+    from repro_torch.kernels.packed_decode import packed_decode
     from repro_torch.kernels.pq_score import (pq_score, pq_score_batched,
                                               pq_topk)
     return {"mgqe_decode": mgqe_decode, "dpq_assign": dpq_assign,
-            "pq_score": pq_score, "pq_score_batched": pq_score_batched,
-            "pq_topk": pq_topk}
+            "rq_decode_stages": rq_decode_stages,
+            "packed_decode": packed_decode, "pq_score": pq_score,
+            "pq_score_batched": pq_score_batched, "pq_topk": pq_topk}
+
+
+def reset_counts() -> dict:
+    """Set every kernel's launch count to 0; returns the wrappers."""
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    return counters
 
 
 def drive_keeping_flushes(engine, requests) -> list:
     """The request stream through the engine once more, flushing where
-    ``serve_stream`` flushes; returns, per flush, its queries padded as
-    ``run_flat`` pads them, its real row count and its (scores, ids)."""
+    ``serve_stream`` flushes; returns, per flush, its requests
+    concatenated (numpy) and the flush's per-request results."""
     import numpy as np
-    import torch
     out, pending = [], []
 
     def flush():
         res = engine.flush()
-        flat = np.concatenate(pending)
-        n_valid = flat.shape[0]
-        pad = (-n_valid) % engine.pad_multiple
-        flat = np.pad(flat, ((0, pad), (0, 0)))
-        out.append((torch.from_numpy(flat).cuda(), n_valid,
-                    torch.cat([s for s, _ in res]),
-                    torch.cat([i for _, i in res])))
+        out.append((np.concatenate(pending), res))
         pending.clear()
 
     for r in requests:
@@ -634,6 +998,7 @@ def retrieval_path():
     stream kept per flush, the exactness oracle and one user's ADC
     scores; checks (a)-(d), and the index's codes against the plain
     assignment.  Returns (launches, errs, timing inputs)."""
+    import numpy as np
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.kernels.dpq_assign import dpq_assign
@@ -648,14 +1013,19 @@ def retrieval_path():
         f"{cfg.n_items} embed_dim={cfg.embed_dim} towers={cfg.tower_mlp} "
         f"D={cfg.num_subspaces}; flat_pq D=8 K=64 over {n_cand} "
         f"candidates, top-{TOPK}")
-    counters = pq_counters()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for fn in counters.values():
-        fn.launches = 0
+    counters = reset_counts()
     t0 = time.perf_counter()
     run = serve_retrieval(cfg, n_cand, topk=TOPK)
-    flushes = drive_keeping_flushes(run.engine, run.requests)
+    flushes = []
+    for flat, res in drive_keeping_flushes(run.engine, run.requests):
+        # the flush's queries padded as run_flat pads them
+        pad = (-flat.shape[0]) % run.engine.pad_multiple
+        flushes.append((torch.from_numpy(np.pad(flat, ((0, pad), (0, 0))))
+                        .cuda(), flat.shape[0],
+                        torch.cat([sc for sc, _ in res]),
+                        torch.cat([ix for _, ix in res])))
     oracle = [run.index.scores(run.artifact, q) for q, _, _, _ in flushes]
     user0 = torch.tensor([int(run.users[0][0])], device="cuda")
     adc = run.model.retrieval_scores_adc(run.params, run.artifact, user0)
@@ -873,18 +1243,26 @@ def main() -> int:
     launches, _ = main_path()
     kernels = time_kernels(errs, launches)
     gc.collect()
+    torch.cuda.empty_cache()
+    c_launches, c_errs, flush_b = compressed_paths()
+    kernels += time_decode_kernels(
+        {name: max(errs[name], c_errs[name])
+         for name in ("rq_decode_stages", "packed_decode")},
+        c_launches, flush_b)
+    gc.collect()
     torch.cuda.empty_cache()                 # free the card for two-tower
     r_launches, r_errs, (luts, codes) = retrieval_path()
     pq_errs = {name: max(errs[name], err) for name, err in r_errs.items()}
     pq_kernels, assign_err = time_pq_kernels(pq_errs, r_launches, luts,
                                              codes)
-    for entry in kernels:                    # both paths' launches and errs
-        name = entry["name"]
-        entry["launches"] += r_launches[name]
-        if name == "dpq_assign":
-            entry["max_abs_err"] = max(entry["max_abs_err"],
-                                       pq_errs[name], assign_err)
     kernels += pq_kernels
+    for entry in kernels:                    # every path's launches
+        name = entry["name"]
+        entry["launches"] = sum(p.get(name, 0) for p in
+                                (launches, c_launches, r_launches))
+        if name == "dpq_assign":
+            entry["max_abs_err"] = max(entry["max_abs_err"], pq_errs[name],
+                                       assign_err, c_errs[name])
     log(f"total {time.perf_counter() - t0:.1f}s")
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -26,9 +26,10 @@ def tensor_from_numpy(a, device) -> torch.Tensor:
 
 
 def params_from_numpy(params: dict, cfg: EmbeddingConfig, device) -> dict:
-    """Training params — ``emb`` plus ``centroids`` as one array or a
-    per-tier list — as tensors on ``device``.  Every table must already
-    be in ``cfg.param_dtype``."""
+    """Training params of any scheme — a dict of arrays and per-tier
+    lists of arrays (``emb`` and ``centroids``, ``codebooks``, ``u`` and
+    ``v``) — as tensors on ``device``.  Every table must already be in
+    ``cfg.param_dtype``."""
     out = tree_map(lambda a: tensor_from_numpy(a, device), dict(params))
     want = torch_dtype(cfg.param_dtype)
     bad = [t.dtype for t in tree_leaves(out) if t.dtype != want]
@@ -39,9 +40,10 @@ def params_from_numpy(params: dict, cfg: EmbeddingConfig, device) -> dict:
 
 
 def artifact_from_numpy(artifact: dict, cfg: EmbeddingConfig, device) -> dict:
-    """A serving artifact — uint8/int32 codes and the centroids — as
-    tensors on ``device``, checked leaf by leaf against the scheme's
-    artifact spec."""
+    """A serving artifact of any scheme — codes (per-tier lists of
+    packed words, for ``mpe``), codebooks, dense tables — as tensors on
+    ``device``, checked leaf by leaf against the scheme's artifact
+    spec."""
     out = tree_map(lambda a: tensor_from_numpy(a, device), dict(artifact))
     got = tree_map(lambda t: (tuple(t.shape), t.dtype), out)
     want = tree_map(lambda t: (tuple(t.shape), t.dtype),

@@ -190,9 +190,10 @@ class Scheme:
 
 
 class QuantizedScheme(Scheme):
-    """Base for codes+codebooks schemes (dpq, mgqe).
+    """Base for codes+codebooks schemes (dpq, mgqe, rq, mpe).
 
-    Serving decodes through the dispatched ``mgqe_decode`` op."""
+    Serving decodes through a dispatched decode op: ``mgqe_decode``
+    (dpq, mgqe), ``rq_decode_stages`` (rq) or ``packed_decode`` (mpe)."""
 
     @property
     def code_dtype(self) -> torch.dtype:

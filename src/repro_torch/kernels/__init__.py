@@ -1,10 +1,13 @@
 """Hand-written CUDA kernels for Hopper, one per op of the ported path.
 
-Each subpackage ships <name>.py (the ctypes wrapper of the kernel in
-``csrc/<name>.cu``), ops.py (dispatch-registered public op) and ref.py
+Each subpackage ships <name>.py (the ctypes wrappers of the kernels in
+``csrc/``), ops.py (dispatch-registered public op) and ref.py
 (the plain PyTorch version):
 
-  mgqe_decode     codes + centroids -> embeddings (serving hot path)
+  mgqe_decode     codes + centroids -> embeddings (serving hot path),
+                  and rq_decode_stages, the residual-stage sum (rq)
+  packed_decode   bit-packed codes -> embeddings (mpe), unpacked in
+                  registers
   dpq_assign      nearest-centroid search (export and index build)
   pq_score        ADC scoring of a PQ-coded corpus: pq_score,
                   pq_score_batched, pq_topk (retrieval hot path)
@@ -14,6 +17,8 @@ Backend selection (cuda | torch) is centralized in ``dispatch.py``;
 builds or loads a kernel at import time.
 """
 from repro_torch.kernels import dispatch  # noqa: F401  (must import first)
-from repro_torch.kernels import dpq_assign, mgqe_decode, pq_score
+from repro_torch.kernels import (dpq_assign, mgqe_decode, packed_decode,
+                                 pq_score)
 
-__all__ = ["dispatch", "dpq_assign", "mgqe_decode", "pq_score"]
+__all__ = ["dispatch", "dpq_assign", "mgqe_decode", "packed_decode",
+           "pq_score"]

@@ -3,6 +3,8 @@
 // the op's Python wrapper), so each one carries its own copy of these.
 #pragma once
 
+#include <atomic>
+
 #include <cuda_runtime.h>
 
 // Names a cudaError_t for the wrapper's exception message.
@@ -14,4 +16,23 @@ extern "C" const char* repro_error_string(int err) {
 // and are not reported by a later synchronise: read them right away.
 static inline int repro_last_error() {
   return static_cast<int>(cudaGetLastError());
+}
+
+// The current device's SM count, read from the runtime once per device
+// and then kept: a launch of a few microseconds should not pay for an
+// attribute query every time.
+static inline cudaError_t repro_sm_count(int* sms) {
+  constexpr int kMaxDevices = 64;
+  static std::atomic<int> cached[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices) {
+    *sms = cached[dev].load(std::memory_order_relaxed);
+    if (*sms > 0) return cudaSuccess;
+  }
+  err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess && dev < kMaxDevices)
+    cached[dev].store(*sms, std::memory_order_relaxed);
+  return err;
 }

@@ -24,7 +24,6 @@
 // reference's mode="clip" gather: under mgqe private_k, rows of other
 // tiers carry codes past this tier's K.
 
-#include <atomic>
 #include <cstdint>
 
 #include "common.cuh"
@@ -37,25 +36,6 @@ constexpr int kThreads = 256;
 constexpr size_t kMaxSmemTable = 160 * 1024;
 // Blocks per SM for the shared-memory path (each stages the table once).
 constexpr int kBlocksPerSm = 4;
-constexpr int kMaxDevices = 64;
-
-// The current device's SM count, read from the runtime once per device
-// and then kept: a launch of a few microseconds should not pay for an
-// attribute query every time.
-cudaError_t sm_count(int* sms) {
-  static std::atomic<int> cached[kMaxDevices];
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < kMaxDevices) {
-    *sms = cached[dev].load(std::memory_order_relaxed);
-    if (*sms > 0) return cudaSuccess;
-  }
-  err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess && dev < kMaxDevices)
-    cached[dev].store(*sms, std::memory_order_relaxed);
-  return err;
-}
 
 // Code: uint8_t or int32_t.  Elem: the centroid element's storage type
 // (uint32_t for float32, uint16_t for bfloat16) — a copy needs only the
@@ -103,7 +83,7 @@ int launch(const void* codes, const void* cent, void* out, long long B,
   Elem* o = static_cast<Elem*>(out);
   if (table <= kMaxSmemTable) {
     int sms = 0;
-    cudaError_t err = sm_count(&sms);
+    cudaError_t err = repro_sm_count(&sms);
     if (err != cudaSuccess) return static_cast<int>(err);
     const long long cap = static_cast<long long>(kBlocksPerSm) * sms;
     const int grid = static_cast<int>(tiles < cap ? tiles : cap);

@@ -1,15 +1,23 @@
-"""CUDA kernel wrapper: MGQE/DPQ serving decode (codes -> embeddings).
+"""CUDA kernel wrappers: the MGQE/DPQ and RQ serving decodes.
 
-Replaces the TPU kernel ``src/repro/kernels/mgqe_decode/mgqe_decode.py::
-mgqe_decode`` (Pallas body ``_decode_kernel``).  The kernel itself,
-with its design notes, is ``csrc/mgqe_decode.cu``: a real gather from a
-centroid table staged in shared memory, bound by the bytes it moves.
+Replace the TPU kernels of ``src/repro/kernels/mgqe_decode/
+mgqe_decode.py``:
 
-The wrapper checks device, dtype, shape and contiguity, allocates the
-output with ``torch.empty``, launches on the current stream and raises
-if the launch fails.  It takes CUDA tensors only; the op's CPU path is
-the plain version in ``ref.py``, chosen by the dispatch layer, never by
-a fallback here.
+  ``mgqe_decode``       ``mgqe_decode`` (Pallas body ``_decode_kernel``)
+                        -> ``csrc/mgqe_decode.cu``: a real gather from a
+                        centroid table staged in shared memory
+  ``rq_decode_stages``  ``rq_decode_stages`` (``_staged_kernel``) ->
+                        ``csrc/rq_decode_stages.cu``: one thread per
+                        output element gathers its M codebook entries
+                        through the read-only cache and sums them in a
+                        register, in the plain version's order
+
+Both are bound by the bytes they move.  Each wrapper checks device,
+dtype, shape and contiguity, allocates the output with ``torch.empty``,
+launches on the current stream, raises if the launch fails and adds one
+to its own ``launches`` count.  It takes CUDA tensors only; the ops'
+CPU path is the plain version in ``ref.py``, chosen by the dispatch
+layer, never by a fallback here.
 """
 from __future__ import annotations
 
@@ -23,6 +31,8 @@ from repro_torch.kernels.dispatch import Tunable
 
 # rows per tile; every block strides over tiles
 BLOCK_B = Tunable(256, (64, 128, 256, 512))
+# rq_decode_stages: threads per block, one output element each
+RQ_BLOCK_B = Tunable(256, (64, 128, 256, 512, 1024))
 
 _CODE_BYTES = {torch.uint8: 1, torch.int32: 4}
 _ELEM_BYTES = {torch.float32: 4, torch.bfloat16: 2}
@@ -30,6 +40,10 @@ _ELEM_BYTES = {torch.float32: 4, torch.bfloat16: 2}
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
              ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
              ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+_RQ_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_void_p]
 
 
 def mgqe_decode(codes: torch.Tensor, centroids: torch.Tensor,
@@ -80,3 +94,56 @@ def mgqe_decode(codes: torch.Tensor, centroids: torch.Tensor,
 # launches of the kernel in this process (chip_smoke.py resets and
 # reads it around the main path)
 mgqe_decode.launches = 0
+
+
+def rq_decode_stages(codes: torch.Tensor, codebooks: torch.Tensor,
+                     block_b: Optional[int] = None) -> torch.Tensor:
+    """codes (B, M) uint8/int32; stacked codebooks (M, K, d)
+    float32/bfloat16, both contiguous on one CUDA device -> (B, d) in
+    the codebook dtype, ``sum_m codebooks[m, codes[:, m]]``.  Codes >= K
+    are clamped to K-1.  ``block_b``: threads per block, in [1, 1024]."""
+    if not (codes.is_cuda and codebooks.is_cuda):
+        raise ValueError(
+            f"rq_decode_stages' CUDA kernel takes CUDA tensors, got codes "
+            f"on {codes.device} and codebooks on {codebooks.device}; the "
+            f"plain version (backend 'torch') serves CPU tensors")
+    if codes.device != codebooks.device:
+        raise ValueError(f"codes on {codes.device}, codebooks on "
+                         f"{codebooks.device}")
+    if codes.dtype not in _CODE_BYTES:
+        raise TypeError(f"codes must be uint8 or int32, got {codes.dtype}")
+    if codebooks.dtype not in _ELEM_BYTES:
+        raise TypeError(f"codebooks must be float32 or bfloat16, got "
+                        f"{codebooks.dtype}")
+    if codes.dim() != 2 or codebooks.dim() != 3:
+        raise ValueError(f"want codes (B, M) and codebooks (M, K, d), got "
+                         f"{tuple(codes.shape)} and "
+                         f"{tuple(codebooks.shape)}")
+    b, m = codes.shape
+    m2, k, d = codebooks.shape
+    if m != m2:
+        raise ValueError(f"codes have {m} stages, codebooks {m2}")
+    if not (codes.is_contiguous() and codebooks.is_contiguous()):
+        raise ValueError("rq_decode_stages takes contiguous codes and "
+                         "codebooks")
+    block_b = RQ_BLOCK_B.default if block_b is None else int(block_b)
+    if not 0 < block_b <= 1024:
+        raise ValueError(f"block_b (threads per block) must lie in "
+                         f"[1, 1024], got {block_b}")
+    out = torch.empty((b, d), dtype=codebooks.dtype, device=codebooks.device)
+    if b == 0:
+        return out
+    fn = build.function("rq_decode_stages", "rq_decode_stages_launch",
+                        _RQ_ARGTYPES)
+    stream = torch.cuda.current_stream(codes.device).cuda_stream
+    err = fn(codes.data_ptr(), _CODE_BYTES[codes.dtype],
+             codebooks.data_ptr(), _ELEM_BYTES[codebooks.dtype],
+             out.data_ptr(), b, m, k, d, block_b, stream)
+    build.check("rq_decode_stages", err, "rq_decode_stages launch")
+    rq_decode_stages.launches += 1
+    return out
+
+
+# launches of the kernel in this process (chip_smoke.py resets and
+# reads it around the main path)
+rq_decode_stages.launches = 0

@@ -1,4 +1,4 @@
-"""Public wrapper for the MGQE decode op.
+"""Public wrappers for the MGQE and RQ decode ops.
 
 ``decode(codes, centroids)`` routes through the kernel backend dispatch
 layer (``repro_torch.kernels.dispatch``): the CUDA kernel for CUDA
@@ -6,6 +6,13 @@ tensors, the plain PyTorch version for CPU tensors, or whichever one
 is pinned — so call sites never branch on backend.  Codes keep their
 stored dtype (uint8) up to the op; each implementation widens them
 itself.  ``block_b`` left as None resolves through the autotune cache.
+
+``decode_stages(codes, codebooks)`` is the residual-quantization form:
+codes (B, M) against stacked full-width codebooks (M, K, d), the M-stage
+sum done in one kernel pass.  Its kernel tiles nothing (one thread per
+output element), so its one tunable, ``block_b``, is the threads per
+block; the TPU kernel's ``block_d`` output-column tile has no
+counterpart.
 """
 from __future__ import annotations
 
@@ -14,8 +21,12 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import dispatch
-from repro_torch.kernels.mgqe_decode.mgqe_decode import BLOCK_B, mgqe_decode
-from repro_torch.kernels.mgqe_decode.ref import mgqe_decode_ref
+from repro_torch.kernels.mgqe_decode.mgqe_decode import (BLOCK_B,
+                                                         RQ_BLOCK_B,
+                                                         mgqe_decode,
+                                                         rq_decode_stages)
+from repro_torch.kernels.mgqe_decode.ref import (mgqe_decode_ref,
+                                                 rq_decode_stages_ref)
 
 dispatch.register_op(
     "mgqe_decode",
@@ -23,6 +34,14 @@ dispatch.register_op(
         codes, cent, block_b=block_b),
     torch=lambda codes, cent, block_b=None: mgqe_decode_ref(codes, cent),
     tunables={"block_b": BLOCK_B},
+)
+
+dispatch.register_op(
+    "rq_decode_stages",
+    cuda=lambda codes, cbs, block_b=None: rq_decode_stages(
+        codes, cbs, block_b=block_b),
+    torch=lambda codes, cbs, block_b=None: rq_decode_stages_ref(codes, cbs),
+    tunables={"block_b": RQ_BLOCK_B},
 )
 
 
@@ -34,4 +53,14 @@ def decode(codes: torch.Tensor, centroids: torch.Tensor,
                              block_b=block_b, backend=backend)
 
 
-__all__ = ["decode", "mgqe_decode", "mgqe_decode_ref"]
+def decode_stages(codes: torch.Tensor, codebooks: torch.Tensor,
+                  block_b: Optional[int] = None,
+                  backend: Optional[str] = None) -> torch.Tensor:
+    """codes (B, M) + stacked codebooks (M, K, d) -> (B, d) via the
+    dispatched single-pass residual-stage decode."""
+    return dispatch.dispatch("rq_decode_stages", codes, codebooks,
+                             block_b=block_b, backend=backend)
+
+
+__all__ = ["decode", "decode_stages", "mgqe_decode", "mgqe_decode_ref",
+           "rq_decode_stages", "rq_decode_stages_ref"]

@@ -1,9 +1,14 @@
-"""Plain PyTorch version of the MGQE/DPQ serving decode.
+"""Plain PyTorch versions of the MGQE/DPQ and RQ serving decodes.
 
-Given per-item codes (B, D) and per-subspace centroid tables (D, K, S),
-reconstruct embeddings (B, D*S) by gathering centroid ``codes[b, d]``
-in each subspace d and concatenating.  The CPU path of the op, and what
-the CUDA kernel is held against on the card.
+``mgqe_decode_ref``: given per-item codes (B, D) and per-subspace
+centroid tables (D, K, S), reconstruct embeddings (B, D*S) by gathering
+centroid ``codes[b, d]`` in each subspace d and concatenating.
+
+``rq_decode_stages_ref``: given codes (B, M) and M stacked full-width
+codebooks (M, K, d), sum the M gathered rows.
+
+The CPU paths of the ops, and what the CUDA kernels are held against on
+the card.
 """
 from __future__ import annotations
 
@@ -23,3 +28,20 @@ def mgqe_decode_ref(codes: torch.Tensor,
     idx = codes.long().clamp(0, k - 1)                       # (B, D)
     sub = torch.arange(d, device=codes.device)[None, :]       # (1, D)
     return centroids[sub, idx].reshape(b, d * s)              # (B, D, S)
+
+
+def rq_decode_stages_ref(codes: torch.Tensor,
+                         codebooks: torch.Tensor) -> torch.Tensor:
+    """codes (B, M) uint8/int32; stacked codebooks (M, K, d) -> (B, d)
+    in the codebook dtype: ``sum_m codebooks[m, codes[:, m]]``.
+
+    Summed as the JAX reference sums: stage 0's row, then stages
+    1..M-1 added one at a time (each add rounded to the codebook dtype).
+    Codes outside [0, K) are clamped, as the kernel clamps them (codes
+    from an export always lie in range).  Widened here, inside the op."""
+    m, k, _ = codebooks.shape
+    idx = codes.long().clamp(0, k - 1)                         # (B, M)
+    out = codebooks[0].index_select(0, idx[:, 0])
+    for i in range(1, m):
+        out = out + codebooks[i].index_select(0, idx[:, i])
+    return out

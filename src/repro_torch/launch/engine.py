@@ -18,7 +18,8 @@ into a single decode call:
 Two engines share that plumbing (``_MicroBatchEngine``):
 
   ``ServingEngine``    id lookups -> embedding rows over one exported
-                       quantized table (the ``mgqe_decode`` kernel);
+                       table (the scheme's decode kernel: ``mgqe_decode``,
+                       ``rq_decode_stages`` or ``packed_decode``);
   ``RetrievalEngine``  query vectors -> (top-k scores, candidate ids)
                        over a built retrieval index (the ``pq_topk``
                        kernel, retrieval/).
@@ -283,21 +284,33 @@ class RetrievalEngine(_MicroBatchEngine):
         return self.flush()[handle]
 
 
+def random_requests(vocab_size: int, n_requests: int, req_batch: int,
+                    seed: int = 0) -> List[np.ndarray]:
+    """The uniform request stream of the bench/demo harness:
+    ``n_requests`` requests of 1..``req_batch`` ids each, from ``seed``."""
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, vocab_size, int(rng.integers(1, req_batch + 1)))
+            for _ in range(n_requests)]
+
+
+def drive_stream(engine: _MicroBatchEngine,
+                 requests: Sequence[np.ndarray]) -> EngineStats:
+    """Drive ``requests`` through the engine twice and return the stats
+    of the second pass: the first builds the kernels and warms every
+    padded shape, so the returned stats hold no build or first-launch
+    time."""
+    engine.serve_stream(requests)          # warm pass
+    engine.stats_ = EngineStats()
+    return engine.serve_stream(requests)
+
+
 def drive_random_stream(engine: ServingEngine, vocab_size: int,
                         n_requests: int, req_batch: int,
                         seed: int = 0) -> EngineStats:
-    """Shared bench/demo harness: stream n_requests random-size
-    requests (1..req_batch ids each) and return the throughput stats.
-
-    The identical stream is driven twice: the first pass builds the
-    kernels and warms every padded shape, so the returned stats hold
-    no build or first-launch time."""
-    rng = np.random.default_rng(seed)
-    reqs = [rng.integers(0, vocab_size, int(rng.integers(1, req_batch + 1)))
-            for _ in range(n_requests)]
-    engine.serve_stream(reqs)          # warm pass
-    engine.stats_ = EngineStats()
-    return engine.serve_stream(reqs)
+    """Stream n_requests random-size requests (1..req_batch ids each),
+    warm pass first, and return the throughput stats."""
+    return drive_stream(engine, random_requests(vocab_size, n_requests,
+                                                req_batch, seed))
 
 
 def drive_zipf_stream(engine: ServingEngine, vocab_size: int,
@@ -306,11 +319,8 @@ def drive_zipf_stream(engine: ServingEngine, vocab_size: int,
     """Power-law twin of :func:`drive_random_stream`: Zipf(``zipf_a``)
     ids over the frequency-sorted vocabulary, warm pass first."""
     from repro_torch.data.synthetic import zipf_request_stream
-    reqs = zipf_request_stream(vocab_size, n_requests, req_batch,
-                               zipf_a=zipf_a, seed=seed)
-    engine.serve_stream(reqs)          # warm pass
-    engine.stats_ = EngineStats()
-    return engine.serve_stream(reqs)
+    return drive_stream(engine, zipf_request_stream(
+        vocab_size, n_requests, req_batch, zipf_a=zipf_a, seed=seed))
 
 
 def drive_random_query_stream(engine: RetrievalEngine, dim: int,
@@ -322,9 +332,7 @@ def drive_random_query_stream(engine: RetrievalEngine, dim: int,
     reqs = [rng.normal(size=(int(rng.integers(1, req_batch + 1)), dim)
                        ).astype(np.float32)
             for _ in range(n_requests)]
-    engine.serve_stream(reqs)          # warm pass
-    engine.stats_ = EngineStats()
-    return engine.serve_stream(reqs)
+    return drive_stream(engine, reqs)
 
 
 def embedding_config_of_arch(family: str, cfg):
@@ -341,4 +349,5 @@ def embedding_config_of_arch(family: str, cfg):
 
 __all__ = ["EngineStats", "RetrievalEngine", "ServingEngine",
            "drive_random_query_stream", "drive_random_stream",
-           "drive_zipf_stream", "embedding_config_of_arch"]
+           "drive_stream", "drive_zipf_stream", "embedding_config_of_arch",
+           "random_requests"]

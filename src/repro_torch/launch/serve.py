@@ -31,16 +31,30 @@ from repro_torch.configs.registry import get_arch
 from repro_torch.core.types import KERNEL_BACKENDS
 
 
+@dataclasses.dataclass
+class EngineRun:
+    """What :func:`serve_engine` built and measured."""
+
+    emb: Any
+    artifact: dict
+    engine: Any
+    requests: List[np.ndarray]      # the stream, in submit order
+    stats: Any                      # EngineStats of the measured pass
+
+
 def serve_engine(family, cfg, n_requests: int, req_batch: int,
                  backend=None, max_queue: int = 4096, zipf_a: float = 0.0,
-                 device="cuda", seed: int = 0):
+                 device="cuda", seed: int = 0) -> EngineRun:
     """Request-stream demo of the micro-batching engine: N requests of
-    random size <= req_batch against the arch's main embedding table.
-    ``zipf_a`` > 1 switches the stream from uniform to power-law ids."""
+    random size <= req_batch against the arch's main embedding table
+    (whichever scheme its ``embed_kind`` selects), a warm pass and then
+    the measured one.  ``zipf_a`` > 1 switches the stream from uniform
+    to power-law ids."""
     from repro_torch.core import Embedding
-    from repro_torch.launch.engine import (ServingEngine, drive_random_stream,
-                                           drive_zipf_stream,
-                                           embedding_config_of_arch)
+    from repro_torch.data.synthetic import zipf_request_stream
+    from repro_torch.launch.engine import (ServingEngine, drive_stream,
+                                           embedding_config_of_arch,
+                                           random_requests)
     ecfg = embedding_config_of_arch(family, cfg)
     emb = Embedding(ecfg, device=device)
     params = emb.init(emb.generator(seed))
@@ -54,17 +68,18 @@ def serve_engine(family, cfg, n_requests: int, req_batch: int,
     engine = ServingEngine(emb, artifact, backend=backend,
                            max_queue=max_queue, device=device)
     if zipf_a:
-        st = drive_zipf_stream(engine, ecfg.vocab_size, n_requests,
-                               req_batch, zipf_a=zipf_a)
+        reqs = zipf_request_stream(ecfg.vocab_size, n_requests, req_batch,
+                                   zipf_a=zipf_a)
     else:
-        st = drive_random_stream(engine, ecfg.vocab_size, n_requests,
-                                 req_batch)
+        reqs = random_requests(ecfg.vocab_size, n_requests, req_batch)
+    st = drive_stream(engine, reqs)
     print(f"engine: {st.requests} requests / {st.lookups} lookups in "
           f"{st.flushes} flushes, {st.seconds:.6f}s on {engine.device} -> "
           f"{st.lookups_per_s:,.0f} lookups/s (block_b={engine.block_b}, "
           f"pad overhead "
           f"{100*(st.padded_lookups/st.lookups-1) if st.lookups else 0.0:.1f}%)")
-    return st
+    # a copy: later flushes of the same engine keep adding to its stats
+    return EngineRun(emb, artifact, engine, reqs, dataclasses.replace(st))
 
 
 @dataclasses.dataclass
@@ -94,7 +109,7 @@ def serve_retrieval(cfg, n_candidates: int, index_kind: str = "flat_pq",
     then the measured one), and measure recall@``topk`` against the
     exact dense scan."""
     from repro_torch.core.api import resolve_device
-    from repro_torch.launch.engine import EngineStats, RetrievalEngine
+    from repro_torch.launch.engine import RetrievalEngine, drive_stream
     from repro_torch.models.recsys.two_tower import TwoTower
     from repro_torch.retrieval import IndexConfig
 
@@ -127,9 +142,7 @@ def serve_retrieval(cfg, n_candidates: int, index_kind: str = "flat_pq",
              for _ in range(n_requests)]
     reqs = [model.user_vec(params, torch.from_numpy(u).to(device))[0]
             .cpu().numpy() for u in users]
-    engine.serve_stream(reqs)                  # warm pass
-    engine.stats_ = EngineStats()
-    st = engine.serve_stream(reqs)
+    st = drive_stream(engine, reqs)            # warm pass, then measured
     print(f"engine: {st.requests} requests / {st.lookups} queries in "
           f"{st.flushes} flushes, {st.seconds:.6f}s on {device} -> "
           f"{st.lookups_per_s:,.0f} queries/s x top-{topk}")
@@ -191,7 +204,7 @@ def main(argv=None):
     if args.engine:
         return serve_engine(family, cfg, args.requests, args.req_batch,
                             backend=args.kernel_backend, zipf_a=args.zipf_a,
-                            device=args.device)
+                            device=args.device).stats
     if cfg.model != "two_tower":
         ap.error("the ported serving paths are --engine and two-tower "
                  "retrieval; pass --engine")

@@ -1,9 +1,9 @@
 """Per-field embedding configs for the recsys models.
 
-Large-vocab fields are compressed with the paper's MGQE (or DPQ);
-small fields stay full — quantizing a 100-row table is pure overhead.
-The field collection and EmbeddingBag pooling are the recsys slice in
-ROADMAP.md.
+Large-vocab fields are compressed with the paper's MGQE (or DPQ, RQ, or
+one of the baselines it is compared against); small fields stay full —
+quantizing a 100-row table is pure overhead.  The field collection and
+EmbeddingBag pooling are the recsys slice in ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -33,5 +33,21 @@ def field_embedding_config(cfg: RecsysConfig, vocab: int) -> EmbeddingConfig:
             tier_boundaries=bounds,
             tier_num_centroids=(cfg.num_centroids, cfg.tier_tail_centroids),
             sharded_rows=sharded, kernel_backend=kb)
-    raise ValueError(f"embed_kind {kind!r} is not ported yet (ported: "
-                     f"full, dpq, mgqe)")
+    if kind == "rq":
+        # residual quantization: num_subspaces doubles as the stage
+        # count M (the same code-bytes-per-row knob as PQ's D)
+        return EmbeddingConfig(
+            vocab_size=vocab, dim=cfg.embed_dim, kind="rq",
+            num_levels=cfg.num_subspaces, num_centroids=cfg.num_centroids,
+            sharded_rows=sharded, kernel_backend=kb)
+    # baselines for the comparison sweeps (no kernel, so no backend)
+    if kind == "lrf":
+        return EmbeddingConfig(vocab_size=vocab, dim=cfg.embed_dim,
+                               kind="lrf", rank=max(2, cfg.embed_dim // 4))
+    if kind == "sq":
+        return EmbeddingConfig(vocab_size=vocab, dim=cfg.embed_dim,
+                               kind="sq", sq_bits=8)
+    if kind == "hash":
+        return EmbeddingConfig(vocab_size=vocab, dim=cfg.embed_dim,
+                               kind="hash", hash_buckets=max(64, vocab // 4))
+    raise ValueError(f"no field embedding for embed_kind {kind!r}")

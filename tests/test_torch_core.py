@@ -291,9 +291,12 @@ def test_config_validation_matches_jax(bad):
 
 
 def test_unported_kinds_are_refused_by_name():
-    assert registered_kinds() == ("dpq", "full", "mgqe")
+    """Every kind of the JAX registry is ported; any other kind is
+    refused, naming the registered ones."""
+    assert registered_kinds() == ("dpq", "full", "hash", "lrf", "mgqe",
+                                  "mpe", "rq", "sq")
     with pytest.raises(ValueError, match="registered schemes: dpq, full"):
-        EmbeddingConfig(vocab_size=32, dim=8, kind="lrf")
+        EmbeddingConfig(vocab_size=32, dim=8, kind="dhe")
 
 
 def test_convert_carries_bf16_bits_and_checks_the_spec():

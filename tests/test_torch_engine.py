@@ -17,10 +17,12 @@ from repro.core import Embedding as JaxEmbedding
 from repro.core import EmbeddingConfig as JaxConfig
 from repro.launch import engine as jax_engine
 from repro.launch import serve as jax_serve
+from repro.models.recsys import fields as jax_fields
 from repro_torch.configs import deepfm, get_arch
 from repro_torch.convert import artifact_from_numpy
 from repro_torch.core import Embedding, EmbeddingConfig
 from repro_torch.launch import engine, serve
+from repro_torch.models.recsys import fields
 
 COUNTERS = ("requests", "lookups", "padded_lookups", "flushes")
 
@@ -33,6 +35,12 @@ CONFIGS = {
                       tier_boundaries=(500,), tier_num_subspaces=(5, 2)),
     "dpq": dict(vocab_size=5000, dim=8, kind="dpq", num_subspaces=4,
                 num_centroids=32),
+    # deepfm's rq field and the mpe table of the JAX bench, cut to 5,000
+    # rows: M = 5 stages of K = 256; tiers at 5% and 25% at 8/4/2 bits
+    "rq": dict(vocab_size=5000, dim=10, kind="rq", num_levels=5,
+               num_centroids=256),
+    "mpe": dict(vocab_size=5000, dim=10, kind="mpe", num_subspaces=5,
+                tier_boundaries=(250, 1250), tier_bits=(8, 4, 2)),
 }
 
 
@@ -147,6 +155,37 @@ def test_embedding_config_of_arch_equal_to_jax(arch, smoke):
     assert deepfm.CONFIG.field_vocab_sizes == jax_deepfm.CONFIG.field_vocab_sizes
 
 
+EMBED_KINDS = ("full", "dpq", "mgqe", "rq", "lrf", "sq", "hash")
+
+
+@pytest.mark.parametrize("smoke", [True, False], ids=["smoke", "full"])
+@pytest.mark.parametrize("kind", EMBED_KINDS)
+def test_field_embedding_config_equal_to_jax(kind, smoke):
+    """Every embed_kind, on every field of deepfm (small fields stay
+    full); ``mpe`` and unknown kinds raise in both packages."""
+    _, cfg = get_arch("deepfm", smoke=smoke)
+    jcfg = jax_deepfm.smoke_config() if smoke else jax_deepfm.CONFIG
+    cfg = dataclasses.replace(cfg, embed_kind=kind)
+    jcfg = dataclasses.replace(jcfg, embed_kind=kind)
+    for vocab in sorted(set(cfg.field_vocab_sizes)):
+        got = fields.field_embedding_config(cfg, vocab)
+        want = jax_fields.field_embedding_config(jcfg, vocab)
+        assert dataclasses.asdict(got) == dataclasses.asdict(want), vocab
+    if kind == "rq" and not smoke:
+        # the field the card serves: M = 5 stages, K = 256, d = 10
+        got = engine.embedding_config_of_arch("recsys", cfg)
+        assert (got.vocab_size, got.num_levels, got.num_centroids,
+                got.dim) == (10_000_000, 5, 256, 10)
+    for bad in ("mpe", "nope"):
+        big = max(cfg.field_vocab_sizes)
+        with pytest.raises(ValueError):
+            jax_fields.field_embedding_config(
+                dataclasses.replace(jcfg, embed_kind=bad), big)
+        with pytest.raises(ValueError):
+            fields.field_embedding_config(
+                dataclasses.replace(cfg, embed_kind=bad), big)
+
+
 def test_cli_smoke_counters_equal_to_jax(capsys):
     _, cfg = get_arch("deepfm", smoke=True)
     st = serve.main(["--arch", "deepfm", "--engine", "--device", "cpu",
@@ -158,6 +197,29 @@ def test_cli_smoke_counters_equal_to_jax(capsys):
                                  backend="xla")
     for c in COUNTERS:
         assert getattr(st, c) == getattr(jst, c), c
+
+
+@pytest.mark.parametrize("kind", ["rq", "lrf", "sq", "hash"])
+def test_serve_engine_of_every_kind_counters_equal_to_jax(kind, capsys):
+    """serve_engine (the function behind --engine) on deepfm's smoke
+    config with another embed_kind, as chip_smoke.py drives it on the
+    card at full width."""
+    _, cfg = get_arch("deepfm", smoke=True)
+    run = serve.serve_engine("recsys", dataclasses.replace(cfg,
+                                                           embed_kind=kind),
+                             30, 32, device="cpu")
+    assert f"engine table: kind={kind} vocab=50000" in capsys.readouterr().out
+    assert len(run.requests) == 30 and run.engine.emb.cfg.kind == kind
+    jst = jax_serve.serve_engine(
+        "recsys", dataclasses.replace(jax_deepfm.smoke_config(),
+                                      embed_kind=kind), 30, 32,
+        backend="xla")
+    for c in COUNTERS:
+        assert getattr(run.stats, c) == getattr(jst, c), c
+    ids = np.concatenate(run.requests[:3])
+    rows = run.engine.lookup(ids)
+    want = run.emb.serve(run.artifact, torch.from_numpy(ids.astype(np.int32)))
+    assert torch.equal(rows, want)
 
 
 @pytest.mark.parametrize("argv", [

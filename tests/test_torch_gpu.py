@@ -15,7 +15,11 @@ import torch
 
 from repro_torch.core import Embedding, EmbeddingConfig
 from repro_torch.kernels.dpq_assign import dpq_assign, dpq_assign_ref
-from repro_torch.kernels.mgqe_decode import mgqe_decode, mgqe_decode_ref
+from repro_torch.kernels.mgqe_decode import (mgqe_decode, mgqe_decode_ref,
+                                             rq_decode_stages,
+                                             rq_decode_stages_ref)
+from repro_torch.kernels.packed_decode import (pack_codes, packed_decode,
+                                               packed_decode_ref)
 from repro_torch.kernels.pq_score import (INVALID_ID, pq_score,
                                           pq_score_batched,
                                           pq_score_batched_ref, pq_score_ref,
@@ -395,3 +399,212 @@ def test_retrieval_engine_on_card_matches_cpu(cuda):
     for (cs, ci), (ps, pi) in zip(*outs):
         np.testing.assert_array_equal(_bits(cs), _bits(ps))
         np.testing.assert_array_equal(ci.cpu().numpy(), pi.numpy())
+
+
+# ------------------------------------------- rq and mpe decode kernels
+# Both are bit-identical to their plain versions: rq_decode_stages adds
+# the stages in the plain version's order (each add rounded to bfloat16
+# for bfloat16 codebooks), packed_decode is a pure gather.
+
+# (code dtype, M, K, d, largest code drawn): deepfm's rq field; the JAX
+# bench's d = 64 (256 KB of codebooks, tiled over columns); codes past K
+# (clamped); int32 codes for K > 256; one stage
+RQ_CASES = {
+    "uint8_deepfm": (np.uint8, 5, 256, 10, 255),
+    "uint8_d64": (np.uint8, 4, 256, 64, 255),
+    "uint8_clamped": (np.uint8, 3, 64, 8, 255),
+    "int32_k300": (np.int32, 3, 300, 8, 299),
+    "int32_clamped": (np.int32, 2, 300, 8, 1000),
+    "uint8_m1": (np.uint8, 1, 16, 8, 15),
+}
+
+
+def _rq_inputs(cuda, b, case, dtype, seed=0):
+    code_dt, m, k, d, hi = RQ_CASES[case]
+    rng = np.random.default_rng(seed + b)
+    codes = torch.from_numpy(rng.integers(0, hi + 1, (b, m)).astype(code_dt))
+    cbs = rng.normal(size=(m, k, d)) * 0.5 ** np.arange(m)[:, None, None]
+    return (codes.to(cuda),
+            torch.from_numpy(cbs.astype(np.float32)).to(cuda, dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(RQ_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("b", [1, 37, 257, 262144])
+def test_rq_decode_stages_kernel_matches_plain(cuda, b, dtype, case):
+    codes, cbs = _rq_inputs(cuda, b, case, dtype)
+    before = rq_decode_stages.launches
+    got = rq_decode_stages(codes, cbs)
+    torch.cuda.synchronize()
+    assert rq_decode_stages.launches == before + 1
+    assert got.dtype == dtype and tuple(got.shape) == (b, cbs.shape[2])
+    np.testing.assert_array_equal(_bits(got),
+                                  _bits(rq_decode_stages_ref(codes, cbs)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("block_b", [1, 32, 100, 256, 1024])
+@pytest.mark.parametrize("case", ["uint8_deepfm", "uint8_d64"])
+def test_rq_decode_stages_kernel_any_block_size(cuda, case, block_b):
+    codes, cbs = _rq_inputs(cuda, 1000, case, torch.float32)
+    np.testing.assert_array_equal(
+        _bits(rq_decode_stages(codes, cbs, block_b=block_b)),
+        _bits(rq_decode_stages_ref(codes, cbs)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [6, 7, 10, 12, 64])
+@pytest.mark.parametrize("offset", [0, 1, 2])
+def test_rq_decode_stages_kernel_widths_and_alignments(cuda, d, offset):
+    """Every output width, with codebooks and output starting 0, 4 or 8
+    bytes past an aligned address: the kernel picks its vector width
+    from both (4, 2 or 1 elements per thread)."""
+    rng = np.random.default_rng(d + offset)
+    m, k, b = 3, 32, 999
+    codes = torch.from_numpy(rng.integers(0, k, (b, m)).astype(np.uint8)
+                             ).to(cuda)
+    raw = torch.zeros(m * k * d + offset, device=cuda)
+    cbs = raw[offset:].view(m, k, d)
+    cbs.copy_(torch.from_numpy(rng.normal(size=(m, k, d)).astype(
+        np.float32)))
+    got = rq_decode_stages(codes, cbs)
+    assert got.data_ptr() % 16 == 0
+    np.testing.assert_array_equal(_bits(got),
+                                  _bits(rq_decode_stages_ref(codes, cbs)))
+
+
+@pytest.mark.gpu
+def test_rq_decode_stages_kernel_large_codebooks(cuda):
+    """Codebooks of 768 KB (M=12, K=4096, d=4), read through L2, and
+    more stages than the kernel's load chunk of 8."""
+    rng = np.random.default_rng(2)
+    m, k, d = 12, 4096, 4
+    codes = torch.from_numpy(rng.integers(0, k, (5000, m)).astype(np.int32)
+                             ).to(cuda)
+    cbs = torch.from_numpy(rng.normal(size=(m, k, d)).astype(np.float32)
+                           ).to(cuda)
+    np.testing.assert_array_equal(_bits(rq_decode_stages(codes, cbs)),
+                                  _bits(rq_decode_stages_ref(codes, cbs)))
+
+
+@pytest.mark.gpu
+def test_rq_decode_stages_kernel_keeps_minus_zero(cuda):
+    """Stage 0's -0.0 plus -0.0 stays -0.0: the sum starts from stage
+    0's row, as the plain version's does, not from +0.0."""
+    cbs = torch.full((3, 4, 16), -0.0, device=cuda)
+    codes = torch.zeros((300, 3), dtype=torch.uint8, device=cuda)
+    got = rq_decode_stages(codes, cbs)
+    assert bool(torch.signbit(got).all())
+    np.testing.assert_array_equal(_bits(got),
+                                  _bits(rq_decode_stages_ref(codes, cbs)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("ds", [(5, 2), (8, 8)], ids=["D5S2", "D8S8"])
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("b", [1, 37, 257, 262144])
+def test_packed_decode_kernel_matches_plain(cuda, b, bits, ds, dtype):
+    d, s = ds
+    rng = np.random.default_rng(b + bits)
+    codes = torch.from_numpy(rng.integers(0, 2 ** bits, (b, d)))
+    packed = pack_codes(codes, bits).to(cuda)
+    cent = torch.from_numpy(rng.normal(size=(d, 2 ** bits, s)).astype(
+        np.float32)).to(cuda, dtype)
+    before = packed_decode.launches
+    got = packed_decode(packed, cent, bits)
+    torch.cuda.synchronize()
+    assert packed_decode.launches == before + 1
+    assert got.dtype == dtype and tuple(got.shape) == (b, d * s)
+    np.testing.assert_array_equal(_bits(got),
+                                  _bits(packed_decode_ref(packed, cent, bits)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(16, 256, 16, 8), (5, 64, 2, 2),
+                                   (3, 300, 4, 8)],
+                         ids=["table_past_smem", "k_past_2bits", "k300"])
+def test_packed_decode_kernel_other_tables(cuda, shape):
+    """A table past the shared-memory budget (read through L2), and
+    tables with more centroids than the codes address."""
+    d, k, s, bits = shape
+    rng = np.random.default_rng(0)
+    codes = torch.from_numpy(rng.integers(0, 2 ** bits, (1000, d)))
+    packed = pack_codes(codes, bits).to(cuda)
+    cent = torch.from_numpy(rng.normal(size=(d, k, s)).astype(np.float32)
+                            ).to(cuda)
+    np.testing.assert_array_equal(_bits(packed_decode(packed, cent, bits)),
+                                  _bits(packed_decode_ref(packed, cent, bits)))
+
+
+@pytest.mark.gpu
+def test_rq_and_packed_wrappers_refuse_what_they_do_not_take(cuda):
+    cbs = torch.zeros((3, 8, 4), device=cuda)
+    with pytest.raises(TypeError, match="uint8 or int32"):
+        rq_decode_stages(torch.zeros((4, 3), dtype=torch.int64,
+                                     device=cuda), cbs)
+    with pytest.raises(ValueError, match="stages"):
+        rq_decode_stages(torch.zeros((4, 2), dtype=torch.uint8,
+                                     device=cuda), cbs)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        rq_decode_stages(torch.zeros((4, 3), dtype=torch.uint8,
+                                     device=cuda), cbs.double())
+    with pytest.raises(ValueError, match="threads per block"):
+        rq_decode_stages(torch.zeros((4, 3), dtype=torch.uint8,
+                                     device=cuda), cbs, block_b=2048)
+    cent = torch.zeros((5, 16, 2), device=cuda)
+    with pytest.raises(ValueError, match="packed width"):
+        packed_decode(torch.zeros((4, 2), dtype=torch.uint8, device=cuda),
+                      cent, 4)
+    with pytest.raises(ValueError, match="K >= 2"):
+        packed_decode(torch.zeros((4, 5), dtype=torch.uint8, device=cuda),
+                      cent, 8)
+    with pytest.raises(TypeError, match="uint8"):
+        packed_decode(torch.zeros((4, 3), dtype=torch.int32, device=cuda),
+                      cent, 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        packed_decode(torch.zeros((3, 4), dtype=torch.uint8,
+                                  device=cuda).t(), cent, 4)
+
+
+MPE_ENGINE = dict(vocab_size=5000, dim=10, kind="mpe", num_subspaces=5,
+                  tier_boundaries=(250, 1250), tier_bits=(8, 4, 2))
+RQ_ENGINE = dict(vocab_size=5000, dim=10, kind="rq", num_levels=5,
+                 num_centroids=256)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kw", [RQ_ENGINE, MPE_ENGINE], ids=["rq", "mpe"])
+def test_rq_and_mpe_engines_on_card_match_cpu(cuda, kw):
+    """Export on the card and on the CPU from the same params, then
+    serve through both engines: codes equal except at near-ties, rows
+    bit-identical wherever the codes are, one kernel launch per flush
+    (per tier, for mpe)."""
+    cfg = EmbeddingConfig(**kw)
+    cpu = Embedding(cfg, device="cpu")
+    params = cpu.init()
+    art_cpu = cpu.export(params)
+    card = Embedding(cfg)
+    art = card.export({k: (v.to(cuda) if isinstance(v, torch.Tensor)
+                           else [t.to(cuda) for t in v])
+                       for k, v in params.items()})
+    codes = art["codes"] if isinstance(art["codes"], list) \
+        else [art["codes"]]
+    codes_cpu = art_cpu["codes"] if isinstance(art_cpu["codes"], list) \
+        else [art_cpu["codes"]]
+    same = torch.ones(cfg.vocab_size, dtype=torch.bool)
+    for c, w in zip(codes, codes_cpu):
+        same &= (c.cpu() == w).all(1)
+    assert float(same.float().mean()) > 0.99
+    ids = np.arange(0, 5000, 7)
+    counter = rq_decode_stages if cfg.kind == "rq" else packed_decode
+    per_flush = 1 if cfg.kind == "rq" else len(cfg.tier_bits)
+    before = counter.launches
+    got = engine.ServingEngine(card, art).lookup(ids).cpu()
+    assert counter.launches == before + per_flush
+    want = engine.ServingEngine(cpu, art_cpu, device="cpu").lookup(ids)
+    keep = same[ids]
+    assert torch.equal(got[keep], want[keep])

@@ -1,4 +1,5 @@
-"""The port's two ops against the JAX package's references.
+"""The port's decode and assignment ops against the JAX package's
+references.
 
 On the CPU the plain PyTorch versions (``repro_torch.kernels.*.ref``)
 are held to the JAX oracles (``repro.kernels.*.ref``) on identical numpy
@@ -15,13 +16,17 @@ from repro.kernels.dpq_assign.ref import (dpq_assign_blocked_ref as
                                           jax_assign_blocked,
                                           dpq_assign_ref as jax_assign)
 from repro.kernels.mgqe_decode.ref import mgqe_decode_ref as jax_decode
+from repro.kernels.mgqe_decode.ref import (rq_decode_stages_ref as
+                                           jax_decode_stages)
 from repro_torch.convert import tensor_from_numpy
 from repro_torch.kernels import build
 from repro_torch.kernels.dpq_assign import (assign, dpq_assign,
                                             dpq_assign_blocked_ref,
                                             dpq_assign_ref)
-from repro_torch.kernels.mgqe_decode import (decode, mgqe_decode,
-                                             mgqe_decode_ref)
+from repro_torch.kernels.mgqe_decode import (decode, decode_stages,
+                                             mgqe_decode, mgqe_decode_ref,
+                                             rq_decode_stages,
+                                             rq_decode_stages_ref)
 
 
 def _bits(x) -> np.ndarray:
@@ -74,6 +79,53 @@ def test_mgqe_decode_op_on_cpu_is_plain_version():
     for backend in (None, "auto", "torch"):
         np.testing.assert_array_equal(_bits(decode(c, t, backend=backend)),
                                       _bits(mgqe_decode_ref(c, t)))
+
+
+# rq_decode_stages: (code dtype, M, K, d); the stage sum of the plain
+# version is the JAX reference's chain, so the rows are expected
+# bit-identical; the bar is RQ_TOL (measured gap here: 0.0)
+RQ_TOL = 1e-6
+RQ_CASES = {
+    "uint8_deepfm": (np.uint8, 5, 256, 10),
+    "uint8_d64": (np.uint8, 4, 256, 64),
+    "int32_k300": (np.int32, 3, 300, 8),
+    "uint8_m1": (np.uint8, 1, 16, 8),
+}
+
+
+@pytest.mark.parametrize("case", sorted(RQ_CASES))
+@pytest.mark.parametrize("b", [1, 37, 257])
+def test_rq_decode_stages_plain_matches_jax(b, case):
+    code_dt, m, k, d = RQ_CASES[case]
+    rng = np.random.default_rng(b + m)
+    codes = rng.integers(0, k, (b, m)).astype(code_dt)
+    cbs = (rng.normal(size=(m, k, d)) * 0.5 ** np.arange(m)[:, None, None]
+           ).astype(np.float32)
+    want = np.asarray(jax_decode_stages(jnp.asarray(codes), jnp.asarray(cbs)))
+    got = rq_decode_stages_ref(torch.from_numpy(codes), torch.from_numpy(cbs))
+    assert got.dtype == torch.float32 and tuple(got.shape) == (b, d)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=RQ_TOL)
+    # the op on CPU tensors is the plain version, whatever the request
+    for backend in (None, "auto", "torch"):
+        np.testing.assert_array_equal(
+            _bits(decode_stages(torch.from_numpy(codes),
+                                torch.from_numpy(cbs), backend=backend)),
+            _bits(got))
+
+
+def test_rq_decode_stages_plain_clamps_and_rounds_bf16_per_add():
+    """Codes past K read row K-1 (the kernel's clamp); bfloat16 stages
+    add one at a time, each add rounded to bfloat16."""
+    rng = np.random.default_rng(5)
+    cbs = torch.from_numpy(rng.normal(size=(3, 8, 4)).astype(np.float32))
+    codes = torch.tensor([[7, 200, 9], [0, 1, 2]], dtype=torch.uint8)
+    got = rq_decode_stages_ref(codes, cbs)
+    np.testing.assert_array_equal(
+        _bits(got[0]), _bits(cbs[0, 7] + cbs[1, 7] + cbs[2, 7]))
+    bf = cbs.to(torch.bfloat16)
+    want = (bf[0, 0] + bf[1, 1]) + bf[2, 2]
+    np.testing.assert_array_equal(_bits(rq_decode_stages_ref(codes, bf)[1]),
+                                  _bits(want))
 
 
 # (B, D, K, S): the deepfm export shape, a wide one, a long-S one
@@ -138,7 +190,8 @@ def test_dpq_assign_zero_budget_gives_code_zero():
     np.testing.assert_array_equal(got.numpy(), want)
 
 
-@pytest.mark.parametrize("op", ["mgqe_decode", "dpq_assign"])
+@pytest.mark.parametrize("op", ["mgqe_decode", "dpq_assign",
+                                "rq_decode_stages"])
 def test_cuda_wrappers_refuse_cpu_tensors(op):
     """No silent fallback: the kernel wrapper raises on CPU tensors, and
     so does the op when the cuda backend is pinned."""
@@ -146,6 +199,10 @@ def test_cuda_wrappers_refuse_cpu_tensors(op):
         codes, cent = _decode_inputs(8, 5, 2, "uint8", "float32")
         args = (torch.from_numpy(codes), torch.from_numpy(cent))
         wrapper, public = mgqe_decode, decode
+    elif op == "rq_decode_stages":
+        codes, cent = _decode_inputs(8, 5, 2, "uint8", "float32")
+        args = (torch.from_numpy(codes), torch.from_numpy(cent))
+        wrapper, public = rq_decode_stages, decode_stages
     else:
         e, cent, _ = _assign_inputs(8, 5, 16, 2)
         args = (torch.from_numpy(e), torch.from_numpy(cent))
@@ -159,18 +216,27 @@ def test_cuda_wrappers_refuse_cpu_tensors(op):
 
 
 def test_kernel_sources_are_listed_and_hashed(tmp_path, monkeypatch):
-    assert build.sources() == ["dpq_assign", "mgqe_decode", "pq_score"]
+    # each source: the TPU kernel file it replaces and its entry points
+    sources = {
+        "dpq_assign": ("dpq_assign/dpq_assign.py", ["dpq_assign"]),
+        "mgqe_decode": ("mgqe_decode/mgqe_decode.py", ["mgqe_decode"]),
+        "packed_decode": ("packed_decode/packed_decode.py",
+                          ["packed_decode"]),
+        "pq_score": ("pq_score/pq_score.py", ["pq_score_batched",
+                                              "pq_topk"]),
+        "rq_decode_stages": ("mgqe_decode/mgqe_decode.py",
+                             ["rq_decode_stages"]),
+    }
+    assert build.sources() == sorted(sources)
     p = build.library_path("mgqe_decode")
     assert p == build.library_path("mgqe_decode")          # deterministic
     assert p != build.library_path("dpq_assign")
     assert p.parent == build.BUILD_DIR
-    # every source names the TPU kernels it replaces and its entry points
-    launches = {"dpq_assign": ["dpq_assign"], "mgqe_decode": ["mgqe_decode"],
-                "pq_score": ["pq_score_batched", "pq_topk"]}
     for name in build.sources():
         text = (build.CSRC / f"{name}.cu").read_text()
-        assert f"src/repro/kernels/{name}/{name}.py" in text
-        for fn in launches[name]:
+        tpu, entries = sources[name]
+        assert f"src/repro/kernels/{tpu}" in text
+        for fn in entries:
             assert f'extern "C" int {fn}_launch' in text
 
 
