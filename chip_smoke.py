@@ -35,7 +35,31 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the CPU; then serve the lrf, sq and hash baselines once each through
    ``serve_engine`` and print every scheme's size and lookups/s;
 7. time ``rq_decode_stages`` and ``packed_decode`` as in 5;
-8. free the card and drive the retrieval path at full width:
+8. the fourth path, each phase freeing the card after it:
+   ``embedding_bag`` against its plain version at deepfm's largest
+   field as a full table (V = 10M, d = 10) and at two-tower's 10M-row
+   item table pooled over watch-history bags (d = 256, 10.24 GB in
+   float32), 4,096 bags of 0..64 uniform ids and 257 (a ragged edge),
+   float32 and bfloat16, with and without weights: bit-identical to the
+   in-order version (which adds in the kernel's order), and within
+   ``BAG_F32_TOL`` (float32) or a bfloat16 rounding per product and add
+   (bfloat16) of the plain version, one float32 segment sum; the fields
+   module's ``embedding_bag`` in sum, mean and max (counts set to 0 just
+   before and read just after: two launches); the kernel, the plain
+   version and ``F.embedding_bag`` timed at both shapes; then DeepFM at
+   ``configs/deepfm.py::CONFIG`` (39 fields, 24.7M rows, MGQE on the
+   21 large ones) served through ``launch.serve.serve_ctr`` (init,
+   export, one batch of 4,096 Zipf ids; ``dpq_assign`` and
+   ``mgqe_decode`` launches equal to the counts predicted from the
+   fields; rows bit-identical to the plain decode, logits within
+   ``CTR_TOL`` of the plain ops) and trained through
+   ``launch.train.train`` (5 adagrad steps at batch 4,096: finite
+   losses, no kernel launched, step times, peak memory, one step split
+   into forward, backward and optimizer and one under the profiler);
+   then at the smoke config 5 steps on the card against 5 on the CPU
+   (codes compared first, loss and params within their bars) and a run
+   failed at step 3 and resumed against an uninterrupted one;
+9. free the card and drive the retrieval path at full width:
    two-tower retrieval at ``configs/two_tower_retrieval.py::CONFIG``
    (50M users, 10M items, embed_dim 256, towers 1024-512-256) through
    ``launch.serve.serve_retrieval`` — init, the ``flat_pq`` index over
@@ -49,9 +73,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    for bit, hold the index's codes (and ``dpq_assign`` run again on
    the same tower outputs) against the plain assignment, as in 3, and
    print the peak device memory;
-9. time the pq kernels at that path's shapes (and ``dpq_assign`` at
+10. time the pq kernels at that path's shapes (and ``dpq_assign`` at
    the index's), as in 5;
-10. print one ``{"kernels": [...]}`` JSON line (launches summed over
+11. print one ``{"kernels": [...]}`` JSON line (launches summed over
    every path), then, last, the ``{"ok": true, "device": ...}`` line.
 
 It needs one card and no arguments, imports nothing of JAX, and runs
@@ -61,6 +85,7 @@ from __future__ import annotations
 
 import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -86,6 +111,24 @@ TOPK = 100                             # serve_retrieval's top-k
 # by the user tower's and the LUT build's f32 rounding at another batch
 # size (the same LUT gives the same bits)
 ADC_TOL = 1e-5
+
+# embedding_bag: deepfm's largest field as a full table, and two-tower's
+# 10M-row item table pooled over a watch-history bag; 4,096 bags of
+# 0..64 uniform ids (and 257, a ragged edge)
+BAG_SHAPES = ((10_000_000, 10, "deepfm's largest field as a full table"),
+              (10_000_000, 256, "two-tower's item table, a watch-history "
+                                "bag (YouTube-DNN style)"))
+BAG_BATCH, BAG_MAX_LEN = 4096, 64
+# kernel vs the plain version (float32 atomics in no fixed order), as a
+# share of the bag's sum of |row * w|; a bag of 64 ids reorders to
+# within 63 * 2^-24 = 3.8e-6 of it.  bfloat16: (terms + 1) * 2^-8.
+BAG_F32_TOL = 1e-5
+CTR_BATCH = 4096                       # deepfm served and trained
+CTR_TOL = 1e-5                         # logits, kernels vs plain ops
+TRAIN_STEPS = 5
+CHECK_BATCH = 256                      # smoke-config card-vs-CPU runs
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_PARAM_TOL = 1e-5
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -950,18 +993,454 @@ def time_decode_kernels(errs: dict, launches: dict, flush_b: int) -> list:
     return out
 
 
+# ----------------------------------------------------------------------
+# the fourth path: the recsys fields' embedding_bag, DeepFM served and
+# trained
+# ----------------------------------------------------------------------
+
+def bag_inputs(b, v, d, seed, max_len=BAG_MAX_LEN):
+    """b bags of 0..max_len uniform ids over v rows (bags 0 and b // 2
+    left empty), int32 ids and sorted segment ids, float32 weights, all
+    on the card."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(0, max_len + 1, b)
+    lens[[0, b // 2]] = 0
+    seg = np.repeat(np.arange(b, dtype=np.int32), lens)
+    ids = rng.integers(0, v, seg.size, dtype=np.int32)
+    w = rng.normal(size=seg.size).astype(np.float32)
+    return (torch.from_numpy(ids).cuda(), torch.from_numpy(seg).cuda(),
+            torch.from_numpy(w).cuda())
+
+
+def check_bag_case(table, ids, seg, b, w) -> float:
+    """The kernel against the in-order version on the card (which adds
+    in the kernel's order): bit-identical; and against the plain
+    version (one float32 segment sum) within its bar.  Returns the
+    largest |diff| to the plain version."""
+    import torch
+    from repro_torch.kernels.embedding_bag import (embedding_bag,
+                                                   embedding_bag_inorder,
+                                                   embedding_bag_ref)
+    got = embedding_bag(table, ids, seg, b, w)
+    inorder = embedding_bag_inorder(table, ids, seg, b, w)
+    plain = embedding_bag_ref(table, ids, seg, b, w)
+    torch.cuda.synchronize()
+    need(tuple(got.shape) == (b, table.shape[1]) and got.dtype == table.dtype,
+         "embedding_bag shape and dtype")
+    same = torch.equal(bits(got), bits(inorder))
+    err = float((got.float() - plain.float()).abs().max())
+    absw = table.index_select(0, ids).float().abs()
+    if w is not None:
+        absw = absw * w.abs()[:, None]
+    abs_sum = torch.zeros((b, table.shape[1]), device=table.device
+                          ).index_add(0, seg.long(), absw)
+    n = torch.bincount(seg, minlength=b)[:, None]
+    bar = (BAG_F32_TOL if table.dtype == torch.float32
+           else (n + 1) * 2.0 ** -8) * abs_sum
+    within = bool(((got.float() - plain.float()).abs() <= bar).all())
+    empty = torch.bincount(seg, minlength=b) == 0
+    log(f"check embedding_bag V={table.shape[0]} d={table.shape[1]} B={b} "
+        f"nnz={ids.numel()} {table.dtype} "
+        f"{'weighted' if w is not None else 'unweighted'}: bit-identical to "
+        f"the in-order version={same}; max_abs_err to the plain version "
+        f"{err} (within its bar={within}); {int(empty.sum())} empty bags "
+        f"zero={bool((got[empty] == 0).all())}")
+    need(same, "embedding_bag bit-identical to the in-order version")
+    need(within, "embedding_bag within the plain version's bar")
+    need(bool((got[empty] == 0).all()), "empty bags zero")
+    return err
+
+
+def bag_path(table, ids, seg, b, w) -> tuple:
+    """The fields module's pooled lookup, the path that runs the kernel:
+    ``fields.embedding_bag`` in sum (weighted), mean and max mode, the
+    counts set to 0 just before and read just after; each result held
+    against the CPU over the gathered rows, bit for bit: sum and mean
+    against the in-order version (mean divided by the bag's count), max
+    against the plain ops.  Returns the launches."""
+    import torch
+    from repro_torch.kernels.embedding_bag import embedding_bag_inorder
+    from repro_torch.models.recsys import fields
+    counters = reset_counts()
+    out = {"sum": fields.embedding_bag(table, ids, seg, b, w, mode="sum"),
+           "mean": fields.embedding_bag(table, ids, seg, b, mode="mean"),
+           "max": fields.embedding_bag(table, ids, seg, b, w, mode="max")}
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    rows = table.index_select(0, ids).cpu()
+    ar = torch.arange(ids.numel())
+    count = torch.clamp(torch.bincount(seg.cpu(), minlength=b).float(),
+                        min=1.0)[:, None]
+    for mode, got in out.items():
+        args = (rows, ar, seg.cpu(), b, None if mode == "mean" else w.cpu())
+        if mode == "max":
+            want = fields.embedding_bag(*args, mode=mode)
+        else:
+            want = embedding_bag_inorder(*args)
+            if mode == "mean":
+                want = want / count
+        need(torch.equal(bits(got.cpu()), bits(want)),
+             f"fields.embedding_bag {mode} == the CPU's")
+    log(f"bag path: fields.embedding_bag sum/mean/max over V={table.shape[0]}"
+        f" d={table.shape[1]} B={b} nnz={ids.numel()}: launches {launches}; "
+        f"every mode bit-identical to the CPU's (sum, mean: in order)")
+    need(launches["embedding_bag"] == 2, "embedding_bag launched once by sum "
+         "and once by mean, never by max")
+    need(sum(launches.values()) == 2, "no other kernel on the bag path")
+    return launches
+
+
+def time_bag(table, ids, seg, b, w) -> dict:
+    """Kernel, plain version and ``F.embedding_bag`` (offsets built from
+    the segments outside the clock) at one shape, beside the byte
+    bound: each input read once, the output written once."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.embedding_bag import (embedding_bag,
+                                                   embedding_bag_ref)
+    ms, host = time_ms(lambda: embedding_bag(table, ids, seg, b, w))
+    plain, _ = time_ms(lambda: embedding_bag_ref(table, ids, seg, b, w),
+                       iters=50)
+    offsets = torch.searchsorted(seg, torch.arange(b, device="cuda",
+                                                   dtype=seg.dtype)
+                                 ).to(ids.dtype)
+    lib_fn = (lambda: F.embedding_bag(ids, table, offsets, mode="sum",
+                                      per_sample_weights=w))
+    lib, _ = time_ms(lib_fn, iters=50)
+    lib_err = float((lib_fn().float() - embedding_bag(
+        table, ids, seg, b, w).float()).abs().max())
+    v, d = table.shape
+    el = table.element_size()
+    nnz = ids.numel()
+    nbytes = (nnz * d * el + nnz * (ids.element_size() + seg.element_size())
+              + (0 if w is None else nnz * w.element_size()) + b * d * el)
+    ops = nnz * d * (1 if w is None else 2)
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_o = ops / F32_FLOP_PER_S * 1e3
+    log(f"time embedding_bag V={v} d={d} B={b} nnz={nnz} {table.dtype} "
+        f"{'weighted' if w is not None else 'unweighted'}: kernel {ms:.5f} "
+        f"ms, plain {plain:.5f} ms, F.embedding_bag {lib:.5f} ms (max |diff| "
+        f"to the kernel {lib_err:.3g}), bound {max(t_b, t_o):.5f} ms by "
+        f"{'bytes' if t_b >= t_o else 'operations'} ({nbytes} bytes, {ops} "
+        f"operations); host time to launch: wrapper {host:.5f} ms")
+    return {"ms": ms, "plain_ms": plain, "library_ms": lib,
+            "bound_ms": max(t_b, t_o),
+            "bound_by": "bytes" if t_b >= t_o else "operations"}
+
+
+def bag_phase() -> tuple:
+    """The embedding_bag kernel at its two shapes (deepfm's largest field
+    as a full table, d=10; two-tower's 10M-row item table with a
+    watch-history bag, d=256, 10.24 GB in float32): held against its
+    plain version at B=4,096 and B=257, float32 and bfloat16, with and
+    without weights; the fields module's path at d=10; the timings.
+    Frees the card at the end.  Returns (launches, err, timings)."""
+    import torch
+    err, launches, timings = 0.0, None, {}
+    for v, d, what in BAG_SHAPES:
+        gc.collect()
+        torch.cuda.empty_cache()
+        g = torch.Generator(device="cuda").manual_seed(d)
+        table = torch.randn((v, d), generator=g, device="cuda")
+        log(f"bag shape: {what}, V={v} d={d} "
+            f"({table.numel() * 4 / 1e9:.2f} GB in float32)")
+        for dtype in (torch.float32, torch.bfloat16):
+            t = table if dtype == torch.float32 else table.to(dtype)
+            for b in (BAG_BATCH, RAGGED_BATCH):
+                ids, seg, w = bag_inputs(b, v, d, seed=b + d)
+                for ww in (None, w):
+                    err = max(err, check_bag_case(t, ids, seg, b, ww))
+            del t
+        ids, seg, w = bag_inputs(BAG_BATCH, v, d, seed=BAG_BATCH + d)
+        if d == BAG_SHAPES[0][1]:
+            launches = bag_path(table, ids, seg, BAG_BATCH, w)
+        for ww in (w, None):
+            timings[(d, ww is not None)] = time_bag(table, ids, seg,
+                                                    BAG_BATCH, ww)
+        del table, ids, seg, w
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, err, timings
+
+
+def mgqe_field_codes(model, params, ids):
+    """{field: the training codes of its column of ``ids``} for every
+    field whose params carry centroids, on the params' device."""
+    from repro_torch.core import dpq
+    from repro_torch.core.mgqe import _tier_k_limits
+    out = {}
+    for i, e in enumerate(model.fields.embs):
+        p = params["fields"][f"f{i}"]
+        if "centroids" not in p:
+            continue
+        col = ids[:, i].to(p["emb"].device)
+        e_sub = p["emb"].index_select(0, col).reshape(
+            len(col), e.cfg.num_subspaces, -1)
+        out[i] = dpq.assign_codes(e_sub, p["centroids"],
+                                  _tier_k_limits(e.cfg, col))
+    return out
+
+
+def ctr_serve_path() -> dict:
+    """DeepFM at full width through ``launch.serve.serve_ctr``: init,
+    export of every field, one CTRStream batch of 4,096 Zipf ids scored,
+    the counts set to 0 just before and read just after (``dpq_assign``
+    once per 65,536-row export batch of each MGQE field, ``mgqe_decode``
+    once per MGQE field); then the served (B, 39, 10) field rows held
+    bit-identical to the plain decode of the same artifacts and the
+    logits to the same model on the plain ops (``kernel_backend=
+    "torch"``) within CTR_TOL.  Returns the launches."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data.synthetic import CTRStream
+    from repro_torch.launch.serve import serve_ctr
+    from repro_torch.models.recsys.deepfm import DeepFM
+
+    _, cfg = get_arch("deepfm", smoke=False)
+    ids = next(iter(CTRStream(cfg.field_vocab_sizes, CTR_BATCH)))[
+        "sparse_ids"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters = reset_counts()
+    t0 = time.perf_counter()
+    run = serve_ctr(cfg, CTR_BATCH, sparse_ids=ids)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    q_vocabs = [e.cfg.vocab_size
+                for i, e in enumerate(run.model.fields.embs)
+                if "codes" in run.artifacts[f"f{i}"]]
+    want_assign = sum(-(-v // ASSIGN_BATCH) for v in q_vocabs)
+    log(f"ctr serve path: deepfm {cfg.n_sparse} fields, "
+        f"{sum(cfg.field_vocab_sizes)} rows, embed_dim {cfg.embed_dim}, "
+        f"{len(q_vocabs)} MGQE fields; init + export + score B={CTR_BATCH} "
+        f"in {wall:.3f}s (the score alone {run.seconds:.6f}s); artifacts "
+        f"{run.model.fields.serving_size_bits() / 8e6:.2f} MB of "
+        f"{run.model.fields.full_size_bits() / 8e6:.2f} MB full; launches "
+        f"{launches} (predicted dpq_assign {want_assign}, mgqe_decode "
+        f"{len(q_vocabs)}); peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    need(launches["dpq_assign"] == want_assign,
+         "dpq_assign once per export batch of each MGQE field")
+    need(launches["mgqe_decode"] == len(q_vocabs),
+         "mgqe_decode once per MGQE field")
+    need(sum(launches.values()) == want_assign + len(q_vocabs),
+         "no other kernel on the serve path")
+    # warm: the first scored batch above also paid for cuBLAS's set-up
+    t_serve = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        run.model.serve(run.params, run.artifacts, run.batch)
+        torch.cuda.synchronize()
+        t_serve.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    run.model.fields.export(run.params["fields"])
+    torch.cuda.synchronize()
+    t_export = time.perf_counter() - t0
+    log(f"ctr serve warm: scored batches of {CTR_BATCH} in "
+        f"{[f'{x * 1e3:.3f}' for x in t_serve]} ms; export of all "
+        f"{cfg.n_sparse} fields again in {t_export * 1e3:.3f} ms")
+    ids = run.batch["sparse_ids"]
+    rows = run.model.fields.serve(run.artifacts, ids)
+    plain_model = DeepFM(dataclasses.replace(cfg, kernel_backend="torch"))
+    rows_plain = plain_model.fields.serve(run.artifacts, ids)
+    logits_plain = plain_model.serve(run.params, run.artifacts, run.batch)
+    torch.cuda.synchronize()
+    need(tuple(rows.shape) == (CTR_BATCH, cfg.n_sparse, cfg.embed_dim)
+         and bool(torch.isfinite(rows).all()), "field rows (B, 39, 10)")
+    need(torch.equal(bits(rows), bits(rows_plain)),
+         "served field rows == the plain decode")
+    err = float((run.scores - logits_plain).abs().max())
+    need(tuple(run.scores.shape) == (CTR_BATCH,)
+         and bool(torch.isfinite(run.scores).all()), "logits (B,), finite")
+    need(err <= CTR_TOL, f"logits within {CTR_TOL} of the plain ops")
+    log(f"ctr serve checks: field rows bit-identical to the plain decode; "
+        f"logits within {err:.3g} of the model on the plain ops; scores "
+        f"mean {float(run.scores.mean()):.6f}")
+    profile_phase(f"deepfm serve (B={CTR_BATCH}, full width)",
+                  lambda: run.model.serve(run.params, run.artifacts,
+                                          run.batch))
+    del run, rows, rows_plain, logits_plain, plain_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def ctr_train_path() -> dict:
+    """DeepFM trained at full width through ``launch.train.train``: 5
+    adagrad steps (lr 1e-2, clip 1.0) at batch 4,096 on CTRStream
+    batches, the counts set to 0 just before and read just after (the
+    training step runs no kernel, as JAX's runs no Pallas kernel);
+    losses finite; the step times and the peak device memory; then one
+    more step split into forward, backward and optimizer by the host
+    clock around synchronises, and one under the profiler.  Returns the
+    launches."""
+    import torch
+    from repro_torch.core.schemes.base import tree_leaves, tree_map
+    from repro_torch.data.synthetic import CTRStream
+    from repro_torch.launch.train import train
+    from repro_torch.train import optimizer as opt
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters = reset_counts()
+    run = train("deepfm", smoke=False, steps=TRAIN_STEPS, batch=CTR_BATCH,
+                log_every=1)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    losses = [h["loss"] for h in run.history]
+    times = [h["step_time_s"] for h in run.history]
+    n_params = sum(t.numel() for t in tree_leaves(run.state.params))
+    log(f"ctr train path: deepfm full width, {n_params} params "
+        f"({n_params * 4 / 1e9:.3f} GB float32), adagrad lr 1e-2 clip 1.0, "
+        f"B={CTR_BATCH}: {TRAIN_STEPS} steps in {run.seconds:.3f}s; losses "
+        f"{[round(x, 6) for x in losses]}; step times (s) "
+        f"{[round(x, 6) for x in times]}; launches {launches}; peak device "
+        f"memory {peak / 2**30:.3f} GiB ({peak} bytes)")
+    need(len(losses) == TRAIN_STEPS and all(math.isfinite(x) for x in losses),
+         "every full-width training loss finite")
+    need(not any(launches.values()), "the training step launches no kernel")
+
+    # one more step, split by phase (the step function's own pieces)
+    ocfg = opt.OptimizerConfig(kind="adagrad", lr=1e-2)
+    model, state = run.model, run.state
+    b = CTRStream(model.cfg.field_vocab_sizes, CTR_BATCH, seed=9).next_batch()
+    batch = {"sparse_ids": torch.from_numpy(b["sparse_ids"]).cuda(),
+             "label": torch.from_numpy(b["label"]).cuda()}
+    leaves = tree_leaves(state.params)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for p in leaves:
+        p.requires_grad_(True)
+    loss, _ = model.loss(state.params, batch)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    flat = torch.autograd.grad(loss, leaves)
+    for p in leaves:
+        p.requires_grad_(False)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    by_id = {id(p): g for p, g in zip(leaves, flat)}
+    grads = tree_map(lambda p: by_id[id(p)], state.params)
+    opt.apply_updates(ocfg, state.params, grads, state.opt_state)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    del flat, grads, by_id
+    log(f"ctr train step split (host clock around synchronises): forward "
+        f"{(t1 - t0) * 1e3:.3f} ms, backward {(t2 - t1) * 1e3:.3f} ms, "
+        f"optimizer (clip + adagrad over every table) "
+        f"{(t3 - t2) * 1e3:.3f} ms")
+    step_fn = opt.make_step_fn(ocfg, model.loss)
+    profile_phase(f"deepfm train step (B={CTR_BATCH}, full width)",
+                  lambda: step_fn(state, batch))
+    del run, model, state, batch, leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def ctr_train_checks() -> None:
+    """At the smoke config: 5 adagrad steps on the card and 5 on the
+    CPU from the same params and batches, each step's MGQE codes
+    compared first (a near-tie flip would fail as a flip), then the loss
+    (within TRAIN_LOSS_RTOL) and at the end every param and accumulator
+    (within TRAIN_PARAM_TOL); then a run failed at step 3 with a
+    checkpoint every 2 steps, resumed, against an uninterrupted run."""
+    import shutil
+
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.core.schemes.base import tree_leaves, tree_map
+    from repro_torch.data.synthetic import CTRStream
+    from repro_torch.launch.train import train
+    from repro_torch.models.recsys.deepfm import DeepFM
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.resilience import SimulatedFailure
+
+    _, cfg = get_arch("deepfm", smoke=True)
+    ocfg = opt.OptimizerConfig(kind="adagrad", lr=1e-2)
+    cpu_model, card_model = DeepFM(cfg, device="cpu"), DeepFM(cfg)
+    params = cpu_model.init(torch.Generator().manual_seed(0))
+    card = opt.TrainState.create(ocfg, tree_map(lambda t: t.cuda(), params))
+    host = opt.TrainState.create(ocfg, params)
+    step_card = opt.make_step_fn(ocfg, card_model.loss)
+    step_host = opt.make_step_fn(ocfg, cpu_model.loss)
+    stream = CTRStream(cfg.field_vocab_sizes, CHECK_BATCH, seed=0)
+    rel = []
+    for s in range(TRAIN_STEPS):
+        b = stream.next_batch()
+        batch = {"sparse_ids": torch.from_numpy(b["sparse_ids"]),
+                 "label": torch.from_numpy(b["label"])}
+        c_codes = mgqe_field_codes(card_model, card.params,
+                                   batch["sparse_ids"])
+        h_codes = mgqe_field_codes(cpu_model, host.params,
+                                   batch["sparse_ids"])
+        flips = sum(int((c_codes[i].cpu() != h_codes[i]).sum())
+                    for i in h_codes)
+        need(flips == 0, f"step {s}: {flips} MGQE codes differ between the "
+             f"card and the CPU (a near-tie flip)")
+        card, mc = step_card(card, {k: v.cuda() for k, v in batch.items()})
+        host, mh = step_host(host, batch)
+        rel.append(abs(float(mc["loss"]) - float(mh["loss"]))
+                   / abs(float(mh["loss"])))
+        need(rel[-1] <= TRAIN_LOSS_RTOL, f"step {s}: loss within "
+             f"{TRAIN_LOSS_RTOL} relative of the CPU's")
+    gap = max(float((c.cpu() - h).abs().max()) for c, h in zip(
+        tree_leaves([card.params, card.opt_state["acc"]]),
+        tree_leaves([host.params, host.opt_state["acc"]])))
+    log(f"ctr train card vs CPU (smoke config, B={CHECK_BATCH}, "
+        f"{TRAIN_STEPS} steps): MGQE codes equal at every step; loss "
+        f"relative gaps {[f'{x:.3g}' for x in rel]}; largest param or "
+        f"accumulator gap {gap:.3g} (bar {TRAIN_PARAM_TOL})")
+    need(gap <= TRAIN_PARAM_TOL, f"final params within {TRAIN_PARAM_TOL} of "
+         f"the CPU's")
+
+    ckpt_dir = os.path.join(REPO, "build", "chip_smoke_ckpt")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    kw = dict(smoke=True, steps=TRAIN_STEPS, batch=CHECK_BATCH, log_every=1)
+    try:
+        train("deepfm", ckpt_dir=ckpt_dir, ckpt_every=2, fail_at=3, **kw)
+        failed = False
+    except SimulatedFailure:
+        failed = True
+    need(failed, "--fail-at 3 stops the run")
+    resumed = train("deepfm", ckpt_dir=ckpt_dir, ckpt_every=2, **kw)
+    whole = train("deepfm", **kw)
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    need([h["step"] for h in resumed.history] == [3, 4, 5],
+         "the resumed run starts from the step-2 checkpoint")
+    pairs = list(zip(tree_leaves(resumed.state.params),
+                     tree_leaves(whole.state.params)))
+    gap = max(float((a - b).abs().max()) for a, b in pairs)
+    same = all(torch.equal(bits(a), bits(b)) for a, b in pairs)
+    log(f"ctr train resume: failed at step 3, resumed from step 2 to "
+        f"{int(resumed.state.step)}; final params against an uninterrupted "
+        f"run: largest gap {gap:.3g}, bit-identical={same}")
+    need(gap <= TRAIN_PARAM_TOL, "the resumed run's params == the "
+         "uninterrupted run's")
+
+
 def kernel_counters() -> dict:
     """Every kernel wrapper of the port, by name (each keeps its own
     ``launches`` count)."""
     from repro_torch.kernels.dpq_assign import dpq_assign
     from repro_torch.kernels.mgqe_decode import mgqe_decode, rq_decode_stages
     from repro_torch.kernels.packed_decode import packed_decode
+    from repro_torch.kernels.embedding_bag import embedding_bag
     from repro_torch.kernels.pq_score import (pq_score, pq_score_batched,
                                               pq_topk)
     return {"mgqe_decode": mgqe_decode, "dpq_assign": dpq_assign,
             "rq_decode_stages": rq_decode_stages,
             "packed_decode": packed_decode, "pq_score": pq_score,
-            "pq_score_batched": pq_score_batched, "pq_topk": pq_topk}
+            "pq_score_batched": pq_score_batched, "pq_topk": pq_topk,
+            "embedding_bag": embedding_bag}
 
 
 def reset_counts() -> dict:
@@ -1249,6 +1728,16 @@ def main() -> int:
         {name: max(errs[name], c_errs[name])
          for name in ("rq_decode_stages", "packed_decode")},
         c_launches, flush_b)
+    bag_launches, bag_err, bag_times = bag_phase()
+    s_launches = ctr_serve_path()
+    t_launches = ctr_train_path()
+    ctr_train_checks()
+    t = bag_times[(BAG_SHAPES[0][1], True)]
+    kernels.append({"name": "embedding_bag", "route": "cuda",
+                    "source": "src/repro_torch/kernels/csrc/embedding_bag.cu",
+                    "replaces": "src/repro/kernels/embedding_bag/"
+                                "embedding_bag.py:53",
+                    "launches": 0, "max_abs_err": bag_err, **t})
     gc.collect()
     torch.cuda.empty_cache()                 # free the card for two-tower
     r_launches, r_errs, (luts, codes) = retrieval_path()
@@ -1259,7 +1748,8 @@ def main() -> int:
     for entry in kernels:                    # every path's launches
         name = entry["name"]
         entry["launches"] = sum(p.get(name, 0) for p in
-                                (launches, c_launches, r_launches))
+                                (launches, c_launches, bag_launches,
+                                 s_launches, t_launches, r_launches))
         if name == "dpq_assign":
             entry["max_abs_err"] = max(entry["max_abs_err"], pq_errs[name],
                                        assign_err, c_errs[name])

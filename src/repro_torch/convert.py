@@ -18,11 +18,11 @@ from repro_torch.core.types import EmbeddingConfig
 
 def tensor_from_numpy(a, device) -> torch.Tensor:
     """One numpy array -> a tensor on ``device`` with the same bits."""
-    a = np.ascontiguousarray(np.asarray(a))
+    a = np.array(a, order="C")      # a C-ordered copy, 0-d stays 0-d
     if a.dtype.name == "bfloat16":
-        return torch.from_numpy(a.view(np.int16).copy()).view(
+        return torch.from_numpy(a.view(np.int16)).view(
             torch.bfloat16).to(device)
-    return torch.from_numpy(a.copy()).to(device)
+    return torch.from_numpy(a).to(device)
 
 
 def params_from_numpy(params: dict, cfg: EmbeddingConfig, device) -> dict:
@@ -72,6 +72,43 @@ def two_tower_params_from_numpy(params: dict, model, device) -> dict:
         "user_mlp": mlp_from_numpy(params["user_mlp"], device),
         "item_mlp": mlp_from_numpy(params["item_mlp"], device),
     }
+
+
+def deepfm_params_from_numpy(params: dict, model, device) -> dict:
+    """The JAX ``DeepFM`` params (numpy leaves) as the port's: every
+    field's param tree, checked against that field's config, the 39
+    dim-1 ``first_order`` tables, the MLP stack and the bias."""
+    return {
+        "fields": {f"f{i}": params_from_numpy(params["fields"][f"f{i}"],
+                                              e.cfg, device)
+                   for i, e in enumerate(model.fields.embs)},
+        "first_order": {
+            f"f{i}": params_from_numpy(params["first_order"][f"f{i}"],
+                                       e.cfg, device)
+            for i, e in enumerate(model.first_order)},
+        "mlp": mlp_from_numpy(params["mlp"], device),
+        "bias": tensor_from_numpy(params["bias"], device),
+    }
+
+
+def opt_state_from_numpy(opt_state: dict, params: dict, device) -> dict:
+    """An optimizer state of the JAX package (numpy leaves: ``step`` and
+    the moment trees) as tensors on ``device``; each moment tree must
+    mirror ``params`` leaf for leaf, in float32."""
+    out = tree_map(lambda a: tensor_from_numpy(a, device), dict(opt_state))
+    shapes = [tuple(p.shape) for p in tree_leaves(params)]
+    for k, tree in out.items():
+        if k == "step":
+            if tree.dim() != 0 or tree.dtype != torch.int32:
+                raise ValueError(f"step must be a 0-d int32, got "
+                                 f"{tuple(tree.shape)} {tree.dtype}")
+            continue
+        leaves = tree_leaves(tree)
+        if ([tuple(t.shape) for t in leaves] != shapes
+                or any(t.dtype != torch.float32 for t in leaves)):
+            raise ValueError(f"moment tree {k!r} does not mirror the params "
+                             f"in float32")
+    return out
 
 
 def flat_pq_artifact_from_numpy(artifact: dict, device) -> dict:

@@ -208,10 +208,17 @@ class CTRStream:
     teacher so CTR models have real signal to fit."""
 
     def __init__(self, vocab_sizes: Tuple[int, ...], batch: int,
-                 zipf_a: float = 1.1, teacher_dim: int = 8, seed: int = 0):
+                 zipf_a: float = 1.1, teacher_dim: int = 8, seed: int = 0,
+                 start: int = 0):
+        """``start`` > 0 begins at that batch of the stream, as if the
+        batches before it had been drawn: each batch takes one uniform
+        double per id and one per label, so the generator is advanced
+        past them without drawing."""
         self.vocab_sizes = vocab_sizes
         self.batch = batch
         self.rng = np.random.default_rng(seed)
+        self.rng.bit_generator.advance(
+            start * batch * (len(vocab_sizes) + 1))
         self.zipf_a = zipf_a
         t_rng = np.random.default_rng(seed + 1)
         # hashed teacher embeddings (cheap for 10M vocabs)

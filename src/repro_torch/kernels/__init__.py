@@ -11,14 +11,16 @@ Each subpackage ships <name>.py (the ctypes wrappers of the kernels in
   dpq_assign      nearest-centroid search (export and index build)
   pq_score        ADC scoring of a PQ-coded corpus: pq_score,
                   pq_score_batched, pq_topk (retrieval hot path)
+  embedding_bag   ragged gather + weighted segment sum (the recsys
+                  fields' pooled multi-hot lookup)
 
 Backend selection (cuda | torch) is centralized in ``dispatch.py``;
 ``build.py`` compiles the sources with nvcc at first use.  Nothing here
 builds or loads a kernel at import time.
 """
 from repro_torch.kernels import dispatch  # noqa: F401  (must import first)
-from repro_torch.kernels import (dpq_assign, mgqe_decode, packed_decode,
-                                 pq_score)
+from repro_torch.kernels import (dpq_assign, embedding_bag, mgqe_decode,
+                                 packed_decode, pq_score)
 
-__all__ = ["dispatch", "dpq_assign", "mgqe_decode", "packed_decode",
-           "pq_score"]
+__all__ = ["dispatch", "dpq_assign", "embedding_bag", "mgqe_decode",
+           "packed_decode", "pq_score"]

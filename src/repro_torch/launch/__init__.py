@@ -1,2 +1,3 @@
-"""Launchers: the serving engine and the serving CLI.  Nothing in the
-package touches the card at import time."""
+"""Launchers: the serving engine, the serving and training CLIs and the
+recsys model registry.  Nothing in the package touches the card at
+import time."""

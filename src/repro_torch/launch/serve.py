@@ -1,21 +1,26 @@
-"""Serving launcher, two paths:
+"""Serving launcher, three paths:
 
 * ``--engine``: export a quantized artifact, then serve a stream of
   batched requests through the micro-batching engine on the paper's
   Figure-1 path (codes + centroids, full table discarded);
 * ``--arch two-tower-retrieval`` without ``--engine``: build a
   ``flat_pq`` index over the item tower's outputs and serve top-k
-  retrieval for a stream of user batches through the RetrievalEngine.
+  retrieval for a stream of user batches through the RetrievalEngine;
+* ``--arch deepfm`` without ``--engine``: the CTR model itself — init,
+  export every field, score one batch (``serve_ctr``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch deepfm \\
         --full --engine --requests 200 --req-batch 64
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch two-tower-retrieval --full --candidates 1000000
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch deepfm \\
+        --full --batch 4096
 
-run on the card and report lookups/second or queries/second;
-``--device cpu`` runs the same paths on the CPU with the plain PyTorch
-ops.  The LM, CTR, async, hot-row, mesh, ``ivf_pq`` and host-staged
-paths of the JAX package's CLI are later slices in ROADMAP.md.
+run on the card and report lookups/second, queries/second or the
+batch's time; ``--device cpu`` runs the same paths on the CPU with the
+plain PyTorch ops.  The LM, async, hot-row, mesh, ``ivf_pq`` and
+host-staged paths of the JAX package's CLI are later slices in
+ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -162,6 +167,57 @@ def serve_retrieval(cfg, n_candidates: int, index_kind: str = "flat_pq",
                         dataclasses.replace(st), rec, build_s)
 
 
+@dataclasses.dataclass
+class CTRRun:
+    """What :func:`serve_ctr` built and scored."""
+
+    model: Any
+    params: dict
+    artifacts: dict                 # every field's serving artifact
+    batch: dict                     # {"sparse_ids": (B, F)} on the device
+    scores: torch.Tensor            # (B,) logits
+    seconds: float                  # the scoring call, synchronised
+
+
+def serve_ctr(cfg, batch: int, device="cuda", sparse_ids=None) -> CTRRun:
+    """A CTR model served as the paper serves it: init, export every
+    field (the large ones to codes + centroids through ``dpq_assign``;
+    the full tables of the small ones and the first-order tables stay),
+    then score one batch through ``model.serve`` (``mgqe_decode`` once
+    per quantized field).  The batch's ids are drawn as the JAX
+    package's ``serve_ctr`` draws them (uniform per field, numpy seed
+    0), unless ``sparse_ids`` (batch, fields) is given."""
+    from repro_torch.core.api import resolve_device
+    from repro_torch.launch.cells import recsys_model
+
+    device = resolve_device(device)
+    model = recsys_model(cfg, device=device)
+    params = model.init(torch.Generator(device=device).manual_seed(0))
+    artifacts = model.fields.export(params["fields"])
+    if sparse_ids is None:
+        rng = np.random.default_rng(0)
+        sparse_ids = np.stack([rng.integers(0, v, batch)
+                               for v in cfg.field_vocab_sizes], 1)
+    if tuple(sparse_ids.shape) != (batch, len(cfg.field_vocab_sizes)):
+        raise ValueError(f"sparse_ids must be (batch, fields) = "
+                         f"{(batch, len(cfg.field_vocab_sizes))}, got "
+                         f"{tuple(sparse_ids.shape)}")
+    b = {"sparse_ids": torch.as_tensor(sparse_ids).to(device)}
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    scores = model.serve(params, artifacts, b)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    seconds = time.perf_counter() - t0
+    print(f"served B={batch} in {seconds:.6f}s on {device}; scores mean "
+          f"{float(torch.mean(scores)):.4f}; artifacts "
+          f"{model.fields.serving_size_bits() / 8e6:.2f} MB "
+          f"({100 * model.fields.serving_size_bits() / model.fields.full_size_bits():.1f}"
+          f"% of full)")
+    return CTRRun(model, params, artifacts, b, scores, seconds)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
@@ -182,6 +238,8 @@ def main(argv=None):
     ap.add_argument("--host-staged", action="store_true",
                     help="retrieval: keep the list tables in host memory "
                          "(not ported: IVF is a later slice)")
+    ap.add_argument("--batch", type=int, default=4,
+                    help="CTR serving: rows in the scored batch")
     ap.add_argument("--requests", type=int, default=200)
     ap.add_argument("--req-batch", type=int, default=64)
     ap.add_argument("--zipf-a", type=float, default=0.0,
@@ -206,8 +264,14 @@ def main(argv=None):
                             backend=args.kernel_backend, zipf_a=args.zipf_a,
                             device=args.device).stats
     if cfg.model != "two_tower":
-        ap.error("the ported serving paths are --engine and two-tower "
-                 "retrieval; pass --engine")
+        if args.batch < 1:
+            ap.error(f"--batch must be >= 1, got {args.batch}")
+        if args.kernel_backend:
+            cfg = dataclasses.replace(cfg, kernel_backend=args.kernel_backend)
+        try:
+            return serve_ctr(cfg, args.batch, device=args.device)
+        except NotImplementedError as e:
+            ap.error(f"{e}; pass --engine to serve its embedding table")
     from repro_torch.retrieval import registered_index_kinds
     if args.retrieval not in registered_index_kinds():
         ap.error(f"unknown index kind {args.retrieval!r}; registered "

@@ -1,0 +1,135 @@
+"""End-to-end training driver.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch deepfm \\
+        --full --steps 5 --batch 4096
+    PYTHONPATH=src python -m repro_torch.launch.train --arch deepfm \\
+        --device cpu --steps 5 --ckpt-dir build/ckpt --ckpt-every 2
+
+trains on the card unless ``--device cpu`` is given (``--smoke``, the
+reduced config, is the default; ``--full`` is the published one).  The
+loop includes checkpoint/auto-resume, straggler detection and optional
+failure injection (``--fail-at``) to exercise the fault-tolerance path
+end to end.  Ported: the recsys ``deepfm`` branch (adagrad at lr 1e-2,
+global-norm clip 1.0, ``CTRStream`` batches).  The LM, GNN, two-tower
+and BST branches of the JAX package's driver follow their slices in
+ROADMAP.md.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+from typing import Any, Dict, List, Optional
+
+import torch
+
+from repro_torch.configs.registry import ARCHS, get_arch
+from repro_torch.core.api import resolve_device
+from repro_torch.train import checkpoint as ckpt_lib
+from repro_torch.train import optimizer as opt_lib
+from repro_torch.train.loop import LoopConfig, fit
+from repro_torch.train.optimizer import TrainState
+from repro_torch.train.resilience import FailureInjector
+
+
+def recsys_setup(cfg, batch: int, device="cuda", start: int = 0):
+    """(model, state, step_fn, data) of a recsys model: params drawn
+    from a generator seeded 0 on ``device``, adagrad at lr 1e-2, and an
+    endless ``CTRStream`` of (``sparse_ids``, ``label``) batches as CPU
+    tensors (``fit`` moves each to the params' device), from batch
+    ``start`` on."""
+    from repro_torch.data.synthetic import CTRStream
+    from repro_torch.launch.cells import recsys_model
+    if cfg.model != "deepfm":
+        raise NotImplementedError(
+            f"training {cfg.model!r} is not ported yet (TwoTower.loss, "
+            f"AutoInt and BST wait for their slices in ROADMAP.md); "
+            f"trainable: deepfm")
+    device = resolve_device(device)
+    model = recsys_model(cfg, device=device)
+    params = model.init(torch.Generator(device=device).manual_seed(0))
+    ocfg = opt_lib.OptimizerConfig(kind="adagrad", lr=1e-2)
+    state = TrainState.create(ocfg, params)
+    step = opt_lib.make_step_fn(ocfg, model.loss)
+    stream = CTRStream(cfg.field_vocab_sizes, batch, start=start)
+
+    def data():
+        for b in stream:
+            yield {"sparse_ids": torch.from_numpy(b["sparse_ids"]),
+                   "label": torch.from_numpy(b["label"])}
+    return model, state, step, data()
+
+
+@dataclasses.dataclass
+class TrainRun:
+    """What :func:`train` built and measured."""
+
+    model: Any
+    state: TrainState
+    history: List[Dict]             # one entry per logged step
+    seconds: float                  # wall time of ``fit``
+
+
+def train(arch: str, *, smoke: bool = True, steps: int = 100,
+          batch: int = 32, ckpt_dir: str = "", ckpt_every: int = 0,
+          fail_at: int = 0, log_every: int = 10,
+          device="cuda") -> TrainRun:
+    """Train ``arch`` for ``steps`` steps (resuming from ``ckpt_dir``
+    when it holds a committed checkpoint); ``fail_at`` > 0 raises
+    ``SimulatedFailure`` after that step, as a crashed host would.
+
+    A resumed run's stream starts at the newest committed step's batch,
+    so it trains on the batches an uninterrupted run would have.  (Were
+    that checkpoint to fail validation, ``fit`` would fall back to an
+    older one and the stream would run ahead of it by the steps
+    between.)"""
+    _, cfg = get_arch(arch, smoke=smoke)
+    start = (ckpt_lib.latest_step(ckpt_dir) if ckpt_dir else None) or 0
+    model, state, step, data = recsys_setup(cfg, batch, device=device,
+                                            start=start)
+    injector = FailureInjector(fail_at_steps=[fail_at]) if fail_at else None
+    lcfg = LoopConfig(total_steps=steps, log_every=log_every,
+                      ckpt_every=ckpt_every, ckpt_dir=ckpt_dir,
+                      metrics_hook=lambda s, m: print(
+                          f"step {s}: " + " ".join(
+                              f"{k}={v:.6f}" for k, v in m.items()
+                              if k != "step"), flush=True))
+    t0 = time.perf_counter()
+    state, hist = fit(state, step, data, lcfg, injector=injector)
+    seconds = time.perf_counter() - t0
+    if hist:
+        print(f"done: {steps} steps in {seconds:.1f}s on "
+              f"{model.device}; final loss {hist[-1]['loss']:.4f}")
+    return TrainRun(model, state, hist, seconds)
+
+
+def main(argv: Optional[List[str]] = None) -> TrainRun:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true", default=True)
+    ap.add_argument("--full", dest="smoke", action="store_false")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=32)
+    ap.add_argument("--ckpt-dir", default="")
+    ap.add_argument("--ckpt-every", type=int, default=0)
+    ap.add_argument("--fail-at", type=int, default=0,
+                    help="inject a crash at this step (tests restart)")
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--device", default="cuda",
+                    help="torch device to train on (default: the card; "
+                         "'cpu' runs the plain PyTorch ops)")
+    args = ap.parse_args(argv)
+    if args.arch not in ARCHS:
+        ap.error(f"arch {args.arch!r} is not ported; ported archs: "
+                 f"{sorted(ARCHS)}")
+    try:
+        return train(args.arch, smoke=args.smoke, steps=args.steps,
+                     batch=args.batch, ckpt_dir=args.ckpt_dir,
+                     ckpt_every=args.ckpt_every, fail_at=args.fail_at,
+                     log_every=args.log_every, device=args.device)
+    except NotImplementedError as e:
+        ap.error(str(e))
+
+
+if __name__ == "__main__":
+    main()

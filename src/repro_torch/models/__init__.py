@@ -1,2 +1,2 @@
-"""Model families; this slice ports only the recsys field-embedding
-config helper."""
+"""Model families; the recsys family (DeepFM, two-tower) is ported, the
+LM and GNN families follow their slices in ROADMAP.md."""

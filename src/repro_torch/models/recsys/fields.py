@@ -1,15 +1,25 @@
-"""Per-field embedding configs for the recsys models.
+"""Multi-field categorical embedding collection + EmbeddingBag.
 
 Large-vocab fields are compressed with the paper's MGQE (or DPQ, RQ, or
 one of the baselines it is compared against); small fields stay full —
-quantizing a 100-row table is pure overhead.  The field collection and
-EmbeddingBag pooling are the recsys slice in ROADMAP.md.
+quantizing a 100-row table is pure overhead.
+
+Sum and mean CSR pooling route through the dispatched ``embedding_bag``
+op (the CUDA kernel for tensors on the card: each table row read once,
+each bag written once); max mode has no kernel and stays on plain ops,
+as it does in the JAX package.
 """
 from __future__ import annotations
 
+from typing import Dict, List, Optional, Tuple
+
+import torch
+
 from repro_torch.configs.base import RecsysConfig
+from repro_torch.core.api import Embedding, resolve_device
 from repro_torch.core.partition import frequency_boundaries
 from repro_torch.core.types import EmbeddingConfig
+from repro_torch.kernels.embedding_bag import bag
 
 
 def field_embedding_config(cfg: RecsysConfig, vocab: int) -> EmbeddingConfig:
@@ -51,3 +61,109 @@ def field_embedding_config(cfg: RecsysConfig, vocab: int) -> EmbeddingConfig:
         return EmbeddingConfig(vocab_size=vocab, dim=cfg.embed_dim,
                                kind="hash", hash_buckets=max(64, vocab // 4))
     raise ValueError(f"no field embedding for embed_kind {kind!r}")
+
+
+class FieldEmbeddings:
+    """One embedding table per sparse field, on ``device`` (default:
+    the card; ``device="cpu"`` runs the plain ops)."""
+
+    def __init__(self, cfg: RecsysConfig, device="cuda"):
+        self.cfg = cfg
+        if len(cfg.field_vocab_sizes) != cfg.n_sparse:
+            raise ValueError(
+                f"{len(cfg.field_vocab_sizes)} field vocab sizes for "
+                f"n_sparse={cfg.n_sparse} fields")
+        self.device = resolve_device(device)
+        self.embs: List[Embedding] = [
+            Embedding(field_embedding_config(cfg, v), device=self.device)
+            for v in cfg.field_vocab_sizes]
+
+    def init(self, gen: torch.Generator,
+             dtype: Optional[torch.dtype] = None) -> Dict:
+        """Every field's params, drawn from ``gen`` field by field."""
+        return {f"f{i}": e.init(gen, dtype=dtype)
+                for i, e in enumerate(self.embs)}
+
+    def apply(self, params: Dict, ids: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """ids (B, F) -> ((B, F, d), aux_loss)."""
+        outs = []
+        aux = torch.zeros((), dtype=torch.float32, device=ids.device)
+        for i, e in enumerate(self.embs):
+            o, a = e.apply(params[f"f{i}"], ids[:, i])
+            outs.append(o)
+            aux = aux + a
+        return torch.stack(outs, dim=1), aux
+
+    def export(self, params: Dict) -> Dict:
+        return {f"f{i}": e.export(params[f"f{i}"])
+                for i, e in enumerate(self.embs)}
+
+    def serve(self, artifacts: Dict, ids: torch.Tensor) -> torch.Tensor:
+        outs = [e.serve(artifacts[f"f{i}"], ids[:, i])
+                for i, e in enumerate(self.embs)]
+        return torch.stack(outs, dim=1)
+
+    def artifact_struct(self) -> Dict:
+        """Meta-device tensors shaped like the serving artifacts."""
+        return {f"f{i}": e.serving_artifact_struct()
+                for i, e in enumerate(self.embs)}
+
+    def serving_size_bits(self) -> int:
+        return sum(e.serving_size_bits() for e in self.embs)
+
+    def full_size_bits(self) -> int:
+        return sum(v * self.cfg.embed_dim * 32
+                   for v in self.cfg.field_vocab_sizes)
+
+
+# ----------------------------------------------------------------------
+# EmbeddingBag: ragged multi-hot pooled lookup.
+# ----------------------------------------------------------------------
+
+def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
+                  segment_ids: torch.Tensor, num_bags: int,
+                  weights: Optional[torch.Tensor] = None, mode: str = "sum",
+                  backend: Optional[str] = None) -> torch.Tensor:
+    """CSR-style bag: ids (nnz,), segment_ids (nnz,) sorted ascending,
+    -> pooled (num_bags, d).  mode: sum | mean | max.
+
+    sum/mean run through the dispatched fused op (gather + segment sum
+    in one pass); max has no fused kernel and stays on plain ops, where
+    a bag with no ids is -inf (the identity of max, as JAX's
+    ``segment_max`` leaves it).
+    """
+    if mode == "max":
+        rows = table.index_select(0, ids.reshape(-1).long())   # (nnz, d)
+        if weights is not None:
+            rows = rows * weights[:, None]
+        out = torch.full((num_bags, rows.shape[1]), float("-inf"),
+                         dtype=rows.dtype, device=rows.device)
+        seg = segment_ids.reshape(-1, 1).long().expand_as(rows)
+        return out.scatter_reduce(0, seg, rows, reduce="amax")
+    pooled = bag(table, ids, segment_ids, num_bags, weights, backend=backend)
+    if mode == "mean":
+        # counted in the pooled dtype, one rounded add per id, as JAX's
+        # segment_sum counts
+        ones = torch.ones(ids.shape, dtype=pooled.dtype, device=ids.device)
+        counts = torch.zeros((num_bags,), dtype=pooled.dtype,
+                             device=ids.device).index_put(
+                                 (segment_ids.reshape(-1).long(),), ones,
+                                 accumulate=True)
+        pooled = pooled / torch.clamp(counts, min=1.0)[:, None]
+    return pooled
+
+
+def embedding_bag_padded(table: torch.Tensor, ids: torch.Tensor,
+                         mode: str = "mean") -> torch.Tensor:
+    """Dense padded bag: ids (B, L) with -1 padding -> (B, d)."""
+    valid = ids >= 0
+    safe = torch.where(valid, ids, torch.zeros_like(ids)).long()
+    rows = table.index_select(0, safe.reshape(-1)).reshape(
+        tuple(ids.shape) + (table.shape[-1],))                # (B, L, d)
+    rows = rows * valid[..., None].to(rows.dtype)
+    pooled = torch.sum(rows, dim=1)
+    if mode == "mean":
+        n = torch.clamp(torch.sum(valid, dim=1, keepdim=True), min=1)
+        pooled = pooled / n.to(pooled.dtype)
+    return pooled

@@ -1,0 +1,265 @@
+"""Optimizers over parameter trees (dicts and lists of tensors).
+
+Supported: adam, adamw, adagrad (the classic for sparse recsys
+embeddings), sgd (momentum).  All state lives in a tree mirroring the
+params, with the JAX package's moment-buffer keys (``m``/``v``/``acc``/
+``mom``) and a 0-d int32 ``step``, so checkpoints of the two packages
+share one layout.
+
+Each optimizer is one :class:`OptimizerRule` registered under its kind
+string; ``init``/``apply_updates`` resolve the rule from the registry
+instead of branching per kind.
+
+Where JAX donates the old buffers to a jitted step, the port updates
+params and moments in place under ``torch.no_grad()``: at deepfm's full
+width a fresh copy of the tables and of adagrad's accumulators would be
+~2 GB that need not exist.  The arithmetic keeps JAX's order and
+rounding, one rounded operation at a time (moments in float32, the
+update cast back to the param's dtype), so the two packages agree to
+float32 rounding.  Each rule uses the gradient's own buffer and at most
+one temporary the size of the leaf.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, Dict, List, Optional, Tuple, Type
+
+import torch
+
+from repro_torch.core.schemes.base import tree_leaves, tree_map
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimizerConfig:
+    kind: str = "adam"          # adam | adamw | adagrad | sgd
+    lr: float = 1e-3
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
+    weight_decay: float = 0.0   # adamw
+    momentum: float = 0.9       # sgd
+    grad_clip: Optional[float] = 1.0   # global-norm clip; None = off
+    # schedule: constant | cosine | linear_warmup_cosine
+    schedule: str = "constant"
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    min_lr_frac: float = 0.1
+
+
+def schedule_lr(cfg: OptimizerConfig, step: torch.Tensor) -> torch.Tensor:
+    """The learning rate at ``step`` (a 0-d int tensor) as a 0-d float32
+    tensor on the step's device, computed in float32 as JAX computes
+    it."""
+    step = torch.as_tensor(step)
+    base = torch.tensor(cfg.lr, dtype=torch.float32, device=step.device)
+    if cfg.schedule == "constant":
+        return base
+    f32 = torch.float32
+    warm = torch.clamp((step + 1).to(f32) / max(cfg.warmup_steps, 1),
+                       max=1.0)
+    if cfg.schedule in ("linear_warmup_cosine", "cosine"):
+        t = torch.clamp((step - cfg.warmup_steps).to(f32)
+                        / max(cfg.total_steps - cfg.warmup_steps, 1),
+                        0.0, 1.0)
+        cos = 0.5 * (1 + torch.cos(math.pi * t))
+        frac = cfg.min_lr_frac + (1 - cfg.min_lr_frac) * cos
+        return base * warm * frac
+    raise ValueError(cfg.schedule)
+
+
+# ----------------------------------------------------------------------
+# optimizer-rule registry
+# ----------------------------------------------------------------------
+
+class OptimizerRule:
+    """One optimizer: moment-buffer layout + the update math."""
+
+    state_keys: Tuple[str, ...] = ()
+
+    @classmethod
+    def update(cls, cfg: OptimizerConfig, lr: torch.Tensor,
+               step: torch.Tensor, params: List[torch.Tensor],
+               grads: List[torch.Tensor],
+               moments: Dict[str, List[torch.Tensor]]) -> None:
+        """Update ``params`` and ``moments`` (leaf lists, in tree order)
+        in place.  ``grads`` are float32 buffers the rule may overwrite."""
+        raise NotImplementedError
+
+
+_OPTIMIZERS: Dict[str, Type[OptimizerRule]] = {}
+
+
+def register_optimizer(kind: str):
+    def deco(cls: Type[OptimizerRule]) -> Type[OptimizerRule]:
+        prev = _OPTIMIZERS.get(kind)
+        if prev is not None and prev is not cls:
+            raise ValueError(
+                f"optimizer kind {kind!r} already registered to {prev}")
+        _OPTIMIZERS[kind] = cls
+        return cls
+    return deco
+
+
+def _rule(kind: str) -> Type[OptimizerRule]:
+    try:
+        return _OPTIMIZERS[kind]
+    except KeyError:
+        raise ValueError(
+            f"unknown optimizer kind {kind!r}; registered: "
+            f"{', '.join(sorted(_OPTIMIZERS))}") from None
+
+
+@register_optimizer("adam")
+class _Adam(OptimizerRule):
+    state_keys = ("m", "v")
+    decoupled_weight_decay = False
+
+    @classmethod
+    def update(cls, cfg, lr, step, params, grads, moments):
+        t = (step + 1).to(torch.float32)
+        bc1 = 1 - torch.pow(cfg.b1, t)
+        bc2 = 1 - torch.pow(cfg.b2, t)
+        for p, g, m, v in zip(params, grads, moments["m"], moments["v"]):
+            tmp = torch.mul(g, 1 - cfg.b1)
+            m.mul_(cfg.b1).add_(tmp)                # b1*m + (1-b1)*g
+            torch.mul(g, g, out=tmp)
+            v.mul_(cfg.b2).add_(tmp.mul_(1 - cfg.b2))   # b2*v + (1-b2)*g²
+            torch.div(m, bc1, out=tmp)              # m / bc1
+            torch.div(v, bc2, out=g)
+            tmp.div_(g.sqrt_().add_(cfg.eps))       # / (sqrt(v/bc2) + eps)
+            if cls.decoupled_weight_decay and cfg.weight_decay:
+                tmp.add_(torch.mul(p.to(torch.float32), cfg.weight_decay,
+                                   out=g))
+            p.sub_(tmp.mul_(lr))                    # p - lr*u
+
+
+@register_optimizer("adamw")
+class _AdamW(_Adam):
+    decoupled_weight_decay = True
+
+
+@register_optimizer("adagrad")
+class _Adagrad(OptimizerRule):
+    state_keys = ("acc",)
+
+    @classmethod
+    def update(cls, cfg, lr, step, params, grads, moments):
+        for p, g, a in zip(params, grads, moments["acc"]):
+            tmp = torch.mul(g, g)
+            a.add_(tmp)                             # acc + g²
+            torch.sqrt(a, out=tmp).add_(cfg.eps)    # sqrt(acc) + eps
+            p.sub_(g.mul_(lr).div_(tmp))            # p - lr*g / (...)
+
+
+@register_optimizer("sgd")
+class _SGD(OptimizerRule):
+    state_keys = ("mom",)
+
+    @classmethod
+    def update(cls, cfg, lr, step, params, grads, moments):
+        for p, g, m in zip(params, grads, moments["mom"]):
+            m.mul_(cfg.momentum).add_(g)            # momentum*m + g
+            p.sub_(torch.mul(m.to(p.dtype), lr.to(p.dtype)))
+
+
+def init(cfg: OptimizerConfig, params: Any) -> Dict:
+    """Optimizer state: a 0-d int32 ``step`` and one float32 zero tree
+    per moment buffer, on the params' devices (bf16 params + fp32
+    moments is the standard mixed-precision recipe)."""
+    rule = _rule(cfg.kind)
+    leaves = tree_leaves(params)
+    device = leaves[0].device if leaves else torch.device("cpu")
+    state: Dict[str, Any] = {
+        "step": torch.zeros((), dtype=torch.int32, device=device)}
+    for k in rule.state_keys:
+        state[k] = tree_map(
+            lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                  device=p.device), params)
+    return state
+
+
+def _global_norm(leaves: List[torch.Tensor]) -> torch.Tensor:
+    """sqrt of the sum of squares, leaf sums added left to right from
+    0.0 in tree order, as JAX's ``tree.reduce`` adds them."""
+    total = torch.zeros((), dtype=torch.float32,
+                        device=leaves[0].device if leaves else None)
+    for g in leaves:
+        total = total + torch.sum(torch.square(g.to(torch.float32)))
+    return torch.sqrt(total)
+
+
+def clip_by_global_norm(grads, max_norm: float):
+    """Scale ``grads`` in place so their global norm is at most
+    ``max_norm``; returns (grads, the norm before clipping)."""
+    leaves = tree_leaves(grads)
+    norm = _global_norm(leaves)
+    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
+    for g in leaves:
+        g.mul_(scale.to(g.dtype))
+    return grads, norm
+
+
+def apply_updates(cfg: OptimizerConfig, params, grads,
+                  state: Dict) -> Tuple[Any, Dict]:
+    """One optimizer step, in place: ``params`` and the moment trees of
+    ``state`` are updated where they lie and ``grads`` are consumed (a
+    bf16 gradient is first copied to float32).  Returns (params, the new
+    state with ``step`` + 1)."""
+    rule = _rule(cfg.kind)
+    step = state["step"]
+    with torch.no_grad():
+        lr = schedule_lr(cfg, step)
+        if cfg.grad_clip is not None:
+            clip_by_global_norm(grads, cfg.grad_clip)
+        g32 = [g.to(torch.float32) for g in tree_leaves(grads)]
+        moments = {k: tree_leaves(state[k]) for k in rule.state_keys}
+        rule.update(cfg, lr, step, tree_leaves(params), g32, moments)
+    return params, {**state, "step": step + 1}
+
+
+# convenience container ------------------------------------------------
+
+class TrainState:
+    """(params, opt_state, step) bundle; checkpoints see it as the pair
+    (params, opt_state), as JAX's pytree of the same name flattens."""
+
+    def __init__(self, params, opt_state):
+        self.params = params
+        self.opt_state = opt_state
+
+    @property
+    def step(self) -> torch.Tensor:
+        return self.opt_state["step"]
+
+    @staticmethod
+    def create(cfg: OptimizerConfig, params) -> "TrainState":
+        return TrainState(params, init(cfg, params))
+
+
+def make_step_fn(cfg: OptimizerConfig, loss_fn: Callable) -> Callable:
+    """Standard step: state, batch -> (state, metrics).  ``loss_fn``
+    must return (loss, metrics_dict).  The params take part in autograd
+    only inside the step; the update is in place, so the returned state
+    holds the same tensors as the one passed in."""
+
+    def step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
+        leaves = tree_leaves(state.params)
+        for p in leaves:
+            p.requires_grad_(True)
+        try:
+            with torch.enable_grad():
+                loss, metrics = loss_fn(state.params, batch)
+                flat = torch.autograd.grad(loss, leaves, allow_unused=True)
+        finally:
+            for p in leaves:
+                p.requires_grad_(False)
+        by_id = {id(p): torch.zeros_like(p) if g is None else g
+                 for p, g in zip(leaves, flat)}
+        grads = tree_map(lambda p: by_id[id(p)], state.params)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        params, opt_state = apply_updates(cfg, state.params, grads,
+                                          state.opt_state)
+        return TrainState(params, opt_state), metrics
+
+    return step

@@ -27,8 +27,8 @@ def test_backends_are_cuda_and_torch():
     assert dispatch.BACKENDS == ("auto", "cuda", "torch")
     assert KERNEL_BACKENDS == dispatch.BACKENDS
     assert set(dispatch.registered_ops()) == {
-        "dpq_assign", "mgqe_decode", "packed_decode", "pq_score",
-        "pq_score_batched", "pq_topk", "rq_decode_stages"}
+        "dpq_assign", "embedding_bag", "mgqe_decode", "packed_decode",
+        "pq_score", "pq_score_batched", "pq_topk", "rq_decode_stages"}
     for impls in dispatch.registered_ops().values():
         assert set(impls) == {"cuda", "torch"}
 

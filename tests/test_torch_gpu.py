@@ -15,6 +15,9 @@ import torch
 
 from repro_torch.core import Embedding, EmbeddingConfig
 from repro_torch.kernels.dpq_assign import dpq_assign, dpq_assign_ref
+from repro_torch.kernels.embedding_bag import (bag, embedding_bag,
+                                               embedding_bag_inorder,
+                                               embedding_bag_ref)
 from repro_torch.kernels.mgqe_decode import (mgqe_decode, mgqe_decode_ref,
                                              rq_decode_stages,
                                              rq_decode_stages_ref)
@@ -608,3 +611,191 @@ def test_rq_and_mpe_engines_on_card_match_cpu(cuda, kw):
     want = engine.ServingEngine(cpu, art_cpu, device="cpu").lookup(ids)
     keep = same[ids]
     assert torch.equal(got[keep], want[keep])
+
+
+# ---------------------------------------------------------- embedding_bag
+
+def _bag_inputs(b, v, d, dtype, weighted, seed, dev, max_len=64):
+    """A table (v, d), b bags of 0..max_len uniform ids (some empty),
+    the sorted segment ids and, if ``weighted``, float32 weights."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(0, max_len + 1, b)
+    if b > 2:
+        lens[[0, b // 2]] = 0                       # empty bags inside
+    seg = np.repeat(np.arange(b), lens)
+    ids = rng.integers(0, v, seg.size)
+    table = torch.from_numpy(rng.normal(size=(v, d)).astype(np.float32))
+    w = (torch.from_numpy(rng.normal(size=seg.size).astype(np.float32))
+         .to(dev) if weighted else None)
+    return (table.to(dtype).to(dev), torch.from_numpy(ids).to(dev),
+            torch.from_numpy(seg).to(dev), w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("weighted", [False, True],
+                         ids=["unweighted", "weighted"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [10, 256])
+@pytest.mark.parametrize("b", [1, 257])
+def test_embedding_bag_kernel_matches_plain(cuda, b, d, dtype, weighted):
+    """Bit-identical to the in-order version, on the card and on the
+    CPU; within the plain version's bar of it (float32: 1e-5 of the
+    bag's sum of |row * w|, the atomics' order; bfloat16: a rounding
+    per product and add, (terms + 1) * 2^-8 of that sum)."""
+    table, ids, seg, w = _bag_inputs(b, 1000, d, dtype, weighted, b + d,
+                                     cuda)
+    before = embedding_bag.launches
+    got = embedding_bag(table, ids, seg, b, w)
+    torch.cuda.synchronize()
+    assert embedding_bag.launches == before + 1
+    assert got.dtype == dtype and tuple(got.shape) == (b, d)
+    rows = table.index_select(0, ids).cpu()
+    want = embedding_bag_inorder(rows, torch.arange(ids.numel()), seg.cpu(),
+                                 b, None if w is None else w.cpu())
+    assert np.array_equal(_bits(got), _bits(want))
+    inorder = embedding_bag_inorder(table, ids, seg, b, w)
+    assert np.array_equal(_bits(got), _bits(inorder))
+    plain = embedding_bag_ref(table, ids, seg, b, w)
+    absw = rows.float().abs() * (1.0 if w is None else w.cpu().abs()[:, None])
+    abs_sum = torch.zeros(b, d).index_add(0, seg.cpu(), absw)
+    n = torch.bincount(seg.cpu(), minlength=b)[:, None]
+    bar = (1e-5 if dtype == torch.float32 else (n + 1) * 2.0 ** -8) * abs_sum
+    assert bool(((got.float() - plain.float()).abs().cpu() <= bar).all())
+    empty = torch.bincount(seg, minlength=b) == 0
+    assert bool((got[empty] == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,offset", [(1, 0), (3, 1), (8, 1), (17, 0),
+                                      (64, 1), (96, 0)])
+def test_embedding_bag_kernel_widths_and_alignments(cuda, d, offset):
+    """Widths with every vector size and lane count, tables that start
+    one row into their storage (another alignment), int64 indices."""
+    for dtype in (torch.float32, torch.bfloat16):
+        full, ids, seg, w = _bag_inputs(100, 301, d, dtype, True, d, cuda)
+        table = full[offset:]
+        ids = ids.clamp(max=table.shape[0] - 1)
+        got = embedding_bag(table, ids, seg, 100, w)
+        rows = table.index_select(0, ids).cpu()
+        want = embedding_bag_inorder(rows, torch.arange(ids.numel()),
+                                     seg.cpu(), 100, w.cpu())
+        assert np.array_equal(_bits(got), _bits(want))
+        got32 = embedding_bag(table, ids.int(), seg.int(), 100, w)
+        assert np.array_equal(_bits(got32), _bits(want))
+
+
+@pytest.mark.gpu
+def test_embedding_bag_kernel_edges(cuda):
+    """No ids at all (every bag zero), ids outside the table (clamped,
+    as the plain version clamps), a bag of 5,000 ids."""
+    table = torch.randn((50, 10), device=cuda)
+    none = torch.zeros(0, dtype=torch.int64, device=cuda)
+    out = embedding_bag(table, none, none, 7)
+    assert tuple(out.shape) == (7, 10) and bool((out == 0).all())
+    ids = torch.tensor([-4, 0, 49, 77], device=cuda)
+    seg = torch.tensor([0, 0, 1, 1], device=cuda)
+    assert torch.equal(embedding_bag(table, ids, seg, 2),
+                       embedding_bag_inorder(table, ids, seg, 2))
+    big = torch.randint(0, 50, (5000,), device=cuda)
+    one = torch.zeros(5000, dtype=torch.int64, device=cuda)
+    got = embedding_bag(table, big, one, 1)
+    want = embedding_bag_inorder(table.index_select(0, big).cpu(),
+                                 torch.arange(5000), one.cpu(), 1)
+    assert np.array_equal(_bits(got), _bits(want))
+
+
+@pytest.mark.gpu
+def test_embedding_bag_kernel_refuses_grad_and_bad_inputs(cuda):
+    table, ids, seg, w = _bag_inputs(9, 40, 8, torch.float32, True, 0, cuda)
+    before = embedding_bag.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        embedding_bag(table.requires_grad_(True), ids, seg, 9, w)
+    with pytest.raises(RuntimeError, match="no backward"):
+        bag(table, ids, seg, 9, w)                 # auto -> the kernel
+    table.requires_grad_(False)
+    with pytest.raises(RuntimeError, match="no backward"):
+        embedding_bag(table, ids, seg, 9, w.clone().requires_grad_(True))
+    assert embedding_bag.launches == before
+    with torch.no_grad():
+        embedding_bag(table.requires_grad_(True), ids, seg, 9, w)
+    table.requires_grad_(False)
+    # the plain version stays differentiable on the card
+    t = table.clone().requires_grad_(True)
+    embedding_bag_ref(t, ids, seg, 9, w).sum().backward()
+    assert t.grad is not None
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        embedding_bag(table, ids.cpu(), seg, 9)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        embedding_bag(table.double(), ids, seg, 9)
+    with pytest.raises(TypeError, match="int32 or int64"):
+        embedding_bag(table, ids.float(), seg, 9)
+    with pytest.raises(ValueError, match="contiguous"):
+        embedding_bag(table.t(), ids, seg, 9)
+
+
+@pytest.mark.gpu
+def test_fields_embedding_bag_on_card(cuda):
+    """sum and mean launch the kernel once each, bit-identical to the
+    in-order version on the CPU (mean: divided by the bag's count); max
+    launches nothing and equals the plain ops on the CPU."""
+    from repro_torch.models.recsys import fields
+    table, ids, seg, w = _bag_inputs(257, 500, 10, torch.float32, True, 3,
+                                     cuda)
+    for mode, ww, launches in (("sum", w, 1), ("mean", None, 1),
+                               ("max", w, 0)):
+        before = embedding_bag.launches
+        got = fields.embedding_bag(table, ids, seg, 257, ww, mode=mode)
+        torch.cuda.synchronize()
+        assert embedding_bag.launches == before + launches
+        args = (table.cpu(), ids.cpu(), seg.cpu(), 257,
+                None if ww is None else ww.cpu())
+        if mode == "max":
+            want = fields.embedding_bag(*args, mode=mode)
+        else:
+            want = embedding_bag_inorder(*args)
+            if mode == "mean":
+                n = torch.bincount(args[2], minlength=257).float()
+                want = want / torch.clamp(n, min=1.0)[:, None]
+        assert np.array_equal(_bits(got), _bits(want))
+
+
+@pytest.mark.gpu
+def test_deepfm_train_step_on_card_matches_cpu(cuda):
+    """One adagrad step of the smoke DeepFM on the card and on the CPU
+    from the same params and batch: the MGQE fields' codes equal, loss
+    within 1e-5, every param and accumulator within 1e-5."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import dpq
+    from repro_torch.core.mgqe import _tier_k_limits
+    from repro_torch.core.schemes.base import tree_leaves, tree_map
+    from repro_torch.data.synthetic import CTRStream
+    from repro_torch.models.recsys.deepfm import DeepFM
+    from repro_torch.train import optimizer as opt
+    _, cfg = get_arch("deepfm", smoke=True)
+    ocfg = opt.OptimizerConfig(kind="adagrad", lr=1e-2)
+    cpu_model, card_model = DeepFM(cfg, device="cpu"), DeepFM(cfg)
+    params = cpu_model.init(torch.Generator().manual_seed(0))
+    card = opt.TrainState.create(ocfg, tree_map(lambda t: t.to(cuda),
+                                                params))
+    host = opt.TrainState.create(ocfg, params)
+    b = CTRStream(cfg.field_vocab_sizes, 256, seed=1).next_batch()
+    batch = {"sparse_ids": torch.from_numpy(b["sparse_ids"]),
+             "label": torch.from_numpy(b["label"])}
+    for i, e in enumerate(cpu_model.fields.embs):
+        if e.cfg.num_subspaces and "centroids" in params["fields"][f"f{i}"]:
+            col = batch["sparse_ids"][:, i]
+            p = params["fields"][f"f{i}"]
+            e_sub = p["emb"][col].reshape(len(col), e.cfg.num_subspaces, -1)
+            lim = _tier_k_limits(e.cfg, col)
+            want = dpq.assign_codes(e_sub, p["centroids"], lim)
+            got = dpq.assign_codes(e_sub.to(cuda), p["centroids"].to(cuda),
+                                   lim.to(cuda))
+            assert torch.equal(got.cpu(), want)
+    card, m_card = opt.make_step_fn(ocfg, card_model.loss)(
+        card, {k: v.to(cuda) for k, v in batch.items()})
+    host, m_host = opt.make_step_fn(ocfg, cpu_model.loss)(host, batch)
+    assert abs(float(m_card["loss"]) - float(m_host["loss"])) <= 1e-5
+    for a, c in zip(tree_leaves([host.params, host.opt_state["acc"]]),
+                    tree_leaves([card.params, card.opt_state["acc"]])):
+        assert torch.allclose(c.cpu(), a, rtol=1e-5, atol=1e-5)
