@@ -59,7 +59,28 @@ Phases, each of which fails the run (non-zero exit, no result line):
    then at the smoke config 5 steps on the card against 5 on the CPU
    (codes compared first, loss and params within their bars) and a run
    failed at step 3 and resumed against an uninterrupted one;
-9. free the card and drive the retrieval path at full width:
+9. the LM phase: ``flash_attention`` against its plain version in
+   float32 and bfloat16 at gemma3-4b's local (window 1,024) and global
+   layer shapes (B=2, S=4,096, 8 query heads over 4 KV heads, hd=320),
+   stablelm-3b's (B=1, S=2,048, 32 heads, hd=80), the JAX tests' shapes
+   and an odd length (bars: ``FLASH_TOL``; bf16 also per row against
+   the plain version in float32, ``FLASH_BF16_ROW_TOL``, which two
+   planted faults must fail); ``dpq_assign`` at an LM
+   token table's widths (D=8, S=320, K=256 in two chunks of shared
+   memory, and K=64) against the plain assignment; then gemma3-4b at
+   ``configs/gemma3_4b.py::CONFIG`` through ``launch.serve.serve_lm`` —
+   init, MGQE export of the 262,144-row token table (``dpq_assign``),
+   prefill of 2 prompts of 4,096 tokens (``flash_attention`` on all 34
+   layers, ``mgqe_decode``), 16 greedy decode steps — with the counts
+   set to 0 just before and read just after; the token rows held
+   bit-identical to the plain decode, exported codes to the plain
+   assignment, the last-token logits to the same prefill on the plain
+   ops (``LM_LOGIT_TOL`` and top-1 tokens equal, a check the kernel
+   route with a planted window fault must fail); the prefill and one decode step under the
+   profiler; then ``flash_attention``, its plain version and
+   ``F.scaled_dot_product_attention`` timed at the local and global
+   shapes; the card is freed after;
+10. free the card and drive the retrieval path at full width:
    two-tower retrieval at ``configs/two_tower_retrieval.py::CONFIG``
    (50M users, 10M items, embed_dim 256, towers 1024-512-256) through
    ``launch.serve.serve_retrieval`` — init, the ``flat_pq`` index over
@@ -73,9 +94,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    for bit, hold the index's codes (and ``dpq_assign`` run again on
    the same tower outputs) against the plain assignment, as in 3, and
    print the peak device memory;
-10. time the pq kernels at that path's shapes (and ``dpq_assign`` at
+11. time the pq kernels at that path's shapes (and ``dpq_assign`` at
    the index's), as in 5;
-11. print one ``{"kernels": [...]}`` JSON line (launches summed over
+12. print one ``{"kernels": [...]}`` JSON line (launches summed over
    every path), then, last, the ``{"ok": true, "device": ...}`` line.
 
 It needs one card and no arguments, imports nothing of JAX, and runs
@@ -83,6 +104,7 @@ the port from the ``src/`` directory beside this file.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -129,6 +151,48 @@ TRAIN_STEPS = 5
 CHECK_BATCH = 256                      # smoke-config card-vs-CPU runs
 TRAIN_LOSS_RTOL = 1e-4
 TRAIN_PARAM_TOL = 1e-5
+
+# the LM phase: gemma3-4b's CONFIG served through serve_lm
+LM_ARCH = "gemma3-4b"
+LM_BATCH, LM_PROMPT, LM_STEPS = 2, 4096, 16
+# H100 SXM dense bf16 tensor-core peak (data sheet): the attention
+# kernel's operation bound
+BF16_FLOP_PER_S = 989e12
+FULL_WINDOW = 1 << 30
+# flash_attention against its plain version: the JAX tests' own bars
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+# q and k drawn at randn * FLASH_QK_SCALE (v at randn): scores of std 1,
+# so a row's weights follow its scores rather than a near-uniform mean
+FLASH_QK_SCALE = 1.0
+# bfloat16, held also per row against the plain version computed in
+# float32 on the same bf16 inputs: P and the output are each rounded
+# once to bf16 (at most 2^-8 of a value each), so |diff| stays within
+# 4 * 2^-8 of the row's largest |output|.  The planted faults of
+# ``planted_attention`` must fail this bar.
+FLASH_BF16_ROW_TOL = 4 * 2 ** -8
+FLASH_TILE = 64                        # the kernel's KV tile (block_k)
+# (name, b, s_q, s_kv, h, h_kv, hd, window): gemma3-4b's local and global
+# layers at the path's prefill, stablelm-3b's, the JAX tests' shapes
+# (tests/test_kernels.py: cross-length, a window wider than a tile) and
+# an odd length
+FLASH_CASES = (
+    ("gemma3-4b local", 2, 4096, 4096, 8, 4, 320, 1024),
+    ("gemma3-4b global", 2, 4096, 4096, 8, 4, 320, FULL_WINDOW),
+    ("stablelm-3b", 1, 2048, 2048, 32, 32, 80, FULL_WINDOW),
+    ("jax gqa", 2, 256, 256, 4, 2, 64, FULL_WINDOW),
+    ("jax window", 1, 128, 128, 4, 4, 32, 64),
+    ("jax cross-length", 2, 128, 384, 8, 2, 64, FULL_WINDOW),
+    ("jax window > tile", 1, 256, 256, 2, 1, 128, 300),
+    ("odd length", 1, 1500, 1500, 8, 4, 320, 1024),
+)
+# last-token prefill logits, the kernel route against the same prefill
+# on the plain attention (bf16 activations through 34 layers, where the
+# plain version rounds each score to bf16 and the kernel does not): the
+# top-1 tokens equal and max |diff| within LM_LOGIT_TOL: between the
+# sound runs' reading (0.1016) and the plain prefill's with layer 0's
+# window one KV tile short (0.1562; H100 SXM, 700 W).  The kernel route
+# with that planted fault must fail the check.
+LM_LOGIT_TOL = 0.125
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -1427,6 +1491,393 @@ def ctr_train_checks() -> None:
          "uninterrupted run's")
 
 
+# ----------------------------------------------------------------------
+# the LM phase: flash_attention, dpq_assign at LM widths, gemma3-4b
+# served at full width
+# ----------------------------------------------------------------------
+
+def flash_inputs(b, sq, skv, h, hkv, hd, dtype, seed):
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((b, sq, h, hd), generator=g, device="cuda")
+    k = torch.randn((b, skv, hkv, hd), generator=g, device="cuda")
+    v = torch.randn((b, skv, hkv, hd), generator=g, device="cuda")
+    q, k = q * FLASH_QK_SCALE, k * FLASH_QK_SCALE
+    return q.to(dtype), k.to(dtype), v.to(dtype)
+
+
+def planted_attention(q, k, v, window, fault):
+    """The kernel's arithmetic (float32 scores, P rounded to v's dtype,
+    float32 sums) written densely, with a planted fault: ``flat`` gives
+    every key of the band the same weight (the scores ignored),
+    ``dropped tile`` leaves out one KV tile in the middle of the last
+    row's band."""
+    import torch
+    b, sq, h, hd = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    qg = q.float().reshape(b, sq, hkv, h // hkv, hd)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * hd ** -0.5
+    if fault == "flat":
+        s = torch.zeros_like(s)
+    i = torch.arange(sq, device=q.device)[:, None]
+    j = torch.arange(skv, device=q.device)[None, :]
+    seen = (i - j >= 0) & (i - j < window)
+    if fault == "dropped tile":
+        lo = (sq - 1 - min(window, sq) // 2) // FLASH_TILE * FLASH_TILE
+        seen &= (j < lo) | (j >= lo + FLASH_TILE)
+    s = s.masked_fill(~seen, -1e30)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    l = p.sum(-1)
+    o = torch.einsum("bhgqk,bkhd->bhgqd", p.to(v.dtype).float(), v.float())
+    o = o / l[..., None]
+    return o.permute(0, 3, 1, 2, 4).reshape(q.shape).to(q.dtype)
+
+
+def bf16_row_ratio(got, want32):
+    """max |got - want32| over each row's bar, FLASH_BF16_ROW_TOL times
+    the row's (query, head) largest |want32|; <= 1 passes."""
+    bar = FLASH_BF16_ROW_TOL * want32.abs().amax(-1, keepdim=True)
+    return float(((got.float() - want32).abs() / bar).max())
+
+
+def check_flash() -> float:
+    """flash_attention against its plain version at every FLASH_CASES
+    shape, float32 and bfloat16 (bf16 also per row against the plain
+    version in float32, a bar the planted faults must fail); returns
+    the largest |diff| to the plain version."""
+    import torch
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_ref)
+    worst = 0.0
+    for name, b, sq, skv, h, hkv, hd, win in FLASH_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = flash_inputs(b, sq, skv, h, hkv, hd, dtype, seed=sq)
+            got = flash_attention(q, k, v, window=win)
+            want = flash_attention_ref(q, k, v, window=win)
+            torch.cuda.synchronize()
+            tol = FLASH_TOL[str(dtype).removeprefix("torch.")]
+            err = float((got.float() - want.float()).abs().max())
+            line = (f"check flash_attention {name} B={b} Sq={sq} Skv={skv} "
+                    f"H={h} Hkv={hkv} hd={hd} window={win} {dtype}: "
+                    f"max_abs_err={err:.3g} (bar {tol})")
+            ratio, planted = 0.0, {}
+            if dtype == torch.bfloat16:
+                want32 = flash_attention_ref(q.float(), k.float(), v.float(),
+                                             window=win)
+                ratio = bf16_row_ratio(got, want32)
+                line += (f"; per row against the float32 plain version "
+                         f"{ratio:.3g} of the bar")
+                for fault in ("flat", "dropped tile"):
+                    bad = planted_attention(q, k, v, win, fault)
+                    planted[fault] = bf16_row_ratio(bad, want32)
+                    line += (f"; planted {fault}: {planted[fault]:.3g} of the "
+                             f"bar, max_abs_err "
+                             f"{float((bad.float() - want.float()).abs().max()):.3g}")
+                    del bad
+                del want32
+            log(line)
+            need(got.shape == want.shape and got.dtype == dtype
+                 and bool(torch.isfinite(got).all()),
+                 f"flash_attention output at {name} {dtype}")
+            need(err <= tol, f"flash_attention within {tol} of the plain "
+                 f"version at {name} {dtype}")
+            need(ratio <= 1, f"flash_attention within {FLASH_BF16_ROW_TOL:.4g}"
+                 f" of each row's largest |output| at {name} {dtype}")
+            for fault, bad_ratio in planted.items():
+                need(bad_ratio > 1, f"the planted {fault} fault fails the "
+                     f"bf16 bar at {name}")
+            worst = max(worst, err)
+            del q, k, v, got, want
+    torch.cuda.empty_cache()
+    return worst
+
+
+def check_lm_assign() -> float:
+    """dpq_assign at an LM token table's widths (D=8, S=2560/8=320),
+    K=256 (two chunks of shared memory) and K=64, with the MGQE budgets,
+    against the plain assignment; returns the largest distance gap."""
+    import torch
+    from repro_torch.kernels.dpq_assign import dpq_assign
+    from repro_torch.kernels.dpq_assign.dpq_assign import chunk_centroids
+    gap = 0.0
+    for k in (256, 64):
+        e, cent, lim = assign_inputs(ASSIGN_BATCH, 8, k, 320, seed=k,
+                                     k_small=64)
+        got = dpq_assign(e, cent, lim)
+        g = assign_gap(e, cent, lim, got, blocked_assign_ref_lim(e, cent,
+                                                                  lim))
+        log(f"check dpq_assign B={ASSIGN_BATCH} D=8 K={k} S=320 (chunks of "
+            f"{chunk_centroids(k, 320)} centroids): largest distance gap to "
+            f"the plain version {g:.3g}")
+        need(g <= ASSIGN_TOL, f"dpq_assign at S=320 K={k} within "
+             f"{ASSIGN_TOL}")
+        gap = max(gap, g)
+    return gap
+
+
+def blocked_assign_ref_lim(e, cent, lim):
+    """The plain assignment under per-row budgets, over blocks of 8,192
+    rows (its (rows, D, K) distances stay small)."""
+    import torch
+    from repro_torch.kernels.dpq_assign import dpq_assign_ref
+    return torch.cat([dpq_assign_ref(e[i:i + 8192], cent, lim[i:i + 8192])
+                      for i in range(0, e.shape[0], 8192)])
+
+
+@contextlib.contextmanager
+def window_short_by_a_tile(layers: int):
+    """A planted fault: inside the block, the first ``layers`` local
+    layers (window below the full one) reach ``chunked_attention`` with
+    their window one KV tile short."""
+    from repro_torch.nn import attention as attn
+    sound = attn.chunked_attention
+    left = [layers]
+
+    def faulty(q, k, v, qpos, kpos, window=attn.FULL_WINDOW, **kw):
+        if window < attn.FULL_WINDOW and left[0] > 0:
+            left[0] -= 1
+            window -= FLASH_TILE
+        return sound(q, k, v, qpos, kpos, window, **kw)
+    attn.chunked_attention = faulty
+    try:
+        yield
+    finally:
+        attn.chunked_attention = sound
+
+
+def lm_path() -> dict:
+    """gemma3-4b at ``configs/gemma3_4b.py::CONFIG`` through
+    ``launch.serve.serve_lm``: init, MGQE export of the 262,144 x 2,560
+    token table, prefill of 2 prompts of 4,096 tokens, 16 greedy decode
+    steps, the counts set to 0 just before and read just after; then the
+    token rows held bit-identical to the plain decode, the exported
+    codes of a head and a tail slice to the plain assignment, and the
+    last-token logits to the same prefill on the plain ops.  Returns
+    the launches."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.core import Embedding
+    from repro_torch.core.mgqe import k_limit_for_all_rows
+    from repro_torch.kernels.dispatch import pinned_backend
+    from repro_torch.launch.serve import serve_lm
+    from repro_torch.models import lm
+
+    _, cfg = get_arch(LM_ARCH, smoke=False)
+    ecfg = cfg.embedding
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters = reset_counts()
+    t0 = time.perf_counter()
+    run = serve_lm(cfg, LM_BATCH, LM_PROMPT, LM_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    emb = Embedding(ecfg)
+    want = {"dpq_assign": -(-ecfg.vocab_size // ASSIGN_BATCH),
+            "mgqe_decode": 1 + LM_STEPS, "flash_attention": cfg.num_layers}
+    log(f"lm path: {cfg.name} {cfg.num_layers} layers d_model "
+        f"{cfg.d_model} heads {cfg.num_heads}/{cfg.num_kv_heads} hd "
+        f"{cfg.resolved_head_dim}, {cfg.param_count()} params "
+        f"({cfg.param_dtype}), vocab {ecfg.vocab_size} as MGQE (head tier "
+        f"{ecfg.tier_boundaries[0]} rows at K={ecfg.tier_num_centroids[0]}, "
+        f"tail at K={ecfg.tier_num_centroids[1]}, D={ecfg.num_subspaces}); "
+        f"artifact {emb.serving_size_bits() / 8e6:.2f} MB "
+        f"({100 * emb.serving_size_bits() / (ecfg.vocab_size * ecfg.dim * 32):.2f}"
+        f"% of full); init + export + prefill + decode in {wall:.3f}s; "
+        f"prefill B={LM_BATCH} x {LM_PROMPT} in {run.prefill_seconds:.6f}s "
+        f"({LM_BATCH * LM_PROMPT / run.prefill_seconds:,.0f} tokens/s); "
+        f"{LM_STEPS} decode steps in {run.decode_seconds:.6f}s "
+        f"({run.tokens_per_s:.2f} tokens/s, "
+        f"{run.decode_seconds / LM_STEPS * 1e3:.3f} ms a step); peak device "
+        f"memory {peak:.3f} GiB; launches {launches} (predicted {want})")
+    for name, n in want.items():
+        need(launches[name] == n, f"{name} launched {n} times on the LM "
+             f"path")
+    need(sum(launches.values()) == sum(want.values()),
+         "no other kernel on the LM path")
+    need(tuple(run.logits.shape) == (LM_BATCH, cfg.vocab_size)
+         and bool(torch.isfinite(run.logits).all()),
+         "prefill logits (B, V), finite")
+    need(tuple(run.tokens.shape) == (LM_BATCH, LM_STEPS + 1)
+         and bool(((run.tokens >= 0) & (run.tokens < cfg.vocab_size)).all()),
+         "greedy tokens (B, steps + 1) in the vocabulary")
+
+    # the token rows: the served decode against the plain decode
+    rows = emb.serve(run.artifact, run.prompts)
+    with pinned_backend("torch"):
+        rows_plain = emb.serve(run.artifact, run.prompts)
+    torch.cuda.synchronize()
+    need(torch.equal(bits(rows), bits(rows_plain)),
+         "token rows == the plain decode, bit for bit")
+    # the exported codes of a head and a tail slice, under their budgets
+    lim_all = k_limit_for_all_rows(ecfg, "cuda")
+    gap = 0.0
+    for lo in (0, ecfg.vocab_size - ASSIGN_BATCH):
+        sl = slice(lo, lo + ASSIGN_BATCH)
+        e = run.params["embed"]["emb"][sl].reshape(
+            ASSIGN_BATCH, ecfg.num_subspaces, -1)
+        cent = run.artifact["centroids"]
+        got = run.artifact["codes"][sl].to(torch.int32)
+        gap = max(gap, assign_gap(e, cent, lim_all[sl], got,
+                                  blocked_assign_ref_lim(e, cent,
+                                                         lim_all[sl])))
+    need(gap <= ASSIGN_TOL, f"exported codes within {ASSIGN_TOL} of the "
+         f"plain assignment")
+    # the last-token logits against the same prefill on the plain ops;
+    # then the kernel route with a planted fault (the window one KV tile
+    # short on layer 0, and on every local layer) must fail that check
+    with torch.no_grad(), pinned_backend("torch"):
+        logits_plain = lm.prefill(run.params, run.prompts, cfg,
+                                  max_seq=LM_PROMPT + LM_STEPS,
+                                  embed_artifact=run.artifact)[1]
+
+    def against_plain(logits):
+        d = (logits - logits_plain).abs()
+        return (float(d.max()), float(d.mean()),
+                bool(torch.equal(logits.argmax(-1), logits_plain.argmax(-1))))
+    planted = {}
+    for layers in (1, cfg.num_layers):
+        with torch.no_grad(), window_short_by_a_tile(layers):
+            planted[layers] = against_plain(lm.prefill(
+                run.params, run.prompts, cfg, max_seq=LM_PROMPT + LM_STEPS,
+                embed_artifact=run.artifact)[1])
+    torch.cuda.synchronize()
+    err, mean_err, top1 = against_plain(run.logits)
+    log(f"lm checks: token rows bit-identical to the plain decode; "
+        f"exported codes (head and tail slices) within {gap:.3g} of the "
+        f"plain assignment; last-token logits against the plain attention: "
+        f"max |diff| {err:.4g} (bar {LM_LOGIT_TOL}), mean |diff| "
+        f"{mean_err:.4g}, largest |logit| "
+        f"{float(logits_plain.abs().max()):.4g}, top-1 tokens equal: {top1}; "
+        f"the kernel route with the window one KV tile short (max |diff|, "
+        f"mean |diff|, top-1 equal): on layer 0 {planted[1]}, on every "
+        f"local layer {planted[cfg.num_layers]}; sample tokens "
+        f"{run.tokens[0, :8].tolist()}")
+    need(top1, "prefill top-1 tokens == the plain ops'")
+    need(err <= LM_LOGIT_TOL, f"prefill logits within {LM_LOGIT_TOL} of "
+         f"the plain ops'")
+    for layers, (bad, _, bad_top1) in planted.items():
+        need(bad > LM_LOGIT_TOL or not bad_top1, f"the planted window "
+             f"fault on {layers} layer(s) fails the logits check")
+    del rows, rows_plain, logits_plain
+
+    # where the time goes: one prefill and one decode step, profiled
+    with torch.no_grad():
+        profile_phase(f"{cfg.name} prefill (B={LM_BATCH} x {LM_PROMPT})",
+                      lambda: lm.prefill(run.params, run.prompts, cfg,
+                                         max_seq=LM_PROMPT + LM_STEPS,
+                                         embed_artifact=run.artifact))
+        cache, _ = lm.prefill(run.params, run.prompts, cfg,
+                              max_seq=LM_PROMPT + LM_STEPS,
+                              embed_artifact=run.artifact)
+        tok = run.tokens[:, 0]
+        profile_phase(f"{cfg.name} decode step (B={LM_BATCH})",
+                      lambda: lm.decode_step(run.params, cache, tok, cfg,
+                                             embed_artifact=run.artifact))
+    del run, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def sdpa_backend(fn) -> str:
+    """The kernels one ``scaled_dot_product_attention`` call ran, named
+    from the profiler (the dispatcher picks among flash, efficient,
+    cuDNN and math without saying which)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = sorted({ev.key for ev in prof.key_averages()
+                    if ev.device_type == DeviceType.CUDA})
+    low = " ".join(names).lower()
+    kind = ("flash" if "flash" in low else
+            "cuDNN" if "cudnn" in low else
+            "efficient (cutlass fmha)" if "fmha" in low or "efficient" in low
+            else "math (matmuls and softmax)")
+    return f"{kind}: {[n[:60] for n in names][:4]}"
+
+
+def time_flash(err: float, launches: dict) -> dict:
+    """flash_attention timed at gemma3-4b's local and global layer
+    shapes (bf16, the path's prefill), beside its plain version, one
+    ``F.scaled_dot_product_attention`` call and its bound; the
+    ``kernels`` entry holds the per-launch mean over the prefill's layer
+    mix (29 local, 5 global)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_ref)
+    _, cfg = get_arch(LM_ARCH, smoke=False)
+    b, s, h, hkv = LM_BATCH, LM_PROMPT, cfg.num_heads, cfg.num_kv_heads
+    hd = cfg.resolved_head_dim
+    n_glob = cfg.num_layers // (cfg.local_global_pattern + 1)
+    n_loc = cfg.num_layers - n_glob
+    q, k, v = flash_inputs(b, s, s, h, hkv, hd, torch.bfloat16, seed=21)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    pos = torch.arange(s, device="cuda")
+    times = {}
+    for name, win in (("local", cfg.sliding_window), ("global", FULL_WINDOW)):
+        delta = pos[:, None] - pos[None, :]
+        band = (delta >= 0) & (delta < win)
+        if win >= s:
+            def lib():
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True)
+        else:
+            def lib():
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=band, enable_gqa=True)
+        ms, host = time_ms(lambda: flash_attention(q, k, v, window=win),
+                           iters=10, warmup=2)
+        plain, _ = time_ms(lambda: flash_attention_ref(q, k, v, window=win),
+                           iters=3, warmup=1, hold=False)
+        lib_ms, _ = time_ms(lib, iters=10, warmup=2)
+        lib_err = float((lib().transpose(1, 2).float()
+                         - flash_attention_ref(q, k, v, window=win).float())
+                        .abs().max())
+        pairs = int(band.sum()) * b * h
+        flops = 4 * hd * pairs
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2
+        t_ops = flops / BF16_FLOP_PER_S * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        times[name] = (ms, plain, lib_ms, max(t_ops, t_bytes),
+                       "operations" if t_ops >= t_bytes else "bytes")
+        log(f"time flash_attention gemma3-4b {name} layer B={b} S={s} H={h} "
+            f"Hkv={hkv} hd={hd} window={win} bf16: kernel {ms:.5f} ms, "
+            f"plain {plain:.5f} ms, F.scaled_dot_product_attention "
+            f"{lib_ms:.5f} ms ({sdpa_backend(lib)}; max |diff| to the "
+            f"plain version {lib_err:.3g}), bound {max(t_ops, t_bytes):.5f} "
+            f"ms ({flops} FLOP over {pairs} visible pairs at 989 TFLOP/s, "
+            f"{nbytes} bytes); {flops / ms / 1e9:.2f} TFLOP/s; host time to "
+            f"launch {host:.5f} ms")
+    mix = [(times["local"], n_loc), (times["global"], n_glob)]
+
+    def mean(i):
+        return sum(t[i] * n for t, n in mix) / cfg.num_layers
+
+    log(f"time flash_attention per launch over the prefill's {n_loc} local "
+        f"and {n_glob} global layers: kernel {mean(0):.5f} ms, plain "
+        f"{mean(1):.5f} ms, library {mean(2):.5f} ms, bound {mean(3):.5f} ms")
+    del q, k, v, qt, kt, vt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/"
+                        "flash_attention.py:81",
+            "launches": launches["flash_attention"], "max_abs_err": err,
+            "ms": mean(0), "plain_ms": mean(1), "bound_ms": mean(3),
+            "bound_by": times["global"][4], "library_ms": mean(2)}
+
+
 def kernel_counters() -> dict:
     """Every kernel wrapper of the port, by name (each keeps its own
     ``launches`` count)."""
@@ -1434,13 +1885,15 @@ def kernel_counters() -> dict:
     from repro_torch.kernels.mgqe_decode import mgqe_decode, rq_decode_stages
     from repro_torch.kernels.packed_decode import packed_decode
     from repro_torch.kernels.embedding_bag import embedding_bag
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.pq_score import (pq_score, pq_score_batched,
                                               pq_topk)
     return {"mgqe_decode": mgqe_decode, "dpq_assign": dpq_assign,
             "rq_decode_stages": rq_decode_stages,
             "packed_decode": packed_decode, "pq_score": pq_score,
             "pq_score_batched": pq_score_batched, "pq_topk": pq_topk,
-            "embedding_bag": embedding_bag}
+            "embedding_bag": embedding_bag,
+            "flash_attention": flash_attention}
 
 
 def reset_counts() -> dict:
@@ -1739,6 +2192,12 @@ def main() -> int:
                                 "embedding_bag.py:53",
                     "launches": 0, "max_abs_err": bag_err, **t})
     gc.collect()
+    torch.cuda.empty_cache()
+    flash_err = check_flash()
+    lm_assign_gap = check_lm_assign()
+    l_launches = lm_path()
+    kernels.append(time_flash(flash_err, l_launches))
+    gc.collect()
     torch.cuda.empty_cache()                 # free the card for two-tower
     r_launches, r_errs, (luts, codes) = retrieval_path()
     pq_errs = {name: max(errs[name], err) for name, err in r_errs.items()}
@@ -1749,10 +2208,12 @@ def main() -> int:
         name = entry["name"]
         entry["launches"] = sum(p.get(name, 0) for p in
                                 (launches, c_launches, bag_launches,
-                                 s_launches, t_launches, r_launches))
+                                 s_launches, t_launches, l_launches,
+                                 r_launches))
         if name == "dpq_assign":
             entry["max_abs_err"] = max(entry["max_abs_err"], pq_errs[name],
-                                       assign_err, c_errs[name])
+                                       assign_err, c_errs[name],
+                                       lm_assign_gap)
     log(f"total {time.perf_counter() - t0:.1f}s")
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -1,4 +1,4 @@
-"""Config dataclasses for the recsys family + input-shape specs.
+"""Config dataclasses for the LM and recsys families + input-shape specs.
 
 Each architecture file in this package exports ``CONFIG`` (full scale)
 and ``smoke_config()`` (reduced, runs on the CPU).  Field for field the
@@ -7,7 +7,88 @@ same as the JAX package's, so one set of numbers configures both.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
+
+from repro_torch.core.types import EmbeddingConfig
+
+
+# ----------------------------------------------------------------------
+# LM family
+# ----------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class LMConfig:
+    name: str
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: Optional[int] = None
+
+    # attention pattern ------------------------------------------------
+    sliding_window: Optional[int] = None   # window for local/SWA layers
+    local_global_pattern: int = 0          # gemma3: 5 locals per global; 0 = uniform
+    rope_theta: float = 10_000.0           # uniform / local-layer theta
+    rope_theta_global: float = 1_000_000.0  # global-layer theta (pattern models)
+
+    # MoE (nn/moe.py is not ported: model_init refuses MoE configs) -----
+    num_experts: int = 0
+    num_experts_per_tok: int = 0
+    moe_capacity_factor: float = 1.25
+    moe_shard_map: bool = False
+
+    # embedding compression (the paper's technique) ----------------------
+    embedding: Optional[EmbeddingConfig] = None  # None -> plain full table
+    embed_kind: str = "mgqe"               # used when building default cfg
+
+    # numerics / training ------------------------------------------------
+    # GQA KV-head replication: repeat K/V up to num_heads inside
+    # layer_forward (the JAX package's answer to TP meshes wider than
+    # num_kv_heads; on one card it only costs memory)
+    attn_kv_repeat: bool = False
+
+    act: str = "gelu"
+    dtype: str = "bfloat16"                # activation dtype
+    param_dtype: str = "float32"           # bf16 for the >=27B archs
+    fsdp_params: bool = False              # shard stacked weights over data
+    remat: bool = True
+    remat_granularity: str = "layer"
+    remat_block: int = 0                   # 0 = auto (~sqrt(L))
+    # KV chunk of the JAX package's chunked attention; the port's chunked
+    # route is the flash_attention kernel, whose tiles are its own
+    attention_block: int = 1024
+    attention_impl: str = "auto"           # auto | dense | chunked
+    xent_chunk: int = 512                  # seq chunk for vocab softmax
+    # serving
+    split_local_global_cache: bool = False  # beyond-paper memory opt
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or self.d_model // self.num_heads
+
+    @property
+    def is_moe(self) -> bool:
+        return self.num_experts > 0
+
+    @property
+    def is_pattern(self) -> bool:
+        return self.local_global_pattern > 0
+
+    def param_count(self) -> int:
+        """Approximate dense parameter count N (for MODEL_FLOPS = 6ND)."""
+        hd = self.resolved_head_dim
+        attn = self.d_model * hd * (self.num_heads * 2 + self.num_kv_heads * 2)
+        if self.is_moe:
+            ffn = 3 * self.d_model * self.d_ff * self.num_experts \
+                + self.d_model * self.num_experts
+        else:
+            ffn = 3 * self.d_model * self.d_ff
+        per_layer = attn + ffn + 2 * self.d_model
+        emb = self.vocab_size * self.d_model
+        head = self.vocab_size * self.d_model
+        return self.num_layers * per_layer + emb + head
 
 
 # ----------------------------------------------------------------------

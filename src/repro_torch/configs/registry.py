@@ -1,8 +1,8 @@
 """Architecture registry: --arch <id> resolution for the launchers.
 
 Each entry: (family, config module).  Only the archs whose configs are
-ported are listed; the rest follow their families' slices in
-ROADMAP.md.
+ported are listed; asking for one of the JAX package's other archs
+raises, naming what it waits for (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -11,17 +11,28 @@ from typing import Dict, Tuple
 
 ARCHS: Dict[str, Tuple[str, str]] = {
     # arch id            family    config module
+    "gemma3-4b":         ("lm", "repro_torch.configs.gemma3_4b"),
+    "stablelm-3b":       ("lm", "repro_torch.configs.stablelm_3b"),
     "two-tower-retrieval": ("recsys",
                             "repro_torch.configs.two_tower_retrieval"),
     "deepfm":            ("recsys", "repro_torch.configs.deepfm"),
+}
+
+# archs of the JAX package not ported yet, and what each waits for
+NOT_PORTED: Dict[str, str] = {
+    "gemma3-27b": "a bfloat16 dpq_assign (its param_dtype is bfloat16)",
+    "mixtral-8x7b": "nn/moe.py (mixture-of-experts FFN)",
+    "qwen3-moe-30b-a3b": "nn/moe.py (mixture-of-experts FFN)",
 }
 
 
 def get_arch(arch_id: str, smoke: bool = False):
     """Returns (family, config). smoke=True -> reduced config."""
     if arch_id not in ARCHS:
-        raise KeyError(f"arch {arch_id!r} is not ported; ported archs: "
-                       f"{sorted(ARCHS)}")
+        why = NOT_PORTED.get(arch_id)
+        raise KeyError(f"arch {arch_id!r} is not ported"
+                       + (f": it waits for {why}" if why else "")
+                       + f"; ported archs: {sorted(ARCHS)}")
     family, module_name = ARCHS[arch_id]
     mod = importlib.import_module(module_name)
     cfg = mod.smoke_config() if smoke else mod.CONFIG

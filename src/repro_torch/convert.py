@@ -124,3 +124,35 @@ def flat_pq_artifact_from_numpy(artifact: dict, device) -> dict:
                          f"{codes.dtype} and {tuple(cent.shape)} "
                          f"{cent.dtype}")
     return {"codes": codes, "centroids": cent}
+
+
+def lm_params_from_numpy(params: dict, cfg, device) -> dict:
+    """The JAX LM params (numpy leaves) as the port's, leaf for leaf:
+    the token embedding through :func:`params_from_numpy`, every other
+    leaf — the stacked layers (``layers``, or ``loc``/``glob``/``rem``),
+    ``final_norm`` and ``lm_head`` — checked against the model's
+    :func:`~repro_torch.models.lm.param_spec` and ``cfg.param_dtype``."""
+    from repro_torch.models.lm import param_spec
+    spec = param_spec(cfg)
+    if set(params) != set(spec) | {"embed"}:
+        raise ValueError(f"params hold {sorted(params)}, the model "
+                         f"{sorted(set(spec) | {'embed'})}")
+    want = torch_dtype(cfg.param_dtype)
+
+    def convert(tree, spec_tree, path):
+        if isinstance(spec_tree, dict):
+            if set(tree) != set(spec_tree):
+                raise ValueError(f"{path}: leaves {sorted(tree)}, want "
+                                 f"{sorted(spec_tree)}")
+            return {k: convert(tree[k], spec_tree[k], f"{path}.{k}")
+                    for k in spec_tree}
+        t = tensor_from_numpy(tree, device)
+        if tuple(t.shape) != spec_tree[0] or t.dtype != want:
+            raise ValueError(f"{path}: {tuple(t.shape)} {t.dtype}, want "
+                             f"{spec_tree[0]} {want}")
+        return t
+
+    out = {"embed": params_from_numpy(params["embed"], cfg.embedding,
+                                      device)}
+    out.update({k: convert(params[k], spec[k], k) for k in spec})
+    return out

@@ -47,6 +47,7 @@ kernels' contract.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import json
@@ -105,6 +106,24 @@ def resolve_backend(backend: Optional[str] = None,
         raise ValueError("backend 'auto' resolves from the input tensor's "
                          "device; none was given")
     return "cuda" if torch.device(device).type == "cuda" else "torch"
+
+
+@contextlib.contextmanager
+def pinned_backend(backend: Optional[str]):
+    """Inside the block every op whose call names no backend resolves to
+    ``backend`` (through ``$REPRO_TORCH_KERNEL_BACKEND``); ``None``
+    changes nothing."""
+    old = os.environ.get(ENV_VAR)
+    if backend is not None:
+        _check_backend(backend)
+        os.environ[ENV_VAR] = backend
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop(ENV_VAR, None)
+        else:
+            os.environ[ENV_VAR] = old
 
 
 # ----------------------------------------------------------------------

@@ -3,9 +3,10 @@
 Replaces the TPU kernel ``src/repro/kernels/dpq_assign/dpq_assign.py::
 dpq_assign`` (Pallas body ``_assign_kernel``).  The kernel itself, with
 its design notes, is ``csrc/dpq_assign.cu``: one block per (row tile,
-subspace), centroids and their squared norms in shared memory, the
-distances and the running argmin in registers — bound by the
-operations of the distance loop.
+subspace), centroids and their squared norms in shared memory (in
+chunks of K when one subspace's table does not fit, as an LM token
+table's S = 320 does not), the distances and the running argmin in
+registers — bound by the operations of the distance loop.
 
 The wrapper checks device, dtype, shape and contiguity, allocates the
 codes with ``torch.empty``, launches on the current stream and raises
@@ -26,12 +27,22 @@ from repro_torch.kernels.dispatch import Tunable
 # rows per block (= threads per block)
 BLOCK_B = Tunable(256, (64, 128, 256, 512, 1024))
 
-# centroids[d] and their norms must fit one block's shared memory
+# a block's shared memory: one chunk of centroids[d] and their norms
 _MAX_SMEM = 227 * 1024
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-             ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+
+
+def chunk_centroids(k: int, s: int) -> int:
+    """Centroids staged at a time: all K when one subspace's table and
+    norms fit a block's shared memory, else the most that do."""
+    fit = _MAX_SMEM // ((s + 1) * 4)
+    if fit < 1:
+        raise ValueError(f"one centroid of S={s} floats exceeds a block's "
+                         f"shared memory")
+    return min(k, fit)
 
 
 def dpq_assign(e_sub: torch.Tensor, centroids: torch.Tensor,
@@ -68,9 +79,7 @@ def dpq_assign(e_sub: torch.Tensor, centroids: torch.Tensor,
                              f"{k_limit.dtype} {tuple(k_limit.shape)}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("dpq_assign takes contiguous inputs")
-    if k * (s + 1) * 4 > _MAX_SMEM:
-        raise ValueError(f"centroid table of one subspace (K={k}, S={s}) "
-                         f"exceeds a block's shared memory")
+    kc = chunk_centroids(k, s)
     block_b = BLOCK_B.default if block_b is None else int(block_b)
     if not 0 < block_b <= 1024:
         raise ValueError(f"block_b must lie in [1, 1024], got {block_b}")
@@ -81,7 +90,7 @@ def dpq_assign(e_sub: torch.Tensor, centroids: torch.Tensor,
     stream = torch.cuda.current_stream(e_sub.device).cuda_stream
     err = fn(e_sub.data_ptr(), centroids.data_ptr(),
              None if k_limit is None else k_limit.data_ptr(),
-             codes.data_ptr(), b, d, k, s, block_b, stream)
+             codes.data_ptr(), b, d, k, s, kc, block_b, stream)
     build.check("dpq_assign", err, "dpq_assign launch")
     dpq_assign.launches += 1
     return codes

@@ -338,10 +338,12 @@ def drive_random_query_stream(engine: RetrievalEngine, dim: int,
 def embedding_config_of_arch(family: str, cfg):
     """Pick the arch's main large-vocab EmbeddingConfig (engine demo)."""
     from repro_torch.models.recsys.fields import field_embedding_config
+    if family == "lm":                 # the token table
+        return cfg.embedding
     if family != "recsys":
         raise NotImplementedError(
             f"family {family!r} waits for its slice in ROADMAP.md; the "
-            f"port serves recsys archs")
+            f"port serves the lm and recsys archs")
     if cfg.model == "two_tower":       # the item table, as in JAX
         return field_embedding_config(cfg, cfg.n_items)
     return field_embedding_config(cfg, max(cfg.field_vocab_sizes))

@@ -1,5 +1,9 @@
-"""Serving launcher, three paths:
+"""Serving launcher, four paths:
 
+* ``--arch gemma3-4b`` / ``stablelm-3b``: the LM served on the paper's
+  path — init, export of the MGQE token table (``dpq_assign``), prefill
+  of a batch of prompts (above 1,024 tokens through the
+  ``flash_attention`` kernel), then greedy decode (``serve_lm``);
 * ``--engine``: export a quantized artifact, then serve a stream of
   batched requests through the micro-batching engine on the paper's
   Figure-1 path (codes + centroids, full table discarded);
@@ -15,12 +19,14 @@
         --arch two-tower-retrieval --full --candidates 1000000
     PYTHONPATH=src python -m repro_torch.launch.serve --arch deepfm \\
         --full --batch 4096
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-4b \\
+        --full --batch 2 --prompt-len 4096 --decode-steps 16
 
 run on the card and report lookups/second, queries/second or the
-batch's time; ``--device cpu`` runs the same paths on the CPU with the
-plain PyTorch ops.  The LM, async, hot-row, mesh, ``ivf_pq`` and
-host-staged paths of the JAX package's CLI are later slices in
-ROADMAP.md.
+batch's time, or the prefill's seconds and decode tokens/s;
+``--device cpu`` runs the same paths on the CPU with the plain PyTorch
+ops.  The async, hot-row, mesh, ``ivf_pq`` and host-staged paths of the
+JAX package's CLI are later slices in ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -34,6 +40,7 @@ import torch
 
 from repro_torch.configs.registry import get_arch
 from repro_torch.core.types import KERNEL_BACKENDS
+from repro_torch.kernels.dispatch import pinned_backend
 
 
 @dataclasses.dataclass
@@ -218,6 +225,83 @@ def serve_ctr(cfg, batch: int, device="cuda", sparse_ids=None) -> CTRRun:
     return CTRRun(model, params, artifacts, b, scores, seconds)
 
 
+@dataclasses.dataclass
+class LMRun:
+    """What :func:`serve_lm` built, served and measured."""
+
+    params: dict
+    artifact: dict                  # the token table's codes + centroids
+    prompts: torch.Tensor           # (B, prompt_len) int32
+    logits: torch.Tensor            # (B, V) f32, the prefill's last token
+    tokens: torch.Tensor            # (B, decode_steps + 1) greedy tokens
+    prefill_seconds: float
+    decode_seconds: float
+
+    @property
+    def tokens_per_s(self) -> float:
+        b, n = self.tokens.shape
+        return b * (n - 1) / self.decode_seconds if self.decode_seconds \
+            else 0.0
+
+
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def serve_lm(cfg, batch: int, prompt_len: int, decode_steps: int,
+             device="cuda", seed: int = 0) -> LMRun:
+    """An LM served as the paper serves its vocabulary: init, export
+    the token table to codes + centroids (the full table is not read
+    again), prefill ``batch`` prompts of ``prompt_len`` random tokens
+    (numpy seed 0, as the JAX package draws them), then
+    ``decode_steps`` greedy steps against the KV cache."""
+    from repro_torch.core import Embedding
+    from repro_torch.core.api import resolve_device
+    from repro_torch.models import lm
+
+    device = resolve_device(device)
+    params = lm.model_init(torch.Generator(device=device).manual_seed(seed),
+                           cfg)
+    emb = Embedding(cfg.embedding, device=device)
+    with torch.no_grad():
+        artifact = emb.export(params["embed"])
+    full_bits = cfg.embedding.vocab_size * cfg.embedding.dim * 32
+    print(f"embedding artifact: {emb.serving_size_bits()/8/1e6:.2f} MB "
+          f"({100*emb.serving_size_bits()/full_bits:.1f}% of full)")
+
+    rng = np.random.default_rng(0)
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (batch, prompt_len)).astype(np.int32)).to(device)
+    max_seq = prompt_len + decode_steps
+
+    with torch.no_grad():
+        _sync(device)
+        t0 = time.perf_counter()
+        cache, logits = lm.prefill(params, prompts, cfg, max_seq=max_seq,
+                                   embed_artifact=artifact)
+        _sync(device)
+        prefill_s = time.perf_counter() - t0
+        print(f"prefill: {prefill_s:.6f}s; logits {tuple(logits.shape)}")
+
+        tok = torch.argmax(logits, -1).to(torch.int32)
+        out = [tok]
+        t0 = time.perf_counter()
+        for _ in range(decode_steps):
+            cache, step_logits = lm.decode_step(params, cache, tok, cfg,
+                                                embed_artifact=artifact)
+            tok = torch.argmax(step_logits, -1).to(torch.int32)
+            out.append(tok)
+        _sync(device)
+        decode_s = time.perf_counter() - t0
+    run = LMRun(params, artifact, prompts, logits, torch.stack(out, 1),
+                prefill_s, decode_s)
+    print(f"decoded {decode_steps} steps x B={batch} in {decode_s:.6f}s "
+          f"({run.tokens_per_s:.1f} tok/s) on {device}; sample: "
+          f"{run.tokens[0, :8].tolist()}")
+    return run
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
@@ -239,14 +323,21 @@ def main(argv=None):
                     help="retrieval: keep the list tables in host memory "
                          "(not ported: IVF is a later slice)")
     ap.add_argument("--batch", type=int, default=4,
-                    help="CTR serving: rows in the scored batch")
+                    help="CTR serving: rows in the scored batch; LM "
+                         "serving: prompts")
+    ap.add_argument("--prompt-len", type=int, default=32,
+                    help="LM serving: tokens per prompt")
+    ap.add_argument("--decode-steps", type=int, default=16,
+                    help="LM serving: greedy decode steps")
     ap.add_argument("--requests", type=int, default=200)
     ap.add_argument("--req-batch", type=int, default=64)
     ap.add_argument("--zipf-a", type=float, default=0.0,
                     help="drive the engine with Zipf(a) power-law ids "
                          "instead of uniform (needs a > 1.0)")
     ap.add_argument("--kernel-backend", default=None,
-                    choices=KERNEL_BACKENDS)
+                    choices=KERNEL_BACKENDS,
+                    help="backend of the embedding ops (LM: of every op "
+                         "of the run)")
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (default: the card; "
                          "'cpu' runs the plain PyTorch ops)")
@@ -263,6 +354,13 @@ def main(argv=None):
         return serve_engine(family, cfg, args.requests, args.req_batch,
                             backend=args.kernel_backend, zipf_a=args.zipf_a,
                             device=args.device).stats
+    if family == "lm":
+        if min(args.batch, args.prompt_len) < 1 or args.decode_steps < 0:
+            ap.error("--batch and --prompt-len must be >= 1 and "
+                     "--decode-steps >= 0")
+        with pinned_backend(args.kernel_backend):
+            return serve_lm(cfg, args.batch, args.prompt_len,
+                            args.decode_steps, device=args.device)
     if cfg.model != "two_tower":
         if args.batch < 1:
             ap.error(f"--batch must be >= 1, got {args.batch}")

@@ -40,11 +40,11 @@ def recsys_setup(cfg, batch: int, device="cuda", start: int = 0):
     ``start`` on."""
     from repro_torch.data.synthetic import CTRStream
     from repro_torch.launch.cells import recsys_model
-    if cfg.model != "deepfm":
+    if getattr(cfg, "model", None) != "deepfm":
         raise NotImplementedError(
-            f"training {cfg.model!r} is not ported yet (TwoTower.loss, "
-            f"AutoInt and BST wait for their slices in ROADMAP.md); "
-            f"trainable: deepfm")
+            f"training {cfg.name!r} is not ported yet (TwoTower.loss, "
+            f"AutoInt, BST and LM training wait for their slices in "
+            f"ROADMAP.md); trainable: deepfm")
     device = resolve_device(device)
     model = recsys_model(cfg, device=device)
     params = model.init(torch.Generator(device=device).manual_seed(0))

@@ -1,2 +1,3 @@
-"""Model families; the recsys family (DeepFM, two-tower) is ported, the
-LM and GNN families follow their slices in ROADMAP.md."""
+"""Model families: the recsys family (DeepFM, two-tower) and the dense
+LMs (``lm.py``) are ported; MoE LMs and the GNN family follow their
+slices in ROADMAP.md."""

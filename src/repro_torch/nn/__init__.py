@@ -1,1 +1,2 @@
-"""Dense layers of the recsys towers: initializers and MLP stacks."""
+"""Neural-net building blocks: initializers, MLP and GLU FFN stacks,
+normalization, rotary embeddings and attention."""

@@ -1,5 +1,4 @@
-"""Plain MLP stacks (the recsys towers).  The GLU FFN of the LM family
-waits for the LM slice in ROADMAP.md."""
+"""Dense FFN blocks: GeGLU/SwiGLU (LM) and plain MLP stacks (recsys)."""
 from __future__ import annotations
 
 from typing import Sequence
@@ -14,6 +13,23 @@ _ACTS = {
     "relu": torch.relu,
     "tanh": torch.tanh,
 }
+
+
+def glu_ffn_init(gen: torch.Generator, d_model: int, d_ff: int,
+                 dtype=torch.float32) -> dict:
+    s_in, s_ff = d_model ** -0.5, d_ff ** -0.5
+    return {
+        "w_gate": init.normal(gen, (d_model, d_ff), s_in, dtype),
+        "w_up": init.normal(gen, (d_model, d_ff), s_in, dtype),
+        "w_down": init.normal(gen, (d_ff, d_model), s_ff, dtype),
+    }
+
+
+def glu_ffn(params: dict, x: torch.Tensor, act: str = "gelu") -> torch.Tensor:
+    fn = _ACTS[act]
+    gate = fn(x @ params["w_gate"].to(x.dtype))
+    up = x @ params["w_up"].to(x.dtype)
+    return (gate * up) @ params["w_down"].to(x.dtype)
 
 
 def mlp_init(gen: torch.Generator, dims: Sequence[int], *, bias: bool = True,

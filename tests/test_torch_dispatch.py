@@ -27,8 +27,9 @@ def test_backends_are_cuda_and_torch():
     assert dispatch.BACKENDS == ("auto", "cuda", "torch")
     assert KERNEL_BACKENDS == dispatch.BACKENDS
     assert set(dispatch.registered_ops()) == {
-        "dpq_assign", "embedding_bag", "mgqe_decode", "packed_decode",
-        "pq_score", "pq_score_batched", "pq_topk", "rq_decode_stages"}
+        "dpq_assign", "embedding_bag", "flash_attention", "mgqe_decode",
+        "packed_decode", "pq_score", "pq_score_batched", "pq_topk",
+        "rq_decode_stages"}
     for impls in dispatch.registered_ops().values():
         assert set(impls) == {"cuda", "torch"}
 
@@ -78,6 +79,22 @@ def test_env_cuda_on_cpu_tensors_raises_not_falls_back(monkeypatch):
     monkeypatch.setenv(dispatch.ENV_VAR, "cuda")
     with pytest.raises(ValueError, match="CUDA tensors"):
         dispatch.dispatch("mgqe_decode", codes, cent)
+
+
+def test_pinned_backend_pins_and_restores(monkeypatch):
+    """Inside the block an op with no backend of its own resolves to
+    the pinned one; after it the environment is as it was."""
+    import os
+    with dispatch.pinned_backend("torch"):
+        assert dispatch.resolve_backend(None, torch.device("cuda")) == "torch"
+    assert dispatch.ENV_VAR not in os.environ
+    monkeypatch.setenv(dispatch.ENV_VAR, "cuda")
+    with dispatch.pinned_backend(None):
+        assert os.environ[dispatch.ENV_VAR] == "cuda"
+    with pytest.raises(ValueError, match="auto"):
+        with dispatch.pinned_backend("tpu"):
+            pass
+    assert os.environ[dispatch.ENV_VAR] == "cuda"
 
 
 def test_unknown_op_raises():

@@ -239,4 +239,5 @@ def test_cli_refuses_unported_or_bad_flags(argv):
 
 def test_cli_unknown_arch():
     with pytest.raises(KeyError, match="not ported"):
-        serve.main(["--arch", "gemma3-4b", "--engine", "--device", "cpu"])
+        serve.main(["--arch", "mixtral-8x7b", "--engine", "--device",
+                    "cpu"])

@@ -799,3 +799,196 @@ def test_deepfm_train_step_on_card_matches_cpu(cuda):
     for a, c in zip(tree_leaves([host.params, host.opt_state["acc"]]),
                     tree_leaves([card.params, card.opt_state["acc"]])):
         assert torch.allclose(c.cpu(), a, rtol=1e-5, atol=1e-5)
+
+
+# ----------------------------------------------------------------------
+# the LM slice: flash_attention, dpq_assign at LM widths, the smoke LM
+# ----------------------------------------------------------------------
+
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}   # the JAX bars
+# bf16 also per row against the plain version in float32 on the same
+# inputs: P and the output are each rounded once to bf16 (<= 2^-8 of a
+# value each), so within 4 * 2^-8 of the row's largest |output|
+FLASH_BF16_ROW_TOL = 4 * 2 ** -8
+FULL = 1 << 30
+
+# (b, sq, skv, h, hkv, hd, window): gemma3-4b's local and global layers
+# at a 4,096-token prefill, stablelm-3b's, the JAX tests' four shapes, an
+# odd length, the smoke configs' hd = 16 and rows that see no key
+FLASH_SHAPES = {
+    "gemma_local": (2, 4096, 4096, 8, 4, 320, 1024),
+    "gemma_global": (2, 4096, 4096, 8, 4, 320, FULL),
+    "stablelm": (1, 2048, 2048, 32, 32, 80, FULL),
+    "jax_gqa": (2, 256, 256, 4, 2, 64, FULL),
+    "jax_window": (1, 128, 128, 4, 4, 32, 64),
+    "jax_cross": (2, 128, 384, 8, 2, 64, FULL),
+    "jax_wide_window": (1, 256, 256, 2, 1, 128, 300),
+    "odd_1500": (1, 1500, 1500, 8, 4, 320, 1024),
+    "smoke_hd16": (2, 1100, 1100, 4, 2, 16, 8),
+    "no_key_rows": (1, 200, 40, 2, 1, 64, 8),
+}
+
+
+def _flash_inputs(shape, dtype, device, seed=0):
+    b, sq, skv, h, hkv, hd, _ = shape
+    g = torch.Generator(device=device).manual_seed(seed)
+    # q and k at unit scale: scores of std 1, so each row's weights
+    # follow its scores rather than a near-uniform mean
+    q = torch.randn((b, sq, h, hd), generator=g, device=device)
+    k = torch.randn((b, skv, hkv, hd), generator=g, device=device)
+    v = torch.randn((b, skv, hkv, hd), generator=g, device=device)
+    return q.to(dtype), k.to(dtype), v.to(dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("name", sorted(FLASH_SHAPES))
+def test_flash_attention_kernel_matches_plain(cuda, name, dtype):
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_ref)
+    shape = FLASH_SHAPES[name]
+    q, k, v = _flash_inputs(shape, dtype, cuda)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, window=shape[-1])
+    want = flash_attention_ref(q, k, v, window=shape[-1])
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert got.shape == want.shape and got.dtype == dtype
+    tol = FLASH_TOL[dtype]
+    assert torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)
+    if dtype == torch.bfloat16:
+        want32 = flash_attention_ref(q.float(), k.float(), v.float(),
+                                     window=shape[-1])
+        bar = FLASH_BF16_ROW_TOL * want32.abs().amax(-1, keepdim=True)
+        assert bool(((got.float() - want32).abs() <= bar).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("block_k", [32, 64])
+def test_flash_attention_kernel_tiles_and_strides(cuda, block_k):
+    """Either KV tile gives the plain version's numbers, and inputs
+    read through strides (every other head of a wider tensor) equal
+    their contiguous copies."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_ref)
+    shape = (2, 333, 333, 8, 4, 80, 100)
+    q, k, v = _flash_inputs(shape, torch.float32, cuda, seed=1)
+    want = flash_attention_ref(q, k, v, window=100)
+    got = flash_attention(q, k, v, window=100, block_k=block_k)
+    assert torch.allclose(got, want, rtol=2e-5, atol=2e-5)
+    wide = torch.cat([q, q], dim=3).reshape(2, 333, 16, 80)[:, :, ::2]
+    assert not wide.is_contiguous() and torch.equal(wide, q)
+    assert torch.equal(flash_attention(wide, k, v, window=100,
+                                       block_k=block_k),
+                       flash_attention(q, k, v, window=100, block_k=block_k))
+
+
+@pytest.mark.gpu
+def test_flash_attention_kernel_refuses_what_it_does_not_take(cuda):
+    from repro_torch.kernels.flash_attention import flash_attention
+    q, k, v = _flash_inputs((1, 64, 64, 4, 2, 32, FULL), torch.float32, cuda)
+    before = flash_attention.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        flash_attention(q.clone().requires_grad_(), k, v)
+    with pytest.raises(TypeError, match="one dtype"):
+        flash_attention(q, k.to(torch.bfloat16), v)
+    with pytest.raises(ValueError, match="not compiled"):
+        flash_attention(q[..., :24], k[..., :24], v[..., :24])
+    with pytest.raises(ValueError, match="multiple of Hkv"):
+        flash_attention(q[:, :, :3], k, v)
+    with pytest.raises(ValueError, match="stride 1"):
+        flash_attention(q.transpose(2, 3).contiguous().transpose(2, 3),
+                        k, v)
+    with pytest.raises(ValueError, match="32 or 64"):
+        flash_attention(q, k, v, block_k=128)
+    assert flash_attention.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [256, 64])
+def test_dpq_assign_kernel_at_lm_widths(cuda, k):
+    """An LM token table: D = 8, S = 2560 / 8 = 320.  At K = 256 one
+    subspace's table (321 KB) does not fit a block's shared memory, so
+    the kernel walks K in two chunks."""
+    from repro_torch.kernels.dpq_assign.dpq_assign import chunk_centroids
+    b, d, s = 16384, 8, 320
+    assert chunk_centroids(256, s) < 256 <= 2 * chunk_centroids(256, s)
+    rng = np.random.default_rng(k)
+    scale = (d * s) ** -0.5
+    e = torch.from_numpy((rng.normal(size=(b, d, s)) * scale
+                          ).astype(np.float32)).to(cuda)
+    c = torch.from_numpy((rng.normal(size=(d, k, s)) * scale
+                          ).astype(np.float32)).to(cuda)
+    klim = np.where(rng.random(b) < 0.1, k, min(k, 64)).astype(np.int32)
+    for lim in (None, torch.from_numpy(klim).to(cuda)):
+        got = dpq_assign(e, c, lim)
+        want = dpq_assign_ref(e, c, lim)
+        torch.cuda.synchronize()
+        e64, c64 = e.double(), c.double()
+        dist = (torch.sum(c64 * c64, -1)[None]
+                - 2.0 * torch.einsum("bds,dks->bdk", e64, c64))
+        gap = (dist.gather(-1, got.long()[..., None])
+               - dist.gather(-1, want.long()[..., None])).abs()
+        assert float(gap.max()) <= ASSIGN_TOL
+        if lim is not None:
+            assert (got.cpu().numpy() < klim[:, None]).all()
+
+
+@pytest.mark.gpu
+def test_dpq_assign_kernel_ties_across_chunks(cuda):
+    """A centroid repeated in a later chunk never wins: the first index
+    does, as torch.argmin's; a budget that ends inside the first chunk
+    never reaches the second."""
+    from repro_torch.kernels.dpq_assign.dpq_assign import chunk_centroids
+    d, k, s = 2, 600, 200
+    kc = chunk_centroids(k, s)
+    assert kc < k
+    rng = np.random.default_rng(2)
+    cent = rng.normal(size=(d, k, s)).astype(np.float32)
+    cent[:, kc + 5] = cent[:, 7]                  # exact tie across chunks
+    cent[:, 2 * kc + 1] = cent[:, 7]
+    e = np.repeat(cent[None, :, 7, :], 5, axis=0)
+    c, et = torch.from_numpy(cent).to(cuda), torch.from_numpy(e).to(cuda)
+    assert (dpq_assign(et, c).cpu() == 7).all()
+    lim = torch.tensor([3, 8, kc + 6, k, 0], dtype=torch.int32, device=cuda)
+    got = dpq_assign(et, c, lim).cpu()
+    assert torch.equal(got, dpq_assign_ref(et, c, lim).cpu())
+    assert got[1:4].eq(7).all() and got[4].eq(0).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["stablelm-3b", "gemma3-4b"])
+def test_lm_smoke_on_card_matches_cpu(cuda, arch):
+    """The smoke LM served from the same params and artifact on the card
+    and on the CPU, a 1,100-token prompt (the chunked route: the
+    flash_attention kernel on the card): prefill and 3 decode steps'
+    logits within 1e-4, greedy tokens equal."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.schemes.base import tree_map
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import lm
+    _, cfg = get_arch(arch, smoke=True)
+    params = lm.model_init(torch.Generator().manual_seed(0), cfg)
+    art = Embedding(cfg.embedding, device="cpu").export(params["embed"])
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 1100)).astype(np.int32))
+    runs = []
+    for dev in ("cpu", cuda):
+        p, a = (tree_map(lambda t: t.to(dev), x) for x in (params, art))
+        before = flash_attention.launches
+        with torch.no_grad():
+            cache, logits = lm.prefill(p, tokens.to(dev), cfg, max_seq=1103,
+                                       embed_artifact=a)
+            out = [logits]
+            for _ in range(3):
+                tok = torch.argmax(logits, -1).to(torch.int32)
+                cache, logits = lm.decode_step(p, cache, tok, cfg,
+                                               embed_artifact=a)
+                out.append(logits)
+        runs.append([x.cpu() for x in out])
+        launched = flash_attention.launches - before
+        assert launched == (cfg.num_layers if dev == cuda else 0)
+    for host, card in zip(*runs):
+        assert torch.allclose(card, host, rtol=1e-4, atol=1e-4)
+        assert torch.equal(torch.argmax(card, -1), torch.argmax(host, -1))

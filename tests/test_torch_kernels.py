@@ -221,6 +221,8 @@ def test_kernel_sources_are_listed_and_hashed(tmp_path, monkeypatch):
         "dpq_assign": ("dpq_assign/dpq_assign.py", ["dpq_assign"]),
         "embedding_bag": ("embedding_bag/embedding_bag.py",
                           ["embedding_bag"]),
+        "flash_attention": ("flash_attention/flash_attention.py",
+                            ["flash_attention"]),
         "mgqe_decode": ("mgqe_decode/mgqe_decode.py", ["mgqe_decode"]),
         "packed_decode": ("packed_decode/packed_decode.py",
                           ["packed_decode"]),
