@@ -9,7 +9,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    nvcc, one process per source, all at once;
 3. hold each kernel against its plain PyTorch version on the card at
    the paths' shapes (``mgqe_decode``, ``rq_decode_stages``,
-   ``packed_decode`` and the pq kernels: bit-identical; ``dpq_assign``:
+   ``packed_decode`` and the pq kernels: bit-identical, ``pq_topk``
+   also on scores rising with the id; ``dpq_assign``:
    identical codes except between distances equal to within
    ``ASSIGN_TOL``);
 4. drive the first main path at full width: deepfm's ``CONFIG`` -> its
@@ -60,12 +61,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
    (codes compared first, loss and params within their bars) and a run
    failed at step 3 and resumed against an uninterrupted one;
 9. the LM phase: ``flash_attention`` against its plain version in
-   float32 and bfloat16 at gemma3-4b's local (window 1,024) and global
-   layer shapes (B=2, S=4,096, 8 query heads over 4 KV heads, hd=320),
-   stablelm-3b's (B=1, S=2,048, 32 heads, hd=80), the JAX tests' shapes
-   and an odd length (bars: ``FLASH_TOL``; bf16 also per row against
-   the plain version in float32, ``FLASH_BF16_ROW_TOL``, which two
-   planted faults must fail); ``dpq_assign`` at an LM
+   float32 (CUDA cores) and bfloat16 (tensor cores) at gemma3-4b's local
+   (window 1,024) and global layer shapes (B=2, S=4,096, 8 query heads
+   over 4 KV heads, hd=320), gemma3-27b's (B=1, S=4,096, 32 heads over
+   16, hd=168), stablelm-3b's (B=1, S=2,048, 32 heads, hd=80), the JAX
+   tests' shapes and an odd length (bars: ``FLASH_TOL``; bf16 also per
+   row against the plain version in float32, ``FLASH_BF16_ROW_TOL``,
+   which two planted faults must fail); ``dpq_assign`` at an LM
    token table's widths (D=8, S=320, K=256 in two chunks of shared
    memory, and K=64) against the plain assignment; then gemma3-4b at
    ``configs/gemma3_4b.py::CONFIG`` through ``launch.serve.serve_lm`` —
@@ -75,11 +77,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
    set to 0 just before and read just after; the token rows held
    bit-identical to the plain decode, exported codes to the plain
    assignment, the last-token logits to the same prefill on the plain
-   ops (``LM_LOGIT_TOL`` and top-1 tokens equal, a check the kernel
-   route with a planted window fault must fail); the prefill and one decode step under the
-   profiler; then ``flash_attention``, its plain version and
-   ``F.scaled_dot_product_attention`` timed at the local and global
-   shapes; the card is freed after;
+   ops (``LM_LOGIT_TOL`` and top-1 tokens equal), and each prefill
+   layer, fed the plain route's input, to the plain route with its
+   attention in f32 (``LM_LAYER_TOL``: checks that the kernel route
+   with a planted window fault must fail); the prefill and one decode
+   step under the profiler; then ``flash_attention``, its plain
+   version and ``F.scaled_dot_product_attention`` timed at the local
+   and global shapes, and the kernel at gemma3-27b's at either KV
+   tile; the card is freed after;
 10. free the card and drive the retrieval path at full width:
    two-tower retrieval at ``configs/two_tower_retrieval.py::CONFIG``
    (50M users, 10M items, embed_dim 256, towers 1024-512-256) through
@@ -95,7 +100,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the same tower outputs) against the plain assignment, as in 3, and
    print the peak device memory;
 11. time the pq kernels at that path's shapes (and ``dpq_assign`` at
-   the index's), as in 5;
+   the index's), as in 5, and ``pq_topk`` also on its worst case
+   (scores rising with the id, held to the exact answer) and beside
+   ``torch.topk(pq_score_batched(...))``, the two calls it fuses;
 12. print one ``{"kernels": [...]}`` JSON line (launches summed over
    every path), then, last, the ``{"ok": true, "device": ...}`` line.
 
@@ -170,14 +177,19 @@ FLASH_QK_SCALE = 1.0
 # 4 * 2^-8 of the row's largest |output|.  The planted faults of
 # ``planted_attention`` must fail this bar.
 FLASH_BF16_ROW_TOL = 4 * 2 ** -8
-FLASH_TILE = 64                        # the kernel's KV tile (block_k)
+# the planted faults' unit: one KV tile of 64 keys (the f32 kernel's
+# tile; the bf16 kernel's is 32 or 64)
+FLASH_TILE = 64
 # (name, b, s_q, s_kv, h, h_kv, hd, window): gemma3-4b's local and global
-# layers at the path's prefill, stablelm-3b's, the JAX tests' shapes
-# (tests/test_kernels.py: cross-length, a window wider than a tile) and
-# an odd length
+# layers at the path's prefill, gemma3-27b's (hd = 5,376 / 32 = 168, not
+# a multiple of the tensor cores' k-depth of 16), stablelm-3b's, the JAX
+# tests' shapes (tests/test_kernels.py: cross-length, a window wider
+# than a tile) and an odd length
 FLASH_CASES = (
     ("gemma3-4b local", 2, 4096, 4096, 8, 4, 320, 1024),
     ("gemma3-4b global", 2, 4096, 4096, 8, 4, 320, FULL_WINDOW),
+    ("gemma3-27b local", 1, 4096, 4096, 32, 16, 168, 1024),
+    ("gemma3-27b global", 1, 4096, 4096, 32, 16, 168, FULL_WINDOW),
     ("stablelm-3b", 1, 2048, 2048, 32, 32, 80, FULL_WINDOW),
     ("jax gqa", 2, 256, 256, 4, 2, 64, FULL_WINDOW),
     ("jax window", 1, 128, 128, 4, 4, 32, 64),
@@ -193,6 +205,16 @@ FLASH_CASES = (
 # window one KV tile short (0.1562; H100 SXM, 700 W).  The kernel route
 # with that planted fault must fail the check.
 LM_LOGIT_TOL = 0.125
+# each prefill layer fed the plain route's input to it (the plain route
+# with its attention in f32 on the same bf16 inputs), the kernel route's
+# output held to that route's: the largest over the 34 layers of the
+# mean |diff| of a layer's output.  The sound route read 0.00188, both
+# planted window faults 0.01182 (6.3x; H100 SXM, 700 W); no statistic
+# of the final output (last-token logits or every position's hidden
+# state, max or mean, against either plain route) reached 2x.  The bar
+# sits between them, 2.7x above the sound reading and 2.4x below the
+# faults'.
+LM_LAYER_TOL = 0.005
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -361,11 +383,42 @@ def build_kernels():
     log(f"build: {sorted(reports) or 'already built'} in "
         f"{time.perf_counter() - t0:.1f}s -> {build.BUILD_DIR}")
     for name, text in sorted(reports.items()):
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+        for entry, regs, spills in ptxas_entries(text):
+            log(f"  ptxas {name} {entry}: {regs} registers, {spills}")
     for name in build.sources():
         build.library(name)
+
+
+def ptxas_entries(text: str) -> list:
+    """(kernel, registers, spills) per entry function of one source's
+    ``nvcc -Xptxas -v`` report, the kernel named from its mangled name
+    with its integer template arguments (``flash_bf16_kernel<320,32>``)."""
+    import re
+    out, entry, spills = [], "?", "?"
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']*)'", line)
+        if m:
+            # _ZN <length><name> ... [I <template args> E] E: the last
+            # name before the arguments is the kernel's
+            rest, entry = m.group(1).removeprefix("_ZN"), m.group(1)[:60]
+            while (part := re.match(r"(\d+)", rest)):
+                start = len(part.group(1))
+                entry = rest[start:start + int(part.group(1))]
+                rest = rest[start + len(entry):]
+            args = re.match(r"I(.*?)EE", rest)
+            if args:
+                entry += "<" + ",".join(
+                    re.findall(r"Li(\d+)E", args.group(1) + "E")
+                    or [{"h": "uint8", "i": "int32"}.get(args.group(1)[:1],
+                                                         args.group(1))]) + ">"
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = f"{m.group(1)}/{m.group(2)} bytes spill stores/loads"
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.append((entry, int(m.group(1)), spills))
+    return out
 
 
 def check_kernels() -> dict:
@@ -509,7 +562,35 @@ def check_pq_kernels() -> dict:
                                            finite_err(got, want))
             errs["pq_score"] = max(errs["pq_score"], finite_err(s1, w1))
             errs["pq_topk"] = max(errs["pq_topk"], finite_err(ts, ws))
+    # the selection's worst case: scores that rise with the id, so every
+    # candidate passes every threshold
+    luts, codes = rising_scores(16, n, d, k)
+    ts, ti = pq_topk(luts, codes, TOPK)
+    ws, wi = pq_topk_ref(luts, codes, TOPK)
+    torch.cuda.synchronize()
+    same = torch.equal(bits(ts), bits(ws)) and torch.equal(ti, wi)
+    log(f"check pq_topk N={n} B=16 D={d} K={k} k={TOPK} scores rising with "
+        f"the id: bit-identical={same}")
+    need(same and int(ti[0, 0]) == n - 1, "pq_topk bit-identical on scores "
+         "rising with the id")
     return errs
+
+
+def rising_scores(b, n, d, k):
+    """LUTs (b, d, k) and codes (n, d) uint8 under which candidate n
+    scores exactly n: its id's base-k digits as codes of the first
+    subspaces, each weighted by its place (exact in f32 below 2^24)."""
+    import torch
+    digits = max(1, math.ceil(math.log(n, k))) if n > 1 else 1
+    need(digits <= d and k ** digits <= 2 ** 24, "rising scores fit")
+    ids = torch.arange(n, device="cuda")
+    codes = torch.zeros((n, d), dtype=torch.uint8, device="cuda")
+    luts = torch.zeros((b, d, k), device="cuda")
+    for j in range(digits):
+        place = k ** (digits - 1 - j)
+        codes[:, j] = ((ids // place) % k).to(torch.uint8)
+        luts[:, j, :] = torch.arange(k, device="cuda").float() * place
+    return luts, codes
 
 
 def small_table_against_cpu(cfg=None):
@@ -1645,6 +1726,143 @@ def window_short_by_a_tile(layers: int):
         attn.chunked_attention = sound
 
 
+@contextlib.contextmanager
+def attention_in_f32():
+    """The plain route with its attention computed in float32 on the
+    same bf16 inputs (scores and P unrounded), the output rounded once
+    to bf16."""
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+    from repro_torch.nn import attention as attn
+    sound = attn.chunked_attention
+
+    def f32(q, k, v, qpos, kpos, window=attn.FULL_WINDOW, **kw):
+        return flash_attention_ref(q.float(), k.float(), v.float(),
+                                   int(window)).to(q.dtype)
+    attn.chunked_attention = f32
+    try:
+        yield
+    finally:
+        attn.chunked_attention = sound
+
+
+def lm_statistics(run, cfg) -> dict:
+    """Distances from the kernel route (sound, and with the window one
+    KV tile short on layer 0 and on every local layer) to two plain
+    routes (bf16 attention; attention in f32 on the same inputs), read
+    on the last-token logits and on every position's final hidden
+    state, max and mean |diff|.  Returns {statistic: (sound, fault on
+    1 layer, fault on every layer)} for each plain route."""
+    import torch
+    from repro_torch.kernels.dispatch import pinned_backend
+    from repro_torch.models import lm
+
+    def hidden():
+        with torch.no_grad():
+            return lm.forward(run.params, run.prompts, cfg,
+                              embed_artifact=run.artifact)[0]
+
+    def logits(h):
+        return (h[:, -1] @ run.params["lm_head"].to(h.dtype)).float()
+
+    routes = {"sound": hidden()}
+    for layers in (1, cfg.num_layers):
+        with window_short_by_a_tile(layers):
+            routes[layers] = hidden()
+    refs = {}
+    with pinned_backend("torch"):
+        refs["plain bf16"] = hidden()
+        with attention_in_f32():
+            refs["plain f32"] = hidden()
+    out = {}
+    for ref_name, ref in refs.items():
+        ref_logits = logits(ref)
+        for what in ("logits", "hidden"):
+            for stat in ("max", "mean"):
+                vals = []
+                for key in ("sound", 1, cfg.num_layers):
+                    got = routes[key]
+                    d = ((logits(got) - ref_logits) if what == "logits"
+                         else (got.float() - ref.float())).abs()
+                    vals.append(float(d.max() if stat == "max"
+                                      else d.mean()))
+                out[(ref_name, what, stat)] = tuple(vals)
+                of = ("last-token logits" if what == "logits"
+                      else "final hidden state at every position")
+                log(f"lm statistic against the {ref_name} route, {stat} "
+                    f"|diff| of the {of}: sound {vals[0]:.5g}, window fault on layer 0 "
+                    f"{vals[1]:.5g} ({vals[1] / max(vals[0], 1e-30):.2f}x), "
+                    f"on every local layer {vals[2]:.5g} "
+                    f"({vals[2] / max(vals[0], 1e-30):.2f}x)")
+    del routes, refs
+    out.update(lm_layer_statistics(run, cfg))
+    return out
+
+
+def lm_layer_statistics(run, cfg) -> dict:
+    """Each layer of the prefill fed the plain route's input to that
+    layer (its output on the plain ops as the reference), so that bf16
+    noise does not build up from layer to layer: the largest over the
+    layers of the mean |diff| of a layer's output, for the kernel route
+    (sound, and with the window one KV tile short on layer 0 and on
+    every local layer) against the plain bf16 and the plain f32-
+    attention routes.  Returns {statistic: (sound, fault on 1 layer,
+    fault on every layer)}."""
+    import torch
+    from repro_torch.core import Embedding
+    from repro_torch.core.schemes.base import torch_dtype
+    from repro_torch.kernels.dispatch import pinned_backend
+    from repro_torch.models import lm
+
+    dtype = torch_dtype(cfg.dtype)
+    s = run.prompts.shape[1]
+    positions = torch.arange(s, dtype=torch.int32, device="cuda")
+    plan = [(lm._index(run.params[name], *idx), window, theta)
+            for name, idx, window, theta in lm._layer_plan(cfg, s)]
+
+    def layer(p, x, window, theta):
+        return lm.layer_forward(p, x, positions, window, theta, cfg)[0]
+
+    out = {}
+    with torch.no_grad():
+        x0 = Embedding(cfg.embedding, device="cuda").serve(run.artifact,
+                                                           run.prompts)
+        x0 = x0.to(dtype) * torch.tensor(cfg.d_model ** 0.5, dtype=dtype)
+        for ref_name in ("plain bf16", "plain f32"):
+            inputs, refs = [], []
+            x = x0
+            with pinned_backend("torch"), (attention_in_f32()
+                                           if ref_name == "plain f32"
+                                           else contextlib.nullcontext()):
+                for p, window, theta in plan:
+                    inputs.append(x)
+                    x = layer(p, x, window, theta)
+                    refs.append(x)
+            vals = []
+            for layers in (0, 1, cfg.num_layers):
+                per_layer = []
+                with (window_short_by_a_tile(layers) if layers
+                      else contextlib.nullcontext()):
+                    for (p, window, theta), xin, ref in zip(plan, inputs,
+                                                            refs):
+                        got = layer(p, xin, window, theta)
+                        per_layer.append(float((got.float() - ref.float())
+                                               .abs().mean()))
+                vals.append(max(per_layer))
+                if layers == 0:
+                    sound_layers = per_layer
+            out[(ref_name, "layer", "mean")] = tuple(vals)
+            log(f"lm statistic against the {ref_name} route, each layer fed "
+                f"that route's input: the largest mean |diff| of a layer's "
+                f"output: sound {vals[0]:.5g} (layer "
+                f"{sound_layers.index(vals[0])}), window fault on layer 0 "
+                f"{vals[1]:.5g} ({vals[1] / max(vals[0], 1e-30):.2f}x), on "
+                f"every local layer {vals[2]:.5g} "
+                f"({vals[2] / max(vals[0], 1e-30):.2f}x); sound per layer "
+                f"{[round(v, 5) for v in sound_layers]}")
+            del inputs, refs
+    return out
+
+
 def lm_path() -> dict:
     """gemma3-4b at ``configs/gemma3_4b.py::CONFIG`` through
     ``launch.serve.serve_lm``: init, MGQE export of the 262,144 x 2,560
@@ -1762,6 +1980,14 @@ def lm_path() -> dict:
     for layers, (bad, _, bad_top1) in planted.items():
         need(bad > LM_LOGIT_TOL or not bad_top1, f"the planted window "
              f"fault on {layers} layer(s) fails the logits check")
+    stats = lm_statistics(run, cfg)
+    sound, *faults = stats[("plain f32", "layer", "mean")]
+    need(sound <= LM_LAYER_TOL, f"every prefill layer within "
+         f"{LM_LAYER_TOL} (mean |diff|) of the plain route's, from the "
+         f"same input")
+    for layers, bad in zip((1, cfg.num_layers), faults):
+        need(bad > LM_LAYER_TOL, f"the planted window fault on {layers} "
+             f"layer(s) fails the per-layer check")
     del rows, rows_plain, logits_plain
 
     # where the time goes: one prefill and one decode step, profiled
@@ -1837,6 +2063,9 @@ def time_flash(err: float, launches: dict) -> dict:
                     qt, kt, vt, attn_mask=band, enable_gqa=True)
         ms, host = time_ms(lambda: flash_attention(q, k, v, window=win),
                            iters=10, warmup=2)
+        other = {bk: time_ms(lambda: flash_attention(q, k, v, window=win,
+                                                     block_k=bk),
+                             iters=10, warmup=2)[0] for bk in (32, 64)}
         plain, _ = time_ms(lambda: flash_attention_ref(q, k, v, window=win),
                            iters=3, warmup=1, hold=False)
         lib_ms, _ = time_ms(lib, iters=10, warmup=2)
@@ -1857,7 +2086,19 @@ def time_flash(err: float, launches: dict) -> dict:
             f"plain version {lib_err:.3g}), bound {max(t_ops, t_bytes):.5f} "
             f"ms ({flops} FLOP over {pairs} visible pairs at 989 TFLOP/s, "
             f"{nbytes} bytes); {flops / ms / 1e9:.2f} TFLOP/s; host time to "
-            f"launch {host:.5f} ms")
+            f"launch {host:.5f} ms; the kernel at block_k 32 / 64: "
+            f"{other[32]:.5f} / {other[64]:.5f} ms")
+    del q, k, v, qt, kt, vt
+    # gemma3-27b's layer (hd 168, zero-padded to 176 on the tensor
+    # cores) at either KV tile, for the tile the kernel picks by default
+    q, k, v = flash_inputs(1, s, s, 32, 16, 168, torch.bfloat16, seed=27)
+    for name, win in (("local", 1024), ("global", FULL_WINDOW)):
+        tiles = {bk: time_ms(lambda: flash_attention(q, k, v, window=win,
+                                                     block_k=bk),
+                             iters=10, warmup=2)[0] for bk in (32, 64)}
+        log(f"time flash_attention gemma3-27b {name} layer B=1 S={s} H=32 "
+            f"Hkv=16 hd=168 window={win} bf16: block_k 32 / 64: "
+            f"{tiles[32]:.5f} / {tiles[64]:.5f} ms")
     mix = [(times["local"], n_loc), (times["global"], n_glob)]
 
     def mean(i):
@@ -1866,7 +2107,7 @@ def time_flash(err: float, launches: dict) -> dict:
     log(f"time flash_attention per launch over the prefill's {n_loc} local "
         f"and {n_glob} global layers: kernel {mean(0):.5f} ms, plain "
         f"{mean(1):.5f} ms, library {mean(2):.5f} ms, bound {mean(3):.5f} ms")
-    del q, k, v, qt, kt, vt
+    del q, k, v
     gc.collect()
     torch.cuda.empty_cache()
     return {"name": "flash_attention", "route": "cuda",
@@ -2110,6 +2351,26 @@ def time_pq_kernels(errs: dict, launches: dict, luts, codes) -> tuple:
          lambda: pq_topk_ref(luts, codes, TOPK), None,
          n * d + b * d * k * 4 + b * TOPK * 8, b * n * d, b),
     ]
+    # pq_topk against the two-call composition it fuses (no single
+    # library call computes it), and on its worst case: scores rising
+    # with the id, every candidate passing every threshold
+    fused, _ = time_ms(lambda: pq_topk(luts, codes, TOPK), iters=20,
+                       warmup=2)
+    two, _ = time_ms(lambda: torch.topk(pq_score_batched(luts, codes), TOPK),
+                     iters=20, warmup=2)
+    r_luts, r_codes = rising_scores(b, n, d, k)
+    worst, _ = time_ms(lambda: pq_topk(r_luts, r_codes, TOPK), iters=3,
+                       warmup=1)
+    ws, wi = pq_topk(r_luts, r_codes, TOPK)
+    want = torch.arange(n - 1, n - 1 - TOPK, -1, device="cuda",
+                        dtype=torch.int32).expand(b, TOPK)
+    need(torch.equal(wi, want) and torch.equal(ws, want.float()),
+         "pq_topk's worst case: the last k ids, scores equal to the ids")
+    log(f"time pq_topk N={n} B={b} D={d} K={k} k={TOPK}: kernel {fused:.5f} "
+        f"ms (random LUTs), {worst:.5f} ms (worst case, scores rising with "
+        f"the id, held exact); torch.topk(pq_score_batched(...)) "
+        f"{two:.5f} ms, {two / fused:.2f}x the kernel's time")
+    del r_luts, r_codes, ws, wi, want
     for name, line, kern, plain_fn, lib_fn, nbytes, ops, bb in cases:
         ms, host = time_ms(kern, iters=20, warmup=2)
         plain, _ = time_ms(plain_fn, iters=3, warmup=1, hold=False)

@@ -4,9 +4,11 @@ Replaces the TPU kernel ``src/repro/kernels/flash_attention/
 flash_attention.py::flash_attention`` (Pallas body ``_flash_kernel``).
 The kernel itself, with its design notes, is
 ``csrc/flash_attention.cu``: one block per (query tile of 64 rows,
-query head, batch row) walks the KV tiles of its band with the online
-softmax state in shared memory and the output accumulator in
-registers; KV tiles wholly outside the band are skipped.  It reads
+query head, batch row) walks the KV tiles of its band with the output
+accumulator in registers; KV tiles wholly outside the band are
+skipped.  bfloat16 runs both products on the tensor cores (mma.sync,
+f32 accumulation, the softmax in registers); float32 stays on the CUDA
+cores in f32, since TF32 would miss the f32 bar.  It reads
 (B, S, H, hd) through strides: no transpose, and no g-fold repeat of
 K/V for GQA (query head h reads KV head h // g).
 
@@ -28,17 +30,25 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.dispatch import Tunable
 
-# KV rows per tile (None: the kernel's default, 64); the query tile is
-# fixed at 64 rows, 4 to each of the block's 256 threads
+# KV rows per tile, 32 or 64 for either dtype (None: default_block_k);
+# the query tile is fixed at 64 rows
 BLOCK_K = Tunable(None, (None, 32, 64))
 
-HEAD_DIMS = (16, 32, 64, 80, 128, 320)
+HEAD_DIMS = (16, 32, 64, 80, 128, 168, 320)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
              + [ctypes.c_longlong] * 10
              + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+
+
+def default_block_k(dtype: torch.dtype, hd: int) -> int:
+    """The KV tile a launch takes when the caller names none: 64 on the
+    CUDA cores (float32); on the tensor cores (bfloat16) 64, but 32 at
+    hd = 320, where a 64-key score tile beside the 16 x 320 f32
+    accumulator would leave the thread too few registers."""
+    return 32 if dtype == torch.bfloat16 and hd > 256 else 64
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -86,7 +96,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          "(stride 1)")
     if b > 65535 or h > 65535:
         raise ValueError(f"batch {b} and heads {h} must be <= 65535")
-    block_k = 64 if block_k is None else int(block_k)
+    block_k = default_block_k(q.dtype, hd) if block_k is None else int(block_k)
     if block_k not in (32, 64):
         raise ValueError(f"block_k must be 32 or 64, got {block_k}")
     out = torch.empty((b, sq, h, hd), dtype=q.dtype, device=q.device)

@@ -13,22 +13,24 @@ The kernels themselves, with their design notes, are in
 the plain version's order so the two are bit-identical.  The scoring
 kernels are bound by the bytes they move (codes in, scores out); the
 top-k by its adds, as it writes only (B, k) pairs — it takes two
-passes, a sorted top-k per (query, tile) and merges of those lists.
+passes: a selection per (query, chunk of candidates) that keeps a
+running threshold, and merges of the partial lists.
 
 Each wrapper checks device, dtype, rank and contiguity, allocates its
 outputs and scratch with ``torch.empty``, launches on the current
 stream, raises if the launch fails and adds one to its own
 ``launches`` count.  The kernels' shape limits (queries per launch,
-LUT bytes, tile and shared-memory sizes) live in ``csrc/pq_score.cu``
-alone: its entry points refuse a shape past them, and the wrapper
-raises with that error.  They take CUDA tensors only; the ops' CPU path is
-the plain version in ``ref.py``, chosen by the dispatch layer, never by
-a fallback here.
+LUT bytes, k, buffer and shared-memory sizes) are checked by
+``csrc/pq_score.cu``'s entry points, which refuse a shape past them;
+the wrapper raises with that error.  ``topk_plan`` sizes a ``pq_topk``
+launch from the same constants, and the entry point re-checks the plan.
+They take CUDA tensors only; the ops' CPU path is the plain version in
+``ref.py``, chosen by the dispatch layer, never by a fallback here.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -37,23 +39,35 @@ from repro_torch.kernels.dispatch import Tunable
 
 # candidates per block of the scoring kernel (256 threads stride them)
 SCORE_BLOCK_N = Tunable(1024, (256, 512, 1024, 2048, 4096))
-# candidates per tile of pq_topk's first pass: a power of two >= k; the
-# tile is cut to the next power of two >= max(N, k) for small corpora
-TOPK_BLOCK_N = Tunable(8192, (1024, 2048, 4096, 8192))
+# candidates per block of pq_topk's selection pass (None: as many
+# blocks as fill the card once, see topk_plan)
+TOPK_BLOCK_N = Tunable(None, (None, 4096, 16384, 65536, 262144))
+
+# pq_topk's constants, as csrc/pq_score.cu defines them (its entry point
+# refuses a plan past them): candidates a selection round scores (one a
+# thread), the selection blocks an SM its launch bounds allow, queries a
+# block, the largest k, pairs a merge block sorts, and the shared memory
+# of one SM (of which the runtime keeps 1 KB a block, and the selection
+# kernel's static state takes under 1 KB)
+TOPK_THREADS = 256
+TOPK_BLOCKS_PER_SM = 3
+TOPK_MAX_Q = 16
+TOPK_MAX_K = 8192
+TOPK_MAX_MERGE = 16384
+SMEM_PER_SM = 228 * 1024
 
 _CODE_BYTES = {torch.uint8: 1, torch.int32: 4}
 
 _SCORE_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-_SCRATCH_ARGTYPES = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                     ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                     ctypes.POINTER(ctypes.c_longlong)]
 _TOPK_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                   ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                  ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                  ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                  ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
+                  ctypes.c_void_p]
 
 
 def _check(what: str, luts: torch.Tensor, codes: torch.Tensor) -> None:
@@ -122,18 +136,80 @@ def pq_score_batched(luts: torch.Tensor, codes: torch.Tensor,
     return out
 
 
-def topk_tile(n: int, k: int, block_n: Optional[int] = None) -> int:
-    """The first pass's tile: ``block_n`` (a power of two >= k; the
-    kernel's own limit on it is in ``csrc/pq_score.cu``) cut to the next
-    power of two >= max(N, k)."""
-    block_n = TOPK_BLOCK_N.default if block_n is None else int(block_n)
-    if block_n <= 0 or block_n & (block_n - 1):
-        raise ValueError(f"pq_topk's block_n must be a power of two, got "
-                         f"{block_n}")
-    if k > block_n:
-        raise ValueError(f"pq_topk keeps k <= block_n; got k={k} > "
-                         f"{block_n}")
-    return min(block_n, 1 << (max(n, k, 1) - 1).bit_length())
+class TopkPlan(NamedTuple):
+    """One ``pq_topk`` launch: ``queries`` a selection block, ``cap``
+    buffer slots a query, ``chunk`` candidates a block, ``chunks``
+    blocks a query group (partial lists a query), and the scratch pairs
+    of the partial lists (``rows0``) and of the first merge round
+    (``rows1``); ``smem`` bytes of dynamic shared memory a block."""
+    queries: int
+    cap: int
+    chunk: int
+    chunks: int
+    rows0: int
+    rows1: int
+    smem: int
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def topk_plan(n: int, b: int, d: int, kk: int, k: int, sms: int,
+              block_n: Optional[int] = None) -> TopkPlan:
+    """Plan ``pq_topk`` over N = ``n`` candidates for B = ``b`` queries
+    of (D, K) = (``d``, ``kk``) LUTs on a card of ``sms`` SMs.
+
+    A block takes up to TOPK_MAX_Q queries, as many as keep it within
+    its share of an SM's shared memory (TOPK_BLOCKS_PER_SM blocks an
+    SM), else one; each query's buffer holds the next power of two
+    >= 2 k pairs, at least TOPK_THREADS, so that an overflow (a sort)
+    frees k slots or more.  ``block_n`` (candidates a block) left as
+    None cuts N into as many chunks as make one wave of blocks on the
+    card, each a multiple of TOPK_THREADS, but no more than one merge
+    block takes (TOPK_MAX_MERGE // k lists), so one merge round is
+    left."""
+    if not 0 < k <= TOPK_MAX_K:
+        raise ValueError(f"pq_topk takes 0 < k <= {TOPK_MAX_K}; got k={k}")
+    cap = max(TOPK_THREADS, 1 << (2 * k - 1).bit_length())
+    per_query = d * kk * 4 + cap * 8
+    queries = max(1, min(TOPK_MAX_Q, b,
+                         (SMEM_PER_SM // TOPK_BLOCKS_PER_SM - 2048)
+                         // per_query))
+    # the LUT rows hold the queries innermost, padded to 4, 8 or 16 from
+    # 4 queries up (read four at a time)
+    width = queries if queries < 4 else 1 << (queries - 1).bit_length()
+    smem = width * d * kk * 4 + queries * cap * 8
+    groups = _cdiv(b, queries)
+    gmax = TOPK_MAX_MERGE // k
+    if block_n is None:
+        per_sm = max(1, min(TOPK_BLOCKS_PER_SM,
+                            SMEM_PER_SM // (smem + 2048)))
+        chunks = max(1, min(sms * per_sm // groups, gmax,
+                            _cdiv(n, TOPK_THREADS)))
+        chunk = _cdiv(_cdiv(max(n, 1), chunks), TOPK_THREADS) * TOPK_THREADS
+    else:
+        chunk = int(block_n)
+        if chunk <= 0:
+            raise ValueError(f"pq_topk's block_n must be positive, got "
+                             f"{chunk}")
+    chunks = _cdiv(n, chunk) if n > 0 else 1
+    first_round = _cdiv(chunks, gmax)
+    return TopkPlan(queries, cap, chunk, chunks,
+                    b * chunks * k if chunks > 1 else 0,
+                    b * first_round * k if first_round > 1 else 0, smem)
+
+
+def _sm_count(dev: torch.device) -> int:
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    sms = _SMS.get(idx)
+    if sms is None:
+        sms = _SMS[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return sms
+
+
+_SMS: Dict[int, int] = {}
 
 
 def pq_topk(luts: torch.Tensor, codes: torch.Tensor, k: int,
@@ -144,31 +220,25 @@ def pq_topk(luts: torch.Tensor, codes: torch.Tensor, k: int,
     ``(-inf, INVALID_ID)`` when k > N."""
     _check("pq_topk", luts, codes)
     k = int(k)
-    if k <= 0:
-        raise ValueError(f"k must be positive, got {k}")
     b, d, kk = luts.shape
     n = codes.shape[0]
-    tile = topk_tile(n, k, block_n)
-    what = (f"pq_topk at B={b} N={n} D={d} K={kk} k={k} tile={tile} "
-            f"(limits: csrc/pq_score.cu)")
-    rows = (ctypes.c_longlong * 2)()
-    err = build.function("pq_score", "pq_topk_scratch", _SCRATCH_ARGTYPES)(
-        n, b, d, kk, k, tile, rows)
-    build.check("pq_score", err, what)
-    rows0, rows1 = rows
     dev = luts.device
+    plan = topk_plan(n, b, d, kk, k, _sm_count(dev), block_n)
+    what = (f"pq_topk at B={b} N={n} D={d} K={kk} k={k} {plan} "
+            f"(limits: csrc/pq_score.cu)")
     out_s = torch.empty((b, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
-    s0 = torch.empty((rows0,), dtype=torch.float32, device=dev)
-    i0 = torch.empty((rows0,), dtype=torch.int32, device=dev)
-    s1 = torch.empty((rows1,), dtype=torch.float32, device=dev)
-    i1 = torch.empty((rows1,), dtype=torch.int32, device=dev)
+    s0 = torch.empty((plan.rows0,), dtype=torch.float32, device=dev)
+    i0 = torch.empty((plan.rows0,), dtype=torch.int32, device=dev)
+    s1 = torch.empty((plan.rows1,), dtype=torch.float32, device=dev)
+    i1 = torch.empty((plan.rows1,), dtype=torch.int32, device=dev)
     fn = build.function("pq_score", "pq_topk_launch", _TOPK_ARGTYPES)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(luts.data_ptr(), codes.data_ptr(), _CODE_BYTES[codes.dtype],
              out_s.data_ptr(), out_i.data_ptr(), s0.data_ptr(),
              i0.data_ptr(), s1.data_ptr(), i1.data_ptr(), n, b, d, kk, k,
-             tile, stream)
+             plan.queries, plan.cap, plan.chunk, plan.rows0, plan.rows1,
+             stream)
     build.check("pq_score", err, what)
     pq_topk.launches += 1
     return out_s, out_i

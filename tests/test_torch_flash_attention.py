@@ -88,6 +88,36 @@ def test_attend_matches_jax_chunked_and_dense(s, h, hkv, hd, win):
         np.testing.assert_allclose(got.numpy(), dense, rtol=TOL, atol=TOL)
 
 
+@pytest.mark.parametrize("win", [64, FULL], ids=["local", "global"])
+def test_plain_matches_jax_at_gemma3_27b_head_dim(win):
+    """hd = 168 (gemma3-27b: 5,376 / 32), which the card's kernel
+    zero-pads to 176 for the tensor cores: the plain version against
+    JAX's oracle and its Pallas kernel in interpret mode, GQA 4 over 2,
+    local and global."""
+    q, k, v = _inputs(1, 128, 128, 4, 2, 168, seed=168)
+    got = flash_attention_ref(*_t(q, k, v), window=win).numpy()
+    ref = np.asarray(jax_flash_ref(*_j(q, k, v), window=win))
+    pallas = np.asarray(jax_flash(*_j(q, k, v), window=win, block_q=64,
+                                  block_k=64, interpret=True))
+    np.testing.assert_allclose(got, ref, rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(got, pallas, rtol=TOL, atol=TOL)
+
+
+def test_kernel_head_dims_and_tiles():
+    """The kernel compiles hd = 168 beside the six earlier widths, and
+    picks its KV tile per dtype: 64 keys on the CUDA cores (float32),
+    on the tensor cores (bfloat16) 64 below hd = 256 and 32 at 320."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        BLOCK_K, HEAD_DIMS, default_block_k)
+    assert HEAD_DIMS == (16, 32, 64, 80, 128, 168, 320)
+    assert BLOCK_K.default is None and set(BLOCK_K.candidates) == {None, 32,
+                                                                   64}
+    for hd in HEAD_DIMS:
+        assert default_block_k(torch.float32, hd) == 64
+        assert default_block_k(torch.bfloat16, hd) == (32 if hd == 320
+                                                       else 64)
+
+
 def test_rows_that_see_no_key_average_every_value():
     """Query rows past Skv + window - 1 see no key: every score is
     -1e30 and the reference averages all values; so does the port."""

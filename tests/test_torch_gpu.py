@@ -293,13 +293,55 @@ def test_pq_topk_kernel_pads_past_n(cuda, n, k, code_dt):
 @pytest.mark.gpu
 @pytest.mark.parametrize("block_n", [128, 1024, 8192])
 def test_pq_topk_kernel_merge_rounds(cuda, block_n):
-    """Small tiles leave more partial lists than one merge block takes:
-    1M candidates in 128-wide tiles merge in three rounds."""
+    """Small chunks leave more partial lists than one merge block takes:
+    1M candidates in chunks of 128 leave 7,813 lists a query, merged in
+    two rounds (1,024: 977 lists, two rounds; 8,192: 123, one)."""
     luts, codes = _pq_inputs(cuda, 16, 1_000_000, 8, 64, np.uint8, True)
     s, i = _check_topk(luts, codes, 100, block_n=block_n)
     same = s[:, 1:] == s[:, :-1]
     assert bool(same.any())                          # the ties are there
     assert bool((i[:, 1:] > i[:, :-1])[same].all())  # and in id order
+
+
+def _rising(cuda, b, n):
+    """LUTs and codes under which candidate n scores exactly n (its id's
+    base-64 digits as the codes of the first four subspaces, each
+    weighted by its place): every candidate passes every threshold."""
+    ids = np.arange(n)
+    codes = np.zeros((n, 8), np.uint8)
+    luts = np.zeros((b, 8, 64), np.float32)
+    for j in range(4):
+        codes[:, j] = (ids // 64 ** (3 - j)) % 64
+        luts[:, j] = np.arange(64) * float(64 ** (3 - j))
+    return torch.from_numpy(luts).to(cuda), torch.from_numpy(codes).to(cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["normal", "ties", "rising"])
+def test_pq_topk_kernel_at_the_retrieval_flush(cuda, case):
+    """The retrieval path's flush (B = 464 queries, N = 1M, k = 100):
+    bit-identical to the stable sort, on random LUTs, on few LUT values
+    (ties at the k-th score) and on scores rising with the id (the
+    selection's worst case: every candidate passes)."""
+    if case == "rising":
+        luts, codes = _rising(cuda, 464, 1_000_000)
+    else:
+        luts, codes = _pq_inputs(cuda, 464, 1_000_000, 8, 64, np.uint8,
+                                 ties=case == "ties")
+    s, i = _check_topk(luts, codes, 100)
+    if case == "rising":
+        np.testing.assert_array_equal(
+            i.cpu().numpy(), np.broadcast_to(np.arange(999_999, 999_899, -1),
+                                             (464, 100)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ties", [False, True], ids=["normal", "ties"])
+def test_pq_topk_kernel_largest_k(cuda, ties):
+    """k = 8,192, the largest the kernel keeps: one query a block, a
+    buffer of 16,384 pairs."""
+    luts, codes = _pq_inputs(cuda, 4, 1_000_000, 8, 64, np.uint8, ties)
+    _check_topk(luts, codes, 8192)
 
 
 @pytest.mark.gpu
@@ -321,8 +363,10 @@ def test_pq_kernels_unaligned_and_odd_width_codes(cuda, d):
 @pytest.mark.gpu
 def test_pq_kernels_refuse_what_they_do_not_take(cuda):
     luts, codes = _pq_inputs(cuda, 2, 100, 8, 64, np.uint8, ties=False)
-    with pytest.raises(ValueError, match="k <= block_n"):
-        pq_topk(luts, codes, 200, block_n=128)
+    with pytest.raises(ValueError, match="k <= 8192"):
+        pq_topk(luts, codes, 8193)
+    with pytest.raises(ValueError, match="k <= 8192"):
+        pq_topk(luts, codes, 0)
     with pytest.raises(TypeError, match="float32"):
         pq_score_batched(luts.double(), codes)
     with pytest.raises(TypeError, match="uint8 or int32"):
@@ -333,10 +377,6 @@ def test_pq_kernels_refuse_what_they_do_not_take(cuda):
         pq_score_batched(luts.transpose(1, 2).contiguous().transpose(1, 2),
                          codes)
     # shapes past the kernels' own limits: refused by csrc/pq_score.cu
-    big_luts, big_codes = _pq_inputs(cuda, 1, 20_000, 8, 64, np.uint8,
-                                     ties=False)
-    with pytest.raises(RuntimeError, match="limits: csrc/pq_score.cu"):
-        pq_topk(big_luts, big_codes, 5, block_n=16384)
     with pytest.raises(RuntimeError, match="limits: csrc/pq_score.cu"):
         pq_score_batched(torch.zeros((1, 8, 4096), device=cuda), codes)
     with pytest.raises(RuntimeError, match="limits: csrc/pq_score.cu"):
@@ -814,7 +854,9 @@ FULL = 1 << 30
 
 # (b, sq, skv, h, hkv, hd, window): gemma3-4b's local and global layers
 # at a 4,096-token prefill, stablelm-3b's, the JAX tests' four shapes, an
-# odd length, the smoke configs' hd = 16 and rows that see no key
+# odd length, the smoke configs' hd = 16, rows that see no key,
+# gemma3-27b's layers (hd = 168, zero-padded to 176 on the tensor cores)
+# and a key count that is no multiple of either KV tile
 FLASH_SHAPES = {
     "gemma_local": (2, 4096, 4096, 8, 4, 320, 1024),
     "gemma_global": (2, 4096, 4096, 8, 4, 320, FULL),
@@ -826,6 +868,9 @@ FLASH_SHAPES = {
     "odd_1500": (1, 1500, 1500, 8, 4, 320, 1024),
     "smoke_hd16": (2, 1100, 1100, 4, 2, 16, 8),
     "no_key_rows": (1, 200, 40, 2, 1, 64, 8),
+    "gemma27b_local": (1, 4096, 4096, 32, 16, 168, 1024),
+    "gemma27b_global": (1, 4096, 4096, 32, 16, 168, FULL),
+    "ragged_kv": (2, 333, 1001, 8, 4, 168, 500),
 }
 
 
@@ -882,6 +927,33 @@ def test_flash_attention_kernel_tiles_and_strides(cuda, block_k):
     assert torch.equal(flash_attention(wide, k, v, window=100,
                                        block_k=block_k),
                        flash_attention(q, k, v, window=100, block_k=block_k))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("block_k", [32, 64])
+def test_flash_attention_bf16_kernel_tiles_strides_and_alignment(cuda,
+                                                                 block_k):
+    """bf16 on the tensor cores: either KV tile within the bars of the
+    plain version; inputs read through strides (every other head of a
+    wider tensor) equal their contiguous copies bit for bit, and so do
+    rows that are not 16-byte aligned (hd 80 in rows of 81: the kernel's
+    plain loads instead of cp.async)."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_ref)
+    shape = (2, 333, 333, 8, 4, 80, 100)
+    q, k, v = _flash_inputs(shape, torch.bfloat16, cuda, seed=2)
+    got = flash_attention(q, k, v, window=100, block_k=block_k)
+    want = flash_attention_ref(q, k, v, window=100)
+    assert torch.allclose(got.float(), want.float(), rtol=3e-2, atol=3e-2)
+    wide = torch.cat([q, q], dim=3).reshape(2, 333, 16, 80)[:, :, ::2]
+    assert not wide.is_contiguous() and torch.equal(wide, q)
+    rows81 = torch.zeros((2, 333, 8, 81), dtype=torch.bfloat16, device=cuda)
+    rows81[..., :80] = q
+    odd = rows81[..., :80]
+    assert odd.stride(2) == 81 and torch.equal(odd, q)
+    for other in (wide, odd):
+        assert torch.equal(flash_attention(other, k, v, window=100,
+                                           block_k=block_k), got)
 
 
 @pytest.mark.gpu

@@ -28,7 +28,8 @@ from repro.retrieval import merge_topk as jax_merge_topk
 from repro.retrieval import topk_by_position as jax_topk_by_position
 from repro_torch.convert import flat_pq_artifact_from_numpy
 from repro_torch.kernels import pq_score as pq
-from repro_torch.kernels.pq_score.pq_score import topk_tile
+from repro_torch.kernels.pq_score.pq_score import (TOPK_MAX_MERGE,
+                                                   TOPK_THREADS, topk_plan)
 from repro_torch.launch import engine
 from repro_torch.retrieval import (INVALID_ID, IndexConfig, build,
                                    flat_pq, get_index, index_class,
@@ -199,18 +200,61 @@ def test_pq_builds_luts_like_jax():
         jax_pq.build_lut_ref(q[0], cent), atol=SCORE_TOL)
 
 
-@pytest.mark.parametrize("n,k,block_n,tile", [
-    (1_000_000, 100, None, 8192), (257, 100, None, 512), (3, 5, None, 8),
-    (257, 1, 1024, 512), (100_000, 64, 1024, 1024)])
-def test_pq_topk_tile(n, k, block_n, tile):
-    assert topk_tile(n, k, block_n) == tile
+# (N, B, K of the LUTs, k, block_n) -> (queries a block, buffer slots a
+# query, candidates a block, partial lists a query) on a card of 132 SMs:
+# the retrieval flush (16 queries and 64 KB a block, three blocks an SM:
+# one wave of 377 blocks, 13 lists), one query (as many lists as one
+# merge block takes), a tiny corpus, a k past 128 (a 1,024-slot buffer),
+# and an explicit block_n with K = 256 LUTs (8 KB a query: 7 queries a
+# block)
+@pytest.mark.parametrize("n,b,kk,k,block_n,plan", [
+    (1_000_000, 464, 64, 100, None, (16, 256, 77056, 13)),
+    (1_000_000, 1, 64, 100, None, (1, 256, 6144, 163)),
+    (3, 2, 64, 5, None, (2, 256, 256, 1)),
+    (257, 4, 64, 300, None, (4, 1024, 256, 2)),
+    (100_000, 16, 256, 64, 1024, (7, 256, 1024, 98))])
+def test_pq_topk_plan(n, b, kk, k, block_n, plan):
+    got = topk_plan(n, b, 8, kk, k, 132, block_n)
+    assert (got.queries, got.cap, got.chunk, got.chunks) == plan
+
+
+def test_pq_topk_plan_buffers_and_scratch():
+    """Every buffer holds at least 2 k pairs and a round of candidates
+    and is a power of two (the bitonic sort's size); a block's shared
+    memory is its LUTs (rows of 1-3 queries, or padded to 4, 8 or 16)
+    and its buffers, 16 queries a block at k = 100, one at k = 8,192;
+    scratch holds every (query, chunk) list and the first merge round's
+    output, none when one chunk covers N."""
+    for k in (1, 100, 256, 1000, 8192):
+        p = topk_plan(1_000_000, 64, 8, 64, k, 132)
+        assert p.cap >= max(2 * k, TOPK_THREADS)
+        assert p.cap & (p.cap - 1) == 0 and p.cap <= max(4 * k, TOPK_THREADS)
+        width = (p.queries if p.queries < 4
+                 else 1 << (p.queries - 1).bit_length())
+        assert width in (1, 2, 3, 4, 8, 16)
+        assert p.smem == width * 8 * 64 * 4 + p.queries * p.cap * 8
+        assert p.chunk % TOPK_THREADS == 0
+        assert p.chunks * p.chunk >= 1_000_000 > (p.chunks - 1) * p.chunk
+        assert p.chunks * k <= TOPK_MAX_MERGE            # one merge round
+        assert p.rows0 == 64 * p.chunks * k and p.rows1 == 0
+    assert topk_plan(1_000_000, 64, 8, 64, 100, 132).queries == 16
+    assert topk_plan(1_000_000, 64, 8, 64, 8192, 132).queries == 1
+    small = topk_plan(5000, 8, 8, 64, 100, 132, block_n=8192)
+    assert (small.chunks, small.rows0, small.rows1) == (1, 0, 0)
+    # block_n = 128 leaves 7,813 lists: a first merge round of 48 groups
+    many = topk_plan(1_000_000, 16, 8, 64, 100, 132, block_n=128)
+    assert many.chunks == 7813 and many.rows0 == 16 * 7813 * 100
+    assert many.rows1 == 16 * 48 * 100
+    assert topk_plan(0, 4, 8, 64, 4, 132).chunks == 1
 
 
 def test_pq_topk_refuses_k_past_the_tile_and_cpu_tensors():
-    with pytest.raises(ValueError, match="k <= block_n"):
-        topk_tile(10_000, 2000, 1024)
-    with pytest.raises(ValueError, match="power of two"):
-        topk_tile(10_000, 10, 1000)
+    with pytest.raises(ValueError, match="k <= 8192"):
+        topk_plan(10_000, 1, 8, 64, 8193, 132)
+    with pytest.raises(ValueError, match="k <= 8192"):
+        topk_plan(10_000, 1, 8, 64, 0, 132)
+    with pytest.raises(ValueError, match="positive"):
+        topk_plan(10_000, 1, 8, 64, 10, 132, block_n=0)
     luts = torch.zeros((1, 4, 16))
     codes = torch.zeros((10, 4), dtype=torch.uint8)
     for fn in (lambda: pq.pq_topk(luts, codes, 3),
