@@ -10,8 +10,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
 3. hold each kernel against its plain PyTorch version on the card at
    the paths' shapes (``mgqe_decode``, ``rq_decode_stages``,
    ``packed_decode`` and the pq kernels: bit-identical, ``pq_topk``
-   also on scores rising with the id; ``dpq_assign``:
-   identical codes except between distances equal to within
+   also on scores rising with the id; ``dpq_assign`` in float32 and
+   bfloat16: identical codes except between distances equal to within
    ``ASSIGN_TOL``);
 4. drive the first main path at full width: deepfm's ``CONFIG`` -> its
    10M-row MGQE field -> init on the card -> export (``dpq_assign``) ->
@@ -24,6 +24,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
 5. time each of its kernels, its plain version and, where one PyTorch
    call computes the same function, that call, with CUDA events at the
    main path's shapes, beside the least time the card could take;
+   ``dpq_assign`` at all four of its shapes (deepfm's export, also on
+   the tiled product against the walk the kernel takes at S = 2; the
+   retrieval index; gemma3-4b's f32 and gemma3-27b's bf16 token
+   tables, launch by launch as exported), every launch's codes held to
+   the plain version;
 6. drive the third path at full width on the same 10M-row field:
    ``rq`` (deepfm's ``CONFIG`` with embed_kind="rq", M=5, K=256)
    through ``launch.serve.serve_engine`` (``rq_decode_stages``), then
@@ -67,9 +72,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    16, hd=168), stablelm-3b's (B=1, S=2,048, 32 heads, hd=80), the JAX
    tests' shapes and an odd length (bars: ``FLASH_TOL``; bf16 also per
    row against the plain version in float32, ``FLASH_BF16_ROW_TOL``,
-   which two planted faults must fail); ``dpq_assign`` at an LM
-   token table's widths (D=8, S=320, K=256 in two chunks of shared
-   memory, and K=64) against the plain assignment; then gemma3-4b at
+   which two planted faults must fail); ``dpq_assign`` at the LM
+   token tables' widths (D=8, S=320 and 672, K=256 and 64, float32 and
+   bfloat16) against the plain assignment; then gemma3-4b at
    ``configs/gemma3_4b.py::CONFIG`` through ``launch.serve.serve_lm`` —
    init, MGQE export of the 262,144-row token table (``dpq_assign``),
    prefill of 2 prompts of 4,096 tokens (``flash_attention`` on all 34
@@ -80,11 +85,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ops (``LM_LOGIT_TOL`` and top-1 tokens equal), and each prefill
    layer, fed the plain route's input, to the plain route with its
    attention in f32 (``LM_LAYER_TOL``: checks that the kernel route
-   with a planted window fault must fail); the prefill and one decode
-   step under the profiler; then ``flash_attention``, its plain
-   version and ``F.scaled_dot_product_attention`` timed at the local
-   and global shapes, and the kernel at gemma3-27b's at either KV
-   tile; the card is freed after;
+   with a planted window fault must fail); the export's four
+   ``dpq_assign`` launches timed on the served table; the prefill and
+   one decode step under the profiler; then ``flash_attention``, its
+   plain version and ``F.scaled_dot_product_attention`` timed at the
+   local and global shapes, and the kernel at gemma3-27b's at either KV
+   tile; then gemma3-27b's token table (262,144 x 5,376, bfloat16,
+   lm_embedding's two tiers) exported as MGQE on the card, its head,
+   tier-boundary and tail slices held to the plain assignment; the
+   card is freed after;
 10. free the card and drive the retrieval path at full width:
    two-tower retrieval at ``configs/two_tower_retrieval.py::CONFIG``
    (50M users, 10M items, embed_dim 256, towers 1024-512-256) through
@@ -99,8 +108,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    for bit, hold the index's codes (and ``dpq_assign`` run again on
    the same tower outputs) against the plain assignment, as in 3, and
    print the peak device memory;
-11. time the pq kernels at that path's shapes (and ``dpq_assign`` at
-   the index's), as in 5, and ``pq_topk`` also on its worst case
+11. time the pq kernels at that path's shapes, as in 5, and
+   ``pq_topk`` also on its worst case
    (scores rising with the id, held to the exact answer) and beside
    ``torch.topk(pq_score_batched(...))``, the two calls it fuses;
 12. print one ``{"kernels": [...]}`` JSON line (launches summed over
@@ -127,10 +136,14 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 
 # dpq_assign: the kernel's fused dot may round differently in the last
-# bit from the plain version's matmul, so a code may differ only where
-# the two candidates' distances are equal to within this (distances
-# are O(1) at these scales; f32 rounding is ~1e-7 of that).
+# bit from the plain version's matmul (bf16: the tensor cores sum the
+# exact products in another order), so a code may differ only where the
+# two candidates' distances are equal to within this (distances are
+# O(1) at these scales; f32 rounding is ~1e-7 of that).
 ASSIGN_TOL = 1e-5
+# gemma3-27b's token table, exported in bf16 on the card (the config is
+# not registered yet: only its embedding is built)
+LM27_VOCAB, LM27_DIM = 262_144, 5_376
 
 RAGGED_BATCH = 257                     # decode: beside serve_bulk's
 ASSIGN_BATCH = 65536                   # export_codes' batch
@@ -163,7 +176,7 @@ TRAIN_PARAM_TOL = 1e-5
 LM_ARCH = "gemma3-4b"
 LM_BATCH, LM_PROMPT, LM_STEPS = 2, 4096, 16
 # H100 SXM dense bf16 tensor-core peak (data sheet): the attention
-# kernel's operation bound
+# kernel's and bf16 dpq_assign's operation bound
 BF16_FLOP_PER_S = 989e12
 FULL_WINDOW = 1 << 30
 # flash_attention against its plain version: the JAX tests' own bars
@@ -330,15 +343,18 @@ def decode_inputs(b, d, k, s, dtype, seed, code_hi=None):
     return codes, cent
 
 
-def assign_inputs(b, d, k, s, seed, k_small):
-    """e_sub (b, d, s), centroids (d, k, s) at the init's scale, and a
-    mixed k_limit: 10% of rows, scattered at random, at K (head tier),
-    the rest at k_small."""
+def assign_inputs(b, d, k, s, seed, k_small, dtype=None):
+    """e_sub (b, d, s), centroids (d, k, s) at the init's scale, in
+    ``dtype`` (default float32), and a mixed k_limit: 10% of rows,
+    scattered at random, at K (head tier), the rest at k_small."""
     import torch
     g = torch.Generator(device="cuda").manual_seed(seed)
     scale = (d * s) ** -0.5
-    e = torch.randn((b, d, s), generator=g, device="cuda") * scale
-    cent = torch.randn((d, k, s), generator=g, device="cuda") * scale
+    dtype = dtype or torch.float32
+    e = (torch.randn((b, d, s), generator=g, device="cuda") * scale
+         ).to(dtype)
+    cent = (torch.randn((d, k, s), generator=g, device="cuda") * scale
+            ).to(dtype)
     head = torch.rand((b,), generator=g, device="cuda") < 0.1
     lim = torch.where(head, k, k_small).to(torch.int32)
     return e, cent, lim
@@ -363,13 +379,14 @@ def assign_gap(e, cent, lim, got, want) -> float:
     return gap
 
 
-def blocked_assign_ref(e, cent):
-    """The plain assignment over blocks of ASSIGN_BATCH rows (its
-    (rows, D, K) distances at 1M rows would take gigabytes)."""
+def blocked_assign_ref_lim(e, cent, lim):
+    """The plain assignment under per-row budgets (or none), over blocks
+    of 8,192 rows (its (rows, D, K) distances stay small)."""
     import torch
     from repro_torch.kernels.dpq_assign import dpq_assign_ref
-    return torch.cat([dpq_assign_ref(e[i:i + ASSIGN_BATCH], cent)
-                      for i in range(0, e.shape[0], ASSIGN_BATCH)])
+    return torch.cat([dpq_assign_ref(e[i:i + 8192], cent,
+                                     None if lim is None else lim[i:i + 8192])
+                      for i in range(0, e.shape[0], 8192)])
 
 
 # ----------------------------------------------------------------------
@@ -448,18 +465,20 @@ def check_kernels() -> dict:
 
     for (b, d, k, s, k_small) in ((ASSIGN_BATCH, 5, 256, 2, 64),
                                   (ASSIGN_BATCH, 8, 256, 8, 64)):
-        e, cent, lim = assign_inputs(b, d, k, s, seed=d, k_small=k_small)
-        got = dpq_assign(e, cent, lim)
-        want = dpq_assign_ref(e, cent, lim)
-        torch.cuda.synchronize()
-        need(got.shape == want.shape == (b, d), "dpq_assign shape")
-        mism = int((got != want).sum())
-        gap = assign_gap(e, cent, lim, got, want)
-        log(f"check dpq_assign B={b} D={d} K={k} S={s} k_limit {k}/{k_small}:"
-            f" {mism} of {b * d} codes differ, max distance gap {gap:.3g} "
-            f"(tolerance {ASSIGN_TOL})")
-        need(gap <= ASSIGN_TOL, f"dpq_assign within {ASSIGN_TOL}")
-        errs["dpq_assign"] = max(errs["dpq_assign"], gap)
+        for dtype in (torch.float32, torch.bfloat16):
+            e, cent, lim = assign_inputs(b, d, k, s, seed=d, k_small=k_small,
+                                         dtype=dtype)
+            got = dpq_assign(e, cent, lim)
+            want = dpq_assign_ref(e, cent, lim)
+            torch.cuda.synchronize()
+            need(got.shape == want.shape == (b, d), "dpq_assign shape")
+            mism = int((got != want).sum())
+            gap = assign_gap(e, cent, lim, got, want)
+            log(f"check dpq_assign B={b} D={d} K={k} S={s} {dtype} k_limit "
+                f"{k}/{k_small}: {mism} of {b * d} codes differ, max "
+                f"distance gap {gap:.3g} (tolerance {ASSIGN_TOL})")
+            need(gap <= ASSIGN_TOL, f"dpq_assign within {ASSIGN_TOL}")
+            errs["dpq_assign"] = max(errs["dpq_assign"], gap)
     errs.update(check_decode_kernels())
     errs.update(check_pq_kernels())
     return errs
@@ -759,7 +778,6 @@ def time_kernels(errs: dict, launches: dict) -> list:
     """The ``kernels`` entries: times at the main path's shapes."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.dpq_assign import dpq_assign, dpq_assign_ref
     from repro_torch.kernels.mgqe_decode import (decode, mgqe_decode,
                                                  mgqe_decode_ref)
 
@@ -796,12 +814,112 @@ def time_kernels(errs: dict, launches: dict) -> list:
         f"bound {(fb * d * 9 + d * k * s * 4) / HBM_BYTES_PER_S * 1e3:.5f} "
         f"ms; host time to launch through dispatch {op_host:.5f} ms")
 
-    # dpq_assign: deepfm's export, batch by batch as export_codes runs
-    # it (65,536 rows, budgets of the sorted ids: 15 batches at K=256,
-    # one that straddles the tier boundary, 137 at K=64)
+    # dpq_assign at all four of its shapes: deepfm's export (the main
+    # path's, the entry's numbers), the retrieval index, gemma3-4b's
+    # token table (f32) and gemma3-27b's (bf16)
+    entry = time_assign_shapes()
+    out.append({"name": "dpq_assign", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/dpq_assign.cu",
+                "replaces": "src/repro/kernels/dpq_assign/dpq_assign.py:44",
+                "launches": launches["dpq_assign"],
+                "max_abs_err": max(errs["dpq_assign"], entry.pop("gap")),
+                **entry, "library_ms": None})
+    return out
+
+
+def assign_bound(e, k, lim, launches):
+    """(bound ms, by, FLOP, bytes, centroid evaluations) of ``launches``
+    calls over the rows ``e`` (n, D, S): 2*S FLOP for every centroid a
+    row's budget reaches (against the dtype's peak) or each row, the
+    centroids (once a launch), the budgets and the codes moved once
+    (against HBM)."""
+    n, d, s = e.shape
+    item = e.element_size()
+    evaluated = d * (n * k if lim is None
+                     else int(lim.clamp(min=0, max=k).long().sum()))
+    flops = 2 * s * evaluated
+    nbytes = (n * d * s * item + launches * d * k * s * item
+              + (0 if lim is None else n * 4) + n * d * 4)
+    peak = F32_FLOP_PER_S if item == 4 else BF16_FLOP_PER_S
+    t_ops = flops / peak * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
+            else "bytes", flops, nbytes, evaluated)
+
+
+def time_assign_pass(what, e_all, cent, lim_all, batch, iters=5,
+                     **route) -> dict:
+    """dpq_assign over ``e_all`` in launches of ``batch`` rows, as
+    export_codes (65,536) or the index build (all rows at once) runs it:
+    per launch, the kernel (``route`` pins its tiles), the plain version
+    and the bound; every launch's codes held to the plain version's."""
+    import torch
+    from repro_torch.kernels.dpq_assign import dpq_assign, dpq_assign_ref
+    n, k = e_all.shape[0], cent.shape[1]
+    parts = [(e_all[i:i + batch], None if lim_all is None
+              else lim_all[i:i + batch]) for i in range(0, n, batch)]
+
+    def run(fn):
+        for e, lim in parts:
+            fn(e, cent, lim)
+
+    ms, _ = time_ms(lambda: run(lambda e, c, l: dpq_assign(e, c, l,
+                                                           **route)),
+                    iters=iters, warmup=1)
+    plain, _ = time_ms(lambda: run(dpq_assign_ref), iters=1, warmup=1,
+                       hold=False)
+    gap, mism = 0.0, 0
+    for e, lim in parts:
+        got = dpq_assign(e, cent, lim, **route)
+        want = blocked_assign_ref_lim(e, cent, lim)
+        mism += int((got != want).sum())
+        gap = max(gap, assign_gap(e, cent, lim, got, want))
+    need(gap <= ASSIGN_TOL, f"dpq_assign {what} within {ASSIGN_TOL}")
+    bound, by, flops, nbytes, evaluated = assign_bound(e_all, k, lim_all,
+                                                       len(parts))
+    n_l = len(parts)
+    log(f"time dpq_assign {what}: {n_l} launch(es) of {batch} rows, D="
+        f"{cent.shape[0]} K={k} S={cent.shape[2]} {e_all.dtype}"
+        f"{' ' + str(route) if route else ''}; per launch: kernel "
+        f"{ms / n_l:.5f} ms, plain {plain / n_l:.5f} ms, bound "
+        f"{bound / n_l:.5f} ms by {by} ({flops} FLOP over {evaluated} "
+        f"centroid evaluations, {nbytes} bytes, for all launches); "
+        f"{mism} of {e_all.shape[0] * cent.shape[0]} codes differ from "
+        f"the plain version, largest distance gap {gap:.3g}")
+    return {"ms": ms / n_l, "plain_ms": plain / n_l,
+            "bound_ms": bound / n_l, "bound_by": by, "gap": gap}
+
+
+def lm_assign_inputs(arch_dim, seed, dtype):
+    """A 262,144-row LM token table as rows (n, 8, dim / 8) at the init's
+    scale, its centroids, and the MGQE budgets of lm_embedding's two
+    tiers (head 10% at K=256, tail at K=64), by sorted id as exported."""
+    import torch
+    from repro_torch.configs.lm_common import lm_embedding
+    from repro_torch.core.mgqe import k_limit_for_all_rows
+    ecfg = lm_embedding(LM27_VOCAB, arch_dim)
+    n, d, k = ecfg.vocab_size, ecfg.num_subspaces, ecfg.num_centroids
+    s = ecfg.dim // d
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    e = (torch.randn((n, d, s), generator=g, device="cuda") * ecfg.dim ** -0.5
+         ).to(dtype)
+    cent = (torch.randn((d, k, s), generator=g, device="cuda")
+            * ecfg.dim ** -0.5).to(dtype)
+    return e, cent, k_limit_for_all_rows(ecfg, "cuda")
+
+
+def time_assign_shapes() -> dict:
+    """dpq_assign timed at its four shapes; returns deepfm's export
+    numbers (the main path's) with the largest distance gap seen."""
+    import torch
     from repro_torch.configs import get_arch
+    from repro_torch.kernels.dpq_assign import dpq_assign
     from repro_torch.core.mgqe import k_limit_for_all_rows
     from repro_torch.launch.engine import embedding_config_of_arch
+    # deepfm's export, batch by batch as export_codes runs it (65,536
+    # rows, budgets of the sorted ids: 15 batches at K=256, one that
+    # straddles the tier boundary, 137 at K=64); the kernel's walk, and
+    # its tiled product pinned at a k-step of 2 for comparison
     ecfg = embedding_config_of_arch(*get_arch("deepfm", smoke=False))
     n, d, k = ecfg.vocab_size, ecfg.num_subspaces, ecfg.num_centroids
     s = ecfg.dim // d
@@ -810,49 +928,57 @@ def time_kernels(errs: dict, launches: dict) -> list:
     e_all = torch.randn((n, d, s), generator=g, device="cuda") * scale
     cent = torch.randn((d, k, s), generator=g, device="cuda") * scale
     lim_all = k_limit_for_all_rows(ecfg, "cuda")
-    starts = list(range(0, n, ASSIGN_BATCH))
-    batches = [(e_all[i:i + ASSIGN_BATCH], lim_all[i:i + ASSIGN_BATCH])
-               for i in starts]
-
-    def export_pass(fn):
-        for e, lim in batches:
-            fn(e, cent, lim)
-
-    per_pass, _ = time_ms(lambda: export_pass(dpq_assign), iters=5,
-                          warmup=1)
-    plain_pass, _ = time_ms(lambda: export_pass(dpq_assign_ref), iters=1,
-                            warmup=1, hold=False)
-    ms, plain = per_pass / len(batches), plain_pass / len(batches)
-    evaluated = int(lim_all.clamp(max=k).long().sum()) * d
-    flops = evaluated * s * 2
-    nbytes = n * d * s * 4 + len(batches) * d * k * s * 4 + n * 4 + n * d * 4
-    t_ops = flops / F32_FLOP_PER_S * 1e3 / len(batches)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3 / len(batches)
-    out.append({"name": "dpq_assign", "route": "cuda",
-                "source": "src/repro_torch/kernels/csrc/dpq_assign.cu",
-                "replaces": "src/repro/kernels/dpq_assign/dpq_assign.py:44",
-                "launches": launches["dpq_assign"],
-                "max_abs_err": errs["dpq_assign"], "ms": ms,
-                "plain_ms": plain, "bound_ms": max(t_ops, t_bytes),
-                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                "library_ms": None})
-    log(f"time dpq_assign over deepfm's export ({len(batches)} batches of "
-        f"{ASSIGN_BATCH} rows, D={d} K={k} S={s}), per launch: kernel "
-        f"{ms:.5f} ms, plain {plain:.5f} ms, bound {max(t_ops, t_bytes):.5f}"
-        f" ms ({flops} FLOP over {evaluated} centroid evaluations, {nbytes} "
-        f"bytes, for the whole export)")
-    boundary = ecfg.tier_boundaries[0]
+    # (a pass queues 153 launches, 306 for the tiled product's two a
+    # call: few passes, so the host's queue stays ahead of the card)
+    main = time_assign_pass("over deepfm's export", e_all, cent, lim_all,
+                            ASSIGN_BATCH, iters=3)
+    tiled = time_assign_pass("over deepfm's export, the tiled product",
+                             e_all, cent, lim_all, ASSIGN_BATCH, iters=2,
+                             block_s=2)
+    boundary = ecfg.tier_boundaries[0] // ASSIGN_BATCH * ASSIGN_BATCH
     for what, i in (("head tier (all K=256)", 0),
-                    ("straddling the tier boundary",
-                     starts[boundary // ASSIGN_BATCH]),
-                    ("tail tier (all K=64)", starts[-2])):
+                    ("straddling the tier boundary", boundary),
+                    ("tail tier (all K=64)", n - 2 * ASSIGN_BATCH)):
         e, lim = e_all[i:i + ASSIGN_BATCH], lim_all[i:i + ASSIGN_BATCH]
-        t, host = time_ms(lambda: dpq_assign(e, cent, lim))
-        n_head = int((lim == k).sum())
-        log(f"time dpq_assign one batch {what}, rows {i}..{i + ASSIGN_BATCH}"
-            f" ({n_head} at K={k}): kernel {t:.5f} ms; host time to launch: "
-            f"wrapper {host:.5f} ms")
-    return out
+        ms, host = time_ms(lambda: dpq_assign(e, cent, lim))
+        log(f"  one batch {what}, rows {i}..{i + ASSIGN_BATCH} "
+            f"({int((lim == k).sum())} at K={k}): kernel {ms:.5f} ms; host "
+            f"time to launch: wrapper {host:.5f} ms")
+    t, by, flops, _, evaluated = assign_bound(e_all, k, lim_all, 1)
+    # with the argmin: per (row, centroid) S FMAs, one FMA for the
+    # distance and one compare-and-select, each at one lane-op a clock
+    # (67 TFLOP/s = 33.5 T FMA lanes a second)
+    n_b = -(-n // ASSIGN_BATCH)
+    argmin = evaluated * (s + 2) / (F32_FLOP_PER_S / 2) * 1e3 / n_b
+    log(f"  deepfm export bound per launch with the argmin (S + 2 lane "
+        f"ops a centroid evaluation): {argmin:.5f} ms; tiled product "
+        f"{tiled['ms']:.5f} ms a launch against the walk's "
+        f"{main['ms']:.5f}")
+    gap = max(main["gap"], tiled["gap"])
+    del e_all, cent, lim_all
+    # the retrieval index: flat_pq encodes all 1M tower outputs in one
+    # launch (D = 8, K = 64, S = 32, no budget)
+    g = torch.Generator(device="cuda").manual_seed(13)
+    nc = retrieval_candidates()
+    e_all = torch.randn((nc, 8, 32), generator=g, device="cuda") * 0.06
+    cent = torch.randn((8, 64, 32), generator=g, device="cuda") * 0.06
+    r = time_assign_pass("at the index shape", e_all, cent, None, nc,
+                         iters=10)
+    gap = max(gap, r["gap"])
+    del e_all, cent
+    # the LM token tables, as export_codes runs them: gemma3-4b (f32,
+    # S = 320) and gemma3-27b (bf16, S = 672)
+    for dim, dtype, seed in ((2560, torch.float32, 14),
+                             (LM27_DIM, torch.bfloat16, 15)):
+        e_all, cent, lim_all = lm_assign_inputs(dim, seed, dtype)
+        r = time_assign_pass(f"over an LM token table's export (d_model "
+                             f"{dim})", e_all, cent, lim_all, ASSIGN_BATCH)
+        gap = max(gap, r["gap"])
+        del e_all, cent, lim_all
+        gc.collect()
+        torch.cuda.empty_cache()
+    main["gap"] = gap
+    return main
 
 
 def compressed_paths() -> tuple:
@@ -1674,35 +1800,90 @@ def check_flash() -> float:
 
 
 def check_lm_assign() -> float:
-    """dpq_assign at an LM token table's widths (D=8, S=2560/8=320),
-    K=256 (two chunks of shared memory) and K=64, with the MGQE budgets,
-    against the plain assignment; returns the largest distance gap."""
+    """dpq_assign at the LM token tables' widths (D=8, S=2560/8=320 for
+    gemma3-4b and 5376/8=672 for gemma3-27b), K=256 and K=64, with the
+    MGQE budgets, float32 and bfloat16, against the plain assignment;
+    returns the largest distance gap."""
     import torch
     from repro_torch.kernels.dpq_assign import dpq_assign
-    from repro_torch.kernels.dpq_assign.dpq_assign import chunk_centroids
     gap = 0.0
-    for k in (256, 64):
-        e, cent, lim = assign_inputs(ASSIGN_BATCH, 8, k, 320, seed=k,
-                                     k_small=64)
-        got = dpq_assign(e, cent, lim)
-        g = assign_gap(e, cent, lim, got, blocked_assign_ref_lim(e, cent,
-                                                                  lim))
-        log(f"check dpq_assign B={ASSIGN_BATCH} D=8 K={k} S=320 (chunks of "
-            f"{chunk_centroids(k, 320)} centroids): largest distance gap to "
-            f"the plain version {g:.3g}")
-        need(g <= ASSIGN_TOL, f"dpq_assign at S=320 K={k} within "
-             f"{ASSIGN_TOL}")
-        gap = max(gap, g)
+    for s in (320, 672):
+        for k in (256, 64):
+            for dtype in (torch.float32, torch.bfloat16):
+                e, cent, lim = assign_inputs(ASSIGN_BATCH, 8, k, s, seed=k + s,
+                                             k_small=64, dtype=dtype)
+                got = dpq_assign(e, cent, lim)
+                want = blocked_assign_ref_lim(e, cent, lim)
+                g = assign_gap(e, cent, lim, got, want)
+                log(f"check dpq_assign B={ASSIGN_BATCH} D=8 K={k} S={s} "
+                    f"{dtype}: {int((got != want).sum())} of "
+                    f"{ASSIGN_BATCH * 8} codes differ from the plain version,"
+                    f" largest distance gap {g:.3g}")
+                need(g <= ASSIGN_TOL, f"dpq_assign at S={s} K={k} {dtype} "
+                     f"within {ASSIGN_TOL}")
+                gap = max(gap, g)
     return gap
 
 
-def blocked_assign_ref_lim(e, cent, lim):
-    """The plain assignment under per-row budgets, over blocks of 8,192
-    rows (its (rows, D, K) distances stay small)."""
+def lm27_export_check() -> float:
+    """gemma3-27b's token table (262,144 x 5,376, lm_embedding's two
+    tiers, param_dtype bfloat16), initialised from a seeded generator and
+    exported as MGQE on the card: one dpq_assign launch a 65,536 rows, in
+    bfloat16 on the tensor cores.  A head slice, the slice across the
+    tier boundary and a tail slice are held to the plain assignment
+    under the same budgets.  Only the embedding is built: the config is
+    not registered.  Returns the largest distance gap."""
+    import dataclasses
     import torch
-    from repro_torch.kernels.dpq_assign import dpq_assign_ref
-    return torch.cat([dpq_assign_ref(e[i:i + 8192], cent, lim[i:i + 8192])
-                      for i in range(0, e.shape[0], 8192)])
+    from repro_torch.configs.lm_common import lm_embedding
+    from repro_torch.core import Embedding
+    from repro_torch.core.mgqe import k_limit_for_all_rows
+    from repro_torch.kernels.dpq_assign import dpq_assign
+    ecfg = dataclasses.replace(lm_embedding(LM27_VOCAB, LM27_DIM),
+                               param_dtype="bfloat16")
+    d = ecfg.num_subspaces
+    emb = Embedding(ecfg)
+    params = emb.init(emb.generator(27))
+    need(params["emb"].dtype == params["centroids"].dtype == torch.bfloat16,
+         "gemma3-27b's table and centroids in bfloat16")
+    torch.cuda.synchronize()
+    before = dpq_assign.launches
+    t0 = time.perf_counter()
+    artifact = emb.export(params)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = dpq_assign.launches - before
+    need(launched == -(-LM27_VOCAB // ASSIGN_BATCH),
+         "dpq_assign once per export batch of the bf16 table")
+    codes, cent = artifact["codes"], artifact["centroids"]
+    need(codes.dtype == torch.uint8 and tuple(codes.shape) == (LM27_VOCAB, d)
+         and cent.dtype == torch.bfloat16, "codes (n, D) uint8, bf16 "
+         "centroids")
+    lim_all = k_limit_for_all_rows(ecfg, "cuda")
+    head = ecfg.tier_boundaries[0]
+    gap, mism = 0.0, 0
+    # the boundary slice: its first eighth in the head tier (which holds
+    # 26,214 rows, under half a batch)
+    for lo in (0, head - ASSIGN_BATCH // 8, LM27_VOCAB - ASSIGN_BATCH):
+        sl = slice(lo, lo + ASSIGN_BATCH)
+        e = params["emb"][sl].reshape(ASSIGN_BATCH, d, -1)
+        got = codes[sl].to(torch.int32)
+        want = blocked_assign_ref_lim(e, cent, lim_all[sl])
+        mism += int((got != want).sum())
+        gap = max(gap, assign_gap(e, cent, lim_all[sl], got, want))
+    need(gap <= ASSIGN_TOL, f"bf16 exported codes within {ASSIGN_TOL} of "
+         f"the plain assignment")
+    need(int(codes[head:].max()) < ecfg.tier_num_centroids[1],
+         "tail tier codes < K_tail")
+    log(f"lm bf16 export: gemma3-27b's token table {LM27_VOCAB} x "
+        f"{LM27_DIM} (D={d}, S={LM27_DIM // d}, K={ecfg.num_centroids}/"
+        f"{ecfg.tier_num_centroids[1]}, head {head} rows) in bfloat16, "
+        f"exported in {wall:.6f}s over {launched} dpq_assign launches; "
+        f"head, tier-boundary and tail slices ({3 * ASSIGN_BATCH} rows): "
+        f"{mism} of {3 * ASSIGN_BATCH * d} codes differ from the plain "
+        f"assignment, largest distance gap {gap:.3g} (tolerance "
+        f"{ASSIGN_TOL})")
+    return gap
 
 
 @contextlib.contextmanager
@@ -1944,6 +2125,12 @@ def lm_path() -> dict:
                                                          lim_all[sl])))
     need(gap <= ASSIGN_TOL, f"exported codes within {ASSIGN_TOL} of the "
          f"plain assignment")
+    # the export's four dpq_assign launches, timed on the table it
+    # exported (f32, S = 320, the tiers' budgets by sorted id)
+    time_assign_pass(f"over {cfg.name}'s export (the served table)",
+                     run.params["embed"]["emb"].reshape(
+                         ecfg.vocab_size, ecfg.num_subspaces, -1),
+                     run.artifact["centroids"], lim_all, ASSIGN_BATCH)
     # the last-token logits against the same prefill on the plain ops;
     # then the kernel route with a planted fault (the window one KV tile
     # short on layer 0, and on every local layer) must fail that check
@@ -2271,12 +2458,12 @@ def retrieval_path():
         f"LUT: all bit-identical); (d) launches {launches}")
 
     # the index's codes came from the path's one dpq_assign launch over
-    # all N tower outputs (D = 8, K = 64, S = 32: the kernel's generic
-    # S branch, which deepfm's S = 2 never takes); hold them, and the
+    # all N tower outputs (D = 8, K = 64, S = 32: the tiled product,
+    # which deepfm's S = 2 never takes); hold them, and the
     # kernel run again on the same outputs, against the plain assignment
     e = run.model.encode_items(run.params, torch.arange(n, device="cuda"))
     e = e.reshape(n, cent.shape[0], cent.shape[2]).contiguous()
-    want = blocked_assign_ref(e, cent)
+    want = blocked_assign_ref_lim(e, cent, None)
     again = dpq_assign(e, cent)
     gap = max(assign_gap(e, cent, None, codes, want),
               assign_gap(e, cent, None, again, want))
@@ -2310,15 +2497,12 @@ def luts_of(queries, cent):
     return build_lut_batch(queries, cent).contiguous()
 
 
-def time_pq_kernels(errs: dict, launches: dict, luts, codes) -> tuple:
+def time_pq_kernels(errs: dict, launches: dict, luts, codes) -> list:
     """The pq kernels' ``kernels`` entries at the retrieval path's
     shapes: N = 1M candidates, D = 8, K = 64, k = 100, B = the flush's
-    padded size (1 for pq_score); and dpq_assign at the index shape,
-    held against its plain version there.  Returns (entries,
-    dpq_assign's distance gap)."""
+    padded size (1 for pq_score)."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.dpq_assign import dpq_assign, dpq_assign_ref
     from repro_torch.kernels.pq_score import (pq_score, pq_score_batched,
                                               pq_score_batched_ref,
                                               pq_score_ref, pq_topk,
@@ -2393,24 +2577,7 @@ def time_pq_kernels(errs: dict, launches: dict, luts, codes) -> tuple:
         gc.collect()
         torch.cuda.empty_cache()
 
-    # dpq_assign at the index shape: the build encodes all 1M tower
-    # outputs in one launch (D = 8, K = 64, S = 32, no budget)
-    g = torch.Generator(device="cuda").manual_seed(13)
-    s = 32
-    e = torch.randn((n, d, s), generator=g, device="cuda") * 0.06
-    cent = torch.randn((d, k, s), generator=g, device="cuda") * 0.06
-    ms, _ = time_ms(lambda: dpq_assign(e, cent), iters=10, warmup=2)
-    plain, _ = time_ms(lambda: dpq_assign_ref(e, cent), iters=2, warmup=1,
-                       hold=False)
-    t, by = bound(n * d * s * 4 + d * k * s * 4 + n * d * 4, n * d * k * s * 2)
-    gap = assign_gap(e, cent, None, dpq_assign(e, cent),
-                     blocked_assign_ref(e, cent))
-    need(gap <= ASSIGN_TOL, f"dpq_assign at the index shape within "
-         f"{ASSIGN_TOL}")
-    log(f"time dpq_assign at the index shape B={n} D={d} K={k} S={s}: "
-        f"kernel {ms:.5f} ms, plain {plain:.5f} ms, bound {t:.5f} ms by {by}"
-        f"; against the plain version: largest distance gap {gap:.3g}")
-    return out, gap
+    return out
 
 
 def main() -> int:
@@ -2459,12 +2626,13 @@ def main() -> int:
     l_launches = lm_path()
     kernels.append(time_flash(flash_err, l_launches))
     gc.collect()
+    torch.cuda.empty_cache()
+    lm27_gap = lm27_export_check()
+    gc.collect()
     torch.cuda.empty_cache()                 # free the card for two-tower
     r_launches, r_errs, (luts, codes) = retrieval_path()
     pq_errs = {name: max(errs[name], err) for name, err in r_errs.items()}
-    pq_kernels, assign_err = time_pq_kernels(pq_errs, r_launches, luts,
-                                             codes)
-    kernels += pq_kernels
+    kernels += time_pq_kernels(pq_errs, r_launches, luts, codes)
     for entry in kernels:                    # every path's launches
         name = entry["name"]
         entry["launches"] = sum(p.get(name, 0) for p in
@@ -2473,8 +2641,8 @@ def main() -> int:
                                  r_launches))
         if name == "dpq_assign":
             entry["max_abs_err"] = max(entry["max_abs_err"], pq_errs[name],
-                                       assign_err, c_errs[name],
-                                       lm_assign_gap)
+                                       c_errs[name], lm_assign_gap,
+                                       lm27_gap)
     log(f"total {time.perf_counter() - t0:.1f}s")
     log(card)
     log(json.dumps({"kernels": kernels}))

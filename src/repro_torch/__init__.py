@@ -2,8 +2,12 @@
 
 A second package beside the JAX reference ``repro``; it mirrors
 ``repro``'s module paths and imports nothing of it (nor JAX).  Ported
-so far: the export-and-serve path for ``full``/``dpq``/``mgqe`` tables,
-with hand-written CUDA kernels for the two ops on it
-(``kernels/csrc/``).  Entry points run on the card unless the caller
-passes ``device="cpu"``.
+so far: every embedding scheme kind (``full``, ``dpq``, the ``mgqe``
+variants, ``rq``, ``mpe`` and the ``lrf``/``sq``/``hash`` baselines),
+exported, served and trained; the ``ServingEngine`` and
+``RetrievalEngine``; ``flat_pq`` retrieval; DeepFM and two-tower
+serving, DeepFM training with checkpoints; dense LM serving
+(gemma3-4b, stablelm-3b).  Every Pallas kernel of the JAX package has a
+hand-written CUDA counterpart in ``kernels/csrc/``.  Entry points run
+on the card unless the caller passes ``device="cpu"``.
 """

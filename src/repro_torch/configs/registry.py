@@ -20,7 +20,9 @@ ARCHS: Dict[str, Tuple[str, str]] = {
 
 # archs of the JAX package not ported yet, and what each waits for
 NOT_PORTED: Dict[str, str] = {
-    "gemma3-27b": "a bfloat16 dpq_assign (its param_dtype is bfloat16)",
+    "gemma3-27b": ("its config's port and a bfloat16 LM held to the plain "
+                   "route on the card (its param_dtype is bfloat16; the "
+                   "bfloat16 export and hd 168 attention are ported)"),
     "mixtral-8x7b": "nn/moe.py (mixture-of-experts FFN)",
     "qwen3-moe-30b-a3b": "nn/moe.py (mixture-of-experts FFN)",
 }

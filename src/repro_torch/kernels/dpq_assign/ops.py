@@ -2,8 +2,10 @@
 
 ``assign`` routes through the kernel backend dispatch layer: the CUDA
 kernel for CUDA tensors, the blocked plain version for CPU tensors, or
-whichever one is pinned.  ``block_b`` left as None resolves through
-the autotune cache; the plain version honours it too (row blocks).
+whichever one is pinned.  The op's one tunable, ``block_b``, is the
+plain version's row block (None resolves through the autotune cache);
+the kernel chooses its own tiles (``dpq_assign.choose_tiles``), which
+a caller pins on the kernel wrapper itself.
 """
 from __future__ import annotations
 
@@ -12,14 +14,17 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import dispatch
-from repro_torch.kernels.dpq_assign.dpq_assign import BLOCK_B, dpq_assign
+from repro_torch.kernels.dpq_assign.dpq_assign import dpq_assign
 from repro_torch.kernels.dpq_assign.ref import (dpq_assign_blocked_ref,
                                                 dpq_assign_ref)
+
+# rows a block of the plain version (bit-identical at every value)
+BLOCK_B = dispatch.Tunable(256, (64, 128, 256, 512, 1024))
 
 dispatch.register_op(
     "dpq_assign",
     cuda=lambda e_sub, cent, k_limit=None, block_b=None: dpq_assign(
-        e_sub, cent, k_limit, block_b=block_b),
+        e_sub, cent, k_limit),
     torch=lambda e_sub, cent, k_limit=None, block_b=None:
         dpq_assign_blocked_ref(e_sub, cent, k_limit, block_b=block_b),
     tunables={"block_b": BLOCK_B},

@@ -335,8 +335,9 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: LMConfig,
 
 
 def make_cache(cfg: LMConfig, batch: int, max_seq: int, dtype=None,
-               device="cpu") -> dict:
-    """An empty decode cache: per stack (k, v, kpos), kpos all -1."""
+               device="cuda") -> dict:
+    """An empty decode cache: per stack (k, v, kpos), kpos all -1; on the
+    card unless the caller passes ``device="cpu"``."""
     dtype = dtype or torch_dtype(cfg.dtype)
     hd, kv = cfg.resolved_head_dim, cfg.num_kv_heads
 

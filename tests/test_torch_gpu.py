@@ -96,44 +96,157 @@ def test_mgqe_decode_kernel_large_tables(cuda, shape):
                                   _bits(mgqe_decode_ref(c, t)))
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("block_b", [64, 256, 1024])
-@pytest.mark.parametrize("shape", [(4096, 5, 256, 2), (4096, 8, 256, 8),
-                                   (2048, 4, 64, 16), (65536, 5, 256, 2),
-                                   (300, 3, 100, 3)],
-                         ids=lambda s: "x".join(map(str, s)))
-def test_dpq_assign_kernel_matches_plain(cuda, shape, block_b):
-    b, d, k, s = shape
-    rng = np.random.default_rng(0)
+def _assign_case(b, d, k, s, dtype, seed, head=0.1, k_small=None):
+    """e_sub (b, d, s) and centroids (d, k, s) at the init's scale, in
+    ``dtype``, and mixed budgets: a ``head`` share of rows at K, the
+    rest at ``k_small`` (default K // 4)."""
+    rng = np.random.default_rng(seed)
     scale = (d * s) ** -0.5
     e = torch.from_numpy((rng.normal(size=(b, d, s)) * scale
-                          ).astype(np.float32)).to(cuda)
+                          ).astype(np.float32)).to("cuda", dtype)
     c = torch.from_numpy((rng.normal(size=(d, k, s)) * scale
-                          ).astype(np.float32)).to(cuda)
-    klim = np.where(rng.random(b) < 0.1, k, k // 4).astype(np.int32)
-    lim = torch.from_numpy(klim).to(cuda)
-    got = dpq_assign(e, c, lim, block_b=block_b)
-    want = dpq_assign_ref(e, c, lim)
-    torch.cuda.synchronize()
-    assert (got.cpu().numpy() < klim[:, None]).all()
-    e64, c64 = e.double(), c.double()
-    dist = (torch.sum(c64 * c64, -1)[None]
-            - 2.0 * torch.einsum("bds,dks->bdk", e64, c64))
-    gap = (dist.gather(-1, got.long()[..., None])
-           - dist.gather(-1, want.long()[..., None])).abs()
-    assert float(gap.max()) <= ASSIGN_TOL
+                          ).astype(np.float32)).to("cuda", dtype)
+    small = k // 4 if k_small is None else k_small
+    klim = np.where(rng.random(b) < head, k, small).astype(np.int32)
+    return e, c, torch.from_numpy(klim).to("cuda")
+
+
+def _assign_gap(e, c, lim, got, want) -> float:
+    """Largest float64 distance gap between the kernel's pick and the
+    plain version's, over blocks of 65,536 rows; codes within budget."""
+    c64 = c.double()
+    c_sq = torch.sum(c64 * c64, -1)[None]
+    gap = 0.0
+    for i in range(0, e.shape[0], 65536):
+        dist = c_sq - 2.0 * torch.einsum("bds,dks->bdk",
+                                         e[i:i + 65536].double(), c64)
+        a = dist.gather(-1, got[i:i + 65536].long()[..., None])
+        w = dist.gather(-1, want[i:i + 65536].long()[..., None])
+        gap = max(gap, float((a - w).abs().max()))
+    if lim is not None:
+        assert bool((got < lim[:, None].clamp(min=1)).all())
+    return gap
+
+
+def _plain(e, c, lim):
+    """The plain assignment over blocks of 65,536 rows."""
+    return torch.cat([dpq_assign_ref(e[i:i + 65536], c,
+                                     None if lim is None else
+                                     lim[i:i + 65536])
+                      for i in range(0, e.shape[0], 65536)])
+
+
+ASSIGN_DTYPES = [torch.float32, torch.bfloat16]
 
 
 @pytest.mark.gpu
-def test_dpq_assign_kernel_ties_and_zero_budget(cuda):
+@pytest.mark.parametrize("dtype", ASSIGN_DTYPES, ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(4096, 5, 256, 2), (4096, 8, 256, 8),
+                                   (2048, 4, 64, 16), (65536, 5, 256, 2),
+                                   (300, 3, 100, 3), (1000000, 8, 64, 32),
+                                   (65536, 8, 256, 320),
+                                   (65536, 8, 256, 672)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_dpq_assign_kernel_matches_plain(cuda, shape, dtype):
+    """Every path shape (deepfm's export, the index, the gemma3-4b and
+    gemma3-27b token tables) in both dtypes, mixed budgets: codes within
+    budget, and where they differ from the plain version, the two
+    distances equal to within ASSIGN_TOL."""
+    b, d, k, s = shape
+    e, c, lim = _assign_case(b, d, k, s, dtype, seed=b + s)
+    before = dpq_assign.launches
+    got = dpq_assign(e, c, lim)
+    want = _plain(e, c, lim)
+    torch.cuda.synchronize()
+    assert dpq_assign.launches == before + 1
+    assert got.shape == want.shape == (b, d)
+    assert _assign_gap(e, c, lim, got, want) <= ASSIGN_TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ASSIGN_DTYPES, ids=["float32", "bfloat16"])
+def test_dpq_assign_kernel_every_tile(cuda, dtype):
+    """Every instantiated (block_m, block_s), the float32 walk's
+    included, agrees with the plain version and gives the same codes,
+    since a row tile, a k-step or the walk changes the
+    schedule, not a dot's order (bfloat16: the same mma chain per
+    accumulator at every k-step).  B is not a multiple of any row tile;
+    S = 100 is not a multiple of any k-step."""
+    from repro_torch.kernels.dpq_assign.dpq_assign import (
+        BLOCK_M, BLOCK_S, WALK_S, choose_tiles)
+    for s in (100,) + ((WALK_S if dtype == torch.float32 else ())):
+        e, c, lim = _assign_case(1000, 3, 200, s, dtype, seed=4)
+        # every pair of the tunables' candidates the kernel takes here
+        tiles = []
+        for m in BLOCK_M.candidates[1:]:
+            for bs in BLOCK_S.candidates[1:]:
+                try:
+                    tiles.append(choose_tiles(dtype, 1000, 3, 200, s, m, bs))
+                except ValueError:
+                    continue
+        assert len(tiles) >= 6
+        outs = [dpq_assign(e, c, lim, block_m=m, block_s=bs)
+                for m, bs in tiles]
+        want = dpq_assign_ref(e, c, lim)
+        for got in outs:
+            assert _assign_gap(e, c, lim, got, want) <= ASSIGN_TOL
+            # every route sums each dot in the same order
+            assert torch.equal(got, outs[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ASSIGN_DTYPES, ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(1, 1, 1, 1), (37, 2, 5, 3),
+                                   (4097, 5, 256, 2), (129, 4, 70, 100),
+                                   (65, 2, 130, 24)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_dpq_assign_kernel_ragged_edges(cuda, shape, dtype):
+    """B not a multiple of the row tile, K not a multiple of the
+    centroid tile, S not a multiple of the k-step (3, 100) or of a
+    16-byte chunk (3, 5 x 2 bytes)."""
+    b, d, k, s = shape
+    e, c, lim = _assign_case(b, d, k, s, dtype, seed=s, head=0.5)
+    for budget in (None, lim):
+        got = dpq_assign(e, c, budget)
+        want = dpq_assign_ref(e, c, budget)
+        assert _assign_gap(e, c, budget, got, want) <= ASSIGN_TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ASSIGN_DTYPES, ids=["float32", "bfloat16"])
+def test_dpq_assign_kernel_ties_and_zero_budget(cuda, dtype):
     rng = np.random.default_rng(1)
     cent = rng.normal(size=(3, 8, 2)).astype(np.float32)
     cent[:, 5] = cent[:, 2]                       # exact tie: 2 == 5
     e = np.repeat(cent[None, :, 2, :], 4, axis=0)
-    c, et = torch.from_numpy(cent).to(cuda), torch.from_numpy(e).to(cuda)
+    c = torch.from_numpy(cent).to(cuda, dtype)
+    et = torch.from_numpy(e).to(cuda, dtype)
     assert (dpq_assign(et, c).cpu() == 2).all()
     zero = torch.zeros(4, dtype=torch.int32, device=cuda)
     assert (dpq_assign(et, c, zero).cpu() == 0).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ASSIGN_DTYPES, ids=["float32", "bfloat16"])
+def test_dpq_assign_kernel_budgets_inside_the_first_tile(cuda, dtype):
+    """Row tiles whose budgets all end inside the first centroid tile
+    (an MGQE tail: 64 of 256) skip the later tiles, and a nearer
+    centroid past the budget never wins; one head row in a tile brings
+    every later tile back for that tile alone."""
+    from repro_torch.kernels.dpq_assign.dpq_assign import BLOCK_N
+    b, d, k, s = 2048, 2, 256, 32
+    e, c, _ = _assign_case(b, d, k, s, dtype, seed=9)
+    # the exact row as a centroid past every budget: it would win
+    c[:, BLOCK_N + 3] = e[5]
+    lim = torch.full((b,), BLOCK_N, dtype=torch.int32, device=cuda)
+    lim[1000] = k
+    lim[7] = 40
+    got = dpq_assign(e, c, lim)
+    want = dpq_assign_ref(e, c, lim)
+    assert _assign_gap(e, c, lim, got, want) <= ASSIGN_TOL
+    assert bool((got[lim < k] < BLOCK_N).all())
+    assert bool((got[7] < 40).all())
+    assert bool((dpq_assign(e, c)[5] == BLOCK_N + 3).all())
 
 
 @pytest.mark.gpu
@@ -142,9 +255,13 @@ def test_kernel_wrappers_refuse_what_they_do_not_take(cuda):
     t = torch.zeros((5, 8, 2), device=cuda)
     with pytest.raises(TypeError, match="uint8 or int32"):
         mgqe_decode(c, t)
+    # dpq_assign takes float32 and bfloat16 (one dtype for both inputs)
     e = torch.zeros((4, 5, 2), device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(TypeError, match="float32 only"):
-        dpq_assign(e, t.to(torch.bfloat16))
+    assert dpq_assign(e, t.to(torch.bfloat16)).shape == (4, 5)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        dpq_assign(e.half(), t.half())
+    with pytest.raises(TypeError, match="one dtype for both"):
+        dpq_assign(e, t)
     with pytest.raises(ValueError, match="contiguous"):
         mgqe_decode(c.to(torch.int32).t().contiguous().t(), t)
 
@@ -385,8 +502,8 @@ def test_pq_kernels_refuse_what_they_do_not_take(cuda):
 
 @pytest.mark.gpu
 def test_dpq_assign_kernel_at_the_index_shape(cuda):
-    """flat_pq's corpus encode: D=8, K=64, S=32 (the kernel's generic
-    S branch), every row at the full budget."""
+    """flat_pq's corpus encode: D=8, K=64, S=32 (one centroid tile, one
+    k-step), every row at the full budget."""
     b, d, k, s = 65536, 8, 64, 32
     rng = np.random.default_rng(3)
     e = torch.from_numpy((rng.normal(size=(b, d, s)) * 0.06
@@ -978,52 +1095,42 @@ def test_flash_attention_kernel_refuses_what_it_does_not_take(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ASSIGN_DTYPES, ids=["float32", "bfloat16"])
 @pytest.mark.parametrize("k", [256, 64])
-def test_dpq_assign_kernel_at_lm_widths(cuda, k):
-    """An LM token table: D = 8, S = 2560 / 8 = 320.  At K = 256 one
-    subspace's table (321 KB) does not fit a block's shared memory, so
-    the kernel walks K in two chunks."""
-    from repro_torch.kernels.dpq_assign.dpq_assign import chunk_centroids
-    b, d, s = 16384, 8, 320
-    assert chunk_centroids(256, s) < 256 <= 2 * chunk_centroids(256, s)
-    rng = np.random.default_rng(k)
-    scale = (d * s) ** -0.5
-    e = torch.from_numpy((rng.normal(size=(b, d, s)) * scale
-                          ).astype(np.float32)).to(cuda)
-    c = torch.from_numpy((rng.normal(size=(d, k, s)) * scale
-                          ).astype(np.float32)).to(cuda)
-    klim = np.where(rng.random(b) < 0.1, k, min(k, 64)).astype(np.int32)
-    for lim in (None, torch.from_numpy(klim).to(cuda)):
-        got = dpq_assign(e, c, lim)
-        want = dpq_assign_ref(e, c, lim)
-        torch.cuda.synchronize()
-        e64, c64 = e.double(), c.double()
-        dist = (torch.sum(c64 * c64, -1)[None]
-                - 2.0 * torch.einsum("bds,dks->bdk", e64, c64))
-        gap = (dist.gather(-1, got.long()[..., None])
-               - dist.gather(-1, want.long()[..., None])).abs()
-        assert float(gap.max()) <= ASSIGN_TOL
-        if lim is not None:
-            assert (got.cpu().numpy() < klim[:, None]).all()
+def test_dpq_assign_kernel_at_lm_widths(cuda, k, dtype):
+    """An LM token table: D = 8, S = 2560 / 8 = 320 (gemma3-4b) and
+    5376 / 8 = 672 (gemma3-27b).  S is streamed through shared memory,
+    so no subspace's table has to fit it whole."""
+    b, d = 16384, 8
+    for s in (320, 672):
+        e, c, lim = _assign_case(b, d, k, s, dtype, seed=k + s,
+                                 k_small=min(k, 64))
+        for budget in (None, lim):
+            got = dpq_assign(e, c, budget)
+            want = dpq_assign_ref(e, c, budget)
+            torch.cuda.synchronize()
+            assert _assign_gap(e, c, budget, got, want) <= ASSIGN_TOL
 
 
 @pytest.mark.gpu
-def test_dpq_assign_kernel_ties_across_chunks(cuda):
-    """A centroid repeated in a later chunk never wins: the first index
-    does, as torch.argmin's; a budget that ends inside the first chunk
-    never reaches the second."""
-    from repro_torch.kernels.dpq_assign.dpq_assign import chunk_centroids
+@pytest.mark.parametrize("dtype", ASSIGN_DTYPES, ids=["float32", "bfloat16"])
+def test_dpq_assign_kernel_ties_across_chunks(cuda, dtype):
+    """A centroid repeated in a later centroid tile never wins: the
+    first index does, as torch.argmin's; a budget that ends inside the
+    first tile never reaches the second."""
+    from repro_torch.kernels.dpq_assign.dpq_assign import BLOCK_N
     d, k, s = 2, 600, 200
-    kc = chunk_centroids(k, s)
-    assert kc < k
     rng = np.random.default_rng(2)
     cent = rng.normal(size=(d, k, s)).astype(np.float32)
-    cent[:, kc + 5] = cent[:, 7]                  # exact tie across chunks
-    cent[:, 2 * kc + 1] = cent[:, 7]
+    cent[:, BLOCK_N + 5] = cent[:, 7]             # exact tie across tiles
+    cent[:, 2 * BLOCK_N + 1] = cent[:, 7]
+    cent[:, k - 1] = cent[:, 7]
     e = np.repeat(cent[None, :, 7, :], 5, axis=0)
-    c, et = torch.from_numpy(cent).to(cuda), torch.from_numpy(e).to(cuda)
+    c = torch.from_numpy(cent).to(cuda, dtype)
+    et = torch.from_numpy(e).to(cuda, dtype)
     assert (dpq_assign(et, c).cpu() == 7).all()
-    lim = torch.tensor([3, 8, kc + 6, k, 0], dtype=torch.int32, device=cuda)
+    lim = torch.tensor([3, 8, BLOCK_N + 6, k, 0], dtype=torch.int32,
+                       device=cuda)
     got = dpq_assign(et, c, lim).cpu()
     assert torch.equal(got, dpq_assign_ref(et, c, lim).cpu())
     assert got[1:4].eq(7).all() and got[4].eq(0).all()

@@ -12,6 +12,8 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels.dpq_assign.dpq_assign import (dpq_assign as
+                                                 jax_assign_kernel)
 from repro.kernels.dpq_assign.ref import (dpq_assign_blocked_ref as
                                           jax_assign_blocked,
                                           dpq_assign_ref as jax_assign)
@@ -23,6 +25,10 @@ from repro_torch.kernels import build
 from repro_torch.kernels.dpq_assign import (assign, dpq_assign,
                                             dpq_assign_blocked_ref,
                                             dpq_assign_ref)
+from repro_torch.kernels.dpq_assign.dpq_assign import (MAX_SMEM, TILES,
+                                                       WALK_MAX_S, WALK_ROWS,
+                                                       choose_tiles,
+                                                       smem_bytes)
 from repro_torch.kernels.mgqe_decode import (decode, decode_stages,
                                              mgqe_decode, mgqe_decode_ref,
                                              rq_decode_stages,
@@ -166,6 +172,91 @@ def test_dpq_assign_blocked_matches_jax_blocked():
     got = dpq_assign_blocked_ref(torch.from_numpy(e), torch.from_numpy(cent),
                                  torch.from_numpy(klim), block_b=128)
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+# (B, D, K, S) in bfloat16: B not a multiple of the Pallas block, a
+# 256-centroid table at the index's S, and S = 48 (three k-depths)
+BF16_ASSIGN_SHAPES = [(257, 4, 64, 16), (512, 8, 256, 32), (128, 2, 256, 48)]
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["all_k", "k_limit"])
+@pytest.mark.parametrize("shape", BF16_ASSIGN_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_dpq_assign_plain_matches_jax_kernel_in_bf16(shape, masked):
+    """bfloat16 inputs, rounded once and handed to both packages: the
+    port's plain version gives the TPU kernel's codes (its ``interpret``
+    route: f32 accumulation, ||c||^2 from the values cast to f32), bit
+    for bit, on the op's CPU path too."""
+    e, cent, klim = _assign_inputs(*shape, seed=shape[3])
+    e16, c16 = e.astype(ml_dtypes.bfloat16), cent.astype(ml_dtypes.bfloat16)
+    lim_j = jnp.asarray(klim) if masked else None
+    lim_t = torch.from_numpy(klim) if masked else None
+    want = np.asarray(jax_assign_kernel(jnp.asarray(e16), jnp.asarray(c16),
+                                        lim_j, block_b=128, interpret=True))
+    et = tensor_from_numpy(e16, "cpu")
+    ct = tensor_from_numpy(c16, "cpu")
+    assert et.dtype == ct.dtype == torch.bfloat16
+    np.testing.assert_array_equal(dpq_assign_ref(et, ct, lim_t).numpy(), want)
+    np.testing.assert_array_equal(assign(et, ct, lim_t).numpy(), want)
+
+
+# every shape dpq_assign's kernel runs at on the paths: deepfm's export
+# batch, the retrieval index, gemma3-4b's and gemma3-27b's token tables
+KERNEL_ASSIGN_SHAPES = [(65536, 5, 256, 2), (1_000_000, 8, 64, 32),
+                        (65536, 8, 256, 320), (65536, 8, 256, 672)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", KERNEL_ASSIGN_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_dpq_assign_tiles_fit_shared_memory(shape, dtype):
+    """The wrapper's tile chooser (pure Python) gives an instantiated
+    configuration within 227 KB of shared memory at every path shape;
+    S is streamed, so gemma3-27b's 344 KB subspace table need not fit."""
+    b, d, k, s = shape
+    block_m, block_s = choose_tiles(dtype, b, d, k, s)
+    assert smem_bytes(dtype, block_m, block_s, k, s) <= MAX_SMEM
+    # enough blocks to fill the card at the paths' row counts
+    assert -(-b // block_m) * d >= 264
+    if dtype == torch.float32 and s <= WALK_MAX_S:
+        assert (block_m, block_s) == (512, 0)             # the walk
+    else:
+        rows, steps = TILES[dtype]
+        assert block_m in rows and block_s in steps
+        # S in one k-step where an instantiated one holds it, else streamed
+        assert block_s >= s or block_s == steps[-1]
+
+
+def test_dpq_assign_tile_chooser_checks_what_it_is_given():
+    """Every instantiated tile pair fits at any table size (S is
+    streamed); a pinned pair the kernel lacks, a walk whose table does
+    not fit, and a dtype the kernel does not take are refused before any
+    launch."""
+    for dtype, (rows, steps) in TILES.items():
+        for m in rows:
+            for s in steps:
+                assert smem_bytes(dtype, m, s, 4096, 4096) <= MAX_SMEM
+                assert choose_tiles(dtype, 100, 2, 256, 8, m, s) == (m, s)
+    for m in WALK_ROWS:
+        assert choose_tiles(torch.float32, 100, 2, 256, 2, m, 0) == (m, 0)
+    with pytest.raises(ValueError, match="block_m in"):
+        choose_tiles(torch.bfloat16, 4096, 8, 256, 320, block_m=256)
+    with pytest.raises(ValueError, match="block_s in"):
+        choose_tiles(torch.float32, 4096, 8, 256, 320, block_s=64)
+    with pytest.raises(ValueError, match="walk takes"):
+        choose_tiles(torch.float32, 4096, 8, 256, 320, block_s=0)
+    with pytest.raises(ValueError, match="shared memory"):
+        choose_tiles(torch.float32, 4096, 8, 20000, 2, block_s=0)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        choose_tiles(torch.float16, 4096, 8, 256, 320)
+    # small calls take the smallest row tile, small S the smallest step;
+    # a float32 table too large to stage whole takes the tiled product
+    assert choose_tiles(torch.float32, 10, 1, 256, 2) == (256, 0)
+    assert choose_tiles(torch.float32, 10, 1, 20000, 2) == (64, 2)
+    assert choose_tiles(torch.float32, 10, 1, 256, 16) == (256, 0)
+    assert choose_tiles(torch.float32, 10, 1, 256, 32) == (64, 32)
+    assert choose_tiles(torch.bfloat16, 10, 1, 256, 3) == (64, 16)
 
 
 def test_dpq_assign_ties_go_to_first_index():
