@@ -8,11 +8,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
 2. build every CUDA kernel from ``src/repro_torch/kernels/csrc/`` with
    nvcc, one process per source, all at once;
 3. hold each kernel against its plain PyTorch version on the card at
-   the paths' shapes (``mgqe_decode``, ``rq_decode_stages``,
-   ``packed_decode`` and the pq kernels: bit-identical, ``pq_topk``
-   also on scores rising with the id; ``dpq_assign`` in float32 and
-   bfloat16: identical codes except between distances equal to within
-   ``ASSIGN_TOL``);
+   the paths' shapes (``mgqe_decode`` at deepfm's and at gemma3-4b's
+   prefill shape, ``rq_decode_stages``, ``packed_decode`` and the pq
+   kernels at B = 1, 16, the retrieval flush's 464 and a ragged 465:
+   bit-identical, ``pq_topk`` also on scores rising with the id;
+   ``dpq_assign`` in float32 and bfloat16: identical codes except
+   between distances equal to within ``ASSIGN_TOL``);
 4. drive the first main path at full width: deepfm's ``CONFIG`` -> its
    10M-row MGQE field -> init on the card -> export (``dpq_assign``) ->
    ``ServingEngine`` over 200 random requests (``mgqe_decode``), with
@@ -23,7 +24,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    time of each kernel;
 5. time each of its kernels, its plain version and, where one PyTorch
    call computes the same function, that call, with CUDA events at the
-   main path's shapes, beside the least time the card could take;
+   main path's shapes, beside the least time the card could take
+   (``mgqe_decode`` also at gemma3-4b's prefill shape, held
+   bit-identical there);
    ``dpq_assign`` at all four of its shapes (deepfm's export, also on
    the tiled product against the walk the kernel takes at S = 2; the
    retrieval index; gemma3-4b's f32 and gemma3-27b's bf16 token
@@ -108,10 +111,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    for bit, hold the index's codes (and ``dpq_assign`` run again on
    the same tower outputs) against the plain assignment, as in 3, and
    print the peak device memory;
-11. time the pq kernels at that path's shapes, as in 5, and
-   ``pq_topk`` also on its worst case
-   (scores rising with the id, held to the exact answer) and beside
-   ``torch.topk(pq_score_batched(...))``, the two calls it fuses;
+11. time the pq kernels at that path's shapes, as in 5,
+   ``pq_score_batched`` also at a ragged B = 465, and ``pq_topk`` also
+   on its worst case (scores rising with the id, held to the exact
+   answer) and beside ``torch.topk(pq_score_batched(...))``, the two
+   calls it fuses;
 12. print one ``{"kernels": [...]}`` JSON line (launches summed over
    every path), then, last, the ``{"ok": true, "device": ...}`` line.
 
@@ -438,6 +442,18 @@ def ptxas_entries(text: str) -> list:
     return out
 
 
+def lm_decode_shape() -> tuple:
+    """(B, D, K, S, dtype) of mgqe_decode at LM_ARCH's prefill: the
+    LM_BATCH x LM_PROMPT prompt tokens' rows from its token table's
+    centroids (the largest tier's K), in its parameter dtype."""
+    import torch
+    from repro_torch.configs import get_arch
+    _, cfg = get_arch(LM_ARCH, smoke=False)
+    e = cfg.embedding
+    return (LM_BATCH * LM_PROMPT, e.num_subspaces, e.num_centroids,
+            e.dim // e.num_subspaces, getattr(torch, cfg.param_dtype))
+
+
 def check_kernels() -> dict:
     """Each kernel against its plain version on the card; returns
     ``{name: max_abs_err}`` over every case."""
@@ -462,6 +478,20 @@ def check_kernels() -> dict:
                     f"bit-identical={same} max_abs_err={err}")
                 need(same, f"mgqe_decode bit-identical at B={b} {dtype}")
                 errs["mgqe_decode"] = max(errs["mgqe_decode"], err)
+    # the LM's token rows (the l2 route), in both element types
+    lb, ld, lk, ls, _ = lm_decode_shape()
+    for dtype in (torch.float32, torch.bfloat16):
+        codes, cent = decode_inputs(lb, ld, lk, ls, dtype, seed=lb + ls)
+        got, want = mgqe_decode(codes, cent), mgqe_decode_ref(codes, cent)
+        torch.cuda.synchronize()
+        same = torch.equal(bits(got), bits(want))
+        err = float((got.float() - want.float()).abs().max())
+        log(f"check mgqe_decode B={lb} D={ld} K={lk} S={ls} {dtype} "
+            f"({LM_ARCH}'s prefill): bit-identical={same} max_abs_err={err}")
+        need(same, f"mgqe_decode bit-identical at {LM_ARCH}'s prefill "
+             f"shape, {dtype}")
+        errs["mgqe_decode"] = max(errs["mgqe_decode"], err)
+        del codes, cent, got, want
 
     for (b, d, k, s, k_small) in ((ASSIGN_BATCH, 5, 256, 2, 64),
                                   (ASSIGN_BATCH, 8, 256, 8, 64)):
@@ -546,7 +576,9 @@ def rq_inputs(b, m, k, d, dtype, g):
 def check_pq_kernels() -> dict:
     """The pq kernels against their plain versions at the retrieval
     index's shape (N = 1M, D = 8, K = 64, k = 100), normal and tie-heavy
-    LUTs: bit-identical."""
+    LUTs, B = 1 and 16 (the scoring kernels' rows route), the flush's
+    464 (the lanes route and a rows remainder) and a ragged 465 (a
+    masked last lanes group): bit-identical."""
     import torch
     from repro_torch.kernels.pq_score import (pq_score, pq_score_batched,
                                               pq_score_batched_ref,
@@ -557,7 +589,7 @@ def check_pq_kernels() -> dict:
     g = torch.Generator(device="cuda").manual_seed(21)
     codes = torch.randint(0, k, (n, d), generator=g, device="cuda",
                           dtype=torch.int32).to(torch.uint8)
-    for b in (1, 16):
+    for b in (1, 16, 464, 465):
         for ties in (False, True):
             luts = torch.randn((b, d, k), generator=g, device="cuda")
             if ties:                 # multiples of 1/8 from 9 values
@@ -581,6 +613,7 @@ def check_pq_kernels() -> dict:
                                            finite_err(got, want))
             errs["pq_score"] = max(errs["pq_score"], finite_err(s1, w1))
             errs["pq_topk"] = max(errs["pq_topk"], finite_err(ts, ws))
+            del got, want, s1, w1, ts, ti, ws, wi
     # the selection's worst case: scores that rise with the id, so every
     # candidate passes every threshold
     luts, codes = rising_scores(16, n, d, k)
@@ -778,6 +811,7 @@ def time_kernels(errs: dict, launches: dict) -> list:
     """The ``kernels`` entries: times at the main path's shapes."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.core import EmbeddingConfig
     from repro_torch.kernels.mgqe_decode import (decode, mgqe_decode,
                                                  mgqe_decode_ref)
 
@@ -803,6 +837,12 @@ def time_kernels(errs: dict, launches: dict) -> list:
         f"plain {plain:.5f} ms, F.embedding {lib:.5f} ms, bound {bound:.5f} "
         f"ms ({nbytes} bytes); host time to launch: wrapper {host:.5f} ms, "
         f"F.embedding {lib_host:.5f} ms")
+    # as the schemes call it: block_b pinned to the config's
+    # decode_block_b (the engine's pad multiple), threads a block
+    pin = EmbeddingConfig(vocab_size=1, dim=d * s).decode_block_b
+    pin_ms, _ = time_ms(lambda: mgqe_decode(codes, cent, block_b=pin))
+    log(f"time mgqe_decode B={b} D={d} K={k} S={s} f32 at the schemes' "
+        f"block_b={pin}: kernel {pin_ms:.5f} ms")
 
     # mgqe_decode at the size of one engine flush (max_queue 4,096 ids
     # padded to block_b), and the host time of the dispatched op
@@ -813,6 +853,35 @@ def time_kernels(errs: dict, launches: dict) -> list:
     log(f"time mgqe_decode B={fb} (one engine flush): kernel {f_ms:.5f} ms, "
         f"bound {(fb * d * 9 + d * k * s * 4) / HBM_BYTES_PER_S * 1e3:.5f} "
         f"ms; host time to launch through dispatch {op_host:.5f} ms")
+
+    # mgqe_decode at gemma3-4b's prefill shape: the token rows of
+    # LM_BATCH x LM_PROMPT prompt tokens, from its token table's
+    # centroids in the LM path's dtype (the l2 route: 1,280-byte slots)
+    lb, ld, lk, ls, l_dtype = lm_decode_shape()
+    l_codes, l_cent = decode_inputs(lb, ld, lk, ls, l_dtype, seed=13)
+    got, want = mgqe_decode(l_codes, l_cent), mgqe_decode_ref(l_codes, l_cent)
+    torch.cuda.synchronize()
+    need(torch.equal(bits(got), bits(want)), f"mgqe_decode bit-identical at "
+         f"{LM_ARCH}'s prefill shape")
+    del got, want
+    l_offs = (l_codes.long() + torch.arange(ld, device="cuda") * lk
+              ).contiguous()
+    l_flat = l_cent.reshape(ld * lk, ls)
+    l_ms, _ = time_ms(lambda: mgqe_decode(l_codes, l_cent))
+    l_plain, _ = time_ms(lambda: mgqe_decode_ref(l_codes, l_cent), iters=20,
+                         hold=False)
+    l_lib, _ = time_ms(lambda: F.embedding(l_offs, l_flat))
+    esz = l_cent.element_size()
+    l_bytes = lb * ld + ld * lk * ls * esz + lb * ld * ls * esz
+    l_bound = l_bytes / HBM_BYTES_PER_S * 1e3
+    l_pin, _ = time_ms(lambda: mgqe_decode(l_codes, l_cent, block_b=pin))
+    log(f"time mgqe_decode B={lb} D={ld} K={lk} S={ls} {l_dtype} "
+        f"({LM_ARCH}'s prefill, bit-identical to the plain version): kernel "
+        f"{l_ms:.5f} ms (at the schemes' block_b={pin}: {l_pin:.5f} ms), "
+        f"plain {l_plain:.5f} ms, F.embedding {l_lib:.5f} ms, bound "
+        f"{l_bound:.5f} ms ({l_bytes} bytes, {100 * l_bound / l_ms:.0f}% of "
+        f"it)")
+    del l_codes, l_cent, l_offs, l_flat
 
     # dpq_assign at all four of its shapes: deepfm's export (the main
     # path's, the entry's numbers), the retrieval index, gemma3-4b's
@@ -2555,6 +2624,14 @@ def time_pq_kernels(errs: dict, launches: dict, luts, codes) -> list:
         f"the id, held exact); torch.topk(pq_score_batched(...)) "
         f"{two:.5f} ms, {two / fused:.2f}x the kernel's time")
     del r_luts, r_codes, ws, wi, want
+    # the scoring kernels at a ragged batch (a masked last lanes group)
+    luts465 = torch.cat([luts, luts[:1]]).contiguous()
+    r_ms, _ = time_ms(lambda: pq_score_batched(luts465, codes), iters=20,
+                      warmup=2)
+    r_bound = (n * d + 465 * d * k * 4 + 465 * n * 4) / HBM_BYTES_PER_S * 1e3
+    log(f"time pq_score_batched N={n} B=465 D={d} K={k}: kernel {r_ms:.5f} "
+        f"ms, bound {r_bound:.5f} ms by bytes")
+    del luts465
     for name, line, kern, plain_fn, lib_fn, nbytes, ops, bb in cases:
         ms, host = time_ms(kern, iters=20, warmup=2)
         plain, _ = time_ms(plain_fn, iters=3, warmup=1, hold=False)

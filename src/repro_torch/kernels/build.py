@@ -121,6 +121,22 @@ def function(name: str, symbol: str, argtypes: Sequence,
     return fn
 
 
+def sm_count(device) -> int:
+    """The SM count of a CUDA device, read once and then kept (the
+    kernels' launch planners size their grids by it)."""
+    import torch
+    dev = torch.device(device)
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    sms = _SMS.get(idx)
+    if sms is None:
+        sms = _SMS[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return sms
+
+
+_SMS: Dict[int, int] = {}
+
+
 def check(name: str, err: int, what: str) -> None:
     """Raise when a C entry point returned a non-zero ``cudaError_t``."""
     if err:
@@ -130,4 +146,4 @@ def check(name: str, err: int, what: str) -> None:
 
 
 __all__ = ["BUILD_DIR", "CSRC", "NVCC_FLAGS", "build", "check", "function",
-           "library", "library_path", "sources"]
+           "library", "library_path", "sm_count", "sources"]

@@ -3,7 +3,7 @@
 Replace the TPU kernels of ``src/repro/kernels/pq_score/pq_score.py``:
 
   ``pq_score``          ``pq_score`` (Pallas body ``_score_kernel``) —
-                        here the batched kernel launched with B = 1
+                        here the scoring kernels at B = 1
   ``pq_score_batched``  ``pq_score_batched`` (``_score_batched_kernel``)
   ``pq_topk``           ``pq_topk`` (``_topk_kernel``)
 
@@ -11,9 +11,15 @@ The kernels themselves, with their design notes, are in
 ``csrc/pq_score.cu``: LUTs staged in shared memory and gathered there
 (the TPU's one-hot matmul was an MXU workaround), the scores summed in
 the plain version's order so the two are bit-identical.  The scoring
-kernels are bound by the bytes they move (codes in, scores out); the
-top-k by its adds, as it writes only (B, k) pairs — it takes two
-passes: a selection per (query, chunk of candidates) that keeps a
+kernels are bound by the bytes they move (codes in, scores out) and, in
+practice, by the shared-memory reads of the LUTs: from 9 queries a
+warp scores 32 candidates for 32 queries at once, four queries a lane,
+so a quarter warp's LUT reads are one 128-byte row (the "lanes"
+route); smaller batches keep one thread a candidate (the "rows"
+route).
+``score_plan`` chooses the routes and the grid in pure Python.  The
+top-k is bound by its adds, as it writes only (B, k) pairs — it takes
+two passes: a selection per (query, chunk of candidates) that keeps a
 running threshold, and merges of the partial lists.
 
 Each wrapper checks device, dtype, rank and contiguity, allocates its
@@ -22,23 +28,25 @@ stream, raises if the launch fails and adds one to its own
 ``launches`` count.  The kernels' shape limits (queries per launch,
 LUT bytes, k, buffer and shared-memory sizes) are checked by
 ``csrc/pq_score.cu``'s entry points, which refuse a shape past them;
-the wrapper raises with that error.  ``topk_plan`` sizes a ``pq_topk``
-launch from the same constants, and the entry point re-checks the plan.
-They take CUDA tensors only; the ops' CPU path is the plain version in
-``ref.py``, chosen by the dispatch layer, never by a fallback here.
+the wrapper raises with that error.  ``score_plan`` and ``topk_plan``
+size the launches from the same constants, and the entry points
+re-check the plans.  They take CUDA tensors only; the ops' CPU path is
+the plain version in ``ref.py``, chosen by the dispatch layer, never by
+a fallback here.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.dispatch import Tunable
 
-# candidates per block of the scoring kernel (256 threads stride them)
-SCORE_BLOCK_N = Tunable(1024, (256, 512, 1024, 2048, 4096))
+# candidates a scoring block walks (None: as many blocks as fill the
+# card once, see score_plan)
+SCORE_BLOCK_N = Tunable(None, (None, 16384, 65536, 262144))
 # candidates per block of pq_topk's selection pass (None: as many
 # blocks as fill the card once, see topk_plan)
 TOPK_BLOCK_N = Tunable(None, (None, 4096, 16384, 65536, 262144))
@@ -58,9 +66,33 @@ SMEM_PER_SM = 228 * 1024
 
 _CODE_BYTES = {torch.uint8: 1, torch.int32: 4}
 
+# the scoring kernels' constants, as csrc/pq_score.cu defines them (its
+# entry point refuses a plan past them): queries a lanes group,
+# candidates a warp's tile, the lanes route's largest LUTs (32 queries),
+# threads a block and blocks an SM (its launch bounds: 128 registers a
+# thread); the rows route's threads a block, candidates a thread scores
+# at once, most queries below the lanes route, widest group and LUT
+# budget; a block's largest dynamic shared memory
+LANE_Q = 32
+LANE_TILE = 32
+LANES_LUT_MAX = 128 * 1024
+LANES_THREADS = 256
+LANES_BLOCKS_PER_SM = 2
+ROWS_THREADS = 256
+ROWS_UNROLL = 2
+ROWS_MAX_Q = 8
+ROWS_MAX_WIDTH = 16
+LUT_BUDGET = 96 * 1024
+SMEM_MAX = 227 * 1024
+# the routes' numbers in the entry point
+ROUTES = {"lanes": 0, "rows": 1}
+
 _SCORE_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_void_p]
 _TOPK_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -94,23 +126,130 @@ def _check(what: str, luts: torch.Tensor, codes: torch.Tensor) -> None:
         raise ValueError(f"{what} takes contiguous LUTs and codes")
 
 
+class ScoreLaunch(NamedTuple):
+    """One launch of the scoring kernels: ``route`` ("lanes" or
+    "rows"), queries [``q0``, ``q0 + nq``) in groups of ``width``
+    (``groups`` of them, the last possibly short), ``splits`` blocks a
+    group of ``span`` candidates each, ``threads`` a block and ``smem``
+    bytes of dynamic shared memory a block."""
+    route: str
+    q0: int
+    nq: int
+    width: int
+    groups: int
+    splits: int
+    span: int
+    threads: int
+    smem: int
+
+
+def lanes_smem(d: int, kk: int, code_bytes: int, warps: int) -> int:
+    """A lanes-route block's shared memory: 32 queries' LUTs and, per
+    warp, a double buffer of a tile's codes."""
+    buf = _cdiv(LANE_TILE * d * code_bytes, 16) * 16
+    return d * kk * LANE_Q * 4 + warps * 2 * buf
+
+
+def _pow2_at_least(x: int) -> int:
+    return 1 << max(0, (x - 1).bit_length())
+
+
+def _splits(n: int, groups: int, blocks: int, unit: int,
+            block_n: Optional[int]) -> Tuple[int, int]:
+    """(splits, span): each group's candidates cut into spans of a
+    multiple of ``unit``, as many as make ``blocks`` blocks in all (or
+    ``block_n`` candidates a span)."""
+    if block_n is None:
+        splits = max(1, min(_cdiv(n, unit), blocks // groups))
+        span = _cdiv(_cdiv(n, splits), unit) * unit
+    else:
+        if int(block_n) <= 0:
+            raise ValueError(f"block_n must be positive, got {block_n}")
+        span = _cdiv(int(block_n), unit) * unit
+    return _cdiv(n, span), span
+
+
+def score_plan(n: int, b: int, d: int, kk: int, code_bytes: int, sms: int,
+               block_n: Optional[int] = None) -> List[ScoreLaunch]:
+    """Plan ``pq_score_batched`` over N = ``n`` candidates for B = ``b``
+    queries of (D, K) = (``d``, ``kk``) LUTs, codes of ``code_bytes``
+    bytes, on a card of ``sms`` SMs: one or two launches.
+
+    The rule.  Where 32 queries' LUTs fit LANES_LUT_MAX: B <= ROWS_MAX_Q
+    (8) takes the rows route (one group, width the next power of two
+    >= B); a larger B takes the lanes route in groups of 32, and a
+    remainder r = B mod 32 goes to the rows route when r <= ROWS_MAX_Q
+    (width the next power of two >= r), else to a last, masked lanes
+    group.  (On an H100 a lanes group costs about the same at any of
+    its 32 queries, and the rows route's time grows with its queries:
+    they cross between 8 and 12.)  Where 32 queries' LUTs do not fit,
+    every query takes the rows route, in groups of the largest power of
+    two <= ROWS_MAX_WIDTH (16) whose LUTs fit LUT_BUDGET (fewer when B
+    is smaller).  Each launch has about one wave of blocks: (splits x
+    groups) blocks, as many as the card holds at its shared memory,
+    each walking ``span`` candidates (``block_n``, rounded up to the
+    route's unit, where given)."""
+    lut = d * kk * 4
+    out: List[ScoreLaunch] = []
+
+    def lanes(q0: int, nq: int) -> None:
+        warps = LANES_THREADS // 32
+        smem = lanes_smem(d, kk, code_bytes, warps)
+        groups = _cdiv(nq, LANE_Q)
+        per_sm = max(1, min(LANES_BLOCKS_PER_SM,
+                            SMEM_PER_SM // (smem + 1024)))
+        splits, span = _splits(n, groups, per_sm * sms, LANE_TILE * warps,
+                               block_n)
+        out.append(ScoreLaunch("lanes", q0, nq, LANE_Q, groups, splits, span,
+                               LANES_THREADS, smem))
+
+    def rows(q0: int, nq: int, width: int) -> None:
+        smem = width * lut
+        groups = _cdiv(nq, width)
+        per_sm = max(1, min(2048 // ROWS_THREADS,
+                            SMEM_PER_SM // (smem + 1024)))
+        splits, span = _splits(n, groups, per_sm * sms,
+                               ROWS_THREADS * ROWS_UNROLL, block_n)
+        out.append(ScoreLaunch("rows", q0, nq, width, groups, splits, span,
+                               ROWS_THREADS, smem))
+
+    if LANE_Q * lut <= LANES_LUT_MAX:
+        if b <= ROWS_MAX_Q:
+            rows(0, b, _pow2_at_least(b))
+        else:
+            full, r = divmod(b, LANE_Q)
+            if r > ROWS_MAX_Q:
+                lanes(0, b)
+            else:
+                lanes(0, full * LANE_Q)
+                if r:
+                    rows(full * LANE_Q, r, _pow2_at_least(r))
+    else:
+        width = ROWS_MAX_WIDTH
+        while width > 1 and width * lut > LUT_BUDGET:
+            width //= 2
+        rows(0, b, min(width, _pow2_at_least(b)))
+    return out
+
+
 def _launch_scores(luts: torch.Tensor, codes: torch.Tensor,
                    block_n: Optional[int]) -> torch.Tensor:
     b, d, k = luts.shape
     n = codes.shape[0]
-    block_n = SCORE_BLOCK_N.default if block_n is None else int(block_n)
-    if block_n <= 0:
-        raise ValueError(f"block_n must be positive, got {block_n}")
     out = torch.empty((b, n), dtype=torch.float32, device=luts.device)
     if n == 0:
         return out
+    cb = _CODE_BYTES[codes.dtype]
+    plan = score_plan(n, b, d, k, cb, build.sm_count(luts.device), block_n)
     fn = build.function("pq_score", "pq_score_batched_launch",
                         _SCORE_ARGTYPES)
     stream = torch.cuda.current_stream(luts.device).cuda_stream
-    err = fn(luts.data_ptr(), codes.data_ptr(), _CODE_BYTES[codes.dtype],
-             out.data_ptr(), n, b, d, k, block_n, stream)
-    build.check("pq_score", err, f"pq_score launch at B={b} N={n} D={d} "
-                f"K={k} block_n={block_n} (limits: csrc/pq_score.cu)")
+    for p in plan:
+        err = fn(luts.data_ptr(), codes.data_ptr(), cb, out.data_ptr(), n, b,
+                 d, k, ROUTES[p.route], p.q0, p.nq, p.width, p.splits,
+                 p.span, p.threads, p.smem, stream)
+        build.check("pq_score", err, f"pq_score launch at B={b} N={n} D={d} "
+                    f"K={k} {p} (limits: csrc/pq_score.cu)")
     return out
 
 
@@ -200,18 +339,6 @@ def topk_plan(n: int, b: int, d: int, kk: int, k: int, sms: int,
                     b * first_round * k if first_round > 1 else 0, smem)
 
 
-def _sm_count(dev: torch.device) -> int:
-    idx = dev.index if dev.index is not None else torch.cuda.current_device()
-    sms = _SMS.get(idx)
-    if sms is None:
-        sms = _SMS[idx] = torch.cuda.get_device_properties(
-            idx).multi_processor_count
-    return sms
-
-
-_SMS: Dict[int, int] = {}
-
-
 def pq_topk(luts: torch.Tensor, codes: torch.Tensor, k: int,
             block_n: Optional[int] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -223,7 +350,7 @@ def pq_topk(luts: torch.Tensor, codes: torch.Tensor, k: int,
     b, d, kk = luts.shape
     n = codes.shape[0]
     dev = luts.device
-    plan = topk_plan(n, b, d, kk, k, _sm_count(dev), block_n)
+    plan = topk_plan(n, b, d, kk, k, build.sm_count(dev), block_n)
     what = (f"pq_topk at B={b} N={n} D={d} K={kk} k={k} {plan} "
             f"(limits: csrc/pq_score.cu)")
     out_s = torch.empty((b, k), dtype=torch.float32, device=dev)

@@ -1,12 +1,19 @@
-"""Normalization layers (statistics always computed in fp32)."""
+"""Normalization layers (statistics always computed in fp32).
+
+The init functions put their parameters on the card unless the caller
+passes ``device="cpu"``; with no card the default raises
+(``core.api.resolve_device``)."""
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core.api import resolve_device
 
-def rms_norm_init(dim: int, dtype=torch.float32, device="cpu") -> dict:
+
+def rms_norm_init(dim: int, dtype=torch.float32, device="cuda") -> dict:
     # scale stored as a zero-centered offset: effective gain = 1 + scale
-    return {"scale": torch.zeros((dim,), dtype=dtype, device=device)}
+    return {"scale": torch.zeros((dim,), dtype=dtype,
+                                 device=resolve_device(device))}
 
 
 def rms_norm(params: dict, x: torch.Tensor,
@@ -20,7 +27,8 @@ def rms_norm(params: dict, x: torch.Tensor,
     return x * inv * gain
 
 
-def layer_norm_init(dim: int, dtype=torch.float32, device="cpu") -> dict:
+def layer_norm_init(dim: int, dtype=torch.float32, device="cuda") -> dict:
+    device = resolve_device(device)
     return {"scale": torch.ones((dim,), dtype=dtype, device=device),
             "bias": torch.zeros((dim,), dtype=dtype, device=device)}
 

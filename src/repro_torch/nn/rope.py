@@ -8,9 +8,13 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.api import resolve_device
 
-def rope_freqs(head_dim: int, theta, device="cpu") -> torch.Tensor:
-    """(head_dim/2,) inverse frequencies in fp32."""
+
+def rope_freqs(head_dim: int, theta, device="cuda") -> torch.Tensor:
+    """(head_dim/2,) inverse frequencies in fp32, on the card unless the
+    caller passes ``device="cpu"`` (with no card the default raises)."""
+    device = resolve_device(device)
     exponent = torch.arange(0, head_dim, 2, dtype=torch.float32,
                             device=device) / head_dim
     # filled on the device: a host scalar moved there would be a copy

@@ -53,6 +53,15 @@ def _bits(t: torch.Tensor) -> np.ndarray:
             else t.view(torch.int32)).numpy()
 
 
+def _same_bits(got: torch.Tensor, want: torch.Tensor) -> None:
+    """Bit for bit, compared on the card (the scores at B = 465, N = 1M
+    are 1.9 GB); the host comparison runs only to report a mismatch."""
+    assert got.shape == want.shape and got.dtype == want.dtype
+    view = torch.int16 if got.dtype == torch.bfloat16 else torch.int32
+    if not torch.equal(got.view(view), want.view(view)):
+        np.testing.assert_array_equal(_bits(got), _bits(want))
+
+
 # (code dtype, K, largest code drawn): in range, clamped (codes past K,
 # as private_k lanes of other tiers carry), and int32 codes for K > 256
 CODE_CASES = {
@@ -81,6 +90,61 @@ def test_mgqe_decode_kernel_matches_plain(cuda, b, dtype, case):
     assert mgqe_decode.launches == before + 1
     assert got.dtype == dtype and tuple(got.shape) == (b, 10)
     np.testing.assert_array_equal(_bits(got), _bits(mgqe_decode_ref(c, t)))
+
+
+# (D, K, S) on each decode route: deepfm's table (smem), D*S odd (smem,
+# 12-byte slots), gemma3-4b's token table (l2, 1,280-byte slots); B of
+# one row, around a 512-row block of 16 warps' 32-row chunks, and a
+# ragged 8,195
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["uint8", "int32_clamped"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("dks", [(5, 256, 2), (5, 64, 3), (8, 256, 320)],
+                         ids=["deepfm", "D5S3", "lm_S320"])
+@pytest.mark.parametrize("b", [1, 511, 513, 8195])
+def test_mgqe_decode_kernel_routes(cuda, b, dks, dtype, case):
+    d, k, s = dks
+    code_dt, _, hi = CODE_CASES[case]
+    rng = np.random.default_rng(b + s)
+    c = torch.from_numpy(rng.integers(0, hi + 1, (b, d))
+                         .astype(code_dt)).to(cuda)
+    t = torch.from_numpy(rng.normal(size=(d, k, s)).astype(np.float32)
+                         ).to(cuda, dtype)
+    got = mgqe_decode(c, t)
+    assert got.dtype == dtype and tuple(got.shape) == (b, d * s)
+    _same_bits(got, mgqe_decode_ref(c, t))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("block_b", [32, 128, 1024])
+def test_mgqe_decode_kernel_any_block(cuda, block_b):
+    """block_b, the threads a block, changes the schedule only; B =
+    262,149 leaves a ragged last chunk of rows."""
+    rng = np.random.default_rng(block_b)
+    c = torch.from_numpy(rng.integers(0, 256, (262149, 5)).astype(np.uint8)
+                         ).to(cuda)
+    t = torch.randn((5, 256, 2), device=cuda)
+    _same_bits(mgqe_decode(c, t, block_b=block_b), mgqe_decode_ref(c, t))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dks", [(5, 256, 2), (8, 256, 320)],
+                         ids=["smem", "l2"])
+def test_mgqe_decode_kernel_unaligned_codes(cuda, dks):
+    """Codes at an odd byte address: the smem route copies its code chunks
+    byte by byte instead of by cp.async; the l2 route reads codes one at
+    a time either way."""
+    d, k, s = dks
+    rng = np.random.default_rng(3)
+    codes = torch.from_numpy(rng.integers(0, k, (4099, d)).astype(np.uint8)
+                             ).to(cuda)
+    raw = torch.empty(4099 * d + 1, dtype=torch.uint8, device=cuda)
+    shifted = raw[1:].view(4099, d)
+    shifted.copy_(codes)
+    assert shifted.data_ptr() % 2 == 1 and shifted.is_contiguous()
+    t = torch.randn((d, k, s), device=cuda)
+    _same_bits(mgqe_decode(shifted, t), mgqe_decode_ref(codes, t))
 
 
 @pytest.mark.gpu
@@ -312,12 +376,18 @@ def _pq_inputs(cuda, b, n, d, k, code_dt, ties, seed=0):
             torch.from_numpy(codes).to(cuda))
 
 
+# batch sizes on both sides of every route threshold of score_plan: the
+# rows route (B <= 16), the lanes route with a rows remainder (33, the
+# retrieval flush's 464) and with a masked last group (465), full groups
+PQ_BATCHES = [1, 5, 16, 33, 64, 464, 465]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("ties", [False, True], ids=["normal", "ties"])
 @pytest.mark.parametrize("code_dt", [np.uint8, np.int32],
                          ids=["uint8", "int32"])
 @pytest.mark.parametrize("dk", PQ_SHAPES, ids=lambda s: "D%dK%d" % s)
-@pytest.mark.parametrize("b", [1, 16, 64])
+@pytest.mark.parametrize("b", PQ_BATCHES)
 @pytest.mark.parametrize("n", [257, 1_000_000])
 def test_pq_score_batched_kernel_matches_plain(cuda, n, b, dk, code_dt, ties):
     luts, codes = _pq_inputs(cuda, b, n, *dk, code_dt, ties)
@@ -326,8 +396,47 @@ def test_pq_score_batched_kernel_matches_plain(cuda, n, b, dk, code_dt, ties):
     torch.cuda.synchronize()
     assert pq_score_batched.launches == before + 1
     assert tuple(got.shape) == (b, n)
-    np.testing.assert_array_equal(_bits(got),
-                                  _bits(pq_score_batched_ref(luts, codes)))
+    _same_bits(got, pq_score_batched_ref(luts, codes))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ties", [False, True], ids=["normal", "ties"])
+@pytest.mark.parametrize("code_dt", [np.uint8, np.int32],
+                         ids=["uint8", "int32"])
+@pytest.mark.parametrize("dk", [(5, 64), (12, 256)], ids=["D5K64", "D12K256"])
+@pytest.mark.parametrize("b", [1, 16, 33, 465])
+@pytest.mark.parametrize("n", [257, 1_000_000])
+def test_pq_score_batched_kernel_odd_widths(cuda, n, b, dk, code_dt, ties):
+    """D not a multiple of 8: code rows read four (D = 12) or one (D = 5)
+    at a time on the lanes route, one at a time on the rows route."""
+    luts, codes = _pq_inputs(cuda, b, n, *dk, code_dt, ties)
+    _same_bits(pq_score_batched(luts, codes),
+               pq_score_batched_ref(luts, codes))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [5, 40])
+@pytest.mark.parametrize("n", [257, 100_003])
+def test_pq_score_batched_kernel_clamps_codes_past_k(cuda, n, b):
+    """uint8 codes up to 255 against K = 64: every route clamps to K - 1
+    (the lanes route only in the tiles that need it)."""
+    luts, _ = _pq_inputs(cuda, b, n, 8, 64, np.uint8, ties=False)
+    rng = np.random.default_rng(1)
+    codes = rng.integers(0, 64, (n, 8)).astype(np.uint8)
+    codes[::97] = rng.integers(64, 256, codes[::97].shape)
+    codes = torch.from_numpy(codes).to(cuda)
+    _same_bits(pq_score_batched(luts, codes),
+               pq_score_batched_ref(luts, codes))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("block_n", [1, 256, 5000, 2_000_000])
+def test_pq_score_batched_kernel_any_span(cuda, block_n):
+    """block_n, the candidates a block walks (rounded up to the route's
+    unit), changes the schedule only: at B = 33 both routes run."""
+    luts, codes = _pq_inputs(cuda, 33, 100_003, 8, 64, np.uint8, ties=True)
+    _same_bits(pq_score_batched(luts, codes, block_n=block_n),
+               pq_score_batched_ref(luts, codes))
 
 
 @pytest.mark.gpu

@@ -33,6 +33,11 @@ from repro_torch.kernels.mgqe_decode import (decode, decode_stages,
                                              mgqe_decode, mgqe_decode_ref,
                                              rq_decode_stages,
                                              rq_decode_stages_ref)
+from repro_torch.kernels.mgqe_decode.mgqe_decode import (SMEM_MAX,
+                                                         SMEM_SLOT_MAX,
+                                                         SMEM_TABLE_MAX,
+                                                         decode_plan,
+                                                         decode_smem)
 
 
 def _bits(x) -> np.ndarray:
@@ -85,6 +90,75 @@ def test_mgqe_decode_op_on_cpu_is_plain_version():
     for backend in (None, "auto", "torch"):
         np.testing.assert_array_equal(_bits(decode(c, t, backend=backend)),
                                       _bits(mgqe_decode_ref(c, t)))
+
+
+# (B, D, K, S, code bytes, element bytes) -> mgqe_decode's plan (route,
+# threads a block, lanes a slot, blocks) on a card of 132 SMs: deepfm's
+# serve_bulk in f32 and bf16 (a 10 KB / 5 KB table in shared memory,
+# 8,192 chunks of 32 rows for 264 blocks of 16 warps), gemma3-4b's
+# prefill (2.6 MB table, 1,280-byte slots: through L2) in both types,
+# D*S odd, the JAX bench's d = 64 table (64 KB: one block an SM), two
+# tables past the smem route's limit, and chunks so wide that fewer
+# warps fit a block
+@pytest.mark.parametrize("shape,plan", [
+    ((262144, 5, 256, 2, 1, 4), ("smem", 512, 0, 264)),
+    ((262144, 5, 256, 2, 1, 2), ("smem", 512, 0, 264)),
+    ((8192, 8, 256, 320, 1, 4), ("l2", 1024, 32, 264)),
+    ((8192, 8, 256, 320, 1, 2), ("l2", 1024, 32, 264)),
+    ((1000, 5, 64, 3, 1, 4), ("smem", 512, 0, 2)),
+    ((262144, 8, 256, 8, 1, 4), ("smem", 512, 0, 132)),
+    ((1000, 4, 4096, 8, 4, 4), ("l2", 1024, 2, 8)),
+    ((257, 16, 256, 16, 4, 4), ("l2", 1024, 4, 17)),
+    ((262144, 200, 16, 1, 4, 2), ("smem", 96, 0, 132))])
+def test_mgqe_decode_plan_routes(shape, plan):
+    got = decode_plan(*shape, sms=132)
+    assert (got.route, got.threads, got.group, got.grid) == plan
+
+
+@pytest.mark.parametrize("s", [2, 3, 17, 320])
+@pytest.mark.parametrize("dk", [(1, 1), (5, 256), (8, 256), (16, 256),
+                                (4, 4096), (200, 16)])
+@pytest.mark.parametrize("b", [1, 262144])
+def test_mgqe_decode_plan_fits_what_the_kernel_takes(b, dk, s):
+    """The smem route only for tables and slots within its limits, with
+    shared memory as the kernel computes it (the table and each warp's
+    chunks) and within a block's limit, and no more warps than chunks of
+    32 rows; else the l2 route with a power-of-two group of lanes, one
+    a 16-byte vector up to 32, and no more lanes than slots need."""
+    d, k = dk
+    for code_bytes in (1, 4):
+        for elem_bytes in (2, 4):
+            slot = s * elem_bytes
+            p = decode_plan(b, d, k, s, code_bytes, elem_bytes, sms=132)
+            assert p.threads % 32 == 0 and 0 < p.threads <= 1024
+            if p.route == "smem":
+                assert d * k * slot <= SMEM_TABLE_MAX
+                assert slot <= SMEM_SLOT_MAX and p.group == 0
+                assert p.smem == decode_smem(d, k, slot, code_bytes,
+                                             p.threads // 32) <= SMEM_MAX
+                assert 1 <= p.grid
+                assert (p.grid - 1) * p.threads // 32 < -(-b // 32)
+                continue
+            assert p.route == "l2" and p.smem == 0
+            assert (d * k * slot > SMEM_TABLE_MAX or slot > SMEM_SLOT_MAX
+                    or decode_smem(d, k, slot, code_bytes, 1) > SMEM_MAX)
+            vec = next(v for v in (16, 8, 4, 2) if slot % v == 0)
+            assert p.group & (p.group - 1) == 0
+            assert min(slot // vec, 32) <= p.group <= 32
+            assert 1 <= p.grid <= 2048 // p.threads * 132
+            assert (p.grid - 1) * p.threads < b * d * p.group
+
+
+def test_mgqe_decode_plan_takes_block_b_as_threads_a_block():
+    assert decode_plan(262144, 5, 256, 2, 1, 4, 132, block_b=128).threads \
+        == 128
+    # the schemes' pinned decode_block_b (256): on the l2 route blocks
+    # fill the card's threads all the same
+    lm = decode_plan(8192, 8, 256, 320, 1, 4, 132, block_b=256)
+    assert (lm.threads, lm.grid) == (256, 1056)
+    for bad in (0, 16, 100, 2048, -32):
+        with pytest.raises(ValueError, match="multiple of 32"):
+            decode_plan(262144, 5, 256, 2, 1, 4, 132, block_b=bad)
 
 
 # rq_decode_stages: (code dtype, M, K, d); the stage sum of the plain

@@ -79,6 +79,53 @@ def test_rms_norm_and_layer_norm_match_jax():
                                     jnp.asarray(x)), TOL)
 
 
+# the parameter builders of nn/, called as the LM's init calls them
+NN_INITS = {
+    "rms_norm_init": (lambda dt, **kw: norm.rms_norm_init(64, dt, **kw),
+                      lambda dt: jax_norm.rms_norm_init(64, dt)),
+    "layer_norm_init": (lambda dt, **kw: norm.layer_norm_init(64, dt, **kw),
+                        lambda dt: jax_norm.layer_norm_init(64, dt)),
+    "rope_freqs": (lambda dt, **kw: {"freqs": rope.rope_freqs(80, 1e6, **kw)},
+                   lambda dt: {"freqs": jax_rope.rope_freqs(
+                       80, jnp.float32(1e6))}),
+}
+
+
+@pytest.mark.parametrize("name", sorted(NN_INITS))
+def test_nn_inits_default_to_the_card(name):
+    """Like the rest of the package, nn/'s builders put their tensors on
+    the card unless the caller passes device="cpu"; with no card the
+    default raises and names that argument (never a silent CPU)."""
+    build = NN_INITS[name][0]
+    if torch.cuda.is_available():
+        assert all(t.is_cuda for t in build(torch.float32).values())
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build(torch.float32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", sorted(NN_INITS))
+def test_nn_inits_on_the_cpu_match_jax(name, dtype):
+    """With device="cpu" the builders give JAX's values, dtypes and
+    shapes; rope's inverse frequencies are each library's own float32
+    pow, so they agree to float32 rounding (TOL), the rest exactly."""
+    build, jax_build = NN_INITS[name]
+    got = build(getattr(torch, dtype), device="cpu")
+    want = jax_build(getattr(jnp, dtype))
+    assert sorted(got) == sorted(want)
+    for key, t in got.items():
+        assert t.device.type == "cpu"
+        w = np.asarray(want[key])
+        assert tuple(t.shape) == w.shape
+        assert str(t.dtype).removeprefix("torch.") == str(w.dtype)
+        if name == "rope_freqs":
+            _close(t, w, TOL)
+        else:
+            np.testing.assert_array_equal(t.float().numpy(),
+                                          w.astype(np.float32))
+
+
 @pytest.mark.parametrize("theta", [10_000.0, 1_000_000.0])
 @pytest.mark.parametrize("hd", [16, 80])
 def test_apply_rope_matches_jax(hd, theta):

@@ -28,8 +28,13 @@ from repro.retrieval import merge_topk as jax_merge_topk
 from repro.retrieval import topk_by_position as jax_topk_by_position
 from repro_torch.convert import flat_pq_artifact_from_numpy
 from repro_torch.kernels import pq_score as pq
-from repro_torch.kernels.pq_score.pq_score import (TOPK_MAX_MERGE,
-                                                   TOPK_THREADS, topk_plan)
+from repro_torch.kernels.pq_score.pq_score import (LANE_TILE, LANES_THREADS,
+                                                   LUT_BUDGET, ROWS_THREADS,
+                                                   ROWS_UNROLL, SMEM_MAX,
+                                                   SMEM_PER_SM,
+                                                   TOPK_MAX_MERGE,
+                                                   TOPK_THREADS, lanes_smem,
+                                                   score_plan, topk_plan)
 from repro_torch.launch import engine
 from repro_torch.retrieval import (INVALID_ID, IndexConfig, build,
                                    flat_pq, get_index, index_class,
@@ -246,6 +251,80 @@ def test_pq_topk_plan_buffers_and_scratch():
     assert many.chunks == 7813 and many.rows0 == 16 * 7813 * 100
     assert many.rows1 == 16 * 48 * 100
     assert topk_plan(0, 4, 8, 64, 4, 132).chunks == 1
+
+
+# B -> the scoring launches' (route, first query, queries, width) at the
+# retrieval index's (N, D, K) = (1M, 8, 64), uint8 codes: B <= 8 on the
+# rows route, 32-query groups on the lanes route, a remainder of at most
+# 8 queries on the rows route and a larger one as a masked lanes group
+@pytest.mark.parametrize("b,launches", [
+    (1, [("rows", 0, 1, 1)]),
+    (5, [("rows", 0, 5, 8)]),
+    (8, [("rows", 0, 8, 8)]),
+    (9, [("lanes", 0, 9, 32)]),
+    (16, [("lanes", 0, 16, 32)]),
+    (33, [("lanes", 0, 32, 32), ("rows", 32, 1, 1)]),
+    (40, [("lanes", 0, 32, 32), ("rows", 32, 8, 8)]),
+    (64, [("lanes", 0, 64, 32)]),
+    (464, [("lanes", 0, 464, 32)]),
+    (465, [("lanes", 0, 465, 32)])])
+def test_pq_score_plan_routes(b, launches):
+    got = score_plan(1_000_000, b, 8, 64, 1, 132)
+    assert [(p.route, p.q0, p.nq, p.width) for p in got] == launches
+
+
+@pytest.mark.parametrize("dk", [(8, 64), (8, 256), (16, 64), (16, 256),
+                                (5, 64), (5, 256), (12, 256), (8, 3000)])
+@pytest.mark.parametrize("b", [1, 5, 16, 17, 33, 464, 465])
+@pytest.mark.parametrize("code_bytes", [1, 4])
+def test_pq_score_plan_covers_every_query_and_candidate(b, dk, code_bytes):
+    """Every query in exactly one launch, in order; each launch's spans
+    cover N with no empty block, in the route's unit; the shared memory
+    is what the route needs (csrc/pq_score.cu re-checks it); about one
+    wave of blocks; 32 queries' LUTs past 128 KB (D=8, K=256 and up)
+    never take the lanes route, and the rows route's groups are as wide
+    as LUT_BUDGET allows."""
+    d, kk = dk
+    lut = d * kk * 4
+    for n in (257, 1_000_000):
+        _check_score_plan(score_plan(n, b, d, kk, code_bytes, 132), n, b, d,
+                          kk, code_bytes, lut)
+
+
+def _check_score_plan(plan, n, b, d, kk, code_bytes, lut):
+    q = 0
+    for p in plan:
+        assert p.q0 == q and p.groups == -(-p.nq // p.width)
+        q += p.nq
+        assert p.splits * p.span >= n > (p.splits - 1) * p.span
+        if p.route == "lanes":
+            assert 32 * lut <= 128 * 1024 and b > 8
+            assert p.width == 32 and p.threads == LANES_THREADS
+            assert p.span % (LANE_TILE * LANES_THREADS // 32) == 0
+            assert p.smem == lanes_smem(d, kk, code_bytes,
+                                        LANES_THREADS // 32) <= SMEM_MAX
+        else:
+            assert p.route == "rows" and p.threads == ROWS_THREADS
+            assert p.width in (1, 2, 4, 8, 16)
+            assert p.span % (ROWS_THREADS * ROWS_UNROLL) == 0
+            assert p.smem == p.width * lut <= LUT_BUDGET
+            assert p.width >= min(p.nq, 16) or 2 * p.width * lut > LUT_BUDGET
+            assert p.nq <= 8 or 32 * lut > 128 * 1024
+        per_sm = max(1, min(8 if p.route == "rows" else 2,
+                            SMEM_PER_SM // (p.smem + 1024)))
+        assert p.splits == 1 or p.splits * p.groups <= per_sm * 132
+    assert q == b
+
+
+def test_pq_score_plan_takes_block_n_and_refuses_nonsense():
+    """block_n, where given, is the candidates a block walks, rounded
+    up to the route's unit; it must be positive."""
+    lanes, rows = score_plan(100_000, 33, 8, 64, 1, 132, block_n=1000)
+    assert (lanes.route, lanes.span, lanes.splits) == ("lanes", 1024, 98)
+    assert (rows.route, rows.span, rows.splits) == ("rows", 1024, 98)
+    for bad in (0, -5):
+        with pytest.raises(ValueError, match="positive"):
+            score_plan(100, 33, 8, 64, 1, 132, block_n=bad)
 
 
 def test_pq_topk_refuses_k_past_the_tile_and_cpu_tensors():
