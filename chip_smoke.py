@@ -9,9 +9,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    nvcc, one process per source, all at once;
 3. hold each kernel against its plain PyTorch version on the card at
    the paths' shapes (``mgqe_decode`` at deepfm's and at gemma3-4b's
-   prefill shape, ``rq_decode_stages``, ``packed_decode`` and the pq
-   kernels at B = 1, 16, the retrieval flush's 464 and a ragged 465:
-   bit-identical, ``pq_topk`` also on scores rising with the id;
+   prefill shape, ``rq_decode_stages`` and ``packed_decode`` on every
+   route (a table past the shared-memory limit through L2, rq's smem
+   route at 262,144 rows), the pq kernels at B = 1, 16, the
+   retrieval flush's 464 and a ragged 465: bit-identical, ``pq_topk``
+   also on scores rising with the id;
    ``dpq_assign`` in float32 and bfloat16: identical codes except
    between distances equal to within ``ASSIGN_TOL``);
 4. drive the first main path at full width: deepfm's ``CONFIG`` -> its
@@ -43,7 +45,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    against the plain assignment, and small rq and mpe tables against
    the CPU; then serve the lrf, sq and hash baselines once each through
    ``serve_engine`` and print every scheme's size and lookups/s;
-7. time ``rq_decode_stages`` and ``packed_decode`` as in 5;
+7. time ``rq_decode_stages`` and ``packed_decode`` as in 5, each with
+   the launch plan it took (rq's entry at one engine flush, the shape
+   of its counted launches), also at B = 262,144, in bfloat16, at the
+   schemes' pinned block_b, at one engine flush and at B = 256, and rq
+   on both routes and at the JAX bench's d = 64;
 8. the fourth path, each phase freeing the card after it:
    ``embedding_bag`` against its plain version at deepfm's largest
    field as a full table (V = 10M, d = 10) and at two-tower's 10M-row
@@ -516,48 +522,62 @@ def check_kernels() -> dict:
 
 def check_decode_kernels() -> dict:
     """rq_decode_stages and packed_decode against their plain versions
-    on the card, bit for bit: at the third path's shapes (M=5, K=256,
-    d=10; D=5, S=2 at 8, 4 and 2 bits) and the JAX bench's d = 64 shapes
-    (M=4, K=256; D=8, S=8), B = 257 and 262,144, float32 and bfloat16."""
+    on the card, bit for bit, on every route: at the third path's shapes
+    (M=5, K=256, d=10, codebooks in shared memory at B = 262,144 and
+    through L2 at 257; D=5, S=2 at 8, 4 and 2 bits) and the JAX bench's d = 64
+    shapes (M=4, K=256, 256 KB of codebooks: through L2; D=8, S=8), a
+    table past packed_decode's shared-memory limit (D=16, S=16, 8 bits:
+    through L2), B = 257 and 262,144, float32 and bfloat16."""
     import torch
+    from repro_torch.kernels import build
     from repro_torch.kernels.mgqe_decode import (rq_decode_stages,
                                                  rq_decode_stages_ref)
+    from repro_torch.kernels.mgqe_decode.mgqe_decode import rq_plan
     from repro_torch.kernels.packed_decode import (pack_codes, packed_decode,
                                                    packed_decode_ref)
+    from repro_torch.kernels.packed_decode.packed_decode import packed_plan
     errs = {"rq_decode_stages": 0.0, "packed_decode": 0.0}
+    sms = build.sm_count("cuda")
     g = torch.Generator(device="cuda").manual_seed(31)
     for b in (RAGGED_BATCH, serve_bulk_batch()):
         for dtype in (torch.float32, torch.bfloat16):
+            eb = torch.tensor([], dtype=dtype).element_size()
             for m, k, d in ((5, 256, 10), (4, 256, 64)):
                 codes, cbs = rq_inputs(b, m, k, d, dtype, g)
-                got = rq_decode_stages(codes, cbs)
                 want = rq_decode_stages_ref(codes, cbs)
+                p = rq_plan(b, m, k, d, 1, eb, sms)
+                got = rq_decode_stages(codes, cbs)
                 torch.cuda.synchronize()
                 need(got.shape == want.shape == (b, d), "rq shape")
                 same = torch.equal(bits(got), bits(want))
                 err = float((got.float() - want.float()).abs().max())
                 log(f"check rq_decode_stages B={b} M={m} K={k} d={d} "
-                    f"{dtype}: bit-identical={same} max_abs_err={err}")
+                    f"{dtype} {p}: bit-identical={same} max_abs_err={err}")
                 need(same, f"rq_decode_stages bit-identical at B={b} "
-                     f"d={d} {dtype}")
-                errs["rq_decode_stages"] = max(errs["rq_decode_stages"], err)
-            for d, s in ((5, 2), (8, 8)):
-                for nb in (8, 4, 2):
+                     f"d={d} {dtype} {p}")
+                errs["rq_decode_stages"] = max(errs["rq_decode_stages"],
+                                               err)
+            for d, s, bit_set in ((5, 2, (8, 4, 2)), (8, 8, (8, 4, 2)),
+                                  (16, 16, (8,))):
+                for nb in bit_set:
                     codes = torch.randint(0, 2 ** nb, (b, d), generator=g,
                                           device="cuda", dtype=torch.int32)
                     packed = pack_codes(codes, nb)
                     cent = torch.randn((d, 2 ** nb, s), generator=g,
                                        device="cuda").to(dtype)
+                    p = packed_plan(b, d, s, nb, eb, sms)
                     got = packed_decode(packed, cent, nb)
                     want = packed_decode_ref(packed, cent, nb)
                     torch.cuda.synchronize()
                     same = torch.equal(bits(got), bits(want))
                     err = float((got.float() - want.float()).abs().max())
                     log(f"check packed_decode B={b} D={d} S={s} bits={nb} "
-                        f"W={packed.shape[1]} {dtype}: bit-identical={same} "
-                        f"max_abs_err={err}")
+                        f"W={packed.shape[1]} {dtype} {p.route} route: "
+                        f"bit-identical={same} max_abs_err={err}")
                     need(same, f"packed_decode bit-identical at B={b} "
-                         f"D={d} bits={nb} {dtype}")
+                         f"D={d} bits={nb} {dtype} ({p.route} route)")
+                    need((p.route == "l2") == (d == 16),
+                         f"packed_decode's route at D={d}, S={s}: {p.route}")
                     errs["packed_decode"] = max(errs["packed_decode"], err)
     return errs
 
@@ -1241,60 +1261,112 @@ def compressed_paths() -> tuple:
 
 
 def time_decode_kernels(errs: dict, launches: dict, flush_b: int) -> list:
-    """The ``kernels`` entries of rq_decode_stages and packed_decode,
-    timed at the third path's shapes: B = 262,144 (the bulk-serving
-    batch), beside the bound, the plain version and, for rq,
-    ``F.embedding_bag``; then at one engine flush and at B = 256."""
+    """The ``kernels`` entries of rq_decode_stages and packed_decode at
+    the third path's shapes, beside the bound, the plain version and,
+    for rq, ``F.embedding_bag``: rq at one engine flush (``flush_b``
+    rows, the shape of every launch the path counted: the l2 route),
+    packed_decode at B = 262,144 (the bulk-serving batch; its flushes
+    take the same smem route).  Also logged, each with the launch plan
+    it took: rq at B = 262,144 (the smem route), in bfloat16, at the
+    schemes' pinned block_b (256 threads a block), on both routes at
+    32,768, 65,536 and 262,144 rows, at B = 256 and at the JAX bench's
+    d = 64; packed_decode in bfloat16, at block_b=256, at one flush and
+    at B = 256."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels import build
+    from repro_torch.kernels.decode_chunks import walk, warp_bytes
     from repro_torch.kernels.mgqe_decode import (decode_stages,
                                                  rq_decode_stages,
                                                  rq_decode_stages_ref)
+    from repro_torch.kernels.mgqe_decode.mgqe_decode import (
+        RQ_L2_MAX_GRID, RQ_L2_THREADS, RQ_SMEM_MIN_ROWS, RqPlan, rq_plan)
     from repro_torch.kernels.packed_decode import (pack_codes, packed_decode,
                                                    packed_decode_ref,
                                                    packed_width)
+    from repro_torch.kernels.packed_decode.packed_decode import packed_plan
 
     def bound(nbytes, ops):
         t_b = nbytes / HBM_BYTES_PER_S * 1e3
         t_o = ops / F32_FLOP_PER_S * 1e3
         return max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
 
+    def rq_times(c, cb):
+        """(kernel, plain, F.embedding_bag, bound, bound_by, bytes, host
+        times of the wrapper and of F.embedding_bag) of rq at c's rows."""
+        rows = c.shape[0]
+        offs = (c.long() + torch.arange(m, device="cuda") * k).contiguous()
+        flat = cb.reshape(m * k, d)
+        t_k, host = time_ms(lambda: rq_decode_stages(c, cb))
+        t_p, _ = time_ms(lambda: rq_decode_stages_ref(c, cb), iters=50)
+        t_l, l_host = time_ms(lambda: F.embedding_bag(offs, flat,
+                                                      mode="sum"))
+        nbytes = rows * m + m * k * d * 4 + rows * d * 4
+        t_b, by = bound(nbytes, rows * (m - 1) * d)
+        return t_k, t_p, t_l, t_b, by, nbytes, host, l_host
+
     out = []
+    sms = build.sm_count("cuda")
     g = torch.Generator(device="cuda").manual_seed(41)
     b, m, k, d = serve_bulk_batch(), 5, 256, 10
     codes, cbs = rq_inputs(b, m, k, d, torch.float32, g)
-    offs = (codes.long() + torch.arange(m, device="cuda") * k).contiguous()
-    flat = cbs.reshape(m * k, d)
-    ms, host = time_ms(lambda: rq_decode_stages(codes, cbs))
-    plain, _ = time_ms(lambda: rq_decode_stages_ref(codes, cbs), iters=50)
-    lib, lib_host = time_ms(lambda: F.embedding_bag(offs, flat, mode="sum"))
-    nbytes = b * m + m * k * d * 4 + b * d * 4
-    t, by = bound(nbytes, b * (m - 1) * d)
-    out.append({"name": "rq_decode_stages", "route": "cuda",
+    for rows in (flush_b, b):
+        c = codes[:rows].contiguous()
+        plan = rq_plan(rows, m, k, d, 1, 4, sms)
+        ms, plain, lib, t, by, nbytes, host, lib_host = rq_times(c, cbs)
+        if rows == flush_b:
+            out.append({
+                "name": "rq_decode_stages", "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/rq_decode_stages.cu",
                 "replaces": "src/repro/kernels/mgqe_decode/mgqe_decode.py:103",
                 "launches": launches["rq_decode_stages"],
                 "max_abs_err": errs["rq_decode_stages"], "ms": ms,
                 "plain_ms": plain, "bound_ms": t, "bound_by": by,
                 "library_ms": lib})
-    log(f"time rq_decode_stages B={b} M={m} K={k} d={d} f32: kernel "
-        f"{ms:.5f} ms, plain {plain:.5f} ms, F.embedding_bag {lib:.5f} ms, "
-        f"bound {t:.5f} ms by {by} ({nbytes} bytes); host time to launch: "
-        f"wrapper {host:.5f} ms, F.embedding_bag {lib_host:.5f} ms")
-    for fb in (flush_b, 256):
+        log(f"time rq_decode_stages B={rows}"
+            f"{' (one engine flush: the entry)' if rows == flush_b else ''}"
+            f" M={m} K={k} d={d} f32 {plan}: kernel {ms:.5f} ms, plain "
+            f"{plain:.5f} ms, F.embedding_bag {lib:.5f} ms, bound {t:.5f} ms"
+            f" by {by} ({nbytes} bytes); host time to launch: wrapper "
+            f"{host:.5f} ms, F.embedding_bag {lib_host:.5f} ms")
+    cbs16 = cbs.to(torch.bfloat16)
+    p16 = rq_plan(b, m, k, d, 1, 2, sms)
+    ms16, _ = time_ms(lambda: rq_decode_stages(codes, cbs16))
+    log(f"time rq_decode_stages B={b} bf16 {p16}: kernel {ms16:.5f} ms, "
+        f"bound {(b * m + m * k * d * 2 + b * d * 2) / HBM_BYTES_PER_S * 1e3:.5f}"
+        f" ms")
+    # both routes either side of the smem route's least batch, and at
+    # serve_bulk: the planner's rule
+    for fb in (RQ_SMEM_MIN_ROWS // 2, RQ_SMEM_MIN_ROWS, b):
         f_codes = codes[:fb].contiguous()
-        f_ms, _ = time_ms(lambda: rq_decode_stages(f_codes, cbs))
-        _, op_host = time_ms(lambda: decode_stages(f_codes, cbs))
-        log(f"time rq_decode_stages B={fb}: kernel {f_ms:.5f} ms, bound "
-            f"{(fb * (m + d * 4) + m * k * d * 4) / HBM_BYTES_PER_S * 1e3:.5f}"
-            f" ms; host time to launch through dispatch {op_host:.5f} ms")
-    # the bench's d = 64: 256 KB of codebooks, tiled over columns
+        w = walk(fb, m * k * d * 4, warp_bytes(m, d * 4), sms)
+        smem = RqPlan("smem", w.threads, 2, w.grid, w.smem)
+        l2 = RqPlan("l2", RQ_L2_THREADS, 2,
+                    min(-(-fb * d // 2 // RQ_L2_THREADS), RQ_L2_MAX_GRID), 0)
+        t_s, _ = time_ms(lambda: rq_decode_stages(f_codes, cbs, plan=smem))
+        t_l, _ = time_ms(lambda: rq_decode_stages(f_codes, cbs, plan=l2))
+        log(f"time rq_decode_stages B={fb} f32 on each route: smem "
+            f"{t_s:.5f} ms, l2 {t_l:.5f} ms (the planner's: "
+            f"{rq_plan(fb, m, k, d, 1, 4, sms).route})")
+    p256 = rq_plan(b, m, k, d, 1, 4, sms, block_b=256)
+    ms256, _ = time_ms(lambda: rq_decode_stages(codes, cbs, 256))
+    log(f"time rq_decode_stages B={b} f32 at the schemes' block_b=256 "
+        f"{p256}: kernel {ms256:.5f} ms")
+    f_codes = codes[:256].contiguous()
+    f_ms, _ = time_ms(lambda: rq_decode_stages(f_codes, cbs))
+    _, op_host = time_ms(lambda: decode_stages(f_codes, cbs))
+    log(f"time rq_decode_stages B=256 {rq_plan(256, m, k, d, 1, 4, sms)}: "
+        f"kernel {f_ms:.5f} ms, bound "
+        f"{(256 * (m + d * 4) + m * k * d * 4) / HBM_BYTES_PER_S * 1e3:.5f} "
+        f"ms; host time to launch through dispatch {op_host:.5f} ms")
+    # the bench's d = 64: 256 KB of codebooks, read through L2
     c64, cb64 = rq_inputs(b, 4, 256, 64, torch.float32, g)
     ms64, _ = time_ms(lambda: rq_decode_stages(c64, cb64))
     t64, _ = bound(b * 4 + 4 * 256 * 64 * 4 + b * 64 * 4, b * 3 * 64)
-    log(f"time rq_decode_stages B={b} M=4 K=256 d=64 f32: kernel "
-        f"{ms64:.5f} ms, bound {t64:.5f} ms")
-    del codes, cbs, offs, c64, cb64
+    log(f"time rq_decode_stages B={b} M=4 K=256 d=64 f32 "
+        f"{rq_plan(b, 4, 256, 64, 1, 4, sms)}: kernel {ms64:.5f} ms, bound "
+        f"{t64:.5f} ms")
+    del codes, cbs, cbs16, c64, cb64
 
     # packed_decode: one launch per mpe tier, D=5, S=2, K = 2**bits
     dd, s = 5, 2
@@ -1304,19 +1376,28 @@ def time_decode_kernels(errs: dict, launches: dict, flush_b: int) -> list:
                             dtype=torch.int32)
         packed = pack_codes(raw, nb)
         cent = torch.randn((dd, 2 ** nb, s), generator=g, device="cuda")
+        cent16 = cent.to(torch.bfloat16)
         t_k, host = time_ms(lambda: packed_decode(packed, cent, nb))
         t_p, _ = time_ms(lambda: packed_decode_ref(packed, cent, nb),
                          iters=50)
+        t_16, _ = time_ms(lambda: packed_decode(packed, cent16, nb))
+        t_256, _ = time_ms(lambda: packed_decode(packed, cent, nb, 256))
         w = packed_width(dd, nb)
         nbytes = b * w + dd * 2 ** nb * s * 4 + b * dd * s * 4
         t_b, by = bound(nbytes, 0)
         f_packed = packed[:flush_b].contiguous()
         t_f, _ = time_ms(lambda: packed_decode(f_packed, cent, nb))
+        s_packed = packed[:256].contiguous()
+        t_s, _ = time_ms(lambda: packed_decode(s_packed, cent, nb))
         rows[nb] = (t_k, t_p, t_b)
-        log(f"time packed_decode B={b} D={dd} S={s} bits={nb} W={w}: kernel "
-            f"{t_k:.5f} ms, plain {t_p:.5f} ms, bound {t_b:.5f} ms by {by} "
-            f"({nbytes} bytes); at one flush (B={flush_b}) {t_f:.5f} ms; "
-            f"host time to launch: wrapper {host:.5f} ms")
+        log(f"time packed_decode B={b} D={dd} S={s} bits={nb} W={w} "
+            f"{packed_plan(b, dd, s, nb, 4, sms)}: kernel {t_k:.5f} ms, plain "
+            f"{t_p:.5f} ms, bound {t_b:.5f} ms by {by} ({nbytes} bytes); "
+            f"bf16 {t_16:.5f} ms (bound "
+            f"{(b * w + dd * 2 ** nb * s * 2 + b * dd * s * 2) / HBM_BYTES_PER_S * 1e3:.5f}"
+            f" ms); at the schemes' block_b=256 {t_256:.5f} ms; at one flush "
+            f"(B={flush_b}) {t_f:.5f} ms; at B=256 {t_s:.5f} ms; host time "
+            f"to launch: wrapper {host:.5f} ms")
     mean = [sum(r[i] for r in rows.values()) / len(rows) for i in range(3)]
     out.append({"name": "packed_decode", "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/packed_decode.cu",

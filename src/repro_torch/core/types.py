@@ -88,8 +88,8 @@ class EmbeddingConfig:
     # env var.
     kernel_backend: str = "auto"
 
-    # rows per tile of the decode kernel; the serving engine pads every
-    # flush to a multiple of it.
+    # threads a block of the decode kernels; the serving engine pads
+    # every flush to a multiple of it.
     decode_block_b: int = 256
 
     def __post_init__(self):

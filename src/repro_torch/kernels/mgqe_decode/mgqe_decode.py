@@ -9,12 +9,16 @@ mgqe_decode.py``:
                         tables and slots) or through L2 (the LM's),
                         routed by ``decode_plan``
   ``rq_decode_stages``  ``rq_decode_stages`` (``_staged_kernel``) ->
-                        ``csrc/rq_decode_stages.cu``: one thread per
-                        output element gathers its M codebook entries
-                        through the read-only cache and sums them in a
-                        register, in the plain version's order
+                        ``csrc/rq_decode_stages.cu``: each output
+                        vector's M codebook entries gathered and summed
+                        in registers, in the plain version's order, from
+                        codebooks staged in shared memory (up to 96 KB:
+                        deepfm's) or read through L2, routed by
+                        ``rq_plan``
 
-Both are bound by the bytes they move.  Each wrapper checks device,
+Both are bound by the bytes they move, and their shared-memory routes
+are the per-warp row chunks of ``csrc/decode_chunks.cuh``
+(``kernels/decode_chunks.py`` sizes them).  Each wrapper checks device,
 dtype, shape and contiguity, allocates the output with ``torch.empty``,
 launches on the current stream, raises if the launch fails and adds one
 to its own ``launches`` count.  It takes CUDA tensors only; the ops'
@@ -29,15 +33,21 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.decode_chunks import (MAX_THREADS, ROUTES,
+                                               SMEM_MAX, SMEM_SLOT_MAX,
+                                               SMEM_TABLE_MAX, DecodePlan,
+                                               align16, cdiv, check_block_b,
+                                               l2_gather_plan, walk,
+                                               warp_bytes)
 from repro_torch.kernels.dispatch import Tunable
 
-# mgqe_decode: threads a block (a multiple of 32; None: decode_plan's
-# choice), as rq_decode_stages takes it; on the smem route also the rows
-# a block gathers at once (one a thread).  The schemes pass their
-# config's decode_block_b (the engine's pad multiple, 256 by default)
+# threads a block (None: the planner's choice).  mgqe_decode takes a
+# multiple of 32; rq_decode_stages takes any count in [1, 1024], and
+# one that is not a whole number of warps takes its l2 route.  The
+# schemes pass their config's decode_block_b (the engine's pad
+# multiple, 256 by default)
 BLOCK_B = Tunable(None, (None, 128, 256, 512, 1024))
-# rq_decode_stages: threads per block, one output element each
-RQ_BLOCK_B = Tunable(256, (64, 128, 256, 512, 1024))
+RQ_BLOCK_B = Tunable(None, (None, 64, 128, 256, 512, 1024))
 
 _CODE_BYTES = {torch.uint8: 1, torch.int32: 4}
 _ELEM_BYTES = {torch.float32: 4, torch.bfloat16: 2}
@@ -47,52 +57,21 @@ _ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
              ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
 
-# mgqe_decode's constants, as csrc/mgqe_decode.cu defines them (its
-# entry point refuses a plan past them): rows a warp gathers at a time,
-# the smem route's largest table and slot, a block's largest dynamic
-# shared memory and threads; and the planner's own: each route's
-# threads a block by default, the smem route's blocks an SM at most (a
-# block stages the table, so fewer and larger blocks stage it less
-# often: at serve_bulk 16 warps a block, each walking two chunks), an
-# SM's shared memory and threads
-CHUNK = 32
-SMEM_TABLE_MAX = 96 * 1024
-SMEM_SLOT_MAX = 64
-SMEM_MAX = 227 * 1024
-MAX_THREADS = 1024
-SMEM_THREADS = 512
-L2_THREADS = 1024
-BLOCKS_PER_SM = 2
-SMEM_PER_SM = 228 * 1024
-THREADS_PER_SM = 2048
-DECODE_ROUTES = {"smem": 0, "l2": 1}
-
-
-class DecodePlan(NamedTuple):
-    """One ``mgqe_decode`` launch: ``route`` ("smem" or "l2"),
-    ``threads`` a block, ``group`` lanes a slot (l2 route), ``grid``
-    blocks, ``smem`` bytes of dynamic shared memory a block."""
-    route: str
-    threads: int
-    group: int
-    grid: int
-    smem: int
-
-
-def _cdiv(a: int, b: int) -> int:
-    return -(-a // b)
-
-
-def _align16(x: int) -> int:
-    return _cdiv(x, 16) * 16
+# rq_decode_stages' planner: the smem route from this many rows (below
+# it staging the codebooks costs more than it saves: at deepfm's shape
+# the l2 route is the faster at 32,768 rows and the slower at 65,536),
+# and its l2 route's threads a block and largest grid
+RQ_SMEM_MIN_ROWS = 65536
+RQ_L2_THREADS = 256
+RQ_L2_MAX_GRID = 1 << 20
 
 
 def decode_smem(d: int, k: int, slot: int, code_bytes: int,
                 warps: int) -> int:
     """A smem-route block's shared memory: the table and, per warp, two
     chunks of codes and one of output rows."""
-    return _align16(d * k * slot) + warps * (
-        2 * _align16(CHUNK * d * code_bytes) + CHUNK * d * slot)
+    return align16(d * k * slot) + warps * warp_bytes(d * code_bytes,
+                                                      d * slot)
 
 
 def decode_plan(b: int, d: int, k: int, s: int, code_bytes: int,
@@ -103,40 +82,80 @@ def decode_plan(b: int, d: int, k: int, s: int, code_bytes: int,
 
     The rule: a table of at most SMEM_TABLE_MAX bytes whose slots (S
     elements) are at most SMEM_SLOT_MAX bytes takes the smem route where
-    one warp's chunks fit SMEM_MAX beside it: blocks of SMEM_THREADS
-    (or ``block_b``; fewer warps where their chunks would not fit), up
-    to BLOCKS_PER_SM an SM, no more than the chunks of CHUNK rows need.
-    Anything else (the LM token tables) takes the l2 route: blocks of
-    L2_THREADS (or ``block_b``), a group of lanes a slot, the next power
-    of two >= the slot's 16-byte vectors, at most 32; as many blocks as
-    fill the card's threads once."""
-    if block_b is not None and not (0 < int(block_b) <= MAX_THREADS
-                                    and int(block_b) % 32 == 0):
-        raise ValueError(f"block_b (threads a block) must be a multiple of "
-                         f"32 in [32, {MAX_THREADS}], got {block_b}")
+    one warp's chunks fit SMEM_MAX beside it (``decode_chunks.walk``:
+    blocks of WALK_THREADS or ``block_b``).  Anything else (the LM token
+    tables) takes the l2 route (``decode_chunks.l2_gather_plan``: blocks
+    of L2_THREADS or ``block_b``, a group of lanes a slot, the next
+    power of two >= the slot's 16-byte vectors, at most 32; as many
+    blocks as fill the card's threads once)."""
+    check_block_b(block_b)
     slot = s * elem_bytes
-    if (d * k * slot <= SMEM_TABLE_MAX and slot <= SMEM_SLOT_MAX
-            and decode_smem(d, k, slot, code_bytes, 1) <= SMEM_MAX):
-        warps = (SMEM_THREADS if block_b is None else int(block_b)) // 32
-        while decode_smem(d, k, slot, code_bytes, warps) > SMEM_MAX:
-            warps -= 1
-        smem = decode_smem(d, k, slot, code_bytes, warps)
-        per_sm = max(1, min(BLOCKS_PER_SM, THREADS_PER_SM // (32 * warps),
-                            SMEM_PER_SM // (smem + 1024)))
-        grid = max(1, min(_cdiv(_cdiv(b, CHUNK), warps), per_sm * sms))
-        return DecodePlan("smem", 32 * warps, 0, grid, smem)
-    threads = L2_THREADS if block_b is None else int(block_b)
-    vec = next(v for v in (16, 8, 4, 2) if slot % v == 0)
-    group = min(32, 1 << max(0, (_cdiv(slot, vec) - 1).bit_length()))
-    grid = max(1, min(_cdiv(b * d * group, threads),
-                      THREADS_PER_SM // threads * sms))
-    return DecodePlan("l2", threads, group, grid, 0)
+    if slot <= SMEM_SLOT_MAX:
+        w = walk(b, align16(d * k * slot),
+                 warp_bytes(d * code_bytes, d * slot), sms, block_b)
+        if w is not None:
+            return DecodePlan("smem", w.threads, 0, w.grid, w.smem)
+    return l2_gather_plan(b, d, slot, sms, block_b)
+
+
+class RqPlan(NamedTuple):
+    """One ``rq_decode_stages`` launch: ``route`` ("smem" or "l2"),
+    ``threads`` a block, ``vec`` elements a vector, ``grid`` blocks,
+    ``smem`` bytes of dynamic shared memory a block."""
+    route: str
+    threads: int
+    vec: int
+    grid: int
+    smem: int
+
+
+def rq_smem(m: int, k: int, d: int, code_bytes: int, elem_bytes: int,
+            warps: int) -> int:
+    """A smem-route block's shared memory: the codebooks and, per warp,
+    two chunks of codes and one of output rows."""
+    return align16(m * k * d * elem_bytes) + warps * warp_bytes(
+        m * code_bytes, d * elem_bytes)
+
+
+def rq_plan(b: int, m: int, k: int, d: int, code_bytes: int,
+            elem_bytes: int, sms: int, block_b: Optional[int] = None,
+            cbs_align: int = 16) -> RqPlan:
+    """Plan ``rq_decode_stages`` of B = ``b`` rows of (M, K, d) =
+    (``m``, ``k``, ``d``) codebooks, their base address a multiple of
+    ``cbs_align`` bytes, on a card of ``sms`` SMs.
+
+    The rule: from RQ_SMEM_MIN_ROWS rows, codebooks of at most
+    SMEM_TABLE_MAX bytes take the smem route where one warp's share
+    fits beside them and ``block_b`` is None or a whole number of warps
+    (``decode_chunks.walk``: blocks of WALK_THREADS or ``block_b``);
+    vectors of the widest 8, 4, 2 or 1 elements of at most 16 bytes
+    that divide d, a lane a row.  Anything else takes the
+    l2 route: blocks of RQ_L2_THREADS (or ``block_b``, any count in [1,
+    1024]), a thread a vector of 4, 2 or 1 elements that divides d and
+    the codebooks' alignment, blocks enough for every vector, at most
+    RQ_L2_MAX_GRID."""
+    if block_b is not None and not 0 < int(block_b) <= MAX_THREADS:
+        raise ValueError(f"block_b (threads per block) must lie in "
+                         f"[1, {MAX_THREADS}], got {block_b}")
+    if b >= RQ_SMEM_MIN_ROWS and (block_b is None or int(block_b) % 32 == 0):
+        w = walk(b, align16(m * k * d * elem_bytes),
+                 warp_bytes(m * code_bytes, d * elem_bytes), sms, block_b)
+        if w is not None:
+            vec = next(v for v in (8, 4, 2, 1)
+                       if d % v == 0 and v * elem_bytes <= 16)
+            return RqPlan("smem", w.threads, vec, w.grid, w.smem)
+    threads = RQ_L2_THREADS if block_b is None else int(block_b)
+    vec = next(v for v in (4, 2, 1)
+               if d % v == 0 and cbs_align % (v * elem_bytes) == 0)
+    grid = max(1, min(cdiv(b * (d // vec), threads), RQ_L2_MAX_GRID))
+    return RqPlan("l2", threads, vec, grid, 0)
 
 
 _RQ_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                 ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.c_void_p]
+                ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_longlong, ctypes.c_void_p]
 
 
 def mgqe_decode(codes: torch.Tensor, centroids: torch.Tensor,
@@ -177,7 +196,7 @@ def mgqe_decode(codes: torch.Tensor, centroids: torch.Tensor,
     fn = build.function("mgqe_decode", "mgqe_decode_launch", _ARGTYPES)
     stream = torch.cuda.current_stream(codes.device).cuda_stream
     err = fn(codes.data_ptr(), cb, centroids.data_ptr(), eb, out.data_ptr(),
-             b, d, k, s, DECODE_ROUTES[plan.route], plan.group, plan.grid,
+             b, d, k, s, ROUTES[plan.route], plan.group, plan.grid,
              plan.threads, plan.smem, stream)
     build.check("mgqe_decode", err, f"mgqe_decode launch at B={b} D={d} "
                 f"K={k} S={s} {plan} (limits: csrc/mgqe_decode.cu)")
@@ -190,12 +209,22 @@ def mgqe_decode(codes: torch.Tensor, centroids: torch.Tensor,
 mgqe_decode.launches = 0
 
 
+def _alignment(t: torch.Tensor) -> int:
+    """The largest power of two (at most 16) that divides ``t``'s data
+    address, in bytes."""
+    ptr = t.data_ptr()
+    return min(16, ptr & -ptr) if ptr else 16
+
+
 def rq_decode_stages(codes: torch.Tensor, codebooks: torch.Tensor,
-                     block_b: Optional[int] = None) -> torch.Tensor:
+                     block_b: Optional[int] = None, *,
+                     plan: Optional[RqPlan] = None) -> torch.Tensor:
     """codes (B, M) uint8/int32; stacked codebooks (M, K, d)
     float32/bfloat16, both contiguous on one CUDA device -> (B, d) in
     the codebook dtype, ``sum_m codebooks[m, codes[:, m]]``.  Codes >= K
-    are clamped to K-1.  ``block_b``: threads per block, in [1, 1024]."""
+    are clamped to K-1.  ``block_b``: threads per block, in [1, 1024].
+    ``plan``: a launch plan to run instead of ``rq_plan``'s (to time or
+    test a route); the kernel refuses one it cannot run."""
     if not (codes.is_cuda and codebooks.is_cuda):
         raise ValueError(
             f"rq_decode_stages' CUDA kernel takes CUDA tensors, got codes "
@@ -220,20 +249,23 @@ def rq_decode_stages(codes: torch.Tensor, codebooks: torch.Tensor,
     if not (codes.is_contiguous() and codebooks.is_contiguous()):
         raise ValueError("rq_decode_stages takes contiguous codes and "
                          "codebooks")
-    block_b = RQ_BLOCK_B.default if block_b is None else int(block_b)
-    if not 0 < block_b <= 1024:
-        raise ValueError(f"block_b (threads per block) must lie in "
-                         f"[1, 1024], got {block_b}")
+    cb, eb = _CODE_BYTES[codes.dtype], _ELEM_BYTES[codebooks.dtype]
+    if plan is None:
+        plan = rq_plan(b, m, k, d, cb, eb, build.sm_count(codes.device),
+                       RQ_BLOCK_B.default if block_b is None else block_b,
+                       cbs_align=_alignment(codebooks))
     out = torch.empty((b, d), dtype=codebooks.dtype, device=codebooks.device)
     if b == 0:
         return out
     fn = build.function("rq_decode_stages", "rq_decode_stages_launch",
                         _RQ_ARGTYPES)
     stream = torch.cuda.current_stream(codes.device).cuda_stream
-    err = fn(codes.data_ptr(), _CODE_BYTES[codes.dtype],
-             codebooks.data_ptr(), _ELEM_BYTES[codebooks.dtype],
-             out.data_ptr(), b, m, k, d, block_b, stream)
-    build.check("rq_decode_stages", err, "rq_decode_stages launch")
+    err = fn(codes.data_ptr(), cb, codebooks.data_ptr(), eb, out.data_ptr(),
+             b, m, k, d, ROUTES[plan.route], plan.vec, plan.grid,
+             plan.threads, plan.smem, stream)
+    build.check("rq_decode_stages", err, f"rq_decode_stages launch at B={b} "
+                f"M={m} K={k} d={d} {plan} (limits: "
+                f"csrc/rq_decode_stages.cu)")
     rq_decode_stages.launches += 1
     return out
 
@@ -241,3 +273,9 @@ def rq_decode_stages(codes: torch.Tensor, codebooks: torch.Tensor,
 # launches of the kernel in this process (chip_smoke.py resets and
 # reads it around the main path)
 rq_decode_stages.launches = 0
+
+
+__all__ = ["BLOCK_B", "DecodePlan", "RQ_BLOCK_B", "RQ_L2_MAX_GRID",
+           "RQ_L2_THREADS", "RQ_SMEM_MIN_ROWS", "RqPlan", "SMEM_MAX",
+           "SMEM_SLOT_MAX", "SMEM_TABLE_MAX", "decode_plan", "decode_smem",
+           "mgqe_decode", "rq_decode_stages", "rq_plan", "rq_smem"]

@@ -9,10 +9,9 @@ itself.  ``block_b`` left as None resolves through the autotune cache.
 
 ``decode_stages(codes, codebooks)`` is the residual-quantization form:
 codes (B, M) against stacked full-width codebooks (M, K, d), the M-stage
-sum done in one kernel pass.  Its kernel tiles nothing (one thread per
-output element), so its one tunable, ``block_b``, is the threads per
-block; the TPU kernel's ``block_d`` output-column tile has no
-counterpart.
+sum done in one kernel pass over whole output rows.  Its one tunable,
+``block_b``, is the threads per block, as for ``decode``; the TPU
+kernel's ``block_d`` output-column tile has no counterpart.
 """
 from __future__ import annotations
 

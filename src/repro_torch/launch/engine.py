@@ -185,7 +185,8 @@ class ServingEngine(_MicroBatchEngine):
 
     The artifact is moved to ``device`` once (the card by default; with
     no card present construction raises — pass ``device="cpu"``).
-    Every flush pads to ``block_b``, the decode kernel's row tile.
+    Every flush pads to ``block_b``, which the decode kernels also take
+    as their threads a block.
     Request ids are checked on the host against ``[0, vocab)``: on the
     card an out-of-range row index is a device-side fault, not a clamp.
     """
@@ -199,7 +200,7 @@ class ServingEngine(_MicroBatchEngine):
         if backend is not None:
             overrides["kernel_backend"] = backend
         if block_b is not None:
-            # the kernel's row tile must match the queue padding
+            # the queue's padding, and the decode kernels' threads a block
             overrides["decode_block_b"] = block_b
         device = resolve_device(device)
         if overrides or emb.device != device:

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from repro_torch.core import Embedding, EmbeddingConfig
+from repro_torch.kernels.decode_chunks import l2_gather_plan
 from repro_torch.kernels.dpq_assign import dpq_assign, dpq_assign_ref
 from repro_torch.kernels.embedding_bag import (bag, embedding_bag,
                                                embedding_bag_inorder,
@@ -21,8 +22,11 @@ from repro_torch.kernels.embedding_bag import (bag, embedding_bag,
 from repro_torch.kernels.mgqe_decode import (mgqe_decode, mgqe_decode_ref,
                                              rq_decode_stages,
                                              rq_decode_stages_ref)
+from repro_torch.kernels.mgqe_decode.mgqe_decode import (RQ_SMEM_MIN_ROWS,
+                                                         rq_plan)
 from repro_torch.kernels.packed_decode import (pack_codes, packed_decode,
                                                packed_decode_ref)
+from repro_torch.kernels.packed_decode.packed_decode import packed_plan
 from repro_torch.kernels.pq_score import (INVALID_ID, pq_score,
                                           pq_score_batched,
                                           pq_score_batched_ref, pq_score_ref,
@@ -839,6 +843,198 @@ def test_rq_and_packed_wrappers_refuse_what_they_do_not_take(cuda):
                                   device=cuda).t(), cent, 4)
 
 
+# the two routes of the redesigned decode kernels, each taken at shapes
+# the planner would send down the other one too: B of one row, a chunk
+# of 32 rows either side of 31 and 33, a ragged 257 and serve_bulk
+ROUTE_BATCHES = [1, 31, 33, 257, 262144]
+
+
+def _packed_route(route, b, d, s, bits, elem_bytes):
+    """packed_plan's smem plan, or the l2 route (256 threads a block)."""
+    if route == "smem":
+        plan = packed_plan(b, d, s, bits, elem_bytes, sms=132)
+        assert plan.route == "smem"
+        return plan
+    return l2_gather_plan(b, d, s * elem_bytes, sms=132, block_b=256)
+
+
+def _packed_case(cuda, b, d, k, s, bits, dtype, seed):
+    rng = np.random.default_rng(seed)
+    codes = torch.from_numpy(rng.integers(0, 2 ** bits, (b, d)))
+    cent = torch.from_numpy(rng.normal(size=(d, k, s)).astype(np.float32)
+                            ).to(cuda, dtype)
+    return pack_codes(codes, bits).to(cuda), cent
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("route", ["smem", "l2"])
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("b", ROUTE_BATCHES)
+def test_packed_decode_kernel_routes(cuda, b, bits, route, dtype):
+    """Each mpe tier (D=5, S=2, K = 2^bits) on both routes, bit for bit."""
+    packed, cent = _packed_case(cuda, b, 5, 2 ** bits, 2, bits, dtype,
+                                b + bits)
+    plan = _packed_route(route, b, 5, 2, bits, cent.element_size())
+    got = packed_decode(packed, cent, bits, plan=plan)
+    assert got.dtype == dtype and tuple(got.shape) == (b, 10)
+    _same_bits(got, packed_decode_ref(packed, cent, bits))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["smem", "l2"])
+@pytest.mark.parametrize("bits", [2, 4, 8])
+def test_packed_decode_kernel_unaligned_packed(cuda, bits, route):
+    """Packed bytes at an odd address (a storage offset of one byte):
+    the smem route copies its chunks byte by byte instead of by
+    cp.async."""
+    packed, cent = _packed_case(cuda, 4099, 5, 2 ** bits, 2, bits,
+                                torch.float32, bits)
+    raw = torch.empty(packed.numel() + 1, dtype=torch.uint8, device=cuda)
+    shifted = raw[1:].view(packed.shape)
+    shifted.copy_(packed)
+    assert shifted.data_ptr() % 2 == 1 and shifted.is_contiguous()
+    plan = _packed_route(route, 4099, 5, 2, bits, 4)
+    _same_bits(packed_decode(shifted, cent, bits, plan=plan),
+               packed_decode_ref(packed, cent, bits))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("route", ["smem", "l2"])
+@pytest.mark.parametrize("shape", [(5, 64, 2, 2), (8, 17, 8, 4),
+                                   (5, 300, 1, 8)],
+                         ids=["k64_bits2", "k17_bits4", "k300_s1_bits8"])
+def test_packed_decode_kernel_tier_table_past_2bits(cuda, shape, route,
+                                                    dtype):
+    """Tables with more rows than a code addresses: the smem route
+    stages only the 2^bits rows of each subspace (byte by byte where a
+    subspace does not start 16-byte aligned, as at K=300, S=1)."""
+    d, k, s, bits = shape
+    packed, cent = _packed_case(cuda, 1025, d, k, s, bits, dtype, k)
+    plan = _packed_route(route, 1025, d, s, bits, cent.element_size())
+    _same_bits(packed_decode(packed, cent, bits, plan=plan),
+               packed_decode_ref(packed, cent, bits))
+
+
+def _rq_route(route, b, codes, cbs):
+    """rq_plan's smem plan (its choice from RQ_SMEM_MIN_ROWS rows) or its
+    l2 plan (its choice below), at any B: each route's blocks walk the rows
+    in strides, so a grid planned for more or fewer rows covers B."""
+    m, k, d = cbs.shape
+    cb, eb = codes.element_size(), cbs.element_size()
+    if route == "l2":
+        plan = rq_plan(min(b, RQ_SMEM_MIN_ROWS - 1), m, k, d, cb, eb, 132)
+        assert plan.route == "l2"
+        return plan
+    plan = rq_plan(max(b, RQ_SMEM_MIN_ROWS), m, k, d, cb, eb, 132)
+    assert plan.route == "smem"
+    return plan
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("route", ["smem", "l2"])
+@pytest.mark.parametrize("b", ROUTE_BATCHES)
+def test_rq_decode_stages_kernel_routes(cuda, b, route, dtype):
+    """deepfm's rq codebooks (M=5, K=256, d=10) on both routes, bit for
+    bit."""
+    codes, cbs = _rq_inputs(cuda, b, "uint8_deepfm", dtype)
+    got = rq_decode_stages(codes, cbs, plan=_rq_route(route, b, codes, cbs))
+    assert got.dtype == dtype and tuple(got.shape) == (b, 10)
+    _same_bits(got, rq_decode_stages_ref(codes, cbs))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("route", ["smem", "l2"])
+def test_rq_decode_stages_kernel_int32_codes_past_k(cuda, route, dtype):
+    """int32 codes past K read row K-1 and negative ones row 0."""
+    rng = np.random.default_rng(9)
+    m, k, d, b = 3, 300, 8, 2049
+    codes = rng.integers(-50, 1000, (b, m)).astype(np.int32)
+    codes[:10] = [[-1, 300, 299]] * 10
+    codes = torch.from_numpy(codes).to(cuda)
+    cbs = torch.from_numpy(rng.normal(size=(m, k, d)).astype(np.float32)
+                           ).to(cuda, dtype)
+    got = rq_decode_stages(codes, cbs, plan=_rq_route(route, b, codes, cbs))
+    _same_bits(got, rq_decode_stages_ref(codes, cbs))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("route", ["smem", "l2"])
+@pytest.mark.parametrize("m", [1, 4, 5, 8, 9, 12])
+def test_rq_decode_stages_kernel_stage_counts(cuda, m, route, dtype):
+    """The counts the smem route unrolls (4, 5) and others it walks 8
+    at a time (1, 8, 9, 12), each in the plain version's order."""
+    rng = np.random.default_rng(m)
+    k, d, b = 32, 6, 3000
+    codes = torch.from_numpy(rng.integers(0, k, (b, m)).astype(np.uint8)
+                             ).to(cuda)
+    cbs = rng.normal(size=(m, k, d)) * 0.5 ** np.arange(m)[:, None, None]
+    cbs = torch.from_numpy(cbs.astype(np.float32)).to(cuda, dtype)
+    got = rq_decode_stages(codes, cbs, plan=_rq_route(route, b, codes, cbs))
+    _same_bits(got, rq_decode_stages_ref(codes, cbs))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("code_dt", [np.uint8, np.int32],
+                         ids=["uint8", "int32"])
+@pytest.mark.parametrize("route", ["smem", "l2"])
+def test_rq_decode_stages_kernel_unaligned_codes(cuda, route, code_dt):
+    """Codes at an address 1 (uint8) or 4 (int32) bytes past 16: the
+    smem route copies its chunks byte by byte."""
+    rng = np.random.default_rng(4)
+    b, m = 4099, 5
+    codes = torch.from_numpy(rng.integers(0, 256, (b, m)).astype(code_dt)
+                             ).to(cuda)
+    raw = torch.empty(b * m + 1, dtype=codes.dtype, device=cuda)
+    shifted = raw[1:].view(b, m)
+    shifted.copy_(codes)
+    assert shifted.data_ptr() % 16 != 0 and shifted.is_contiguous()
+    cbs = torch.randn((m, 256, 10), device=cuda)
+    got = rq_decode_stages(shifted, cbs,
+                           plan=_rq_route(route, b, shifted, cbs))
+    _same_bits(got, rq_decode_stages_ref(codes, cbs))
+
+
+@pytest.mark.gpu
+def test_decode_wrappers_raise_on_plans_their_kernels_refuse(cuda):
+    """A plan the kernel cannot run is refused by the entry point and
+    raised by the wrapper: nothing launches."""
+    packed, cent = _packed_case(cuda, 100, 5, 256, 2, 8, torch.float32, 0)
+    p = packed_plan(100, 5, 2, 8, 4, sms=132)
+    codes, cbs = _rq_inputs(cuda, 100, "uint8_deepfm", torch.float32)
+    q = _rq_route("smem", 100, codes, cbs)
+    l2 = _rq_route("l2", 100, codes, cbs)
+    before = (packed_decode.launches, rq_decode_stages.launches)
+    for bad in (p._replace(smem=p.smem + 16), p._replace(threads=100),
+                p._replace(route="l2", group=3, smem=0),
+                p._replace(grid=0)):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            packed_decode(packed, cent, 8, plan=bad)
+    big = torch.zeros((4, 256, 64), device=cuda)      # 256 KB: past smem
+    shifted = torch.zeros(5 * 256 * 10 + 1, device=cuda)[1:].view(5, 256, 10)
+    for args, bad in (((codes, cbs), q._replace(vec=4)),
+                      ((codes, cbs), q._replace(threads=100)),
+                      ((codes, cbs), q._replace(smem=q.smem - 16)),
+                      ((codes[:, :4].contiguous(), big), q),
+                      ((codes, cbs), l2._replace(vec=8)),
+                      ((codes, shifted), l2)):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            rq_decode_stages(*args, plan=bad)
+    assert (packed_decode.launches, rq_decode_stages.launches) == before
+    for bad in (0, 2048):
+        with pytest.raises(ValueError, match="must lie in"):
+            packed_decode(packed, cent, 8, block_b=bad)
+
+
 MPE_ENGINE = dict(vocab_size=5000, dim=10, kind="mpe", num_subspaces=5,
                   tier_boundaries=(250, 1250), tier_bits=(8, 4, 2))
 RQ_ENGINE = dict(vocab_size=5000, dim=10, kind="rq", num_levels=5,
@@ -877,6 +1073,29 @@ def test_rq_and_mpe_engines_on_card_match_cpu(cuda, kw):
     want = engine.ServingEngine(cpu, art_cpu, device="cpu").lookup(ids)
     keep = same[ids]
     assert torch.equal(got[keep], want[keep])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("block_b", [1, 48, 100, 256])
+@pytest.mark.parametrize("kw", [RQ_ENGINE, MPE_ENGINE], ids=["rq", "mpe"])
+def test_rq_and_mpe_engines_on_card_take_any_block_b(cuda, kw, block_b):
+    """An engine pads its flushes to ``block_b``, any count in [1,
+    1024]; the decode kernels take it as threads a block (packed_decode
+    rounded up to whole warps, rq_decode_stages on its l2 route where it
+    is not whole warps).  The card's rows equal the CPU engine's on the
+    same artifact, bit for bit."""
+    cfg = EmbeddingConfig(**kw)
+    cpu = Embedding(cfg, device="cpu")
+    art = cpu.export(cpu.init())
+    ids = np.arange(0, 5000, 7)
+    counter = rq_decode_stages if cfg.kind == "rq" else packed_decode
+    before = counter.launches
+    eng = engine.ServingEngine(cpu, art, block_b=block_b, device=cuda)
+    got = eng.lookup(ids).cpu()
+    assert counter.launches > before and eng.pad_multiple == block_b
+    want = engine.ServingEngine(cpu, art, block_b=block_b,
+                                device="cpu").lookup(ids)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
 # ---------------------------------------------------------- embedding_bag

@@ -37,7 +37,9 @@ from repro_torch.kernels.mgqe_decode.mgqe_decode import (SMEM_MAX,
                                                          SMEM_SLOT_MAX,
                                                          SMEM_TABLE_MAX,
                                                          decode_plan,
-                                                         decode_smem)
+                                                         RQ_SMEM_MIN_ROWS,
+                                                         decode_smem,
+                                                         rq_plan, rq_smem)
 
 
 def _bits(x) -> np.ndarray:
@@ -206,6 +208,91 @@ def test_rq_decode_stages_plain_clamps_and_rounds_bf16_per_add():
     want = (bf[0, 0] + bf[1, 1]) + bf[2, 2]
     np.testing.assert_array_equal(_bits(rq_decode_stages_ref(codes, bf)[1]),
                                   _bits(want))
+
+
+# (B, M, K, d, code bytes, element bytes) -> rq_decode_stages' plan
+# (route, threads a block, elements a vector, blocks) on a card of 132
+# SMs: deepfm's serve_bulk in f32 (51,200 B of codebooks in shared
+# memory, a lane a row) and bf16, both sides of the
+# smem route's least batch (65,536 rows), one engine flush (3,456 rows)
+# and 256 rows (through L2), int32 codes, d = 64 in bf16 (vectors of 8),
+# the JAX bench's d = 64 in f32 (256 KB: through L2, a vector of 4 a
+# thread), codebooks past the limit and one stage
+@pytest.mark.parametrize("shape,plan", [
+    ((262144, 5, 256, 10, 1, 4), ("smem", 512, 2, 264)),
+    ((262144, 5, 256, 10, 1, 2), ("smem", 512, 2, 264)),
+    ((65536, 5, 256, 10, 1, 4), ("smem", 512, 2, 128)),
+    ((65535, 5, 256, 10, 1, 4), ("l2", 256, 2, 1280)),
+    ((3456, 5, 256, 10, 1, 4), ("l2", 256, 2, 68)),
+    ((256, 5, 256, 10, 1, 4), ("l2", 256, 2, 5)),
+    ((100000, 3, 300, 8, 4, 4), ("smem", 512, 4, 196)),
+    ((262144, 2, 256, 64, 1, 2), ("smem", 512, 8, 132)),
+    ((262144, 4, 256, 64, 1, 4), ("l2", 256, 4, 16384)),
+    ((262144, 4, 4096, 4, 4, 4), ("l2", 256, 4, 1024)),
+    ((65536, 1, 16, 8, 1, 4), ("smem", 512, 4, 128))])
+def test_rq_decode_stages_plan_routes(shape, plan):
+    got = rq_plan(*shape, sms=132)
+    assert (got.route, got.threads, got.vec, got.grid) == plan
+
+
+@pytest.mark.parametrize("d", [1, 7, 10, 64, 300])
+@pytest.mark.parametrize("mk", [(1, 16), (5, 256), (4, 256), (12, 4096)])
+@pytest.mark.parametrize("b", [1, 33, 65535, 262144])
+def test_rq_decode_stages_plan_fits_what_the_kernel_takes(b, mk, d):
+    """The smem route only from RQ_SMEM_MIN_ROWS rows and for codebooks
+    within its limit, with shared memory as the kernel computes it (the
+    codebooks and each warp's offsets and chunks) and within a block's
+    limit, vectors of at most 16 bytes that divide d, a lane a row, and
+    no more blocks than chunks of 32 rows; else the l2 route: a vector
+    of 4, 2 or 1 elements that divides d and the codebooks' alignment,
+    a thread a vector, and blocks for every vector up to the grid's
+    cap."""
+    m, k = mk
+    for code_bytes in (1, 4):
+        for elem_bytes in (2, 4):
+            for align in (4, 8, 16):
+                p = rq_plan(b, m, k, d, code_bytes, elem_bytes, sms=132,
+                            cbs_align=align)
+                assert d % p.vec == 0 and p.vec * elem_bytes <= 16
+                assert 0 < p.threads <= 1024 and p.grid >= 1
+                if p.route == "smem":
+                    assert b >= RQ_SMEM_MIN_ROWS
+                    assert m * k * d * elem_bytes <= SMEM_TABLE_MAX
+                    assert p.threads % 32 == 0
+                    assert p.smem == rq_smem(m, k, d, code_bytes,
+                                             elem_bytes,
+                                             p.threads // 32) <= SMEM_MAX
+                    assert (p.grid - 1) * p.threads // 32 < -(-b // 32)
+                    continue
+                assert p.route == "l2" and p.smem == 0
+                assert (b < RQ_SMEM_MIN_ROWS
+                        or m * k * d * elem_bytes > SMEM_TABLE_MAX
+                        or rq_smem(m, k, d, code_bytes, elem_bytes, 1)
+                        > SMEM_MAX)
+                assert p.vec <= 4 and align % (p.vec * elem_bytes) == 0
+                assert p.grid == min(-(-b * (d // p.vec) // p.threads),
+                                     1 << 20)
+
+
+def test_rq_decode_stages_plan_takes_block_b_as_threads_a_block():
+    deepfm = (262144, 5, 256, 10, 1, 4)
+    # the schemes' pinned decode_block_b (256): 8 warps a block
+    p = rq_plan(*deepfm, sms=132, block_b=256)
+    assert (p.route, p.threads) == ("smem", 256)
+    # a block that is not a whole number of warps takes the l2 route,
+    # with as many threads as asked
+    for bb in (1, 33, 100, 1000):
+        p = rq_plan(*deepfm, sms=132, block_b=bb)
+        assert (p.route, p.threads, p.vec) == ("l2", bb, 2)
+        assert p.grid == min(-(-262144 * 5 // bb), 1 << 20)
+    # codebooks at an address 4 bytes past 16: one element a thread
+    p = rq_plan(1000, 5, 256, 10, 1, 4, 132, block_b=100, cbs_align=4)
+    assert (p.route, p.vec, p.grid) == ("l2", 1, 100)
+    p = rq_plan(1000, 5, 256, 10, 1, 4, 132, cbs_align=8)
+    assert (p.route, p.threads, p.vec) == ("l2", 256, 2)
+    for bad in (0, -32, 1025, 2048):
+        with pytest.raises(ValueError, match="threads per block"):
+            rq_plan(*deepfm, sms=132, block_b=bad)
 
 
 # (B, D, K, S): the deepfm export shape, a wide one, a long-S one

@@ -20,10 +20,14 @@ from repro.kernels.packed_decode import unpack_codes as jax_unpack
 from repro_torch.convert import tensor_from_numpy
 from repro_torch.core import Embedding, EmbeddingConfig
 from repro_torch.kernels import dispatch
+from repro_torch.kernels.decode_chunks import (SMEM_MAX, SMEM_SLOT_MAX,
+                                               SMEM_TABLE_MAX)
 from repro_torch.kernels.packed_decode import (PACK_BITS, decode, pack_codes,
                                                packed_decode,
                                                packed_decode_ref,
                                                packed_width, unpack_codes)
+from repro_torch.kernels.packed_decode.packed_decode import (packed_plan,
+                                                             packed_smem)
 
 
 def _bits(x) -> np.ndarray:
@@ -95,6 +99,77 @@ def test_packed_decode_plain_matches_jax(b, bits, d, s, dtype):
     assert got.dtype == (torch.bfloat16 if dtype == "bfloat16"
                          else torch.float32)
     np.testing.assert_array_equal(_bits(got), _bits(want))
+
+
+# (B, D, S, bits, element bytes) -> packed_decode's plan (route,
+# threads a block, lanes a slot, blocks) on a card of 132 SMs: the mpe
+# tiers at deepfm's serve_bulk (D=5, S=2; 8, 4 and 2 bits) in f32 and
+# bf16, one engine flush (3,456 rows) and 256 rows (never more blocks
+# than the chunks of 32 rows need), the JAX bench's D=8, S=8 (a 64 KB
+# staged table), a table past the smem route's limit (through L2) and
+# a slot past its limit
+@pytest.mark.parametrize("shape,plan", [
+    ((262144, 5, 2, 8, 4), ("smem", 512, 0, 264)),
+    ((262144, 5, 2, 4, 4), ("smem", 512, 0, 264)),
+    ((262144, 5, 2, 2, 4), ("smem", 512, 0, 264)),
+    ((262144, 5, 2, 8, 2), ("smem", 512, 0, 264)),
+    ((3456, 5, 2, 8, 4), ("smem", 512, 0, 7)),
+    ((256, 5, 2, 2, 4), ("smem", 512, 0, 1)),
+    ((262144, 8, 8, 8, 4), ("smem", 512, 0, 132)),
+    ((1000, 16, 16, 8, 4), ("l2", 1024, 4, 63)),
+    ((1000, 4, 32, 4, 4), ("l2", 1024, 8, 32))])
+def test_packed_decode_plan_routes(shape, plan):
+    got = packed_plan(*shape, sms=132)
+    assert (got.route, got.threads, got.group, got.grid) == plan
+
+
+@pytest.mark.parametrize("s", [1, 2, 3, 8, 17, 64])
+@pytest.mark.parametrize("d", [1, 5, 8, 16, 200])
+@pytest.mark.parametrize("b", [1, 33, 262144])
+def test_packed_decode_plan_fits_what_the_kernel_takes(b, d, s):
+    """The smem route only where the D * 2^bits addressed slots (each
+    subspace padded to 16 bytes) and the slot are within its limits,
+    with shared memory as the kernel computes it and within a block's
+    limit, and no more blocks than chunks of 32 rows; else the l2 route
+    with a power-of-two group of lanes, one a 16-byte vector up to 32,
+    and no more lanes than slots need."""
+    for bits in PACK_BITS:
+        for elem_bytes in (2, 4):
+            slot = s * elem_bytes
+            p = packed_plan(b, d, s, bits, elem_bytes, sms=132)
+            assert p.threads % 32 == 0 and 0 < p.threads <= 1024
+            if p.route == "smem":
+                assert d * (-(-(slot << bits) // 16) * 16) <= SMEM_TABLE_MAX
+                assert slot <= SMEM_SLOT_MAX and p.group == 0
+                assert p.smem == packed_smem(d, slot, bits,
+                                             p.threads // 32) <= SMEM_MAX
+                assert 1 <= p.grid
+                assert (p.grid - 1) * p.threads // 32 < -(-b // 32)
+                continue
+            assert p.route == "l2" and p.smem == 0
+            vec = next(v for v in (16, 8, 4, 2) if slot % v == 0)
+            assert p.group & (p.group - 1) == 0
+            assert min(slot // vec, 32) <= p.group <= 32
+            assert 1 <= p.grid <= 2048 // p.threads * 132
+            assert (p.grid - 1) * p.threads < b * d * p.group
+
+
+def test_packed_decode_plan_takes_block_b_as_threads_a_block():
+    # the mpe scheme's pinned decode_block_b (256): 8 warps a block
+    p = packed_plan(262144, 5, 2, 8, 4, 132, block_b=256)
+    assert (p.route, p.threads) == ("smem", 256)
+    p = packed_plan(1000, 16, 16, 8, 4, 132, block_b=256)
+    assert (p.route, p.threads, p.grid) == ("l2", 256, 250)
+    # the engine's pad multiple need not be whole warps: rounded up
+    for bb, threads in ((1, 32), (16, 32), (48, 64), (100, 128),
+                        (1000, 1024)):
+        assert packed_plan(262144, 5, 2, 8, 4, 132, block_b=bb).threads \
+            == threads
+        assert packed_plan(1000, 16, 16, 8, 4, 132,
+                           block_b=bb).threads == threads
+    for bad in (0, 1025, 2048, -32):
+        with pytest.raises(ValueError, match="must lie in"):
+            packed_plan(262144, 5, 2, 8, 4, 132, block_b=bad)
 
 
 def test_packed_decode_op_on_cpu_is_plain_version():
