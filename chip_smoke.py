@@ -55,13 +55,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
    field as a full table (V = 10M, d = 10) and at two-tower's 10M-row
    item table pooled over watch-history bags (d = 256, 10.24 GB in
    float32), 4,096 bags of 0..64 uniform ids and 257 (a ragged edge),
-   float32 and bfloat16, with and without weights: bit-identical to the
-   in-order version (which adds in the kernel's order), and within
-   ``BAG_F32_TOL`` (float32) or a bfloat16 rounding per product and add
-   (bfloat16) of the plain version, one float32 segment sum; the fields
-   module's ``embedding_bag`` in sum, mean and max (counts set to 0 just
-   before and read just after: two launches); the kernel, the plain
-   version and ``F.embedding_bag`` timed at both shapes; then DeepFM at
+   float32 and bfloat16, with and without weights, then 4,096 bags of
+   Zipf lengths (exponent 1.1, at most 16,384 ids), one bag of every id
+   of a 16,384-row table and 1,000 bags all empty but the last:
+   bit-identical to the in-order version (which adds in the kernel's
+   order), and within ``BAG_F32_TOL`` (float32) or a bfloat16 rounding
+   per product and add (bfloat16) of the plain version, one float32
+   segment sum; the fields module's ``embedding_bag`` in sum, mean and
+   max (counts set to 0 just before and read just after: two
+   launches); the kernel (with its launch plan and the wrapper's host
+   time), the plain version and ``F.embedding_bag`` timed at both
+   shapes, float32 and bfloat16, and on the Zipf bags (the kernel's
+   worst case: one thread per vector sums a bag); then DeepFM at
    ``configs/deepfm.py::CONFIG`` (39 fields, 24.7M rows, MGQE on the
    21 large ones) served through ``launch.serve.serve_ctr`` (init,
    export, one batch of 4,096 Zipf ids; ``dpq_assign`` and
@@ -171,6 +176,13 @@ BAG_SHAPES = ((10_000_000, 10, "deepfm's largest field as a full table"),
               (10_000_000, 256, "two-tower's item table, a watch-history "
                                 "bag (YouTube-DNN style)"))
 BAG_BATCH, BAG_MAX_LEN = 4096, 64
+# the skewed case: 4,096 bags whose lengths follow a Zipf law over the
+# bags' ranks (exponent 1.1, at most 16,384 ids a bag), scaled to the
+# uniform case's nnz; one bag of every id of a table's first
+# BAG_ONE_ROWS rows; BAG_EMPTY bags, all empty but the last
+BAG_ZIPF_A, BAG_ZIPF_CAP = 1.1, 16384
+BAG_ONE_ROWS = 16384
+BAG_EMPTY = 1000
 # kernel vs the plain version (float32 atomics in no fixed order), as a
 # share of the bag's sum of |row * w|; a bag of 64 ids reorders to
 # within 63 * 2^-24 = 3.8e-6 of it.  bfloat16: (terms + 1) * 2^-8.
@@ -1435,6 +1447,49 @@ def bag_inputs(b, v, d, seed, max_len=BAG_MAX_LEN):
             torch.from_numpy(w).cuda())
 
 
+def zipf_lens(b, total, seed, a=BAG_ZIPF_A, cap=BAG_ZIPF_CAP):
+    """b bag lengths floor(c * rank^-a), at most cap, c chosen so that
+    they sum to about ``total``, in an order drawn from ``seed``."""
+    import numpy as np
+    r = np.arange(1, b + 1, dtype=np.float64) ** -a
+    lo, hi = 0.0, float(total)
+    for _ in range(60):                      # bisect c
+        c = (lo + hi) / 2
+        if np.minimum(np.floor(c * r), cap).sum() < total:
+            lo = c
+        else:
+            hi = c
+    lens = np.minimum(np.floor(hi * r), cap).astype(np.int64)
+    return np.random.default_rng(seed).permutation(lens)
+
+
+def bag_cases(v, d, seed):
+    """The bag phase's extra cases, each (name, ids, seg, b, w) on the
+    card: BAG_BATCH Zipf bags (nnz about the uniform bags' mean,
+    BAG_BATCH * BAG_MAX_LEN / 2), one bag of every id of the first
+    BAG_ONE_ROWS rows (it spans many chunks), and BAG_EMPTY bags all
+    empty but the last."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed + 1)
+    lens = zipf_lens(BAG_BATCH, BAG_BATCH * BAG_MAX_LEN // 2, seed + 2)
+    zseg = np.repeat(np.arange(BAG_BATCH, dtype=np.int32), lens)
+    zids = rng.integers(0, v, zseg.size, dtype=np.int32)
+    one = rng.permutation(BAG_ONE_ROWS).astype(np.int32)
+    last = rng.integers(0, v, 9, dtype=np.int32)
+
+    def card(*arrays):
+        return [torch.from_numpy(a).cuda() for a in arrays]
+
+    return [("zipf", *card(zids, zseg), BAG_BATCH,
+             *card(rng.normal(size=zseg.size).astype(np.float32))),
+            ("one bag", *card(one, np.zeros(BAG_ONE_ROWS, np.int32)), 1,
+             *card(rng.normal(size=BAG_ONE_ROWS).astype(np.float32))),
+            ("empty but the last",
+             *card(last, np.full(9, BAG_EMPTY - 1, np.int32)), BAG_EMPTY,
+             *card(rng.normal(size=9).astype(np.float32)))]
+
+
 def check_bag_case(table, ids, seg, b, w) -> float:
     """The kernel against the in-order version on the card (which adds
     in the kernel's order): bit-identical; and against the plain
@@ -1513,14 +1568,22 @@ def bag_path(table, ids, seg, b, w) -> tuple:
     return launches
 
 
-def time_bag(table, ids, seg, b, w) -> dict:
+def time_bag(table, ids, seg, b, w, what="uniform") -> dict:
     """Kernel, plain version and ``F.embedding_bag`` (offsets built from
     the segments outside the clock) at one shape, beside the byte
-    bound: each input read once, the output written once."""
+    bound: each input read once, the output written once.  Prints the
+    launch plan (bags a tile, ids a chunk, grid, shared memory) and the
+    wrapper's host time to queue one launch."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels import build
     from repro_torch.kernels.embedding_bag import (embedding_bag,
                                                    embedding_bag_ref)
+    from repro_torch.kernels.embedding_bag.embedding_bag import bag_plan
+    if w is not None:
+        w = w.to(table.dtype)
+    plan = bag_plan(b, table.shape[1], table.element_size(),
+                    ids.element_size(), build.sm_count(table.device))
     ms, host = time_ms(lambda: embedding_bag(table, ids, seg, b, w))
     plain, _ = time_ms(lambda: embedding_bag_ref(table, ids, seg, b, w),
                        iters=50)
@@ -1540,8 +1603,12 @@ def time_bag(table, ids, seg, b, w) -> dict:
     ops = nnz * d * (1 if w is None else 2)
     t_b = nbytes / HBM_BYTES_PER_S * 1e3
     t_o = ops / F32_FLOP_PER_S * 1e3
-    log(f"time embedding_bag V={v} d={d} B={b} nnz={nnz} {table.dtype} "
-        f"{'weighted' if w is not None else 'unweighted'}: kernel {ms:.5f} "
+    log(f"time embedding_bag {what} V={v} d={d} B={b} nnz={nnz} "
+        f"{table.dtype} {'weighted' if w is not None else 'unweighted'} "
+        f"(plan: tile {plan.tile} bags, chunk {plan.chunk} ids, grid "
+        f"{plan.grid_x}x{plan.grid_y}, {plan.smem} bytes of shared memory; "
+        f"longest bag {int(torch.bincount(seg).max()) if nnz else 0}): "
+        f"kernel {ms:.5f} "
         f"ms, plain {plain:.5f} ms, F.embedding_bag {lib:.5f} ms (max |diff| "
         f"to the kernel {lib_err:.3g}), bound {max(t_b, t_o):.5f} ms by "
         f"{'bytes' if t_b >= t_o else 'operations'} ({nbytes} bytes, {ops} "
@@ -1556,8 +1623,14 @@ def bag_phase() -> tuple:
     as a full table, d=10; two-tower's 10M-row item table with a
     watch-history bag, d=256, 10.24 GB in float32): held against its
     plain version at B=4,096 and B=257, float32 and bfloat16, with and
-    without weights; the fields module's path at d=10; the timings.
-    Frees the card at the end.  Returns (launches, err, timings)."""
+    without weights, then on the Zipf bags, one bag of every id of a
+    table's first BAG_ONE_ROWS rows and BAG_EMPTY bags all empty but
+    the last (float32 and bfloat16, weighted and not); the fields
+    module's path at d=10; the timings (float32 weighted and not,
+    bfloat16 weighted, and the Zipf bags, the kernel's worst case: one
+    thread per vector sums a bag in id order).  Frees the card at the
+    end.  Returns (launches, err, timings keyed (d, dtype, weighted,
+    case))."""
     import torch
     err, launches, timings = 0.0, None, {}
     for v, d, what in BAG_SHAPES:
@@ -1573,14 +1646,25 @@ def bag_phase() -> tuple:
                 ids, seg, w = bag_inputs(b, v, d, seed=b + d)
                 for ww in (None, w):
                     err = max(err, check_bag_case(t, ids, seg, b, ww))
+            for name, ids, seg, b, w in bag_cases(v, d, seed=d):
+                tt = t[:BAG_ONE_ROWS] if name == "one bag" else t
+                log(f"bag case: {name}")
+                for ww in (None, w):
+                    err = max(err, check_bag_case(tt, ids, seg, b, ww))
             del t
         ids, seg, w = bag_inputs(BAG_BATCH, v, d, seed=BAG_BATCH + d)
         if d == BAG_SHAPES[0][1]:
             launches = bag_path(table, ids, seg, BAG_BATCH, w)
-        for ww in (w, None):
-            timings[(d, ww is not None)] = time_bag(table, ids, seg,
-                                                    BAG_BATCH, ww)
-        del table, ids, seg, w
+        for dtype, ww in ((torch.float32, w), (torch.float32, None),
+                          (torch.bfloat16, w)):
+            t = table.to(dtype)
+            timings[(d, dtype, ww is not None, "uniform")] = time_bag(
+                t, ids, seg, BAG_BATCH, ww)
+            del t
+        _, zids, zseg, zb, zw = bag_cases(v, d, seed=d)[0]
+        timings[(d, torch.float32, True, "zipf")] = time_bag(
+            table, zids, zseg, zb, zw, what="zipf")
+        del table, ids, seg, w, zids, zseg, zw
     gc.collect()
     torch.cuda.empty_cache()
     return launches, err, timings
@@ -2771,7 +2855,7 @@ def main() -> int:
     s_launches = ctr_serve_path()
     t_launches = ctr_train_path()
     ctr_train_checks()
-    t = bag_times[(BAG_SHAPES[0][1], True)]
+    t = bag_times[(BAG_SHAPES[0][1], torch.float32, True, "uniform")]
     kernels.append({"name": "embedding_bag", "route": "cuda",
                     "source": "src/repro_torch/kernels/csrc/embedding_bag.cu",
                     "replaces": "src/repro/kernels/embedding_bag/"

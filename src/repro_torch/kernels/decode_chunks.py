@@ -70,15 +70,6 @@ def warp_bytes(in_row: int, out_row: int) -> int:
     return 2 * align16(CHUNK * in_row) + CHUNK * out_row
 
 
-def check_block_b(block_b: Optional[int]) -> None:
-    """Raise unless ``block_b`` (threads a block) is None or a whole
-    number of warps within a block's limit."""
-    if block_b is not None and not (0 < int(block_b) <= MAX_THREADS
-                                    and int(block_b) % 32 == 0):
-        raise ValueError(f"block_b (threads a block) must be a multiple of "
-                         f"32 in [32, {MAX_THREADS}], got {block_b}")
-
-
 def whole_warps(block_b: Optional[int]) -> Optional[int]:
     """``block_b`` threads (any count in [1, MAX_THREADS]) rounded up to
     whole warps; None stays None."""
@@ -135,5 +126,5 @@ def l2_gather_plan(b: int, d: int, slot: int, sms: int,
 __all__ = ["CHUNK", "DecodePlan", "L2_THREADS", "MAX_THREADS", "ROUTES",
            "SMEM_MAX", "SMEM_PER_SM", "SMEM_SLOT_MAX", "SMEM_TABLE_MAX",
            "THREADS_PER_SM", "WALK_BLOCKS_PER_SM", "WALK_THREADS", "Walk",
-           "align16", "cdiv", "check_block_b", "l2_gather_plan", "l2_group",
-           "walk", "warp_bytes", "whole_warps"]
+           "align16", "cdiv", "l2_gather_plan", "l2_group", "walk",
+           "warp_bytes", "whole_warps"]

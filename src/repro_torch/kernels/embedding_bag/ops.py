@@ -3,8 +3,8 @@
 ``bag(table, ids, segment_ids, num_bags, weights)`` routes through the
 kernel backend dispatch layer (``repro_torch.kernels.dispatch``): the
 CUDA kernel for CUDA tensors, the plain PyTorch version for CPU
-tensors, or whichever one is pinned.  The kernel walks no block
-geometry that a sweep could tune (one lane group per bag), so the op
+tensors, or whichever one is pinned.  The kernel's launch is sized
+by ``bag_plan`` from the shapes and the card's SM count, so the op
 declares no tunables, as the TPU op declared none.
 """
 from __future__ import annotations

@@ -36,13 +36,13 @@ from repro_torch.kernels import build
 from repro_torch.kernels.decode_chunks import (MAX_THREADS, ROUTES,
                                                SMEM_MAX, SMEM_SLOT_MAX,
                                                SMEM_TABLE_MAX, DecodePlan,
-                                               align16, cdiv, check_block_b,
-                                               l2_gather_plan, walk,
-                                               warp_bytes)
+                                               align16, cdiv, l2_gather_plan,
+                                               walk, warp_bytes, whole_warps)
 from repro_torch.kernels.dispatch import Tunable
 
-# threads a block (None: the planner's choice).  mgqe_decode takes a
-# multiple of 32; rq_decode_stages takes any count in [1, 1024], and
+# threads a block (None: the planner's choice).  mgqe_decode takes any
+# count in [1, 1024], rounded up to whole warps; rq_decode_stages takes
+# any count in [1, 1024], and
 # one that is not a whole number of warps takes its l2 route.  The
 # schemes pass their config's decode_block_b (the engine's pad
 # multiple, 256 by default)
@@ -78,7 +78,8 @@ def decode_plan(b: int, d: int, k: int, s: int, code_bytes: int,
                 elem_bytes: int, sms: int,
                 block_b: Optional[int] = None) -> DecodePlan:
     """Plan ``mgqe_decode`` of B = ``b`` rows of (D, K, S) = (``d``,
-    ``k``, ``s``) centroids on a card of ``sms`` SMs.
+    ``k``, ``s``) centroids on a card of ``sms`` SMs.  ``block_b``:
+    threads a block, any count in [1, 1024], rounded up to whole warps.
 
     The rule: a table of at most SMEM_TABLE_MAX bytes whose slots (S
     elements) are at most SMEM_SLOT_MAX bytes takes the smem route where
@@ -88,7 +89,7 @@ def decode_plan(b: int, d: int, k: int, s: int, code_bytes: int,
     of L2_THREADS or ``block_b``, a group of lanes a slot, the next
     power of two >= the slot's 16-byte vectors, at most 32; as many
     blocks as fill the card's threads once)."""
-    check_block_b(block_b)
+    block_b = whole_warps(block_b)
     slot = s * elem_bytes
     if slot <= SMEM_SLOT_MAX:
         w = walk(b, align16(d * k * slot),
@@ -162,7 +163,8 @@ def mgqe_decode(codes: torch.Tensor, centroids: torch.Tensor,
                 block_b: Optional[int] = None) -> torch.Tensor:
     """codes (B, D) uint8/int32; centroids (D, K, S) float32/bfloat16,
     both contiguous on one CUDA device -> (B, D*S) in the centroid
-    dtype.  Codes >= K are clamped to K-1."""
+    dtype.  Codes >= K are clamped to K-1.  ``block_b``: threads a
+    block, in [1, 1024], rounded up to whole warps."""
     if not (codes.is_cuda and centroids.is_cuda):
         raise ValueError(
             f"mgqe_decode's CUDA kernel takes CUDA tensors, got codes on "

@@ -200,7 +200,9 @@ class ServingEngine(_MicroBatchEngine):
         if backend is not None:
             overrides["kernel_backend"] = backend
         if block_b is not None:
-            # the queue's padding, and the decode kernels' threads a block
+            # the queue's padding is block_b; the decode kernels take it
+            # as threads a block, rounded up to whole warps (rq's l2
+            # route takes it as it is)
             overrides["decode_block_b"] = block_b
         device = resolve_device(device)
         if overrides or emb.device != device:

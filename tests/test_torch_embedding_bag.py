@@ -44,6 +44,9 @@ from repro_torch.kernels import dispatch
 from repro_torch.kernels.embedding_bag import (bag, embedding_bag,
                                                embedding_bag_inorder,
                                                embedding_bag_ref)
+from repro_torch.kernels.embedding_bag.embedding_bag import (
+    BAG_BLOCKS_PER_SM, BAG_CHUNK_MAX, BAG_SMEM_BUDGET, BAG_THREADS,
+    BAG_WIDE_BYTES, BAG_WIDE_CHUNK_BYTES, bag_plan, bag_smem)
 from repro_torch.models.recsys import fields
 
 INTERPRET_TOL = 1e-5     # float32, weighted: FMA in the interpreter
@@ -333,3 +336,223 @@ def test_embedding_bag_padded_matches_jax(mode):
                                       torch.from_numpy(ids), mode=mode)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
     assert (got.numpy()[3] == 0).all()
+
+
+# ------------------------------------------------ the kernel's launch plan
+# bag_plan is pure Python: its plans are pinned here at deepfm's (d = 10)
+# and two-tower's (d = 256) widths, in float32 and bfloat16, and walked
+# below as the kernel walks them.
+
+SMS = 132
+PLAN_SHAPES = {"deepfm": 10, "two_tower": 256, "wide": 4096}
+
+
+@pytest.mark.parametrize("idx_bytes", [4, 8])
+@pytest.mark.parametrize("elem_bytes", [4, 2], ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", sorted(PLAN_SHAPES))
+@pytest.mark.parametrize("num_bags", [1, 257, 1000, 4096, 1_000_000])
+def test_bag_plan_fits_what_the_kernel_takes(num_bags, shape, elem_bytes,
+                                             idx_bytes):
+    """Every bag in exactly one tile and every vector of a row in one
+    slab; a thread per (bag, vector) of a tile; shared memory as the
+    kernel lays it out, within a block's 227 KB and the budget of
+    BAG_BLOCKS_PER_SM blocks an SM; at least one row a chunk."""
+    d = PLAN_SHAPES[shape]
+    p = bag_plan(num_bags, d, elem_bytes, idx_bytes, SMS)
+    assert p.threads == BAG_THREADS
+    assert d % p.vec == 0 and p.vec * elem_bytes <= 16
+    g = d // p.vec
+    assert 1 <= p.slab <= min(g, BAG_THREADS)
+    assert p.grid_y * p.slab >= g > (p.grid_y - 1) * p.slab
+    assert 1 <= p.tile and p.tile * p.slab <= BAG_THREADS
+    assert p.grid_x * p.tile >= num_bags > (p.grid_x - 1) * p.tile
+    assert 1 <= p.chunk <= BAG_CHUNK_MAX
+    assert p.smem == bag_smem(p.tile, p.chunk, p.slab, p.vec * elem_bytes,
+                              idx_bytes)
+    assert p.smem <= min(227 * 1024, BAG_SMEM_BUDGET)
+    assert BAG_BLOCKS_PER_SM * (p.smem + 1024) <= 228 * 1024
+
+
+@pytest.mark.parametrize("elem_bytes", [4, 2], ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", ["deepfm", "two_tower"])
+def test_bag_plan_fills_the_card_at_4096_bags(shape, elem_bytes):
+    """At the paths' 4,096 bags every SM gets a block; narrow rows take
+    the smallest tile that BAG_BLOCKS_PER_SM blocks an SM allow:
+    deepfm's 16 bags a tile (256 blocks, one wave of two an SM)."""
+    p = bag_plan(4096, PLAN_SHAPES[shape], elem_bytes, 4, SMS)
+    blocks = p.grid_x * p.grid_y
+    assert blocks >= SMS
+    if shape == "deepfm":
+        assert p.tile == -(-4096 // (BAG_BLOCKS_PER_SM * SMS))
+        assert (p.vec, p.tile, p.slab, p.grid_x) == (2, 16, 5, 256)
+        assert blocks <= BAG_BLOCKS_PER_SM * SMS
+    else:
+        assert p.tile == 1 and blocks == 4096
+
+
+def test_bag_plan_wide_rows():
+    """The wide-row rule: a slab of at least BAG_WIDE_BYTES takes tiles
+    of one bag and chunks of BAG_WIDE_CHUNK_BYTES of rows (d = 256: 16
+    float32 rows of 1 KB, 32 bfloat16 rows); rows past BAG_THREADS
+    vectors are cut into slabs of BAG_THREADS vectors, a chunk still of
+    several rows (d = 4,096: 4 slabs of 4 KB in float32, 2 in bfloat16,
+    4 rows a chunk).  Below the rule, the chunk is what the budget holds
+    for both buffers."""
+    assert BAG_WIDE_BYTES == 512 and BAG_WIDE_CHUNK_BYTES == 16 * 1024
+    p = bag_plan(4096, 256, 4, 4, SMS)
+    assert (p.vec, p.slab, p.grid_y, p.tile, p.chunk) == (4, 64, 1, 1, 16)
+    b = bag_plan(4096, 256, 2, 4, SMS)
+    assert (b.vec, b.slab, b.grid_y, b.tile, b.chunk) == (8, 32, 1, 1, 32)
+    for eb, slabs in ((4, 4), (2, 2)):
+        w = bag_plan(4096, 4096, eb, 8, SMS)
+        assert (w.slab, w.grid_y, w.tile, w.chunk) == (BAG_THREADS, slabs,
+                                                       1, 4)
+    # just below the rule (d = 64 float32: 256-byte rows) the chunk is
+    # what the budget holds, and one more id would not fit
+    n = bag_plan(4096, 64, 4, 4, SMS)
+    assert n.slab * n.vec * 4 < BAG_WIDE_BYTES and n.tile == 16
+    assert bag_smem(n.tile, n.chunk + 1, n.slab, 16, 4) > BAG_SMEM_BUDGET
+    assert n.smem <= BAG_SMEM_BUDGET
+    # deepfm's narrow rows: the chunk at its cap, a tile's ids in one
+    assert bag_plan(4096, 10, 4, 4, SMS).chunk == BAG_CHUNK_MAX
+
+
+def test_bag_plan_vectors_follow_alignment():
+    """The vector is the widest that divides d and both addresses; a
+    bfloat16 row of odd width takes 2-byte vectors."""
+    assert bag_plan(4096, 10, 4, 4, SMS).vec == 2
+    assert bag_plan(4096, 256, 4, 4, SMS, align=4).vec == 1
+    assert bag_plan(4096, 256, 2, 4, SMS, align=8).vec == 4
+    assert bag_plan(4096, 3, 2, 4, SMS).vec == 1
+    with pytest.raises(ValueError, match="num_bags"):
+        bag_plan(0, 10, 4, 4, SMS)
+
+
+HINT_STEP = 1024          # csrc/embedding_bag.cu's kHintStep
+
+
+def _warp_lower_bound(seg, key, hint):
+    """The kernel's 32-way warp search (``warp_lower_bound``), lane by
+    lane: where there are more than 32 * HINT_STEP ids, a first step of
+    32 pivots HINT_STEP apart around ``hint``; then steps of 32 even
+    pivots, each keeping the piece before the first that reaches
+    ``key``; then the last <= 32 candidates at once."""
+    lo, hi, n = 0, len(seg), len(seg)
+    if n > 32 * HINT_STEP:
+        piv = [min(max(hint - 16 * HINT_STEP - 1 + (j + 1) * HINT_STEP, 0),
+                   n - 1) for j in range(32)]
+        ge = [seg[p] >= key for p in piv]
+        if not any(ge):
+            lo = piv[31] + 1
+        else:
+            j = ge.index(True)
+            hi = piv[j]
+            lo = piv[j - 1] + 1 if j else 0
+    while hi - lo > 32:
+        n = hi - lo
+        ge = [seg[lo + ((lane + 1) * n >> 5) - 1] >= key
+              for lane in range(32)]
+        if not any(ge):
+            return hi
+        j = ge.index(True)
+        lo, hi = lo + (j * n >> 5), lo + ((j + 1) * n >> 5) - 1
+    ge = [lo + lane < hi and seg[lo + lane] >= key for lane in range(32)]
+    return lo + ge.index(True) if any(ge) else hi
+
+
+def _hint(key, nnz, num_bags):
+    return int(key / num_bags * nnz)
+
+
+def _walk_plan(table, ids, seg, num_bags, weights, plan):
+    """The kernel's partition in Python: tiles of ``plan.tile`` bags,
+    each span found by the warp search, walked in chunks of
+    ``plan.chunk`` ids, each bag's start by the adjacent difference (a
+    sentinel until found), and a running sum per bag in id order with
+    ``ref.py``'s arithmetic (every product and add rounded to the
+    table's dtype)."""
+    seg_l = seg.tolist()
+    n = len(seg_l)
+    rows = table.index_select(0, ids.long().clamp(0, table.shape[0] - 1))
+    if weights is not None:
+        rows = rows * weights.to(table.dtype)[:, None]
+    out = torch.zeros((num_bags, table.shape[1]), dtype=table.dtype)
+    big = 1 << 62
+    for b0 in range(0, num_bags, plan.tile):
+        nb = min(plan.tile, num_bags - b0)
+        lo = _warp_lower_bound(seg_l, b0, _hint(b0, n, num_bags))
+        hi = _warp_lower_bound(seg_l, b0 + nb, _hint(b0 + nb, n, num_bags))
+        assert (lo, hi) == (np.searchsorted(seg_l, b0),
+                            np.searchsorted(seg_l, b0 + nb))
+        start = [big] * (nb + 1)
+        acc = torch.zeros((nb, table.shape[1]), dtype=table.dtype)
+        for c0 in range(lo, hi, plan.chunk):
+            c1 = min(c0 + plan.chunk, hi)
+            for i in range(c0, c1):
+                b = b0 if i == lo else seg_l[i - 1] + 1
+                for bag in range(max(b, b0), min(seg_l[i], b0 + nb - 1) + 1):
+                    start[bag - b0] = i
+            for t in range(nb):
+                for i in range(max(start[t], c0), min(start[t + 1], c1)):
+                    acc[t] = acc[t] + rows[i]
+        out[b0:b0 + nb] = acc
+    return out
+
+
+@pytest.mark.parametrize("n", [0, 1, 31, 32, 33, 1000, 40_000, 130_926])
+def test_warp_search_is_lower_bound(n):
+    """The warp search equals ``searchsorted`` on sorted segment ids,
+    with the hinted first step (n > 32,768) where the hint is right,
+    far off, and past either end."""
+    rng = np.random.default_rng(n)
+    bags = 4096
+    seg = np.sort(rng.integers(0, bags, n)).tolist()
+    skew = np.sort(np.minimum(rng.zipf(1.1, n), bags) - 1).tolist()
+    for s in (seg, skew):
+        for key in (-1, 0, 1, 7, 2048, 4000, 4095, 4096, 4097):
+            want = np.searchsorted(s, key)
+            for hint in (_hint(key, n, bags), 0, n, -5 * n, 5 * n):
+                assert _warp_lower_bound(s, key, hint) == want
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("case", ["ragged", "one_bag", "all_empty_but_last",
+                                  "empty_borders"])
+def test_kernel_partition_matches_inorder(case, dtype):
+    """The plan's (tile, chunk) walk, with chunks small enough that bags
+    straddle them, equals ``embedding_bag_inorder`` bit for bit: ragged
+    bags (a bag longer than three chunks, empty ones), one bag of every
+    id, empty bags but the last, and empty bags on both sides of a tile
+    border."""
+    rng = np.random.default_rng(11)
+    if case == "ragged":
+        lens = rng.integers(0, 12, 40)
+        lens[[0, 7, 8, 39]] = 0
+        lens[20] = 61
+    elif case == "one_bag":
+        lens = np.asarray([300])
+    elif case == "all_empty_but_last":
+        lens = np.zeros(100, np.int64)
+        lens[-1] = 9
+    else:
+        lens = rng.integers(1, 6, 48)
+        lens[[15, 16, 31, 32, 47]] = 0            # tiles of 16 bags
+    b = lens.size
+    seg = np.repeat(np.arange(b), lens)
+    vocab = 300 if case == "one_bag" else 50
+    ids = (rng.permutation(vocab) if case == "one_bag"
+           else rng.integers(-2, vocab + 2, seg.size))
+    table = torch.from_numpy(rng.normal(size=(vocab, 10)).astype(np.float32)
+                             ).to(DTYPES[dtype][1])
+    w = torch.from_numpy(rng.normal(size=seg.size).astype(np.float32))
+    tseg, tids = torch.from_numpy(seg), torch.from_numpy(ids)
+    p = bag_plan(b, 10, table.element_size(), 8, SMS)
+    for tile, chunk in ((p.tile, 7), (16, 7), (3, 1), (16, 64)):
+        plan = p._replace(tile=tile, chunk=chunk)
+        for ww in (None, w):
+            got = _walk_plan(table, tids, tseg, b, ww, plan)
+            want = embedding_bag_inorder(table, tids, tseg, b, ww)
+            assert torch.equal(got.view(torch.int16 if dtype == "bfloat16"
+                                        else torch.int32),
+                               want.view(torch.int16 if dtype == "bfloat16"
+                                         else torch.int32))

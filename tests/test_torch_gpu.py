@@ -19,6 +19,7 @@ from repro_torch.kernels.dpq_assign import dpq_assign, dpq_assign_ref
 from repro_torch.kernels.embedding_bag import (bag, embedding_bag,
                                                embedding_bag_inorder,
                                                embedding_bag_ref)
+from repro_torch.kernels.embedding_bag.embedding_bag import bag_plan
 from repro_torch.kernels.mgqe_decode import (mgqe_decode, mgqe_decode_ref,
                                              rq_decode_stages,
                                              rq_decode_stages_ref)
@@ -1098,6 +1099,35 @@ def test_rq_and_mpe_engines_on_card_take_any_block_b(cuda, kw, block_b):
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
+MGQE_ENGINE = dict(vocab_size=5000, dim=10, kind="mgqe", num_subspaces=5,
+                  num_centroids=256, tier_boundaries=(500,),
+                  tier_num_centroids=(256, 64))
+DPQ_ENGINE = dict(vocab_size=5000, dim=10, kind="dpq", num_subspaces=5,
+                  num_centroids=256)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("block_b", [48, 100])
+@pytest.mark.parametrize("kw", [MGQE_ENGINE, DPQ_ENGINE], ids=["mgqe", "dpq"])
+def test_mgqe_and_dpq_engines_on_card_take_any_block_b(cuda, kw, block_b):
+    """An mgqe or dpq engine pads its flushes to ``block_b``, any count
+    in [1, 1024]; mgqe_decode takes it as threads a block rounded up to
+    whole warps.  The card's rows equal the CPU engine's (the plain
+    decode) on the same artifact, bit for bit, one launch a flush."""
+    cfg = EmbeddingConfig(**kw)
+    cpu = Embedding(cfg, device="cpu")
+    art = cpu.export(cpu.init())
+    ids = np.arange(0, 5000, 7)
+    before = mgqe_decode.launches
+    eng = engine.ServingEngine(cpu, art, block_b=block_b, device=cuda)
+    got = eng.lookup(ids).cpu()
+    assert mgqe_decode.launches == before + 1
+    assert eng.pad_multiple == block_b
+    want = engine.ServingEngine(cpu, art, block_b=block_b,
+                                device="cpu").lookup(ids)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
 # ---------------------------------------------------------- embedding_bag
 
 def _bag_inputs(b, v, d, dtype, weighted, seed, dev, max_len=64):
@@ -1188,6 +1218,172 @@ def test_embedding_bag_kernel_edges(cuda):
     want = embedding_bag_inorder(table.index_select(0, big).cpu(),
                                  torch.arange(5000), one.cpu(), 1)
     assert np.array_equal(_bits(got), _bits(want))
+
+
+def _bag_same_as_inorder(table, ids, seg, b, w=None, plan=None):
+    """One launch of the kernel, bit-identical to the in-order version
+    over the gathered rows on the CPU."""
+    before = embedding_bag.launches
+    got = embedding_bag(table, ids, seg, b, w, plan=plan)
+    torch.cuda.synchronize()
+    assert embedding_bag.launches == before + 1
+    rows = table.index_select(0, ids.long().clamp(0, table.shape[0] - 1))
+    want = embedding_bag_inorder(rows.cpu(), torch.arange(ids.numel()),
+                                 seg.cpu(), b, None if w is None else w.cpu())
+    assert got.dtype == table.dtype and tuple(got.shape) == (b, table.shape[1])
+    assert np.array_equal(_bits(got), _bits(want))
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [10, 256])
+def test_embedding_bag_kernel_bag_longer_than_a_chunk(cuda, d, dtype):
+    """A bag of three chunks and more, between ragged ones, summed over
+    each chunk in turn in id order."""
+    rng = np.random.default_rng(d)
+    p = bag_plan(50, d, dtype.itemsize, 8, 132)
+    lens = rng.integers(0, 40, 50)
+    lens[[3, 4]] = 0
+    lens[10] = 3 * p.chunk + 5
+    seg = torch.from_numpy(np.repeat(np.arange(50), lens)).to(cuda)
+    ids = torch.from_numpy(rng.integers(0, 2000, seg.numel())).to(cuda)
+    w = torch.from_numpy(rng.normal(size=seg.numel()).astype(np.float32)
+                         ).to(cuda)
+    table = torch.randn((2000, d), device=cuda).to(dtype)
+    for ww in (None, w):
+        _bag_same_as_inorder(table, ids, seg, 50, ww)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [10, 256])
+def test_embedding_bag_kernel_every_id_in_one_bag(cuda, d, dtype):
+    """One bag holding every id of a 5,000-row table once: one tile,
+    many chunks."""
+    perm = torch.randperm(5000, device=cuda)
+    seg = torch.zeros(5000, dtype=torch.int64, device=cuda)
+    table = torch.randn((5000, d), device=cuda).to(dtype)
+    w = torch.randn(5000, device=cuda)
+    _bag_same_as_inorder(table, perm, seg, 1, w)
+    _bag_same_as_inorder(table, perm.int(), seg.int(), 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 257, 4096])
+def test_embedding_bag_kernel_all_bags_empty(cuda, b):
+    """No ids at all, and ids only in the last of b bags: every other
+    bag zero, one launch each."""
+    table = torch.randn((100, 10), device=cuda)
+    none = torch.zeros(0, dtype=torch.int32, device=cuda)
+    out = _bag_same_as_inorder(table, none, none, b)
+    assert bool((out == 0).all())
+    ids = torch.arange(7, device=cuda, dtype=torch.int32)
+    seg = torch.full((7,), b - 1, dtype=torch.int32, device=cuda)
+    out = _bag_same_as_inorder(table, ids, seg, b)
+    assert bool((out[:-1] == 0).all())
+
+
+def _zipf_lens(b, total, cap, a=1.1, seed=0):
+    """b bag lengths floor(c * rank^-a), at most cap, summing to about
+    total, in a random order."""
+    r = np.arange(1, b + 1, dtype=np.float64) ** -a
+    lo, hi = 0.0, float(total)
+    for _ in range(60):
+        c = (lo + hi) / 2
+        lo, hi = (c, hi) if np.minimum(np.floor(c * r), cap).sum() < total \
+            else (lo, c)
+    lens = np.minimum(np.floor(hi * r), cap).astype(np.int64)
+    return np.random.default_rng(seed).permutation(lens)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [10, 256])
+def test_embedding_bag_kernel_zipf_bags(cuda, d, dtype):
+    """4,096 bags whose lengths follow a Zipf law (exponent 1.1, at most
+    16,384 ids a bag, about 130,000 in all): the longest bag spans many
+    chunks, most bags hold one id or a few."""
+    lens = _zipf_lens(4096, 130_000, 16384, seed=d)
+    assert lens.max() == 16384 and abs(lens.sum() - 130_000) < 200
+    rng = np.random.default_rng(d)
+    seg = torch.from_numpy(np.repeat(np.arange(4096), lens)).to(cuda)
+    ids = torch.from_numpy(rng.integers(0, 1000, seg.numel())).to(cuda)
+    w = torch.from_numpy(rng.normal(size=seg.numel()).astype(np.float32)
+                         ).to(cuda)
+    table = torch.randn((1000, d), device=cuda).to(dtype)
+    _bag_same_as_inorder(table, ids, seg, 4096, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunk", [None, 1, 3])
+@pytest.mark.parametrize("d", [10, 64])
+def test_embedding_bag_kernel_tile_borders(cuda, d, chunk):
+    """Empty bags on both sides of every tile border (tiles of 51 bags
+    at d = 10 and 16 at d = 64, the most a block's threads cover, and
+    chunks of 1 or 3 ids where given): each tile's span from the warp
+    search, each bag's start from the adjacent difference."""
+    rng = np.random.default_rng(d)
+    b = 200
+    p = bag_plan(b, d, 4, 8, 132)
+    tile = 256 // p.slab                    # a thread a (bag, vector)
+    p = p._replace(tile=tile, grid_x=-(-b // tile),
+                   chunk=p.chunk if chunk is None else chunk)
+    lens = rng.integers(1, 9, b)
+    for border in range(tile, b, tile):
+        lens[border - 1:border + 1] = 0
+    seg = torch.from_numpy(np.repeat(np.arange(b), lens)).to(cuda)
+    ids = torch.from_numpy(rng.integers(0, 500, seg.numel())).to(cuda)
+    table = torch.randn((500, d), device=cuda)
+    from repro_torch.kernels.embedding_bag.embedding_bag import bag_smem
+    p = p._replace(smem=bag_smem(p.tile, p.chunk, p.slab, p.vec * 4, 8))
+    out = _bag_same_as_inorder(table, ids, seg, b, plan=p)
+    assert bool((out[torch.from_numpy(lens == 0)] == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [8, 10, 256, 3])
+def test_embedding_bag_kernel_bf16_subnormals_and_extremes(cuda, d):
+    """bfloat16 rows from 2^-140 to 2^10 (subnormal ones included) and
+    weights from 2^-20 to 2^20: the kernel's packed bfloat16 products
+    and sums (one rounding of the exact result) equal the in-order
+    version's float32 operations rounded to bfloat16, bit for bit; d = 3
+    takes the lone-element path."""
+    g = torch.Generator().manual_seed(d)
+    mag = torch.randint(-140, 10, (500, d), generator=g).float()
+    sign = torch.randint(0, 2, (500, d), generator=g).float() * 2 - 1
+    table = (sign * torch.exp2(mag)
+             * (1 + torch.rand((500, d), generator=g))).bfloat16()
+    lens = torch.randint(0, 40, (64,), generator=g)
+    seg = torch.repeat_interleave(torch.arange(64), lens)
+    ids = torch.randint(0, 500, (seg.numel(),), generator=g)
+    w = (torch.exp2(torch.randint(-20, 20, (seg.numel(),),
+                                  generator=g).float())
+         * torch.randn(seg.numel(), generator=g)).bfloat16()
+    for ww in (None, w):
+        _bag_same_as_inorder(table.to(cuda), ids.to(cuda), seg.to(cuda), 64,
+                             None if ww is None else ww.to(cuda))
+
+
+@pytest.mark.gpu
+def test_embedding_bag_kernel_refuses_bad_plans(cuda):
+    """A plan the kernel cannot run is refused by the entry point and
+    raised by the wrapper: nothing launches."""
+    table = torch.randn((100, 10), device=cuda)
+    ids = torch.randint(0, 100, (300,), device=cuda)
+    seg = torch.sort(torch.randint(0, 40, (300,), device=cuda)).values
+    p = bag_plan(40, 10, 4, 8, 132)
+    before = embedding_bag.launches
+    for bad in (p._replace(smem=p.smem + 16), p._replace(threads=128),
+                p._replace(vec=4), p._replace(tile=p.tile + 1),
+                p._replace(grid_x=p.grid_x + 1), p._replace(slab=6),
+                p._replace(chunk=0)):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            embedding_bag(table, ids, seg, 40, plan=bad)
+    assert embedding_bag.launches == before
 
 
 @pytest.mark.gpu

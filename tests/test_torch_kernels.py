@@ -158,8 +158,15 @@ def test_mgqe_decode_plan_takes_block_b_as_threads_a_block():
     # fill the card's threads all the same
     lm = decode_plan(8192, 8, 256, 320, 1, 4, 132, block_b=256)
     assert (lm.threads, lm.grid) == (256, 1056)
-    for bad in (0, 16, 100, 2048, -32):
-        with pytest.raises(ValueError, match="multiple of 32"):
+    # a block_b that is not whole warps (an engine's pad multiple) is
+    # rounded up to them, on both routes
+    for bb, threads in ((16, 32), (100, 128)):
+        assert decode_plan(262144, 5, 256, 2, 1, 4, 132,
+                           block_b=bb).threads == threads
+        assert decode_plan(8192, 8, 256, 320, 1, 4, 132,
+                           block_b=bb).threads == threads
+    for bad in (0, 2048, -32):
+        with pytest.raises(ValueError, match="must lie in"):
             decode_plan(262144, 5, 256, 2, 1, 4, 132, block_b=bad)
 
 
