@@ -79,7 +79,24 @@ Phases, each of which fails the run (non-zero exit, no result line):
    then at the smoke config 5 steps on the card against 5 on the CPU
    (codes compared first, loss and params within their bars) and a run
    failed at step 3 and resumed against an uninterrupted one;
-9. the LM phase: ``flash_attention`` against its plain version in
+9. the backbone phase (the paper's §3.2, ``launch/backbones.py``):
+   GMF, NeuMF and SASRec, each with full and MGQE tables, trained on
+   the card through ``run_pointwise``/``run_sasrec`` at the paper's
+   widths (ML-1M-like 6,040 x 3,416, d = 64, D = 8, K = 256 with a tail
+   of 64 for the 90% least frequent ids, NeuMF's MLP 128-64-32, SASRec
+   2 blocks at maxlen 50; BB_STEPS adam steps at batches of 512 x 5 and
+   128 x 50): step time, peak memory, loss first to last, HR@10 over
+   500 users, size and Fig. 3's verdict, no kernel launched; then the
+   tests' tiny backbones on the card against the CPU, step by step
+   (losses within ``CTR_TOL`` up to the first near-tie code flip), with
+   three planted faults that must fail; then every trained MGQE table
+   exported (``dpq_assign``) and the evaluation's 500 x 101 candidates
+   served (``mgqe_decode``), counts set to 0 just before and read just
+   after: codes held to the plain assignment, served rows bit-identical
+   to the plain decode and within a rounding of the training forward's,
+   HR@10 from the served rows beside the training forward's; then both
+   kernels timed at D = 16, 8, 4 (S = 4, 8, 16);
+10. the LM phase: ``flash_attention`` against its plain version in
    float32 (CUDA cores) and bfloat16 (tensor cores) at gemma3-4b's local
    (window 1,024) and global layer shapes (B=2, S=4,096, 8 query heads
    over 4 KV heads, hd=320), gemma3-27b's (B=1, S=4,096, 32 heads over
@@ -108,7 +125,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    lm_embedding's two tiers) exported as MGQE on the card, its head,
    tier-boundary and tail slices held to the plain assignment; the
    card is freed after;
-10. free the card and drive the retrieval path at full width:
+11. free the card and drive the retrieval path at full width:
    two-tower retrieval at ``configs/two_tower_retrieval.py::CONFIG``
    (50M users, 10M items, embed_dim 256, towers 1024-512-256) through
    ``launch.serve.serve_retrieval`` — init, the ``flat_pq`` index over
@@ -122,12 +139,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    for bit, hold the index's codes (and ``dpq_assign`` run again on
    the same tower outputs) against the plain assignment, as in 3, and
    print the peak device memory;
-11. time the pq kernels at that path's shapes, as in 5,
+12. time the pq kernels at that path's shapes, as in 5,
    ``pq_score_batched`` also at a ragged B = 465, and ``pq_topk`` also
    on its worst case (scores rising with the id, held to the exact
    answer) and beside ``torch.topk(pq_score_batched(...))``, the two
    calls it fuses;
-12. print one ``{"kernels": [...]}`` JSON line (launches summed over
+13. print one ``{"kernels": [...]}`` JSON line (launches summed over
    every path), then, last, the ``{"ok": true, "device": ...}`` line.
 
 It needs one card and no arguments, imports nothing of JAX, and runs
@@ -193,6 +210,22 @@ TRAIN_STEPS = 5
 CHECK_BATCH = 256                      # smoke-config card-vs-CPU runs
 TRAIN_LOSS_RTOL = 1e-4
 TRAIN_PARAM_TOL = 1e-5
+
+# the backbone phase (the paper's §3.2 and benchmarks/convergence.py
+# --full): ML-1M-like 6,040 users x 3,416 items, d = 64, D = 8, K = 256
+# with a tail tier of 64; the size sweep's D = 16, 8, 4 (S = 4, 8, 16)
+BB_USERS, BB_ITEMS, BB_DIM = 6040, 3416, 64
+# adam steps a run: benchmarks/common.py's default.  The --full
+# protocol's 2,000 made the phase 114-162 s on an H100 (the steps are
+# host-bound and the host varies), past its ~120 s budget; Fig. 3 at
+# 2,000 steps is ``python -m repro_torch.launch.backbones convergence
+# --full``.  At 400 steps FE has not yet left MGQE's plateau (its gap
+# opens after about step 500), so every verdict here reads TRACKS.
+BB_STEPS = 400
+BB_EVAL = 500                          # HR@10's users
+BB_CHECK_STEPS = 10                    # the tiny card-vs-CPU runs
+BB_PROFILE_STEPS = 20                  # an MGQE run's steps under the profiler
+BB_SUBSPACES = (16, 8, 4)
 
 # the LM phase: gemma3-4b's CONFIG served through serve_lm
 LM_ARCH = "gemma3-4b"
@@ -1933,6 +1966,450 @@ def ctr_train_checks() -> None:
 
 
 # ----------------------------------------------------------------------
+# the backbone phase: the paper's GMF, NeuMF and SASRec (§3.2) trained on
+# the card, their MGQE tables exported (dpq_assign) and served
+# (mgqe_decode)
+# ----------------------------------------------------------------------
+
+def bb_planted_commitment(model):
+    """The planted fault of the card-vs-CPU check: ``model`` with the
+    commitment term of every table's aux loss of the wrong sign."""
+    import dataclasses
+
+    from repro_torch.core import Embedding
+    for name in model.tables:
+        emb = getattr(model, name)
+        setattr(model, name, Embedding(
+            dataclasses.replace(emb.cfg, beta=-emb.cfg.beta),
+            device=model.device))
+    return model
+
+
+def bb_pads_counted(model):
+    """The other planted fault: SASRec's loss with the pad positions
+    kept in its mask (a pad's positive read as item 1)."""
+    import torch
+
+    def loss(params, batch):
+        pos = batch["pos"]
+        return model.loss(params, {**batch, "pos": torch.where(
+            pos == 0, torch.ones_like(pos), pos)})
+    return loss
+
+
+def bb_training(ml) -> dict:
+    """Each backbone, full and MGQE, trained at the paper's widths on the
+    card through ``run_pointwise``/``run_sasrec``: the step time, the
+    peak device memory, the loss first to last, HR@10 over BB_EVAL
+    users, the serving size and Fig. 3's verdict.  Training and the
+    evaluation on the training forward launch no kernel.  Each MGQE run
+    takes BB_PROFILE_STEPS more steps on a copy of its params under the
+    profiler.  Returns the runs by ``model/kind``."""
+    import torch
+    from repro_torch.core.schemes.base import tree_map
+    from repro_torch.data.sampler import PointwiseSampler, SequenceSampler
+    from repro_torch.launch.backbones import (fit, rel_gap, run_pointwise,
+                                              run_sasrec)
+    from repro_torch.models.recsys.backbones import BackboneConfig
+
+    out = {}
+    t0 = time.perf_counter()
+    for model in ("gmf", "neumf", "sasrec"):
+        for kind in ("full", "mgqe"):
+            cfg = BackboneConfig(model=model, n_users=ml.n_users,
+                                 n_items=ml.n_items, dim=BB_DIM,
+                                 embed_kind=kind)
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            counters = reset_counts()
+            if model == "sasrec":
+                r = run_sasrec(cfg, ml, steps=BB_STEPS, eval_users=BB_EVAL)
+            else:
+                r = run_pointwise(model, cfg, ml, steps=BB_STEPS,
+                                  eval_users=BB_EVAL)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            launched = {k: fn.launches for k, fn in counters.items()
+                        if fn.launches}
+            log(f"backbone {model}/{kind}: {BB_STEPS} steps, "
+                f"{r.step_ms:.4f} ms a step (synchronised); loss "
+                f"{r.losses[0]:.6f} -> {r.losses[-1]:.6f} (logged "
+                f"{[round(x, 4) for x in r.losses]}); HR@10 {r.metric:.4f} "
+                f"over {BB_EVAL} users; size {r.size_bits} bits "
+                f"({r.size_pct:.4f}% of full); peak device memory "
+                f"{peak / 2**20:.1f} MiB; {r.seconds:.2f}s in all")
+            need(len(r.losses) > 1 and all(math.isfinite(x)
+                                            for x in r.losses),
+                 f"{model}/{kind}: finite losses")
+            need(0.0 <= r.metric <= 1.0, f"{model}/{kind}: HR@10 in [0, 1]")
+            need(not launched, f"{model}/{kind}: training and its "
+                 f"evaluation launch no kernel, got {launched}")
+            out[f"{model}/{kind}"] = r
+            if kind == "mgqe":
+                # where a step's time goes: BB_PROFILE_STEPS more steps
+                # on a copy of the trained params, under the profiler
+                it = (iter(SequenceSampler(ml, batch=128, maxlen=cfg.maxlen))
+                      if model == "sasrec"
+                      else iter(PointwiseSampler(ml, batch_pos=512)))
+                copy = tree_map(torch.clone, r.params)
+                profile_phase(f"backbone {model}/mgqe, {BB_PROFILE_STEPS} "
+                              f"training steps", lambda: fit(
+                                  r.model, copy, r.model.loss, it,
+                                  BB_PROFILE_STEPS, 1e-3))
+    for model in ("gmf", "neumf", "sasrec"):
+        fe = out[f"{model}/full"].losses[-1]
+        mg = out[f"{model}/mgqe"].losses[-1]
+        gap, verdict = rel_gap(fe, mg)
+        log(f"backbone Fig. 3 {model} at {BB_STEPS} steps: final "
+            f"FE={fe:.6f} MGQE={mg:.6f} rel-gap={100 * gap:.2f}% -> "
+            f"{verdict}; HR@10 FE "
+            f"{out[f'{model}/full'].metric:.4f} MGQE "
+            f"{out[f'{model}/mgqe'].metric:.4f}; MGQE size "
+            f"{out[f'{model}/mgqe'].size_pct:.4f}% of full")
+    log(f"backbone training: 6 runs in {time.perf_counter() - t0:.1f}s")
+    return out
+
+
+def bb_train_codes(model, params, batch) -> dict:
+    """Each MGQE table's training codes for a batch's ids (the plain
+    assignment, as the training forward runs it), by table: (rows
+    (n, D, S), centroids, codes (n, D))."""
+    import torch
+    from repro_torch.core import dpq
+    from repro_torch.core.mgqe import _tier_k_limits
+    out = {}
+    for name in model.tables:
+        if model.cfg.model == "sasrec":
+            ids = torch.cat([batch[k].reshape(-1)
+                             for k in ("seq", "pos", "neg")])
+        else:
+            ids = batch["user_ids" if name.startswith("user")
+                        else "item_ids"]
+        cfg, p = getattr(model, name).cfg, params[name]
+        e = p["emb"].index_select(0, ids).reshape(-1, cfg.num_subspaces,
+                                                  cfg.subspace_dim)
+        out[name] = (e, p["centroids"], dpq.assign_codes(
+            e, p["centroids"], _tier_k_limits(cfg, ids)))
+    return out
+
+
+def bb_card_vs_cpu() -> None:
+    """At the tests' tiny size (``_bb_cfg``: 100 users, 80 items, d=16,
+    D=4, K=16/8): BB_CHECK_STEPS adam steps of each backbone as MGQE on
+    the card and on the CPU from the same params and sampler batches.
+    Before each step the training codes of the batch's ids are compared;
+    every step's loss (aux included) is held within CTR_TOL of the CPU's
+    up to the first step whose codes differ, which ends the comparison
+    (the two runs then train on other centroids) and whose differing
+    codes must be near-ties (ASSIGN_TOL).  Then three planted faults on
+    the card (the commitment term's sign in GMF and SASRec, SASRec's pad
+    mask), which must fail that bar."""
+    import torch
+    from repro_torch.core.schemes.base import tree_map
+    from repro_torch.data.sampler import PointwiseSampler, SequenceSampler
+    from repro_torch.data.synthetic import movielens_like
+    from repro_torch.models.recsys.backbones import (BackboneConfig,
+                                                     make_backbone)
+    from repro_torch.train import optimizer as opt
+
+    data = movielens_like(n_users=100, n_items=80, mean_len=6, seed=0)
+
+    def run(name, fault=None):
+        """(loss gaps a step before the first code flip, those from it
+        on, the step of the first flip or None, the flips' largest
+        distance gap)."""
+        cfg = BackboneConfig(model=name, n_users=100, n_items=80, dim=16,
+                             embed_kind="mgqe", num_subspaces=4,
+                             num_centroids=16, tier_tail_centroids=8,
+                             mlp_dims=(16, 8), maxlen=10, n_blocks=1)
+        cpu = make_backbone(cfg, device="cpu")
+        params = cpu.init(torch.Generator().manual_seed(0))
+        card = make_backbone(cfg)
+        card_params = tree_map(lambda t: t.cuda(), params)
+        loss_fn = card.loss
+        if fault == "commitment":
+            loss_fn = bb_planted_commitment(card).loss
+        elif fault == "pads":
+            loss_fn = bb_pads_counted(card)
+        ocfg = opt.OptimizerConfig(
+            kind="adam", lr=1e-3 if name == "sasrec" else 2e-3,
+            grad_clip=None)
+        states = [opt.TrainState.create(ocfg, card_params),
+                  opt.TrainState.create(ocfg, params)]
+        steps = [opt.make_step_fn(ocfg, loss_fn),
+                 opt.make_step_fn(ocfg, cpu.loss)]
+        it = (iter(SequenceSampler(data, batch=128, maxlen=10))
+              if name == "sasrec"
+              else iter(PointwiseSampler(data, batch_pos=512)))
+        gaps, after, flip, tie = [], [], None, 0.0
+        for i in range(BB_CHECK_STEPS):
+            b = {k: torch.from_numpy(v) for k, v in next(it).items()}
+            batches = [{k: v.cuda() for k, v in b.items()}, b]
+            if flip is None:
+                c_codes = bb_train_codes(card, states[0].params, batches[0])
+                h_codes = bb_train_codes(cpu, states[1].params, b)
+                for t, (e, cent, want) in h_codes.items():
+                    got = c_codes[t][2].cpu()
+                    if not torch.equal(got, want):
+                        flip = i
+                        tie = max(tie, assign_gap(e, cent, None, got, want))
+            out = [step(st, bt) for step, st, bt in zip(steps, states,
+                                                        batches)]
+            states = [st for st, _ in out]
+            (gaps if flip is None else after).append(
+                abs(float(out[0][1]["loss"]) - float(out[1][1]["loss"])))
+        return gaps, after, flip, tie
+
+    for name in ("gmf", "neumf", "sasrec"):
+        gaps, after, flip, tie = run(name)
+        log(f"backbone card vs CPU {name}/mgqe (tiny config, "
+            f"{BB_CHECK_STEPS} steps): loss gaps {[f'{x:.3g}' for x in gaps]}"
+            f" (bar CTR_TOL {CTR_TOL}); "
+            + ("training codes equal at every step" if flip is None else
+               f"a code differs before step {flip} (a near-tie: distance "
+               f"gap {tie:.3g}), which ends the comparison; the loss gaps "
+               f"from there on, not held: {[f'{x:.3g}' for x in after]}"))
+        need(len(gaps) > 0 and max(gaps) <= CTR_TOL, f"backbone {name}: "
+             f"card losses within {CTR_TOL} of the CPU's")
+        need(tie <= ASSIGN_TOL, f"backbone {name}: codes differ between "
+             f"the card and the CPU only at near-ties")
+    for name, fault in (("gmf", "commitment"), ("sasrec", "commitment"),
+                        ("sasrec", "pads")):
+        gaps, _, _, _ = run(name, fault)
+        worst = max(gaps, default=0.0)
+        log(f"backbone card vs CPU {name}/mgqe with a planted fault "
+            f"({fault}): loss gaps {[f'{x:.3g}' for x in gaps]}, the "
+            f"largest {worst / CTR_TOL:.3g}x the bar")
+        need(worst > CTR_TOL, f"the planted {fault} fault fails the "
+             f"backbone card-vs-CPU bar")
+
+
+def bb_serving(runs, ml) -> tuple:
+    """The trained MGQE tables of every backbone exported through
+    ``Embedding.export`` (``dpq_assign``) and the evaluation's candidates
+    (BB_EVAL users x 101 ids) served through ``Embedding.serve``
+    (``mgqe_decode``), then HR@10 from the served rows, with every count
+    set to 0 just before and read just after.  Checks: codes equal to
+    the plain assignment up to ASSIGN_TOL; served rows bit-identical to
+    ``mgqe_decode_ref`` on the same codes and, where the training
+    forward picked the same codes, within a rounding of its rows
+    (2^-23 (|c| + |e|) an element: e + (c - e) rounds twice); where it
+    did not, the two picks within ASSIGN_TOL of a tie.  Returns
+    (launches, largest distance gap)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import dpq
+    from repro_torch.core.mgqe import _tier_k_limits, k_limit_for_all_rows
+    from repro_torch.kernels.mgqe_decode import mgqe_decode_ref
+    from repro_torch.launch.backbones import (eval_candidates,
+                                              hr_at_10_pointwise,
+                                              hr_at_10_sasrec)
+
+    total = {"dpq_assign": 0, "mgqe_decode": 0}
+    worst = 0.0
+    for model_name in ("gmf", "neumf", "sasrec"):
+        r = runs[f"{model_name}/mgqe"]
+        model, params = r.model, r.params
+        sasrec = model_name == "sasrec"
+        users, cand = eval_candidates(ml, BB_EVAL, 100, 7,
+                                      shift=1 if sasrec else 0)
+        counters = reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        art = model.export(params)
+        torch.cuda.synchronize()
+        t_export = time.perf_counter() - t0
+        ids = {"item": torch.from_numpy(cand.reshape(-1)).cuda(),
+               "user": torch.from_numpy(np.repeat(users, 101)).cuda()}
+        with torch.no_grad():
+            served = {name: getattr(model, name).serve(
+                art[name], ids["user" if name.startswith("user") else "item"])
+                for name in model.tables}
+            if sasrec:
+                hr_served = hr_at_10_sasrec(model, params, ml, model.cfg.maxlen,
+                                            BB_EVAL, artifacts=art)
+            else:
+                hr_served = hr_at_10_pointwise(model, params, ml, BB_EVAL,
+                                               artifacts=art)
+        torch.cuda.synchronize()
+        launches = {k: counters[k].launches for k in total}
+        for k in total:
+            total[k] += launches[k]
+        need(launches["dpq_assign"] == len(model.tables),
+             f"{model_name}: one dpq_assign launch a table")
+        need(launches["mgqe_decode"] > 0, f"{model_name}: mgqe_decode "
+             f"launched serving the candidates")
+        with torch.no_grad():
+            hr_train = (hr_at_10_sasrec(model, params, ml, model.cfg.maxlen,
+                                        BB_EVAL) if sasrec else
+                        hr_at_10_pointwise(model, params, ml, BB_EVAL))
+        ties = 0
+        for name in model.tables:
+            emb = getattr(model, name)
+            ecfg, p, a = emb.cfg, params[name], art[name]
+            n, d = ecfg.vocab_size, ecfg.num_subspaces
+            codes, cent = a["codes"], a["centroids"]
+            e_all = p["emb"].reshape(n, d, -1)
+            lim = k_limit_for_all_rows(ecfg, "cuda")
+            want = blocked_assign_ref_lim(e_all, cent, lim)
+            got = codes.to(torch.int32)
+            gap = assign_gap(e_all, cent, lim, got, want)
+            need(codes.dtype == torch.uint8 and tuple(codes.shape) == (n, d),
+                 f"{model_name}.{name}: codes (n, D) uint8")
+            need(gap <= ASSIGN_TOL, f"{model_name}.{name}: exported codes "
+                 f"== the plain assignment up to {ASSIGN_TOL}")
+            tid = ids["user" if name.startswith("user") else "item"]
+            rows = served[name]
+            need(tuple(rows.shape) == (tid.shape[0], ecfg.dim)
+                 and bool(torch.isfinite(rows).all()),
+                 f"{model_name}.{name}: served rows (n, d), finite")
+            need(torch.equal(bits(rows), bits(mgqe_decode_ref(
+                codes.index_select(0, tid), cent))),
+                f"{model_name}.{name}: served rows bit-identical to "
+                f"mgqe_decode_ref")
+            # the training forward on the same ids: its own codes (the
+            # plain assignment, as in training) and rows e + (c - e)
+            with torch.no_grad():
+                train_rows, _ = emb.apply(p, tid)
+                e = p["emb"].index_select(0, tid)
+                t_codes = dpq.assign_codes(e.reshape(-1, d, ecfg.subspace_dim),
+                                           cent, _tier_k_limits(ecfg, tid))
+            s_codes = codes.index_select(0, tid).to(torch.int32)
+            agree = (t_codes == s_codes).all(1)
+            c_rows = rows[agree]
+            bar = 2.0 ** -23 * (c_rows.abs() + e[agree].abs())
+            need(bool(((c_rows - train_rows[agree]).abs() <= bar).all()),
+                 f"{model_name}.{name}: served rows within a rounding of "
+                 f"the training forward's")
+            tie_gap = assign_gap(e.reshape(-1, d, ecfg.subspace_dim), cent,
+                                 None, s_codes, t_codes)
+            need(tie_gap <= ASSIGN_TOL, f"{model_name}.{name}: training "
+                 f"and exported codes differ only at near-ties")
+            n_ties = int((~agree).sum())
+            ties += n_ties
+            worst = max(worst, gap, tie_gap)
+            log(f"backbone serve {model_name}.{name}: vocab {n} D={d} "
+                f"S={ecfg.subspace_dim} K={ecfg.tier_num_centroids}; "
+                f"export codes within {gap:.3g} of the plain assignment "
+                f"({int((got != want).sum())} of {n * d} differ); "
+                f"{tid.shape[0]} served rows bit-identical to "
+                f"mgqe_decode_ref; {n_ties} of them picked other codes in "
+                f"the training forward (near-ties within {tie_gap:.3g})")
+        log(f"backbone serve {model_name}/mgqe: export {t_export:.4f}s, "
+            f"launches {launches}; HR@10 from the served rows "
+            f"{hr_served:.4f}, from the training forward {hr_train:.4f} "
+            f"({ties} candidate rows at near-ties could separate them)")
+    return total, worst
+
+
+def time_bb_kernels() -> None:
+    """``dpq_assign`` and ``mgqe_decode`` at the backbones' widths: D in
+    BB_SUBSPACES (S = 64 / D), K = 256 with a tail of 64, f32;
+    ``dpq_assign`` over each vocabulary (6,040 users, 3,417 SASRec
+    items) as export runs it (one launch), ``mgqe_decode`` over the
+    evaluation's candidates (BB_EVAL x 101 rows), each beside its plain
+    version, its bound and, for the decode, ``F.embedding``."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core import EmbeddingConfig
+    from repro_torch.core.mgqe import k_limit_for_all_rows
+    from repro_torch.core.partition import frequency_boundaries
+    from repro_torch.kernels import build
+    from repro_torch.kernels.decode_chunks import l2_gather_plan
+    from repro_torch.kernels.dpq_assign import dpq_assign, dpq_assign_ref
+    from repro_torch.kernels.dpq_assign.dpq_assign import choose_tiles
+    from repro_torch.kernels.mgqe_decode import mgqe_decode, mgqe_decode_ref
+    from repro_torch.kernels.mgqe_decode.mgqe_decode import decode_plan
+
+    sms = build.sm_count("cuda")
+    for d in BB_SUBSPACES:
+        s = BB_DIM // d
+        for n in (BB_USERS, BB_ITEMS + 1):
+            ecfg = EmbeddingConfig(
+                vocab_size=n, dim=BB_DIM, kind="mgqe", num_subspaces=d,
+                num_centroids=256, tier_boundaries=frequency_boundaries(
+                    n, (0.1,)), tier_num_centroids=(256, 64))
+            g = torch.Generator(device="cuda").manual_seed(n + d)
+            e = torch.randn((n, d, s), generator=g, device="cuda") \
+                * BB_DIM ** -0.5
+            cent = torch.randn((d, 256, s), generator=g, device="cuda") \
+                * BB_DIM ** -0.5
+            lim = k_limit_for_all_rows(ecfg, "cuda")
+            got, want = dpq_assign(e, cent, lim), dpq_assign_ref(e, cent, lim)
+            gap = assign_gap(e, cent, lim, got, want)
+            need(gap <= ASSIGN_TOL, f"dpq_assign within {ASSIGN_TOL} at D="
+                 f"{d}, vocab {n}")
+            ms, host = time_ms(lambda: dpq_assign(e, cent, lim))
+            # the plain version's few large launches: few calls, so the
+            # launch queue stays shallow behind the held card
+            plain, _ = time_ms(lambda: dpq_assign_ref(e, cent, lim),
+                               iters=20)
+            bound, by, flops, nbytes, _ = assign_bound(e, 256, lim, 1)
+            log(f"time dpq_assign vocab={n} D={d} K=256/64 S={s} f32 (a "
+                f"backbone table's export, tiles "
+                f"{choose_tiles(torch.float32, n, d, 256, s)}): kernel "
+                f"{ms:.5f} ms, plain {plain:.5f} ms, bound {bound:.5f} ms by "
+                f"{by} ({flops} FLOP, {nbytes} bytes); "
+                f"{int((got != want).sum())} of {n * d} codes differ from "
+                f"the plain version, largest distance gap {gap:.3g}; host "
+                f"time to launch {host:.5f} ms")
+            del e, cent, lim, got, want
+        b = BB_EVAL * 101
+        codes, cent = decode_inputs(b, d, 256, s, torch.float32, seed=d)
+        got, want = mgqe_decode(codes, cent), mgqe_decode_ref(codes, cent)
+        torch.cuda.synchronize()
+        need(torch.equal(bits(got), bits(want)), f"mgqe_decode bit-identical "
+             f"at D={d}, S={s}")
+        offs = (codes.long() + torch.arange(d, device="cuda") * 256
+                ).contiguous()
+        flat = cent.reshape(d * 256, s)
+        # the planned route (smem: the 64 KB table staged a block), and
+        # the l2 route on the same call for comparison
+        l2 = l2_gather_plan(b, d, s * 4, sms)
+        need(torch.equal(bits(mgqe_decode(codes, cent, plan=l2)),
+                         bits(want)), f"mgqe_decode's l2 route "
+             f"bit-identical at D={d}, S={s}")
+        ms, host = time_ms(lambda: mgqe_decode(codes, cent))
+        l2_ms, _ = time_ms(lambda: mgqe_decode(codes, cent, plan=l2))
+        plain, _ = time_ms(lambda: mgqe_decode_ref(codes, cent))
+        lib, _ = time_ms(lambda: F.embedding(offs, flat))
+        nbytes = b * d + d * 256 * s * 4 + b * d * s * 4
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        log(f"time mgqe_decode B={b} D={d} K=256 S={s} f32 (the backbones' "
+            f"candidates, {decode_plan(b, d, 256, s, 1, 4, sms)}): kernel "
+            f"{ms:.5f} ms (on the l2 route {l2}: {l2_ms:.5f} ms), plain "
+            f"{plain:.5f} ms, F.embedding {lib:.5f} ms, bound {bound:.5f} "
+            f"ms by bytes ({nbytes} bytes, {100 * bound / ms:.0f}% of it); "
+            f"host time to launch {host:.5f} ms")
+        del codes, cent, got, want, offs, flat
+
+
+def backbone_path() -> tuple:
+    """The backbone phase: training (``bb_training``), the card against
+    the CPU (``bb_card_vs_cpu``), export and serving (``bb_serving``)
+    and the kernels at the backbones' widths (``time_bb_kernels``).
+    Returns (launches of the export and serving, largest distance
+    gap)."""
+    import torch
+    from repro_torch.data.synthetic import movielens_like
+    t0 = time.perf_counter()
+    ml = movielens_like(n_users=BB_USERS, n_items=BB_ITEMS, seed=0)
+    log(f"backbone data: movielens_like {BB_USERS} users x {BB_ITEMS} items,"
+        f" {sum(len(s) for s in ml.train_seqs)} training interactions, "
+        f"built in {time.perf_counter() - t0:.1f}s")
+    runs = bb_training(ml)
+    bb_card_vs_cpu()
+    launches, gap = bb_serving(runs, ml)
+    del runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    time_bb_kernels()
+    log(f"backbone phase: {time.perf_counter() - t0:.1f}s in all")
+    return launches, gap
+
+
+# ----------------------------------------------------------------------
 # the LM phase: flash_attention, dpq_assign at LM widths, gemma3-4b
 # served at full width
 # ----------------------------------------------------------------------
@@ -2855,6 +3332,7 @@ def main() -> int:
     s_launches = ctr_serve_path()
     t_launches = ctr_train_path()
     ctr_train_checks()
+    b_launches, bb_gap = backbone_path()
     t = bag_times[(BAG_SHAPES[0][1], torch.float32, True, "uniform")]
     kernels.append({"name": "embedding_bag", "route": "cuda",
                     "source": "src/repro_torch/kernels/csrc/embedding_bag.cu",
@@ -2879,12 +3357,12 @@ def main() -> int:
         name = entry["name"]
         entry["launches"] = sum(p.get(name, 0) for p in
                                 (launches, c_launches, bag_launches,
-                                 s_launches, t_launches, l_launches,
-                                 r_launches))
+                                 s_launches, t_launches, b_launches,
+                                 l_launches, r_launches))
         if name == "dpq_assign":
             entry["max_abs_err"] = max(entry["max_abs_err"], pq_errs[name],
                                        c_errs[name], lm_assign_gap,
-                                       lm27_gap)
+                                       lm27_gap, bb_gap)
     log(f"total {time.perf_counter() - t0:.1f}s")
     log(card)
     log(json.dumps({"kernels": kernels}))

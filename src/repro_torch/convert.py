@@ -91,6 +91,29 @@ def deepfm_params_from_numpy(params: dict, model, device) -> dict:
     }
 
 
+def backbone_params_from_numpy(params: dict, model, device) -> dict:
+    """The JAX backbone params (GMF, NeuMF or SASRec; numpy leaves) as
+    the port's: each embedding table named in ``model.tables`` through
+    :func:`params_from_numpy` under its own config, NeuMF's ``mlp``
+    through :func:`mlp_from_numpy`, and every other leaf (``w``, the 0-d
+    ``b``, ``w_out``, ``pos_emb``, SASRec's ``blocks`` and ``final_ln``)
+    carried as it is."""
+    if set(params) != set(model.tables + model.dense_keys):
+        raise ValueError(f"params hold {sorted(params)}, the model "
+                         f"{sorted(model.tables + model.dense_keys)}")
+    out = {}
+    for name, tree in params.items():
+        if name in model.tables:
+            out[name] = params_from_numpy(tree, getattr(model, name).cfg,
+                                          device)
+        elif name == "mlp":
+            out[name] = mlp_from_numpy(tree, device)
+        else:
+            out[name] = tree_map(lambda a: tensor_from_numpy(a, device),
+                                 tree)
+    return out
+
+
 def opt_state_from_numpy(opt_state: dict, params: dict, device) -> dict:
     """An optimizer state of the JAX package (numpy leaves: ``step`` and
     the moment trees) as tensors on ``device``; each moment tree must

@@ -160,11 +160,14 @@ _RQ_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
 
 
 def mgqe_decode(codes: torch.Tensor, centroids: torch.Tensor,
-                block_b: Optional[int] = None) -> torch.Tensor:
+                block_b: Optional[int] = None, *,
+                plan: Optional[DecodePlan] = None) -> torch.Tensor:
     """codes (B, D) uint8/int32; centroids (D, K, S) float32/bfloat16,
     both contiguous on one CUDA device -> (B, D*S) in the centroid
     dtype.  Codes >= K are clamped to K-1.  ``block_b``: threads a
-    block, in [1, 1024], rounded up to whole warps."""
+    block, in [1, 1024], rounded up to whole warps.  ``plan``: a launch
+    plan to run instead of ``decode_plan``'s (to time or test a route);
+    the kernel refuses one it cannot run."""
     if not (codes.is_cuda and centroids.is_cuda):
         raise ValueError(
             f"mgqe_decode's CUDA kernel takes CUDA tensors, got codes on "
@@ -193,8 +196,9 @@ def mgqe_decode(codes: torch.Tensor, centroids: torch.Tensor,
     if b == 0:
         return out
     cb, eb = _CODE_BYTES[codes.dtype], _ELEM_BYTES[centroids.dtype]
-    plan = decode_plan(b, d, k, s, cb, eb, build.sm_count(codes.device),
-                       BLOCK_B.default if block_b is None else block_b)
+    if plan is None:
+        plan = decode_plan(b, d, k, s, cb, eb, build.sm_count(codes.device),
+                           BLOCK_B.default if block_b is None else block_b)
     fn = build.function("mgqe_decode", "mgqe_decode_launch", _ARGTYPES)
     stream = torch.cuda.current_stream(codes.device).cuda_stream
     err = fn(codes.data_ptr(), cb, centroids.data_ptr(), eb, out.data_ptr(),

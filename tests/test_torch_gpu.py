@@ -24,6 +24,7 @@ from repro_torch.kernels.mgqe_decode import (mgqe_decode, mgqe_decode_ref,
                                              rq_decode_stages,
                                              rq_decode_stages_ref)
 from repro_torch.kernels.mgqe_decode.mgqe_decode import (RQ_SMEM_MIN_ROWS,
+                                                         decode_plan,
                                                          rq_plan)
 from repro_torch.kernels.packed_decode import (pack_codes, packed_decode,
                                                packed_decode_ref)
@@ -1695,3 +1696,87 @@ def test_lm_smoke_on_card_matches_cpu(cuda, arch):
     for host, card in zip(*runs):
         assert torch.allclose(card, host, rtol=1e-4, atol=1e-4)
         assert torch.equal(torch.argmax(card, -1), torch.argmax(host, -1))
+
+
+# ----------------------------------------------------------------------
+# the backbones (GMF, NeuMF, SASRec): trained on the card, their MGQE
+# tables exported and served
+# ----------------------------------------------------------------------
+
+def _bb_cfg(model, **kw):
+    """The parity tests' tiny backbone (d = 16, D = 4, K = 16 / 8)."""
+    from repro_torch.models.recsys.backbones import BackboneConfig
+    return BackboneConfig(**{**dict(
+        model=model, n_users=100, n_items=80, dim=16, embed_kind="mgqe",
+        num_subspaces=4, num_centroids=16, tier_tail_centroids=8,
+        mlp_dims=(16, 8), maxlen=10, n_blocks=1), **kw})
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("model", ["gmf", "neumf", "sasrec"])
+def test_backbone_steps_on_card_match_cpu(cuda, model):
+    """3 adam steps of an MGQE backbone on the card and on the CPU from
+    the same params and sampler batches: every loss and every final
+    param within 1e-5."""
+    from repro_torch.core.schemes.base import tree_leaves, tree_map
+    from repro_torch.data.sampler import PointwiseSampler, SequenceSampler
+    from repro_torch.data.synthetic import movielens_like
+    from repro_torch.launch.backbones import fit
+    from repro_torch.models.recsys.backbones import make_backbone
+    data = movielens_like(n_users=100, n_items=80, mean_len=6, seed=0)
+    cfg = _bb_cfg(model)
+    cpu, card = make_backbone(cfg, device="cpu"), make_backbone(cfg)
+    params = cpu.init(torch.Generator().manual_seed(0))
+    card_params = tree_map(lambda t: t.to(cuda), params)
+
+    def batches():
+        return iter(SequenceSampler(data, batch=64, maxlen=10)
+                    if model == "sasrec" else
+                    PointwiseSampler(data, batch_pos=128))
+    s_card, l_card = fit(card, card_params, card.loss, batches(), 3, 1e-2,
+                         log_every=1)
+    s_cpu, l_cpu = fit(cpu, params, cpu.loss, batches(), 3, 1e-2,
+                       log_every=1)
+    np.testing.assert_allclose(l_card, l_cpu, rtol=1e-5, atol=1e-5)
+    for c, a in zip(tree_leaves(s_card.params), tree_leaves(s_cpu.params)):
+        assert c.is_cuda
+        assert torch.allclose(c.cpu(), a, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("vocab", [6040, 3417])
+@pytest.mark.parametrize("d", [4, 8, 16])
+def test_backbone_mgqe_table_exports_and_serves_on_card(cuda, d, vocab):
+    """A backbone's MGQE table at the paper's widths (d = 64, D = 4, 8,
+    16, K = 256 with a tail of 64): export launches dpq_assign once, its
+    codes equal the plain assignment up to near-ties, and serve launches
+    mgqe_decode, its rows bit-identical to the plain decode of the
+    exported codes."""
+    from repro_torch.core.mgqe import k_limit_for_all_rows
+    from repro_torch.models.recsys.backbones import BackboneConfig
+    cfg = BackboneConfig(model="gmf", n_users=vocab, n_items=vocab,
+                         embed_kind="mgqe", num_subspaces=d).emb_config(vocab)
+    emb = Embedding(cfg)
+    params = emb.init(emb.generator(d))
+    n0 = (dpq_assign.launches, mgqe_decode.launches)
+    art = emb.export(params)
+    codes, cent = art["codes"], art["centroids"]
+    assert codes.dtype == torch.uint8 and codes.shape == (vocab, d)
+    e = params["emb"].reshape(vocab, d, -1)
+    lim = k_limit_for_all_rows(cfg, cuda)
+    assert _assign_gap(e, cent, lim, codes.to(torch.int32),
+                       _plain(e, cent, lim)) <= ASSIGN_TOL
+    ids = torch.from_numpy(np.random.default_rng(d).integers(
+        0, vocab, 50_500)).to(cuda)
+    rows = emb.serve(art, ids)
+    assert rows.shape == (50_500, 64)
+    want = mgqe_decode_ref(codes.index_select(0, ids), cent)
+    _same_bits(rows, want)
+    assert (dpq_assign.launches - n0[0], mgqe_decode.launches - n0[1]) \
+        == (1, 1)
+    # the planner stages the 64 KB table (16-64 byte slots); the l2
+    # route, run on the same codes, agrees bit for bit
+    assert decode_plan(50_500, d, 256, 64 // d, 1, 4, 132).route == "smem"
+    _same_bits(mgqe_decode(codes.index_select(0, ids), cent,
+                           plan=l2_gather_plan(50_500, d, 4 * 64 // d, 132)),
+               want)

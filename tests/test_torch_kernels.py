@@ -100,8 +100,10 @@ def test_mgqe_decode_op_on_cpu_is_plain_version():
 # 8,192 chunks of 32 rows for 264 blocks of 16 warps), gemma3-4b's
 # prefill (2.6 MB table, 1,280-byte slots: through L2) in both types,
 # D*S odd, the JAX bench's d = 64 table (64 KB: one block an SM), two
-# tables past the smem route's limit, and chunks so wide that fewer
-# warps fit a block
+# tables past the smem route's limit, chunks so wide that fewer warps
+# fit a block, and the backbones' 64 KB tables (d = 64 at D = 16, 8, 4:
+# 16-64 byte slots) over their 500 x 101 evaluation candidates, one
+# chunk a warp
 @pytest.mark.parametrize("shape,plan", [
     ((262144, 5, 256, 2, 1, 4), ("smem", 512, 0, 264)),
     ((262144, 5, 256, 2, 1, 2), ("smem", 512, 0, 264)),
@@ -111,7 +113,10 @@ def test_mgqe_decode_op_on_cpu_is_plain_version():
     ((262144, 8, 256, 8, 1, 4), ("smem", 512, 0, 132)),
     ((1000, 4, 4096, 8, 4, 4), ("l2", 1024, 2, 8)),
     ((257, 16, 256, 16, 4, 4), ("l2", 1024, 4, 17)),
-    ((262144, 200, 16, 1, 4, 2), ("smem", 96, 0, 132))])
+    ((262144, 200, 16, 1, 4, 2), ("smem", 96, 0, 132)),
+    ((50500, 16, 256, 4, 1, 4), ("smem", 512, 0, 99)),
+    ((50500, 8, 256, 8, 1, 4), ("smem", 512, 0, 99)),
+    ((50500, 4, 256, 16, 1, 4), ("smem", 512, 0, 99))])
 def test_mgqe_decode_plan_routes(shape, plan):
     got = decode_plan(*shape, sms=132)
     assert (got.route, got.threads, got.group, got.grid) == plan
@@ -394,6 +399,19 @@ def test_dpq_assign_tiles_fit_shared_memory(shape, dtype):
         assert block_m in rows and block_s in steps
         # S in one k-step where an instantiated one holds it, else streamed
         assert block_s >= s or block_s == steps[-1]
+
+
+@pytest.mark.parametrize("b", [6040, 3417])
+@pytest.mark.parametrize("d", [16, 8, 4])
+def test_dpq_assign_walks_the_backbone_tables(b, d):
+    """The backbones' MGQE tables (6,040 users or 3,417 SASRec items,
+    d = 64 at D = 16, 8, 4: S = 4, 8, 16) export on the float32 walk at
+    its smallest row tile: too few rows to fill the card even so
+    (ceil(B / 256) * D blocks, 56 to 384 for 528)."""
+    s = 64 // d
+    assert choose_tiles(torch.float32, b, d, 256, s) == (256, 0)
+    assert smem_bytes(torch.float32, 256, 0, 256, s) <= MAX_SMEM
+    assert -(-b // 256) * d < 4 * 132
 
 
 def test_dpq_assign_tile_chooser_checks_what_it_is_given():
