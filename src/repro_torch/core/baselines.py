@@ -62,6 +62,28 @@ def lrf_lookup(params: dict, ids: torch.Tensor, cfg: EmbeddingConfig
     return out, _zero(out.device)
 
 
+def lrf_serving_lookup(artifact: dict, ids: torch.Tensor,
+                       cfg: EmbeddingConfig) -> torch.Tensor:
+    """Served rows ``u[ids] @ v``, each independent of the batch.
+
+    A matmul picks its kernel, and with it its summation order, by
+    shape, so a row would round one way at B = 1 and another at B =
+    4,096: the hot-row cache decodes its block at B = ``hot_rows`` and
+    flushes at any B.  Here the rank sum runs in a fixed order instead:
+    every product ``u[i, k] * v[k, e]`` in one elementwise op (float32,
+    exact for bfloat16 inputs), then the rank steps added one at a time,
+    each add its own elementwise op (no fused multiply-add on either
+    device), and the sum cast to the table's dtype.  The training
+    forward (:func:`lrf_lookup`) keeps its matmul."""
+    v = artifact["v"]
+    rows = row_gather(artifact["u"], ids).float()          # (..., r)
+    prod = rows[..., :, None] * v.float()                   # (..., r, d)
+    out = prod[..., 0, :]
+    for k in range(1, v.shape[0]):
+        out = out + prod[..., k, :]
+    return out.to(v.dtype)
+
+
 # ------------------------------------------------------------------ sq
 # SQ trains exactly like FE; quantization happens at export time.
 sq_init = full_init

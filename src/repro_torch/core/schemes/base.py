@@ -97,6 +97,12 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
+def _hot_ids(n: int, artifact: dict) -> torch.Tensor:
+    """Ids ``0..n-1`` (int32) on the artifact's device."""
+    device = tree_leaves(artifact)[0].device
+    return torch.arange(n, dtype=torch.int32, device=device)
+
+
 class Scheme:
     """Protocol every embedding scheme implements.
 
@@ -148,14 +154,22 @@ class Scheme:
         """dtype of ``serve()``'s output rows (the hot block's dtype)."""
         return torch_dtype(self.cfg.param_dtype)
 
+    def precompute_hot_rows(self, artifact: dict) -> torch.Tensor:
+        """Decode-ahead block for the power-law head: the
+        ``cfg.hot_rows`` hottest ids — ids ``< hot_rows``, valid because
+        ids are frequency-sorted by convention — decoded through
+        ``serve`` into a dense ``(hot_rows, dim)`` block on the
+        artifact's device.  Derived from ``serve``, so every registered
+        scheme supports the cache unedited."""
+        return self.serve(artifact, _hot_ids(self.cfg.hot_rows, artifact))
+
     def attach_hot_rows(self, artifact: dict) -> dict:
-        """The artifact unchanged when the config asks for no hot-row
-        cache; the cache itself is the hot-row slice in ROADMAP.md."""
+        """The artifact with the ``hot`` leaf attached when the config
+        asks for one (``Embedding.export`` calls this; ``artifact_spec``
+        charges the leaf)."""
         if not self.cfg.hot_rows:
             return artifact
-        raise NotImplementedError(
-            f"hot_rows={self.cfg.hot_rows}: the hot-row cache waits for "
-            f"the hot-row slice in ROADMAP.md")
+        return dict(artifact, hot=self.precompute_hot_rows(artifact))
 
     # ---------------------------------------------------------- derived
     def artifact_spec(self):
@@ -205,6 +219,11 @@ class QuantizedScheme(Scheme):
                 "sharded_codes serving waits for the distributed slice in "
                 "ROADMAP.md")
         return self.decode(artifact, ids)
+
+    def precompute_hot_rows(self, artifact: dict) -> torch.Tensor:
+        """Pinned to the single-device ``decode``: export happens before
+        any placement, so the block is decoded where the codes are."""
+        return self.decode(artifact, _hot_ids(self.cfg.hot_rows, artifact))
 
     def resolve_block_b(self, block_b) -> Optional[int]:
         """Map the ``decode`` block_b argument to a concrete value:

@@ -58,7 +58,7 @@ class LowRankFactorization(Scheme):
         return params
 
     def serve(self, artifact, ids):
-        return baselines.lrf_lookup(artifact, ids, self.cfg)[0]
+        return baselines.lrf_serving_lookup(artifact, ids, self.cfg)
 
     def cold_artifact_spec(self):
         cfg = self.cfg

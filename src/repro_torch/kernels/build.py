@@ -20,6 +20,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
@@ -31,6 +32,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _FUNCS: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}
+# the async serving engine launches from a flush and a refresh thread:
+# one lock for first-use loading, one for the launch counts
+_LOAD_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
 
 
 def sources() -> List[str]:
@@ -100,9 +105,11 @@ def library(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built on first use."""
     lib = _LIBS.get(name)
     if lib is None:
-        build([name])
-        lib = ctypes.CDLL(str(library_path(name)))
-        _LIBS[name] = lib
+        with _LOAD_LOCK:
+            lib = _LIBS.get(name)
+            if lib is None:
+                build([name])
+                lib = _LIBS[name] = ctypes.CDLL(str(library_path(name)))
     return lib
 
 
@@ -114,11 +121,23 @@ def function(name: str, symbol: str, argtypes: Sequence,
     key = (name, symbol)
     fn = _FUNCS.get(key)
     if fn is None:
-        fn = getattr(library(name), symbol)
-        fn.argtypes = list(argtypes)
-        fn.restype = restype
-        _FUNCS[key] = fn
+        lib = library(name)
+        with _LOAD_LOCK:
+            fn = _FUNCS.get(key)
+            if fn is None:
+                fn = getattr(lib, symbol)
+                fn.argtypes = list(argtypes)
+                fn.restype = restype
+                _FUNCS[key] = fn
     return fn
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches`` (chip_smoke.py sets the counts to
+    0 around a path and reads them after).  Under a lock: ``+= 1`` is a
+    read-modify-write, and two threads may launch at once."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
 
 
 def sm_count(device) -> int:
@@ -145,5 +164,6 @@ def check(name: str, err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
 
 
-__all__ = ["BUILD_DIR", "CSRC", "NVCC_FLAGS", "build", "check", "function",
-           "library", "library_path", "sm_count", "sources"]
+__all__ = ["BUILD_DIR", "CSRC", "NVCC_FLAGS", "build", "check",
+           "count_launch", "function", "library", "library_path", "sm_count",
+           "sources"]

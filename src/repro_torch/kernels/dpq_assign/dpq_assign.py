@@ -178,7 +178,7 @@ def dpq_assign(e_sub: torch.Tensor, centroids: torch.Tensor,
              None if norms is None else norms.data_ptr(), codes.data_ptr(),
              b, d, k, s, _DTYPE_CODE[e_sub.dtype], block_m, block_s, stream)
     build.check("dpq_assign", err, "dpq_assign launch")
-    dpq_assign.launches += 1
+    build.count_launch(dpq_assign)
     return codes
 
 

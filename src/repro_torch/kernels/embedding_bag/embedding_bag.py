@@ -228,7 +228,7 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
         build.check("embedding_bag", err, f"embedding_bag launch at V={v} "
                     f"d={d} nnz={ids.numel()} bags={num_bags} {plan} "
                     f"(limits: csrc/embedding_bag.cu)")
-    embedding_bag.launches += 1
+    build.count_launch(embedding_bag)
     return out
 
 

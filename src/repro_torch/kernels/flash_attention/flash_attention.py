@@ -112,7 +112,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              b, sq, skv, h, hkv, hd, *strides, window, hd ** -0.5,
              block_k, _DTYPES[q.dtype], stream)
     build.check("flash_attention", err, "flash_attention launch")
-    flash_attention.launches += 1
+    build.count_launch(flash_attention)
     return out
 
 

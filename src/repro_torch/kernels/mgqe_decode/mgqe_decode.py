@@ -206,7 +206,7 @@ def mgqe_decode(codes: torch.Tensor, centroids: torch.Tensor,
              plan.threads, plan.smem, stream)
     build.check("mgqe_decode", err, f"mgqe_decode launch at B={b} D={d} "
                 f"K={k} S={s} {plan} (limits: csrc/mgqe_decode.cu)")
-    mgqe_decode.launches += 1
+    build.count_launch(mgqe_decode)
     return out
 
 
@@ -272,7 +272,7 @@ def rq_decode_stages(codes: torch.Tensor, codebooks: torch.Tensor,
     build.check("rq_decode_stages", err, f"rq_decode_stages launch at B={b} "
                 f"M={m} K={k} d={d} {plan} (limits: "
                 f"csrc/rq_decode_stages.cu)")
-    rq_decode_stages.launches += 1
+    build.count_launch(rq_decode_stages)
     return out
 
 

@@ -130,7 +130,7 @@ def packed_decode(packed: torch.Tensor, centroids: torch.Tensor, bits: int,
     build.check("packed_decode", err, f"packed_decode launch at B={b} D={d} "
                 f"K={k} S={s} bits={bits} {plan} (limits: "
                 f"csrc/packed_decode.cu)")
-    packed_decode.launches += 1
+    build.count_launch(packed_decode)
     return out
 
 

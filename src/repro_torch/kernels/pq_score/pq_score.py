@@ -262,7 +262,7 @@ def pq_score(lut: torch.Tensor, codes: torch.Tensor,
     luts = lut[None]
     _check("pq_score", luts, codes)
     out = _launch_scores(luts, codes, block_n)[0]
-    pq_score.launches += 1
+    build.count_launch(pq_score)
     return out
 
 
@@ -271,7 +271,7 @@ def pq_score_batched(luts: torch.Tensor, codes: torch.Tensor,
     """luts (B, D, K) f32; codes (N, D) uint8/int32 -> scores (B, N)."""
     _check("pq_score_batched", luts, codes)
     out = _launch_scores(luts, codes, block_n)
-    pq_score_batched.launches += 1
+    build.count_launch(pq_score_batched)
     return out
 
 
@@ -367,7 +367,7 @@ def pq_topk(luts: torch.Tensor, codes: torch.Tensor, k: int,
              plan.queries, plan.cap, plan.chunk, plan.rows0, plan.rows1,
              stream)
     build.check("pq_score", err, what)
-    pq_topk.launches += 1
+    build.count_launch(pq_topk)
     return out_s, out_i
 
 

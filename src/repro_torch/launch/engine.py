@@ -24,9 +24,15 @@ Two engines share that plumbing (``_MicroBatchEngine``):
                        over a built retrieval index (the ``pq_topk``
                        kernel, retrieval/).
 
+``ServingEngine`` can keep a hot-row cache: a dense block of the
+hottest rows, decoded once; each flush is split on the host into cached
+and cold ids, only the cold remainder reaches the decode kernel, and a
+gather-and-select merges the two (DESIGN.md §9).
+``launch/async_engine.py`` wraps either engine in a latency front-end.
+
 Stats accumulate across flushes; ``stats()`` reports requests/second.
-The hot-row cache, the sharded (mesh) paths and host-staged retrieval
-are later slices in ROADMAP.md.
+The sharded (mesh) paths and host-staged retrieval are later slices in
+ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -48,11 +54,23 @@ class EngineStats:
     padded_lookups: int = 0    # items processed incl. tile padding
     flushes: int = 0
     seconds: float = 0.0
+    # hot-row cache accounting (ServingEngine): hits count REAL lookups
+    # only (flush padding never counts); decoded_lookups are the rows
+    # that reached the decode kernel, the cold side's own padding
+    # included — a flush served wholly from the cache adds zero
+    hot_hits: int = 0
+    decoded_lookups: int = 0
+    hot_refreshes: int = 0
 
     @property
     def lookups_per_s(self) -> float:
         # zero guard: empty or instantaneous streams report 0.0
         return self.lookups / self.seconds if self.seconds > 0 else 0.0
+
+    @property
+    def hit_rate(self) -> float:
+        """Fraction of real lookups served from the hot-row cache."""
+        return self.hot_hits / self.lookups if self.lookups else 0.0
 
     @classmethod
     def derived_metrics(cls) -> List[str]:
@@ -63,8 +81,13 @@ class EngineStats:
                        if isinstance(val, property)})
 
     def as_dict(self) -> Dict:
-        out = {f.name: getattr(self, f.name)
-               for f in dataclasses.fields(self)}
+        # counters first (a field with its own as_dict — the async
+        # stats' latency histogram — exports through it), then every
+        # derived metric, subclass additions included
+        out = {}
+        for f in dataclasses.fields(self):
+            v = getattr(self, f.name)
+            out[f.name] = v.as_dict() if hasattr(v, "as_dict") else v
         for name in self.derived_metrics():
             out[name] = getattr(self, name)
         return out
@@ -74,10 +97,11 @@ class _MicroBatchEngine:
     """Queue/pad/flush/split plumbing shared by the serving engines.
 
     Subclasses define ``_coerce_host`` (request -> numpy array with a
-    leading batch dim) and ``_run`` (padded flat batch on the device ->
-    a tensor, or a tuple of tensors, with the same leading dim);
-    everything else — queueing, padding to ``pad_multiple``, stats, splitting
-    results back per request — lives here.
+    leading batch dim) and ``_run`` (the staged padded flat batch and
+    its count of real rows -> a tensor, or a tuple of tensors, with the
+    flat batch's leading dim); everything else — queueing, padding to
+    ``pad_multiple``, the upload, stats, splitting results back per
+    request — lives here.
     """
 
     def __init__(self, pad_multiple: int, max_queue: int,
@@ -95,9 +119,23 @@ class _MicroBatchEngine:
         device upload: the whole flush ships as one copy."""
         raise NotImplementedError
 
-    def _run(self, flat: torch.Tensor):
-        """One call over the padded flat batch on the device."""
+    def _run(self, staged, n_valid: int):
+        """One call over the padded flat batch as ``_stage`` left it;
+        its first ``n_valid`` rows are real."""
         raise NotImplementedError
+
+    def _stage(self, flat: np.ndarray):
+        """The padded flat batch as ``_run`` takes it, before the clock
+        starts: by default on the device, in one copy."""
+        return self._upload(flat)
+
+    def _upload(self, arr: np.ndarray) -> torch.Tensor:
+        """A host array on the engine's device: one host-to-device copy
+        from pinned memory, non-blocking, on the current stream."""
+        host = torch.from_numpy(np.ascontiguousarray(arr))
+        if self.device.type != "cuda":
+            return host
+        return host.pin_memory().to(self.device, non_blocking=True)
 
     # --------------------------------------------------------- queue
     def submit(self, request) -> int:
@@ -139,30 +177,27 @@ class _MicroBatchEngine:
 
         Padding happens in numpy BEFORE the single host-to-device copy
         (from pinned memory, non-blocking), so the padded lengths
-        collapse to a few stable shapes.  The clock stops after a
-        device synchronise: PyTorch returns before the card finishes.
-        Returns the RAW result (padded rows included); callers slice
-        ``[:n_valid]``.  Stats accumulate as ``n_requests`` requests of
-        ``n_valid`` total lookups.
+        collapse to a few stable shapes.  The clock stops after the
+        current stream is synchronised (PyTorch returns before the card
+        finishes) — that stream only, so a refresh decoding on another
+        stream never delays a flush.  Returns the RAW result (padded
+        rows included); callers slice ``[:n_valid]``.  Stats accumulate
+        as ``n_requests`` requests of ``n_valid`` total lookups.
         """
         n_valid = int(flat.shape[0] if n_valid is None else n_valid)
         pad = (-n_valid) % self.pad_multiple
         if pad:
             widths = [(0, pad)] + [(0, 0)] * (flat.ndim - 1)
             flat = np.pad(flat, widths)    # zero rows are always valid
-        host = torch.from_numpy(np.ascontiguousarray(flat))
-        on_card = self.device.type == "cuda"
-        if on_card:
-            host = host.pin_memory()
-        dev = host.to(self.device, non_blocking=on_card)
+        staged = self._stage(flat)
         t0 = time.perf_counter()
-        out = self._run(dev)
-        if on_card:
-            torch.cuda.synchronize(self.device)
+        out = self._run(staged, n_valid)
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
         self.stats_.seconds += time.perf_counter() - t0
         self.stats_.requests += n_requests
         self.stats_.lookups += n_valid
-        self.stats_.padded_lookups += int(dev.shape[0])
+        self.stats_.padded_lookups += int(flat.shape[0])
         self.stats_.flushes += 1
         return out
 
@@ -189,13 +224,34 @@ class ServingEngine(_MicroBatchEngine):
     as their threads a block.
     Request ids are checked on the host against ``[0, vocab)``: on the
     card an out-of-range row index is a device-side fault, not a clamp.
+
+    **Hot-row cache** (DESIGN.md §9): with ``hot_rows`` = C > 0 (or the
+    config's ``hot_rows``) the engine keeps a dense (C, d) block of the
+    hottest rows on the device and a host id->slot map.  Each flush is
+    split on the host (slots, cold ids padded to ``block_b``, each
+    position's rank among the cold ids), shipped in one upload, and
+    merged on the device by two gathers and a select: cached positions
+    read the block, the cold remainder goes through the scheme's decode
+    kernel, and a flush served wholly from the cache launches none.
+    Cached rows are bit-identical to the cold path: the block is the
+    artifact's export-time ``hot`` leaf, used only when this engine
+    decodes exactly as the export did (no backend or ``block_b``
+    override, the same device, a block of C rows), or else re-decoded
+    through this engine's own serve path.  EMA frequency counters kept
+    on the device (``hot_track_freq``) feed ``refresh_hot_rows``, which
+    re-points the cache at the observed-hottest ids;
+    ``hot_refresh_every`` = N does so every N flushes.
     """
 
     def __init__(self, emb: Embedding, artifact: dict,
                  block_b: Optional[int] = None,
                  max_queue: int = 65536,
                  backend: Optional[str] = None,
-                 device="cuda"):
+                 device="cuda",
+                 hot_rows: Optional[int] = None,
+                 hot_ema_decay: float = 0.99,
+                 hot_refresh_every: int = 0,
+                 hot_track_freq: Optional[bool] = None):
         overrides = {}
         if backend is not None:
             overrides["kernel_backend"] = backend
@@ -205,7 +261,8 @@ class ServingEngine(_MicroBatchEngine):
             # route takes it as it is)
             overrides["decode_block_b"] = block_b
         device = resolve_device(device)
-        if overrides or emb.device != device:
+        rebuilt = bool(overrides) or emb.device != device
+        if rebuilt:
             # rebuild so the decode path dispatches as asked
             emb = Embedding(dataclasses.replace(emb.cfg, **overrides),
                             device=device)
@@ -216,6 +273,133 @@ class ServingEngine(_MicroBatchEngine):
         # device-resident once; requests only ship (B,) int32 ids
         self.artifact = tree_map(lambda t: t.to(device), artifact)
 
+        # ------------------------------------------------ hot-row cache
+        vocab = emb.cfg.vocab_size
+        self.hot_rows = (emb.cfg.hot_rows if hot_rows is None
+                         else int(hot_rows))
+        if not 0 <= self.hot_rows <= vocab:
+            raise ValueError(f"hot_rows={self.hot_rows} must lie in [0, "
+                             f"vocab_size={vocab}]")
+        self.hot_ema_decay = float(hot_ema_decay)
+        self.hot_refresh_every = int(hot_refresh_every)
+        # the EMA counters cost O(vocab) device work per flush; track
+        # them only when the adaptive cache is in play
+        self.hot_track_freq = (hot_refresh_every > 0
+                               if hot_track_freq is None
+                               else bool(hot_track_freq))
+        # (block (C, d) on the device, host id->slot map (vocab,) int32
+        # with -1 for cold, host (C,) int64 id set): swapped as ONE
+        # reference, so a flush reads one consistent cache state
+        self._hot: Optional[tuple] = None
+        self._freq: Optional[torch.Tensor] = None   # (vocab,) f32 EMA
+        self._freq_event = None    # recorded after each counter update
+        if self.hot_rows:
+            # seed with the head ids (frequency-sorted convention)
+            block = None
+            if ("hot" in artifact and not rebuilt
+                    and artifact["hot"].shape[0] == self.hot_rows):
+                block = self.artifact["hot"]
+            self._set_hot_rows(np.arange(self.hot_rows), block=block)
+
+    # ----------------------------------------------------- hot-row cache
+    @property
+    def _hot_block(self) -> Optional[torch.Tensor]:
+        return None if self._hot is None else self._hot[0]
+
+    @property
+    def _hot_ids(self) -> Optional[np.ndarray]:
+        return None if self._hot is None else self._hot[2]
+
+    def _decode_ids(self, ids_np: np.ndarray) -> torch.Tensor:
+        """Decode arbitrary ids through the engine's own serve path,
+        padded to the flush granularity, on the current stream — the
+        rows a flush's cold path gives for the same ids."""
+        n = len(ids_np)
+        padded = np.zeros(n + (-n) % self.pad_multiple, np.int32)
+        padded[:n] = ids_np
+        return self.emb.serve(self.artifact, self._upload(padded))[:n]
+
+    def prepare_hot_rows(self, ids_np: np.ndarray, block=None) -> tuple:
+        """Build (but do not install) the cache state for an id set:
+        the block decoded through the engine's own serve path (or the
+        given one) and the host id->slot map.  Touches no live cache
+        field, so a background thread may run it beside flushes and
+        hand the result to :meth:`install_hot_rows`."""
+        ids_np = np.asarray(ids_np, np.int64)
+        if block is None:
+            block = self._decode_ids(ids_np)
+        slot = np.full(self.emb.cfg.vocab_size, -1, np.int32)
+        slot[ids_np] = np.arange(len(ids_np), dtype=np.int32)
+        return block, slot, ids_np
+
+    def install_hot_rows(self, state: tuple) -> None:
+        """Swap a prepared cache state in: one reference assignment, and
+        a flush reads the state once, so a swap never tears a flush."""
+        self._hot = tuple(state)
+
+    def _set_hot_rows(self, ids_np: np.ndarray, block=None) -> None:
+        self.install_hot_rows(self.prepare_hot_rows(ids_np, block=block))
+
+    def freq_snapshot(self) -> Optional[torch.Tensor]:
+        """A copy of the EMA counters on the current stream, ordered
+        after the last flush's update to them (None before any
+        traffic)."""
+        freq, event = self._freq, self._freq_event
+        if freq is None:
+            return None
+        if event is not None:
+            torch.cuda.current_stream(self.device).wait_event(event)
+        return freq.clone()
+
+    def select_hot_ids(self, freq: Optional[torch.Tensor] = None):
+        """The top ``hot_rows`` ids by the EMA counters (default: the
+        live ones), ties broken by id, sorted; None before any traffic.
+        A stable sort of the negated counters is ``np.lexsort((arange,
+        -freq))``; ``0 - freq`` keeps unseen ids at +0.0, one key."""
+        if freq is None:
+            freq = self._freq
+        if freq is None:
+            return None
+        order = torch.sort(0.0 - freq, stable=True).indices
+        # the top ids sorted where they are, so the host gets one copy
+        return torch.sort(order[:self.hot_rows]).values.cpu().numpy()
+
+    def refresh_hot_rows(self, hot_ids=None) -> np.ndarray:
+        """Re-point the cache at the observed-hottest ids and re-decode
+        the block through the engine's own serve path.
+
+        ``hot_ids`` defaults to :meth:`select_hot_ids`; an explicit id
+        set overrides.  Before any traffic the current set is kept.
+        Returns the active hot id set."""
+        if not self.hot_rows:
+            raise ValueError("hot-row cache disabled (hot_rows=0)")
+        if hot_ids is None:
+            hot_ids = self.select_hot_ids()
+            if hot_ids is None:
+                return self._hot_ids       # no traffic observed yet
+        hot_ids = np.asarray(hot_ids, np.int64)
+        self.stats_.hot_refreshes += 1
+        if np.array_equal(hot_ids, self._hot_ids):
+            # steady state: the same set — skip the re-decode
+            return self._hot_ids
+        self._set_hot_rows(hot_ids)
+        return self._hot_ids
+
+    def _track(self, real_ids: torch.Tensor) -> None:
+        """The EMA counters, on the device: ``freq *= decay; freq +=
+        bincount(real ids)`` in float32, as the JAX engine computes them
+        on the host (the counts are exact integers)."""
+        vocab = self.emb.cfg.vocab_size
+        if self._freq is None:
+            self._freq = torch.zeros(vocab, dtype=torch.float32,
+                                     device=self.device)
+        self._freq.mul_(self.hot_ema_decay)
+        self._freq.add_(torch.bincount(real_ids, minlength=vocab).float())
+        if self.device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(self.device))
+            self._freq_event = event
+
     # --------------------------------------------------------- serve
     def _coerce_host(self, ids) -> np.ndarray:
         arr = np.asarray(ids, np.int32).reshape(-1)
@@ -225,8 +409,78 @@ class ServingEngine(_MicroBatchEngine):
                              f"[{arr.min()}, {arr.max()}]")
         return arr
 
-    def _run(self, flat: torch.Tensor) -> torch.Tensor:
-        return self.emb.serve(self.artifact, flat)
+    def _stage(self, flat: np.ndarray):
+        # with the cache on, the split is host work inside the timed
+        # window (``_run``), and the upload follows it
+        hot = self._hot
+        return hot, flat if hot is not None else self._upload(flat)
+
+    def split_flush(self, flat: np.ndarray, n_valid: int,
+                    slot_map: np.ndarray) -> tuple:
+        """The host half of a cached flush: ``(buf, hits, n_cold)``.
+        ``buf`` (int32) holds, back to back, each position's cache slot
+        (padding pointed at slot 0), and when any id is cold each
+        position's rank among the cold ids and the cold ids padded to
+        ``pad_multiple`` (n_cold of them, padding included), then, when
+        the EMA counters are tracked, the real ids: everything the
+        device needs, for ONE upload.  ``hits``: real ids cached."""
+        # the clip mirrors the JAX engine's clamped ids
+        flat = np.clip(flat, 0, self.emb.cfg.vocab_size - 1)
+        slots = slot_map[flat]                     # (B,) int32, -1 = cold
+        hits = int((slots[:n_valid] >= 0).sum())
+        # flush padding is dropped after the flush: point it at cache
+        # row 0 so it never forces decode work
+        slots[n_valid:] = 0
+        cold_mask = slots < 0
+        n_cold = int(cold_mask.sum())
+        parts = [slots]
+        if n_cold:
+            rank = np.maximum(np.cumsum(cold_mask) - 1, 0)
+            cold = np.zeros(n_cold + (-n_cold) % self.pad_multiple,
+                            np.int32)
+            cold[:n_cold] = flat[cold_mask]    # zero ids are always valid
+            parts += [rank, cold]
+            n_cold = cold.size
+        if self.hot_track_freq:
+            parts.append(flat[:n_valid])
+        return np.concatenate(parts).astype(np.int32, copy=False), hits, \
+            n_cold
+
+    def _run(self, staged, n_valid: int) -> torch.Tensor:
+        hot, flat = staged
+        if hot is None:
+            self.stats_.decoded_lookups += int(flat.shape[0])
+            return self.emb.serve(self.artifact, flat)
+        block, slot_map, _ = hot
+        buf, hits, n_cold = self.split_flush(flat, n_valid, slot_map)
+        self.stats_.hot_hits += hits
+        self.stats_.decoded_lookups += n_cold
+        dev = self._upload(buf)
+        b = flat.shape[0]
+        slots = dev[:b]
+        if self.hot_track_freq:
+            self._track(dev[dev.shape[0] - n_valid:])
+        if not n_cold:
+            # wholly cache-served: a gather, no decode kernel
+            return block.index_select(0, slots)
+        rank, cold = dev[b:2 * b], dev[2 * b:2 * b + n_cold]
+        cold_out = self.emb.serve(self.artifact, cold)
+        # two O(B)-row gathers and a select: no scatter, no concatenate
+        # (an O(C) copy of the block per flush)
+        hot_rows = block.index_select(0, slots.clamp(min=0))
+        cold_rows = cold_out.index_select(0, rank)
+        return torch.where((slots >= 0)[:, None], hot_rows, cold_rows)
+
+    def run_flat(self, flat: np.ndarray, n_valid: Optional[int] = None,
+                 n_requests: int = 1):
+        out = super().run_flat(flat, n_valid, n_requests=n_requests)
+        # one refresh cadence for both front-ends: the queueing flush()
+        # routes through here; the async front-end sets
+        # hot_refresh_every=0 and refreshes on its own thread
+        if (self._hot is not None and self.hot_refresh_every
+                and self.stats_.flushes % self.hot_refresh_every == 0):
+            self.refresh_hot_rows()
+        return out
 
     def lookup(self, ids) -> torch.Tensor:
         """Synchronous single-request path (submit + flush).  Flushes
@@ -276,7 +530,7 @@ class RetrievalEngine(_MicroBatchEngine):
         q = np.asarray(queries, np.float32)
         return q[None] if q.ndim == 1 else q
 
-    def _run(self, flat: torch.Tensor):
+    def _run(self, flat: torch.Tensor, n_valid: int):
         return self.index.search(self.artifact, flat, self.k)
 
     def search(self, queries):
@@ -297,13 +551,17 @@ def random_requests(vocab_size: int, n_requests: int, req_batch: int,
 
 
 def drive_stream(engine: _MicroBatchEngine,
-                 requests: Sequence[np.ndarray]) -> EngineStats:
+                 requests: Sequence[np.ndarray],
+                 reset_freq: bool = False) -> EngineStats:
     """Drive ``requests`` through the engine twice and return the stats
     of the second pass: the first builds the kernels and warms every
     padded shape, so the returned stats hold no build or first-launch
-    time."""
+    time.  ``reset_freq`` also zeroes a ServingEngine's EMA counters
+    between the passes."""
     engine.serve_stream(requests)          # warm pass
     engine.stats_ = EngineStats()
+    if reset_freq and getattr(engine, "_freq", None) is not None:
+        engine._freq.zero_()
     return engine.serve_stream(requests)
 
 
@@ -320,10 +578,13 @@ def drive_zipf_stream(engine: ServingEngine, vocab_size: int,
                       n_requests: int, req_batch: int,
                       zipf_a: float = 1.2, seed: int = 0) -> EngineStats:
     """Power-law twin of :func:`drive_random_stream`: Zipf(``zipf_a``)
-    ids over the frequency-sorted vocabulary, warm pass first."""
+    ids over the frequency-sorted vocabulary — the head-heavy traffic
+    the hot-row cache exists for — warm pass first.  The EMA counters
+    are zeroed with the stats, so the measured pass starts clean."""
     from repro_torch.data.synthetic import zipf_request_stream
     return drive_stream(engine, zipf_request_stream(
-        vocab_size, n_requests, req_batch, zipf_a=zipf_a, seed=seed))
+        vocab_size, n_requests, req_batch, zipf_a=zipf_a, seed=seed),
+        reset_freq=True)
 
 
 def drive_random_query_stream(engine: RetrievalEngine, dim: int,

@@ -6,7 +6,12 @@
   ``flash_attention`` kernel), then greedy decode (``serve_lm``);
 * ``--engine``: export a quantized artifact, then serve a stream of
   batched requests through the micro-batching engine on the paper's
-  Figure-1 path (codes + centroids, full table discarded);
+  Figure-1 path (codes + centroids, full table discarded); with
+  ``--hot-rows C`` the engine keeps the C hottest rows decoded
+  (``--hot-refresh N`` re-points them at observed traffic every N
+  flushes), and with ``--async`` the stream arrives open-loop at
+  ``--arrival-rate`` requests/s through the async front-end, which
+  reports p50/p99/p999 against ``--slo-ms``;
 * ``--arch two-tower-retrieval`` without ``--engine``: build a
   ``flat_pq`` index over the item tower's outputs and serve top-k
   retrieval for a stream of user batches through the RetrievalEngine;
@@ -15,6 +20,9 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch deepfm \\
         --full --engine --requests 200 --req-batch 64
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch deepfm \\
+        --full --engine --hot-rows 1250000 --zipf-a 1.2 --async \\
+        --arrival-rate 1000
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch two-tower-retrieval --full --candidates 1000000
     PYTHONPATH=src python -m repro_torch.launch.serve --arch deepfm \\
@@ -25,8 +33,8 @@
 run on the card and report lookups/second, queries/second or the
 batch's time, or the prefill's seconds and decode tokens/s;
 ``--device cpu`` runs the same paths on the CPU with the plain PyTorch
-ops.  The async, hot-row, mesh, ``ivf_pq`` and host-staged paths of the
-JAX package's CLI are later slices in ROADMAP.md.
+ops.  The mesh, ``ivf_pq`` and host-staged paths of the JAX package's
+CLI are later slices in ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -54,14 +62,62 @@ class EngineRun:
     stats: Any                      # EngineStats of the measured pass
 
 
+def serve_async_engine(engine, vocab_size: int, req_batch: int,
+                       max_wait_us: float, arrival_rate: float,
+                       slo_ms: float, duration_s: float, zipf_a: float,
+                       hot_refresh: int = 0):
+    """Open-loop latency demo of the async front-end (DESIGN.md §10):
+    wrap the engine, replay a Zipf arrival schedule at ``arrival_rate``
+    requests/s (a warm pass, then the measured one), report the hit
+    rate, the latency percentiles and the SLO verdict.  Returns the
+    measured pass's AsyncEngineStats."""
+    from repro_torch.data.synthetic import zipf_open_loop_stream
+    from repro_torch.launch.async_engine import (AsyncServingEngine,
+                                                 drive_open_loop)
+    arrivals, reqs = zipf_open_loop_stream(
+        vocab_size, rate_rps=arrival_rate, duration_s=duration_s,
+        req_batch=req_batch, zipf_a=zipf_a)
+    with AsyncServingEngine(engine, max_wait_us=max_wait_us,
+                            refresh_every=hot_refresh) as aeng:
+        # warm pass: the kernels' first launches and every padded shape
+        # before the measured pass
+        drive_open_loop(aeng, reqs, arrivals)
+        aeng.reset_stats()
+        st = drive_open_loop(aeng, reqs, arrivals)
+    offered = len(reqs) / arrivals[-1]
+    print(f"async engine: {st.requests} requests ({st.lookups} lookups) "
+          f"open-loop at {offered:,.0f} req/s over {st.wall_seconds:.3f}s "
+          f"wall -> {st.sustained_lookups_per_s:,.0f} lookups/s sustained "
+          f"on {engine.device}")
+    print(f"  flush triggers: {st.flushes_full} block-full / "
+          f"{st.flushes_deadline} deadline({max_wait_us:.0f}us) / "
+          f"{st.flushes_drain} drain; device time {st.seconds:.6f}s of "
+          f"{st.wall_seconds:.3f}s wall")
+    if getattr(engine, "hot_rows", 0):
+        print(f"  hot cache: hit rate {st.hit_rate:.1%}, "
+              f"{st.decoded_lookups} rows decoded, {st.hot_refreshes} "
+              f"refresh(es)")
+    print(f"  latency p50 {st.p50_ms:.3f} ms | p99 {st.p99_ms:.3f} ms | "
+          f"p999 {st.p999_ms:.3f} ms")
+    ok = st.p99_ms <= slo_ms
+    print(f"  SLO p99 <= {slo_ms:.1f} ms: {'MET' if ok else 'MISSED'}")
+    return st
+
+
 def serve_engine(family, cfg, n_requests: int, req_batch: int,
                  backend=None, max_queue: int = 4096, zipf_a: float = 0.0,
-                 device="cuda", seed: int = 0) -> EngineRun:
+                 device="cuda", seed: int = 0, hot_rows: int = 0,
+                 hot_refresh: int = 0, use_async: bool = False,
+                 max_wait_us: float = 1000.0, arrival_rate: float = 500.0,
+                 slo_ms: float = 5.0, duration_s: float = 2.0) -> EngineRun:
     """Request-stream demo of the micro-batching engine: N requests of
     random size <= req_batch against the arch's main embedding table
     (whichever scheme its ``embed_kind`` selects), a warm pass and then
     the measured one.  ``zipf_a`` > 1 switches the stream from uniform
-    to power-law ids."""
+    to power-law ids; ``hot_rows`` turns the hot-row cache on and
+    ``hot_refresh`` re-points it every N flushes; ``use_async`` serves
+    an open-loop stream through the async front-end instead
+    (:func:`serve_async_engine`, whose stats the run then holds)."""
     from repro_torch.core import Embedding
     from repro_torch.data.synthetic import zipf_request_stream
     from repro_torch.launch.engine import (ServingEngine, drive_stream,
@@ -78,18 +134,40 @@ def serve_engine(family, cfg, n_requests: int, req_batch: int,
           f"{emb.serving_size_bits()/8/1e6:.2f} MB "
           f"({100*emb.serving_size_bits()/full_bits:.1f}% of full)")
     engine = ServingEngine(emb, artifact, backend=backend,
-                           max_queue=max_queue, device=device)
+                           max_queue=max_queue, device=device,
+                           hot_rows=hot_rows or None,
+                           hot_refresh_every=hot_refresh)
+    if engine.hot_rows:
+        width = engine.emb.scheme.hot_dtype.itemsize
+        print(f"hot-row cache: {engine.hot_rows} rows pre-decoded "
+              f"({engine.hot_rows * ecfg.dim * width / 1e6:.2f} MB dense)"
+              + (f", refresh every {hot_refresh} flushes"
+                 if hot_refresh else ""))
+    if use_async:
+        st = serve_async_engine(engine, ecfg.vocab_size, req_batch,
+                                max_wait_us=max_wait_us,
+                                arrival_rate=arrival_rate, slo_ms=slo_ms,
+                                duration_s=duration_s,
+                                zipf_a=zipf_a or 1.2,
+                                hot_refresh=hot_refresh if hot_rows else 0)
+        return EngineRun(emb, artifact, engine, [], st)
     if zipf_a:
         reqs = zipf_request_stream(ecfg.vocab_size, n_requests, req_batch,
                                    zipf_a=zipf_a)
     else:
         reqs = random_requests(ecfg.vocab_size, n_requests, req_batch)
-    st = drive_stream(engine, reqs)
+    st = drive_stream(engine, reqs, reset_freq=bool(zipf_a))
     print(f"engine: {st.requests} requests / {st.lookups} lookups in "
           f"{st.flushes} flushes, {st.seconds:.6f}s on {engine.device} -> "
           f"{st.lookups_per_s:,.0f} lookups/s (block_b={engine.block_b}, "
           f"pad overhead "
           f"{100*(st.padded_lookups/st.lookups-1) if st.lookups else 0.0:.1f}%)")
+    if engine.hot_rows:
+        print(f"hot cache: hit rate {st.hit_rate:.1%} "
+              f"({st.hot_hits}/{st.lookups} lookups cache-served; "
+              f"{st.decoded_lookups} rows through the decode kernel vs "
+              f"{st.padded_lookups} without the cache; "
+              f"{st.hot_refreshes} refresh(es))")
     # a copy: later flushes of the same engine keep adding to its stats
     return EngineRun(emb, artifact, engine, reqs, dataclasses.replace(st))
 
@@ -334,6 +412,27 @@ def main(argv=None):
     ap.add_argument("--zipf-a", type=float, default=0.0,
                     help="drive the engine with Zipf(a) power-law ids "
                          "instead of uniform (needs a > 1.0)")
+    ap.add_argument("--hot-rows", type=int, default=0,
+                    help="pre-decode this many head rows into the "
+                         "engine's hot-row cache (0 = off)")
+    ap.add_argument("--hot-refresh", type=int, default=0,
+                    help="re-point the hot cache at observed traffic "
+                         "every N flushes (0 = static head-id set)")
+    ap.add_argument("--async", dest="use_async", action="store_true",
+                    help="serve through the AsyncServingEngine front-end: "
+                         "open-loop arrivals, deadline-batched flushes, "
+                         "p50/p99/p999 against --slo-ms")
+    ap.add_argument("--max-wait-us", type=float, default=1000.0,
+                    help="async: flush deadline — a partial batch fires "
+                         "once its oldest request has waited this long")
+    ap.add_argument("--arrival-rate", type=float, default=500.0,
+                    help="async: open-loop offered load, requests/second "
+                         "(Poisson interarrivals)")
+    ap.add_argument("--slo-ms", type=float, default=5.0,
+                    help="async: p99 latency SLO the report is judged "
+                         "against")
+    ap.add_argument("--duration", type=float, default=2.0,
+                    help="async: measured stream length in seconds")
     ap.add_argument("--kernel-backend", default=None,
                     choices=KERNEL_BACKENDS,
                     help="backend of the embedding ops (LM: of every op "
@@ -349,11 +448,26 @@ def main(argv=None):
     if args.nprobe is not None or args.host_staged:
         ap.error("--nprobe and --host-staged belong to ivf_pq, which waits "
                  "for the IVF slice in ROADMAP.md")
+    if (args.hot_rows or args.hot_refresh or args.use_async) \
+            and not args.engine:
+        ap.error("--hot-rows/--hot-refresh/--async require --engine")
+    if args.hot_refresh and not args.hot_rows:
+        ap.error("--hot-refresh needs a cache to refresh; pass "
+                 "--hot-rows N")
+    if args.use_async and args.arrival_rate <= 0:
+        ap.error(f"--arrival-rate must be > 0 (open-loop load is "
+                 f"rate-driven), got {args.arrival_rate}")
     family, cfg = get_arch(args.arch, smoke=args.smoke)
     if args.engine:
         return serve_engine(family, cfg, args.requests, args.req_batch,
                             backend=args.kernel_backend, zipf_a=args.zipf_a,
-                            device=args.device).stats
+                            device=args.device, hot_rows=args.hot_rows,
+                            hot_refresh=args.hot_refresh,
+                            use_async=args.use_async,
+                            max_wait_us=args.max_wait_us,
+                            arrival_rate=args.arrival_rate,
+                            slo_ms=args.slo_ms,
+                            duration_s=args.duration).stats
     if family == "lm":
         if min(args.batch, args.prompt_len) < 1 or args.decode_steps < 0:
             ap.error("--batch and --prompt-len must be >= 1 and "

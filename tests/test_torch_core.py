@@ -243,9 +243,11 @@ def test_not_ported_paths_raise():
                lambda: rows.apply(params, torch.arange(3))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             fn()
+    # the hot-row cache is ported: export attaches the decoded head
     hot = Embedding(dataclasses.replace(cfg, hot_rows=4), device="cpu")
-    with pytest.raises(NotImplementedError, match="hot-row"):
-        hot.export(params)
+    hot_art = hot.export(params)
+    assert torch.equal(hot_art["hot"],
+                       hot.serve(hot_art, torch.arange(4)))
     sharded = Embedding(dataclasses.replace(cfg, sharded_codes=True),
                         device="cpu")
     art = temb.export(params)

@@ -1780,3 +1780,145 @@ def test_backbone_mgqe_table_exports_and_serves_on_card(cuda, d, vocab):
     _same_bits(mgqe_decode(codes.index_select(0, ids), cent,
                            plan=l2_gather_plan(50_500, d, 4 * 64 // d, 132)),
                want)
+
+
+# ------------------------------------------------------- hot-row cache
+# Every scheme's cached engine on the card against its uncached engine:
+# the hot block is decoded at B = HOT_ROWS (rq's smem route), the flushes'
+# cold remainders at their own B (rq's l2 route), and the merged rows
+# must be bit-identical for any flush size.
+
+HOT_VOCAB = 100_000
+HOT_ROWS = RQ_SMEM_MIN_ROWS + 1000
+HOT_SCHEMES = {
+    "dpq": dict(kind="dpq", num_subspaces=5, num_centroids=256),
+    "mgqe-shared_k": dict(kind="mgqe", num_subspaces=5, num_centroids=256,
+                          tier_boundaries=(10_000,),
+                          tier_num_centroids=(256, 64)),
+    "mgqe-private_k": dict(kind="mgqe", num_subspaces=5, num_centroids=256,
+                           mgqe_variant="private_k",
+                           tier_boundaries=(10_000,),
+                           tier_num_centroids=(256, 64)),
+    "mgqe-private_d": dict(kind="mgqe", num_subspaces=5, num_centroids=16,
+                           mgqe_variant="private_d",
+                           tier_boundaries=(10_000,),
+                           tier_num_subspaces=(5, 2)),
+    "rq": dict(kind="rq", num_levels=5, num_centroids=256),
+    "mpe": dict(kind="mpe", num_subspaces=5, tier_boundaries=(5000, 25_000),
+                tier_bits=(8, 4, 2)),
+    "lrf": dict(kind="lrf", rank=8),
+    "sq": dict(kind="sq", sq_bits=8),
+    "hash": dict(kind="hash", hash_buckets=4096),
+    "full": dict(kind="full"),
+}
+HOT_COUNTERS = {"dpq": mgqe_decode, "mgqe": mgqe_decode,
+                "rq": rq_decode_stages, "mpe": packed_decode}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(HOT_SCHEMES))
+def test_cached_engine_on_card_bit_identical_to_uncached(cuda, name):
+    cfg = EmbeddingConfig(vocab_size=HOT_VOCAB, dim=10, **HOT_SCHEMES[name])
+    emb = Embedding(cfg)
+    art = emb.export(emb.init(emb.generator(0)))
+    eng = engine.ServingEngine(emb, art, hot_rows=HOT_ROWS)
+    base = engine.ServingEngine(emb, art, hot_rows=0)
+    if cfg.kind == "rq":       # the block and the flushes: both routes
+        assert rq_plan(HOT_ROWS, 5, 256, 10, 1, 4, 132).route == "smem"
+        assert rq_plan(4352, 5, 256, 10, 1, 4, 132).route == "l2"
+    counter = HOT_COUNTERS.get(cfg.kind)
+    rng = np.random.default_rng(0)
+    for b in (1, 8, 255, 256, 4097):
+        ids = rng.integers(0, HOT_VOCAB, b)
+        ids[::2] = rng.integers(0, HOT_ROWS, len(ids[::2]))   # cached
+        _same_bits(eng.lookup(ids), base.lookup(ids))
+    hot_ids = rng.integers(0, HOT_ROWS, 4097)                # all cached
+    before = None if counter is None else counter.launches
+    got = eng.lookup(hot_ids)
+    if counter is not None:
+        assert counter.launches == before     # no decode kernel launched
+    _same_bits(got, base.lookup(hot_ids))
+    assert eng.stats().hot_hits > 0
+
+
+@pytest.mark.gpu
+def test_lrf_served_row_does_not_depend_on_the_batch(cuda):
+    """lrf's served row at B = 1 equals the same row at B = 4,096 (a
+    matmul would pick another kernel, and rounding, by shape)."""
+    cfg = EmbeddingConfig(vocab_size=50_000, dim=64, kind="lrf", rank=64)
+    emb = Embedding(cfg)
+    art = emb.export(emb.init(emb.generator(3)))
+    ids = torch.from_numpy(np.random.default_rng(3).integers(
+        0, 50_000, 4096)).to(cuda)
+    many = emb.serve(art, ids)
+    for i in (0, 1, 4095):
+        _same_bits(emb.serve(art, ids[i:i + 1]), many[i:i + 1])
+    assert float((many - art["u"][ids] @ art["v"]).abs().max()) < 1e-5
+
+
+@pytest.mark.gpu
+def test_async_engine_on_card_matches_sync_through_refreshes(cuda):
+    """200 flushes through the async engine, on its own CUDA streams,
+    with refreshes fired beside them on a stream whose head moves: every
+    future's rows bit-identical to the uncached synchronous engine's."""
+    from repro_torch.data.synthetic import zipf_ids
+    from repro_torch.launch.async_engine import AsyncServingEngine
+    cfg = EmbeddingConfig(vocab_size=HOT_VOCAB, dim=10,
+                          **HOT_SCHEMES["mgqe-shared_k"])
+    emb = Embedding(cfg)
+    art = emb.export(emb.init(emb.generator(0)))
+    eng = engine.ServingEngine(emb, art, hot_rows=4096)
+    base = engine.ServingEngine(emb, art, hot_rows=0)
+    rng = np.random.default_rng(5)
+    perm = rng.permutation(HOT_VOCAB)          # the head is not ids < C
+    reqs = [perm[zipf_ids(rng, int(rng.integers(1, 65)), HOT_VOCAB, 1.2)]
+            for _ in range(200)]
+    a = AsyncServingEngine(eng, max_wait_us=100.0, refresh_every=8)
+    try:
+        assert a._flush_stream != torch.cuda.default_stream(cuda)
+        assert a._refresh_stream != a._flush_stream
+        outs = []
+        for i, r in enumerate(reqs):            # one flush a request
+            outs.append(a.submit(r).result(timeout=60))
+            if i % 10 == 5:
+                a.refresh_now()
+        assert a.drain(timeout=60)
+        st = a.stats()
+    finally:
+        a.close(timeout=60)
+    assert st.flushes == 200 and st.hot_refreshes > 0
+    assert not np.array_equal(eng._hot_ids, np.arange(4096))
+    for r, got in zip(reqs, outs):
+        want = base.lookup(r).cpu().numpy()
+        np.testing.assert_array_equal(got.view(np.int32),
+                                      want.view(np.int32))
+
+
+@pytest.mark.gpu
+def test_launch_counts_exact_under_two_threads(cuda):
+    """Two threads launching mgqe_decode at once: the count is exact."""
+    import threading
+    codes, cent = _decode_inputs_for_threads(cuda)
+    n0 = mgqe_decode.launches
+
+    def work():
+        with torch.cuda.stream(torch.cuda.Stream(cuda)):
+            for _ in range(2000):
+                mgqe_decode(codes, cent)
+            torch.cuda.current_stream(cuda).synchronize()
+
+    threads = [threading.Thread(target=work) for _ in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert mgqe_decode.launches - n0 == 4000
+
+
+def _decode_inputs_for_threads(cuda):
+    rng = np.random.default_rng(9)
+    codes = torch.from_numpy(rng.integers(0, 256, (256, 5)).astype(
+        np.uint8)).to(cuda)
+    cent = torch.from_numpy(rng.normal(size=(5, 256, 2)).astype(
+        np.float32)).to(cuda)
+    return codes, cent

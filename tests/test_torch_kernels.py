@@ -528,3 +528,35 @@ def test_build_without_nvcc_raises(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.build(["mgqe_decode"])
     assert list(tmp_path.iterdir()) == []
+
+
+def test_launch_counts_exact_under_threads():
+    """``build.count_launch`` from eight threads with a short switch
+    interval: no increment is lost (the async engine's flush and
+    refresh threads both launch kernels)."""
+    import sys
+    import threading
+
+    from repro_torch.kernels import build
+
+    def wrapper():
+        pass
+
+    wrapper.launches = 0
+
+    def work():
+        for _ in range(5000):
+            build.count_launch(wrapper)
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work) for _ in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads)
+    assert wrapper.launches == 40_000
