@@ -96,9 +96,22 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``launch.train.train`` (5 adagrad steps at batch 4,096: finite
    losses, no kernel launched, step times, peak memory, one step split
    into forward, backward and optimizer and one under the profiler);
-   then at the smoke config 5 steps on the card against 5 on the CPU
-   (codes compared first, loss and params within their bars) and a run
-   failed at step 3 and resumed against an uninterrupted one;
+   AutoInt (``configs/autoint.py::CONFIG``: 39 fields, 24.7M rows, 21
+   MGQE fields at D=8) and BST (``configs/bst.py::CONFIG``: 10M items,
+   D=8, 21 positions) served and trained the same way (AutoInt 391
+   ``dpq_assign`` and 21 ``mgqe_decode`` launches, BST 153 and 1:
+   ``CTR_LAUNCHES``); two-tower at its published widths, its users cut
+   to 5M (``TT_TRAIN_USERS``), trained 5 steps through ``recsys_setup``
+   and ``fit``, its trained item tower indexed (flat_pq over 1M items,
+   one ``dpq_assign``) and queried top-100 for 16 users (one
+   ``pq_topk``), the lists bit-identical to ``pq_topk_ref``; then at
+   the smoke configs 5 steps of DeepFM, AutoInt, BST and two-tower on
+   the card against 5 on the CPU (codes compared first, loss and params
+   within their bars) and a run failed at step 3 and resumed against an
+   uninterrupted one (DeepFM, AutoInt), once more in a child process
+   under ``torch.use_deterministic_algorithms(True)``; then
+   ``dpq_assign`` and ``mgqe_decode`` timed at AutoInt's and BST's
+   shapes;
 10. the backbone phase (the paper's §3.2, ``launch/backbones.py``):
    GMF, NeuMF and SASRec, each with full and MGQE tables, trained on
    the card through ``run_pointwise``/``run_sasrec`` at the paper's
@@ -244,12 +257,39 @@ HOT_SMALL = 4096
 ASYNC_WAIT_US, SLO_MS = 500.0, 5.0
 ASYNC_RATES, ASYNC_SECONDS, ASYNC_REQ_BATCH = (200, 500, 1000, 2000), 2.0, 8
 ASYNC_REFRESH_EVERY, ASYNC_REFRESH_RATE = 8, 1000
-CTR_BATCH = 4096                       # deepfm served and trained
+CTR_BATCH = 4096                       # the CTR models served and trained
 CTR_TOL = 1e-5                         # logits, kernels vs plain ops
+# the CTR models served at their full CONFIG, and the launches of one
+# serve_ctr: dpq_assign once per 65,536-row export batch of each
+# quantized table, mgqe_decode once per quantized table (deepfm and
+# autoint: the 21 Criteo-style fields of >= 10,000 rows, 2 x 153 + 4 x
+# 16 + 6 x 2 + 9 x 1 batches; bst: its 10M-row item table, all 21
+# positions of a row in one decode)
+CTR_ARCHS = ("deepfm", "autoint", "bst")
+CTR_LAUNCHES = {"deepfm": (391, 21), "autoint": (391, 21), "bst": (153, 1)}
 TRAIN_STEPS = 5
 CHECK_BATCH = 256                      # smoke-config card-vs-CPU runs
 TRAIN_LOSS_RTOL = 1e-4
 TRAIN_PARAM_TOL = 1e-5
+# adagrad's first step on an element divides its gradient g by |g| +
+# eps (1e-8): the update moves by lr * eps / (|g| + eps)^2 per unit of
+# gradient, 2.5e5 at |g| = eps, so a gradient the card computes 1e-9
+# from the CPU's (after a cancellation) can move the element by 2.5e-4.
+# So a card run is held to a CPU run through the gradients: each step's
+# within TRAIN_PARAM_TOL, every param within float32 rounding of a
+# float64 adagrad over its own run's gradients (``adagrad_replay``), and
+# the two runs' params apart by at most what their replays are apart
+# (``adagrad_gaps``)
+# the models whose failed-and-resumed run is held to an uninterrupted one
+RESUME_ARCHS = ("deepfm", "autoint")
+# two-tower trained at its published widths, its 50M users cut to 5M:
+# the CONFIG's tables (61.44 GB), their gradients, adagrad's
+# accumulators and its temporary would be about 184 GB; 5M users and
+# the 10M items keep 15.36 GB of tables.  Its trained index is queried
+# by the JAX bench's retrieval batch (benchmarks/kernel_bench.py:699,
+# ``bench_retrieval_topk``'s batch=16).
+TT_TRAIN_USERS = 5_000_000
+TT_QUERIES = 16
 
 # the backbone phase (the paper's §3.2 and benchmarks/convergence.py
 # --full): ML-1M-like 6,040 users x 3,416 items, d = 64, D = 8, K = 256
@@ -2068,30 +2108,53 @@ def bag_phase() -> tuple:
     return launches, err, timings
 
 
-def mgqe_field_codes(model, params, ids):
-    """{field: the training codes of its column of ``ids``} for every
-    field whose params carry centroids, on the params' device."""
+def table_at(tree, path):
+    """The leaf of ``tree`` (params, or ``serve_ctr``'s artifacts) at
+    ``path``, a table's keys from ``recsys_tables``."""
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def training_codes(model, params, batch) -> dict:
+    """{table path: the training codes of its ids in ``batch``} for
+    every table whose params carry centroids, on the params' device
+    (MGQE tables under their tiers' budgets)."""
     from repro_torch.core import dpq
     from repro_torch.core.mgqe import _tier_k_limits
+    from repro_torch.launch.cells import recsys_tables
     out = {}
-    for i, e in enumerate(model.fields.embs):
-        p = params["fields"][f"f{i}"]
+    for path, emb, ids in recsys_tables(model, batch):
+        p = table_at(params, path)
         if "centroids" not in p:
             continue
-        col = ids[:, i].to(p["emb"].device)
-        e_sub = p["emb"].index_select(0, col).reshape(
-            len(col), e.cfg.num_subspaces, -1)
-        out[i] = dpq.assign_codes(e_sub, p["centroids"],
-                                  _tier_k_limits(e.cfg, col))
+        ids = ids.reshape(-1).to(p["emb"].device)
+        e_sub = p["emb"].index_select(0, ids.long()).reshape(
+            len(ids), emb.cfg.num_subspaces, -1)
+        lim = _tier_k_limits(emb.cfg, ids) if emb.cfg.tier_boundaries \
+            else None
+        out[path] = dpq.assign_codes(e_sub, p["centroids"], lim)
     return out
 
 
-def ctr_serve_path() -> dict:
-    """DeepFM at full width through ``launch.serve.serve_ctr``: init,
-    export of every field, one CTRStream batch of 4,096 Zipf ids scored,
-    the counts set to 0 just before and read just after (``dpq_assign``
-    once per 65,536-row export batch of each MGQE field, ``mgqe_decode``
-    once per MGQE field); then the served (B, 39, 10) field rows held
+def served_rows(model, artifacts, batch) -> list:
+    """The rows a CTR model's ``serve`` reads, table by table: each
+    table's artifact from ``serve_ctr`` served over its ids in
+    ``batch`` (a field's (B, d), bst's item table's (B, seq_len + 1,
+    d))."""
+    from repro_torch.launch.cells import recsys_tables
+    return [emb.serve(table_at(artifacts, path[1:]), ids)
+            for path, emb, ids in recsys_tables(model, batch)]
+
+
+def ctr_serve_path(arch: str) -> dict:
+    """A CTR model (deepfm, autoint or bst) at its full ``CONFIG``
+    through ``launch.serve.serve_ctr``: init, export of every table,
+    one batch of 4,096 scored (the field models a CTRStream batch of
+    Zipf ids, bst serve_ctr's own uniform draws), the counts set to 0
+    just before and read just after (``dpq_assign`` once per 65,536-row
+    export batch of each quantized table, ``mgqe_decode`` once per
+    quantized table: CTR_LAUNCHES); then the served rows held
     bit-identical to the plain decode of the same artifacts and the
     logits to the same model on the plain ops (``kernel_backend=
     "torch"``) within CTR_TOL.  Returns the launches."""
@@ -2099,12 +2162,14 @@ def ctr_serve_path() -> dict:
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.data.synthetic import CTRStream
+    from repro_torch.launch.cells import recsys_model, recsys_tables
     from repro_torch.launch.serve import serve_ctr
-    from repro_torch.models.recsys.deepfm import DeepFM
 
-    _, cfg = get_arch("deepfm", smoke=False)
-    ids = next(iter(CTRStream(cfg.field_vocab_sizes, CTR_BATCH)))[
-        "sparse_ids"]
+    _, cfg = get_arch(arch, smoke=False)
+    ids = None
+    if cfg.field_vocab_sizes:
+        ids = next(iter(CTRStream(cfg.field_vocab_sizes, CTR_BATCH)))[
+            "sparse_ids"]
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
@@ -2115,24 +2180,26 @@ def ctr_serve_path() -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in counters.items()}
-    q_vocabs = [e.cfg.vocab_size
-                for i, e in enumerate(run.model.fields.embs)
-                if "codes" in run.artifacts[f"f{i}"]]
+    peak = torch.cuda.max_memory_allocated()
+    tables = recsys_tables(run.model, run.batch)
+    q_vocabs = [emb.cfg.vocab_size for path, emb, _ in tables
+                if "codes" in table_at(run.artifacts, path[1:])]
     want_assign = sum(-(-v // ASSIGN_BATCH) for v in q_vocabs)
-    log(f"ctr serve path: deepfm {cfg.n_sparse} fields, "
-        f"{sum(cfg.field_vocab_sizes)} rows, embed_dim {cfg.embed_dim}, "
-        f"{len(q_vocabs)} MGQE fields; init + export + score B={CTR_BATCH} "
-        f"in {wall:.3f}s (the score alone {run.seconds:.6f}s); artifacts "
-        f"{run.model.fields.serving_size_bits() / 8e6:.2f} MB of "
-        f"{run.model.fields.full_size_bits() / 8e6:.2f} MB full; launches "
+    log(f"ctr serve path: {arch} CONFIG, {len(tables)} tables of "
+        f"{sum(emb.cfg.vocab_size for _, emb, _ in tables)} rows, embed_dim "
+        f"{cfg.embed_dim}, {len(q_vocabs)} quantized table(s) at D="
+        f"{cfg.num_subspaces}; init + export + score B={CTR_BATCH} in "
+        f"{wall:.3f}s (the score alone {run.seconds:.6f}s); artifacts "
+        f"{run.serving_bits / 8e6:.2f} MB of {run.full_bits / 8e6:.2f} MB "
+        f"full ({100 * run.serving_bits / run.full_bits:.2f}%); launches "
         f"{launches} (predicted dpq_assign {want_assign}, mgqe_decode "
-        f"{len(q_vocabs)}); peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-    need(launches["dpq_assign"] == want_assign,
-         "dpq_assign once per export batch of each MGQE field")
-    need(launches["mgqe_decode"] == len(q_vocabs),
-         "mgqe_decode once per MGQE field")
-    need(sum(launches.values()) == want_assign + len(q_vocabs),
+        f"{len(q_vocabs)}); peak device memory {peak / 2**30:.3f} GiB "
+        f"({peak} bytes)")
+    need((launches["dpq_assign"], launches["mgqe_decode"])
+         == (want_assign, len(q_vocabs)) == CTR_LAUNCHES[arch],
+         f"{arch}: dpq_assign and mgqe_decode launched "
+         f"{CTR_LAUNCHES[arch]} times")
+    need(sum(launches.values()) == sum(CTR_LAUNCHES[arch]),
          "no other kernel on the serve path")
     # warm: the first scored batch above also paid for cuBLAS's set-up
     t_serve = []
@@ -2142,30 +2209,36 @@ def ctr_serve_path() -> dict:
         torch.cuda.synchronize()
         t_serve.append(time.perf_counter() - t0)
     t0 = time.perf_counter()
-    run.model.fields.export(run.params["fields"])
+    for path, emb, _ in tables:
+        emb.export(table_at(run.params, path))
     torch.cuda.synchronize()
     t_export = time.perf_counter() - t0
-    log(f"ctr serve warm: scored batches of {CTR_BATCH} in "
-        f"{[f'{x * 1e3:.3f}' for x in t_serve]} ms; export of all "
-        f"{cfg.n_sparse} fields again in {t_export * 1e3:.3f} ms")
-    ids = run.batch["sparse_ids"]
-    rows = run.model.fields.serve(run.artifacts, ids)
-    plain_model = DeepFM(dataclasses.replace(cfg, kernel_backend="torch"))
-    rows_plain = plain_model.fields.serve(run.artifacts, ids)
+    log(f"ctr serve warm ({arch}): scored batches of {CTR_BATCH} in "
+        f"{[f'{x * 1e3:.3f}' for x in t_serve]} ms; export of every table "
+        f"again in {t_export * 1e3:.3f} ms")
+    rows = served_rows(run.model, run.artifacts, run.batch)
+    plain_model = recsys_model(dataclasses.replace(cfg,
+                                                   kernel_backend="torch"))
+    rows_plain = served_rows(plain_model, run.artifacts, run.batch)
     logits_plain = plain_model.serve(run.params, run.artifacts, run.batch)
     torch.cuda.synchronize()
-    need(tuple(rows.shape) == (CTR_BATCH, cfg.n_sparse, cfg.embed_dim)
-         and bool(torch.isfinite(rows).all()), "field rows (B, 39, 10)")
-    need(torch.equal(bits(rows), bits(rows_plain)),
-         "served field rows == the plain decode")
+    need(all(tuple(r.shape) == tuple(ids.shape) + (cfg.embed_dim,)
+             and bool(torch.isfinite(r).all())
+             for r, (_, _, ids) in zip(rows, tables)),
+         f"each table's served rows (its ids' shape, {cfg.embed_dim}), "
+         f"finite")
+    need(all(torch.equal(bits(r), bits(p)) for r, p in zip(rows, rows_plain)),
+         "served rows == the plain decode")
     err = float((run.scores - logits_plain).abs().max())
     need(tuple(run.scores.shape) == (CTR_BATCH,)
          and bool(torch.isfinite(run.scores).all()), "logits (B,), finite")
     need(err <= CTR_TOL, f"logits within {CTR_TOL} of the plain ops")
-    log(f"ctr serve checks: field rows bit-identical to the plain decode; "
-        f"logits within {err:.3g} of the model on the plain ops; scores "
-        f"mean {float(run.scores.mean()):.6f}")
-    profile_phase(f"deepfm serve (B={CTR_BATCH}, full width)",
+    log(f"ctr serve checks ({arch}): served rows of {len(rows)} tables "
+        f"{sorted({tuple(r.shape) for r in rows})} bit-identical to the "
+        f"plain decode; logits within {err:.3g} of "
+        f"the model on the plain ops; scores mean "
+        f"{float(run.scores.mean()):.6f}")
+    profile_phase(f"{arch} serve (B={CTR_BATCH}, full width)",
                   lambda: run.model.serve(run.params, run.artifacts,
                                           run.batch))
     del run, rows, rows_plain, logits_plain, plain_model
@@ -2174,49 +2247,16 @@ def ctr_serve_path() -> dict:
     return launches
 
 
-def ctr_train_path() -> dict:
-    """DeepFM trained at full width through ``launch.train.train``: 5
-    adagrad steps (lr 1e-2, clip 1.0) at batch 4,096 on CTRStream
-    batches, the counts set to 0 just before and read just after (the
-    training step runs no kernel, as JAX's runs no Pallas kernel);
-    losses finite; the step times and the peak device memory; then one
-    more step split into forward, backward and optimizer by the host
-    clock around synchronises, and one under the profiler.  Returns the
-    launches."""
+def step_split(what, model, state, batch) -> None:
+    """One more adagrad step (lr 1e-2, clip 1.0) split into forward,
+    backward and optimizer by the host clock around synchronises, then
+    one under the profiler."""
     import torch
     from repro_torch.core.schemes.base import tree_leaves, tree_map
-    from repro_torch.data.synthetic import CTRStream
-    from repro_torch.launch.train import train
     from repro_torch.train import optimizer as opt
 
-    gc.collect()
-    torch.cuda.empty_cache()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    counters = reset_counts()
-    run = train("deepfm", smoke=False, steps=TRAIN_STEPS, batch=CTR_BATCH,
-                log_every=1)
-    launches = {name: fn.launches for name, fn in counters.items()}
-    peak = torch.cuda.max_memory_allocated()
-    losses = [h["loss"] for h in run.history]
-    times = [h["step_time_s"] for h in run.history]
-    n_params = sum(t.numel() for t in tree_leaves(run.state.params))
-    log(f"ctr train path: deepfm full width, {n_params} params "
-        f"({n_params * 4 / 1e9:.3f} GB float32), adagrad lr 1e-2 clip 1.0, "
-        f"B={CTR_BATCH}: {TRAIN_STEPS} steps in {run.seconds:.3f}s; losses "
-        f"{[round(x, 6) for x in losses]}; step times (s) "
-        f"{[round(x, 6) for x in times]}; launches {launches}; peak device "
-        f"memory {peak / 2**30:.3f} GiB ({peak} bytes)")
-    need(len(losses) == TRAIN_STEPS and all(math.isfinite(x) for x in losses),
-         "every full-width training loss finite")
-    need(not any(launches.values()), "the training step launches no kernel")
-
-    # one more step, split by phase (the step function's own pieces)
     ocfg = opt.OptimizerConfig(kind="adagrad", lr=1e-2)
-    model, state = run.model, run.state
-    b = CTRStream(model.cfg.field_vocab_sizes, CTR_BATCH, seed=9).next_batch()
-    batch = {"sparse_ids": torch.from_numpy(b["sparse_ids"]).cuda(),
-             "label": torch.from_numpy(b["label"]).cuda()}
+    batch = {k: v.cuda() for k, v in batch.items()}
     leaves = tree_leaves(state.params)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2236,86 +2276,275 @@ def ctr_train_path() -> dict:
     torch.cuda.synchronize()
     t3 = time.perf_counter()
     del flat, grads, by_id
-    log(f"ctr train step split (host clock around synchronises): forward "
-        f"{(t1 - t0) * 1e3:.3f} ms, backward {(t2 - t1) * 1e3:.3f} ms, "
-        f"optimizer (clip + adagrad over every table) "
-        f"{(t3 - t2) * 1e3:.3f} ms")
+    log(f"train step split ({what}; host clock around synchronises): "
+        f"forward {(t1 - t0) * 1e3:.3f} ms, backward "
+        f"{(t2 - t1) * 1e3:.3f} ms, optimizer (clip + adagrad over every "
+        f"table) {(t3 - t2) * 1e3:.3f} ms")
     step_fn = opt.make_step_fn(ocfg, model.loss)
-    profile_phase(f"deepfm train step (B={CTR_BATCH}, full width)",
-                  lambda: step_fn(state, batch))
-    del run, model, state, batch, leaves
+    profile_phase(f"{what} train step", lambda: step_fn(state, batch))
+
+
+def ctr_train_path(arch: str) -> dict:
+    """A CTR model trained at its full ``CONFIG`` through
+    ``launch.train.train``: 5 adagrad steps (lr 1e-2, clip 1.0) at batch
+    4,096 on the launcher's stream, the counts set to 0 just before and
+    read just after (the training step runs no kernel, as JAX's runs no
+    Pallas kernel); losses finite; the step times and the peak device
+    memory; then ``step_split``.  Returns the launches."""
+    import torch
+    from repro_torch.core.schemes.base import tree_leaves
+    from repro_torch.launch.train import recsys_stream, train
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters = reset_counts()
+    run = train(arch, smoke=False, steps=TRAIN_STEPS, batch=CTR_BATCH,
+                log_every=1)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    losses = [h["loss"] for h in run.history]
+    times = [h["step_time_s"] for h in run.history]
+    n_params = sum(t.numel() for t in tree_leaves(run.state.params))
+    log(f"ctr train path: {arch} full width, {n_params} params "
+        f"({n_params * 4 / 1e9:.3f} GB float32), adagrad lr 1e-2 clip 1.0, "
+        f"B={CTR_BATCH}: {TRAIN_STEPS} steps in {run.seconds:.3f}s; losses "
+        f"{[round(x, 6) for x in losses]}; step times (s) "
+        f"{[round(x, 6) for x in times]}; launches {launches}; peak device "
+        f"memory {peak / 2**30:.3f} GiB ({peak} bytes)")
+    need(len(losses) == TRAIN_STEPS and all(math.isfinite(x) for x in losses),
+         "every full-width training loss finite")
+    need(not any(launches.values()), "the training step launches no kernel")
+    batch = next(recsys_stream(run.model.cfg, CTR_BATCH, start=TRAIN_STEPS))
+    step_split(f"{arch}, B={CTR_BATCH}, full width", run.model, run.state,
+               batch)
+    del run, batch
     gc.collect()
     torch.cuda.empty_cache()
     return launches
 
 
-def ctr_train_checks() -> None:
-    """At the smoke config: 5 adagrad steps on the card and 5 on the
-    CPU from the same params and batches, each step's MGQE codes
-    compared first (a near-tie flip would fail as a flip), then the loss
-    (within TRAIN_LOSS_RTOL) and at the end every param and accumulator
-    (within TRAIN_PARAM_TOL); then a run failed at step 3 with a
-    checkpoint every 2 steps, resumed, against an uninterrupted run."""
+def two_tower_train_path() -> dict:
+    """Two-tower at its published widths (embed_dim 256, towers
+    1024-512-256, D = 16, K = 256/64) with the users cut to
+    TT_TRAIN_USERS (the tables, gradients, accumulators and adagrad's
+    temporary of the CONFIG's 50M users would not fit one card), trained
+    through ``recsys_setup`` and ``fit``: 5 steps at batch 4,096, counts
+    set to 0 just before and read just after (no kernel), finite losses,
+    the peak memory; then ``build_index`` (flat_pq, D = 8, K = 64) over
+    the trained item tower for 1,000,000 items and ``retrieval_topk``
+    top-100 for the JAX bench's TT_QUERIES users, counts set to 0 just
+    before and read just after (``dpq_assign`` once, ``pq_topk`` once);
+    every list bit-identical to ``pq_topk_ref`` and the index's codes
+    within ASSIGN_TOL of the plain assignment.  Returns the launches."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.core.schemes.base import tree_leaves
+    from repro_torch.kernels.pq_score import build_lut_batch, pq_topk_ref
+    from repro_torch.launch.train import recsys_setup
+    from repro_torch.retrieval import IndexConfig
+    from repro_torch.train.loop import LoopConfig, fit
+
+    _, full = get_arch("two-tower-retrieval", smoke=False)
+    cfg = dataclasses.replace(full, n_users=TT_TRAIN_USERS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters = reset_counts()
+    t0 = time.perf_counter()
+    model, state, step, data = recsys_setup(cfg, CTR_BATCH)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    state, hist = fit(state, step, data,
+                      LoopConfig(total_steps=TRAIN_STEPS, log_every=1))
+    launches = {name: fn.launches for name, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    losses = [h["loss"] for h in hist]
+    n_params = sum(t.numel() for t in tree_leaves(state.params))
+    log(f"two-tower train path: {cfg.n_users} users (CONFIG: "
+        f"{full.n_users}) x {cfg.n_items} items, embed_dim {cfg.embed_dim}, "
+        f"towers {cfg.tower_mlp}, D={cfg.num_subspaces}; {n_params} params "
+        f"({n_params * 4 / 1e9:.3f} GB float32), init {t_init:.3f}s; "
+        f"B={CTR_BATCH}: losses {[round(x, 6) for x in losses]}; step "
+        f"times (s) {[round(h['step_time_s'], 6) for h in hist]}; launches "
+        f"{launches}; peak device memory {peak / 2**30:.3f} GiB ({peak} "
+        f"bytes) of {torch.cuda.get_device_properties(0).total_memory / 2**30:.2f} GiB")
+    need(len(losses) == TRAIN_STEPS and all(math.isfinite(x) for x in losses),
+         "every two-tower training loss finite")
+    need(not any(launches.values()), "the training step launches no kernel")
+    step_split(f"two-tower, B={CTR_BATCH}, {cfg.n_users} users", model,
+               state, next(data))
+
+    n_cand = retrieval_candidates()
+    icfg = IndexConfig(kind="flat_pq", num_subspaces=8, num_centroids=64)
+    items = torch.arange(n_cand, device="cuda")
+    users = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.n_users, TT_QUERIES)).cuda()
+    torch.cuda.synchronize()
+    counters = reset_counts()
+    t0 = time.perf_counter()
+    index, art = model.build_index(
+        torch.Generator(device="cuda").manual_seed(1), state.params, items,
+        icfg)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    scores, ids = model.retrieval_topk(state.params, index, art, users, TOPK)
+    torch.cuda.synchronize()
+    t_query = time.perf_counter() - t0
+    r_launches = {name: fn.launches for name, fn in counters.items()}
+    codes, cent = art["codes"], art["centroids"]
+    u, _ = model.user_vec(state.params, users)
+    ws, wi = pq_topk_ref(build_lut_batch(u, cent).contiguous(), codes, TOPK)
+    need(tuple(scores.shape) == tuple(ids.shape) == (TT_QUERIES, TOPK)
+         and bool(torch.isfinite(scores).all()), "top-k (queries, k), finite")
+    need(torch.equal(bits(scores), bits(ws)) and torch.equal(ids, wi),
+         "trained two-tower top-k == pq_topk_ref")
+    e = model.encode_items(state.params, items)
+    e = e.reshape(n_cand, cent.shape[0], cent.shape[2]).contiguous()
+    gap = assign_gap(e, cent, None, codes,
+                     blocked_assign_ref_lim(e, cent, None))
+    need(gap <= ASSIGN_TOL, f"trained index codes within {ASSIGN_TOL} of "
+         f"the plain assignment")
+    log(f"two-tower trained index: flat_pq D=8 K=64 over {n_cand} items "
+        f"built in {t_build:.3f}s; top-{TOPK} for {TT_QUERIES} users in "
+        f"{t_query * 1e3:.3f} ms; launches {r_launches}; lists "
+        f"bit-identical to pq_topk_ref; codes within {gap:.3g} of the "
+        f"plain assignment")
+    need(r_launches["dpq_assign"] == 1 and r_launches["pq_topk"] == 1
+         and sum(r_launches.values()) == 2,
+         "the index build launches dpq_assign once, the query pq_topk once")
+    del model, state, step, data, index, art, e, u, scores, ids, ws, wi
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {name: launches[name] + r_launches[name] for name in launches}
+
+
+def adagrad_gaps(p0, card, host, tape) -> dict:
+    """A card run against a CPU run from the same params ``p0``, with
+    ``tape`` the ``record_adagrad`` tape of both: the largest param and
+    accumulator gaps, the largest gradient gap at any step (relative to
+    1 + |g|), each run's largest distance from ``adagrad_replay`` of its
+    own gradients as a share of the rounding slack, the largest share of
+    the replays' gap plus both slacks that the param gap takes, and the
+    elements where that bound exceeds TRAIN_PARAM_TOL."""
+    from repro_torch.core.schemes.base import tree_leaves
+    from repro_torch.train.optimizer import adagrad_replay
+
+    tapes = {d: [t for t in tape if t[0].type == d] for d in ("cuda", "cpu")}
+    need(len(tapes["cuda"]) == len(tapes["cpu"]) == TRAIN_STEPS,
+         "one recorded update a step on each device")
+    grad = max(float(((gc - gh).abs() / (1 + gh.abs())).max())
+               for (*_, c), (*_, h) in zip(tapes["cuda"], tapes["cpu"])
+               for gc, gh in zip(c, h))
+    out = {"param": 0.0, "grad": grad, "replay": 0.0, "bound": 0.0,
+           "loose": 0, "acc": max(
+               float((c.cpu() - h).abs().max()) for c, h in zip(
+                   tree_leaves(card.opt_state["acc"]),
+                   tree_leaves(host.opt_state["acc"])))}
+    rc, _, sc = adagrad_replay(p0, tapes["cuda"])
+    rh, _, sh = adagrad_replay(p0, tapes["cpu"])
+    for c, h, xc, xh, ec, eh in zip(tree_leaves(card.params),
+                                    tree_leaves(host.params), rc, rh, sc,
+                                    sh):
+        c, h = c.cpu().double(), h.double()
+        bound = (xc - xh).abs() + ec + eh
+        out["param"] = max(out["param"], float((c - h).abs().max()))
+        out["replay"] = max(out["replay"], float(((c - xc).abs() / ec).max()),
+                            float(((h - xh).abs() / eh).max()))
+        out["bound"] = max(out["bound"], float(((c - h).abs() / bound).max()))
+        out["loose"] += int((bound > TRAIN_PARAM_TOL).sum())
+    return out
+
+
+def train_card_vs_cpu(arch: str) -> None:
+    """At ``arch``'s smoke config: 5 adagrad steps through
+    ``recsys_setup`` on the card and 5 on the CPU from the same params
+    and the launcher's batches under ``record_adagrad``, each step's
+    MGQE codes compared first (a near-tie flip would fail as a flip),
+    then the loss (within TRAIN_LOSS_RTOL); at the end every gradient
+    and accumulator within TRAIN_PARAM_TOL and every param as
+    ``adagrad_gaps`` holds it (deepfm's also within TRAIN_PARAM_TOL)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.schemes.base import tree_leaves, tree_map
+    from repro_torch.launch.train import recsys_setup
+    from repro_torch.train import optimizer as opt
+
+    _, cfg = get_arch(arch, smoke=True)
+    cpu_model, host, step_host, data = recsys_setup(cfg, CHECK_BATCH,
+                                                    device="cpu")
+    card_model, _, step_card, _ = recsys_setup(cfg, CHECK_BATCH)
+    ocfg = opt.OptimizerConfig(kind="adagrad", lr=1e-2)
+    card = opt.TrainState.create(ocfg, tree_map(lambda t: t.cuda(),
+                                                host.params))
+    p0 = [t.clone() for t in tree_leaves(host.params)]
+    rel, n_codes = [], 0
+    with opt.record_adagrad() as tape:
+        for s in range(TRAIN_STEPS):
+            batch = next(data)
+            c_codes = training_codes(card_model, card.params, batch)
+            h_codes = training_codes(cpu_model, host.params, batch)
+            n_codes += sum(c.numel() for c in h_codes.values())
+            flips = sum(int((c_codes[k].cpu() != h_codes[k]).sum())
+                        for k in h_codes)
+            need(flips == 0, f"{arch} step {s}: {flips} MGQE codes differ "
+                 f"between the card and the CPU (a near-tie flip)")
+            card, mc = step_card(card, {k: v.cuda() for k, v in batch.items()})
+            host, mh = step_host(host, batch)
+            rel.append(abs(float(mc["loss"]) - float(mh["loss"]))
+                       / abs(float(mh["loss"])))
+            need(rel[-1] <= TRAIN_LOSS_RTOL, f"{arch} step {s}: loss within "
+                 f"{TRAIN_LOSS_RTOL} relative of the CPU's")
+    g = adagrad_gaps(p0, card, host, tape)
+    n = sum(t.numel() for t in p0)
+    log(f"train card vs CPU ({arch} smoke config, B={CHECK_BATCH}, "
+        f"{TRAIN_STEPS} steps): {n_codes} MGQE codes, equal at every step; "
+        f"loss relative gaps {[f'{x:.3g}' for x in rel]}; largest gradient "
+        f"gap {g['grad']:.3g} relative to 1 + |g| and accumulator gap "
+        f"{g['acc']:.3g} (bar {TRAIN_PARAM_TOL}); each run within "
+        f"{g['replay']:.3g} of its replay's rounding slack (bar 1); largest "
+        f"param gap {g['param']:.3g}, at most {g['bound']:.4g} of the "
+        f"replays' gap plus their slack (bar 1), which exceeds "
+        f"{TRAIN_PARAM_TOL} at {g['loose']} of {n} elements")
+    need(g["grad"] <= TRAIN_PARAM_TOL and g["acc"] <= TRAIN_PARAM_TOL,
+         f"{arch}: every step's gradients and the final accumulators "
+         f"within {TRAIN_PARAM_TOL} of the CPU's")
+    need(g["replay"] <= 1.0, f"{arch}: every param within float32 "
+         f"rounding of adagrad replayed over its run's gradients")
+    need(g["bound"] <= 1.0, f"{arch}: every param gap within the replays' "
+         f"gap plus their rounding")
+    if arch == "deepfm":
+        need(g["param"] <= TRAIN_PARAM_TOL,
+             f"deepfm: final params within {TRAIN_PARAM_TOL} of the CPU's")
+
+
+def resume_gap(arch: str) -> tuple:
+    """``arch`` at its smoke config trained 5 steps with a checkpoint
+    every 2, failed at step 3, resumed, against an uninterrupted run:
+    (largest final param gap, bit-identical)."""
     import shutil
 
     import torch
-    from repro_torch.configs import get_arch
-    from repro_torch.core.schemes.base import tree_leaves, tree_map
-    from repro_torch.data.synthetic import CTRStream
+    from repro_torch.core.schemes.base import tree_leaves
     from repro_torch.launch.train import train
-    from repro_torch.models.recsys.deepfm import DeepFM
-    from repro_torch.train import optimizer as opt
     from repro_torch.train.resilience import SimulatedFailure
 
-    _, cfg = get_arch("deepfm", smoke=True)
-    ocfg = opt.OptimizerConfig(kind="adagrad", lr=1e-2)
-    cpu_model, card_model = DeepFM(cfg, device="cpu"), DeepFM(cfg)
-    params = cpu_model.init(torch.Generator().manual_seed(0))
-    card = opt.TrainState.create(ocfg, tree_map(lambda t: t.cuda(), params))
-    host = opt.TrainState.create(ocfg, params)
-    step_card = opt.make_step_fn(ocfg, card_model.loss)
-    step_host = opt.make_step_fn(ocfg, cpu_model.loss)
-    stream = CTRStream(cfg.field_vocab_sizes, CHECK_BATCH, seed=0)
-    rel = []
-    for s in range(TRAIN_STEPS):
-        b = stream.next_batch()
-        batch = {"sparse_ids": torch.from_numpy(b["sparse_ids"]),
-                 "label": torch.from_numpy(b["label"])}
-        c_codes = mgqe_field_codes(card_model, card.params,
-                                   batch["sparse_ids"])
-        h_codes = mgqe_field_codes(cpu_model, host.params,
-                                   batch["sparse_ids"])
-        flips = sum(int((c_codes[i].cpu() != h_codes[i]).sum())
-                    for i in h_codes)
-        need(flips == 0, f"step {s}: {flips} MGQE codes differ between the "
-             f"card and the CPU (a near-tie flip)")
-        card, mc = step_card(card, {k: v.cuda() for k, v in batch.items()})
-        host, mh = step_host(host, batch)
-        rel.append(abs(float(mc["loss"]) - float(mh["loss"]))
-                   / abs(float(mh["loss"])))
-        need(rel[-1] <= TRAIN_LOSS_RTOL, f"step {s}: loss within "
-             f"{TRAIN_LOSS_RTOL} relative of the CPU's")
-    gap = max(float((c.cpu() - h).abs().max()) for c, h in zip(
-        tree_leaves([card.params, card.opt_state["acc"]]),
-        tree_leaves([host.params, host.opt_state["acc"]])))
-    log(f"ctr train card vs CPU (smoke config, B={CHECK_BATCH}, "
-        f"{TRAIN_STEPS} steps): MGQE codes equal at every step; loss "
-        f"relative gaps {[f'{x:.3g}' for x in rel]}; largest param or "
-        f"accumulator gap {gap:.3g} (bar {TRAIN_PARAM_TOL})")
-    need(gap <= TRAIN_PARAM_TOL, f"final params within {TRAIN_PARAM_TOL} of "
-         f"the CPU's")
-
-    ckpt_dir = os.path.join(REPO, "build", "chip_smoke_ckpt")
+    ckpt_dir = os.path.join(REPO, "build", f"chip_smoke_ckpt_{arch}")
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     kw = dict(smoke=True, steps=TRAIN_STEPS, batch=CHECK_BATCH, log_every=1)
     try:
-        train("deepfm", ckpt_dir=ckpt_dir, ckpt_every=2, fail_at=3, **kw)
+        train(arch, ckpt_dir=ckpt_dir, ckpt_every=2, fail_at=3, **kw)
         failed = False
     except SimulatedFailure:
         failed = True
     need(failed, "--fail-at 3 stops the run")
-    resumed = train("deepfm", ckpt_dir=ckpt_dir, ckpt_every=2, **kw)
-    whole = train("deepfm", **kw)
+    resumed = train(arch, ckpt_dir=ckpt_dir, ckpt_every=2, **kw)
+    whole = train(arch, **kw)
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     need([h["step"] for h in resumed.history] == [3, 4, 5],
          "the resumed run starts from the step-2 checkpoint")
@@ -2323,11 +2552,152 @@ def ctr_train_checks() -> None:
                      tree_leaves(whole.state.params)))
     gap = max(float((a - b).abs().max()) for a, b in pairs)
     same = all(torch.equal(bits(a), bits(b)) for a, b in pairs)
-    log(f"ctr train resume: failed at step 3, resumed from step 2 to "
+    log(f"train resume ({arch}): failed at step 3, resumed from step 2 to "
         f"{int(resumed.state.step)}; final params against an uninterrupted "
         f"run: largest gap {gap:.3g}, bit-identical={same}")
     need(gap <= TRAIN_PARAM_TOL, "the resumed run's params == the "
          "uninterrupted run's")
+    return gap, same
+
+
+DETERMINISTIC_FLAG = "--deterministic-resume"
+
+
+def gather_backward_repeats() -> dict:
+    """{gather: whether its backward gives the same bits twice} for the
+    two gathers of the training forward: ``index_select`` (the rows,
+    ``core/dpq.py::row_gather``; its backward is ``index_add_``) and
+    advanced indexing (the centroids, ``core/dpq.py::decode_codes``; its
+    backward is ``index_put_`` with accumulate), each summing 65,536
+    upstream rows into 1,000 of a (100,000, 16) table."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(5)
+    table = torch.randn((100_000, 16), generator=g, device="cuda")
+    ids = torch.randint(0, 1000, (65_536,), generator=g, device="cuda")
+    up = torch.randn((65_536, 16), generator=g, device="cuda")
+    out = {}
+    for name, fn in (("index_select", lambda t: t.index_select(0, ids)),
+                     ("advanced indexing", lambda t: t[ids])):
+        grads = []
+        for _ in range(2):
+            t = table.clone().requires_grad_(True)
+            grads.append(torch.autograd.grad((fn(t) * up).sum(), t)[0])
+        out[name] = torch.equal(bits(grads[0]), bits(grads[1]))
+    return out
+
+
+def deterministic_resume() -> int:
+    """The child's side of ``resume_checks``: which gather's backward
+    repeats bit for bit, with the default algorithms and then with
+    deterministic ones, then the resume checks of RESUME_ARCHS under
+    ``torch.use_deterministic_algorithms(True)``; one JSON line each,
+    with the resume gap or the error of an op that has no deterministic
+    implementation."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    default = gather_backward_repeats()
+    torch.use_deterministic_algorithms(True)
+    print("DETERMINISTIC " + json.dumps(
+        {"probe": {name: [default[name], again] for name, again in
+                   gather_backward_repeats().items()}}), flush=True)
+    for arch in RESUME_ARCHS:
+        try:
+            gap, same = resume_gap(arch)
+            out = {"arch": arch, "gap": gap, "bit_identical": same}
+        except RuntimeError as e:
+            if "deterministic" not in str(e):
+                raise
+            out = {"arch": arch, "refused": str(e).splitlines()[0]}
+        print("DETERMINISTIC " + json.dumps(out), flush=True)
+    return 0
+
+
+def resume_checks() -> None:
+    """The resume check of each of RESUME_ARCHS as the package runs it,
+    then once more in a child process started with
+    ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` under
+    ``torch.use_deterministic_algorithms(True)`` (no other phase runs
+    under it): both gaps printed, or the op that refused."""
+    results = {arch: resume_gap(arch) for arch in RESUME_ARCHS}
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    t0 = time.perf_counter()
+    child = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            DETERMINISTIC_FLAG], env=env, cwd=REPO,
+                           capture_output=True, text=True, timeout=600)
+    lines = [json.loads(x.split(" ", 1)[1])
+             for x in child.stdout.splitlines()
+             if x.startswith("DETERMINISTIC ")]
+    if child.returncode != 0 or len(lines) != 1 + len(RESUME_ARCHS):
+        log(child.stdout[-4000:])
+        log(child.stderr[-4000:])
+        need(False, "the deterministic resume child ran to its end")
+    for name, (default, det) in lines[0]["probe"].items():
+        log(f"gather backward ({name}, 65,536 rows into 1,000): the same "
+            f"bits twice with the default algorithms: {default}; with "
+            f"deterministic ones: {det}")
+    for out in lines[1:]:
+        gap, same = results[out["arch"]]
+        log(f"train resume under deterministic algorithms ({out['arch']}, "
+            f"child process, {time.perf_counter() - t0:.1f}s): "
+            + (f"gap {out['gap']:.3g}, bit-identical={out['bit_identical']}"
+               if "gap" in out else f"refused: {out['refused']}")
+            + f" (default algorithms: gap {gap:.3g}, bit-identical={same})")
+
+
+def time_ctr_kernels() -> None:
+    """``dpq_assign`` and ``mgqe_decode`` at the new CTR models' shapes:
+    AutoInt's 10M-row field (D = 8, S = 2) and BST's item table (D = 8,
+    S = 4), K = 256 with a tail of 64, f32; ``dpq_assign`` over the
+    table's export (153 launches of 65,536 rows) as ``time_assign_pass``
+    runs deepfm's, ``mgqe_decode`` over the served batch's ids (AutoInt
+    one field's B = 4,096, BST's B = 4,096 x 21 = 86,016), each beside
+    its plain version, its bound and, for the decode, ``F.embedding``."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_arch
+    from repro_torch.core.mgqe import k_limit_for_all_rows
+    from repro_torch.kernels import build
+    from repro_torch.kernels.mgqe_decode import mgqe_decode, mgqe_decode_ref
+    from repro_torch.kernels.mgqe_decode.mgqe_decode import decode_plan
+    from repro_torch.launch.engine import embedding_config_of_arch
+
+    sms = build.sm_count("cuda")
+    for arch, b in (("autoint", CTR_BATCH),
+                    ("bst", CTR_BATCH * (get_arch("bst")[1].seq_len + 1))):
+        ecfg = embedding_config_of_arch(*get_arch(arch, smoke=False))
+        n, d, k = ecfg.vocab_size, ecfg.num_subspaces, ecfg.num_centroids
+        s = ecfg.dim // d
+        g = torch.Generator(device="cuda").manual_seed(n + d + s)
+        scale = ecfg.dim ** -0.5
+        e_all = torch.randn((n, d, s), generator=g, device="cuda") * scale
+        cent = torch.randn((d, k, s), generator=g, device="cuda") * scale
+        time_assign_pass(f"over {arch}'s {n}-row table's export", e_all,
+                         cent, k_limit_for_all_rows(ecfg, "cuda"),
+                         ASSIGN_BATCH, iters=3)
+        del e_all
+        codes, cent = decode_inputs(b, d, k, s, torch.float32, seed=b)
+        got, want = mgqe_decode(codes, cent), mgqe_decode_ref(codes, cent)
+        torch.cuda.synchronize()
+        need(torch.equal(bits(got), bits(want)), f"mgqe_decode bit-identical "
+             f"at {arch}'s served shape")
+        offs = (codes.long() + torch.arange(d, device="cuda") * k
+                ).contiguous()
+        flat = cent.reshape(d * k, s)
+        ms, host = time_ms(lambda: mgqe_decode(codes, cent))
+        plain, _ = time_ms(lambda: mgqe_decode_ref(codes, cent))
+        lib, _ = time_ms(lambda: F.embedding(offs, flat))
+        nbytes = b * d + d * k * s * 4 + b * d * s * 4
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        log(f"time mgqe_decode B={b} D={d} K={k} S={s} f32 ({arch}'s served "
+            f"batch, {decode_plan(b, d, k, s, 1, 4, sms)}): kernel "
+            f"{ms:.5f} ms, plain {plain:.5f} ms, F.embedding {lib:.5f} ms, "
+            f"bound {bound:.5f} ms by bytes ({nbytes} bytes, "
+            f"{100 * bound / ms:.0f}% of it); host time to launch "
+            f"{host:.5f} ms")
+        del codes, cent, got, want, offs, flat
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 # ----------------------------------------------------------------------
@@ -3672,6 +4042,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.join(REPO, "src"))
     import repro_torch  # noqa: F401  (fails outside a checkout)
+    if sys.argv[1:] == [DETERMINISTIC_FLAG]:
+        return deterministic_resume()
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3695,9 +4067,13 @@ def main() -> int:
         c_launches, flush_b)
     h_launches = hot_cache_phase(card)
     bag_launches, bag_err, bag_times = bag_phase()
-    s_launches = ctr_serve_path()
-    t_launches = ctr_train_path()
-    ctr_train_checks()
+    ctr_launches = [ctr_serve_path(arch) for arch in CTR_ARCHS]
+    ctr_launches += [ctr_train_path(arch) for arch in CTR_ARCHS]
+    ctr_launches.append(two_tower_train_path())
+    for arch in CTR_ARCHS + ("two-tower-retrieval",):
+        train_card_vs_cpu(arch)
+    resume_checks()
+    time_ctr_kernels()
     b_launches, bb_gap = backbone_path()
     t = bag_times[(BAG_SHAPES[0][1], torch.float32, True, "uniform")]
     kernels.append({"name": "embedding_bag", "route": "cuda",
@@ -3723,7 +4099,7 @@ def main() -> int:
         name = entry["name"]
         entry["launches"] = sum(p.get(name, 0) for p in
                                 (launches, c_launches, h_launches,
-                                 bag_launches, s_launches, t_launches,
+                                 bag_launches, *ctr_launches,
                                  b_launches, l_launches, r_launches))
         if name == "dpq_assign":
             entry["max_abs_err"] = max(entry["max_abs_err"], pq_errs[name],

@@ -16,6 +16,8 @@ ARCHS: Dict[str, Tuple[str, str]] = {
     "two-tower-retrieval": ("recsys",
                             "repro_torch.configs.two_tower_retrieval"),
     "deepfm":            ("recsys", "repro_torch.configs.deepfm"),
+    "autoint":           ("recsys", "repro_torch.configs.autoint"),
+    "bst":               ("recsys", "repro_torch.configs.bst"),
 }
 
 # archs of the JAX package not ported yet, and what each waits for

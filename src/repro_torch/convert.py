@@ -91,6 +91,43 @@ def deepfm_params_from_numpy(params: dict, model, device) -> dict:
     }
 
 
+def autoint_params_from_numpy(params: dict, model, device) -> dict:
+    """The JAX ``AutoInt`` params (numpy leaves) as the port's: every
+    field's param tree, checked against that field's config, each
+    interacting layer's ``wq``/``wk``/``wv``/``wres`` and ``w_out``."""
+    return {
+        "fields": {f"f{i}": params_from_numpy(params["fields"][f"f{i}"],
+                                              e.cfg, device)
+                   for i, e in enumerate(model.fields.embs)},
+        "layers": [{name: tensor_from_numpy(layer[name], device)
+                    for name in ("wq", "wk", "wv", "wres")}
+                   for layer in params["layers"]],
+        "w_out": mlp_from_numpy([params["w_out"]], device)[0],
+    }
+
+
+def bst_params_from_numpy(params: dict, model, device) -> dict:
+    """The JAX ``BST`` params (numpy leaves) as the port's: the item
+    table's param tree, checked against its config, ``pos_emb``, each
+    block's ``wq``/``wk``/``wv``/``wo``, norms and FFN, and the MLP."""
+    def block(p):
+        out = {name: tensor_from_numpy(p[name], device)
+               for name in ("wq", "wk", "wv", "wo")}
+        for ln in ("ln1", "ln2"):
+            out[ln] = {k: tensor_from_numpy(p[ln][k], device)
+                       for k in ("scale", "bias")}
+        out["ffn"] = mlp_from_numpy(p["ffn"], device)
+        return out
+
+    return {
+        "item_emb": params_from_numpy(params["item_emb"], model.item_emb.cfg,
+                                      device),
+        "pos_emb": tensor_from_numpy(params["pos_emb"], device),
+        "blocks": [block(p) for p in params["blocks"]],
+        "mlp": mlp_from_numpy(params["mlp"], device),
+    }
+
+
 def backbone_params_from_numpy(params: dict, model, device) -> dict:
     """The JAX backbone params (GMF, NeuMF or SASRec; numpy leaves) as
     the port's: each embedding table named in ``model.tables`` through

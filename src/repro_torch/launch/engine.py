@@ -608,7 +608,7 @@ def embedding_config_of_arch(family: str, cfg):
         raise NotImplementedError(
             f"family {family!r} waits for its slice in ROADMAP.md; the "
             f"port serves the lm and recsys archs")
-    if cfg.model == "two_tower":       # the item table, as in JAX
+    if cfg.model in ("bst", "two_tower"):     # the item table, as in JAX
         return field_embedding_config(cfg, cfg.n_items)
     return field_embedding_config(cfg, max(cfg.field_vocab_sizes))
 

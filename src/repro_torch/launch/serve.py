@@ -15,8 +15,9 @@
 * ``--arch two-tower-retrieval`` without ``--engine``: build a
   ``flat_pq`` index over the item tower's outputs and serve top-k
   retrieval for a stream of user batches through the RetrievalEngine;
-* ``--arch deepfm`` without ``--engine``: the CTR model itself — init,
-  export every field, score one batch (``serve_ctr``).
+* ``--arch deepfm`` / ``autoint`` / ``bst`` without ``--engine``: the
+  CTR model itself — init, export its tables, score one batch
+  (``serve_ctr``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch deepfm \\
         --full --engine --requests 200 --req-batch 64
@@ -252,55 +253,81 @@ def serve_retrieval(cfg, n_candidates: int, index_kind: str = "flat_pq",
                         dataclasses.replace(st), rec, build_s)
 
 
+# the models ``serve_ctr`` scores
+CTR_MODELS = ("autoint", "bst", "deepfm")
+
+
 @dataclasses.dataclass
 class CTRRun:
     """What :func:`serve_ctr` built and scored."""
 
     model: Any
     params: dict
-    artifacts: dict                 # every field's serving artifact
-    batch: dict                     # {"sparse_ids": (B, F)} on the device
+    # the field models' (deepfm, autoint): every field's serving
+    # artifact, keyed as the fields; bst's: the item table's artifact
+    artifacts: dict
+    # on the device: {"sparse_ids": (B, F)} for the field models,
+    # {"hist_ids": (B, seq_len), "target_id": (B,)} for bst
+    batch: dict
     scores: torch.Tensor            # (B,) logits
     seconds: float                  # the scoring call, synchronised
+    serving_bits: int               # the artifacts' size
+    full_bits: int                  # the same tables in float32
 
 
 def serve_ctr(cfg, batch: int, device="cuda", sparse_ids=None) -> CTRRun:
-    """A CTR model served as the paper serves it: init, export every
-    field (the large ones to codes + centroids through ``dpq_assign``;
-    the full tables of the small ones and the first-order tables stay),
+    """A CTR model served as the paper serves it: init, export (the
+    large tables to codes + centroids through ``dpq_assign``; the full
+    tables of the small fields and deepfm's first-order tables stay),
     then score one batch through ``model.serve`` (``mgqe_decode`` once
-    per quantized field).  The batch's ids are drawn as the JAX
-    package's ``serve_ctr`` draws them (uniform per field, numpy seed
-    0), unless ``sparse_ids`` (batch, fields) is given."""
+    per quantized table).  The batch's ids are drawn as the JAX
+    package's ``serve_ctr`` draws them from numpy seed 0: for bst a
+    uniform history (batch, seq_len) and target (batch,) over the
+    items, for the field models uniform ids per field, unless
+    ``sparse_ids`` (batch, fields) is given."""
     from repro_torch.core.api import resolve_device
     from repro_torch.launch.cells import recsys_model
 
+    if cfg.model not in CTR_MODELS:
+        raise ValueError(f"serve_ctr serves {', '.join(CTR_MODELS)}, not "
+                         f"{cfg.model!r}")
     device = resolve_device(device)
     model = recsys_model(cfg, device=device)
     params = model.init(torch.Generator(device=device).manual_seed(0))
-    artifacts = model.fields.export(params["fields"])
-    if sparse_ids is None:
-        rng = np.random.default_rng(0)
-        sparse_ids = np.stack([rng.integers(0, v, batch)
-                               for v in cfg.field_vocab_sizes], 1)
-    if tuple(sparse_ids.shape) != (batch, len(cfg.field_vocab_sizes)):
-        raise ValueError(f"sparse_ids must be (batch, fields) = "
-                         f"{(batch, len(cfg.field_vocab_sizes))}, got "
-                         f"{tuple(sparse_ids.shape)}")
-    b = {"sparse_ids": torch.as_tensor(sparse_ids).to(device)}
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    rng = np.random.default_rng(0)
+    if cfg.model == "bst":
+        if sparse_ids is not None:
+            raise ValueError("bst takes no sparse_ids: it serves an item "
+                             "history and a target")
+        artifacts = model.item_emb.export(params["item_emb"])
+        b = {"hist_ids": rng.integers(0, cfg.n_items, (batch, cfg.seq_len)),
+             "target_id": rng.integers(0, cfg.n_items, batch)}
+        size_bits = model.item_emb.serving_size_bits()
+        full_bits = cfg.n_items * cfg.embed_dim * 32
+    else:
+        artifacts = model.fields.export(params["fields"])
+        if sparse_ids is None:
+            sparse_ids = np.stack([rng.integers(0, v, batch)
+                                   for v in cfg.field_vocab_sizes], 1)
+        if tuple(sparse_ids.shape) != (batch, len(cfg.field_vocab_sizes)):
+            raise ValueError(f"sparse_ids must be (batch, fields) = "
+                             f"{(batch, len(cfg.field_vocab_sizes))}, got "
+                             f"{tuple(sparse_ids.shape)}")
+        b = {"sparse_ids": sparse_ids}
+        size_bits = model.fields.serving_size_bits()
+        full_bits = model.fields.full_size_bits()
+    b = {k: torch.as_tensor(v).to(device) for k, v in b.items()}
+    _sync(device)
     t0 = time.perf_counter()
     scores = model.serve(params, artifacts, b)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    _sync(device)
     seconds = time.perf_counter() - t0
     print(f"served B={batch} in {seconds:.6f}s on {device}; scores mean "
           f"{float(torch.mean(scores)):.4f}; artifacts "
-          f"{model.fields.serving_size_bits() / 8e6:.2f} MB "
-          f"({100 * model.fields.serving_size_bits() / model.fields.full_size_bits():.1f}"
-          f"% of full)")
-    return CTRRun(model, params, artifacts, b, scores, seconds)
+          f"{size_bits / 8e6:.2f} MB ({100 * size_bits / full_bits:.1f}% "
+          f"of full)")
+    return CTRRun(model, params, artifacts, b, scores, seconds, size_bits,
+                  full_bits)
 
 
 @dataclasses.dataclass
@@ -482,8 +509,8 @@ def main(argv=None):
             cfg = dataclasses.replace(cfg, kernel_backend=args.kernel_backend)
         try:
             return serve_ctr(cfg, args.batch, device=args.device)
-        except NotImplementedError as e:
-            ap.error(f"{e}; pass --engine to serve its embedding table")
+        except ValueError as e:             # a model serve_ctr does not serve
+            ap.error(str(e))
     from repro_torch.retrieval import registered_index_kinds
     if args.retrieval not in registered_index_kinds():
         ap.error(f"unknown index kind {args.retrieval!r}; registered "

@@ -9,10 +9,11 @@ trains on the card unless ``--device cpu`` is given (``--smoke``, the
 reduced config, is the default; ``--full`` is the published one).  The
 loop includes checkpoint/auto-resume, straggler detection and optional
 failure injection (``--fail-at``) to exercise the fault-tolerance path
-end to end.  Ported: the recsys ``deepfm`` branch (adagrad at lr 1e-2,
-global-norm clip 1.0, ``CTRStream`` batches).  The LM, GNN, two-tower
-and BST branches of the JAX package's driver follow their slices in
-ROADMAP.md.
+end to end.  Ported: the recsys branch of the JAX package's launcher,
+for every recsys arch (adagrad at lr 1e-2, global-norm clip 1.0):
+``deepfm`` and ``autoint`` on ``CTRStream`` batches, ``bst`` and
+``two-tower-retrieval`` on uniform ids drawn as the JAX launcher draws
+them.  The LM and GNN branches follow their slices in ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ import dataclasses
 import time
 from typing import Any, Dict, List, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.configs.registry import ARCHS, get_arch
@@ -32,32 +34,59 @@ from repro_torch.train.optimizer import TrainState
 from repro_torch.train.resilience import FailureInjector
 
 
+def recsys_stream(cfg, batch: int, start: int = 0):
+    """An endless stream of ``cfg``'s training batches as CPU tensors,
+    from batch ``start`` on, drawn as the JAX launcher draws them:
+    ``two_tower`` and ``bst`` take uniform ids from
+    ``np.random.default_rng(0)`` (a stream that starts later draws and
+    discards the batches before it), the field models a ``CTRStream``
+    of (``sparse_ids``, ``label``)."""
+    from repro_torch.data.synthetic import CTRStream
+
+    def ids(rng, high, shape):
+        return torch.from_numpy(rng.integers(0, high, shape).astype(np.int32))
+
+    if cfg.model == "two_tower":
+        logq = float(np.log(1.0 / cfg.n_items))
+
+        def draw(rng):
+            return {"user_ids": ids(rng, cfg.n_users, batch),
+                    "item_ids": ids(rng, cfg.n_items, batch),
+                    "item_logq": torch.full((batch,), logq,
+                                            dtype=torch.float32)}
+    elif cfg.model == "bst":
+        def draw(rng):
+            return {"hist_ids": ids(rng, cfg.n_items, (batch, cfg.seq_len)),
+                    "target_id": ids(rng, cfg.n_items, batch),
+                    "label": torch.from_numpy(
+                        (rng.random(batch) < 0.3).astype(np.float32))}
+    else:
+        for b in CTRStream(cfg.field_vocab_sizes, batch, start=start):
+            yield {"sparse_ids": torch.from_numpy(b["sparse_ids"]),
+                   "label": torch.from_numpy(b["label"])}
+        return
+    # ``integers`` may take more than one draw per id, so the batches
+    # before ``start`` are drawn, not skipped
+    rng = np.random.default_rng(0)
+    for _ in range(start):
+        draw(rng)
+    while True:
+        yield draw(rng)
+
+
 def recsys_setup(cfg, batch: int, device="cuda", start: int = 0):
     """(model, state, step_fn, data) of a recsys model: params drawn
-    from a generator seeded 0 on ``device``, adagrad at lr 1e-2, and an
-    endless ``CTRStream`` of (``sparse_ids``, ``label``) batches as CPU
-    tensors (``fit`` moves each to the params' device), from batch
-    ``start`` on."""
-    from repro_torch.data.synthetic import CTRStream
+    from a generator seeded 0 on ``device``, adagrad at lr 1e-2, and
+    :func:`recsys_stream` from batch ``start`` on (``fit`` moves each
+    batch to the params' device)."""
     from repro_torch.launch.cells import recsys_model
-    if getattr(cfg, "model", None) != "deepfm":
-        raise NotImplementedError(
-            f"training {cfg.name!r} is not ported yet (TwoTower.loss, "
-            f"AutoInt, BST and LM training wait for their slices in "
-            f"ROADMAP.md); trainable: deepfm")
     device = resolve_device(device)
     model = recsys_model(cfg, device=device)
     params = model.init(torch.Generator(device=device).manual_seed(0))
     ocfg = opt_lib.OptimizerConfig(kind="adagrad", lr=1e-2)
     state = TrainState.create(ocfg, params)
     step = opt_lib.make_step_fn(ocfg, model.loss)
-    stream = CTRStream(cfg.field_vocab_sizes, batch, start=start)
-
-    def data():
-        for b in stream:
-            yield {"sparse_ids": torch.from_numpy(b["sparse_ids"]),
-                   "label": torch.from_numpy(b["label"])}
-    return model, state, step, data()
+    return model, state, step, recsys_stream(cfg, batch, start)
 
 
 @dataclasses.dataclass
@@ -83,7 +112,12 @@ def train(arch: str, *, smoke: bool = True, steps: int = 100,
     that checkpoint to fail validation, ``fit`` would fall back to an
     older one and the stream would run ahead of it by the steps
     between.)"""
-    _, cfg = get_arch(arch, smoke=smoke)
+    family, cfg = get_arch(arch, smoke=smoke)
+    if family != "recsys":
+        raise NotImplementedError(
+            f"training the {family} family ({arch!r}) is not ported yet; "
+            f"it waits for its slice in ROADMAP.md; trainable: the recsys "
+            f"archs")
     start = (ckpt_lib.latest_step(ckpt_dir) if ckpt_dir else None) or 0
     model, state, step, data = recsys_setup(cfg, batch, device=device,
                                             start=start)

@@ -1,15 +1,10 @@
 """Two-tower retrieval [Yi et al. RecSys'19]: user tower + item tower ->
-dot product.
+dot product; trained with in-batch sampled softmax + logQ correction.
 
 This is where MGQE's serving story peaks: the item corpus is stored as
 PQ codes, and ``retrieval_topk`` scores a BATCH of users against 1M
 candidates without ever materializing their vectors (ADC through the
 retrieval index registry, ``repro_torch.retrieval``).
-
-This slice ports the serving half: ``init``, the towers (the MGQE
-forward lookup and the MLPs), the index build and the three ways of
-scoring.  ``loss`` (in-batch sampled softmax) and training wait for the
-training slice in ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -62,10 +57,20 @@ class TwoTower:
         return _l2norm(v), aux
 
     # ------------------------------------------------------------- train
-    def loss(self, params: Dict, batch: Dict):
-        """In-batch sampled softmax with logQ correction."""
-        raise NotImplementedError(
-            "TwoTower.loss waits for the training slice in ROADMAP.md")
+    def loss(self, params: Dict, batch: Dict
+             ) -> Tuple[torch.Tensor, Dict]:
+        """In-batch sampled softmax with logQ correction.
+
+        batch: user_ids (B,), item_ids (B,), item_logq (B,) — log of
+        each item's sampling probability (its empirical frequency)."""
+        u, aux_u = self.user_vec(params, batch["user_ids"])
+        v, aux_v = self.item_vec(params, batch["item_ids"])
+        logits = (u @ v.T) * INV_TEMPERATURE - batch["item_logq"][None, :]
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.diagonal(logits)
+        sm = torch.mean(logz - gold)
+        loss = sm + aux_u + aux_v
+        return loss, {"loss": loss, "softmax": sm, "aux": aux_u + aux_v}
 
     # ------------------------------------------------------------- serve
     def retrieval_scores(self, params: Dict, user_id: torch.Tensor,
@@ -127,6 +132,9 @@ class TwoTower:
         from repro_torch.retrieval.flat_pq import adc_scores
         u, _ = self.user_vec(params, user_id)
         return adc_scores(corpus_artifact, u[0])
+
+
+INV_TEMPERATURE = 20.0  # softmax temperature 0.05
 
 
 def _l2norm(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

@@ -21,6 +21,7 @@ one temporary the size of the leaf.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any, Callable, Dict, List, Optional, Tuple, Type
@@ -150,6 +151,53 @@ class _Adagrad(OptimizerRule):
             a.add_(tmp)                             # acc + g²
             torch.sqrt(a, out=tmp).add_(cfg.eps)    # sqrt(acc) + eps
             p.sub_(g.mul_(lr).div_(tmp))            # p - lr*g / (...)
+
+
+@contextlib.contextmanager
+def record_adagrad():
+    """Within the block, every adagrad update appends (the params'
+    device, its lr, its eps, the clipped float32 gradients it consumed,
+    copied to the CPU) to the list this yields: the tape that
+    :func:`adagrad_replay` replays."""
+    rule = _OPTIMIZERS["adagrad"]
+    tape: List[Tuple] = []
+
+    class _Recorded(rule):
+        @classmethod
+        def update(cls, cfg, lr, step, params, grads, moments):
+            tape.append((params[0].device, float(lr), cfg.eps,
+                         [g.to("cpu", copy=True) for g in grads]))
+            super().update(cfg, lr, step, params, grads, moments)
+
+    _OPTIMIZERS["adagrad"] = _Recorded
+    try:
+        yield tape
+    finally:
+        _OPTIMIZERS["adagrad"] = rule
+
+
+def adagrad_replay(params, tape) -> Tuple[List[torch.Tensor], ...]:
+    """The plain reference of a recorded adagrad run: adagrad in float64
+    on the CPU from ``params`` (the run's starting tree) over ``tape``'s
+    updates (:func:`record_adagrad`, one device's).  Returns (params,
+    accumulators, slack) as lists of leaves; ``slack`` is, per element,
+    what float32 rounding may add over the run: at step k, (k + 4) units
+    of 2^-24 relative to lr (k roundings of the accumulator, halved by
+    the square root, and four of the update) and 2^-23 relative to the
+    param.  A float32 run holds each element within its slack of the
+    replay however ill-conditioned adagrad's step on it is, since the
+    replay consumes the very gradients the run did."""
+    p = [t.detach().to("cpu", torch.float64, copy=True)
+         for t in tree_leaves(params)]
+    acc = [torch.zeros_like(t) for t in p]
+    slack = [torch.zeros_like(t) for t in p]
+    for k, (_, lr, eps, grads) in enumerate(tape, 1):
+        for x, a, s, g in zip(p, acc, slack, grads):
+            g = g.double()
+            a.add_(g * g)
+            x.sub_(lr * g / (a.sqrt() + eps))
+            s.add_(x.abs() * 2.0 ** -23 + lr * (k + 4) * 2.0 ** -24)
+    return p, acc, slack
 
 
 @register_optimizer("sgd")

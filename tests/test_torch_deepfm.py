@@ -210,10 +210,14 @@ def test_recsys_registry():
     assert isinstance(cells.recsys_model(cfg, device="cpu"), DeepFM)
     _, tcfg = get_arch("two-tower-retrieval", smoke=True)
     assert isinstance(cells.recsys_model(tcfg, device="cpu"), TwoTower)
-    for name in ("autoint", "bst"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            cells.recsys_model(dataclasses.replace(cfg, model=name),
-                               device="cpu")
+    from repro_torch.models.recsys import BST, AutoInt
+    _, acfg = get_arch("autoint", smoke=True)
+    assert isinstance(cells.recsys_model(acfg, device="cpu"), AutoInt)
+    _, bcfg = get_arch("bst", smoke=True)
+    assert isinstance(cells.recsys_model(bcfg, device="cpu"), BST)
+    with pytest.raises(ValueError, match="unknown recsys model"):
+        cells.recsys_model(dataclasses.replace(cfg, model="dlrm"),
+                           device="cpu")
     if not torch.cuda.is_available():                # the card by default
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cells.recsys_model(cfg)
@@ -261,7 +265,7 @@ def test_serve_cli_refuses_unported_models(monkeypatch):
     from repro_torch.configs import registry
     _, cfg = get_arch("deepfm", smoke=True)
     monkeypatch.setattr(registry, "get_arch", lambda a, smoke=False: (
-        "recsys", dataclasses.replace(cfg, model="bst")))
+        "recsys", dataclasses.replace(cfg, model="dlrm")))
     monkeypatch.setattr(serve, "get_arch", registry.get_arch)
     with pytest.raises(SystemExit):
         serve.main(["--arch", "deepfm", "--device", "cpu"])

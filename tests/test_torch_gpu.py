@@ -1922,3 +1922,119 @@ def _decode_inputs_for_threads(cuda):
     cent = torch.from_numpy(rng.normal(size=(5, 256, 2)).astype(
         np.float32)).to(cuda)
     return codes, cent
+
+
+# ----------------------------------------------------------------------
+# AutoInt and BST served, AutoInt, BST and two-tower trained on the card
+# ----------------------------------------------------------------------
+
+def _table_at(tree, path):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def _recsys_codes(model, params, batch):
+    """{table: training codes of its ids in ``batch``} of every table
+    with centroids (MGQE tables under their tiers' budgets)."""
+    from repro_torch.core import dpq
+    from repro_torch.core.mgqe import _tier_k_limits
+    from repro_torch.launch.cells import recsys_tables
+    out = []
+    for path, emb, ids in recsys_tables(model, batch):
+        p = _table_at(params, path)
+        if "centroids" in p:
+            ids = ids.reshape(-1).to(p["emb"].device).long()
+            e = p["emb"][ids].reshape(len(ids), emb.cfg.num_subspaces, -1)
+            lim = (_tier_k_limits(emb.cfg, ids)
+                   if emb.cfg.tier_boundaries else None)
+            out.append(dpq.assign_codes(e, p["centroids"], lim).cpu())
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["autoint", "bst", "two-tower-retrieval"])
+def test_recsys_steps_on_card_match_cpu(cuda, arch):
+    """3 adagrad steps of the smoke model through ``recsys_setup`` on the
+    card and on the CPU from the same params and the launcher's batches,
+    under ``record_adagrad``: each step's MGQE codes equal, the loss
+    within 1e-5 relative, every step's gradients and the accumulators
+    within 1e-5; every param within its rounding slack of
+    ``adagrad_replay`` over its own run's gradients, and the two runs'
+    params apart by at most what their replays are apart (adagrad's
+    first step turns a 1e-9 gradient gap near |g| = 1e-8 into up to
+    2.5e-4, so no fixed bar on the param gap both holds and sees a
+    fault)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.schemes.base import tree_leaves, tree_map
+    from repro_torch.launch.train import recsys_setup
+    from repro_torch.train import optimizer as opt
+    _, cfg = get_arch(arch, smoke=True)
+    cpu, host, step_host, data = recsys_setup(cfg, 256, device="cpu")
+    card_model, _, step_card, _ = recsys_setup(cfg, 256, device=cuda)
+    card = opt.TrainState.create(opt.OptimizerConfig(kind="adagrad",
+                                                     lr=1e-2),
+                                 tree_map(lambda t: t.to(cuda), host.params))
+    p0 = [t.clone() for t in tree_leaves(host.params)]
+    with opt.record_adagrad() as tape:
+        for _ in range(3):
+            batch = next(data)
+            for c, h in zip(_recsys_codes(card_model, card.params, batch),
+                            _recsys_codes(cpu, host.params, batch)):
+                assert torch.equal(c, h)
+            card, mc = step_card(card, {k: v.to(cuda)
+                                        for k, v in batch.items()})
+            host, mh = step_host(host, batch)
+            assert abs(float(mc["loss"]) - float(mh["loss"])) \
+                <= 1e-5 * abs(float(mh["loss"]))
+    tc = [t for t in tape if t[0].type == "cuda"]
+    th = [t for t in tape if t[0].type == "cpu"]
+    assert len(tc) == len(th) == 3
+    for (*_, gc), (*_, gh) in zip(tc, th):
+        for a, b in zip(gc, gh):
+            assert torch.allclose(a, b, rtol=1e-5, atol=1e-5)
+    rc, _, sc = opt.adagrad_replay(p0, tc)
+    rh, _, sh = opt.adagrad_replay(p0, th)
+    for c, h, xc, xh, ec, eh in zip(tree_leaves(card.params),
+                                    tree_leaves(host.params), rc, rh, sc, sh):
+        assert c.is_cuda
+        c, h = c.cpu().double(), h.double()
+        assert bool(((c - xc).abs() <= ec).all())
+        assert bool(((h - xh).abs() <= eh).all())
+        assert bool(((c - h).abs() <= (xc - xh).abs() + ec + eh).all())
+    for c, h in zip(tree_leaves(card.opt_state["acc"]),
+                    tree_leaves(host.opt_state["acc"])):
+        assert torch.allclose(c.cpu(), h, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,launches", [("autoint", (2, 2)),
+                                           ("bst", (1, 1))])
+def test_ctr_served_rows_on_card_match_plain_decode(cuda, arch, launches):
+    """``serve_ctr`` of the smoke model on the card: export launches
+    dpq_assign once per quantized table (each under 65,536 rows), the
+    scored batch mgqe_decode once per quantized table; the served rows
+    bit-identical to the plain decode of the same artifacts and the
+    logits within 1e-5 of the model on the plain ops."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.cells import recsys_model, recsys_tables
+    from repro_torch.launch.serve import serve_ctr
+    _, cfg = get_arch(arch, smoke=True)
+    n0 = (dpq_assign.launches, mgqe_decode.launches)
+    run = serve_ctr(cfg, 512, device=cuda)
+    assert (dpq_assign.launches - n0[0], mgqe_decode.launches - n0[1]) \
+        == launches
+    plain = recsys_model(dataclasses.replace(cfg, kernel_backend="torch"),
+                         device=cuda)
+    tables = recsys_tables(run.model, run.batch)
+    assert len(tables) == (1 if arch == "bst" else cfg.n_sparse)
+    for (path, emb, ids), (_, pemb, _) in zip(tables,
+                                              recsys_tables(plain, run.batch)):
+        art = _table_at(run.artifacts, path[1:])
+        rows = emb.serve(art, ids)
+        assert rows.shape == ids.shape + (cfg.embed_dim,)
+        _same_bits(rows, pemb.serve(art, ids))
+    logits = plain.serve(run.params, run.artifacts, run.batch)
+    assert run.scores.is_cuda and bool(torch.isfinite(run.scores).all())
+    assert torch.allclose(run.scores, logits, rtol=1e-5, atol=1e-5)

@@ -532,6 +532,62 @@ def test_straggler_detector_recovers():
     assert det.check() == []
 
 
+# ------------------------------------------- adagrad's replayed bound
+
+class _SkipsSmallGradients(opt._OPTIMIZERS["adagrad"]):
+    """A planted fault only small-gradient elements feel: adagrad that
+    leaves alone every element whose accumulated gradient stays under
+    1e-5 (where a 1e-9 gradient gap between two packages moves an
+    element by up to 1e-4, so a bar on the param gap alone cannot tell
+    it from rounding)."""
+
+    @classmethod
+    def update(cls, cfg, lr, step, params, grads, moments):
+        for g, a in zip(grads, moments["acc"]):
+            g.masked_fill_(torch.sqrt(a + g * g) < 1e-5, 0.0)
+        super().update(cfg, lr, step, params, grads, moments)
+
+
+@pytest.mark.parametrize("faulty", [False, True],
+                         ids=["adagrad", "skips-small-gradients"])
+@pytest.mark.parametrize("arch", ["autoint", "bst", "two-tower-retrieval"])
+def test_adagrad_replay_holds_every_element(arch, faulty, monkeypatch):
+    """5 steps of ``arch``'s smoke model through ``recsys_setup`` and
+    ``fit`` under ``record_adagrad``: every param within its rounding
+    slack of ``adagrad_replay`` over the gradients the updates consumed,
+    and with ``_SkipsSmallGradients`` planted, the elements it skips
+    (those whose first non-zero gradient is under 1e-5 are there) over
+    1,000 slacks outside it, though still within lr x steps."""
+    if faulty:
+        monkeypatch.setitem(opt._OPTIMIZERS, "adagrad", _SkipsSmallGradients)
+    _, cfg = get_arch(arch, smoke=True)
+    _, state, step, data = train_cli.recsys_setup(cfg, 64, device="cpu")
+    p0 = [t.clone() for t in tree_leaves(state.params)]
+    with opt.record_adagrad() as tape:
+        final, _ = fit(state, step, data,
+                       LoopConfig(total_steps=5, log_every=1))
+    assert len(tape) == 5
+    replay, _, slack = opt.adagrad_replay(p0, tape)
+    gaps = [(t.double() - r).abs() for t, r in zip(tree_leaves(final.params),
+                                                   replay)]
+    over = max(float((g / s).max()) for g, s in zip(gaps, slack))
+    small = 0
+    for i in range(len(p0)):
+        seen = torch.zeros(p0[i].shape, dtype=torch.bool)
+        for _, _, _, grads in tape:
+            g = grads[i]
+            small += int(((g != 0) & ~seen & (g.abs() < 1e-5)).sum())
+            seen |= g != 0
+    assert small > 0
+    if faulty:
+        # far outside the replay's slack, yet within the lr x steps that
+        # a bar on the param gap alone would have to allow
+        assert over > 1e3
+        assert max(float(g.max()) for g in gaps) < 1e-2 * 5
+    else:
+        assert over <= 1.0
+
+
 # ------------------------------------------------------------- the CLI
 
 def test_train_cli_on_cpu(capsys):
@@ -543,8 +599,7 @@ def test_train_cli_on_cpu(capsys):
     assert "step 3:" in out and "done: 3 steps" in out
 
 
-@pytest.mark.parametrize("arch", ["two-tower-retrieval", "stablelm-3b",
-                                  "mace"])
+@pytest.mark.parametrize("arch", ["gemma3-27b", "stablelm-3b", "mace"])
 def test_train_cli_refuses_unported_paths(arch):
     with pytest.raises(SystemExit):
         train_cli.main(["--arch", arch, "--device", "cpu", "--steps", "1"])
