@@ -177,7 +177,30 @@ Phases, each of which fails the run (non-zero exit, no result line):
    on its worst case (scores rising with the id, held to the exact
    answer) and beside ``torch.topk(pq_score_batched(...))``, the two
    calls it fuses;
-14. print one ``{"kernels": [...]}`` JSON line (launches summed over
+14. the retrieval-scale phase: ``ivf_pq`` at the JAX bench's
+   ``bench_retrieval_scale`` widths and knobs (``IVF_*``) over a
+   1,000,000-row Zipf-clustered corpus kept on the host (cut from the
+   bench's default 10M rows for time), built through
+   ``build_ivf_artifact`` (sampled coarse and PQ fits, 8 blocks of
+   131,072 rows staged to the card, 8 ``dpq_assign`` launches, counts
+   set to 0 just before and read just after): ``BuildStats`` and the
+   list layout, the layout's codes held to the plain assignment and
+   ``dpq_assign`` timed at the build's shape; then nprobe in 1, 4, 16,
+   64, 128 over its 16 queries, 30 searches each on the card and
+   through a host-staged ``RetrievalEngine`` (counted: one
+   ``pq_score_batched`` a search), recall@100 against the exact dense
+   scan, p50/p99, staged MB and host split a flush, the search with the
+   plain scoring in the kernel's place timed at nprobe 128 and
+   ``pq_score_batched`` at the search's shape;
+   every search bit-identical to the plain per-query scoring, the
+   host-staged results to the device's; the run fails unless some
+   nprobe reaches recall@100 >= 0.95 and the build's peak device bytes
+   stay within their bound.  Then two-tower's ``CONFIG`` through
+   ``serve_retrieval(index_kind="ivf_pq", nprobe=128, host_staged=True)``
+   over 1M candidates (counted: one ``dpq_assign``): recall@100
+   (reported), queries/s beside phase 12's flat_pq, every flush
+   bit-identical to the device search;
+15. print one ``{"kernels": [...]}`` JSON line (launches summed over
    every path), then, last, the ``{"ok": true, "device": ...}`` line.
 
 It needs one card and no arguments, imports nothing of JAX, and runs
@@ -290,6 +313,28 @@ RESUME_ARCHS = ("deepfm", "autoint")
 # ``bench_retrieval_topk``'s batch=16).
 TT_TRAIN_USERS = 5_000_000
 TT_QUERIES = 16
+
+# the retrieval-scale phase: the JAX bench's ``bench_retrieval_scale``
+# (benchmarks/kernel_bench.py:786-880) at its --quick row count, 1M
+# rows, cut from its default 10M for time (the corpus generator, host
+# work that grows faster than the rows, takes about 9 s at 1M); its
+# widths and knobs otherwise: d = 64, D = 8, K = 128, nlist =
+# suggest_nlist(n, 128) = 1,000, 10 + 10 Lloyd iterations, train_sample
+# and encode_block 131,072, lists capped at the 0.9 count quantile, the
+# corpus Zipf(1.3)-clustered over min(2048, suggest_nlist(n)) clusters;
+# its 16 queries, nprobe swept, 30 searches at each (the bench's
+# ``iters`` up to 2M rows).  Its gates: recall@100 >= IVF_RECALL at
+# some swept nprobe, and the build's peak device bytes within the
+# config's bound.
+IVF_ROWS = 1_000_000
+IVF_DIM, IVF_SUB, IVF_K = 64, 8, 128
+IVF_BLOCK = 131_072
+IVF_NPROBES = (1, 4, 16, 64, 128)
+IVF_ITERS = 30
+IVF_RECALL = 0.95
+# two-tower's CONFIG through serve_retrieval(index_kind="ivf_pq",
+# host_staged=True) at the sweep's widest probe
+TT_IVF_NPROBE = 128
 
 # the backbone phase (the paper's §3.2 and benchmarks/convergence.py
 # --full): ML-1M-like 6,040 users x 3,416 items, d = 64, D = 8, K = 256
@@ -3803,7 +3848,7 @@ def retrieval_path():
     """two-tower retrieval at full width: serve_retrieval, then the
     stream kept per flush, the exactness oracle and one user's ADC
     scores; checks (a)-(d), and the index's codes against the plain
-    assignment.  Returns (launches, errs, timing inputs)."""
+    assignment.  Returns (launches, errs, timing inputs, queries/s)."""
     import numpy as np
     import torch
     from repro_torch.configs import get_arch
@@ -3935,7 +3980,7 @@ def retrieval_path():
     del run, flushes, oracle, adc
     gc.collect()
     torch.cuda.empty_cache()
-    return launches, errs, timing
+    return launches, errs, timing, st.lookups_per_s
 
 
 def luts_of(queries, cent):
@@ -4034,6 +4079,377 @@ def time_pq_kernels(errs: dict, launches: dict, luts, codes) -> list:
     return out
 
 
+# ----------------------------------------------------------------------
+# the retrieval-scale phase: ivf_pq built from a host corpus at the JAX
+# bench's widths, searched on the card and host-staged; two-tower's
+# CONFIG served through an IVF index
+# ----------------------------------------------------------------------
+
+def ivf_plain_search(index, art, q, k):
+    """``index.search`` recomputed query by query on the same tables:
+    its probe, then each query's own probed rows scored by the plain ADC
+    (``pq_score_batched_ref`` on that query's LUT: the sum from +0.0 in
+    subspace order), masked and selected as the index does."""
+    import torch
+    from repro_torch.kernels.pq_score import (INVALID_ID, build_lut_batch,
+                                              pq_score_batched_ref)
+    from repro_torch.retrieval import topk_by_position
+    probe_s, lists = index._probe(art, q)
+    luts = build_lut_batch(q, art["centroids"]).contiguous()
+    out_s, out_i = [], []
+    for b in range(q.shape[0]):
+        chain = art["list_chain"][lists[b]]                 # (P, C)
+        live = chain >= 0
+        rows = torch.where(live, chain, 0).long()
+        codes = art["list_codes"][rows]                     # (P, C, cap, D)
+        ids = art["list_ids"][rows]
+        s = pq_score_batched_ref(luts[b:b + 1], codes.reshape(
+            -1, codes.shape[-1]))[0].reshape(ids.shape)
+        if index.cfg.ivf_residual:
+            s = s + probe_s[b][:, None, None]
+        valid = (ids != INVALID_ID) & live[..., None]
+        s = torch.where(valid, s, float("-inf"))
+        ids = torch.where(valid, ids, INVALID_ID)
+        ts, _, ti = topk_by_position(s.reshape(1, -1), ids.reshape(1, -1), k)
+        out_s.append(ts)
+        out_i.append(ti)
+    return torch.cat(out_s), torch.cat(out_i)
+
+
+def plain_scoring(index):
+    """An index of ``index``'s config whose search scores the probed
+    candidates by the plain version (each query's own probed rows
+    gathered and summed in PyTorch, ``probed_scores_ref``) in place of
+    ``pq_score_batched`` over the unique lists: the route the kernel's
+    was kept over, timed beside it and held bit-identical to it."""
+    from repro_torch.retrieval.ivf_pq import IVFPQ, probed_scores_ref
+
+    class PlainScoring(IVFPQ):
+        def _candidate_scores(self, luts, list_codes, chain):
+            b = chain.shape[0]
+            codes = list_codes[chain.reshape(b, -1)]   # (B, P·C, cap, D)
+            return probed_scores_ref(luts, codes.reshape(
+                b, -1, list_codes.shape[2]))
+
+    return PlainScoring(index.cfg)
+
+
+def timed_calls(fn, iters=IVF_ITERS):
+    """``fn()`` once to warm, then ``iters`` times, each to the card's
+    synchronise: (last result, p50 ms, p99 ms, calls made)."""
+    import numpy as np
+    import torch
+    out = fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return (out, float(np.percentile(times, 50)),
+            float(np.percentile(times, 99)), iters + 1)
+
+
+def same_topk(a, b) -> bool:
+    import torch
+    return (torch.equal(bits(a[0]), bits(b[0]))
+            and torch.equal(a[1].to(b[1].device), b[1]))
+
+
+def ivf_recall(ids, exact) -> float:
+    import numpy as np
+    ids = ids.cpu().numpy()
+    return float(np.mean([np.isin(ids[b], exact[b]).mean()
+                          for b in range(ids.shape[0])]))
+
+
+def time_ivf_scoring(index, art, q) -> None:
+    """``pq_score_batched`` at the IVF search's shape (the kernel route:
+    the B queries' LUTs over the codes of every list they probe, U·cap
+    rows): kernel, plain version and ``F.embedding_bag`` timed beside
+    the bound, the kernel held bit-identical to the plain version."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.pq_score import (build_lut_batch,
+                                              pq_score_batched,
+                                              pq_score_batched_ref)
+    _, lists = index._probe(art, q)
+    chain, _ = index._expand_chain(art["list_chain"], lists)
+    uniq = torch.unique(chain)
+    codes = art["list_codes"][uniq].reshape(-1, art["list_codes"].shape[2])
+    luts = build_lut_batch(q, art["centroids"]).contiguous()
+    b, d, k = luts.shape
+    n = codes.shape[0]
+    need(torch.equal(bits(pq_score_batched(luts, codes)),
+                     bits(pq_score_batched_ref(luts, codes))),
+         "pq_score_batched == plain at the IVF search's shape")
+    offs = (codes.long() + torch.arange(d, device=codes.device) * k
+            ).contiguous()
+    table = luts.permute(1, 2, 0).reshape(d * k, b).contiguous()
+    ms, _ = time_ms(lambda: pq_score_batched(luts, codes), iters=20,
+                    warmup=2)
+    plain, _ = time_ms(lambda: pq_score_batched_ref(luts, codes), iters=3,
+                       warmup=1, hold=False)
+    lib, _ = time_ms(lambda: F.embedding_bag(offs, table, mode="sum"),
+                     iters=20, warmup=2)
+    nbytes = n * d + b * d * k * 4 + b * n * 4
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_o = b * n * d / F32_FLOP_PER_S * 1e3
+    log(f"time pq_score_batched at the ivf search (nprobe="
+        f"{index.cfg.nprobe}: {len(uniq)} unique lists) N={n} B={b} D={d} "
+        f"K={k}: kernel {ms:.5f} ms, plain {plain:.5f} ms, library "
+        f"{lib:.5f} ms (F.embedding_bag), bound {max(t_b, t_o):.5f} ms by "
+        f"{'bytes' if t_b >= t_o else 'operations'} ({nbytes} bytes); "
+        f"held bit-identical to the plain version")
+
+
+def ivf_scale_phase() -> dict:
+    """The JAX bench's retrieval scale on the card (IVF_* above): the
+    streamed build from a host corpus, the nprobe sweep on the device and
+    host-staged, both scoring routes at the widest probe; checks and
+    gates as in the module docstring.  Returns the launches of its two
+    counted runs (the build, the searches)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.data.synthetic import pq_clustered_corpus
+    from repro_torch.kernels.pq_score import INVALID_ID
+    from repro_torch.launch.engine import RetrievalEngine
+    from repro_torch.retrieval import (IndexConfig, build_ivf_artifact,
+                                       get_index, suggest_nlist)
+
+    t_phase = time.perf_counter()
+    n, k, b = IVF_ROWS, TOPK, TT_QUERIES
+    t0 = time.perf_counter()
+    vecs, q_np = pq_clustered_corpus(
+        n=n, d=IVF_DIM, num_subspaces=IVF_SUB, n_queries=b,
+        n_clusters=min(2048, suggest_nlist(n)), cluster_zipf_a=1.3)
+    gen_s = time.perf_counter() - t0
+    nlist = suggest_nlist(n, max(IVF_NPROBES))
+    cfg = IndexConfig(kind="ivf_pq", num_subspaces=IVF_SUB,
+                      num_centroids=IVF_K, iters=10, coarse_iters=10,
+                      nlist=nlist, nprobe=max(IVF_NPROBES),
+                      train_sample=min(n, IVF_BLOCK),
+                      encode_block=min(n, IVF_BLOCK), list_cap_quantile=0.9)
+    log(f"ivf scale: corpus {n} x {IVF_DIM} f32 on the host "
+        f"({vecs.nbytes / 1e6:.1f} MB, generated in {gen_s:.1f}s), "
+        f"{b} queries; nlist={nlist} D={IVF_SUB} K={IVF_K} "
+        f"train_sample={cfg.train_sample} encode_block={cfg.encode_block} "
+        f"list_cap_quantile={cfg.list_cap_quantile}")
+
+    # the build: counts set to 0 just before, read just after
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    counters = reset_counts()
+    art_host, stats = build_ivf_artifact(
+        torch.Generator(device="cuda").manual_seed(0), vecs, cfg)
+    build_launches = {name: fn.launches for name, fn in counters.items()}
+    build_peak = torch.cuda.max_memory_allocated() - base
+    st = stats
+    split = ", ".join(f"{step} {sec:.3f}s"
+                      for step, sec in st.step_seconds.items())
+    log(f"ivf scale build: {st.seconds:.3f}s in {st.blocks} blocks of "
+        f"{st.block_rows} (sample {st.sample_rows}): {split}; peak device "
+        f"bytes {st.peak_device_bytes} ({st.peak_device_bytes / 1e6:.1f} MB)"
+        f" vs bound {st.device_bound_bytes} "
+        f"({st.device_bound_bytes / 1e6:.1f} MB) -> "
+        f"{'OK' if st.peak_device_ok else 'BLOWN'}; allocator peak over "
+        f"the build {build_peak / 1e6:.1f} MB; launches {build_launches}")
+    layout_mb = (art_host["list_codes"].numel()
+                 * art_host["list_codes"].element_size()
+                 + 4 * art_host["list_ids"].numel()) / 1e6
+    padded_mb = nlist * st.list_count_max * (IVF_SUB + 4) / 1e6
+    ideal_mb = n * (IVF_SUB + 4) / 1e6
+    log(f"ivf scale layout: lists max {st.list_count_max} mean "
+        f"{st.list_count_mean:.1f}, cap {st.list_cap} (q=0.9), chain <= "
+        f"{st.max_chain}, {st.lists_ext} ext lists -> {layout_mb:.1f} MB "
+        f"(pad-to-max {padded_mb:.1f} MB, ideal {ideal_mb:.1f} MB)")
+    need(st.peak_device_ok, "ivf build peak device bytes within the bound")
+    need(build_launches["dpq_assign"] == st.blocks == -(-n // IVF_BLOCK),
+         f"the build launched dpq_assign once a block "
+         f"({build_launches['dpq_assign']} of {st.blocks})")
+    need(all(v == 0 for name, v in build_launches.items()
+             if name != "dpq_assign"), "no other kernel in the build")
+
+    art = {name: leaf.cuda() for name, leaf in art_host.items()}
+    q = torch.from_numpy(q_np).cuda()
+    # the exact dense scan, and the build's codes against the plain
+    # assignment (as phase 3 holds dpq_assign)
+    vecs_dev = torch.from_numpy(vecs).cuda()
+    exact = torch.topk(q @ vecs_dev.T, k, dim=1).indices.cpu().numpy()
+    e_all = vecs_dev.reshape(n, IVF_SUB, IVF_DIM // IVF_SUB)
+    cent = art["centroids"]
+    ids_flat = art["list_ids"].reshape(-1)
+    valid = ids_flat != INVALID_ID
+    need(int(valid.sum()) == n, "every corpus row in one list slot")
+    codes_row = torch.zeros((n, IVF_SUB), dtype=torch.uint8,
+                            device=cent.device)
+    codes_row[ids_flat[valid].long()] = art["list_codes"].reshape(
+        -1, IVF_SUB)[valid]
+    want = blocked_assign_ref_lim(e_all, cent, None)
+    gap = assign_gap(e_all, cent, None, codes_row, want)
+    agree = int((codes_row.long() == want.long()).sum())
+    log(f"ivf scale check dpq_assign B={n} D={IVF_SUB} K={IVF_K} "
+        f"S={IVF_DIM // IVF_SUB}: the layout's codes against the plain "
+        f"assignment, {agree} of {codes_row.numel()} equal, largest "
+        f"distance gap {gap:.3g} (tolerance {ASSIGN_TOL})")
+    need(gap <= ASSIGN_TOL, f"ivf codes within {ASSIGN_TOL} of the plain "
+         f"assignment")
+    assign_t = time_assign_pass("ivf scale build", e_all, cent, None,
+                                IVF_BLOCK)
+    del vecs_dev, e_all, want, codes_row
+    torch.cuda.empty_cache()
+
+    # the searches: counts set to 0 just before, read just after
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    counters = reset_counts()
+    searches = 0
+    sweep, outs = {}, {}
+    for p in IVF_NPROBES:
+        idx = get_index(dataclasses.replace(cfg, nprobe=p))
+        out, p50, p99, calls = timed_calls(lambda: idx.search(art, q, k))
+        searches += calls
+        outs[p] = out
+        per_query = p * st.max_chain * st.list_cap
+        sweep[p] = {"recall": ivf_recall(out[1], exact), "p50": p50,
+                    "p99": p99, "candidates": per_query}
+        if p == max(IVF_NPROBES):
+            plain = plain_scoring(idx)
+            other, o50, o99, _ = timed_calls(lambda: plain.search(art, q, k))
+            need(same_topk(other, out), f"the plain scoring's search == "
+                 f"the kernel's at nprobe={p}")
+            sweep[p]["plain"] = (o50, o99)
+    device_peak = torch.cuda.max_memory_allocated() - base
+    staged = {}
+    for p in IVF_NPROBES:
+        pcfg = dataclasses.replace(cfg, nprobe=p, host_staged=True)
+        eng = RetrievalEngine(get_index(pcfg), art_host, k=k, block_q=b)
+        got, p50, p99, calls = timed_calls(lambda: eng.search(q_np))
+        searches += calls
+        need(same_topk(got, outs[p]), f"host-staged == device search at "
+             f"nprobe={p}")
+        staged[p] = {"p50": p50, "p99": p99,
+                     "mb": eng.staged_mbytes / calls,
+                     "host_ms": eng.index.stage_seconds * 1e3 / calls}
+        if p == max(IVF_NPROBES):
+            staged_eng = eng
+    launches = {name: fn.launches for name, fn in counters.items()}
+    need(launches["pq_score_batched"] == searches,
+         f"one pq_score_batched a search "
+         f"({launches['pq_score_batched']} of {searches})")
+    need(all(v == 0 for name, v in launches.items()
+             if name != "pq_score_batched"), "no other kernel in a search")
+    for p in IVF_NPROBES:
+        s = sweep[p]
+        extra = ("" if "plain" not in s else
+                 f"; plain scoring p50 {s['plain'][0]:.3f} ms p99 "
+                 f"{s['plain'][1]:.3f} ms")
+        log(f"ivf scale nprobe={p:>4}: recall@{k} {s['recall']:.3f} | "
+            f"device p50 {s['p50']:.3f} ms p99 {s['p99']:.3f} ms"
+            f"{extra} | host-staged p50 {staged[p]['p50']:.3f} ms p99 "
+            f"{staged[p]['p99']:.3f} ms, {staged[p]['mb']:.2f} MB a flush, "
+            f"host split {staged[p]['host_ms']:.3f} ms | "
+            f"{s['candidates']} candidate slots a query")
+    best = max(s["recall"] for s in sweep.values())
+    art_mb = sum(t.numel() * t.element_size() for t in art.values()) / 1e6
+    log(f"ivf scale: search launches {launches}; peak device memory of "
+        f"the device searches {device_peak / 1e6:.1f} MB above the "
+        f"artifact's {art_mb:.1f} MB")
+    need(best >= IVF_RECALL, f"recall@{k} >= {IVF_RECALL} at some swept "
+         f"nprobe (best {best:.3f})")
+
+    # every search bit-identical to the plain per-query scoring
+    for p in IVF_NPROBES:
+        idx = get_index(dataclasses.replace(cfg, nprobe=p))
+        need(same_topk(ivf_plain_search(idx, art, q, k), outs[p]),
+             f"search == plain per-query scoring at nprobe={p}")
+    log(f"ivf scale checks: every search bit-identical to the plain "
+        f"per-query scoring, host-staged to device, the plain scoring's "
+        f"search at nprobe={max(IVF_NPROBES)} to the kernel's")
+    idx = get_index(cfg)
+    time_ivf_scoring(idx, art, q)
+    profile_phase(f"ivf device search nprobe={cfg.nprobe}",
+                  lambda: idx.search(art, q, k))
+    profile_phase(f"ivf host-staged flush nprobe={cfg.nprobe}",
+                  lambda: staged_eng.search(q_np))
+    log(f"ivf scale phase {time.perf_counter() - t_phase:.1f}s; dpq_assign "
+        f"per launch {assign_t['ms']:.5f} ms (bound "
+        f"{assign_t['bound_ms']:.5f} ms by {assign_t['bound_by']})")
+    del art, art_host, staged_eng, outs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {name: build_launches[name] + launches[name]
+            for name in launches}
+
+
+def two_tower_ivf_path(flat_qps: float) -> dict:
+    """Two-tower's CONFIG through ``serve_retrieval(index_kind="ivf_pq",
+    nprobe=TT_IVF_NPROBE, host_staged=True)`` over the retrieval
+    corpus: counts set to 0 just before and read just after; recall and
+    queries/s beside phase 12's flat_pq; every flush bit-identical to the
+    device search of the same queries.  Returns the launches."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import serve_retrieval
+
+    _, cfg = get_arch("two-tower-retrieval", smoke=False)
+    n_cand = retrieval_candidates()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters = reset_counts()
+    t0 = time.perf_counter()
+    run = serve_retrieval(cfg, n_cand, index_kind="ivf_pq",
+                          nprobe=TT_IVF_NPROBE, topk=TOPK, host_staged=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    st = run.stats
+    log(f"two-tower ivf_pq ({run.index.describe()}, host-staged): "
+        f"{wall:.1f}s (index build {run.build_seconds:.3f}s); engine "
+        f"{st.requests} requests / {st.lookups} queries in {st.flushes} "
+        f"flushes, {st.seconds:.6f}s -> {st.lookups_per_s:,.1f} queries/s "
+        f"(flat_pq, phase 12: {flat_qps:,.1f}); staged "
+        f"{run.engine.staged_mbytes:.2f} MB over {2 * st.flushes} flushes; "
+        f"recall@{TOPK} vs the dense scan {run.recall:.3f} (random towers;"
+        f" reported, not gated); launches {launches}; peak device memory "
+        f"{peak / 2**30:.2f} GiB")
+    need(st.requests == 50, "every ivf retrieval request served")
+    need(launches["dpq_assign"] == 1, "the IVF index's one encode launch")
+    checked = 0
+    for flat, res in drive_keeping_flushes(run.engine, run.requests):
+        pad = (-flat.shape[0]) % run.engine.pad_multiple
+        qd = torch.from_numpy(np.pad(flat, ((0, pad), (0, 0)))).cuda()
+        s, i = run.index.search(run.artifact, qd, TOPK)
+        got = (torch.cat([sc for sc, _ in res]),
+               torch.cat([ix for _, ix in res]))
+        need(same_topk(got, (s[:flat.shape[0]], i[:flat.shape[0]])),
+             "host-staged flush == device search")
+        checked += flat.shape[0]
+    log(f"two-tower ivf checks: {checked} queries' host-staged results "
+        f"bit-identical to the device search")
+    # the last flush's queries, device search, scored by the kernel and
+    # by the plain version
+    for what, index in (("pq_score_batched", run.index),
+                        ("plain", plain_scoring(run.index))):
+        _, p50, p99, _ = timed_calls(
+            lambda: index.search(run.artifact, qd, TOPK), iters=5)
+        log(f"two-tower ivf device search of {qd.shape[0]} queries, "
+            f"scoring {what}: p50 {p50:.3f} ms p99 {p99:.3f} ms")
+    profile_phase("two-tower ivf host-staged pass",
+                  lambda: run.engine.serve_stream(run.requests))
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4092,15 +4508,22 @@ def main() -> int:
     lm27_gap = lm27_export_check()
     gc.collect()
     torch.cuda.empty_cache()                 # free the card for two-tower
-    r_launches, r_errs, (luts, codes) = retrieval_path()
+    r_launches, r_errs, (luts, codes), flat_qps = retrieval_path()
     pq_errs = {name: max(errs[name], err) for name, err in r_errs.items()}
     kernels += time_pq_kernels(pq_errs, r_launches, luts, codes)
+    del luts, codes
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_ivf = time.perf_counter()
+    i_launches = [ivf_scale_phase(), two_tower_ivf_path(flat_qps)]
+    log(f"ivf phase {time.perf_counter() - t_ivf:.1f}s")
     for entry in kernels:                    # every path's launches
         name = entry["name"]
         entry["launches"] = sum(p.get(name, 0) for p in
                                 (launches, c_launches, h_launches,
                                  bag_launches, *ctr_launches,
-                                 b_launches, l_launches, r_launches))
+                                 b_launches, l_launches, r_launches,
+                                 *i_launches))
         if name == "dpq_assign":
             entry["max_abs_err"] = max(entry["max_abs_err"], pq_errs[name],
                                        c_errs[name], lm_assign_gap,

@@ -186,6 +186,43 @@ def flat_pq_artifact_from_numpy(artifact: dict, device) -> dict:
     return {"codes": codes, "centroids": cent}
 
 
+def ivf_pq_artifact_from_numpy(artifact: dict, device,
+                               host_staged: bool = False) -> dict:
+    """An ``ivf_pq`` artifact — coarse (nlist, d) float32, centroids
+    (D, K, S) float32, list_chain (nlist, C) int32, list_codes
+    (nlist_ext, cap, D) uint8/int32, list_ids (nlist_ext, cap) int32 —
+    as tensors on ``device``; with ``host_staged`` the list tables (the
+    index's host leaves) stay on the CPU."""
+    host = {"list_chain", "list_codes", "list_ids"} if host_staged else set()
+    want = ("coarse", "centroids", "list_chain", "list_codes", "list_ids")
+    if set(artifact) != set(want):
+        raise ValueError(f"ivf_pq artifact holds {sorted(artifact)}, want "
+                         f"{sorted(want)}")
+    out = {name: tensor_from_numpy(artifact[name],
+                                   "cpu" if name in host else device)
+           for name in want}
+    coarse, cent = out["coarse"], out["centroids"]
+    chain, codes, ids = out["list_chain"], out["list_codes"], out["list_ids"]
+    if (coarse.dim() != 2 or coarse.dtype != torch.float32
+            or cent.dim() != 3 or cent.dtype != torch.float32
+            or coarse.shape[1] != cent.shape[0] * cent.shape[2]
+            or chain.dim() != 2 or chain.dtype != torch.int32
+            or chain.shape[0] != coarse.shape[0]
+            or codes.dim() != 3
+            or codes.dtype not in (torch.uint8, torch.int32)
+            or codes.shape[2] != cent.shape[0]
+            or ids.dtype != torch.int32
+            or tuple(ids.shape) != tuple(codes.shape[:2])
+            or codes.shape[0] < coarse.shape[0]):
+        raise ValueError(
+            "want coarse (nlist, D*S) float32, centroids (D, K, S) "
+            "float32, list_chain (nlist, C) int32, list_codes (nlist_ext, "
+            "cap, D) uint8/int32 and list_ids (nlist_ext, cap) int32, got "
+            + ", ".join(f"{name} {tuple(t.shape)} {t.dtype}"
+                        for name, t in out.items()))
+    return out
+
+
 def lm_params_from_numpy(params: dict, cfg, device) -> dict:
     """The JAX LM params (numpy leaves) as the port's, leaf for leaf:
     the token embedding through :func:`params_from_numpy`, every other

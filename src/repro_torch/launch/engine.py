@@ -21,8 +21,10 @@ Two engines share that plumbing (``_MicroBatchEngine``):
                        table (the scheme's decode kernel: ``mgqe_decode``,
                        ``rq_decode_stages`` or ``packed_decode``);
   ``RetrievalEngine``  query vectors -> (top-k scores, candidate ids)
-                       over a built retrieval index (the ``pq_topk``
-                       kernel, retrieval/).
+                       over a built retrieval index (retrieval/: the
+                       ``pq_topk`` kernel for flat_pq; ivf_pq's probed
+                       search, its list tables on the device or staged
+                       from host memory a flush at a time).
 
 ``ServingEngine`` can keep a hot-row cache: a dense block of the
 hottest rows, decoded once; each flush is split on the host into cached
@@ -31,8 +33,7 @@ gather-and-select merges the two (DESIGN.md §9).
 ``launch/async_engine.py`` wraps either engine in a latency front-end.
 
 Stats accumulate across flushes; ``stats()`` reports requests/second.
-The sharded (mesh) paths and host-staged retrieval are later slices in
-ROADMAP.md.
+The sharded (mesh) paths are a later slice in ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -499,38 +500,67 @@ class RetrievalEngine(_MicroBatchEngine):
     (the card by default; with no card present construction raises —
     pass ``device="cpu"``).
 
-    Single device only: ``mesh`` (a distributed corpus) and
-    ``host_staged`` (list tables kept in host memory, an IVF feature)
-    raise, naming their slices in ROADMAP.md.
+    Pass ``host_staged=True`` (or build the index with
+    ``IndexConfig(host_staged=True)``) to keep the O(corpus) list
+    tables in HOST memory, pinned on the card's host: every flush
+    stages only the probed lists to the device
+    (``Index.search_host_staged``, one upload on the current stream) —
+    upload ∝ B·nprobe·cap a flush, corpus-independent.  Single device
+    only: ``mesh`` (a distributed corpus) raises, naming its slice in
+    ROADMAP.md.
     """
 
     def __init__(self, index, artifact: dict, k: int,
                  block_q: int = 64, max_queue: int = 4096, mesh=None,
                  host_staged: Optional[bool] = None, device="cuda"):
+        if host_staged is None:
+            host_staged = index.cfg.host_staged
+        if host_staged:
+            if mesh is not None:
+                raise ValueError(
+                    "host_staged serving is single-device; a sharded "
+                    "corpus already bounds per-device bytes")
+            if not index.supports_host_staged:
+                raise ValueError(
+                    f"index kind {index.cfg.kind!r} has no host-staged "
+                    f"serve path")
         if mesh is not None:
             raise NotImplementedError(
                 "a retrieval mesh (sharded corpus) waits for the "
                 "distributed slice in ROADMAP.md")
-        if host_staged is None:
-            host_staged = index.cfg.host_staged
-        if host_staged:
-            raise NotImplementedError(
-                "host-staged retrieval waits for the IVF slice in "
-                "ROADMAP.md")
         self.index, self.k = index, k
         self.block_q = block_q
+        self.host_staged = bool(host_staged)
         device = resolve_device(device)
         super().__init__(pad_multiple=block_q, max_queue=max_queue,
                          device=device)
-        # device-resident once; requests only ship (B, d) f32 queries
-        self.artifact = {name: leaf.to(device)
+        # device-resident once; requests only ship (B, d) f32 queries.
+        # Host-staged: the host leaves stay on the CPU (pinned, for the
+        # flushes' uploads), the small ones (coarse table, codebooks)
+        # go to the device
+        host = set(index.host_leaves()) if self.host_staged else set()
+        self.artifact = {name: self._place(leaf, name in host)
                          for name, leaf in artifact.items()}
+
+    def _place(self, leaf, on_host: bool) -> torch.Tensor:
+        leaf = torch.as_tensor(leaf)
+        if not on_host:
+            return leaf.to(self.device)
+        leaf = leaf.cpu()
+        return leaf.pin_memory() if self.device.type == "cuda" else leaf
+
+    @property
+    def staged_mbytes(self) -> float:
+        """Total MB staged to the device so far (host-staged mode)."""
+        return float(getattr(self.index, "staged_bytes", 0)) / 1e6
 
     def _coerce_host(self, queries) -> np.ndarray:
         q = np.asarray(queries, np.float32)
         return q[None] if q.ndim == 1 else q
 
     def _run(self, flat: torch.Tensor, n_valid: int):
+        if self.host_staged:
+            return self.index.search_host_staged(self.artifact, flat, self.k)
         return self.index.search(self.artifact, flat, self.k)
 
     def search(self, queries):

@@ -13,7 +13,9 @@
   ``--arrival-rate`` requests/s through the async front-end, which
   reports p50/p99/p999 against ``--slo-ms``;
 * ``--arch two-tower-retrieval`` without ``--engine``: build a
-  ``flat_pq`` index over the item tower's outputs and serve top-k
+  ``flat_pq`` index (or with ``--retrieval ivf_pq`` an IVF index of
+  ``--nprobe`` probes, its list tables kept in host memory with
+  ``--host-staged``) over the item tower's outputs and serve top-k
   retrieval for a stream of user batches through the RetrievalEngine;
 * ``--arch deepfm`` / ``autoint`` / ``bst`` without ``--engine``: the
   CTR model itself — init, export its tables, score one batch
@@ -26,6 +28,9 @@
         --arrival-rate 1000
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch two-tower-retrieval --full --candidates 1000000
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch two-tower-retrieval --retrieval ivf_pq --nprobe 8 \\
+        --host-staged
     PYTHONPATH=src python -m repro_torch.launch.serve --arch deepfm \\
         --full --batch 4096
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-4b \\
@@ -34,8 +39,8 @@
 run on the card and report lookups/second, queries/second or the
 batch's time, or the prefill's seconds and decode tokens/s;
 ``--device cpu`` runs the same paths on the CPU with the plain PyTorch
-ops.  The mesh, ``ivf_pq`` and host-staged paths of the JAX package's
-CLI are later slices in ROADMAP.md.
+ops.  The mesh paths of the JAX package's CLI are a later slice in
+ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -190,26 +195,32 @@ class RetrievalRun:
 
 
 def serve_retrieval(cfg, n_candidates: int, index_kind: str = "flat_pq",
-                    topk: int = 100, n_requests: int = 50,
-                    req_batch: int = 16, backend=None, device="cuda",
+                    nprobe: int = 8, topk: int = 100, n_requests: int = 50,
+                    req_batch: int = 16, backend=None,
+                    host_staged: bool = False, device="cuda",
                     seed: int = 0) -> RetrievalRun:
     """Top-k candidate retrieval through the index registry and the
     micro-batching RetrievalEngine: build the index over the item
     tower's outputs for ``n_candidates`` items, stream ``n_requests``
     batches of 1..``req_batch`` users through the engine (a warm pass,
     then the measured one), and measure recall@``topk`` against the
-    exact dense scan."""
+    exact dense scan.  An IVF index gets ``nlist = suggest_nlist(n,
+    nprobe)``; ``host_staged`` keeps its list tables in host memory and
+    stages only the probed lists a flush."""
     from repro_torch.core.api import resolve_device
     from repro_torch.launch.engine import RetrievalEngine, drive_stream
     from repro_torch.models.recsys.two_tower import TwoTower
-    from repro_torch.retrieval import IndexConfig
+    from repro_torch.retrieval import IndexConfig, suggest_nlist
 
     device = resolve_device(device)
     model = TwoTower(cfg, device=device)
     params = model.init(torch.Generator(device=device).manual_seed(seed))
     n = min(n_candidates, cfg.n_items)
     item_ids = torch.arange(n, device=device)
+    # nlist ~ sqrt(N) balances probed work against list length
+    nlist = suggest_nlist(n, nprobe)
     icfg = IndexConfig(kind=index_kind, num_subspaces=8, num_centroids=64,
+                       nlist=nlist, nprobe=min(nprobe, nlist),
                        kernel_backend=backend)
 
     # offline: build the index over the PQ-coded candidate tower outputs
@@ -222,12 +233,14 @@ def serve_retrieval(cfg, n_candidates: int, index_kind: str = "flat_pq",
     build_s = time.perf_counter() - t0
     code_mb = sum(artifact[name].numel() * artifact[name].element_size()
                   for name in index.rows_leaves) / 1e6
+    detail = index.describe()
     print(f"{index_kind} index built in {build_s:.1f}s: {code_mb:.1f} MB "
-          f"corpus rows vs {n * cfg.tower_mlp[-1] * 4 / 1e6:.1f} MB dense")
+          f"corpus rows vs {n * cfg.tower_mlp[-1] * 4 / 1e6:.1f} MB dense"
+          + (f" ({detail})" if detail else ""))
 
     # online: stream user batches through the engine; top-k ids + scores
     engine = RetrievalEngine(index, artifact, k=topk, block_q=16,
-                             device=device)
+                             host_staged=host_staged, device=device)
     rng = np.random.default_rng(0)
     users = [rng.integers(0, cfg.n_users, int(rng.integers(1, req_batch + 1)))
              for _ in range(n_requests)]
@@ -237,6 +250,10 @@ def serve_retrieval(cfg, n_candidates: int, index_kind: str = "flat_pq",
     print(f"engine: {st.requests} requests / {st.lookups} queries in "
           f"{st.flushes} flushes, {st.seconds:.6f}s on {device} -> "
           f"{st.lookups_per_s:,.0f} queries/s x top-{topk}")
+    if host_staged:
+        print(f"host-staged: {engine.staged_mbytes:.2f} MB staged over "
+              f"{st.flushes * 2} flushes (warm+measured) vs "
+              f"{code_mb:.1f} MB device-resident")
 
     # recall vs the exact dense scan, one probe batch
     probe = torch.arange(8, device=device)
@@ -418,15 +435,14 @@ def main(argv=None):
                     help="two-tower retrieval: items in the index")
     ap.add_argument("--retrieval", default="flat_pq",
                     help="retrieval index kind for two-tower serving "
-                         "(ported: flat_pq)")
-    ap.add_argument("--nprobe", type=int, default=None,
-                    help="ivf_pq: coarse lists probed per query (not "
-                         "ported: IVF is a later slice)")
+                         "(flat_pq | ivf_pq)")
+    ap.add_argument("--nprobe", type=int, default=8,
+                    help="ivf_pq: coarse lists probed per query")
     ap.add_argument("--topk", type=int, default=100,
                     help="candidates returned per retrieval query")
     ap.add_argument("--host-staged", action="store_true",
-                    help="retrieval: keep the list tables in host memory "
-                         "(not ported: IVF is a later slice)")
+                    help="retrieval: keep the list tables in host memory, "
+                         "staging probed lists per flush (ivf_pq)")
     ap.add_argument("--batch", type=int, default=4,
                     help="CTR serving: rows in the scored batch; LM "
                          "serving: prompts")
@@ -472,9 +488,9 @@ def main(argv=None):
     if args.zipf_a and args.zipf_a <= 1.0:
         ap.error(f"--zipf-a must be > 1.0 (the truncated power law "
                  f"diverges at a <= 1), got {args.zipf_a}")
-    if args.nprobe is not None or args.host_staged:
-        ap.error("--nprobe and --host-staged belong to ivf_pq, which waits "
-                 "for the IVF slice in ROADMAP.md")
+    if args.host_staged and args.engine:
+        ap.error("--host-staged applies to the retrieval serving path, "
+                 "not --engine")
     if (args.hot_rows or args.hot_refresh or args.use_async) \
             and not args.engine:
         ap.error("--hot-rows/--hot-refresh/--async require --engine")
@@ -511,13 +527,20 @@ def main(argv=None):
             return serve_ctr(cfg, args.batch, device=args.device)
         except ValueError as e:             # a model serve_ctr does not serve
             ap.error(str(e))
-    from repro_torch.retrieval import registered_index_kinds
+    from repro_torch.retrieval import index_class, registered_index_kinds
     if args.retrieval not in registered_index_kinds():
         ap.error(f"unknown index kind {args.retrieval!r}; registered "
                  f"indexes: {', '.join(registered_index_kinds())}")
+    if args.nprobe < 1:
+        ap.error(f"--nprobe must be >= 1, got {args.nprobe}")
+    if args.host_staged and not index_class(args.retrieval
+                                            ).supports_host_staged:
+        ap.error(f"index kind {args.retrieval!r} has no host-staged serve "
+                 f"path")
     return serve_retrieval(cfg, args.candidates, index_kind=args.retrieval,
-                           topk=args.topk, backend=args.kernel_backend,
-                           device=args.device)
+                           nprobe=args.nprobe, topk=args.topk,
+                           backend=args.kernel_backend,
+                           host_staged=args.host_staged, device=args.device)
 
 
 if __name__ == "__main__":

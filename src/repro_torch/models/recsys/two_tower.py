@@ -94,7 +94,9 @@ class TwoTower:
                     item_ids: torch.Tensor, index_cfg=None) -> Tuple:
         """Offline: run the item tower over the corpus and build a
         retrieval index over the *tower outputs* through the index
-        registry.  Returns ``(index, artifact)``."""
+        registry — any registered kind (``flat_pq``, ``ivf_pq``); the
+        artifact lies on the outputs' device.  Returns ``(index,
+        artifact)``."""
         from repro_torch.retrieval import IndexConfig, get_index
         index = get_index(index_cfg or IndexConfig())
         vecs = self.encode_items(params, item_ids)
@@ -106,8 +108,9 @@ class TwoTower:
         """Batched top-k retrieval: user_ids (B,) -> (scores (B, k),
         item ids (B, k)) through the index's batched search — one
         user-tower pass + one pass over the code stream for the whole
-        batch.  With no mesh (the only case ported) this is
-        ``index.search``, as the JAX package's ``sharded_topk`` is."""
+        batch (``ivf_pq``: the probed lists only).  With no mesh (the
+        only case ported) this is ``index.search``, as the JAX
+        package's ``sharded_topk`` is."""
         u, _ = self.user_vec(params, user_ids)
         return index.search(artifact, u, k)
 

@@ -1,12 +1,12 @@
 """Retrieval index protocol + registry.
 
 An *index* is one way of organizing a PQ-coded corpus for batched
-top-k retrieval: the exact flat scan (``flat_pq.py``) or, once its
-slice lands, the IVF coarse partition.  Each index is ONE class
-registered under its ``IndexConfig.kind`` string:
+top-k retrieval: the exact flat scan (``flat_pq.py``) or the IVF
+coarse partition (``ivf_pq.py``).  Each index is ONE class registered
+under its ``IndexConfig.kind`` string:
 
-    @register_index("flat_pq")
-    class FlatPQ(Index):
+    @register_index("ivf_pq")
+    class IVFPQ(Index):
         ...
 
 Every integration layer resolves indexes through this registry instead
@@ -27,8 +27,7 @@ Top-k ordering contract (all kinds, all backends): entries sorted by
 carry ``score = -inf, id = INVALID_ID`` (``retrieval/topk.py``).
 
 Not ported yet, each raising with its slice in ROADMAP.md: the
-``ivf_pq`` kind, host-staged serving and the distributed search
-(``artifact_shard_specs``, ``local_topk``).
+distributed search (``artifact_shard_specs``, ``local_topk``).
 """
 from __future__ import annotations
 
@@ -41,7 +40,6 @@ import torch
 from repro_torch.core.types import KERNEL_BACKENDS
 
 _DISTRIBUTED = "the distributed slice (sharded retrieval) in ROADMAP.md"
-_HOST_STAGED = "the IVF slice (ivf_pq and host-staged serving) in ROADMAP.md"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,7 +106,7 @@ class Index:
     """Protocol every retrieval index implements.
 
     Required overrides: ``build`` / ``search`` (plus the ``validate``
-    classmethod where the default doesn't fit).
+    / ``probe_config`` classmethods where the defaults don't fit).
     ``rows_leaves`` names the artifact keys whose leading dim is
     O(corpus).
     """
@@ -126,6 +124,18 @@ class Index:
         """Kind-specific config validation (IndexConfig.__post_init__
         calls this through the registry)."""
 
+    @classmethod
+    def probe_config(cls) -> IndexConfig:
+        """A tiny IndexConfig for capability probing / conformance
+        (build -> search must run in milliseconds)."""
+        return IndexConfig(kind=cls.kind, num_subspaces=4,
+                           num_centroids=8, iters=2, nlist=4, nprobe=2,
+                           coarse_iters=2)
+
+    def describe(self) -> str:
+        """The kind's knobs for a build line ("" when it has none)."""
+        return ""
+
     # --------------------------------------------------------- required
     def build(self, gen: torch.Generator, vectors: torch.Tensor) -> Dict:
         """Offline: corpus vectors (N, d) -> serving artifact dict."""
@@ -136,13 +146,26 @@ class Index:
         """Batched top-k: queries (B, d) -> (scores (B, k), ids (B, k))."""
         raise NotImplementedError
 
-    # ------------------------------------------- not ported: raise
+    # ---------------------------------------------------- host-staged
+    # kinds that can keep their O(corpus) leaves in host memory and
+    # stage only the rows a flush probes set this to True and implement
+    # search_host_staged
+    supports_host_staged: bool = False
+
+    def host_leaves(self) -> Tuple[str, ...]:
+        """Artifact keys that stay host-resident under host-staged
+        serving — by default the O(corpus) row tables."""
+        return self.rows_leaves
+
     def search_host_staged(self, artifact: Dict, queries: torch.Tensor,
                            k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Search with the O(corpus) rows left in host memory."""
+        """Like ``search`` but the ``host_leaves()`` entries of
+        ``artifact`` lie in host memory; implementations stage only the
+        probed rows to the device, bit-identical to ``search``."""
         raise NotImplementedError(
-            f"host-staged search of index kind {self.kind!r} waits for "
-            f"{_HOST_STAGED}")
+            f"index kind {self.kind!r} has no host-staged serve path")
+
+    # ------------------------------------------- not ported: raise
 
     def artifact_shard_specs(self, artifact: Dict,
                              model_axis: str = "model") -> Dict:

@@ -52,6 +52,13 @@ def initial_centroids(gen: torch.Generator, vectors: torch.Tensor,
     return vectors.reshape(n, num_subspaces, s)[idx, sub]     # (D, K, S)
 
 
+# the largest (rows, K) distance matrix one Lloyd step materialises
+# (float32: 256 MB); a larger fit walks its rows in chunks of this many
+# elements, so the coarse fit of an IVF index over 1M rows at nlist =
+# 1,000 holds ~1 GB of temporaries instead of ~16 GB
+LLOYD_CHUNK_ELEMS = 1 << 26
+
+
 def lloyd(vectors: torch.Tensor, centroids: torch.Tensor,
           iters: int) -> torch.Tensor:
     """``iters`` Lloyd iterations per subspace from ``centroids``
@@ -59,21 +66,34 @@ def lloyd(vectors: torch.Tensor, centroids: torch.Tensor,
 
     An empty cluster keeps its centroid.  Subspaces are independent,
     so they run one at a time: the peak is one (N, K) distance matrix,
-    not D of them."""
+    not D of them.  Past ``LLOYD_CHUNK_ELEMS`` elements that matrix is
+    walked in row chunks: the codes are the same, and the per-cluster
+    sums add the chunks' partial sums (equal to one shot up to f32
+    rounding)."""
     n = vectors.shape[0]
     n_sub, k, s = centroids.shape
     x = vectors.reshape(n, n_sub, s)
+    rows = n if n * k <= LLOYD_CHUNK_ELEMS else max(1, LLOYD_CHUNK_ELEMS // k)
     out = []
     for d in range(n_sub):
         xd = x[:, d, :].contiguous()                          # (N, S)
         c = centroids[d]
         for _ in range(iters):
-            dist = torch.sum(torch.square(c), dim=-1)[None] - 2.0 * (xd @ c.T)
-            codes = torch.argmin(dist, dim=-1)                # (N,)
-            onehot = torch.zeros((n, k), dtype=x.dtype, device=x.device)
-            onehot.scatter_(1, codes[:, None], 1.0)
-            counts = torch.sum(onehot, dim=0)                 # (K,)
-            sums = onehot.T @ xd                              # (K, S)
+            c_sq = torch.sum(torch.square(c), dim=-1)[None]
+            counts = sums = None
+            for r0 in range(0, n, rows):
+                xr = xd[r0:r0 + rows]
+                dist = c_sq - 2.0 * (xr @ c.T)
+                codes = torch.argmin(dist, dim=-1)            # (rows,)
+                del dist
+                onehot = torch.zeros((xr.shape[0], k), dtype=x.dtype,
+                                     device=x.device)
+                onehot.scatter_(1, codes[:, None], 1.0)
+                part_n = torch.sum(onehot, dim=0)             # (K,)
+                part_s = onehot.T @ xr                        # (K, S)
+                del onehot
+                counts = part_n if counts is None else counts + part_n
+                sums = part_s if sums is None else sums + part_s
             c = torch.where(counts[:, None] > 0,
                             sums / torch.clamp(counts[:, None], min=1.0), c)
         out.append(c)

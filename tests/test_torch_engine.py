@@ -227,14 +227,32 @@ def test_serve_engine_of_every_kind_counters_equal_to_jax(kind, capsys):
     ["--arch", "deepfm", "--engine", "--mesh", "data=2"],       # not ported
     ["--arch", "deepfm", "--engine", "--kernel-backend", "xla"],
     ["--arch", "deepfm", "--engine", "--zipf-a", "0.5"],
+    ["--arch", "deepfm", "--device", "cpu", "--engine",
+     "--host-staged"],                                 # retrieval only
     ["--arch", "two-tower-retrieval", "--device", "cpu",
-     "--retrieval", "ivf_pq"],                                  # not ported
-    ["--arch", "two-tower-retrieval", "--device", "cpu", "--host-staged"],
-    ["--arch", "two-tower-retrieval", "--device", "cpu", "--nprobe", "4"],
+     "--host-staged"],                                 # flat: not stageable
+    ["--arch", "two-tower-retrieval", "--device", "cpu",
+     "--retrieval", "ivf_pq", "--nprobe", "0"],
 ])
 def test_cli_refuses_unported_or_bad_flags(argv):
     with pytest.raises(SystemExit):
         serve.main(argv)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--retrieval", "ivf_pq"],
+    ["--retrieval", "ivf_pq", "--host-staged"],
+    ["--retrieval", "ivf_pq", "--nprobe", "4"],
+])
+def test_cli_runs_ivf_flags(flags, capsys):
+    """The IVF flags the CLI once refused, run on the CPU."""
+    run = serve.main(["--arch", "two-tower-retrieval", "--device", "cpu",
+                      "--candidates", "2000"] + flags)
+    out = capsys.readouterr().out
+    nprobe = int(flags[flags.index("--nprobe") + 1]) if "--nprobe" in \
+        flags else 8
+    assert f"nprobe={nprobe})" in out and run.stats.requests == 50
+    assert run.engine.host_staged == ("--host-staged" in flags)
 
 
 def test_cli_unknown_arch():

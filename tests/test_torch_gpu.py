@@ -9,6 +9,8 @@ so it runs on a machine that has only PyTorch and the CUDA toolkit:
 
 (``--noconftest``: the suite's conftest imports JAX.)
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -2038,3 +2040,150 @@ def test_ctr_served_rows_on_card_match_plain_decode(cuda, arch, launches):
     logits = plain.serve(run.params, run.artifacts, run.batch)
     assert run.scores.is_cuda and bool(torch.isfinite(run.scores).all())
     assert torch.allclose(run.scores, logits, rtol=1e-5, atol=1e-5)
+
+
+# ------------------------------------------------- ivf_pq on the card
+
+def _ivf_corpus(n=60_000, seed=0):
+    from repro_torch.data.synthetic import pq_clustered_corpus
+    return pq_clustered_corpus(n=n, n_clusters=256, cluster_zipf_a=1.3,
+                               seed=seed)
+
+
+def _ivf_cfg(**kw):
+    return IndexConfig(**dict(kind="ivf_pq", num_subspaces=8,
+                              num_centroids=128, iters=5, coarse_iters=5,
+                              nlist=128, nprobe=32, train_sample=16_384,
+                              encode_block=16_384, list_cap_quantile=0.9)
+                       | kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("residual", [False, True])
+def test_ivf_probed_scoring_on_card_bit_identical_to_plain(cuda, residual):
+    """The search's scoring on the card — ``pq_score_batched`` over the
+    unique probed lists, one launch, then gathered — gives the plain
+    per-query scoring's bits (the kernel adds in the plain version's
+    order)."""
+    from repro_torch.kernels.pq_score import build_lut_batch
+    from repro_torch.retrieval import build_ivf_artifact, ivf_pq
+    vecs, q = _ivf_corpus()
+    cfg = _ivf_cfg(ivf_residual=residual)
+    host, _ = build_ivf_artifact(torch.Generator(device=cuda).manual_seed(0),
+                                 vecs, cfg, device=cuda)
+    art = {n: t.to(cuda) for n, t in host.items()}
+    index = get_index(cfg)
+    qd = torch.from_numpy(q).to(cuda)
+    _, lists = index._probe(art, qd)
+    chain, _ = index._expand_chain(art["list_chain"], lists)
+    luts = build_lut_batch(qd, art["centroids"]).contiguous()
+    plain = ivf_pq.probed_scores_ref(
+        luts, art["list_codes"][chain.reshape(q.shape[0], -1)].reshape(
+            q.shape[0], -1, 8))
+    before = pq_score_batched.launches
+    cand = index._candidate_scores(luts, art["list_codes"], chain)
+    assert pq_score_batched.launches - before == 1
+    _same_bits(cand, plain)
+    s, i = index.search(art, qd, 100)
+    assert bool(torch.isfinite(s).all()) and bool((i != INVALID_ID).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nprobe", [1, 16])
+def test_ivf_host_staged_on_card_equals_device_search(cuda, nprobe):
+    """Host-staged search (pinned host tables, one upload a flush) and
+    its engine on the card: bit-identical to the device search, and the
+    upload counted as ``staged_upload_bytes`` says."""
+    from repro_torch.retrieval import build_ivf_artifact
+    vecs, q = _ivf_corpus(seed=1)
+    cfg = _ivf_cfg(nprobe=nprobe)
+    host, stats = build_ivf_artifact(
+        torch.Generator(device=cuda).manual_seed(1), vecs, cfg, device=cuda)
+    assert host["list_codes"].device.type == "cpu"
+    assert host["coarse"].is_cuda and host["centroids"].is_cuda
+    art = {n: t.to(cuda) for n, t in host.items()}
+    index = get_index(cfg)
+    qd = torch.from_numpy(q).to(cuda)
+    want = index.search(art, qd, 100)
+    got = index.search_host_staged(host, qd, 100)
+    _same_bits(got[0], want[0])
+    assert torch.equal(got[1], want[1])
+    uniq, slots, _ = index.stage_plan(host["list_chain"].numpy(),
+                                      index._probe(art, qd)[1].cpu().numpy())
+    assert index.staged_bytes == index.staged_upload_bytes(
+        len(uniq), stats.list_cap, 8, slots.size)
+    eng = engine.RetrievalEngine(get_index(dataclasses.replace(
+        cfg, host_staged=True)), host, k=100, block_q=16)
+    assert eng.artifact["list_codes"].is_pinned()
+    s, i = eng.search(q)
+    _same_bits(s, want[0])
+    assert torch.equal(i, want[1])
+
+
+@pytest.mark.gpu
+def test_ivf_async_host_staged_on_card_matches_sync(cuda):
+    """A host-staged IVF engine behind the async front-end: its flushes
+    (the probe, the host gather and the upload on the flush thread's
+    stream) give every future the synchronous device engine's bits."""
+    from repro_torch.launch.async_engine import AsyncServingEngine
+    from repro_torch.retrieval import build_ivf_artifact
+    vecs, _ = _ivf_corpus(seed=3)
+    cfg = _ivf_cfg(nprobe=8, host_staged=True)
+    host, _ = build_ivf_artifact(
+        torch.Generator(device=cuda).manual_seed(3), vecs, cfg, device=cuda)
+    staged = engine.RetrievalEngine(get_index(cfg), host, k=50, block_q=8)
+    sync = engine.RetrievalEngine(get_index(dataclasses.replace(
+        cfg, host_staged=False)), host, k=50, block_q=8)
+    rng = np.random.default_rng(6)
+    reqs = [rng.normal(size=(int(rng.integers(1, 9)), 64)).astype(
+        np.float32) for _ in range(40)]
+    a = AsyncServingEngine(staged, max_wait_us=200.0)
+    try:
+        assert a._flush_stream != torch.cuda.default_stream(cuda)
+        # one flush a request: its LUTs are built over the same padded
+        # batch as the synchronous engine's
+        got = [a.submit(r).result(timeout=60) for r in reqs]
+        assert a.drain(timeout=60)
+    finally:
+        a.close(timeout=60)
+    assert staged.staged_mbytes > 0
+    for r, (s, i) in zip(reqs, got):
+        ws, wi = sync.search(r)
+        np.testing.assert_array_equal(s.view(np.int32), _bits(ws))
+        np.testing.assert_array_equal(i, wi.cpu().numpy())
+
+
+@pytest.mark.gpu
+def test_ivf_build_on_card_peak_bounded_and_codes_plain(cuda):
+    """The streamed build from a host corpus: one ``dpq_assign`` a
+    block, the staged peak within the config's bound and below the
+    corpus, the allocator's peak within twice the staged one, and the
+    layout's codes the plain assignment's up to near-ties."""
+    from repro_torch.retrieval import build_ivf_artifact
+    vecs, _ = _ivf_corpus(n=100_000, seed=2)
+    cfg = _ivf_cfg()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    before = dpq_assign.launches
+    art, stats = build_ivf_artifact(
+        torch.Generator(device=cuda).manual_seed(2), vecs, cfg, device=cuda)
+    peak = torch.cuda.max_memory_allocated() - base
+    assert dpq_assign.launches - before == stats.blocks == 7
+    assert stats.peak_device_ok
+    assert stats.peak_device_bytes < vecs.nbytes
+    assert peak <= 2 * stats.device_bound_bytes, (peak, stats)
+    ids = art["list_ids"].reshape(-1)
+    valid = ids != INVALID_ID
+    codes = torch.zeros((vecs.shape[0], 8), dtype=torch.uint8)
+    codes[ids[valid].long()] = art["list_codes"].reshape(-1, 8)[valid]
+    e = torch.from_numpy(vecs).to(cuda).reshape(-1, 8, 8)
+    c = art["centroids"]
+    want = dpq_assign_ref(e, c)
+    e64, c64 = e.double(), c.double()
+    dist = (torch.sum(c64 * c64, -1)[None]
+            - 2.0 * torch.einsum("bds,dks->bdk", e64, c64))
+    gap = (dist.gather(-1, codes.to(cuda).long()[..., None])
+           - dist.gather(-1, want.long()[..., None])).abs()
+    assert float(gap.max()) <= ASSIGN_TOL

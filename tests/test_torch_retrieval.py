@@ -37,7 +37,7 @@ from repro_torch.kernels.pq_score.pq_score import (LANE_TILE, LANES_THREADS,
                                                    score_plan, topk_plan)
 from repro_torch.launch import engine
 from repro_torch.retrieval import (INVALID_ID, IndexConfig, build,
-                                   flat_pq, get_index, index_class,
+                                   flat_pq, get_index, index_class, ivf_pq,
                                    merge_topk, register_index,
                                    registered_index_kinds, suggest_nlist,
                                    topk_by_position)
@@ -457,9 +457,13 @@ def _corpus(n=512, d=16, seed=0):
 
 
 def test_registry_holds_flat_pq_only():
-    assert registered_index_kinds() == ("flat_pq",)
-    with pytest.raises(KeyError, match="unknown index kind 'ivf_pq'"):
-        IndexConfig(kind="ivf_pq")
+    """The registry holds both ported kinds (the name dates from the
+    flat-only slice); unknown kinds, bad configs and a duplicate
+    registration are refused."""
+    assert registered_index_kinds() == ("flat_pq", "ivf_pq")
+    assert IndexConfig(kind="ivf_pq").kind == "ivf_pq"
+    with pytest.raises(KeyError, match="unknown index kind 'nope'"):
+        IndexConfig(kind="nope")
     with pytest.raises(ValueError):
         IndexConfig(num_centroids=1)
     with pytest.raises(ValueError, match="kernel backend"):
@@ -469,6 +473,7 @@ def test_registry_holds_flat_pq_only():
         class Impostor(Index):
             pass
     assert index_class("flat_pq") is flat_pq.FlatPQ
+    assert index_class("ivf_pq") is ivf_pq.IVFPQ
 
 
 def test_unported_index_paths_raise():
@@ -477,7 +482,9 @@ def test_unported_index_paths_raise():
         index.artifact_shard_specs({})
     with pytest.raises(NotImplementedError, match="distributed"):
         index.local_topk({}, torch.zeros((1, 8)), 1, shard=0, num_shards=1)
-    with pytest.raises(NotImplementedError, match="IVF"):
+    assert not index.supports_host_staged
+    with pytest.raises(NotImplementedError,
+                       match="has no host-staged serve path"):
         index.search_host_staged({}, torch.zeros((1, 8)), 1)
 
 
@@ -646,7 +653,8 @@ def test_retrieval_engine_refuses_unported_modes():
     with pytest.raises(NotImplementedError, match="distributed"):
         engine.RetrievalEngine(teng.index, teng.artifact, k=5, mesh=object(),
                                device="cpu")
-    with pytest.raises(NotImplementedError, match="IVF"):
+    with pytest.raises(ValueError, match="index kind 'flat_pq' has no "
+                       "host-staged serve path"):
         engine.RetrievalEngine(teng.index, teng.artifact, k=5,
                                host_staged=True, device="cpu")
     assert teng.flush() == []
