@@ -129,35 +129,41 @@ Phases, each of which fails the run (non-zero exit, no result line):
    to the plain decode and within a rounding of the training forward's,
    HR@10 from the served rows beside the training forward's; then both
    kernels timed at D = 16, 8, 4 (S = 4, 8, 16);
-11. the LM phase: ``flash_attention`` against its plain version in
+11. the LM phases: ``flash_attention`` against its plain version in
    float32 (CUDA cores) and bfloat16 (tensor cores) at gemma3-4b's local
    (window 1,024) and global layer shapes (B=2, S=4,096, 8 query heads
    over 4 KV heads, hd=320), gemma3-27b's (B=1, S=4,096, 32 heads over
-   16, hd=168), stablelm-3b's (B=1, S=2,048, 32 heads, hd=80), the JAX
+   16, hd=168), qwen3-moe-30b-a3b's (B=2, S=4,096, 32 heads over 4,
+   hd=64), mixtral-8x7b's (B=1, S=8,192, 32 heads over 8, hd=128,
+   window 4,096), stablelm-3b's (B=1, S=2,048, 32 heads, hd=80), the JAX
    tests' shapes and an odd length (bars: ``FLASH_TOL``; bf16 also per
    row against the plain version in float32, ``FLASH_BF16_ROW_TOL``,
-   which two planted faults must fail); ``dpq_assign`` at the LM
-   token tables' widths (D=8, S=320 and 672, K=256 and 64, float32 and
-   bfloat16) against the plain assignment; then gemma3-4b at
-   ``configs/gemma3_4b.py::CONFIG`` through ``launch.serve.serve_lm`` —
-   init, MGQE export of the 262,144-row token table (``dpq_assign``),
-   prefill of 2 prompts of 4,096 tokens (``flash_attention`` on all 34
-   layers, ``mgqe_decode``), 16 greedy decode steps — with the counts
-   set to 0 just before and read just after; the token rows held
-   bit-identical to the plain decode, exported codes to the plain
-   assignment, the last-token logits to the same prefill on the plain
-   ops (``LM_LOGIT_TOL`` and top-1 tokens equal), and each prefill
-   layer, fed the plain route's input, to the plain route with its
-   attention in f32 (``LM_LAYER_TOL``: checks that the kernel route
-   with a planted window fault must fail); the export's four
-   ``dpq_assign`` launches timed on the served table; the prefill and
-   one decode step under the profiler; then ``flash_attention``, its
-   plain version and ``F.scaled_dot_product_attention`` timed at the
-   local and global shapes, and the kernel at gemma3-27b's at either KV
-   tile; then gemma3-27b's token table (262,144 x 5,376, bfloat16,
-   lm_embedding's two tiers) exported as MGQE on the card, its head,
-   tier-boundary and tail slices held to the plain assignment; the
-   card is freed after;
+   which two planted faults must fail); ``dpq_assign`` at the LM token
+   tables' widths (D=8, S=256, 320, 512 and 672, K=256 and 64, float32
+   and bfloat16) against the plain assignment; then, one phase an arch
+   (``LM_PATHS``), each freeing the card after it, the arch's ``CONFIG``
+   through ``launch.serve.serve_lm``: gemma3-4b (f32 weights), then in
+   bfloat16 qwen3-moe-30b-a3b (48 layers, 128 experts top-8, through
+   ``nn/moe.py``), gemma3-27b (62 layers, 5:1 local:global) at 2
+   prompts of 4,096 tokens, and mixtral-8x7b (8 experts top-2, window
+   4,096) cut to 26 of its 32 layers (87.0 GiB of weights do not fit the
+   card) at 1 prompt of 8,192 — init, MGQE export of the token table
+   (``dpq_assign``), prefill (``flash_attention`` on every layer,
+   ``mgqe_decode``), 16 greedy decode steps — with the counts set to 0
+   just before and read just after; the token rows held bit-identical
+   to the plain decode, the exported codes of a head, a tier-boundary
+   and a tail slice to the plain assignment, the last-token logits to
+   the same prefill on the plain route with its attention in f32 (the
+   attention's plain version called one KV-head group at a time, so it
+   fits beside the weights), and each prefill layer, fed that route's
+   input, to it (``LM_BARS``: a planted fault, the window one KV tile
+   short, or qwen3's MoE gate left unnormalised, must fail), the MoE
+   route flips between the routes counted, prefill and decode beside
+   their bounds and peak memory printed, the export's ``dpq_assign``
+   launches timed on the served table, the prefill and one decode step
+   profiled; then ``flash_attention``, its plain version and
+   ``F.scaled_dot_product_attention`` timed at every layer shape of
+   those prefills, the entry holding the mean per launch;
 12. free the card and drive the retrieval path at full width:
    two-tower retrieval at ``configs/two_tower_retrieval.py::CONFIG``
    (50M users, 10M items, embed_dim 256, towers 1024-512-256) through
@@ -352,9 +358,23 @@ BB_CHECK_STEPS = 10                    # the tiny card-vs-CPU runs
 BB_PROFILE_STEPS = 20                  # an MGQE run's steps under the profiler
 BB_SUBSPACES = (16, 8, 4)
 
-# the LM phase: gemma3-4b's CONFIG served through serve_lm
+# the LM phases: each arch's CONFIG served through serve_lm, LM_STEPS
+# greedy decode steps after the prefill; gemma3-4b's prefill is also
+# mgqe_decode's LM shape (LM_ARCH, LM_BATCH x LM_PROMPT)
 LM_ARCH = "gemma3-4b"
 LM_BATCH, LM_PROMPT, LM_STEPS = 2, 4096, 16
+# (arch, prompts, prompt length, layers kept: None for the config's).
+# mixtral-8x7b's 32 layers hold 87.0 GiB of bf16 weights, more than the
+# card's 80 GB: 26 layers (70.8 GiB) run, the most that keep the phase's
+# peak under about 76 GiB (74.9 GiB at 26, 72.2 at 25: H100 SXM), on one
+# prompt past its 4,096 window, so the window bites in the flash kernel
+# and the decode cache is a 4,096-slot ring that wraps
+LM_PATHS = (
+    (LM_ARCH, LM_BATCH, LM_PROMPT, None),
+    ("qwen3-moe-30b-a3b", 2, 4096, None),
+    ("gemma3-27b", 2, 4096, None),
+    ("mixtral-8x7b", 1, 8192, 26),
+)
 # H100 SXM dense bf16 tensor-core peak (data sheet): the attention
 # kernel's and bf16 dpq_assign's operation bound
 BF16_FLOP_PER_S = 989e12
@@ -375,7 +395,9 @@ FLASH_BF16_ROW_TOL = 4 * 2 ** -8
 FLASH_TILE = 64
 # (name, b, s_q, s_kv, h, h_kv, hd, window): gemma3-4b's local and global
 # layers at the path's prefill, gemma3-27b's (hd = 5,376 / 32 = 168, not
-# a multiple of the tensor cores' k-depth of 16), stablelm-3b's, the JAX
+# a multiple of the tensor cores' k-depth of 16), qwen3-moe-30b-a3b's
+# (hd 64, 32 heads over 4), mixtral-8x7b's (hd 128, window 4,096 of an
+# 8,192-token prompt), stablelm-3b's, the JAX
 # tests' shapes (tests/test_kernels.py: cross-length, a window wider
 # than a tile) and an odd length
 FLASH_CASES = (
@@ -383,6 +405,8 @@ FLASH_CASES = (
     ("gemma3-4b global", 2, 4096, 4096, 8, 4, 320, FULL_WINDOW),
     ("gemma3-27b local", 1, 4096, 4096, 32, 16, 168, 1024),
     ("gemma3-27b global", 1, 4096, 4096, 32, 16, 168, FULL_WINDOW),
+    ("qwen3-moe-30b-a3b", 2, 4096, 4096, 32, 4, 64, FULL_WINDOW),
+    ("mixtral-8x7b", 1, 8192, 8192, 32, 8, 128, 4096),
     ("stablelm-3b", 1, 2048, 2048, 32, 32, 80, FULL_WINDOW),
     ("jax gqa", 2, 256, 256, 4, 2, 64, FULL_WINDOW),
     ("jax window", 1, 128, 128, 4, 4, 32, 64),
@@ -390,24 +414,44 @@ FLASH_CASES = (
     ("jax window > tile", 1, 256, 256, 2, 1, 128, 300),
     ("odd length", 1, 1500, 1500, 8, 4, 320, 1024),
 )
-# last-token prefill logits, the kernel route against the same prefill
-# on the plain attention (bf16 activations through 34 layers, where the
-# plain version rounds each score to bf16 and the kernel does not): the
-# top-1 tokens equal and max |diff| within LM_LOGIT_TOL: between the
-# sound runs' reading (0.1016) and the plain prefill's with layer 0's
-# window one KV tile short (0.1562; H100 SXM, 700 W).  The kernel route
-# with that planted fault must fail the check.
-LM_LOGIT_TOL = 0.125
-# each prefill layer fed the plain route's input to it (the plain route
-# with its attention in f32 on the same bf16 inputs), the kernel route's
-# output held to that route's: the largest over the 34 layers of the
-# mean |diff| of a layer's output.  The sound route read 0.00188, both
-# planted window faults 0.01182 (6.3x; H100 SXM, 700 W); no statistic
-# of the final output (last-token logits or every position's hidden
-# state, max or mean, against either plain route) reached 2x.  The bar
-# sits between them, 2.7x above the sound reading and 2.4x below the
-# faults'.
-LM_LAYER_TOL = 0.005
+# The LM checks' bars, per arch: (LM_LOGIT_TOL, LM_LAYER_TOL, whether
+# the planted fault must fail the logits bar too).  Readings: H100 SXM,
+# 700 W; sound / the planted fault on the first layer it reaches, on
+# every layer it reaches.
+#
+# LM_LOGIT_TOL: the last-token prefill logits' max |diff| from the same
+# prefill on the plain route with its attention in f32 on the same bf16
+# inputs (the kernel's scores are f32 too; bf16 activations through
+# every layer), an MoE arch's with its experts pinned to the kernel
+# route's (a route flip on the last token's path moved mixtral's logits
+# by 0.2598 at 25 layers, where its sound reading was 0.04).  Unpinned
+# readings: gemma3-4b 0.1016 / 0.1455, 0.2305;
+# qwen3-moe-30b-a3b 0.0832 / 0.4688, 0.8125 (the gate unnormalised);
+# gemma3-27b 0.1172 / 0.1797, 0.2617 (62 layers: against the plain bf16
+# route it read 0.1562, past gemma3-4b's 0.125); mixtral-8x7b at 26
+# layers 0.0391 / 0.0391, 0.2930 (the latter through flips): a window
+# one 64-key tile short of 4,096 moves its logits no more than bf16
+# noise does, so there its fault is held by the per-layer bar alone.
+# Top-1 tokens must agree, or the kernel route's pick must lie within
+# the bar of the plain route's best logit (random weights leave
+# near-ties among 32k-262k logits).
+#
+# LM_LAYER_TOL: each prefill layer fed the plain f32-attention route's
+# input to it, the largest over the layers of the mean |diff| of a
+# layer's output.  Sound / faulted: gemma3-4b 0.00188 / 0.01182 (6.3x);
+# qwen3 0.00158 / 0.11701; gemma3-27b 0.00182 / 0.01189; mixtral at 26
+# layers 0.00188 / 0.00343, 0.00418 (its fault reaches only the 4,160
+# of 8,192 positions past the window, by 64 of 4,096 keys: so a bar of
+# its own, 1.38x above the sound reading and 1.32x below the fault's).
+# No statistic of the final output (logits or every position's hidden
+# state, max or mean, against either plain route) separates the window
+# faults by 2x.
+LM_BARS = {
+    "gemma3-4b": (0.125, 0.005, True),
+    "qwen3-moe-30b-a3b": (0.125, 0.005, True),
+    "gemma3-27b": (0.15, 0.005, True),
+    "mixtral-8x7b": (0.125, 0.0026, False),
+}
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -3291,14 +3335,15 @@ def check_flash() -> float:
 
 
 def check_lm_assign() -> float:
-    """dpq_assign at the LM token tables' widths (D=8, S=2560/8=320 for
-    gemma3-4b and 5376/8=672 for gemma3-27b), K=256 and K=64, with the
-    MGQE budgets, float32 and bfloat16, against the plain assignment;
-    returns the largest distance gap."""
+    """dpq_assign at the LM token tables' widths (D=8, S = d_model / 8:
+    256 for qwen3-moe-30b-a3b, 320 for gemma3-4b, 512 for mixtral-8x7b,
+    672 for gemma3-27b), K=256 and K=64, with the MGQE budgets, float32
+    and bfloat16, against the plain assignment; returns the largest
+    distance gap."""
     import torch
     from repro_torch.kernels.dpq_assign import dpq_assign
     gap = 0.0
-    for s in (320, 672):
+    for s in (256, 320, 512, 672):
         for k in (256, 64):
             for dtype in (torch.float32, torch.bfloat16):
                 e, cent, lim = assign_inputs(ASSIGN_BATCH, 8, k, s, seed=k + s,
@@ -3316,71 +3361,10 @@ def check_lm_assign() -> float:
     return gap
 
 
-def lm27_export_check() -> float:
-    """gemma3-27b's token table (262,144 x 5,376, lm_embedding's two
-    tiers, param_dtype bfloat16), initialised from a seeded generator and
-    exported as MGQE on the card: one dpq_assign launch a 65,536 rows, in
-    bfloat16 on the tensor cores.  A head slice, the slice across the
-    tier boundary and a tail slice are held to the plain assignment
-    under the same budgets.  Only the embedding is built: the config is
-    not registered.  Returns the largest distance gap."""
-    import dataclasses
-    import torch
-    from repro_torch.configs.lm_common import lm_embedding
-    from repro_torch.core import Embedding
-    from repro_torch.core.mgqe import k_limit_for_all_rows
-    from repro_torch.kernels.dpq_assign import dpq_assign
-    ecfg = dataclasses.replace(lm_embedding(LM27_VOCAB, LM27_DIM),
-                               param_dtype="bfloat16")
-    d = ecfg.num_subspaces
-    emb = Embedding(ecfg)
-    params = emb.init(emb.generator(27))
-    need(params["emb"].dtype == params["centroids"].dtype == torch.bfloat16,
-         "gemma3-27b's table and centroids in bfloat16")
-    torch.cuda.synchronize()
-    before = dpq_assign.launches
-    t0 = time.perf_counter()
-    artifact = emb.export(params)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launched = dpq_assign.launches - before
-    need(launched == -(-LM27_VOCAB // ASSIGN_BATCH),
-         "dpq_assign once per export batch of the bf16 table")
-    codes, cent = artifact["codes"], artifact["centroids"]
-    need(codes.dtype == torch.uint8 and tuple(codes.shape) == (LM27_VOCAB, d)
-         and cent.dtype == torch.bfloat16, "codes (n, D) uint8, bf16 "
-         "centroids")
-    lim_all = k_limit_for_all_rows(ecfg, "cuda")
-    head = ecfg.tier_boundaries[0]
-    gap, mism = 0.0, 0
-    # the boundary slice: its first eighth in the head tier (which holds
-    # 26,214 rows, under half a batch)
-    for lo in (0, head - ASSIGN_BATCH // 8, LM27_VOCAB - ASSIGN_BATCH):
-        sl = slice(lo, lo + ASSIGN_BATCH)
-        e = params["emb"][sl].reshape(ASSIGN_BATCH, d, -1)
-        got = codes[sl].to(torch.int32)
-        want = blocked_assign_ref_lim(e, cent, lim_all[sl])
-        mism += int((got != want).sum())
-        gap = max(gap, assign_gap(e, cent, lim_all[sl], got, want))
-    need(gap <= ASSIGN_TOL, f"bf16 exported codes within {ASSIGN_TOL} of "
-         f"the plain assignment")
-    need(int(codes[head:].max()) < ecfg.tier_num_centroids[1],
-         "tail tier codes < K_tail")
-    log(f"lm bf16 export: gemma3-27b's token table {LM27_VOCAB} x "
-        f"{LM27_DIM} (D={d}, S={LM27_DIM // d}, K={ecfg.num_centroids}/"
-        f"{ecfg.tier_num_centroids[1]}, head {head} rows) in bfloat16, "
-        f"exported in {wall:.6f}s over {launched} dpq_assign launches; "
-        f"head, tier-boundary and tail slices ({3 * ASSIGN_BATCH} rows): "
-        f"{mism} of {3 * ASSIGN_BATCH * d} codes differ from the plain "
-        f"assignment, largest distance gap {gap:.3g} (tolerance "
-        f"{ASSIGN_TOL})")
-    return gap
-
-
 @contextlib.contextmanager
 def window_short_by_a_tile(layers: int):
-    """A planted fault: inside the block, the first ``layers`` local
-    layers (window below the full one) reach ``chunked_attention`` with
+    """A planted fault: inside the block, the first ``layers`` layers
+    with a window below the full one reach ``chunked_attention`` with
     their window one KV tile short."""
     from repro_torch.nn import attention as attn
     sound = attn.chunked_attention
@@ -3399,34 +3383,134 @@ def window_short_by_a_tile(layers: int):
 
 
 @contextlib.contextmanager
-def attention_in_f32():
-    """The plain route with its attention computed in float32 on the
-    same bf16 inputs (scores and P unrounded), the output rounded once
-    to bf16."""
+def gate_unnormalised(layers: int):
+    """A planted fault: inside the block, the first ``layers`` MoE
+    layers weight their top-k experts by the router's probabilities as
+    they are, not renormalised to sum to 1."""
+    import torch
+    from repro_torch.nn import moe
+    sound = moe.route
+    left = [layers]
+
+    def faulty(xt, router, top_k):
+        gate_w, gate_i, probs = sound(xt, router, top_k)
+        if left[0] > 0:
+            left[0] -= 1
+            gate_w = torch.gather(probs, 1, gate_i)
+        return gate_w, gate_i, probs
+    moe.route = faulty
+    try:
+        yield
+    finally:
+        moe.route = sound
+
+
+def planted_fault(cfg) -> tuple:
+    """(name, context manager planting it on the first n layers it
+    reaches, whether it reaches a layer of a given window): the window
+    one KV tile short where layers are windowed; else (qwen3: every
+    layer global, so a window fault would change nothing) the MoE gate
+    left unnormalised."""
+    if cfg.sliding_window is not None:
+        return ("the window one KV tile short", window_short_by_a_tile,
+                lambda window: window < FULL_WINDOW)
+    need(cfg.is_moe, f"{cfg.name}: a planted fault that reaches its layers")
+    return ("the gate weights unnormalised", gate_unnormalised,
+            lambda window: True)
+
+
+@contextlib.contextmanager
+def plain_route(f32: bool = False):
+    """The plain route: every op pinned to its plain version, the
+    attention's (``flash_attention_ref``) called one KV-head group at a
+    time.  Heads are independent, so it is the same function; a whole
+    call's dense (B, H, S, S) float32 scores and their temporaries would
+    not fit beside the 27B-56B models' weights.  ``f32``: the attention
+    computed in float32 on the same bf16 inputs (scores and P
+    unrounded), its output rounded once to bf16."""
+    import torch
+    from repro_torch.kernels.dispatch import pinned_backend
     from repro_torch.kernels.flash_attention import flash_attention_ref
     from repro_torch.nn import attention as attn
     sound = attn.chunked_attention
 
-    def f32(q, k, v, qpos, kpos, window=attn.FULL_WINDOW, **kw):
-        return flash_attention_ref(q.float(), k.float(), v.float(),
-                                   int(window)).to(q.dtype)
-    attn.chunked_attention = f32
+    def by_group(q, k, v, qpos, kpos, window=attn.FULL_WINDOW, **kw):
+        hkv = k.shape[2]
+        g = q.shape[2] // hkv
+        outs = []
+        for i in range(hkv):
+            part = (q[:, :, i * g:(i + 1) * g], k[:, :, i:i + 1],
+                    v[:, :, i:i + 1])
+            if f32:
+                part = tuple(t.float() for t in part)
+            outs.append(flash_attention_ref(*part, int(window)).to(q.dtype))
+        return torch.cat(outs, dim=2)
+    attn.chunked_attention = by_group
     try:
-        yield
+        with pinned_backend("torch"):
+            yield
     finally:
         attn.chunked_attention = sound
 
 
-def lm_statistics(run, cfg) -> dict:
-    """Distances from the kernel route (sound, and with the window one
-    KV tile short on layer 0 and on every local layer) to two plain
-    routes (bf16 attention; attention in f32 on the same inputs), read
-    on the last-token logits and on every position's final hidden
-    state, max and mean |diff|.  Returns {statistic: (sound, fault on
-    1 layer, fault on every layer)} for each plain route."""
+@contextlib.contextmanager
+def recording_routes(into: list):
+    """Inside the block every MoE layer's routed expert ids (T, k) are
+    appended to ``into``."""
+    from repro_torch.nn import moe
+    sound = moe.moe_ffn
+
+    def recorded(params, x, *, top_k, capacity_factor=1.25):
+        into.append(moe.route(x.reshape(-1, x.shape[-1]), params["router"],
+                              top_k)[1])
+        return sound(params, x, top_k=top_k, capacity_factor=capacity_factor)
+    moe.moe_ffn = recorded
+    try:
+        yield
+    finally:
+        moe.moe_ffn = sound
+
+
+@contextlib.contextmanager
+def pinned_routes(ids: list):
+    """Inside the block the MoE layers take, one after another, the
+    expert ids of ``ids`` (a (T, k) tensor a layer) in place of their own
+    top-k; the gate weights are the layer's own router probabilities at
+    those experts, renormalised as ``route`` does."""
     import torch
-    from repro_torch.kernels.dispatch import pinned_backend
+    from repro_torch.nn import moe
+    sound = moe.route
+    layers = iter(ids)
+
+    def pinned(xt, router, top_k):
+        _, _, probs = sound(xt, router, top_k)
+        gate_i = next(layers)
+        gate_w = torch.gather(probs, 1, gate_i)
+        gate_w = gate_w / torch.clamp(gate_w.sum(-1, keepdim=True), min=1e-9)
+        return gate_w, gate_i, probs
+    moe.route = pinned
+    try:
+        yield
+    finally:
+        moe.route = sound
+
+
+def lm_statistics(run, cfg, fault) -> dict:
+    """The whole prefill on the kernel route (sound, and with the
+    planted fault on the first layer it reaches and on every layer)
+    against two plain routes (bf16 attention; attention in f32 on the
+    same inputs), read on the last-token logits and on every position's
+    final hidden state, max and mean |diff|.  An MoE arch's plain
+    routes run also with their experts pinned to the sound kernel
+    route's choices: a near-tied router flips between the routes on
+    bf16 noise, and one flip on the last token's path moves its logits
+    by far more than the noise.  Returns {statistic: (sound, fault on 1
+    layer, fault on every layer)} for each plain route, the planted
+    runs' last-token logits and the reference's: the plain
+    f32-attention route, with pinned experts for an MoE arch."""
+    import torch
     from repro_torch.models import lm
+    name, planted, _ = fault
 
     def hidden():
         with torch.no_grad():
@@ -3436,15 +3520,21 @@ def lm_statistics(run, cfg) -> dict:
     def logits(h):
         return (h[:, -1] @ run.params["lm_head"].to(h.dtype)).float()
 
-    routes = {"sound": hidden()}
+    kernel_ids = []
+    with recording_routes(kernel_ids):
+        routes = {"sound": hidden()}
     for layers in (1, cfg.num_layers):
-        with window_short_by_a_tile(layers):
+        with planted(layers):
             routes[layers] = hidden()
     refs = {}
-    with pinned_backend("torch"):
-        refs["plain bf16"] = hidden()
-        with attention_in_f32():
-            refs["plain f32"] = hidden()
+    for ref_name, f32 in (("plain bf16", False), ("plain f32", True)):
+        with plain_route(f32):
+            refs[ref_name] = hidden()
+    reference = "plain f32"
+    if cfg.is_moe:
+        reference = "plain f32, experts pinned"
+        with plain_route(True), pinned_routes(kernel_ids):
+            refs[reference] = hidden()
     out = {}
     for ref_name, ref in refs.items():
         ref_logits = logits(ref)
@@ -3460,140 +3550,230 @@ def lm_statistics(run, cfg) -> dict:
                 out[(ref_name, what, stat)] = tuple(vals)
                 of = ("last-token logits" if what == "logits"
                       else "final hidden state at every position")
-                log(f"lm statistic against the {ref_name} route, {stat} "
-                    f"|diff| of the {of}: sound {vals[0]:.5g}, window fault on layer 0 "
-                    f"{vals[1]:.5g} ({vals[1] / max(vals[0], 1e-30):.2f}x), "
-                    f"on every local layer {vals[2]:.5g} "
+                log(f"lm statistic {cfg.name} against the {ref_name} route, "
+                    f"{stat} |diff| of the {of}: sound {vals[0]:.5g}, "
+                    f"{name} on the first layer it reaches {vals[1]:.5g} "
+                    f"({vals[1] / max(vals[0], 1e-30):.2f}x), on every "
+                    f"layer {vals[2]:.5g} "
                     f"({vals[2] / max(vals[0], 1e-30):.2f}x)")
+    out["planted logits"] = {layers: logits(routes[layers])
+                             for layers in (1, cfg.num_layers)}
+    out["plain logits"] = logits(refs[reference])
     del routes, refs
-    out.update(lm_layer_statistics(run, cfg))
     return out
 
 
-def lm_layer_statistics(run, cfg) -> dict:
+def lm_layer_statistics(run, cfg, fault) -> dict:
     """Each layer of the prefill fed the plain route's input to that
-    layer (its output on the plain ops as the reference), so that bf16
-    noise does not build up from layer to layer: the largest over the
-    layers of the mean |diff| of a layer's output, for the kernel route
-    (sound, and with the window one KV tile short on layer 0 and on
-    every local layer) against the plain bf16 and the plain f32-
-    attention routes.  Returns {statistic: (sound, fault on 1 layer,
-    fault on every layer)}."""
+    layer (its output on the plain route as the reference), so that
+    bf16 noise does not build up from layer to layer: the largest over
+    the layers of the mean |diff| of a layer's output, for the kernel
+    route (sound, and with the planted fault on the first layer it
+    reaches and on every layer) against the plain bf16 and the plain
+    f32-attention routes; one layer at a time, so nothing of the other
+    layers is kept.  For an MoE arch also the route flips: the (layer,
+    token, choice) slots whose expert differs between the kernel route
+    and the plain route from the same layer input.  Returns {statistic:
+    (sound, fault on 1 layer, fault on every layer)} and the flips."""
     import torch
     from repro_torch.core import Embedding
     from repro_torch.core.schemes.base import torch_dtype
-    from repro_torch.kernels.dispatch import pinned_backend
     from repro_torch.models import lm
+    name, planted, reaches = fault
 
     dtype = torch_dtype(cfg.dtype)
     s = run.prompts.shape[1]
-    positions = torch.arange(s, dtype=torch.int32, device="cuda")
-    plan = [(lm._index(run.params[name], *idx), window, theta)
-            for name, idx, window, theta in lm._layer_plan(cfg, s)]
+    device = run.prompts.device
+    positions = torch.arange(s, dtype=torch.int32, device=device)
+    plan = [(lm._index(run.params[n], *idx), window, theta)
+            for n, idx, window, theta in lm._layer_plan(cfg, s)]
+    first = next(i for i, (_, w, _) in enumerate(plan) if reaches(w))
 
     def layer(p, x, window, theta):
         return lm.layer_forward(p, x, positions, window, theta, cfg)[0]
 
+    def mean_diff(a, b):
+        return float((a.float() - b.float()).abs().mean())
+
     out = {}
     with torch.no_grad():
-        x0 = Embedding(cfg.embedding, device="cuda").serve(run.artifact,
+        x0 = Embedding(cfg.embedding, device=device).serve(run.artifact,
                                                            run.prompts)
         x0 = x0.to(dtype) * torch.tensor(cfg.d_model ** 0.5, dtype=dtype)
-        for ref_name in ("plain bf16", "plain f32"):
-            inputs, refs = [], []
+        for ref_name, f32 in (("plain bf16", False), ("plain f32", True)):
+            sound, bad = [], []
+            flips = slots = 0
             x = x0
-            with pinned_backend("torch"), (attention_in_f32()
-                                           if ref_name == "plain f32"
-                                           else contextlib.nullcontext()):
-                for p, window, theta in plan:
-                    inputs.append(x)
-                    x = layer(p, x, window, theta)
-                    refs.append(x)
-            vals = []
-            for layers in (0, 1, cfg.num_layers):
-                per_layer = []
-                with (window_short_by_a_tile(layers) if layers
-                      else contextlib.nullcontext()):
-                    for (p, window, theta), xin, ref in zip(plan, inputs,
-                                                            refs):
-                        got = layer(p, xin, window, theta)
-                        per_layer.append(float((got.float() - ref.float())
-                                               .abs().mean()))
-                vals.append(max(per_layer))
-                if layers == 0:
-                    sound_layers = per_layer
-            out[(ref_name, "layer", "mean")] = tuple(vals)
-            log(f"lm statistic against the {ref_name} route, each layer fed "
-                f"that route's input: the largest mean |diff| of a layer's "
-                f"output: sound {vals[0]:.5g} (layer "
-                f"{sound_layers.index(vals[0])}), window fault on layer 0 "
+            for p, window, theta in plan:
+                plain_ids, kernel_ids = [], []
+                with plain_route(f32), recording_routes(plain_ids):
+                    ref = layer(p, x, window, theta)
+                with recording_routes(kernel_ids):
+                    sound.append(mean_diff(layer(p, x, window, theta), ref))
+                if reaches(window):
+                    with planted(1):
+                        bad.append(mean_diff(layer(p, x, window, theta),
+                                             ref))
+                else:
+                    bad.append(sound[-1])
+                for a, b in zip(plain_ids, kernel_ids):
+                    flips += int((a != b).sum())
+                    slots += a.numel()
+                x = ref
+            one = [bad[i] if i == first else v for i, v in enumerate(sound)]
+            vals = (max(sound), max(one), max(bad))
+            out[(ref_name, "layer", "mean")] = vals
+            out[(ref_name, "flips")] = (flips, slots)
+            log(f"lm statistic {cfg.name} against the {ref_name} route, each "
+                f"layer fed that route's input: the largest mean |diff| of "
+                f"a layer's output: sound {vals[0]:.5g} (layer "
+                f"{sound.index(vals[0])}), {name} on layer {first} "
                 f"{vals[1]:.5g} ({vals[1] / max(vals[0], 1e-30):.2f}x), on "
-                f"every local layer {vals[2]:.5g} "
-                f"({vals[2] / max(vals[0], 1e-30):.2f}x); sound per layer "
-                f"{[round(v, 5) for v in sound_layers]}")
-            del inputs, refs
+                f"every layer {vals[2]:.5g} "
+                f"({vals[2] / max(vals[0], 1e-30):.2f}x); route flips "
+                f"{flips} of {slots} (layer, token, choice) slots; sound per "
+                f"layer {[round(v, 5) for v in sound]}; faulted per layer "
+                f"{[round(v, 5) for v in bad]}")
     return out
 
 
-def lm_path() -> dict:
-    """gemma3-4b at ``configs/gemma3_4b.py::CONFIG`` through
-    ``launch.serve.serve_lm``: init, MGQE export of the 262,144 x 2,560
-    token table, prefill of 2 prompts of 4,096 tokens, 16 greedy decode
-    steps, the counts set to 0 just before and read just after; then the
-    token rows held bit-identical to the plain decode, the exported
-    codes of a head and a tail slice to the plain assignment, and the
-    last-token logits to the same prefill on the plain ops.  Returns
-    the launches."""
+def visible_pairs(s: int, window: int) -> int:
+    """(query, key) pairs a causal window lets through over S tokens."""
+    w = min(window, s)
+    return w * (w + 1) // 2 + (s - w) * w
+
+
+def lm_prefill_flops(cfg, b: int, s: int) -> int:
+    """The operations of one prefill as the port computes it: every
+    projection, attention's two products over each layer's visible
+    pairs, the FFN (an MoE layer's router and its capacity-padded expert
+    GEMMs: E x cap rows whatever the routing) and the last token's vocab
+    head."""
+    from repro_torch.models import lm
+    from repro_torch.nn import moe
+    d, hd, f = cfg.d_model, cfg.resolved_head_dim, cfg.d_ff
+    t = b * s
+    proj = 4 * t * d * hd * (cfg.num_heads + cfg.num_kv_heads)
+    if cfg.is_moe:
+        cap = moe.capacity(t, cfg.num_experts, cfg.num_experts_per_tok,
+                           cfg.moe_capacity_factor)
+        ffn = 2 * t * d * cfg.num_experts + 6 * cfg.num_experts * cap * d * f
+    else:
+        ffn = 6 * t * d * f
+    attn = sum(4 * hd * cfg.num_heads * b * visible_pairs(s, window)
+               for _, _, window, _ in lm._layer_plan(cfg, s))
+    return cfg.num_layers * (proj + ffn) + attn + 2 * b * d * cfg.vocab_size
+
+
+def lm_decode_bytes(run, cfg, b: int, max_seq: int) -> int:
+    """The bytes one decode step must read: every weight but the token
+    table (served from its artifact) and the whole KV cache (the
+    capacity formulation runs every expert, so an MoE step reads all
+    its experts' weights even at B = 2)."""
+    from repro_torch.core.schemes.base import tree_leaves
+    from repro_torch.models import lm
+    weights = sum(t.numel() * t.element_size()
+                  for name, tree in run.params.items() if name != "embed"
+                  for t in tree_leaves(tree))
+    cache = lm.make_cache(cfg, b, max_seq, device="meta")
+    return weights + sum(t.numel() * t.element_size()
+                         for name, leaves in cache.items() if name != "pos"
+                         for t in leaves)
+
+
+def lm_path(arch: str, batch: int, prompt: int, layers) -> tuple:
+    """``arch``'s ``CONFIG`` (``layers``: its depth cut to that many)
+    through ``launch.serve.serve_lm``: init, MGQE export of the token
+    table, prefill of ``batch`` prompts of ``prompt`` tokens, LM_STEPS
+    greedy decode steps, the counts set to 0 just before and read just
+    after; then the token rows held bit-identical to the plain decode,
+    the exported codes of a head, a tier-boundary and a tail slice to
+    the plain assignment, the export's launches timed on the served
+    table, the last-token logits and each layer to the plain route (a
+    planted fault must fail both), one prefill and one decode step
+    profiled.  Returns (launches, the largest distance gap of the
+    export's codes, flash_attention's (shape, launches) on the path)."""
+    import dataclasses
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.core import Embedding
     from repro_torch.core.mgqe import k_limit_for_all_rows
+    from repro_torch.core.schemes.base import torch_dtype
     from repro_torch.kernels.dispatch import pinned_backend
     from repro_torch.launch.serve import serve_lm
     from repro_torch.models import lm
 
-    _, cfg = get_arch(LM_ARCH, smoke=False)
+    t_phase = time.perf_counter()
+    _, cfg = get_arch(arch, smoke=False)
+    full_layers = cfg.num_layers
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     ecfg = cfg.embedding
+    max_seq = prompt + LM_STEPS
+    fault = planted_fault(cfg)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     counters = reset_counts()
     t0 = time.perf_counter()
-    run = serve_lm(cfg, LM_BATCH, LM_PROMPT, LM_STEPS)
+    run = serve_lm(cfg, batch, prompt, LM_STEPS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in counters.items()}
     peak = torch.cuda.max_memory_allocated() / 2**30
-    emb = Embedding(ecfg)
+    emb = Embedding(dataclasses.replace(ecfg, param_dtype=cfg.param_dtype))
+    full_bits = run.params["embed"]["emb"].numel() * \
+        run.params["embed"]["emb"].element_size() * 8
     want = {"dpq_assign": -(-ecfg.vocab_size // ASSIGN_BATCH),
             "mgqe_decode": 1 + LM_STEPS, "flash_attention": cfg.num_layers}
+    flops = lm_prefill_flops(cfg, batch, prompt)
+    prefill_bound = flops / BF16_FLOP_PER_S
+    step_bytes = lm_decode_bytes(run, cfg, batch, max_seq)
+    step_bound = step_bytes / HBM_BYTES_PER_S
+    step_s = run.decode_seconds / LM_STEPS
+    weight_gib = (cfg.param_count() * torch_dtype(cfg.param_dtype).itemsize
+                  / 2**30)
+    cut = (f"; depth cut from {full_layers} to {cfg.num_layers} layers "
+           f"({full_layers} layers of bfloat16 weights do not fit one card)"
+           if layers else "")
     log(f"lm path: {cfg.name} {cfg.num_layers} layers d_model "
         f"{cfg.d_model} heads {cfg.num_heads}/{cfg.num_kv_heads} hd "
-        f"{cfg.resolved_head_dim}, {cfg.param_count()} params "
-        f"({cfg.param_dtype}), vocab {ecfg.vocab_size} as MGQE (head tier "
+        f"{cfg.resolved_head_dim} d_ff {cfg.d_ff}"
+        + (f" experts {cfg.num_experts} top-{cfg.num_experts_per_tok}"
+           if cfg.is_moe else "")
+        + f" window {cfg.sliding_window}{cut}, {cfg.param_count()} params "
+        f"({cfg.param_dtype}, {weight_gib:.1f} GiB), "
+        f"vocab {ecfg.vocab_size} as MGQE (head tier "
         f"{ecfg.tier_boundaries[0]} rows at K={ecfg.tier_num_centroids[0]}, "
         f"tail at K={ecfg.tier_num_centroids[1]}, D={ecfg.num_subspaces}); "
         f"artifact {emb.serving_size_bits() / 8e6:.2f} MB "
-        f"({100 * emb.serving_size_bits() / (ecfg.vocab_size * ecfg.dim * 32):.2f}"
-        f"% of full); init + export + prefill + decode in {wall:.3f}s; "
-        f"prefill B={LM_BATCH} x {LM_PROMPT} in {run.prefill_seconds:.6f}s "
-        f"({LM_BATCH * LM_PROMPT / run.prefill_seconds:,.0f} tokens/s); "
-        f"{LM_STEPS} decode steps in {run.decode_seconds:.6f}s "
-        f"({run.tokens_per_s:.2f} tokens/s, "
-        f"{run.decode_seconds / LM_STEPS * 1e3:.3f} ms a step); peak device "
-        f"memory {peak:.3f} GiB; launches {launches} (predicted {want})")
+        f"({100 * emb.serving_size_bits() / full_bits:.2f}% of full); "
+        f"init + export + prefill + decode in {wall:.3f}s; prefill B={batch} "
+        f"x {prompt} in {run.prefill_seconds:.6f}s "
+        f"({batch * prompt / run.prefill_seconds:,.0f} tokens/s; bound "
+        f"{prefill_bound * 1e3:.3f} ms: {flops} FLOP at 989 TFLOP/s, "
+        f"{batch * prompt / prefill_bound:,.0f} tokens/s); {LM_STEPS} decode "
+        f"steps in {run.decode_seconds:.6f}s ({run.tokens_per_s:.2f} "
+        f"tokens/s, {step_s * 1e3:.3f} ms a step; bound "
+        f"{step_bound * 1e3:.3f} ms: {step_bytes} bytes of weights and KV "
+        f"cache at 3.35 TB/s); peak device memory {peak:.3f} GiB; launches "
+        f"{launches} (predicted {want})")
     for name, n in want.items():
-        need(launches[name] == n, f"{name} launched {n} times on the LM "
-             f"path")
+        need(launches[name] == n, f"{name} launched {n} times on the "
+             f"{cfg.name} path")
     need(sum(launches.values()) == sum(want.values()),
-         "no other kernel on the LM path")
-    need(tuple(run.logits.shape) == (LM_BATCH, cfg.vocab_size)
+         f"no other kernel on the {cfg.name} path")
+    need(tuple(run.logits.shape) == (batch, cfg.vocab_size)
          and bool(torch.isfinite(run.logits).all()),
          "prefill logits (B, V), finite")
-    need(tuple(run.tokens.shape) == (LM_BATCH, LM_STEPS + 1)
+    need(tuple(run.tokens.shape) == (batch, LM_STEPS + 1)
          and bool(((run.tokens >= 0) & (run.tokens < cfg.vocab_size)).all()),
          "greedy tokens (B, steps + 1) in the vocabulary")
+    need(all(t.dtype == torch.bfloat16 for t in
+             (run.params["lm_head"], run.params["embed"]["emb"],
+              run.artifact["centroids"])) == (cfg.param_dtype == "bfloat16"),
+         f"{cfg.name}'s weights, table and centroids in {cfg.param_dtype}")
 
     # the token rows: the served decode against the plain decode
     rows = emb.serve(run.artifact, run.prompts)
@@ -3602,133 +3782,151 @@ def lm_path() -> dict:
     torch.cuda.synchronize()
     need(torch.equal(bits(rows), bits(rows_plain)),
          "token rows == the plain decode, bit for bit")
-    # the exported codes of a head and a tail slice, under their budgets
+    del rows, rows_plain
+    # the exported codes of a head, a tier-boundary and a tail slice
+    # (the whole table where it is under two slices), under their budgets
     lim_all = k_limit_for_all_rows(ecfg, "cuda")
-    gap = 0.0
-    for lo in (0, ecfg.vocab_size - ASSIGN_BATCH):
-        sl = slice(lo, lo + ASSIGN_BATCH)
+    n_rows = min(ASSIGN_BATCH, ecfg.vocab_size)
+    head = ecfg.tier_boundaries[0]
+    gap, mism = 0.0, 0
+    for lo in sorted({0, min(max(head - n_rows // 8, 0),
+                             ecfg.vocab_size - n_rows),
+                      ecfg.vocab_size - n_rows}):
+        sl = slice(lo, lo + n_rows)
         e = run.params["embed"]["emb"][sl].reshape(
-            ASSIGN_BATCH, ecfg.num_subspaces, -1)
+            n_rows, ecfg.num_subspaces, -1)
         cent = run.artifact["centroids"]
         got = run.artifact["codes"][sl].to(torch.int32)
-        gap = max(gap, assign_gap(e, cent, lim_all[sl], got,
-                                  blocked_assign_ref_lim(e, cent,
-                                                         lim_all[sl])))
+        want_codes = blocked_assign_ref_lim(e, cent, lim_all[sl])
+        mism += int((got != want_codes).sum())
+        gap = max(gap, assign_gap(e, cent, lim_all[sl], got, want_codes))
     need(gap <= ASSIGN_TOL, f"exported codes within {ASSIGN_TOL} of the "
          f"plain assignment")
-    # the export's four dpq_assign launches, timed on the table it
-    # exported (f32, S = 320, the tiers' budgets by sorted id)
+    need(int(run.artifact["codes"][head:].max())
+         < ecfg.tier_num_centroids[1], "tail tier codes < K_tail")
+    # the export's dpq_assign launches, timed on the table it exported
     time_assign_pass(f"over {cfg.name}'s export (the served table)",
                      run.params["embed"]["emb"].reshape(
                          ecfg.vocab_size, ecfg.num_subspaces, -1),
                      run.artifact["centroids"], lim_all, ASSIGN_BATCH)
-    # the last-token logits against the same prefill on the plain ops;
-    # then the kernel route with a planted fault (the window one KV tile
-    # short on layer 0, and on every local layer) must fail that check
-    with torch.no_grad(), pinned_backend("torch"):
-        logits_plain = lm.prefill(run.params, run.prompts, cfg,
-                                  max_seq=LM_PROMPT + LM_STEPS,
-                                  embed_artifact=run.artifact)[1]
+    del lim_all
+
+    # the last-token logits against the plain route's; the kernel route
+    # with the planted fault (on the first layer it reaches, and on
+    # every layer) must fail that check where LM_BARS says it can
+    logit_tol, layer_tol, logits_see_fault = LM_BARS[arch]
+    stats = lm_statistics(run, cfg, fault)
+    logits_plain = stats.pop("plain logits")
+    planted_logits = stats.pop("planted logits")
 
     def against_plain(logits):
         d = (logits - logits_plain).abs()
+        pick = logits_plain.gather(-1, logits.argmax(-1)[:, None])[:, 0]
         return (float(d.max()), float(d.mean()),
-                bool(torch.equal(logits.argmax(-1), logits_plain.argmax(-1))))
-    planted = {}
-    for layers in (1, cfg.num_layers):
-        with torch.no_grad(), window_short_by_a_tile(layers):
-            planted[layers] = against_plain(lm.prefill(
-                run.params, run.prompts, cfg, max_seq=LM_PROMPT + LM_STEPS,
-                embed_artifact=run.artifact)[1])
-    torch.cuda.synchronize()
-    err, mean_err, top1 = against_plain(run.logits)
-    log(f"lm checks: token rows bit-identical to the plain decode; "
-        f"exported codes (head and tail slices) within {gap:.3g} of the "
-        f"plain assignment; last-token logits against the plain attention: "
-        f"max |diff| {err:.4g} (bar {LM_LOGIT_TOL}), mean |diff| "
-        f"{mean_err:.4g}, largest |logit| "
-        f"{float(logits_plain.abs().max()):.4g}, top-1 tokens equal: {top1}; "
-        f"the kernel route with the window one KV tile short (max |diff|, "
-        f"mean |diff|, top-1 equal): on layer 0 {planted[1]}, on every "
-        f"local layer {planted[cfg.num_layers]}; sample tokens "
+                bool(torch.equal(logits.argmax(-1), logits_plain.argmax(-1))),
+                bool((pick >= logits_plain.amax(-1) - logit_tol).all()))
+    err, mean_err, top1, top1_near = against_plain(run.logits)
+    planted = {n: against_plain(x) for n, x in planted_logits.items()}
+    log(f"lm checks {cfg.name}: token rows bit-identical to the plain "
+        f"decode; exported codes (head, tier-boundary and tail slices, "
+        f"{mism} codes differ) within {gap:.3g} of the plain assignment; "
+        f"last-token logits against the plain f32-attention route"
+        f"{' with its experts pinned to the kernel route' if cfg.is_moe else ''}: max "
+        f"|diff| {err:.4g} (bar {logit_tol}), mean |diff| {mean_err:.4g}, "
+        f"largest |logit| {float(logits_plain.abs().max()):.4g}, top-1 "
+        f"tokens equal: {top1}, the kernel's pick within the bar of the "
+        f"plain route's best: {top1_near}; the kernel route with "
+        f"{fault[0]} (max |diff|, mean |diff|, top-1 equal, within the "
+        f"bar): on the first layer it reaches {planted[1]}, on every "
+        f"layer {planted[cfg.num_layers]}; sample tokens "
         f"{run.tokens[0, :8].tolist()}")
-    need(top1, "prefill top-1 tokens == the plain ops'")
-    need(err <= LM_LOGIT_TOL, f"prefill logits within {LM_LOGIT_TOL} of "
-         f"the plain ops'")
-    for layers, (bad, _, bad_top1) in planted.items():
-        need(bad > LM_LOGIT_TOL or not bad_top1, f"the planted window "
-             f"fault on {layers} layer(s) fails the logits check")
-    stats = lm_statistics(run, cfg)
+    need(top1_near, f"{cfg.name} prefill top-1 tokens == the plain "
+         f"route's, or within {logit_tol} of its best logit")
+    need(err <= logit_tol, f"{cfg.name} prefill logits within "
+         f"{logit_tol} of the plain route's")
+    if logits_see_fault:
+        for n, (bad, _, _, bad_near) in planted.items():
+            need(bad > logit_tol or not bad_near, f"{fault[0]} on {n} "
+                 f"layer(s) fails the logits check ({cfg.name})")
+    stats.update(lm_layer_statistics(run, cfg, fault))
     sound, *faults = stats[("plain f32", "layer", "mean")]
-    need(sound <= LM_LAYER_TOL, f"every prefill layer within "
-         f"{LM_LAYER_TOL} (mean |diff|) of the plain route's, from the "
+    need(sound <= layer_tol, f"every {cfg.name} prefill layer within "
+         f"{layer_tol} (mean |diff|) of the plain route's, from the "
          f"same input")
-    for layers, bad in zip((1, cfg.num_layers), faults):
-        need(bad > LM_LAYER_TOL, f"the planted window fault on {layers} "
-             f"layer(s) fails the per-layer check")
-    del rows, rows_plain, logits_plain
+    for n, bad in zip((1, cfg.num_layers), faults):
+        need(bad > layer_tol, f"{fault[0]} on {n} layer(s) fails the "
+             f"per-layer check ({cfg.name})")
+    del logits_plain, planted_logits
 
     # where the time goes: one prefill and one decode step, profiled
     with torch.no_grad():
-        profile_phase(f"{cfg.name} prefill (B={LM_BATCH} x {LM_PROMPT})",
+        profile_phase(f"{cfg.name} prefill (B={batch} x {prompt})",
                       lambda: lm.prefill(run.params, run.prompts, cfg,
-                                         max_seq=LM_PROMPT + LM_STEPS,
+                                         max_seq=max_seq,
                                          embed_artifact=run.artifact))
-        cache, _ = lm.prefill(run.params, run.prompts, cfg,
-                              max_seq=LM_PROMPT + LM_STEPS,
+        cache, _ = lm.prefill(run.params, run.prompts, cfg, max_seq=max_seq,
                               embed_artifact=run.artifact)
         tok = run.tokens[:, 0]
-        profile_phase(f"{cfg.name} decode step (B={LM_BATCH})",
+        profile_phase(f"{cfg.name} decode step (B={batch})",
                       lambda: lm.decode_step(run.params, cache, tok, cfg,
                                              embed_artifact=run.artifact))
+    shapes = {}
+    for _, _, window, _ in lm._layer_plan(cfg, prompt):
+        key = (cfg.name, batch, prompt, cfg.num_heads, cfg.num_kv_heads,
+               cfg.resolved_head_dim, min(window, FULL_WINDOW))
+        shapes[key] = shapes.get(key, 0) + 1
     del run, cache
+    phase_peak = torch.cuda.max_memory_allocated() / 2**30
     gc.collect()
     torch.cuda.empty_cache()
-    return launches
+    log(f"lm phase {cfg.name}: {time.perf_counter() - t_phase:.1f}s; peak "
+        f"device memory over the phase (its checks included) "
+        f"{phase_peak:.3f} GiB")
+    return launches, gap, shapes
 
 
 def sdpa_backend(fn) -> str:
-    """The kernels one ``scaled_dot_product_attention`` call ran, named
-    from the profiler (the dispatcher picks among flash, efficient,
-    cuDNN and math without saying which)."""
+    """The backend one ``scaled_dot_product_attention`` call took, named
+    from the profiler's aten ops (the dispatcher picks among flash,
+    efficient, cuDNN and math without saying which), and the first
+    kernels it ran."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    names = sorted({ev.key for ev in prof.key_averages()
-                    if ev.device_type == DeviceType.CUDA})
-    low = " ".join(names).lower()
-    kind = ("flash" if "flash" in low else
-            "cuDNN" if "cudnn" in low else
-            "efficient (cutlass fmha)" if "fmha" in low or "efficient" in low
+    events = prof.key_averages()
+    ops = " ".join(ev.key for ev in events
+                   if ev.device_type != DeviceType.CUDA).lower()
+    kernels = sorted({ev.key for ev in events
+                      if ev.device_type == DeviceType.CUDA})
+    kind = ("cuDNN" if "cudnn_attention" in ops else
+            "flash" if "flash_attention" in ops else
+            "efficient (cutlass fmha)" if "efficient_attention" in ops
             else "math (matmuls and softmax)")
-    return f"{kind}: {[n[:60] for n in names][:4]}"
+    return f"{kind}: {[n[:60] for n in kernels][:4]}"
 
 
-def time_flash(err: float, launches: dict) -> dict:
-    """flash_attention timed at gemma3-4b's local and global layer
-    shapes (bf16, the path's prefill), beside its plain version, one
+def time_flash(err: float, launches: int, shapes: dict) -> dict:
+    """flash_attention timed at every layer shape of the LM paths' prefills
+    (bf16), beside its plain version, one
     ``F.scaled_dot_product_attention`` call and its bound; the
-    ``kernels`` entry holds the per-launch mean over the prefill's layer
-    mix (29 local, 5 global)."""
+    ``kernels`` entry holds the mean per launch over the paths' layers
+    (``shapes``: (arch, B, S, H, Hkv, hd, window) -> layers)."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.configs import get_arch
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_ref)
-    _, cfg = get_arch(LM_ARCH, smoke=False)
-    b, s, h, hkv = LM_BATCH, LM_PROMPT, cfg.num_heads, cfg.num_kv_heads
-    hd = cfg.resolved_head_dim
-    n_glob = cfg.num_layers // (cfg.local_global_pattern + 1)
-    n_loc = cfg.num_layers - n_glob
-    q, k, v = flash_inputs(b, s, s, h, hkv, hd, torch.bfloat16, seed=21)
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    pos = torch.arange(s, device="cuda")
     times = {}
-    for name, win in (("local", cfg.sliding_window), ("global", FULL_WINDOW)):
+    for key, count in shapes.items():
+        arch, b, s, h, hkv, hd, win = key
+        q, k, v = flash_inputs(b, s, s, h, hkv, hd, torch.bfloat16,
+                               seed=hd + win % 997)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        pos = torch.arange(s, device="cuda")
         delta = pos[:, None] - pos[None, :]
         band = (delta >= 0) & (delta < win)
         if win >= s:
@@ -3750,14 +3948,14 @@ def time_flash(err: float, launches: dict) -> dict:
         lib_err = float((lib().transpose(1, 2).float()
                          - flash_attention_ref(q, k, v, window=win).float())
                         .abs().max())
-        pairs = int(band.sum()) * b * h
+        pairs = visible_pairs(s, win) * b * h
         flops = 4 * hd * pairs
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2
         t_ops = flops / BF16_FLOP_PER_S * 1e3
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        times[name] = (ms, plain, lib_ms, max(t_ops, t_bytes),
-                       "operations" if t_ops >= t_bytes else "bytes")
-        log(f"time flash_attention gemma3-4b {name} layer B={b} S={s} H={h} "
+        times[key] = (ms, plain, lib_ms, max(t_ops, t_bytes),
+                      "operations" if t_ops >= t_bytes else "bytes")
+        log(f"time flash_attention {arch} layer x{count} B={b} S={s} H={h} "
             f"Hkv={hkv} hd={hd} window={win} bf16: kernel {ms:.5f} ms, "
             f"plain {plain:.5f} ms, F.scaled_dot_product_attention "
             f"{lib_ms:.5f} ms ({sdpa_backend(lib)}; max |diff| to the "
@@ -3766,35 +3964,29 @@ def time_flash(err: float, launches: dict) -> dict:
             f"{nbytes} bytes); {flops / ms / 1e9:.2f} TFLOP/s; host time to "
             f"launch {host:.5f} ms; the kernel at block_k 32 / 64: "
             f"{other[32]:.5f} / {other[64]:.5f} ms")
-    del q, k, v, qt, kt, vt
-    # gemma3-27b's layer (hd 168, zero-padded to 176 on the tensor
-    # cores) at either KV tile, for the tile the kernel picks by default
-    q, k, v = flash_inputs(1, s, s, 32, 16, 168, torch.bfloat16, seed=27)
-    for name, win in (("local", 1024), ("global", FULL_WINDOW)):
-        tiles = {bk: time_ms(lambda: flash_attention(q, k, v, window=win,
-                                                     block_k=bk),
-                             iters=10, warmup=2)[0] for bk in (32, 64)}
-        log(f"time flash_attention gemma3-27b {name} layer B=1 S={s} H=32 "
-            f"Hkv=16 hd=168 window={win} bf16: block_k 32 / 64: "
-            f"{tiles[32]:.5f} / {tiles[64]:.5f} ms")
-    mix = [(times["local"], n_loc), (times["global"], n_glob)]
+        del q, k, v, qt, kt, vt, band
+        gc.collect()
+        torch.cuda.empty_cache()
+    total = sum(shapes.values())
+    need(total == launches, "every flash_attention launch of the LM paths "
+         "has its shape timed")
 
     def mean(i):
-        return sum(t[i] * n for t, n in mix) / cfg.num_layers
+        return sum(times[key][i] * n for key, n in shapes.items()) / total
 
-    log(f"time flash_attention per launch over the prefill's {n_loc} local "
-        f"and {n_glob} global layers: kernel {mean(0):.5f} ms, plain "
-        f"{mean(1):.5f} ms, library {mean(2):.5f} ms, bound {mean(3):.5f} ms")
-    del q, k, v
-    gc.collect()
-    torch.cuda.empty_cache()
+    log(f"time flash_attention per launch over the LM paths' {total} "
+        f"layers: kernel {mean(0):.5f} ms, plain {mean(1):.5f} ms, library "
+        f"{mean(2):.5f} ms, bound {mean(3):.5f} ms")
+    by = {}
+    for key, n in shapes.items():
+        by[times[key][4]] = by.get(times[key][4], 0) + n
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/"
                         "flash_attention.py:81",
-            "launches": launches["flash_attention"], "max_abs_err": err,
+            "launches": launches, "max_abs_err": err,
             "ms": mean(0), "plain_ms": mean(1), "bound_ms": mean(3),
-            "bound_by": times["global"][4], "library_ms": mean(2)}
+            "bound_by": max(by, key=by.get), "library_ms": mean(2)}
 
 
 def kernel_counters() -> dict:
@@ -4501,11 +4693,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     flash_err = check_flash()
     lm_assign_gap = check_lm_assign()
-    l_launches = lm_path()
-    kernels.append(time_flash(flash_err, l_launches))
-    gc.collect()
-    torch.cuda.empty_cache()
-    lm27_gap = lm27_export_check()
+    l_launches, flash_shapes = [], {}
+    for arch, batch, prompt, layers in LM_PATHS:
+        path_launches, gap, shapes = lm_path(arch, batch, prompt, layers)
+        l_launches.append(path_launches)
+        lm_assign_gap = max(lm_assign_gap, gap)
+        flash_shapes.update(shapes)
+    kernels.append(time_flash(
+        flash_err, sum(p["flash_attention"] for p in l_launches),
+        flash_shapes))
     gc.collect()
     torch.cuda.empty_cache()                 # free the card for two-tower
     r_launches, r_errs, (luts, codes), flat_qps = retrieval_path()
@@ -4522,12 +4718,12 @@ def main() -> int:
         entry["launches"] = sum(p.get(name, 0) for p in
                                 (launches, c_launches, h_launches,
                                  bag_launches, *ctr_launches,
-                                 b_launches, l_launches, r_launches,
+                                 b_launches, *l_launches, r_launches,
                                  *i_launches))
         if name == "dpq_assign":
             entry["max_abs_err"] = max(entry["max_abs_err"], pq_errs[name],
                                        c_errs[name], lm_assign_gap,
-                                       lm27_gap, bb_gap)
+                                       bb_gap)
     log(f"total {time.perf_counter() - t0:.1f}s")
     log(card)
     log(json.dumps({"kernels": kernels}))

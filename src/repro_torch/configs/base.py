@@ -33,7 +33,7 @@ class LMConfig:
     rope_theta: float = 10_000.0           # uniform / local-layer theta
     rope_theta_global: float = 1_000_000.0  # global-layer theta (pattern models)
 
-    # MoE (nn/moe.py is not ported: model_init refuses MoE configs) -----
+    # MoE (nn/moe.py; moe_shard_map waits for the distributed layer) --
     num_experts: int = 0
     num_experts_per_tok: int = 0
     moe_capacity_factor: float = 1.25

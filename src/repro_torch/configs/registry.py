@@ -11,8 +11,11 @@ from typing import Dict, Tuple
 
 ARCHS: Dict[str, Tuple[str, str]] = {
     # arch id            family    config module
+    "gemma3-27b":        ("lm", "repro_torch.configs.gemma3_27b"),
     "gemma3-4b":         ("lm", "repro_torch.configs.gemma3_4b"),
     "stablelm-3b":       ("lm", "repro_torch.configs.stablelm_3b"),
+    "qwen3-moe-30b-a3b": ("lm", "repro_torch.configs.qwen3_moe_30b_a3b"),
+    "mixtral-8x7b":      ("lm", "repro_torch.configs.mixtral_8x7b"),
     "two-tower-retrieval": ("recsys",
                             "repro_torch.configs.two_tower_retrieval"),
     "deepfm":            ("recsys", "repro_torch.configs.deepfm"),
@@ -22,11 +25,8 @@ ARCHS: Dict[str, Tuple[str, str]] = {
 
 # archs of the JAX package not ported yet, and what each waits for
 NOT_PORTED: Dict[str, str] = {
-    "gemma3-27b": ("its config's port and a bfloat16 LM held to the plain "
-                   "route on the card (its param_dtype is bfloat16; the "
-                   "bfloat16 export and hd 168 attention are ported)"),
-    "mixtral-8x7b": "nn/moe.py (mixture-of-experts FFN)",
-    "qwen3-moe-30b-a3b": "nn/moe.py (mixture-of-experts FFN)",
+    "mace": ("the GNN family (models/gnn/{mace,so3}.py, data/graph.py, "
+             "configs/mace.py; ROADMAP.md §1 item 7)"),
 }
 
 

@@ -8,6 +8,8 @@ arrays (``ml_dtypes``' numpy type) are carried bit for bit.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -226,9 +228,13 @@ def ivf_pq_artifact_from_numpy(artifact: dict, device,
 def lm_params_from_numpy(params: dict, cfg, device) -> dict:
     """The JAX LM params (numpy leaves) as the port's, leaf for leaf:
     the token embedding through :func:`params_from_numpy`, every other
-    leaf — the stacked layers (``layers``, or ``loc``/``glob``/``rem``),
-    ``final_norm`` and ``lm_head`` — checked against the model's
-    :func:`~repro_torch.models.lm.param_spec` and ``cfg.param_dtype``."""
+    leaf — the stacked layers (``layers``, or ``loc``/``glob``/``rem``,
+    each with its ``ffn`` or MoE ``moe`` subtree), ``final_norm`` and
+    ``lm_head`` — checked against the model's
+    :func:`~repro_torch.models.lm.param_spec`.  Every leaf, the
+    embedding's too (``model_init`` draws it in the model's dtype),
+    must be in ``cfg.param_dtype``: bfloat16 leaves (``ml_dtypes``) for
+    a bfloat16 config, float32 ones refused for it."""
     from repro_torch.models.lm import param_spec
     spec = param_spec(cfg)
     if set(params) != set(spec) | {"embed"}:
@@ -249,7 +255,7 @@ def lm_params_from_numpy(params: dict, cfg, device) -> dict:
                              f"{spec_tree[0]} {want}")
         return t
 
-    out = {"embed": params_from_numpy(params["embed"], cfg.embedding,
-                                      device)}
+    ecfg = dataclasses.replace(cfg.embedding, param_dtype=cfg.param_dtype)
+    out = {"embed": params_from_numpy(params["embed"], ecfg, device)}
     out.update({k: convert(params[k], spec[k], k) for k in spec})
     return out

@@ -385,10 +385,16 @@ def serve_lm(cfg, batch: int, prompt_len: int, decode_steps: int,
     device = resolve_device(device)
     params = lm.model_init(torch.Generator(device=device).manual_seed(seed),
                            cfg)
-    emb = Embedding(cfg.embedding, device=device)
+    # model_init draws the token table in the model's dtype (bfloat16
+    # for the >=27B archs): the artifact and the full table it replaces
+    # are both counted at that width
+    emb = Embedding(dataclasses.replace(cfg.embedding,
+                                        param_dtype=cfg.param_dtype),
+                    device=device)
     with torch.no_grad():
         artifact = emb.export(params["embed"])
-    full_bits = cfg.embedding.vocab_size * cfg.embedding.dim * 32
+    table = params["embed"]["emb"]
+    full_bits = table.numel() * table.element_size() * 8
     print(f"embedding artifact: {emb.serving_size_bits()/8/1e6:.2f} MB "
           f"({100*emb.serving_size_bits()/full_bits:.1f}% of full)")
 

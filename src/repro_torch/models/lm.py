@@ -1,4 +1,6 @@
-"""Decoder-only LM family: the dense archs (stablelm-3b, gemma3-4b).
+"""Decoder-only LM family: the dense archs (stablelm-3b, gemma3-4b,
+gemma3-27b) and the mixture-of-experts archs (mixtral-8x7b,
+qwen3-moe-30b-a3b).
 
 The JAX package's ``models/lm.py``, for serving:
 
@@ -18,9 +20,11 @@ The JAX package's ``models/lm.py``, for serving:
 * Full-sequence attention takes ``attention_impl``: ``dense`` up to
   1,024 tokens under ``auto``, else ``chunked`` — on the card the
   flash_attention kernel.
+* An MoE config's layers hold ``moe`` (``nn/moe.py``) in place of
+  ``ffn``; its FFN returns the router's aux loss, summed over layers.
 
-Training (``chunked_xent``, ``loss_fn``) and the MoE FFN (``nn/moe.py``)
-are later slices in ROADMAP.md: an MoE config is refused.
+Training (``chunked_xent``, ``loss_fn``) is a later slice in
+ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -33,16 +37,10 @@ from repro_torch.core import Embedding
 from repro_torch.core.schemes.base import torch_dtype
 from repro_torch.nn import attention as attn
 from repro_torch.nn import initializers as init
+from repro_torch.nn import moe as moe_lib
 from repro_torch.nn.mlp import glu_ffn
 from repro_torch.nn.norm import rms_norm
 from repro_torch.nn.rope import apply_rope
-
-
-def _refuse_moe(cfg: LMConfig) -> None:
-    if cfg.is_moe:
-        raise NotImplementedError(
-            f"{cfg.name}: the mixture-of-experts FFN waits for nn/moe.py "
-            f"(ROADMAP.md); the port serves the dense LM archs")
 
 
 # ----------------------------------------------------------------------
@@ -81,20 +79,24 @@ def cache_len_for_layer(cfg: LMConfig, window: int, max_seq: int) -> int:
 # ----------------------------------------------------------------------
 
 def _layer_spec(cfg: LMConfig) -> dict:
-    """One layer's leaves as (shape, init stddev); stddev 0 is zeros."""
-    _refuse_moe(cfg)
+    """One layer's leaves as (shape, init stddev); stddev 0 is zeros.
+    An MoE layer holds ``moe`` in place of ``ffn``."""
     hd, d, f = cfg.resolved_head_dim, cfg.d_model, cfg.d_ff
     s = d ** -0.5
-    return {
+    spec = {
         "wq": ((d, cfg.num_heads * hd), s),
         "wk": ((d, cfg.num_kv_heads * hd), s),
         "wv": ((d, cfg.num_kv_heads * hd), s),
         "wo": ((cfg.num_heads * hd, d), (cfg.num_heads * hd) ** -0.5),
         "ln1": {"scale": ((d,), 0.0)},
         "ln2": {"scale": ((d,), 0.0)},
-        "ffn": {"w_gate": ((d, f), s), "w_up": ((d, f), s),
-                "w_down": ((f, d), f ** -0.5)},
     }
+    if cfg.is_moe:
+        spec["moe"] = moe_lib.moe_spec(d, f, cfg.num_experts)
+    else:
+        spec["ffn"] = {"w_gate": ((d, f), s), "w_up": ((d, f), s),
+                       "w_down": ((f, d), f ** -0.5)}
+    return spec
 
 
 def _stacks(cfg: LMConfig) -> Dict[str, Tuple[int, ...]]:
@@ -169,7 +171,16 @@ def _qkv(p, x, cfg: LMConfig):
 
 
 def _ffn_block(p, x, cfg: LMConfig):
-    _refuse_moe(cfg)
+    if cfg.is_moe:
+        # JAX takes its shard_map grouped dispatch for full sequences
+        # (train/prefill); decode (S == 1) keeps the global formulation
+        if cfg.moe_shard_map and x.shape[1] > 1:
+            raise NotImplementedError(
+                f"{cfg.name}: moe_shard_map (the expert-sharded dispatch) "
+                f"waits for the distributed layer, ROADMAP.md §1 item 8; "
+                f"the port runs the single-device moe_ffn")
+        return moe_lib.moe_ffn(p["moe"], x, top_k=cfg.num_experts_per_tok,
+                               capacity_factor=cfg.moe_capacity_factor)
     return (glu_ffn(p["ffn"], x, act=cfg.act),
             torch.zeros((), dtype=torch.float32, device=x.device))
 

@@ -257,5 +257,4 @@ def test_cli_runs_ivf_flags(flags, capsys):
 
 def test_cli_unknown_arch():
     with pytest.raises(KeyError, match="not ported"):
-        serve.main(["--arch", "mixtral-8x7b", "--engine", "--device",
-                    "cpu"])
+        serve.main(["--arch", "mace", "--engine", "--device", "cpu"])

@@ -1664,7 +1664,8 @@ def test_dpq_assign_kernel_ties_across_chunks(cuda, dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch", ["stablelm-3b", "gemma3-4b"])
+@pytest.mark.parametrize("arch", ["stablelm-3b", "gemma3-4b", "gemma3-27b",
+                                  "mixtral-8x7b", "qwen3-moe-30b-a3b"])
 def test_lm_smoke_on_card_matches_cpu(cuda, arch):
     """The smoke LM served from the same params and artifact on the card
     and on the CPU, a 1,100-token prompt (the chunked route: the
@@ -1698,6 +1699,103 @@ def test_lm_smoke_on_card_matches_cpu(cuda, arch):
     for host, card in zip(*runs):
         assert torch.allclose(card, host, rtol=1e-4, atol=1e-4)
         assert torch.equal(torch.argmax(card, -1), torch.argmax(host, -1))
+
+
+def _moe_params(d, f, e, seed, zero_router=False):
+    g = torch.Generator().manual_seed(seed)
+    p = {"router": torch.randn((d, e), generator=g) * d ** -0.5,
+         "w_gate": torch.randn((e, d, f), generator=g) * d ** -0.5,
+         "w_up": torch.randn((e, d, f), generator=g) * d ** -0.5,
+         "w_down": torch.randn((e, f, d), generator=g) * f ** -0.5}
+    if zero_router:
+        p["router"].zero_()
+    return p
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("factor", [1.25, 0.01])
+@pytest.mark.parametrize("d,f,e,k", [(64, 96, 4, 2), (64, 32, 8, 2),
+                                     (256, 64, 128, 8)])
+def test_moe_ffn_on_card_matches_cpu(cuda, d, f, e, k, factor):
+    """nn/moe.py in f32 on the card and on the CPU from the same params
+    and tokens (the MoE archs' smoke widths and 128 experts top-8; a
+    capacity factor that keeps every choice and one that drops most):
+    the routed experts equal, output and aux within 1e-5."""
+    from repro_torch.core.schemes.base import tree_map
+    from repro_torch.nn import moe
+    p = _moe_params(d, f, e, seed=e)
+    x = torch.randn((2, 300, d), generator=torch.Generator().manual_seed(1))
+    runs = []
+    for dev in ("cpu", cuda):
+        pd, xd = tree_map(lambda t: t.to(dev), p), x.to(dev)
+        ids = moe.route(xd.reshape(-1, d), pd["router"], k)[1]
+        out, aux = moe.moe_ffn(pd, xd, top_k=k, capacity_factor=factor)
+        runs.append((ids.cpu(), out.cpu(), aux.cpu()))
+    (ids_h, out_h, aux_h), (ids_c, out_c, aux_c) = runs
+    assert torch.equal(ids_c, ids_h)
+    assert torch.allclose(out_c, out_h, rtol=1e-5, atol=1e-5)
+    assert abs(float(aux_c) - float(aux_h)) <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("e,k", [(4, 2), (8, 2), (128, 8)])
+def test_moe_zero_router_ties_on_card(cuda, e, k):
+    """Every router probability tied: the card's stable sort gives
+    experts 0..k-1 for every token, as JAX's top-k does."""
+    from repro_torch.nn import moe
+    p = {n: t.to(cuda) for n, t in _moe_params(64, 32, e, seed=2,
+                                               zero_router=True).items()}
+    x = torch.randn((4096, 64), device=cuda)
+    ids = moe.route(x, p["router"], k)[1]
+    assert torch.equal(ids.cpu(), torch.arange(k).expand(4096, k))
+    out, _ = moe.moe_ffn(p, x[None], top_k=k)
+    assert bool(torch.isfinite(out).all())
+
+
+@pytest.mark.gpu
+def test_bf16_param_lm_on_card_kernel_route_matches_plain(cuda):
+    """gemma3-27b's smoke config with its full config's bfloat16 params
+    (activations f32) served on the card, a 1,100-token prompt: the
+    kernel route (flash_attention on every layer, mgqe_decode on the
+    bf16 centroids) against the plain route on the same card, prefill
+    and 3 decode steps' logits within 1e-4, greedy tokens equal."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.dispatch import pinned_backend
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.mgqe_decode import mgqe_decode
+    from repro_torch.models import lm
+    _, cfg = get_arch("gemma3-27b", smoke=True)
+    cfg = dataclasses.replace(cfg, param_dtype="bfloat16")
+    params = lm.model_init(torch.Generator(device=cuda).manual_seed(0), cfg)
+    assert params["loc"]["wq"].dtype == params["embed"]["emb"].dtype \
+        == torch.bfloat16
+    emb = Embedding(dataclasses.replace(cfg.embedding,
+                                        param_dtype="bfloat16"), device=cuda)
+    art = emb.export(params["embed"])
+    assert art["centroids"].dtype == torch.bfloat16
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 1100)).astype(np.int32)).to(cuda)
+    runs = []
+    for backend in (None, "torch"):
+        before = (flash_attention.launches, mgqe_decode.launches)
+        with torch.no_grad(), pinned_backend(backend):
+            cache, logits = lm.prefill(params, tokens, cfg, max_seq=1103,
+                                       embed_artifact=art)
+            out = [logits]
+            for _ in range(3):
+                tok = torch.argmax(logits, -1).to(torch.int32)
+                cache, logits = lm.decode_step(params, cache, tok, cfg,
+                                               embed_artifact=art)
+                out.append(logits)
+        launched = (flash_attention.launches - before[0],
+                    mgqe_decode.launches - before[1])
+        assert launched == ((cfg.num_layers, 4) if backend is None
+                            else (0, 0))
+        runs.append(out)
+    for kernel, plain in zip(*runs):
+        assert kernel.dtype == torch.float32
+        assert torch.allclose(kernel, plain, rtol=1e-4, atol=1e-4)
+        assert torch.equal(torch.argmax(kernel, -1), torch.argmax(plain, -1))
 
 
 # ----------------------------------------------------------------------

@@ -3,7 +3,11 @@
 The building blocks (``rms_norm``, ``apply_rope``, ``glu_ffn``, the
 attention paths and the KV-cache helpers) run on numpy inputs handed
 to both packages; the models are the smoke configs of stablelm-3b
-(uniform layout) and gemma3-4b (the 5:1 local:global pattern), f32.
+(uniform layout), gemma3-4b and gemma3-27b (the 5:1 local:global
+pattern), mixtral-8x7b (MoE, every layer windowed: the decode cache is
+a ring that wraps) and qwen3-moe-30b-a3b (MoE, 8 experts top-2), f32,
+and gemma3-27b's with bfloat16 params (as its full config holds them;
+activations f32).
 The JAX params (``model_init`` from a PRNG key) and the JAX-exported
 MGQE token artifact are carried across with ``repro_torch.convert``.
 The bars:
@@ -36,7 +40,6 @@ from repro.nn import norm as jax_norm
 from repro.nn import rope as jax_rope
 from repro_torch.configs import get_arch
 from repro_torch.configs.base import LMConfig
-from repro_torch.configs.lm_common import lm_embedding
 from repro_torch.convert import artifact_from_numpy, lm_params_from_numpy
 from repro_torch.launch import serve
 from repro_torch.models import lm
@@ -46,7 +49,8 @@ from repro_torch.nn import mlp, norm, rope
 TOL = 1e-6
 LAYER_TOL = 2e-5
 MODEL_TOL = 1e-4
-ARCHS = ["stablelm-3b", "gemma3-4b"]
+ARCHS = ["stablelm-3b", "gemma3-4b", "gemma3-27b", "mixtral-8x7b",
+         "qwen3-moe-30b-a3b"]
 BATCH, PROMPT, STEPS = 2, 12, 4
 
 
@@ -226,18 +230,25 @@ def test_cache_from_prefill_matches_jax(s, cache_len):
 
 class Pair:
     """One smoke config in both packages, with JAX's params and
-    exported token artifact carried across."""
+    exported token artifact carried across; ``param_dtype`` replaces
+    the config's (the token table and centroids are drawn in it)."""
 
-    def __init__(self, arch):
+    def __init__(self, arch, param_dtype=None):
         _, self.jcfg = jax_get_arch(arch, smoke=True)
         _, self.cfg = get_arch(arch, smoke=True)
+        if param_dtype:
+            self.jcfg = dataclasses.replace(self.jcfg,
+                                            param_dtype=param_dtype)
+            self.cfg = dataclasses.replace(self.cfg, param_dtype=param_dtype)
         self.jparams = jax_lm.model_init(jax.random.PRNGKey(0), self.jcfg)
         self.jart = JaxEmbedding(self.jcfg.embedding).export(
             self.jparams["embed"])
         np_params = jax.tree.map(np.asarray, self.jparams)
         self.params = lm_params_from_numpy(np_params, self.cfg, "cpu")
+        ecfg = dataclasses.replace(self.cfg.embedding,
+                                   param_dtype=self.cfg.param_dtype)
         self.art = artifact_from_numpy(jax.tree.map(np.asarray, self.jart),
-                                       self.cfg.embedding, "cpu")
+                                       ecfg, "cpu")
         self.tokens = _rng(5).integers(
             0, self.cfg.vocab_size, (BATCH, PROMPT)).astype(np.int32)
 
@@ -245,11 +256,11 @@ class Pair:
 _PAIRS = {}
 
 
-def _pair(arch):
+def _pair(arch, param_dtype=None):
     """Each config's Pair, built once per test process."""
-    if arch not in _PAIRS:
-        _PAIRS[arch] = Pair(arch)
-    return _PAIRS[arch]
+    if (arch, param_dtype) not in _PAIRS:
+        _PAIRS[arch, param_dtype] = Pair(arch, param_dtype)
+    return _PAIRS[arch, param_dtype]
 
 
 @pytest.fixture(scope="module", params=ARCHS)
@@ -299,7 +310,9 @@ def test_layer_forward_matches_jax(pair, impl):
         _close(y, jy, LAYER_TOL)
         _close(k, jk, TOL)
         _close(v, jv, TOL)
-        assert float(aux) == float(jaux) == 0.0
+        # a dense FFN has no aux loss; an MoE layer's is the router's
+        assert abs(float(aux) - float(jaux)) <= TOL
+        assert (float(aux) > 0) == cfg.is_moe
 
 
 def test_params_carry_across_leaf_for_leaf(pair):
@@ -325,14 +338,25 @@ def test_forward_matches_jax(pair):
     _close(aux, jaux, MODEL_TOL)
 
 
-@pytest.mark.parametrize("arch,split", [("stablelm-3b", False),
-                                        ("gemma3-4b", False),
-                                        ("gemma3-4b", True)])
-def test_prefill_and_decode_match_jax(arch, split):
-    """Both cache layouts of the pattern model (the split cache keeps
+@pytest.mark.parametrize("arch,split,param_dtype", [
+    ("stablelm-3b", False, None),
+    ("gemma3-4b", False, None),
+    ("gemma3-4b", True, None),
+    ("gemma3-27b", False, None),
+    ("gemma3-27b", True, None),
+    ("gemma3-27b", False, "bfloat16"),
+    ("mixtral-8x7b", False, None),
+    ("mixtral-8x7b", True, None),
+    ("qwen3-moe-30b-a3b", False, None),
+    ("qwen3-moe-30b-a3b", True, None)])
+def test_prefill_and_decode_match_jax(arch, split, param_dtype):
+    """Both cache layouts of the pattern models (the split cache keeps
     window-sized rings for the local layers); the uniform layout has
-    one."""
-    pair = _pair(arch)
+    one, so the flag changes nothing there (mixtral's window of 8 makes
+    its cache a ring that wraps either way).  gemma3-27b also with its
+    full config's bfloat16 params, carried across from JAX's bfloat16
+    leaves (activations stay f32, so the bar is the same)."""
+    pair = _pair(arch, param_dtype)
     cfg = dataclasses.replace(pair.cfg, split_local_global_cache=split)
     jcfg = dataclasses.replace(pair.jcfg, split_local_global_cache=split)
     max_seq = PROMPT + STEPS
@@ -388,21 +412,30 @@ def test_serve_lm_cli_on_cpu(arch, capsys):
     assert "embedding artifact" in out and "tok/s" in out
 
 
-@pytest.mark.parametrize("arch,why", [("gemma3-27b", "bfloat16 LM"),
-                                      ("mixtral-8x7b", "nn/moe.py"),
-                                      ("qwen3-moe-30b-a3b", "nn/moe.py")])
-def test_unported_lm_archs_are_refused(arch, why):
+def test_bf16_params_carry_across_and_f32_leaves_are_refused():
+    """A bfloat16 config takes JAX's bfloat16 leaves (``ml_dtypes``) bit
+    for bit, the token table included, and refuses float32 ones."""
+    pair = _pair("gemma3-27b", "bfloat16")
+    flat = jax.tree_util.tree_flatten_with_path(pair.jparams)[0]
+    for path, leaf in flat:
+        t = pair.params
+        for key in path:
+            t = t[key.key] if hasattr(key, "key") else t[key.idx]
+        assert t.dtype == torch.bfloat16
+        np.testing.assert_array_equal(t.view(torch.int16).numpy(),
+                                      np.asarray(leaf).view(np.int16))
+    f32 = jax.tree.map(lambda a: np.asarray(a, np.float32), pair.jparams)
+    with pytest.raises(ValueError, match="bfloat16"):
+        lm_params_from_numpy(f32, pair.cfg, "cpu")
+    one = jax.tree.map(np.asarray, pair.jparams)
+    one["loc"]["wq"] = one["loc"]["wq"].astype(np.float32)
+    with pytest.raises(ValueError, match="loc.wq"):
+        lm_params_from_numpy(one, pair.cfg, "cpu")
+
+
+@pytest.mark.parametrize("arch,why", [("mace", "GNN family")])
+def test_unported_archs_are_refused(arch, why):
     with pytest.raises(KeyError, match=why):
         get_arch(arch)
     with pytest.raises(KeyError, match="not ported"):
         serve.main(["--arch", arch, "--device", "cpu"])
-    # an MoE config built by hand is refused by the model too
-    _, jcfg = jax_get_arch(arch, smoke=True)
-    if jcfg.is_moe:
-        cfg = LMConfig(**{f.name: getattr(jcfg, f.name)
-                          for f in dataclasses.fields(jcfg)
-                          if f.name != "embedding"},
-                       embedding=lm_embedding(jcfg.vocab_size, jcfg.d_model,
-                                              num_subspaces=4))
-        with pytest.raises(NotImplementedError, match="nn/moe.py"):
-            lm.model_init(torch.Generator().manual_seed(0), cfg)
