@@ -108,7 +108,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the smoke configs 5 steps of DeepFM, AutoInt, BST and two-tower on
    the card against 5 on the CPU (codes compared first, loss and params
    within their bars) and a run failed at step 3 and resumed against an
-   uninterrupted one (DeepFM, AutoInt), once more in a child process
+   uninterrupted one (DeepFM, AutoInt; bit for bit under the default
+   algorithms), once more in a child process
    under ``torch.use_deterministic_algorithms(True)``; then
    ``dpq_assign`` and ``mgqe_decode`` timed at AutoInt's and BST's
    shapes;
@@ -161,10 +162,45 @@ Phases, each of which fails the run (non-zero exit, no result line):
    route flips between the routes counted, prefill and decode beside
    their bounds and peak memory printed, the export's ``dpq_assign``
    launches timed on the served table, the prefill and one decode step
-   profiled; then ``flash_attention``, its plain version and
-   ``F.scaled_dot_product_attention`` timed at every layer shape of
-   those prefills, the entry holding the mean per launch;
-12. free the card and drive the retrieval path at full width:
+   profiled;
+12. LM training (``lm_train_phases``), each phase freeing the card
+   after it: ``attend`` at stablelm-3b's training layer shape (2 x
+   4,096), qwen3's and gemma3-4b's local layer: its forward, the
+   kernel, against the plain version (``FLASH_TOL`` and the per-row
+   ``FLASH_BF16_ROW_TOL``; a dropped KV tile must fail), and its
+   backward (the recompute through the plain version a group of KV
+   heads at a time) against autograd through the plain version
+   (bit-identical where the recompute is whole, else within
+   ``ATTN_BWD_TOL``; the recompute at the other kind of layer's window
+   must fail); stablelm-3b's first-step loss at
+   2 x 4,096 on the kernel route against the plain version's
+   (``LM_STEP_LOSS_TOL``; every layer at a 1,024-key window must fail);
+   stablelm-3b's ``CONFIG`` (f32 params, bf16 activations, layer remat,
+   MGQE token table) trained 5 adamw steps through
+   ``launch.train.train`` at train_4k's sequence, 2 sequences a step
+   (train_4k's global batch of 256 cut to what the card holds), the
+   counts set to 0 just before and read just after (2
+   ``flash_attention`` launches a layer a step): step time and
+   tokens/s beside the FLOP bound, peak memory, losses; one more step
+   profiled, its device time split by profiler ranges into attention's
+   plain recompute, the chunked xent (forward and backward) and the
+   optimizer (the first two also timed alone as a cross-check); the
+   trained table exported (``dpq_assign``) and
+   served through ``launch.serve.serve_lm`` (a prefill of 1 x 4,096 and
+   16 decode steps, ``mgqe_decode``), counted likewise, rows and codes
+   held as in 11 (the initial table's export must fail the codes'
+   bar); qwen3-moe-30b-a3b at full width, bf16 params, 8 of its 48
+   layers, trained 3 steps at 1 x 4,096 with the same prints; the five
+   LM archs' smoke configs on the chunked route with layer remat on
+   the card against the CPU (first-batch gradients within
+   ``TRAIN_PARAM_TOL``, 5 steps' losses within ``TRAIN_LOSS_RTOL``; the
+   recompute at a wrong window must fail); a resumed stablelm-3b run
+   at full width (4 layers) and a resumed qwen3 smoke run against
+   uninterrupted ones, bit for bit (a resume on the wrong batches must
+   differ); then ``flash_attention``, its plain version and
+   ``F.scaled_dot_product_attention`` timed at every layer shape of the
+   LM prefills and of training, the entry holding the mean per launch;
+13. free the card and drive the retrieval path at full width:
    two-tower retrieval at ``configs/two_tower_retrieval.py::CONFIG``
    (50M users, 10M items, embed_dim 256, towers 1024-512-256) through
    ``launch.serve.serve_retrieval`` — init, the ``flat_pq`` index over
@@ -178,12 +214,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    for bit, hold the index's codes (and ``dpq_assign`` run again on
    the same tower outputs) against the plain assignment, as in 3, and
    print the peak device memory;
-13. time the pq kernels at that path's shapes, as in 5,
+14. time the pq kernels at that path's shapes, as in 5,
    ``pq_score_batched`` also at a ragged B = 465, and ``pq_topk`` also
    on its worst case (scores rising with the id, held to the exact
    answer) and beside ``torch.topk(pq_score_batched(...))``, the two
    calls it fuses;
-14. the retrieval-scale phase: ``ivf_pq`` at the JAX bench's
+15. the retrieval-scale phase: ``ivf_pq`` at the JAX bench's
    ``bench_retrieval_scale`` widths and knobs (``IVF_*``) over a
    1,000,000-row Zipf-clustered corpus kept on the host (cut from the
    bench's default 10M rows for time), built through
@@ -206,7 +242,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    over 1M candidates (counted: one ``dpq_assign``): recall@100
    (reported), queries/s beside phase 12's flat_pq, every flush
    bit-identical to the device search;
-15. print one ``{"kernels": [...]}`` JSON line (launches summed over
+16. print one ``{"kernels": [...]}`` JSON line (launches summed over
    every path), then, last, the ``{"ok": true, "device": ...}`` line.
 
 It needs one card and no arguments, imports nothing of JAX, and runs
@@ -215,6 +251,7 @@ the port from the ``src/`` directory beside this file.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import json
 import math
@@ -452,6 +489,55 @@ LM_BARS = {
     "gemma3-27b": (0.15, 0.005, True),
     "mixtral-8x7b": (0.125, 0.0026, False),
 }
+
+# LM training.  Phase A: stablelm-3b's CONFIG (f32 params, bf16
+# activations, layer remat) trained LM_TRAIN_STEPS adamw steps at
+# train_4k's sequence of 4,096, its global batch of 256 cut to what one
+# card holds: params, grads and two f32 moments are 41.7 GiB
+# (LMConfig.param_count() 2.795B at 16 bytes), the layer-boundary bf16
+# activations 0.67 GB a sequence (peak 49.45 GiB at B = 2).  Phase B:
+# qwen3-moe-30b-a3b at full width with bf16 params and f32 moments
+# (6.86 GiB a layer, 6.96 GiB for the token table and head), its 48
+# layers cut to MOE_TRAIN_LAYERS, 1 x 4,096: the most under ~76 GiB
+# (73.9 GiB at 8 layers; 9 ran out of memory; H100 SXM).
+LM_TRAIN_ARCH = "stablelm-3b"
+LM_TRAIN_BATCH = 2
+LM_TRAIN_STEPS = 5
+MOE_TRAIN_ARCH = "qwen3-moe-30b-a3b"
+MOE_TRAIN_LAYERS = 8
+MOE_TRAIN_BATCH = 1
+MOE_TRAIN_STEPS = 3
+# C.4: stablelm-3b at full width, its depth cut for a resume check whose
+# checkpoints (params and both moments) stay a few GB
+LM_RESUME_LAYERS = 4
+LM_RESUME_BATCH = 1
+# C.2: the smoke configs on the card against the CPU
+LM_ARCHS = ("stablelm-3b", "gemma3-4b", "gemma3-27b", "mixtral-8x7b",
+            "qwen3-moe-30b-a3b")
+LM_CHECK_BATCH, LM_CHECK_SEQ, LM_CHECK_STEPS = 2, 64, 5
+# gemma3's local window: the planted faults' wrong window for a global
+# layer
+LM_LOCAL_WINDOW = 1024
+# C.1: attend's forward and backward at the training layer shapes,
+# bf16: (name, B, S, H, Hkv, hd, window, the planted backward fault's
+# window)
+ATTN_BWD_CASES = (
+    ("stablelm-3b", LM_TRAIN_BATCH, 4096, 32, 32, 80, FULL_WINDOW,
+     LM_LOCAL_WINDOW),
+    ("qwen3-moe-30b-a3b", 1, 4096, 32, 4, 64, FULL_WINDOW, LM_LOCAL_WINDOW),
+    ("gemma3-4b local", 1, 4096, 8, 4, 320, LM_LOCAL_WINDOW, FULL_WINDOW),
+)
+# attend's grads against plain autograd's where the recompute runs a
+# group of KV heads at a time (the same function; bf16 products may
+# round otherwise in another batch of the GEMM): the largest |diff|
+# relative to the largest |grad|, one bf16 rounding
+ATTN_BWD_TOL = 2 ** -8
+# C.3: stablelm-3b's first-step loss (B = 2 x 4,096) on the kernel
+# route against the plain version's.  Readings (H100 SXM, 700 W): sound
+# 8.6e-05 (1.4e-04 against the plain version in f32); every layer
+# forced to a 1,024-key window 2.5e-03: the bar sits 5.8x above the one
+# and 4.9x below the other
+LM_STEP_LOSS_TOL = 5e-4
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -1010,12 +1096,22 @@ def main_path():
     return launches, st
 
 
-def profile_phase(what: str, fn) -> None:
+def profile_phase(what: str, fn, spans=()) -> dict:
     """Wall time of ``fn()`` under torch.profiler and the device time of
-    each kernel and copy it ran, largest first."""
+    each kernel and copy it ran, largest first; returns the wall and
+    device busy ms and, for each profiler range named in ``spans``, the
+    device time of the kernels launched inside it."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    def device_us(ev, total):
+        name = "device_time_total" if total else "self_device_time_total"
+        us = getattr(ev, name, None)
+        if us is None:
+            us = getattr(ev, name.replace("device", "cuda"), 0.0)
+        return us
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1026,12 +1122,11 @@ def profile_phase(what: str, fn) -> None:
     device = {}
     for ev in prof.key_averages():
         # device-side events only: a host op's entry repeats the time
-        # of the kernels it launched
-        if ev.device_type != DeviceType.CUDA:
+        # of the kernels it launched, and so does a range's device-side
+        # annotation
+        if ev.device_type != DeviceType.CUDA or ev.key in spans:
             continue
-        us = getattr(ev, "self_device_time_total", None)
-        if us is None:
-            us = getattr(ev, "self_cuda_time_total", 0.0)
+        us = device_us(ev, total=False)
         if us > 0:
             device[ev.key] = (us / 1e3, ev.count)
     busy = sum(ms for ms, _ in device.values())
@@ -1039,6 +1134,15 @@ def profile_phase(what: str, fn) -> None:
         f"({100 * busy / wall_ms:.1f}%)")
     for name, (ms, n) in sorted(device.items(), key=lambda kv: -kv[1][0])[:6]:
         log(f"  {ms:9.3f} ms  {n:5d}x  {name[:90]}")
+    out = {"wall_ms": wall_ms, "busy_ms": busy}
+    if spans:
+        # a range's host-side event: the kernels of the ops inside it
+        events = [ev for ev in prof.events()
+                  if ev.name in spans and ev.device_type == DeviceType.CPU]
+        for name in spans:
+            out[name] = sum(device_us(ev, total=True) for ev in events
+                            if ev.name == name) / 1e3
+    return out
 
 
 def time_kernels(errs: dict, launches: dict) -> list:
@@ -2405,7 +2509,7 @@ def ctr_train_path(arch: str) -> dict:
     need(len(losses) == TRAIN_STEPS and all(math.isfinite(x) for x in losses),
          "every full-width training loss finite")
     need(not any(launches.values()), "the training step launches no kernel")
-    batch = next(recsys_stream(run.model.cfg, CTR_BATCH, start=TRAIN_STEPS))
+    batch = next(recsys_stream(run.cfg, CTR_BATCH, start=TRAIN_STEPS))
     step_split(f"{arch}, B={CTR_BATCH}, full width", run.model, run.state,
                batch)
     del run, batch
@@ -2612,10 +2716,12 @@ def train_card_vs_cpu(arch: str) -> None:
              f"deepfm: final params within {TRAIN_PARAM_TOL} of the CPU's")
 
 
-def resume_gap(arch: str) -> tuple:
-    """``arch`` at its smoke config trained 5 steps with a checkpoint
-    every 2, failed at step 3, resumed, against an uninterrupted run:
-    (largest final param gap, bit-identical)."""
+def resume_gap(arch: str, planted=None, **train_kw) -> tuple:
+    """``arch`` (its smoke config unless ``train_kw`` says otherwise)
+    trained 5 steps with a checkpoint every 2, failed at step 3, resumed,
+    against an uninterrupted run: (largest final param gap,
+    bit-identical, the gap of a resume under the ``planted`` fault's
+    context manager, or None)."""
     import shutil
 
     import torch
@@ -2625,13 +2731,23 @@ def resume_gap(arch: str) -> tuple:
 
     ckpt_dir = os.path.join(REPO, "build", f"chip_smoke_ckpt_{arch}")
     shutil.rmtree(ckpt_dir, ignore_errors=True)
-    kw = dict(smoke=True, steps=TRAIN_STEPS, batch=CHECK_BATCH, log_every=1)
+    kw = dict(dict(smoke=True, steps=TRAIN_STEPS, batch=CHECK_BATCH,
+                   log_every=1), **train_kw)
     try:
         train(arch, ckpt_dir=ckpt_dir, ckpt_every=2, fail_at=3, **kw)
         failed = False
     except SimulatedFailure:
         failed = True
     need(failed, "--fail-at 3 stops the run")
+
+    def final_gap(run, other):
+        return max(float((a.float() - b.float()).abs().max()) for a, b in
+                   zip(tree_leaves(run.state.params),
+                       tree_leaves(other.state.params)))
+    bad_run = None
+    if planted is not None:
+        with planted():             # writes no checkpoint of its own
+            bad_run = train(arch, ckpt_dir=ckpt_dir, **kw)
     resumed = train(arch, ckpt_dir=ckpt_dir, ckpt_every=2, **kw)
     whole = train(arch, **kw)
     shutil.rmtree(ckpt_dir, ignore_errors=True)
@@ -2639,14 +2755,15 @@ def resume_gap(arch: str) -> tuple:
          "the resumed run starts from the step-2 checkpoint")
     pairs = list(zip(tree_leaves(resumed.state.params),
                      tree_leaves(whole.state.params)))
-    gap = max(float((a - b).abs().max()) for a, b in pairs)
+    gap = final_gap(resumed, whole)
     same = all(torch.equal(bits(a), bits(b)) for a, b in pairs)
+    bad = None if bad_run is None else final_gap(bad_run, whole)
     log(f"train resume ({arch}): failed at step 3, resumed from step 2 to "
         f"{int(resumed.state.step)}; final params against an uninterrupted "
         f"run: largest gap {gap:.3g}, bit-identical={same}")
     need(gap <= TRAIN_PARAM_TOL, "the resumed run's params == the "
          "uninterrupted run's")
-    return gap, same
+    return gap, same, bad
 
 
 DETERMINISTIC_FLAG = "--deterministic-resume"
@@ -2692,7 +2809,7 @@ def deterministic_resume() -> int:
                    gather_backward_repeats().items()}}), flush=True)
     for arch in RESUME_ARCHS:
         try:
-            gap, same = resume_gap(arch)
+            gap, same, _ = resume_gap(arch)
             out = {"arch": arch, "gap": gap, "bit_identical": same}
         except RuntimeError as e:
             if "deterministic" not in str(e):
@@ -2708,7 +2825,11 @@ def resume_checks() -> None:
     ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` under
     ``torch.use_deterministic_algorithms(True)`` (no other phase runs
     under it): both gaps printed, or the op that refused."""
-    results = {arch: resume_gap(arch) for arch in RESUME_ARCHS}
+    results = {arch: resume_gap(arch)[:2] for arch in RESUME_ARCHS}
+    for arch, (gap, same) in results.items():
+        need(same, f"{arch}: a resumed run is bit-identical to an "
+             f"uninterrupted one under the default algorithms (row_gather's "
+             f"backward is a sorted index_put_)")
     env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
     t0 = time.perf_counter()
     child = subprocess.run([sys.executable, os.path.abspath(__file__),
@@ -3681,6 +3802,49 @@ def lm_decode_bytes(run, cfg, b: int, max_seq: int) -> int:
                          for t in leaves)
 
 
+def check_served_table(run, ecfg, emb) -> tuple:
+    """An LM run's served token rows (``mgqe_decode``) held bit-identical
+    to the plain decode, and the exported codes (``dpq_assign``) of a
+    head, a tier-boundary and a tail slice (the whole table where it is
+    under two slices) to the plain assignment under their budgets.
+    Returns (the largest distance gap of a code that differs, codes that
+    differ)."""
+    import torch
+    from repro_torch.core.mgqe import k_limit_for_all_rows
+    from repro_torch.kernels.dispatch import pinned_backend
+
+    # the token rows: the served decode against the plain decode
+    rows = emb.serve(run.artifact, run.prompts)
+    with pinned_backend("torch"):
+        rows_plain = emb.serve(run.artifact, run.prompts)
+    torch.cuda.synchronize()
+    need(torch.equal(bits(rows), bits(rows_plain)),
+         "token rows == the plain decode, bit for bit")
+    del rows, rows_plain
+    # the exported codes of a head, a tier-boundary and a tail slice
+    # (the whole table where it is under two slices), under their budgets
+    lim_all = k_limit_for_all_rows(ecfg, "cuda")
+    n_rows = min(ASSIGN_BATCH, ecfg.vocab_size)
+    head = ecfg.tier_boundaries[0]
+    gap, mism = 0.0, 0
+    for lo in sorted({0, min(max(head - n_rows // 8, 0),
+                             ecfg.vocab_size - n_rows),
+                      ecfg.vocab_size - n_rows}):
+        sl = slice(lo, lo + n_rows)
+        e = run.params["embed"]["emb"][sl].reshape(
+            n_rows, ecfg.num_subspaces, -1)
+        cent = run.artifact["centroids"]
+        got = run.artifact["codes"][sl].to(torch.int32)
+        want_codes = blocked_assign_ref_lim(e, cent, lim_all[sl])
+        mism += int((got != want_codes).sum())
+        gap = max(gap, assign_gap(e, cent, lim_all[sl], got, want_codes))
+    need(gap <= ASSIGN_TOL, f"exported codes within {ASSIGN_TOL} of the "
+         f"plain assignment")
+    need(int(run.artifact["codes"][head:].max())
+         < ecfg.tier_num_centroids[1], "tail tier codes < K_tail")
+    return gap, mism
+
+
 def lm_path(arch: str, batch: int, prompt: int, layers) -> tuple:
     """``arch``'s ``CONFIG`` (``layers``: its depth cut to that many)
     through ``launch.serve.serve_lm``: init, MGQE export of the token
@@ -3699,7 +3863,6 @@ def lm_path(arch: str, batch: int, prompt: int, layers) -> tuple:
     from repro_torch.core import Embedding
     from repro_torch.core.mgqe import k_limit_for_all_rows
     from repro_torch.core.schemes.base import torch_dtype
-    from repro_torch.kernels.dispatch import pinned_backend
     from repro_torch.launch.serve import serve_lm
     from repro_torch.models import lm
 
@@ -3775,35 +3938,8 @@ def lm_path(arch: str, batch: int, prompt: int, layers) -> tuple:
               run.artifact["centroids"])) == (cfg.param_dtype == "bfloat16"),
          f"{cfg.name}'s weights, table and centroids in {cfg.param_dtype}")
 
-    # the token rows: the served decode against the plain decode
-    rows = emb.serve(run.artifact, run.prompts)
-    with pinned_backend("torch"):
-        rows_plain = emb.serve(run.artifact, run.prompts)
-    torch.cuda.synchronize()
-    need(torch.equal(bits(rows), bits(rows_plain)),
-         "token rows == the plain decode, bit for bit")
-    del rows, rows_plain
-    # the exported codes of a head, a tier-boundary and a tail slice
-    # (the whole table where it is under two slices), under their budgets
+    gap, mism = check_served_table(run, ecfg, emb)
     lim_all = k_limit_for_all_rows(ecfg, "cuda")
-    n_rows = min(ASSIGN_BATCH, ecfg.vocab_size)
-    head = ecfg.tier_boundaries[0]
-    gap, mism = 0.0, 0
-    for lo in sorted({0, min(max(head - n_rows // 8, 0),
-                             ecfg.vocab_size - n_rows),
-                      ecfg.vocab_size - n_rows}):
-        sl = slice(lo, lo + n_rows)
-        e = run.params["embed"]["emb"][sl].reshape(
-            n_rows, ecfg.num_subspaces, -1)
-        cent = run.artifact["centroids"]
-        got = run.artifact["codes"][sl].to(torch.int32)
-        want_codes = blocked_assign_ref_lim(e, cent, lim_all[sl])
-        mism += int((got != want_codes).sum())
-        gap = max(gap, assign_gap(e, cent, lim_all[sl], got, want_codes))
-    need(gap <= ASSIGN_TOL, f"exported codes within {ASSIGN_TOL} of the "
-         f"plain assignment")
-    need(int(run.artifact["codes"][head:].max())
-         < ecfg.tier_num_centroids[1], "tail tier codes < K_tail")
     # the export's dpq_assign launches, timed on the table it exported
     time_assign_pass(f"over {cfg.name}'s export (the served table)",
                      run.params["embed"]["emb"].reshape(
@@ -4642,6 +4778,602 @@ def two_tower_ivf_path(flat_qps: float) -> dict:
     return launches
 
 
+# ----------------------------------------------------------------------
+# LM training: stablelm-3b at full width, qwen3-moe-30b-a3b at a depth
+# cut, and the checks of the training path
+# ----------------------------------------------------------------------
+
+def lm_train_seq() -> int:
+    """The training sequence: ``train_4k``'s (``configs/base.py::LM_SHAPES``)."""
+    from repro_torch.configs.base import LM_SHAPES
+    return next(s for s in LM_SHAPES if s.name == "train_4k").seq_len
+
+
+def lm_train_flops(cfg, b: int, s: int) -> tuple:
+    """(FLOP of one training step as the card must do it, the parts):
+    6·N·T for the weights that multiply each token (every projection,
+    the FFN, an MoE layer's router and its top-k experts only, the vocab
+    head; not the token table, a gather), the remat forward 2·N·T (every
+    layer and each xent chunk recomputed), and attention's products over
+    each layer's visible pairs: 4·hd a pair and head forward, again in
+    the remat forward, and 10·hd in the backward (P recomputed, then dV,
+    dP, dQ, dK)."""
+    from repro_torch.models import lm
+    t = b * s
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    ffn = 3 * d * cfg.d_ff
+    if cfg.is_moe:
+        ffn = ffn * cfg.num_experts_per_tok + d * cfg.num_experts
+    n = (cfg.num_layers * (d * hd * 2 * (cfg.num_heads + cfg.num_kv_heads)
+                           + ffn) + d * cfg.vocab_size)
+    pairs = sum(visible_pairs(s, window) for _, _, window, _ in
+                lm._layer_plan(cfg, s)) * b * cfg.num_heads
+    parts = {"weights": 6 * n * t, "remat": 2 * n * t,
+             "attention": 18 * hd * pairs}
+    return sum(parts.values()), parts
+
+
+@contextlib.contextmanager
+def forced_window(window: int):
+    """A planted fault: inside the block, every layer's
+    ``chunked_attention`` runs with ``window`` in place of its own."""
+    from repro_torch.nn import attention as attn
+    sound = attn.chunked_attention
+
+    def faulty(q, k, v, qpos, kpos, _window=attn.FULL_WINDOW, **kw):
+        return sound(q, k, v, qpos, kpos, window, **kw)
+    attn.chunked_attention = faulty
+    try:
+        yield
+    finally:
+        attn.chunked_attention = sound
+
+
+@contextlib.contextmanager
+def recompute_other_window(local: int):
+    """A planted fault: inside the block, ``attend``'s backward
+    recomputes with the other kind of layer's window (``local`` for a
+    global layer, the full window for a local one)."""
+    from repro_torch.kernels.flash_attention import ops
+    sound = ops.attention_vjp
+
+    def faulty(q, k, v, window, grad_out):
+        return sound(q, k, v, local if window >= FULL_WINDOW
+                     else FULL_WINDOW, grad_out)
+    ops.attention_vjp = faulty
+    try:
+        yield
+    finally:
+        ops.attention_vjp = sound
+
+
+def attention_backward_checks() -> None:
+    """C.1, at the training layer shapes (``ATTN_BWD_CASES``): ``attend``'s
+    output, the kernel's, against the plain version on the same inputs
+    (``FLASH_TOL``, and per row against the plain version in float32
+    within ``FLASH_BF16_ROW_TOL``, a bar a dropped KV tile must fail);
+    its dq, dk, dv (the recompute through the plain version a group of
+    KV heads at a time) against autograd through the plain version on
+    the same inputs and upstream grad, bit-identical where the
+    recompute is whole, else within ``ATTN_BWD_TOL`` of the largest
+    |grad|; the recompute with the other kind of layer's window must
+    fail that bar."""
+    import torch
+    from repro_torch.kernels.flash_attention import (attend,
+                                                     flash_attention_ref)
+    from repro_torch.kernels.flash_attention.ops import (attention_vjp,
+                                                         recompute_groups)
+    for what, b, s, h, hkv, hd, window, wrong in ATTN_BWD_CASES:
+        q, k, v = flash_inputs(b, s, s, h, hkv, hd, torch.bfloat16, seed=hd)
+        g = torch.Generator(device="cuda").manual_seed(hd + 1)
+        up = torch.randn(q.shape, generator=g, device="cuda").to(q.dtype)
+        a = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = attend(*a, window)
+        got = torch.autograd.grad(out, a, up)
+        out = out.detach()
+        del a
+        with torch.no_grad():
+            plain = flash_attention_ref(q, k, v, window=window)
+            fwd_err = float((out.float() - plain.float()).abs().max())
+            del plain
+            want32 = flash_attention_ref(q.float(), k.float(), v.float(),
+                                         window=window)
+            fwd_ratio = bf16_row_ratio(out, want32)
+            fwd_bad = bf16_row_ratio(planted_attention(
+                q, k, v, window, "dropped tile"), want32)
+            del want32
+        log(f"attention forward {what} (B={b} S={s} H={h}/{hkv} hd={hd} "
+            f"window={window} bf16): attend (the kernel) against the plain "
+            f"version max_abs_err={fwd_err:.3g} (bar "
+            f"{FLASH_TOL['bfloat16']}); per row against the float32 plain "
+            f"version {fwd_ratio:.3g} of the bar; planted dropped tile "
+            f"{fwd_bad:.3g} of the bar")
+        need(out.shape == q.shape and bool(torch.isfinite(out).all()),
+             f"{what}: attend's output")
+        need(fwd_err <= FLASH_TOL["bfloat16"], f"{what}: attend's output "
+             f"within {FLASH_TOL['bfloat16']} of the plain version")
+        need(fwd_ratio <= 1, f"{what}: attend's output within "
+             f"{FLASH_BF16_ROW_TOL:.4g} of each row's largest |output|")
+        need(fwd_bad > 1, f"{what}: the dropped tile fails the per-row bar")
+        del out
+        r = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        want = torch.autograd.grad(flash_attention_ref(*r, window=window),
+                                   r, up)
+        del r
+        bad = attention_vjp(q, k, v, wrong, up)
+
+        def rel(x):
+            return max(float((xi.float() - wi.float()).abs().max())
+                       / float(wi.float().abs().max())
+                       for xi, wi in zip(x, want))
+        groups = hkv // recompute_groups(b, s, s, h, hkv)
+        same = all(torch.equal(bits(x), bits(w)) for x, w in zip(got, want))
+        sound, faulted = rel(got), rel(bad)
+        log(f"attention backward {what} (B={b} S={s} H={h}/{hkv} hd={hd} "
+            f"window={window} bf16): recompute in {groups} group(s) of KV "
+            f"heads; dq, dk, dv against autograd through the plain "
+            f"version: bit-identical={same}, largest |diff| relative to "
+            f"the largest |grad| {sound:.4g} (bar {ATTN_BWD_TOL:.4g}); the "
+            f"recompute at window {wrong}: {faulted:.4g}")
+        if groups == 1:
+            need(same, f"{what}: a whole recompute gives plain autograd's "
+                 f"bits")
+        need(sound <= ATTN_BWD_TOL, f"{what}: attend's grads within "
+             f"{ATTN_BWD_TOL} of plain autograd's")
+        need(faulted > ATTN_BWD_TOL, f"{what}: the recompute at the wrong "
+             f"window fails the bar")
+        del q, k, v, up, got, want, bad
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def lm_first_step_check(cfg, batch: int, seq: int) -> tuple:
+    """C.3: the first training batch's loss from ``lm_setup``'s params
+    on the kernel route against the same loss with attention on the
+    plain version (one KV-head group at a time), bf16 and f32, and with
+    every layer forced to a 1,024-key window (a planted fault that must
+    fail the bar).  Returns (the kernel route's loss, a copy of the
+    initial token table)."""
+    import torch
+    from repro_torch.launch.train import lm_setup
+    from repro_torch.models import lm
+    state, _, data = lm_setup(cfg, batch, seq)
+    first = {k: t.cuda() for k, t in next(data).items()}
+    table = state.params["embed"]["emb"].clone()
+    with torch.no_grad():
+        kernel = float(lm.loss_fn(state.params, first, cfg)[0])
+        with plain_route():
+            plain = float(lm.loss_fn(state.params, first, cfg)[0])
+        with plain_route(f32=True):
+            plain32 = float(lm.loss_fn(state.params, first, cfg)[0])
+        with forced_window(LM_LOCAL_WINDOW):
+            faulted = float(lm.loss_fn(state.params, first, cfg)[0])
+    log(f"lm first step ({cfg.name}, B={batch} x {seq}): loss on the kernel "
+        f"route {kernel:.6f}, with attention on the plain version "
+        f"{plain:.6f} (|diff| {abs(kernel - plain):.3g}, bar "
+        f"{LM_STEP_LOSS_TOL}), on the plain version in f32 {plain32:.6f} "
+        f"(|diff| {abs(kernel - plain32):.3g}); every layer at a "
+        f"{LM_LOCAL_WINDOW}-key window {faulted:.6f} (|diff| "
+        f"{abs(faulted - plain):.3g})")
+    need(abs(kernel - plain) <= LM_STEP_LOSS_TOL, "first-step loss on the "
+         "kernel route within the bar of the plain version's")
+    need(abs(faulted - plain) > LM_STEP_LOSS_TOL, "the forced window fails "
+         "the first-step bar")
+    del state, first, data
+    gc.collect()
+    torch.cuda.empty_cache()
+    return kernel, table
+
+
+# the profiler ranges of an LM training step (``traced_spans``)
+LM_SPANS = ("attention recompute", "xent", "optimizer")
+
+
+def span_backward(out, stop, name: str) -> None:
+    """Puts each autograd node between ``out`` and the nodes in ``stop``
+    (a leaf's accumulator stops the walk too) under a profiler range
+    ``name`` while the backward runs it: the node's own ops and any
+    checkpoint recompute its saved tensors call for."""
+    from torch.profiler import record_function
+    held, open_ranges, todo = {}, {}, [out.grad_fn]
+    while todo:
+        node = todo.pop()
+        if (node is None or node in stop or id(node) in held
+                or node.name().endswith("AccumulateGrad")):
+            continue
+        held[id(node)] = node
+
+        def enter(grads, key=id(node)):
+            open_ranges[key] = record_function(name).__enter__()
+
+        def leave(grads_in, grads_out, key=id(node)):
+            open_ranges.pop(key).__exit__(None, None, None)
+        node.register_prehook(enter)
+        node.register_hook(leave)
+        todo.extend(fn for fn, _ in node.next_functions)
+
+
+@contextlib.contextmanager
+def traced_spans():
+    """Inside the block an LM training step runs under the ``LM_SPANS``
+    profiler ranges: ``attention recompute`` around every
+    ``attention_vjp`` (attend's backward), ``xent`` around
+    ``chunked_xent``'s forward and around each node of its graph in the
+    backward, ``optimizer`` around ``apply_updates`` (clip and adamw)."""
+    from torch.profiler import record_function
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models import lm
+    from repro_torch.train import optimizer as opt
+    sound = (ops.attention_vjp, lm.chunked_xent, opt.apply_updates)
+
+    def spanned(name, fn):
+        def run(*args, **kw):
+            with record_function(name):
+                return fn(*args, **kw)
+        return run
+
+    def xent(h, labels, w_head, chunk):
+        with record_function("xent"):
+            out = sound[1](h, labels, w_head, chunk)
+        span_backward(out, {h.grad_fn, w_head.grad_fn}, "xent")
+        return out
+    ops.attention_vjp = spanned("attention recompute", sound[0])
+    lm.chunked_xent = xent
+    opt.apply_updates = spanned("optimizer", sound[2])
+    try:
+        yield
+    finally:
+        ops.attention_vjp, lm.chunked_xent, opt.apply_updates = sound
+
+
+def lm_step_split(cfg, state, batch: int, seq: int, start: int) -> None:
+    """Where a training step's time goes: one more step of
+    ``launch.train.lm_step_fn`` under the profiler, its device time
+    split by the ``LM_SPANS`` ranges (``traced_spans``) into attention's
+    plain recompute, the chunked xent and the optimizer, each a share of
+    the step's device busy time.  As a cross-check, every layer's
+    ``attention_vjp`` and the chunked xent (forward and backward) timed
+    alone at the step's shapes on random inputs."""
+    import torch
+    from repro_torch.kernels.flash_attention.ops import attention_vjp
+    from repro_torch.launch.train import lm_step_fn, lm_stream
+    from repro_torch.models import lm
+    data = lm_stream(cfg, batch, seq, start=start)
+    b0 = {k: t.cuda() for k, t in next(data).items()}
+    with traced_spans():
+        step = lm_step_fn(cfg)
+        split = profile_phase(f"{cfg.name} train step (B={batch} x {seq})",
+                              lambda: step(state, b0), spans=LM_SPANS)
+    busy = split["busy_ms"]
+    rest = busy - sum(split[name] for name in LM_SPANS)
+    log(f"train step split ({cfg.name}, B={batch} x {seq}; device time "
+        f"under the profiler's ranges): of {busy:.3f} ms busy, "
+        + ", ".join(f"{name} {split[name]:.3f} ms "
+                    f"({100 * split[name] / busy:.1f}%)" for name in LM_SPANS)
+        + f", the rest (every layer's forward, its remat recompute and "
+        f"backward) {rest:.3f} ms ({100 * rest / busy:.1f}%)")
+    for name in LM_SPANS:
+        need(split[name] > 0, f"{cfg.name}: the trace attributes device time "
+             f"to {name}")
+    need(rest > 0, f"{cfg.name}: the spans overlap no other span")
+
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    q, k, v = flash_inputs(batch, seq, seq, cfg.num_heads, cfg.num_kv_heads,
+                           hd, torch.bfloat16, seed=3)
+    up = torch.randn_like(q)
+    vjp_ms, _ = time_ms(lambda: attention_vjp(q, k, v, FULL_WINDOW, up),
+                        iters=3, warmup=1, hold=False)
+    del q, k, v, up
+    g = torch.Generator(device="cuda").manual_seed(4)
+    h = torch.randn((batch, seq, d), generator=g, device="cuda").to(
+        torch.bfloat16).requires_grad_(True)
+    w_head = state.params["lm_head"]
+
+    def xent():
+        w = w_head.detach().requires_grad_(True)
+        out = lm.chunked_xent(h, b0["labels"], w, cfg.xent_chunk)
+        torch.autograd.grad(out, (h, w))
+    xent_ms, _ = time_ms(xent, iters=3, warmup=1, hold=False)
+    del h
+    recompute = vjp_ms * cfg.num_layers
+    log(f"train step split ({cfg.name}) cross-check, timed alone on random "
+        f"inputs: attention's plain recompute {vjp_ms:.3f} ms a layer, "
+        f"{recompute:.3f} ms over {cfg.num_layers} layers ("
+        f"{recompute / split['attention recompute']:.3f}x the traced span), "
+        f"the chunked xent forward and backward {xent_ms:.3f} ms "
+        f"({xent_ms / split['xent']:.3f}x the traced span)")
+
+
+def lm_train_run(arch: str, batch: int, seq: int, steps: int,
+                 layers=None) -> tuple:
+    """``arch``'s ``CONFIG`` (its depth cut to ``layers``) trained
+    ``steps`` adamw steps through ``launch.train.train`` at ``batch`` x
+    ``seq``, the counts set to 0 just before and read just after: step
+    time (the median from step 2 on), tokens/s beside the step's FLOP
+    bound, peak memory, ``flash_attention`` launches a step (layer
+    remat: 2 a layer, the forward and its recompute), every loss finite,
+    the first cross-entropy near ln V.  Returns (the run, its launches, its config)."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.train import train
+    full_layers = get_arch(arch, smoke=False)[1].num_layers
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    counters = reset_counts()
+    run = train(arch, smoke=False, steps=steps, batch=batch, seq=seq,
+                log_every=1,
+                overrides={"num_layers": layers} if layers else None)
+    torch.cuda.synchronize()
+    cfg = run.cfg
+    launches = {name: fn.launches for name, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [h["loss"] for h in run.history]
+    xent = [h["xent"] for h in run.history]
+    times = sorted(h["step_time_s"] for h in run.history[1:])
+    step_s = times[len(times) // 2]
+    flops, parts = lm_train_flops(cfg, batch, seq)
+    bound_s = flops / BF16_FLOP_PER_S
+    want = 2 * cfg.num_layers * steps if cfg.remat else \
+        cfg.num_layers * steps
+    state_gib = cfg.param_count() * (
+        2 * torch.tensor([], dtype=getattr(torch, cfg.param_dtype))
+        .element_size() + 8) / 2**30
+    cut = (f", depth cut from {full_layers} to {cfg.num_layers} layers "
+           f"(the params, their grads and two f32 moments of "
+           f"{full_layers} layers do not fit one card)" if layers else "")
+    log(f"lm train ({cfg.name}{cut}): {cfg.param_count()} params in "
+        f"{cfg.param_dtype}, activations {cfg.dtype}, remat "
+        f"{cfg.remat_granularity if cfg.remat else 'off'}, MGQE token table; "
+        f"{steps} adamw steps at B={batch} x {seq} (train_4k's global batch "
+        f"of 256 cut to {batch}); step {step_s * 1e3:.3f} ms (median of "
+        f"steps 2-{steps}; all {[round(h['step_time_s'] * 1e3, 3) for h in run.history]}), "
+        f"{batch * seq / step_s:,.0f} tokens/s; bound {bound_s * 1e3:.3f} ms "
+        f"({flops} FLOP at 989 TFLOP/s: weights {parts['weights']}, remat "
+        f"{parts['remat']}, attention {parts['attention']}; "
+        f"{flops / step_s / 1e12:.1f} TFLOP/s achieved, "
+        f"{step_s / bound_s:.2f}x the bound); peak device memory "
+        f"{peak:.3f} GiB (params, grads and moments reckoned at "
+        f"{state_gib:.1f} GiB); losses {[round(x, 6) for x in losses]}, "
+        f"cross-entropy {[round(x, 6) for x in xent]} (ln V = "
+        f"{math.log(cfg.vocab_size):.4f}), aux "
+        f"{[round(h['aux'], 4) for h in run.history]}; launches {launches}, "
+        f"flash_attention {launches['flash_attention'] / steps:g} a step "
+        f"(predicted {want // steps})")
+    need(all(math.isfinite(x) for x in losses), f"{cfg.name}: finite losses")
+    need(abs(xent[0] - math.log(cfg.vocab_size)) < 1.0,
+         f"{cfg.name}: the first cross-entropy near ln V")
+    need(launches["flash_attention"] == want, f"{cfg.name}: flash_attention "
+         f"launched {want} times in training")
+    need(sum(launches.values()) == want, f"{cfg.name}: no other kernel in "
+         f"training")
+    return run, launches, cfg
+
+
+def lm_train_export_serve(cfg, run, table0) -> tuple:
+    """C.5: the trained token table exported through ``dpq_assign`` and
+    served (a prefill of 1 x train_4k's sequence, LM_STEPS decode steps)
+    through ``launch.serve.serve_lm``, the counts set to 0 just before
+    and read just after; the rows and codes held as ``lm_path`` holds
+    them; a stale artifact (the initial table's export) must fail the
+    codes' bar against the trained table.  Returns (launches, the
+    largest gap of a code, flash_attention's shape)."""
+    import torch
+    from repro_torch.core import Embedding
+    from repro_torch.core.mgqe import k_limit_for_all_rows
+    from repro_torch.launch.serve import serve_lm
+    params = run.state.params
+    run.state.opt_state = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    seq = lm_train_seq()
+    ecfg = cfg.embedding
+    counters = reset_counts()
+    served = serve_lm(cfg, 1, seq, LM_STEPS, params=params)
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    want = {"dpq_assign": -(-ecfg.vocab_size // ASSIGN_BATCH),
+            "mgqe_decode": 1 + LM_STEPS, "flash_attention": cfg.num_layers}
+    emb = Embedding(dataclasses.replace(ecfg, param_dtype=cfg.param_dtype))
+    gap, mism = check_served_table(served, ecfg, emb)
+    stale = emb.export(params["embed"] | {"emb": table0})
+    lim = k_limit_for_all_rows(ecfg, "cuda")
+    n = min(ASSIGN_BATCH, ecfg.vocab_size)
+    e = params["embed"]["emb"][:n].reshape(n, ecfg.num_subspaces, -1)
+    got = stale["codes"][:n].to(torch.int32)
+    plain = blocked_assign_ref_lim(e, served.artifact["centroids"], lim[:n])
+    stale_gap = assign_gap(e, served.artifact["centroids"], lim[:n], got,
+                           plain)
+    moved = float((params["embed"]["emb"] - table0).abs().max())
+    log(f"lm train -> export -> serve ({cfg.name}): the trained table "
+        f"(moved by up to {moved:.4g} from its init) exported and served, "
+        f"prefill 1 x {seq} in {served.prefill_seconds:.6f}s, {LM_STEPS} "
+        f"decode steps in {served.decode_seconds:.6f}s; token rows "
+        f"bit-identical to the plain decode; exported codes ({mism} differ) "
+        f"within {gap:.3g} of the plain assignment; the initial table's "
+        f"codes against the trained table's plain assignment: "
+        f"{int((got != plain).sum())} of {got.numel()} differ, gap "
+        f"{stale_gap:.4g}; launches {launches} (predicted {want})")
+    need(launches == {**{k: 0 for k in launches}, **want},
+         f"{cfg.name}: the export and serve launch {want}")
+    need(bool(torch.isfinite(served.logits).all()), "finite served logits")
+    need(stale_gap > ASSIGN_TOL, "a stale artifact fails the codes' bar")
+    shape = (f"{cfg.name} serve", 1, seq, cfg.num_heads, cfg.num_kv_heads,
+             cfg.resolved_head_dim, FULL_WINDOW)
+    del served, stale, lim, e, got, plain
+    return launches, gap, shape
+
+
+def lm_grads(cfg, params, batch) -> list:
+    """The gradient of ``lm.loss_fn`` with respect to every leaf."""
+    import torch
+    from repro_torch.core.schemes.base import tree_leaves
+    from repro_torch.models import lm
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    try:
+        loss, _ = lm.loss_fn(params, batch, cfg)
+        return list(torch.autograd.grad(loss, leaves))
+    finally:
+        for p in leaves:
+            p.requires_grad_(False)
+
+
+def lm_smoke_card_vs_cpu() -> None:
+    """C.2: each LM arch's smoke config with the chunked route (the
+    kernel on the card) and layer remat, from the same params and
+    ``lm_stream`` batches on the card and on the CPU: the first batch's
+    gradients within TRAIN_PARAM_TOL (relative to 1 + |g|), then
+    LM_CHECK_STEPS adamw steps with every loss within TRAIN_LOSS_RTOL;
+    stablelm-3b's card gradients once more with ``attend``'s recompute
+    at an 8-key window (a planted fault that must fail the gradients'
+    bar; a few warmup steps barely move the loss)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.schemes.base import tree_map
+    from repro_torch.launch.train import lm_setup
+    from repro_torch.train import optimizer as opt
+
+    for arch in LM_ARCHS:
+        _, cfg = get_arch(arch, smoke=True)
+        cfg = dataclasses.replace(cfg, attention_impl="chunked", remat=True)
+        host, step, data = lm_setup(cfg, LM_CHECK_BATCH, LM_CHECK_SEQ,
+                                    device="cpu")
+        card = opt.TrainState(tree_map(lambda t: t.cuda(), host.params),
+                              tree_map(lambda t: t.cuda(), host.opt_state))
+        batch = next(data)
+        on_card = {k: t.cuda() for k, t in batch.items()}
+        want = lm_grads(cfg, host.params, batch)
+
+        def grad_gap(fault=False):
+            with (recompute_other_window(8) if fault
+                  else contextlib.nullcontext()):
+                got = lm_grads(cfg, card.params, on_card)
+            return max(float(((g.cpu() - w).abs() / (1 + w.abs())).max())
+                       for g, w in zip(got, want))
+        gap = grad_gap()
+        bad = grad_gap(fault=True) if arch == LM_TRAIN_ARCH else None
+        rel = []
+        for _ in range(LM_CHECK_STEPS):
+            card, mc = step(card, on_card)
+            host, mh = step(host, batch)
+            rel.append(abs(float(mc["loss"]) - float(mh["loss"]))
+                       / abs(float(mh["loss"])))
+            batch = next(data)
+            on_card = {k: t.cuda() for k, t in batch.items()}
+        log(f"lm train card vs CPU ({cfg.name}, chunked route, layer remat, "
+            f"B={LM_CHECK_BATCH} x {LM_CHECK_SEQ}): first-batch gradients "
+            f"within {gap:.3g} relative to 1 + |g| (bar {TRAIN_PARAM_TOL})"
+            + (f", with the card's recompute at an 8-key window {bad:.3g}"
+               if bad is not None else "")
+            + f"; {LM_CHECK_STEPS} steps' loss relative gaps "
+            f"{[f'{x:.3g}' for x in rel]} (bar {TRAIN_LOSS_RTOL})")
+        need(gap <= TRAIN_PARAM_TOL, f"{cfg.name}: gradients within "
+             f"{TRAIN_PARAM_TOL} of the CPU's")
+        need(max(rel) <= TRAIN_LOSS_RTOL, f"{cfg.name}: losses within "
+             f"{TRAIN_LOSS_RTOL} of the CPU's")
+        if bad is not None:
+            need(bad > TRAIN_PARAM_TOL, "the wrong recompute window fails "
+                 "the gradients' bar")
+
+
+@contextlib.contextmanager
+def stream_not_positioned():
+    """A planted fault: inside the block, a resumed LM run's stream
+    starts at the first batch, not at its checkpoint's."""
+    from repro_torch.launch import train as train_mod
+    sound = train_mod.lm_stream
+    train_mod.lm_stream = lambda cfg, b, s, start=0: sound(cfg, b, s, 0)
+    try:
+        yield
+    finally:
+        train_mod.lm_stream = sound
+
+
+def lm_resume_checks() -> None:
+    """C.4: stablelm-3b at full width, its depth cut to
+    LM_RESUME_LAYERS, failed at step 3 and resumed against an
+    uninterrupted run under the default algorithms: bit-identical; a
+    resume whose stream is not positioned at its checkpoint must
+    differ.  Then qwen3-moe-30b-a3b's smoke config (the MoE dispatch's
+    and combine's backward) the same way: whether it repeats bit for
+    bit."""
+    overrides = {"num_layers": LM_RESUME_LAYERS}
+    kw = dict(smoke=False, batch=LM_RESUME_BATCH, seq=lm_train_seq(),
+              overrides=overrides)
+    t0 = time.perf_counter()
+    gap, same, bad = resume_gap(LM_TRAIN_ARCH, planted=stream_not_positioned,
+                                **kw)
+    log(f"lm train resume ({LM_TRAIN_ARCH} at full width, {LM_RESUME_LAYERS} "
+        f"layers, B={LM_RESUME_BATCH} x {lm_train_seq()}, "
+        f"{time.perf_counter() - t0:.1f}s): gap {gap:.3g}, "
+        f"bit-identical={same}; resumed on a stream not positioned at the "
+        f"checkpoint: gap {bad:.3g}")
+    need(same, f"{LM_TRAIN_ARCH}: a resumed run is bit-identical to an "
+         f"uninterrupted one")
+    need(bad > 0, "a resume on the wrong batches differs")
+    moe_kw = dict(smoke=True, batch=LM_CHECK_BATCH, seq=LM_CHECK_SEQ,
+                  overrides={"attention_impl": "chunked", "remat": True})
+    gap, same, _ = resume_gap("qwen3-moe-30b-a3b", **moe_kw)
+    log(f"lm train resume (qwen3-moe-30b-a3b smoke config, chunked route, "
+        f"layer remat): gap {gap:.3g}, bit-identical={same}"
+        + ("" if same else " (not bit for bit: the ops left with atomic "
+           "adds in their backward are the dispatch's index_add_ forward "
+           "and the combine's gather)"))
+
+
+def lm_train_phases() -> tuple:
+    """Phases A, B and C of LM training (see the module docstring).
+    Returns (the launches of each counted run, flash_attention's
+    (shape -> launches) over them, the largest code gap of the export)."""
+    import torch
+    t_phase = time.perf_counter()
+    attention_backward_checks()
+    seq = lm_train_seq()
+    from repro_torch.configs import get_arch
+    _, cfg = get_arch(LM_TRAIN_ARCH, smoke=False)
+    first_loss, table0 = lm_first_step_check(cfg, LM_TRAIN_BATCH, seq)
+    run, a_launches, cfg = lm_train_run(LM_TRAIN_ARCH, LM_TRAIN_BATCH, seq,
+                                        LM_TRAIN_STEPS)
+    log(f"lm train ({cfg.name}): first step's loss {run.history[0]['loss']:.6f}"
+        f", the kernel route's loss on the same params and batch "
+        f"{first_loss:.6f}")
+    lm_step_split(cfg, run.state, LM_TRAIN_BATCH, seq, LM_TRAIN_STEPS)
+    s_launches, gap, serve_shape = lm_train_export_serve(cfg, run, table0)
+    del run, table0
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"lm phase A ({cfg.name}): {time.perf_counter() - t_phase:.1f}s; "
+        f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} "
+        f"GiB")
+    t_b = time.perf_counter()
+    moe_run, b_launches, moe_cfg = lm_train_run(
+        MOE_TRAIN_ARCH, MOE_TRAIN_BATCH, seq, MOE_TRAIN_STEPS,
+        layers=MOE_TRAIN_LAYERS)
+    lm_step_split(moe_cfg, moe_run.state, MOE_TRAIN_BATCH, seq,
+                  MOE_TRAIN_STEPS)
+    log(f"lm phase B ({moe_cfg.name}): peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    del moe_run
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"lm phase B ({moe_cfg.name}): {time.perf_counter() - t_b:.1f}s")
+    t_c = time.perf_counter()
+    lm_smoke_card_vs_cpu()
+    lm_resume_checks()
+    log(f"lm phase C: {time.perf_counter() - t_c:.1f}s; the LM training "
+        f"phases {time.perf_counter() - t_phase:.1f}s")
+    shapes = {(f"{cfg.name} train", LM_TRAIN_BATCH, seq, cfg.num_heads,
+               cfg.num_kv_heads, cfg.resolved_head_dim, FULL_WINDOW):
+              a_launches["flash_attention"],
+              (f"{moe_cfg.name} train", MOE_TRAIN_BATCH, seq,
+               moe_cfg.num_heads, moe_cfg.num_kv_heads,
+               moe_cfg.resolved_head_dim, FULL_WINDOW):
+              b_launches["flash_attention"],
+              serve_shape: s_launches["flash_attention"]}
+    return [a_launches, b_launches, s_launches], shapes, gap
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4699,6 +5431,14 @@ def main() -> int:
         l_launches.append(path_launches)
         lm_assign_gap = max(lm_assign_gap, gap)
         flash_shapes.update(shapes)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_train = time.perf_counter()
+    train_launches, train_shapes, train_gap = lm_train_phases()
+    log(f"lm training phases {time.perf_counter() - t_train:.1f}s")
+    l_launches += train_launches
+    flash_shapes.update(train_shapes)
+    lm_assign_gap = max(lm_assign_gap, train_gap)
     kernels.append(time_flash(
         flash_err, sum(p["flash_attention"] for p in l_launches),
         flash_shapes))

@@ -138,10 +138,29 @@ class RecsysConfig:
 @dataclasses.dataclass(frozen=True)
 class ShapeSpec:
     name: str
-    kind: str            # rec_train | rec_serve | rec_retrieval
+    kind: str            # train | prefill | decode | graph_full | graph_mini
+                         # | rec_train | rec_serve | rec_retrieval
+    # LM
+    seq_len: int = 0
+    global_batch: int = 0
+    # GNN
+    n_nodes: int = 0
+    n_edges: int = 0
+    d_feat: int = 0
+    batch_graphs: int = 0
+    batch_nodes: int = 0
+    fanout: Tuple[int, ...] = ()
+    # recsys
     batch: int = 0
     n_candidates: int = 0
 
+
+LM_SHAPES = (
+    ShapeSpec("train_4k", "train", seq_len=4096, global_batch=256),
+    ShapeSpec("prefill_32k", "prefill", seq_len=32768, global_batch=32),
+    ShapeSpec("decode_32k", "decode", seq_len=32768, global_batch=128),
+    ShapeSpec("long_500k", "decode", seq_len=524288, global_batch=1),
+)
 
 RECSYS_SHAPES = (
     ShapeSpec("train_batch", "rec_train", batch=65536),

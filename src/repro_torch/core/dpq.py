@@ -127,13 +127,18 @@ def quantize(e: torch.Tensor, centroids: torch.Tensor,
 def row_gather(table: torch.Tensor, ids: torch.Tensor,
                sharded: bool = False) -> torch.Tensor:
     """Rows ``table[ids]``, shape ids.shape + (d,).  Model-parallel
-    row gathers (``sharded``) are the distributed slice in ROADMAP.md."""
+    row gathers (``sharded``) are the distributed slice in ROADMAP.md.
+
+    Advanced indexing, not ``index_select``: its backward is a sorted
+    ``index_put_`` with accumulate, which gives the same bits on every
+    run, where ``index_select``'s (``index_add_``, atomic adds on the
+    card) does not, and a resumed run would drift from an uninterrupted
+    one."""
     if sharded:
         raise NotImplementedError(
             "sharded_rows gathers wait for the distributed slice in "
             "ROADMAP.md")
-    rows = table.index_select(0, ids.reshape(-1).long())
-    return rows.reshape(tuple(ids.shape) + (table.shape[-1],))
+    return table[ids.long()]
 
 
 def lookup_train(params: dict, ids: torch.Tensor,

@@ -47,7 +47,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import time
-from typing import Any, List
+from typing import Any, List, Optional
 
 import numpy as np
 import torch
@@ -372,19 +372,22 @@ def _sync(device) -> None:
 
 
 def serve_lm(cfg, batch: int, prompt_len: int, decode_steps: int,
-             device="cuda", seed: int = 0) -> LMRun:
-    """An LM served as the paper serves its vocabulary: init, export
-    the token table to codes + centroids (the full table is not read
-    again), prefill ``batch`` prompts of ``prompt_len`` random tokens
-    (numpy seed 0, as the JAX package draws them), then
-    ``decode_steps`` greedy steps against the KV cache."""
+             device="cuda", seed: int = 0,
+             params: Optional[dict] = None) -> LMRun:
+    """An LM served as the paper serves its vocabulary: init (or
+    ``params``, a trained model's, on ``device``), export the token
+    table to codes + centroids (the full table is not read again),
+    prefill ``batch`` prompts of ``prompt_len`` random tokens (numpy
+    seed 0, as the JAX package draws them), then ``decode_steps``
+    greedy steps against the KV cache."""
     from repro_torch.core import Embedding
     from repro_torch.core.api import resolve_device
     from repro_torch.models import lm
 
     device = resolve_device(device)
-    params = lm.model_init(torch.Generator(device=device).manual_seed(seed),
-                           cfg)
+    if params is None:
+        params = lm.model_init(
+            torch.Generator(device=device).manual_seed(seed), cfg)
     # model_init draws the token table in the model's dtype (bfloat16
     # for the >=27B archs): the artifact and the full table it replaces
     # are both counted at that width

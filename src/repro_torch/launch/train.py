@@ -4,21 +4,27 @@
         --full --steps 5 --batch 4096
     PYTHONPATH=src python -m repro_torch.launch.train --arch deepfm \\
         --device cpu --steps 5 --ckpt-dir build/ckpt --ckpt-every 2
+    PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-3b \\
+        --full --batch 1 --seq 4096 --steps 5
 
 trains on the card unless ``--device cpu`` is given (``--smoke``, the
 reduced config, is the default; ``--full`` is the published one).  The
 loop includes checkpoint/auto-resume, straggler detection and optional
 failure injection (``--fail-at``) to exercise the fault-tolerance path
-end to end.  Ported: the recsys branch of the JAX package's launcher,
-for every recsys arch (adagrad at lr 1e-2, global-norm clip 1.0):
-``deepfm`` and ``autoint`` on ``CTRStream`` batches, ``bst`` and
-``two-tower-retrieval`` on uniform ids drawn as the JAX launcher draws
-them.  The LM and GNN branches follow their slices in ROADMAP.md.
+end to end.  Ported: the recsys and LM branches of the JAX package's
+launcher.  Every recsys arch trains with adagrad at lr 1e-2 (global-norm
+clip 1.0): ``deepfm`` and ``autoint`` on ``CTRStream`` batches, ``bst``
+and ``two-tower-retrieval`` on uniform ids drawn as the JAX launcher
+draws them.  Every LM arch trains ``models/lm.py::loss_fn`` with adamw
+at lr 3e-4 (20 warmup steps, cosine to step 1,000) on uniform tokens,
+``--seq`` of them a row.  The GNN branch follows its slice in
+ROADMAP.md.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import time
 from typing import Any, Dict, List, Optional
 
@@ -27,6 +33,7 @@ import torch
 
 from repro_torch.configs.registry import ARCHS, get_arch
 from repro_torch.core.api import resolve_device
+from repro_torch.core.schemes.base import tree_leaves
 from repro_torch.train import checkpoint as ckpt_lib
 from repro_torch.train import optimizer as opt_lib
 from repro_torch.train.loop import LoopConfig, fit
@@ -89,23 +96,73 @@ def recsys_setup(cfg, batch: int, device="cuda", start: int = 0):
     return model, state, step, recsys_stream(cfg, batch, start)
 
 
+def lm_stream(cfg, batch: int, seq: int, start: int = 0):
+    """An endless stream of LM batches as CPU tensors, from batch
+    ``start`` on, drawn as the JAX launcher draws them: each row
+    ``seq + 1`` uniform tokens from ``np.random.default_rng(0)``, the
+    first ``seq`` the ``tokens``, the last ``seq`` the ``labels`` (the
+    batches before ``start`` are drawn and discarded)."""
+    rng = np.random.default_rng(0)
+
+    def draw():
+        toks = rng.integers(0, cfg.vocab_size, (batch, seq + 1))
+        return {"tokens": torch.from_numpy(toks[:, :-1].astype(np.int32)),
+                "labels": torch.from_numpy(toks[:, 1:].astype(np.int32))}
+
+    for _ in range(start):
+        draw()
+    while True:
+        yield draw()
+
+
+# every LM arch's optimizer, as the JAX launcher's
+LM_OPTIMIZER = opt_lib.OptimizerConfig(kind="adamw", lr=3e-4,
+                                       schedule="linear_warmup_cosine",
+                                       warmup_steps=20, total_steps=1000)
+
+
+def lm_step_fn(cfg):
+    """The LM training step: ``models/lm.py::loss_fn`` under
+    ``LM_OPTIMIZER``."""
+    from repro_torch.models import lm
+    return opt_lib.make_step_fn(LM_OPTIMIZER,
+                                functools.partial(lm.loss_fn, cfg=cfg))
+
+
+def lm_setup(cfg, batch: int, seq: int, device="cuda", start: int = 0):
+    """(state, step_fn, data) of an LM: params from ``lm.model_init``
+    with a generator seeded 0 on ``device``, ``LM_OPTIMIZER`` (adamw at
+    lr 3e-4 under ``linear_warmup_cosine``, 20 warmup steps of 1,000),
+    and :func:`lm_stream` from batch ``start`` on."""
+    from repro_torch.models import lm
+    device = resolve_device(device)
+    params = lm.model_init(torch.Generator(device=device).manual_seed(0),
+                           cfg)
+    state = TrainState.create(LM_OPTIMIZER, params)
+    return state, lm_step_fn(cfg), lm_stream(cfg, batch, seq, start)
+
+
 @dataclasses.dataclass
 class TrainRun:
     """What :func:`train` built and measured."""
 
-    model: Any
+    cfg: Any                        # the arch's config, overrides applied
+    model: Any                      # the recsys model; None for an LM
     state: TrainState
     history: List[Dict]             # one entry per logged step
     seconds: float                  # wall time of ``fit``
 
 
 def train(arch: str, *, smoke: bool = True, steps: int = 100,
-          batch: int = 32, ckpt_dir: str = "", ckpt_every: int = 0,
-          fail_at: int = 0, log_every: int = 10,
-          device="cuda") -> TrainRun:
+          batch: int = 32, seq: int = 64, ckpt_dir: str = "",
+          ckpt_every: int = 0, fail_at: int = 0, log_every: int = 10,
+          device="cuda", overrides: Optional[Dict[str, Any]] = None
+          ) -> TrainRun:
     """Train ``arch`` for ``steps`` steps (resuming from ``ckpt_dir``
     when it holds a committed checkpoint); ``fail_at`` > 0 raises
     ``SimulatedFailure`` after that step, as a crashed host would.
+    ``seq`` is an LM's tokens a row; ``overrides`` replaces fields of
+    the arch's config (a depth cut, the attention route).
 
     A resumed run's stream starts at the newest committed step's batch,
     so it trains on the batches an uninterrupted run would have.  (Were
@@ -113,14 +170,21 @@ def train(arch: str, *, smoke: bool = True, steps: int = 100,
     older one and the stream would run ahead of it by the steps
     between.)"""
     family, cfg = get_arch(arch, smoke=smoke)
-    if family != "recsys":
+    if family == "gnn":
         raise NotImplementedError(
-            f"training the {family} family ({arch!r}) is not ported yet; "
-            f"it waits for its slice in ROADMAP.md; trainable: the recsys "
-            f"archs")
+            f"training the gnn family ({arch!r}) is not ported yet; it "
+            f"waits for ROADMAP.md §1 item 7; trainable: the recsys and "
+            f"LM archs")
+    if overrides:
+        cfg = dataclasses.replace(cfg, **overrides)
     start = (ckpt_lib.latest_step(ckpt_dir) if ckpt_dir else None) or 0
-    model, state, step, data = recsys_setup(cfg, batch, device=device,
-                                            start=start)
+    if family == "lm":
+        model = None
+        state, step, data = lm_setup(cfg, batch, seq, device=device,
+                                     start=start)
+    else:
+        model, state, step, data = recsys_setup(cfg, batch, device=device,
+                                                start=start)
     injector = FailureInjector(fail_at_steps=[fail_at]) if fail_at else None
     lcfg = LoopConfig(total_steps=steps, log_every=log_every,
                       ckpt_every=ckpt_every, ckpt_dir=ckpt_dir,
@@ -132,9 +196,10 @@ def train(arch: str, *, smoke: bool = True, steps: int = 100,
     state, hist = fit(state, step, data, lcfg, injector=injector)
     seconds = time.perf_counter() - t0
     if hist:
-        print(f"done: {steps} steps in {seconds:.1f}s on "
-              f"{model.device}; final loss {hist[-1]['loss']:.4f}")
-    return TrainRun(model, state, hist, seconds)
+        device = tree_leaves(state.params)[0].device
+        print(f"done: {steps} steps in {seconds:.1f}s on {device}; final "
+              f"loss {hist[-1]['loss']:.4f}")
+    return TrainRun(cfg, model, state, hist, seconds)
 
 
 def main(argv: Optional[List[str]] = None) -> TrainRun:
@@ -144,6 +209,8 @@ def main(argv: Optional[List[str]] = None) -> TrainRun:
     ap.add_argument("--full", dest="smoke", action="store_false")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=32)
+    ap.add_argument("--seq", type=int, default=64,
+                    help="an LM's tokens a row")
     ap.add_argument("--ckpt-dir", default="")
     ap.add_argument("--ckpt-every", type=int, default=0)
     ap.add_argument("--fail-at", type=int, default=0,
@@ -158,7 +225,8 @@ def main(argv: Optional[List[str]] = None) -> TrainRun:
                  f"{sorted(ARCHS)}")
     try:
         return train(args.arch, smoke=args.smoke, steps=args.steps,
-                     batch=args.batch, ckpt_dir=args.ckpt_dir,
+                     batch=args.batch, seq=args.seq,
+                     ckpt_dir=args.ckpt_dir,
                      ckpt_every=args.ckpt_every, fail_at=args.fail_at,
                      log_every=args.log_every, device=args.device)
     except NotImplementedError as e:

@@ -2,7 +2,7 @@
 gemma3-27b) and the mixture-of-experts archs (mixtral-8x7b,
 qwen3-moe-30b-a3b).
 
-The JAX package's ``models/lm.py``, for serving:
+The JAX package's ``models/lm.py``, for training and serving:
 
 * Layers are **stacked**: each parameter of a layer group is one tensor
   with the layers on its leading dims (the JAX package's layout, so
@@ -22,15 +22,21 @@ The JAX package's ``models/lm.py``, for serving:
   flash_attention kernel.
 * An MoE config's layers hold ``moe`` (``nn/moe.py``) in place of
   ``ffn``; its FFN returns the router's aux loss, summed over layers.
-
-Training (``chunked_xent``, ``loss_fn``) is a later slice in
-ROADMAP.md.
+* Training: ``forward`` rematerialises as JAX's does (``remat``, at the
+  granularity of a layer, a pattern group or ``remat_block`` layers; a
+  ``torch.utils.checkpoint`` where JAX has ``jax.checkpoint``), and
+  ``loss_fn`` takes the vocab softmax in sequence chunks, each
+  recomputed in the backward, so the (B, S, V) logits never exist.
+  Attention's backward is ``attend``'s recompute through the plain
+  version.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+import math
+from typing import Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LMConfig
 from repro_torch.core import Embedding
@@ -157,6 +163,18 @@ def _index(tree, *idx):
     return tree[idx]
 
 
+def _unstack(tree, lead: Tuple[int, ...]) -> List[dict]:
+    """A stack's layers' params in row-major order of its leading dims
+    ``lead``, every leaf unbound once: the backward stacks each leaf's
+    layer gradients in one copy, where indexing layer by layer would
+    add a zero-padded gradient of the whole stack for every layer."""
+    if isinstance(tree, dict):
+        subs = {k: _unstack(v, lead) for k, v in tree.items()}
+        return [{k: sub[i] for k, sub in subs.items()}
+                for i in range(math.prod(lead))]
+    return tree.reshape((-1,) + tuple(tree.shape[len(lead):])).unbind(0)
+
+
 # ----------------------------------------------------------------------
 # single layer
 # ----------------------------------------------------------------------
@@ -187,7 +205,7 @@ def _ffn_block(p, x, cfg: LMConfig):
 
 def layer_forward(p: dict, x: torch.Tensor, positions: torch.Tensor,
                   window, theta, cfg: LMConfig, collect_kv: bool = False):
-    """Full-sequence layer (prefill).
+    """Full-sequence layer (train / prefill).
 
     Returns (y, aux) or (y, aux, (k, v)) when collect_kv.
     """
@@ -238,7 +256,7 @@ def layer_decode(p: dict, x: torch.Tensor, pos: int, window, theta,
 
 
 # ----------------------------------------------------------------------
-# forward trunk (prefill)
+# forward trunk (train / prefill)
 # ----------------------------------------------------------------------
 
 def _layer_plan(cfg: LMConfig, s: int):
@@ -259,6 +277,33 @@ def _layer_plan(cfg: LMConfig, s: int):
     return plan
 
 
+def _remat_segments(cfg: LMConfig, plan: list, collect_kv: bool
+                    ) -> List[Tuple[list, bool]]:
+    """The layer plan cut into (layers, checkpointed) runs, as the JAX
+    package's ``forward`` places ``jax.checkpoint``: none without
+    ``remat`` or with ``collect_kv`` (prefill); one per layer at
+    granularity ``layer``; at ``group``, one per (p locals + 1 global)
+    group of the pattern layout (its remainder layers unwrapped) or one
+    per ``remat_block`` layers of the uniform layout (0: round(√L),
+    lowered until it divides L)."""
+    if not cfg.remat or collect_kv:
+        return [(plan, False)]
+    if cfg.remat_granularity != "group":
+        return [([entry], True) for entry in plan]
+    if cfg.is_pattern:
+        size = cfg.local_global_pattern + 1
+        n_grouped = (cfg.num_layers // size) * size
+        segments = [(plan[i:i + size], True)
+                    for i in range(0, n_grouped, size)]
+        if n_grouped < len(plan):
+            segments.append((plan[n_grouped:], False))
+        return segments
+    blk = cfg.remat_block or max(1, int(round(cfg.num_layers ** 0.5)))
+    while cfg.num_layers % blk:
+        blk -= 1
+    return [(plan[i:i + blk], True) for i in range(0, len(plan), blk)]
+
+
 def forward(params: dict, tokens: torch.Tensor, cfg: LMConfig,
             collect_kv: bool = False,
             embed_artifact: Optional[dict] = None):
@@ -269,6 +314,10 @@ def forward(params: dict, tokens: torch.Tensor, cfg: LMConfig,
 
     embed_artifact: serving-time quantized embedding (codes+centroids);
     when given, the full table in params is never touched (paper Fig 1).
+
+    Under autograd with ``cfg.remat``, each segment of
+    :func:`_remat_segments` keeps only its input and recomputes its
+    layers in the backward.
     """
     dtype = torch_dtype(cfg.dtype)
     emb = Embedding(cfg.embedding, device=tokens.device)
@@ -283,13 +332,30 @@ def forward(params: dict, tokens: torch.Tensor, cfg: LMConfig,
     s = tokens.shape[1]
     positions = torch.arange(s, dtype=torch.int32, device=tokens.device)
 
-    kvs: Dict[str, list] = {name: [] for name in _stacks(cfg)}
-    for name, idx, window, theta in _layer_plan(cfg, s):
-        out = layer_forward(_index(params[name], *idx), x, positions,
-                            window, theta, cfg, collect_kv=collect_kv)
-        x, aux = out[0], aux + out[1]
-        if collect_kv:
-            kvs[name].append(out[2])
+    stacks = _stacks(cfg)
+    layers = {name: _unstack(params[name], lead)
+              for name, lead in stacks.items()}
+    kvs: Dict[str, list] = {name: [] for name in stacks}
+
+    def run(entries, x, aux):
+        for name, idx, window, theta in entries:
+            flat = 0
+            for i, n in zip(idx, stacks[name]):
+                flat = flat * n + i
+            out = layer_forward(layers[name][flat], x, positions, window,
+                                theta, cfg, collect_kv=collect_kv)
+            x, aux = out[0], aux + out[1]
+            if collect_kv:
+                kvs[name].append(out[2])
+        return x, aux
+
+    remat = torch.is_grad_enabled()
+    for entries, ckpt in _remat_segments(cfg, _layer_plan(cfg, s),
+                                         collect_kv):
+        if ckpt and remat:
+            x, aux = checkpoint(run, entries, x, aux, use_reentrant=False)
+        else:
+            x, aux = run(entries, x, aux)
 
     kv_out = None
     if collect_kv:
@@ -301,6 +367,57 @@ def forward(params: dict, tokens: torch.Tensor, cfg: LMConfig,
                             v.reshape(lead + v.shape[1:]))
     x = rms_norm(params["final_norm"], x)
     return x, aux, kv_out
+
+
+# ----------------------------------------------------------------------
+# loss (chunked vocab softmax with remat)
+# ----------------------------------------------------------------------
+
+def chunked_xent(h: torch.Tensor, labels: torch.Tensor,
+                 w_head: torch.Tensor, chunk: int) -> torch.Tensor:
+    """Mean cross-entropy of ``h`` (B, S, d) against ``labels`` (B, S)
+    under the head ``w_head`` (d, V), ``chunk`` positions at a time.
+
+    Each chunk is one checkpoint: its (B, chunk, V) float32 logits exist
+    only while it runs, forward or backward.  The logits are float32
+    products of the head cast to the activations' dtype (JAX's
+    ``preferred_element_type``); the gold logit is a row gather of
+    ``w_head.T``, not a pick from the logits."""
+    b, s, d = h.shape
+    chunk = min(chunk, s)
+    n_chunks = s // chunk
+    if s % chunk:
+        raise ValueError(f"seq len {s} not a multiple of chunk {chunk}")
+    w32 = w_head.to(h.dtype).to(torch.float32)
+    w_rows = w_head.T                                    # (V, d)
+
+    def one(h_i, y_i):
+        logits = h_i.to(torch.float32) @ w32             # (b, c, V) f32
+        logz = torch.logsumexp(logits, dim=-1)
+        w_y = w_rows[y_i.long()]                         # (b, c, d)
+        gold = torch.sum(h_i * w_y.to(h_i.dtype),
+                         dim=-1).to(torch.float32)
+        return torch.sum(logz - gold)
+
+    remat = torch.is_grad_enabled()
+    losses = []
+    for i in range(n_chunks):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        h_i, y_i = h[:, sl], labels[:, sl]
+        losses.append(checkpoint(one, h_i, y_i, use_reentrant=False)
+                      if remat else one(h_i, y_i))
+    return torch.sum(torch.stack(losses)) / (b * s)
+
+
+def loss_fn(params: dict, batch: dict, cfg: LMConfig
+            ) -> Tuple[torch.Tensor, dict]:
+    """(xent + 0.01 * aux, {"loss", "xent", "aux"}) of ``batch``'s
+    ``tokens`` against its ``labels``."""
+    h, aux, _ = forward(params, batch["tokens"], cfg)
+    xent = chunked_xent(h, batch["labels"], params["lm_head"],
+                        cfg.xent_chunk)
+    loss = xent + 0.01 * aux
+    return loss, {"loss": loss, "xent": xent, "aux": aux}
 
 
 # ----------------------------------------------------------------------
@@ -411,6 +528,6 @@ def decode_step(params: dict, cache: dict, token: torch.Tensor,
     return new_cache, logits
 
 
-__all__ = ["cache_len_for_layer", "decode_step", "forward", "layer_decode",
-           "layer_forward", "layer_windows", "make_cache", "model_init",
-           "param_spec", "prefill"]
+__all__ = ["cache_len_for_layer", "chunked_xent", "decode_step", "forward",
+           "layer_decode", "layer_forward", "layer_windows", "loss_fn",
+           "make_cache", "model_init", "param_spec", "prefill"]

@@ -16,8 +16,11 @@ one written here restores into the JAX trainer.
 Restore is template-based: the caller supplies a tree of the right
 structure (from ``init``) and leaves are filled by path, on the
 template leaf's device and in its dtype.  float32 and the integer
-types are stored as numpy holds them; bfloat16 has no numpy type
-without ``ml_dtypes`` and is refused.
+types are stored as numpy holds them.  bfloat16 has no numpy type
+without ``ml_dtypes``, so a bfloat16 leaf is stored as the JAX trainer
+stores its ``ml_dtypes`` arrays: the raw 2-byte words (numpy ``|V2``),
+with ``"dtype": "bfloat16"`` in the manifest and the crc32 over the same
+bytes; restore reinterprets them on the template leaf's device.
 """
 from __future__ import annotations
 
@@ -65,13 +68,32 @@ def _unflatten(template, arrays: Dict[str, Any],
     return arrays["/".join(prefix)]
 
 
+_BF16_WORDS = np.dtype("V2")     # a bfloat16 array's bytes on disk
+
+
 def _to_numpy(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
         if leaf.dtype == torch.bfloat16:
-            raise TypeError("bfloat16 tensors have no numpy dtype here; "
-                            "checkpoint float32 params")
+            return leaf.detach().view(torch.int16).cpu().numpy().view(
+                _BF16_WORDS)
         return leaf.detach().cpu().numpy()
     return np.asarray(leaf)
+
+
+def _dtype_name(arr: np.ndarray) -> str:
+    """The manifest's dtype: numpy's name, or the JAX trainer's
+    ``bfloat16`` for bfloat16 words."""
+    return "bfloat16" if arr.dtype == _BF16_WORDS else str(arr.dtype)
+
+
+def _to_tensor(arr: np.ndarray, leaf: torch.Tensor) -> torch.Tensor:
+    """``arr`` as a tensor on ``leaf``'s device in its dtype; 2-byte
+    words (``|V2``) are bfloat16 bits, reinterpreted on the device."""
+    if arr.dtype == _BF16_WORDS:
+        words = torch.from_numpy(np.array(arr, order="C").view(np.int16))
+        return words.to(leaf.device).view(torch.bfloat16).to(leaf.dtype)
+    return torch.from_numpy(np.array(arr, order="C")).to(
+        device=leaf.device, dtype=leaf.dtype)     # 0-d stays 0-d
 
 
 def save(ckpt_dir: str, step: int, tree, host_id: int = 0,
@@ -86,7 +108,7 @@ def save(ckpt_dir: str, step: int, tree, host_id: int = 0,
                             for k, v in arrays.items()})
     manifest = {
         "step": step,
-        "arrays": {k: {"shape": list(v.shape), "dtype": str(v.dtype),
+        "arrays": {k: {"shape": list(v.shape), "dtype": _dtype_name(v),
                        "crc32": zlib.crc32(np.ascontiguousarray(v).tobytes())}
                    for k, v in arrays.items()},
     }
@@ -150,8 +172,7 @@ def restore(ckpt_dir: str, step: int, template, host_id: int = 0,
         want = tuple(leaf.shape)
         if tuple(arr.shape) != want:
             raise ValueError(f"{key}: ckpt shape {arr.shape} != {want}")
-        filled[key] = torch.from_numpy(np.array(arr, order="C")).to(
-            device=leaf.device, dtype=leaf.dtype)     # 0-d stays 0-d
+        filled[key] = _to_tensor(arr, leaf)
     return _unflatten(template, filled)
 
 

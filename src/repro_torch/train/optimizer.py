@@ -77,6 +77,11 @@ class OptimizerRule:
     """One optimizer: moment-buffer layout + the update math."""
 
     state_keys: Tuple[str, ...] = ()
+    # an elementwise rule may take each large leaf in pieces of at most
+    # this many elements (views of the param and its moments), so its
+    # float32 temporaries are a piece's size, not the leaf's; 0 = whole
+    # leaves (adagrad keeps them whole: its replay reads leaf for leaf)
+    piece_elements: int = 0
 
     @classmethod
     def update(cls, cfg: OptimizerConfig, lr: torch.Tensor,
@@ -84,7 +89,8 @@ class OptimizerRule:
                grads: List[torch.Tensor],
                moments: Dict[str, List[torch.Tensor]]) -> None:
         """Update ``params`` and ``moments`` (leaf lists, in tree order)
-        in place.  ``grads`` are float32 buffers the rule may overwrite."""
+        in place.  ``grads`` are float32 buffers the rule may overwrite,
+        iterated once per pass over them."""
         raise NotImplementedError
 
 
@@ -115,6 +121,7 @@ def _rule(kind: str) -> Type[OptimizerRule]:
 class _Adam(OptimizerRule):
     state_keys = ("m", "v")
     decoupled_weight_decay = False
+    piece_elements = 1 << 27
 
     @classmethod
     def update(cls, cfg, lr, step, params, grads, moments):
@@ -248,21 +255,63 @@ def clip_by_global_norm(grads, max_norm: float):
     return grads, norm
 
 
+class _AsFloat32:
+    """Gradient leaves as float32, each copied when a rule's loop
+    reaches it (a float32 leaf is itself), so a bfloat16 model's float32
+    gradients never all exist at once."""
+
+    def __init__(self, leaves: List[torch.Tensor]):
+        self.leaves = leaves
+
+    def __iter__(self):
+        return (g.to(torch.float32) for g in self.leaves)
+
+    def __len__(self) -> int:
+        return len(self.leaves)
+
+
+def _pieces(n: int, params: List[torch.Tensor], grads: List[torch.Tensor],
+            moments: Dict[str, List[torch.Tensor]]):
+    """The leaves with each one past ``n`` elements split into flat
+    pieces of at most ``n``: views of the param and its moments (kept
+    whole where one is not contiguous), the gradient's matching
+    pieces."""
+    p_out, g_out = [], []
+    m_out: Dict[str, List[torch.Tensor]] = {k: [] for k in moments}
+    for i, (p, g) in enumerate(zip(params, grads)):
+        ms = {k: v[i] for k, v in moments.items()}
+        if p.numel() <= n or not all(t.is_contiguous() for t in
+                                     (p, *ms.values())):
+            p_out.append(p)
+            g_out.append(g)
+            for k, t in ms.items():
+                m_out[k].append(t)
+            continue
+        p_out += p.view(-1).split(n)
+        g_out += g.reshape(-1).split(n)
+        for k, t in ms.items():
+            m_out[k] += t.view(-1).split(n)
+    return p_out, g_out, m_out
+
+
 def apply_updates(cfg: OptimizerConfig, params, grads,
                   state: Dict) -> Tuple[Any, Dict]:
     """One optimizer step, in place: ``params`` and the moment trees of
     ``state`` are updated where they lie and ``grads`` are consumed (a
-    bf16 gradient is first copied to float32).  Returns (params, the new
-    state with ``step`` + 1)."""
+    bf16 gradient is copied to float32 as its leaf's turn comes).
+    Returns (params, the new state with ``step`` + 1)."""
     rule = _rule(cfg.kind)
     step = state["step"]
     with torch.no_grad():
         lr = schedule_lr(cfg, step)
         if cfg.grad_clip is not None:
             clip_by_global_norm(grads, cfg.grad_clip)
-        g32 = [g.to(torch.float32) for g in tree_leaves(grads)]
+        leaves, g_leaves = tree_leaves(params), tree_leaves(grads)
         moments = {k: tree_leaves(state[k]) for k in rule.state_keys}
-        rule.update(cfg, lr, step, tree_leaves(params), g32, moments)
+        if rule.piece_elements:
+            leaves, g_leaves, moments = _pieces(rule.piece_elements, leaves,
+                                                g_leaves, moments)
+        rule.update(cfg, lr, step, leaves, _AsFloat32(g_leaves), moments)
     return params, {**state, "step": step + 1}
 
 

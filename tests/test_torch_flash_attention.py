@@ -182,8 +182,16 @@ def test_cuda_route_refuses_cpu_tensors_and_grad(monkeypatch):
     with pytest.raises(ValueError, match="CUDA tensors"):
         attend(q, k, v)
     with pytest.raises(RuntimeError, match="no backward"):
-        attend(q.requires_grad_(), k, v)
+        flash_attention(q.requires_grad_(), k, v)
     with torch.no_grad():                 # no grad: on to the device check
         with pytest.raises(ValueError, match="CUDA tensors"):
             flash_attention(q, k, v)
+    # attend's backward is the recompute: pinned to the kernel, a CPU
+    # input with grad reaches the device check, not the grad refusal
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        attend(q, k, v)
+    monkeypatch.delenv(dispatch.ENV_VAR)
+    out = attend(q, k, v, 5)              # the plain version, with grad
+    (dq,) = torch.autograd.grad(out.sum(), q)
+    assert dq.shape == q.shape and bool(torch.isfinite(dq).all())
     assert flash_attention.launches == before

@@ -2285,3 +2285,121 @@ def test_ivf_build_on_card_peak_bounded_and_codes_plain(cuda):
     gap = (dist.gather(-1, codes.to(cuda).long()[..., None])
            - dist.gather(-1, want.long()[..., None])).abs()
     assert float(gap.max()) <= ASSIGN_TOL
+
+
+# ----------------------------------------------------------------------
+# LM training: attend's backward, the smoke trainers, replay, checkpoints
+# ----------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,window", [((2, 300, 4, 2, 16), 64),
+                                          ((1, 513, 8, 8, 80), 1 << 30),
+                                          ((1, 256, 8, 2, 64), 100)])
+@pytest.mark.parametrize("grouped", [False, True],
+                         ids=["whole", "by_kv_head"])
+def test_attend_backward_on_card_matches_plain_autograd(cuda, shape, window,
+                                                         dtype, grouped,
+                                                         monkeypatch):
+    """``attend`` on the card: the kernel forward (one launch), and
+    dq, dk, dv of the recompute against autograd through the plain
+    version on the same inputs and upstream grad: the same bits when
+    the recompute is whole, within float32 rounding (bfloat16: one
+    rounding) a KV head at a time."""
+    from repro_torch.kernels.flash_attention import (attend, flash_attention,
+                                                     flash_attention_ref)
+    from repro_torch.kernels.flash_attention import ops
+    b, s, h, hkv, hd = shape
+    if grouped:
+        monkeypatch.setattr(ops, "RECOMPUTE_BYTES",
+                            b * (h // hkv) * s * s * 4)
+        assert ops.recompute_groups(b, s, s, h, hkv) == 1
+    g = torch.Generator(device=cuda).manual_seed(hd)
+    q, k, v = (torch.randn((b, s, n, hd), generator=g, device=cuda,
+                           dtype=dtype) for n in (h, hkv, hkv))
+    up = torch.randn((b, s, h, hd), generator=g, device=cuda, dtype=dtype)
+    a = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    r = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = flash_attention.launches
+    out = attend(*a, window)
+    assert flash_attention.launches == before + 1
+    got = torch.autograd.grad(out, a, up)
+    want = torch.autograd.grad(flash_attention_ref(*r, window=window), r, up)
+    assert flash_attention.launches == before + 1
+    for x, y in zip(got, want):
+        if grouped:
+            tol = 1e-5 if dtype == torch.float32 else 2 ** -7
+            assert torch.allclose(x.float(), y.float(), rtol=tol, atol=tol)
+        else:
+            _same_bits(x, y)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["stablelm-3b", "gemma3-4b", "gemma3-27b",
+                                  "mixtral-8x7b", "qwen3-moe-30b-a3b"])
+def test_lm_train_smoke_on_card_matches_cpu(cuda, arch):
+    """3 adamw steps of ``lm_setup`` at the smoke config with layer remat
+    and the chunked route (the kernel on the card, two launches a layer
+    a step: the forward and its recompute), from the same params and
+    batches on the card and on the CPU: losses within 1e-4 relative."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.schemes.base import tree_map
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.train import lm_setup
+    from repro_torch.train import optimizer as opt
+    _, cfg = get_arch(arch, smoke=True)
+    cfg = dataclasses.replace(cfg, attention_impl="chunked", remat=True)
+    host, step, data = lm_setup(cfg, 2, 64, device="cpu")
+    card = opt.TrainState(tree_map(lambda t: t.to(cuda), host.params),
+                          tree_map(lambda t: t.to(cuda), host.opt_state))
+    before = flash_attention.launches
+    for _ in range(3):
+        batch = next(data)
+        card, mc = step(card, {k: t.to(cuda) for k, t in batch.items()})
+        host, mh = step(host, batch)
+        assert abs(float(mc["loss"]) - float(mh["loss"])) <= \
+            1e-4 * abs(float(mh["loss"]))
+    assert flash_attention.launches - before == 2 * cfg.num_layers * 3
+
+
+@pytest.mark.gpu
+def test_row_gather_backward_repeats_on_card(cuda):
+    """``core/dpq.py::row_gather``'s backward gives the same bits twice
+    (a sorted index_put_, not index_select's atomic index_add_), with
+    65,536 ids on 1,000 rows."""
+    from repro_torch.core.dpq import row_gather
+    g = torch.Generator(device=cuda).manual_seed(5)
+    table = torch.randn((100_000, 16), generator=g, device=cuda)
+    ids = torch.randint(0, 1000, (65_536,), generator=g, device=cuda)
+    up = torch.randn((65_536, 16), generator=g, device=cuda)
+    grads = []
+    for _ in range(2):
+        t = table.clone().requires_grad_(True)
+        grads.append(torch.autograd.grad(
+            (row_gather(t, ids.to(torch.int32)) * up).sum(), t)[0])
+    _same_bits(grads[0], grads[1])
+
+
+@pytest.mark.gpu
+def test_bf16_checkpoint_roundtrip_on_card(cuda, tmp_path):
+    """bfloat16 params on the card saved and restored onto the card's
+    template, bit for bit, float32 moments beside them."""
+    from repro_torch.core.schemes.base import tree_leaves
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import optimizer as opt
+    g = torch.Generator(device=cuda).manual_seed(1)
+    params = {"w": torch.randn((64, 48), generator=g, device=cuda).to(
+        torch.bfloat16), "b": torch.randn(7, generator=g, device=cuda).to(
+        torch.bfloat16)}
+    state = opt.TrainState.create(opt.OptimizerConfig(kind="adamw"), params)
+    ckpt.save(str(tmp_path), 2, state)
+    template = opt.TrainState.create(
+        opt.OptimizerConfig(kind="adamw"),
+        {k: torch.zeros_like(t) for k, t in params.items()})
+    restored, step = ckpt.restore_latest(str(tmp_path), template)
+    assert step == 2
+    for a, b in zip(tree_leaves([state.params, state.opt_state]),
+                    tree_leaves([restored.params, restored.opt_state])):
+        assert b.is_cuda and a.dtype == b.dtype
+        _same_bits(b, a)
