@@ -200,7 +200,31 @@ Phases, each of which fails the run (non-zero exit, no result line):
    differ); then ``flash_attention``, its plain version and
    ``F.scaled_dot_product_attention`` timed at every layer shape of the
    LM prefills and of training, the entry holding the mean per launch;
-13. free the card and drive the retrieval path at full width:
+13. the GNN phase (``gnn_phases``), freeing the card after it: MACE's
+   ``configs/mace.py::CONFIG`` (2 layers, d_hidden 128, l_max 2,
+   correlation order 3) trained GNN_STEPS adam steps through
+   ``train.fit`` on three of ``GNN_SHAPES`` — molecule (128 molecules
+   of 30 atoms and 64 edges, energy), full_graph_sm (a Cora-sized
+   ``random_graph``, d_feat 1,433, every node labelled) and
+   minibatch_lg (``NeighborSampler`` batches of 1,024 seeds at fanout
+   (15, 10) over a 232,965-node, 114,615,892-edge host graph, the loss
+   masked to the seeds); ogb_products does not fit one card (one
+   (E, C, 9) f32 edge tensor is 285 GB) — each with step ms beside
+   the FLOP bound, peak memory, finite losses and the sampler's host
+   ms, molecule's and minibatch_lg's step once more profiled and split
+   by profiler ranges (``GNN_SPANS``); then ``launch.train``'s CLI
+   with ``--arch mace --full``; every kernel's count set to 0 just
+   before the shapes and read after the CLI, 0 launches required (no
+   Pallas function lies on MACE's path in the JAX package); the smoke
+   config on the card against the CPU (gradients within
+   ``TRAIN_PARAM_TOL``, losses within ``TRAIN_LOSS_RTOL``); E(3) at
+   ``CONFIG`` on a graph padded with self-loops (rotation, translation,
+   permutation; the edge mask planted away must fail the rotation); a
+   step run twice bit for bit (molecule, full_graph_sm), the receiver
+   sum and the gather's backward against ``index_add_`` at
+   minibatch_lg's scale, and a ``--full`` run failed at step 3 and
+   resumed, bit for bit (a resume on the wrong batches must differ);
+14. free the card and drive the retrieval path at full width:
    two-tower retrieval at ``configs/two_tower_retrieval.py::CONFIG``
    (50M users, 10M items, embed_dim 256, towers 1024-512-256) through
    ``launch.serve.serve_retrieval`` — init, the ``flat_pq`` index over
@@ -214,12 +238,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    for bit, hold the index's codes (and ``dpq_assign`` run again on
    the same tower outputs) against the plain assignment, as in 3, and
    print the peak device memory;
-14. time the pq kernels at that path's shapes, as in 5,
+15. time the pq kernels at that path's shapes, as in 5,
    ``pq_score_batched`` also at a ragged B = 465, and ``pq_topk`` also
    on its worst case (scores rising with the id, held to the exact
    answer) and beside ``torch.topk(pq_score_batched(...))``, the two
    calls it fuses;
-15. the retrieval-scale phase: ``ivf_pq`` at the JAX bench's
+16. the retrieval-scale phase: ``ivf_pq`` at the JAX bench's
    ``bench_retrieval_scale`` widths and knobs (``IVF_*``) over a
    1,000,000-row Zipf-clustered corpus kept on the host (cut from the
    bench's default 10M rows for time), built through
@@ -240,9 +264,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    stay within their bound.  Then two-tower's ``CONFIG`` through
    ``serve_retrieval(index_kind="ivf_pq", nprobe=128, host_staged=True)``
    over 1M candidates (counted: one ``dpq_assign``): recall@100
-   (reported), queries/s beside phase 12's flat_pq, every flush
+   (reported), queries/s beside phase 14's flat_pq, every flush
    bit-identical to the device search;
-16. print one ``{"kernels": [...]}`` JSON line (launches summed over
+17. print one ``{"kernels": [...]}`` JSON line (launches summed over
    every path), then, last, the ``{"ok": true, "device": ...}`` line.
 
 It needs one card and no arguments, imports nothing of JAX, and runs
@@ -538,6 +562,20 @@ ATTN_BWD_TOL = 2 ** -8
 # forced to a 1,024-key window 2.5e-03: the bar sits 5.8x above the one
 # and 4.9x below the other
 LM_STEP_LOSS_TOL = 5e-4
+# the GNN phase (``gnn_phases``): MACE's CONFIG trained GNN_STEPS adam
+# steps through ``train.fit`` on three of GNN_SHAPES.  ogb_products does
+# not fit one card: one (E, C, 9) f32 edge tensor is 285 GB.
+GNN_SHAPE_NAMES = ("molecule", "full_graph_sm", "minibatch_lg")
+GNN_STEPS = 5
+# minibatch_lg's seeds a batch (the shape's batch_nodes)
+GNN_MINI_SEEDS = 1024
+# gnn_setup's stream (the launcher's min(batch, 32) molecules)
+GNN_CHECK_BATCH = 32
+# E(3): JAX's own rotation bar (tests/test_models_gnn.py)
+GNN_E3_RTOL, GNN_E3_ATOL = 1e-3, 1e-4
+# the profiler ranges of a MACE training step (``gnn_traced_spans``)
+GNN_SPANS = ("radial MLP", "edge TP", "gather/scatter", "B-basis", "mixes",
+             "readout", "optimizer")
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -1134,7 +1172,8 @@ def profile_phase(what: str, fn, spans=()) -> dict:
         f"({100 * busy / wall_ms:.1f}%)")
     for name, (ms, n) in sorted(device.items(), key=lambda kv: -kv[1][0])[:6]:
         log(f"  {ms:9.3f} ms  {n:5d}x  {name[:90]}")
-    out = {"wall_ms": wall_ms, "busy_ms": busy}
+    out = {"wall_ms": wall_ms, "busy_ms": busy,
+           "device_ops": sum(n for _, n in device.values())}
     if spans:
         # a range's host-side event: the kernels of the ops inside it
         events = [ev for ev in prof.events()
@@ -4719,7 +4758,7 @@ def two_tower_ivf_path(flat_qps: float) -> dict:
     """Two-tower's CONFIG through ``serve_retrieval(index_kind="ivf_pq",
     nprobe=TT_IVF_NPROBE, host_staged=True)`` over the retrieval
     corpus: counts set to 0 just before and read just after; recall and
-    queries/s beside phase 12's flat_pq; every flush bit-identical to the
+    queries/s beside phase 14's flat_pq; every flush bit-identical to the
     device search of the same queries.  Returns the launches."""
     import numpy as np
     import torch
@@ -5204,20 +5243,26 @@ def lm_train_export_serve(cfg, run, table0) -> tuple:
     return launches, gap, shape
 
 
-def lm_grads(cfg, params, batch) -> list:
-    """The gradient of ``lm.loss_fn`` with respect to every leaf."""
+def leaf_grads(loss_fn, params, batch) -> list:
+    """The gradient of ``loss_fn(params, batch)[0]`` with respect to
+    every leaf of ``params``."""
     import torch
     from repro_torch.core.schemes.base import tree_leaves
-    from repro_torch.models import lm
     leaves = tree_leaves(params)
     for p in leaves:
         p.requires_grad_(True)
     try:
-        loss, _ = lm.loss_fn(params, batch, cfg)
+        loss, _ = loss_fn(params, batch)
         return list(torch.autograd.grad(loss, leaves))
     finally:
         for p in leaves:
             p.requires_grad_(False)
+
+
+def lm_grads(cfg, params, batch) -> list:
+    """The gradient of ``lm.loss_fn`` with respect to every leaf."""
+    from repro_torch.models import lm
+    return leaf_grads(lambda p, b: lm.loss_fn(p, b, cfg), params, batch)
 
 
 def lm_smoke_card_vs_cpu() -> None:
@@ -5374,6 +5419,507 @@ def lm_train_phases() -> tuple:
     return [a_launches, b_launches, s_launches], shapes, gap
 
 
+# ----------------------------------------------------------------------
+# the GNN phase: MACE trained on the card
+# ----------------------------------------------------------------------
+
+def gnn_shape(name: str):
+    from repro_torch.configs.base import GNN_SHAPES
+    return next(s for s in GNN_SHAPES if s.name == name)
+
+
+def gnn_host_graph(shape):
+    """minibatch_lg's host graph: ``random_graph`` over the shape's nodes
+    and edges at d_feat 128 (``mace_cell``'s width), its CSR and a
+    ``NeighborSampler`` at the shape's fanout, with the seconds of each
+    step and the host bytes of the graph."""
+    from repro_torch.data.graph import CSRGraph, NeighborSampler, random_graph
+    t0 = time.perf_counter()
+    g = random_graph(shape.n_nodes, shape.n_edges, 128, seed=0)
+    t1 = time.perf_counter()
+    csr = CSRGraph.from_edge_index(g.pop("edge_index"), shape.n_nodes)
+    t2 = time.perf_counter()
+    host = sum(a.nbytes for a in g.values()) + csr.indptr.nbytes \
+        + csr.indices.nbytes
+    log(f"gnn host graph ({shape.name}): random_graph({shape.n_nodes:,} "
+        f"nodes, {shape.n_edges:,} edges, d_feat 128) {t1 - t0:.1f}s, "
+        f"CSRGraph.from_edge_index {t2 - t1:.1f}s; "
+        f"{host / 2**30:.2f} GiB kept on the host")
+    return g, NeighborSampler(csr, shape.fanout, seed=0)
+
+
+def gnn_data(name: str, cfg, host=None):
+    """(batches, d_feat, task, sampler host ms a batch): GNN_STEPS + 1
+    numpy batches of the shape ``name`` (the last for the profiled
+    step).  molecule: ``molecule_batch`` of 128 x 30 atoms x 64 edges,
+    seed s for batch s; full_graph_sm: one ``random_graph`` (Cora-sized,
+    d_feat 1,433), every node labelled, the same batch each step;
+    minibatch_lg: a ``NeighborSampler`` sample of GNN_MINI_SEEDS seeds
+    drawn without replacement, the loss masked to them."""
+    import numpy as np
+    from repro_torch.data.graph import molecule_batch, random_graph
+    from repro_torch.launch.cells import mace_shape, sampled_graph
+    shape = gnn_shape(name)
+    _, _, d_feat, task, _ = mace_shape(shape)
+    n = GNN_STEPS + 1
+    if name == "molecule":
+        return ([molecule_batch(shape.batch_graphs, shape.n_nodes,
+                                shape.n_edges, n_species=cfg.num_species,
+                                seed=s) for s in range(n)], d_feat, task, None)
+    if name == "full_graph_sm":
+        g = random_graph(shape.n_nodes, shape.n_edges, shape.d_feat, seed=0)
+        return [g] * n, d_feat, task, None
+    g, sampler = host
+    rng = np.random.default_rng(1)
+    batches, ms = [], []
+    for _ in range(n):
+        seeds = rng.choice(shape.n_nodes, GNN_MINI_SEEDS, replace=False)
+        t0 = time.perf_counter()
+        batches.append(sampled_graph(g, sampler.sample(seeds)))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return batches, d_feat, task, ms
+
+
+def gnn_model(cfg, d_feat: int, task: str, device="cuda", seed: int = 0):
+    """(model, train state, step fn) of MACE at ``cfg``: params seeded
+    ``seed`` on ``device`` (a feature projection where ``d_feat``), the
+    launcher's ``GNN_OPTIMIZER`` over the task's loss."""
+    import torch
+    from repro_torch.launch.train import GNN_OPTIMIZER
+    from repro_torch.models.gnn.mace import MACE
+    from repro_torch.train import optimizer as opt
+    model = MACE(cfg, device=device)
+    params = model.init(torch.Generator(device=device).manual_seed(seed),
+                        n_feat=d_feat or None)
+    loss = model.energy_loss if task == "energy" else model.node_class_loss
+    return (model, opt.TrainState.create(GNN_OPTIMIZER, params),
+            opt.make_step_fn(GNN_OPTIMIZER, loss))
+
+
+def gnn_step_flops(cfg, n: int, e: int, d_feat: int) -> float:
+    """``mace_model_flops`` of a train step over ``n`` nodes and ``e``
+    edges, plus the feature projection's (forward and backward,
+    3 x 2·N·F·C)."""
+    from repro_torch.launch.cells import mace_model_flops
+    return mace_model_flops(cfg, n, e, train=True) \
+        + 6.0 * n * d_feat * cfg.d_hidden
+
+
+def gnn_spanned(name: str, fn):
+    """``fn`` with its forward under the profiler range ``name`` and its
+    output's backward nodes, back to its tensor inputs, under the same
+    range while the backward runs them (``span_backward``)."""
+    import torch
+    from torch.profiler import record_function
+    from repro_torch.core.schemes.base import tree_leaves
+
+    def run(*args, **kw):
+        with record_function(name):
+            out = fn(*args, **kw)
+        if isinstance(out, torch.Tensor) and out.grad_fn is not None:
+            stop = {t.grad_fn for t in tree_leaves([list(args), kw])
+                    if isinstance(t, torch.Tensor) and t.grad_fn is not None}
+            span_backward(out, stop, name)
+        return out
+    return run
+
+
+@contextlib.contextmanager
+def gnn_traced_spans():
+    """Inside the block a MACE training step runs under the GNN_SPANS
+    profiler ranges, forward and backward: the radial MLP, the edge
+    tensor product, the gathers (senders, species rows) and the sums by
+    id (receivers, graphs), the B-basis, the per-l channel mixes, the
+    readout, and ``apply_updates`` (clip and adam)."""
+    from repro_torch.models.gnn import mace
+    from repro_torch.train import optimizer as opt
+    methods = {"_radial": "radial MLP", "_edge_tp": "edge TP",
+               "_pairwise": "B-basis", "_mix_per_l": "mixes",
+               "_readout": "readout"}
+    sound = {m: getattr(mace.MACE, m) for m in methods}
+    sound_fns = (mace.gather_rows, mace.segment_sum, opt.apply_updates)
+    for m, name in methods.items():
+        setattr(mace.MACE, m, gnn_spanned(name, sound[m]))
+    mace.gather_rows = gnn_spanned("gather/scatter", sound_fns[0])
+    mace.segment_sum = gnn_spanned("gather/scatter", sound_fns[1])
+    opt.apply_updates = gnn_spanned("optimizer", sound_fns[2])
+    try:
+        yield
+    finally:
+        for m in methods:
+            setattr(mace.MACE, m, sound[m])
+        mace.gather_rows, mace.segment_sum, opt.apply_updates = sound_fns
+
+
+def gnn_step_split(what: str, state, step, batch: dict) -> dict:
+    """One more training step under the profiler, its device time split
+    by the GNN_SPANS ranges, each a share of the step's busy time, and
+    the busy share of the step's wall time."""
+    from repro_torch.train.loop import on_device
+    card_batch = on_device(batch, "cuda")
+    with gnn_traced_spans():
+        split = profile_phase(what, lambda: step(state, card_batch),
+                              spans=GNN_SPANS)
+    busy = split["busy_ms"]
+    rest = busy - sum(split[name] for name in GNN_SPANS)
+    log(f"gnn step split ({what}; device time under the profiler's "
+        f"ranges): of {busy:.3f} ms busy in {split['wall_ms']:.3f} ms wall "
+        f"({100 * busy / split['wall_ms']:.1f}% busy; {split['device_ops']} "
+        f"kernels and copies on the device), "
+        + ", ".join(f"{name} {split[name]:.3f} ms "
+                    f"({100 * split[name] / busy:.1f}%)"
+                    for name in GNN_SPANS)
+        + f", the rest (harmonics, bessel basis, residuals, loss) "
+        f"{rest:.3f} ms ({100 * rest / busy:.1f}%)")
+    for name in GNN_SPANS:
+        need(split[name] > 0, f"{what}: the trace attributes device time "
+             f"to {name}")
+    return split
+
+
+def gnn_train_shape(name: str, cfg, card: str, host=None) -> dict:
+    """MACE's ``CONFIG`` trained GNN_STEPS adam steps through
+    ``train.fit`` on the shape ``name`` (``gnn_data``): step ms (median
+    of steps 2 on) beside the FLOP bound at 67 TFLOP/s f32, peak memory,
+    every loss finite, the sampler's host ms a batch; then, for
+    molecule and minibatch_lg, one more step profiled and split."""
+    import torch
+    from repro_torch.launch.cells import mace_shape
+    from repro_torch.train.loop import LoopConfig, fit
+    t0 = time.perf_counter()
+    batches, d_feat, task, sample_ms = gnn_data(name, cfg, host)
+    host_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _, state, step = gnn_model(cfg, d_feat, task)
+    state, hist = fit(state, step, iter(batches[:GNN_STEPS]),
+                      LoopConfig(total_steps=GNN_STEPS, log_every=1))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [h["loss"] for h in hist]
+    times = sorted(h["step_time_s"] for h in hist[1:])
+    step_ms = times[len(times) // 2] * 1e3
+    flops = [gnn_step_flops(cfg, len(b["positions"]),
+                            b["edge_index"].shape[1], d_feat)
+             for b in batches[:GNN_STEPS]]
+    bound_ms = sum(flops) / len(flops) / F32_FLOP_PER_S * 1e3
+    nodes = [len(b["positions"]) for b in batches[:GNN_STEPS]]
+    edges = batches[0]["edge_index"].shape[1]
+    n_up, e_up, *_ = mace_shape(gnn_shape(name))
+    upper = "" if n_up == max(nodes) else (
+        f"; at the shape's static sizes (N {n_up:,}, E {e_up:,}, as "
+        f"mace_cell lowers it) "
+        f"{gnn_step_flops(cfg, n_up, e_up, d_feat) / F32_FLOP_PER_S * 1e3:.3f}"
+        f" ms")
+    extra = (f"acc {[round(h['acc'], 4) for h in hist]}" if task != "energy"
+             else f"rmse {[round(h['rmse'], 4) for h in hist]}")
+    sampled = (f"; sampler {[round(x, 1) for x in sample_ms]} ms a batch on "
+               f"the host ({GNN_MINI_SEEDS} seeds, fanout "
+               f"{gnn_shape(name).fanout})" if sample_ms else "")
+    log(f"gnn train ({cfg.name} CONFIG, {name}, {task}, {card}): N "
+        f"{nodes} E {edges} d_feat {d_feat}; {GNN_STEPS} adam steps, step "
+        f"{step_ms:.3f} ms (median of steps 2-{GNN_STEPS}; all "
+        f"{[round(h['step_time_s'] * 1e3, 3) for h in hist]}); bound "
+        f"{bound_ms:.3f} ms ({sum(flops) / len(flops):.4g} FLOP at 67 "
+        f"TFLOP/s f32, TF32 off{upper}), {step_ms / bound_ms:.1f}x the "
+        f"bound; peak "
+        f"device memory {peak:.3f} GiB; losses "
+        f"{[round(x, 6) for x in losses]}, {extra}; host data "
+        f"{host_s:.1f}s{sampled}")
+    need(all(math.isfinite(x) for x in losses), f"gnn {name}: finite losses")
+    split = None
+    if name in ("molecule", "minibatch_lg"):
+        split = gnn_step_split(f"mace {name} train step", state, step,
+                               batches[GNN_STEPS])
+    del state, step, batches
+    return {"step_ms": step_ms, "bound_ms": bound_ms, "peak_gib": peak,
+            "split": split}
+
+
+def gnn_card_vs_cpu() -> None:
+    """The smoke config through ``gnn_setup`` on the card against the
+    CPU from the same params and batches: the first batch's gradients
+    within TRAIN_PARAM_TOL (relative to 1 + |g|), then GNN_STEPS adam
+    steps' losses within TRAIN_LOSS_RTOL; and ``node_class_loss``'s
+    gradients on a sampled subgraph with a feature projection, within
+    TRAIN_PARAM_TOL of each leaf's largest (the cubic B-basis of two
+    layers takes these gradients to ~1e5, in JAX as here, so an element
+    near 0 carries the rounding of terms of that size)."""
+    import numpy as np
+    from repro_torch.configs import get_arch
+    from repro_torch.core.schemes.base import tree_map
+    from repro_torch.data.graph import CSRGraph, NeighborSampler, random_graph
+    from repro_torch.launch.cells import sampled_graph
+    from repro_torch.launch.train import gnn_setup
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.loop import on_device
+    _, cfg = get_arch("mace", smoke=True)
+    model, host, step, data = gnn_setup(cfg, GNN_CHECK_BATCH, device="cpu")
+    card = opt.TrainState(tree_map(lambda t: t.cuda(), host.params),
+                          tree_map(lambda t: t.cuda(), host.opt_state))
+
+    def gap(got, want):
+        return max(float(((g.cpu() - w).abs() / (1 + w.abs())).max())
+                   for g, w in zip(got, want))
+    batch = next(data)
+    e_gap = gap(leaf_grads(model.energy_loss, card.params,
+                           on_device(batch, "cuda")),
+                leaf_grads(model.energy_loss, host.params,
+                           on_device(batch, "cpu")))
+    rel = []
+    for _ in range(GNN_STEPS):
+        card, mc = step(card, on_device(batch, "cuda"))
+        host, mh = step(host, on_device(batch, "cpu"))
+        rel.append(abs(float(mc["loss"]) - float(mh["loss"]))
+                   / abs(float(mh["loss"])))
+        batch = next(data)
+    g = random_graph(600, 4800, 8, n_classes=cfg.d_readout, seed=3)
+    sampler = NeighborSampler(CSRGraph.from_edge_index(g["edge_index"], 600),
+                              (5, 3), seed=0)
+    sub = sampled_graph(g, sampler.sample(np.arange(64)))
+    nc_model, nc_state, _ = gnn_model(cfg, 8, "node_class", device="cpu")
+    nc_card = tree_map(lambda t: t.cuda(), nc_state.params)
+    got = leaf_grads(nc_model.node_class_loss, nc_card,
+                     on_device(sub, "cuda"))
+    want = leaf_grads(nc_model.node_class_loss, nc_state.params,
+                      on_device(sub, "cpu"))
+    n_gap = max(float((g.cpu() - w).abs().max() / w.abs().max())
+                for g, w in zip(got, want) if bool(w.any()))
+    n_scale = max(float(w.abs().max()) for w in want)
+    log(f"gnn train card vs CPU ({cfg.name}, gnn_setup's stream of "
+        f"{GNN_CHECK_BATCH} molecules): first-batch gradients within "
+        f"{e_gap:.3g} relative to 1 + |g| (bar {TRAIN_PARAM_TOL}); "
+        f"{GNN_STEPS} steps' loss relative gaps {[f'{x:.3g}' for x in rel]} "
+        f"(bar {TRAIN_LOSS_RTOL}); node_class_loss gradients on a sampled "
+        f"subgraph ({len(sub['positions'])} nodes, 64 seeds, d_feat 8; "
+        f"|g| up to {n_scale:.4g}) within {n_gap:.3g} of each leaf's "
+        f"largest")
+    need(max(e_gap, n_gap) <= TRAIN_PARAM_TOL, "gnn: gradients within "
+         f"{TRAIN_PARAM_TOL} of the CPU's")
+    need(max(rel) <= TRAIN_LOSS_RTOL, f"gnn: losses within "
+         f"{TRAIN_LOSS_RTOL} of the CPU's")
+
+
+def self_loop_padded(g: dict) -> dict:
+    """``g`` with one self-loop a node appended, as ``NeighborSampler``
+    pads a node of degree 0."""
+    import numpy as np
+    n = len(g["positions"])
+    loops = np.stack([np.arange(n), np.arange(n)]).astype(np.int32)
+    return dict(g, edge_index=np.concatenate([g["edge_index"], loops], 1))
+
+
+def gnn_e3_checks(cfg) -> None:
+    """E(3) at ``CONFIG`` on the card, on 8 molecules padded with a
+    self-loop a node: the energy unchanged under a rotation (JAX's bar,
+    rtol GNN_E3_RTOL, atol GNN_E3_ATOL) and a translation, ``node_out``
+    permutation-equivariant; with the edge mask planted away (every
+    edge kept, the self-loops' Y(0) with it) the rotation must fail."""
+    import numpy as np
+    import torch
+    from repro_torch.data.graph import molecule_batch
+    from repro_torch.models.gnn import mace
+    from repro_torch.train.loop import on_device
+    model, state, _ = gnn_model(cfg, 0, "energy", seed=3)
+    params = state.params
+    g = self_loop_padded(molecule_batch(8, 30, 64, n_species=cfg.num_species,
+                                        seed=11))
+    a, b = 0.7, -1.2
+    rz = np.array([[np.cos(a), -np.sin(a), 0], [np.sin(a), np.cos(a), 0],
+                   [0, 0, 1]])
+    rx = np.array([[1, 0, 0], [0, np.cos(b), -np.sin(b)],
+                   [0, np.sin(b), np.cos(b)]])
+    rot = (rz @ rx).astype(np.float32)
+
+    def energy(gr):
+        with torch.no_grad():
+            return model.apply(params, on_device(gr, "cuda"))["energy"]
+
+    def rotation_gap():
+        e1 = energy(g)
+        e2 = energy(dict(g, positions=g["positions"] @ rot.T))
+        return (float((e1 - e2).abs().max()), float(
+            ((e1 - e2).abs() - (GNN_E3_ATOL + GNN_E3_RTOL * e1.abs())).max()),
+            float(e1.abs().max()))
+    rot_err, rot_over, scale = rotation_gap()
+    e1 = energy(g)
+    moved = energy(dict(g, positions=g["positions"]
+                        + np.float32([[5.0, -3.0, 1.0]])))
+    trans_over = float(((moved - e1).abs()
+                        - (GNN_E3_ATOL + GNN_E3_RTOL * e1.abs())).max())
+    n = len(g["positions"])
+    perm = np.random.default_rng(3).permutation(n)
+    inv = np.argsort(perm)
+    g2 = dict(g, positions=g["positions"][perm], species=g["species"][perm],
+              graph_id=g["graph_id"][perm],
+              edge_index=inv[g["edge_index"]].astype(np.int32))
+    with torch.no_grad():
+        out1 = model.apply(params, on_device(g, "cuda"))["node_out"]
+        out2 = model.apply(params, on_device(g2, "cuda"))["node_out"]
+    want = out1[torch.from_numpy(perm).cuda()]
+    perm_over = float(((out2 - want).abs()
+                       - (GNN_E3_ATOL + GNN_E3_RTOL * want.abs())).max())
+    sound = mace.MACE._edge_mask
+    mace.MACE._edge_mask = lambda self, dist: torch.ones_like(dist)
+    try:
+        bad_err, bad_over, _ = rotation_gap()
+    finally:
+        mace.MACE._edge_mask = sound
+    log(f"gnn E(3) ({cfg.name} CONFIG on the card, 8 molecules + a "
+        f"self-loop a node, {n} nodes): rotation |dE| {rot_err:.3g} (|E| up "
+        f"to {scale:.4g}; bar atol {GNN_E3_ATOL} + rtol {GNN_E3_RTOL}, "
+        f"margin {-rot_over:.3g}), translation margin {-trans_over:.3g}, "
+        f"node_out permutation margin {-perm_over:.3g}; with the edge mask "
+        f"planted away the rotation's |dE| is {bad_err:.4g} (over the bar "
+        f"by {bad_over:.4g})")
+    need(rot_over <= 0, "gnn: the energy is rotation-invariant")
+    need(trans_over <= 0, "gnn: the energy is translation-invariant")
+    need(perm_over <= 0, "gnn: node_out is permutation-equivariant")
+    need(bad_over > 0, "gnn: the dropped edge mask fails the rotation check")
+
+
+def scatter_repeats(e: int, n: int, c: int) -> dict:
+    """{op: (whether it gives the same bits twice, device ms a call)}
+    for a receiver sum of ``e`` (c, 9) rows into ``n`` (``index_add_``,
+    atomic adds on the card, and ``mace.segment_sum``, a sorted
+    ``index_put_``), each receiver taking e / n rows, and for the
+    backward of ``mace.gather_rows`` over as many rows."""
+    import torch
+    from repro_torch.models.gnn.mace import gather_rows, segment_sum
+    g = torch.Generator(device="cuda").manual_seed(7)
+    data = torch.randn((e, c, 9), generator=g, device="cuda")
+    ids = torch.randint(0, n, (e,), generator=g, device="cuda")
+    x = torch.randn((n, c, 9), generator=g, device="cuda")
+
+    def gather_grad():
+        t = x.clone().requires_grad_(True)
+        return torch.autograd.grad((gather_rows(t, ids) * data).sum(), t)[0]
+    out = {}
+    for name, fn in (("index_add_", lambda: torch.zeros_like(x).index_add_(
+            0, ids, data)), ("segment_sum", lambda: segment_sum(data, ids, n)),
+                     ("gather backward", gather_grad)):
+        a, b = fn(), fn()
+        out[name] = (torch.equal(bits(a), bits(b)),
+                     time_ms(fn, iters=5, warmup=1, hold=False)[0])
+    return out
+
+
+@contextlib.contextmanager
+def gnn_stream_not_positioned():
+    """A planted fault: inside the block, a resumed MACE run's stream
+    starts at the first batch, not at its checkpoint's."""
+    from repro_torch.launch import train as train_mod
+    sound = train_mod.gnn_stream
+    train_mod.gnn_stream = lambda cfg, b, start=0: sound(cfg, b, 0)
+    try:
+        yield
+    finally:
+        train_mod.gnn_stream = sound
+
+
+def gnn_repeat_checks(cfg, full_graph: dict) -> None:
+    """One adam step at ``CONFIG`` run twice from the same state on the
+    same batch, bit for bit (molecule, and full_graph_sm, whose Zipf
+    senders pile thousands of rows onto the gather's backward); a
+    ``--full`` run failed at step 3 and resumed, bit-identical to an
+    uninterrupted one (a resume on the wrong batches must differ); and
+    whether ``index_add_`` would have repeated at minibatch_lg's
+    receiver sum."""
+    import torch
+    from repro_torch.core.schemes.base import tree_leaves, tree_map
+    from repro_torch.data.graph import molecule_batch
+    from repro_torch.launch.cells import mace_shape
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.loop import on_device
+    shape = gnn_shape("molecule")
+    cases = (("molecule", molecule_batch(
+        shape.batch_graphs, shape.n_nodes, shape.n_edges,
+        n_species=cfg.num_species, seed=0), 0, "energy"),
+             ("full_graph_sm", full_graph, full_graph["node_feats"].shape[1],
+              "node_class"))
+    same = {}
+    for name, batch, d_feat, task in cases:
+        _, state, step = gnn_model(cfg, d_feat, task)
+        runs = []
+        for _ in range(2):
+            s = opt.TrainState(tree_map(torch.clone, state.params),
+                               tree_map(torch.clone, state.opt_state))
+            runs.append(step(s, on_device(batch, "cuda"))[0])
+        same[name] = all(torch.equal(bits(a), bits(b)) for a, b in zip(
+            tree_leaves(runs[0].params), tree_leaves(runs[1].params)))
+        del state, runs
+    n, e, *_ = mace_shape(gnn_shape("minibatch_lg"))
+    probe = scatter_repeats(e, n, cfg.d_hidden)
+    t0 = time.perf_counter()
+    gap, resumed_same, bad = resume_gap(
+        "mace", planted=gnn_stream_not_positioned, smoke=False,
+        batch=GNN_CHECK_BATCH)
+    log(f"gnn repeat ({cfg.name} CONFIG): one step twice bit-identical: "
+        f"{same}; at minibatch_lg's receiver sum ({e:,} rows of "
+        f"({cfg.d_hidden}, 9) into {n:,}) the same bits twice, device ms a "
+        f"call: " + ", ".join(f"{k} {ok} {ms:.3f} ms"
+                              for k, (ok, ms) in probe.items()) + "; "
+        f"resume (--full, gnn_setup's stream, {time.perf_counter() - t0:.1f}"
+        f"s): gap {gap:.3g}, bit-identical={resumed_same}; resumed on a "
+        f"stream not positioned at the checkpoint: gap {bad:.3g}")
+    need(all(same.values()), "gnn: a step repeats bit for bit")
+    need(probe["segment_sum"][0] and probe["gather backward"][0],
+         "gnn: the receiver sum and the gather's backward repeat")
+    need(resumed_same, "gnn: a resumed run is bit-identical to an "
+         "uninterrupted one")
+    need(bad > 0, "gnn: a resume on the wrong batches differs")
+
+
+def gnn_phases(card: str) -> dict:
+    """The GNN phase (see the module docstring): MACE's CONFIG trained on
+    GNN_SHAPE_NAMES and through the CLI with every kernel's launch count
+    set to 0 just before and read just after (0 required: no Pallas
+    function lies on the JAX path), then the card against the CPU, E(3),
+    repeatability and resume.  Returns the launches (all 0)."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import train as train_mod
+    t_phase = time.perf_counter()
+    _, cfg = get_arch("mace", smoke=False)
+    host = gnn_host_graph(gnn_shape("minibatch_lg"))
+    counters = reset_counts()
+    results = {}
+    for name in GNN_SHAPE_NAMES:
+        results[name] = gnn_train_shape(
+            name, cfg, card, host if name == "minibatch_lg" else None)
+        gc.collect()
+        torch.cuda.empty_cache()
+    del host
+    t_cli = time.perf_counter()
+    run = train_mod.main(["--arch", "mace", "--full", "--steps",
+                          str(GNN_STEPS), "--log-every", "1"])
+    launches = {name: fn.launches for name, fn in counters.items()}
+    log(f"gnn CLI (launch.train --arch mace --full --steps {GNN_STEPS}, "
+        f"{time.perf_counter() - t_cli:.1f}s): losses "
+        f"{[round(h['loss'], 6) for h in run.history]}; kernel launches "
+        f"over the GNN path {launches}")
+    need(all(math.isfinite(h["loss"]) for h in run.history),
+         "gnn CLI: finite losses")
+    need(sum(launches.values()) == 0, "gnn: no kernel launched (no Pallas "
+         "function lies on MACE's path)")
+    del run
+    gnn_card_vs_cpu()
+    gnn_e3_checks(cfg)
+    from repro_torch.data.graph import random_graph
+    sm = gnn_shape("full_graph_sm")
+    gnn_repeat_checks(cfg, random_graph(sm.n_nodes, sm.n_edges, sm.d_feat,
+                                        seed=0))
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"gnn phase {time.perf_counter() - t_phase:.1f}s ({card}): "
+        + "; ".join(f"{name} {r['step_ms']:.3f} ms a step "
+                    f"({r['step_ms'] / r['bound_ms']:.1f}x its "
+                    f"{r['bound_ms']:.3f} ms bound), peak "
+                    f"{r['peak_gib']:.3f} GiB" for name, r in results.items()))
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5443,6 +5989,9 @@ def main() -> int:
         flash_err, sum(p["flash_attention"] for p in l_launches),
         flash_shapes))
     gc.collect()
+    torch.cuda.empty_cache()
+    g_launches = gnn_phases(card)
+    gc.collect()
     torch.cuda.empty_cache()                 # free the card for two-tower
     r_launches, r_errs, (luts, codes), flat_qps = retrieval_path()
     pq_errs = {name: max(errs[name], err) for name, err in r_errs.items()}
@@ -5458,8 +6007,8 @@ def main() -> int:
         entry["launches"] = sum(p.get(name, 0) for p in
                                 (launches, c_launches, h_launches,
                                  bag_launches, *ctr_launches,
-                                 b_launches, *l_launches, r_launches,
-                                 *i_launches))
+                                 b_launches, *l_launches, g_launches,
+                                 r_launches, *i_launches))
         if name == "dpq_assign":
             entry["max_abs_err"] = max(entry["max_abs_err"], pq_errs[name],
                                        c_errs[name], lm_assign_gap,

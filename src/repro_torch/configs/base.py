@@ -1,4 +1,5 @@
-"""Config dataclasses for the LM and recsys families + input-shape specs.
+"""Config dataclasses for the LM, GNN and recsys families + input-shape
+specs.
 
 Each architecture file in this package exports ``CONFIG`` (full scale)
 and ``smoke_config()`` (reduced, runs on the CPU).  Field for field the
@@ -92,6 +93,24 @@ class LMConfig:
 
 
 # ----------------------------------------------------------------------
+# GNN (MACE)
+# ----------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class GNNConfig:
+    name: str
+    num_layers: int = 2
+    d_hidden: int = 128
+    l_max: int = 2
+    correlation_order: int = 3
+    n_rbf: int = 8
+    r_cut: float = 5.0
+    num_species: int = 100
+    d_readout: int = 16
+    dtype: str = "float32"
+
+
+# ----------------------------------------------------------------------
 # RecSys family
 # ----------------------------------------------------------------------
 
@@ -160,6 +179,17 @@ LM_SHAPES = (
     ShapeSpec("prefill_32k", "prefill", seq_len=32768, global_batch=32),
     ShapeSpec("decode_32k", "decode", seq_len=32768, global_batch=128),
     ShapeSpec("long_500k", "decode", seq_len=524288, global_batch=1),
+)
+
+GNN_SHAPES = (
+    ShapeSpec("full_graph_sm", "graph_full", n_nodes=2708, n_edges=10556,
+              d_feat=1433),
+    ShapeSpec("minibatch_lg", "graph_mini", n_nodes=232965,
+              n_edges=114615892, batch_nodes=1024, fanout=(15, 10)),
+    ShapeSpec("ogb_products", "graph_full", n_nodes=2449029,
+              n_edges=61859140, d_feat=100),
+    ShapeSpec("molecule", "graph_batched", n_nodes=30, n_edges=64,
+              batch_graphs=128),
 )
 
 RECSYS_SHAPES = (

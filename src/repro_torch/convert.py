@@ -259,3 +259,50 @@ def lm_params_from_numpy(params: dict, cfg, device) -> dict:
     out = {"embed": params_from_numpy(params["embed"], ecfg, device)}
     out.update({k: convert(params[k], spec[k], k) for k in spec})
     return out
+
+
+def mace_params_from_numpy(params: dict, model, device) -> dict:
+    """The JAX ``MACE`` params (numpy leaves) as the port's, leaf for
+    leaf, each float32 leaf checked against ``model``'s config:
+    ``species_emb``, ``feat_proj`` where present, and every layer's
+    radial and readout MLPs (through :func:`mlp_from_numpy`), ``a_mix``,
+    ``u2``/``u3`` and ``m1``/``m2``/``m3``."""
+    cfg = model.cfg
+    c, p, ls = cfg.d_hidden, model.n_paths, cfg.l_max + 1
+    want = {"species_emb": (cfg.num_species, c), "a_mix": (ls, c, c),
+            "u2": (c, p), "u3": (c, p), "m1": (ls, c, c), "m2": (ls, c, c),
+            "m3": (ls, c, c)}
+    mlps = {"radial": [(cfg.n_rbf, 64), (64, c * p)],
+            "readout": [(c, 64), (64, cfg.d_readout)]}
+
+    def leaf(a, name):
+        t = tensor_from_numpy(a, device)
+        if tuple(t.shape) != want[name] or t.dtype != torch.float32:
+            raise ValueError(f"{name}: {tuple(t.shape)} {t.dtype}, want "
+                             f"{want[name]} float32")
+        return t
+
+    def stack(layers, name):
+        out = mlp_from_numpy(layers, device)
+        if [tuple(layer["w"].shape) for layer in out] != mlps[name]:
+            raise ValueError(f"{name}: weights "
+                             f"{[tuple(x['w'].shape) for x in out]}, want "
+                             f"{mlps[name]}")
+        return out
+
+    if len(params["layers"]) != cfg.num_layers:
+        raise ValueError(f"{len(params['layers'])} layers, the config has "
+                         f"{cfg.num_layers}")
+    out = {"species_emb": leaf(params["species_emb"], "species_emb"),
+           "layers": [{k: (stack(v, k) if k in mlps else leaf(v, k))
+                       for k, v in layer.items()}
+                      for layer in params["layers"]]}
+    if "feat_proj" in params:
+        proj = {k: tensor_from_numpy(v, device)
+                for k, v in params["feat_proj"].items()}
+        if set(proj) != {"w", "b"} or proj["w"].dim() != 2 \
+                or proj["w"].shape[1] != c or tuple(proj["b"].shape) != (c,):
+            raise ValueError(f"feat_proj: want w (F, {c}) and b ({c},), got "
+                             f"{ {k: tuple(t.shape) for k, t in proj.items()} }")
+        out["feat_proj"] = proj
+    return out

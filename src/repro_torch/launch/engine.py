@@ -634,10 +634,11 @@ def embedding_config_of_arch(family: str, cfg):
     from repro_torch.models.recsys.fields import field_embedding_config
     if family == "lm":                 # the token table
         return cfg.embedding
-    if family != "recsys":
+    if family == "gnn":
         raise NotImplementedError(
-            f"family {family!r} waits for its slice in ROADMAP.md; the "
-            f"port serves the lm and recsys archs")
+            "the GNN family has no large-vocab categorical table to serve: "
+            "MACE's only table is its ~100-row species embedding, which "
+            "stays full (DESIGN.md §4)")
     if cfg.model in ("bst", "two_tower"):     # the item table, as in JAX
         return field_embedding_config(cfg, cfg.n_items)
     return field_embedding_config(cfg, max(cfg.field_vocab_sizes))

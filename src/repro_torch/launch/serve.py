@@ -39,8 +39,9 @@
 run on the card and report lookups/second, queries/second or the
 batch's time, or the prefill's seconds and decode tokens/s;
 ``--device cpu`` runs the same paths on the CPU with the plain PyTorch
-ops.  The mesh paths of the JAX package's CLI are a later slice in
-ROADMAP.md.
+ops.  ``--arch mace`` (the GNN family) is train-only and refused, as
+the JAX package's CLI refuses it.  The mesh paths of the JAX package's
+CLI are a later slice in ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -520,6 +521,8 @@ def main(argv=None):
                             arrival_rate=args.arrival_rate,
                             slo_ms=args.slo_ms,
                             duration_s=args.duration).stats
+    if family == "gnn":
+        raise SystemExit(f"{args.arch} has no serving path (train-only arch)")
     if family == "lm":
         if min(args.batch, args.prompt_len) < 1 or args.decode_steps < 0:
             ap.error("--batch and --prompt-len must be >= 1 and "

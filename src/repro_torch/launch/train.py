@@ -6,6 +6,8 @@
         --device cpu --steps 5 --ckpt-dir build/ckpt --ckpt-every 2
     PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-3b \\
         --full --batch 1 --seq 4096 --steps 5
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mace \\
+        --full --steps 5
 
 trains on the card unless ``--device cpu`` is given (``--smoke``, the
 reduced config, is the default; ``--full`` is the published one).  The
@@ -17,8 +19,10 @@ clip 1.0): ``deepfm`` and ``autoint`` on ``CTRStream`` batches, ``bst``
 and ``two-tower-retrieval`` on uniform ids drawn as the JAX launcher
 draws them.  Every LM arch trains ``models/lm.py::loss_fn`` with adamw
 at lr 3e-4 (20 warmup steps, cosine to step 1,000) on uniform tokens,
-``--seq`` of them a row.  The GNN branch follows its slice in
-ROADMAP.md.
+``--seq`` of them a row.  ``mace`` (the GNN family) trains
+``MACE.energy_loss`` with adam at lr 1e-3 on ``molecule_batch``es of
+``min(--batch, 32)`` molecules of 12 atoms and 24 edges, batch ``s``
+drawn from seed ``s``, as the JAX launcher trains it.
 """
 from __future__ import annotations
 
@@ -142,12 +146,47 @@ def lm_setup(cfg, batch: int, seq: int, device="cuda", start: int = 0):
     return state, lm_step_fn(cfg), lm_stream(cfg, batch, seq, start)
 
 
+def gnn_stream(cfg, batch: int, start: int = 0):
+    """An endless stream of ``molecule_batch`` graphs (numpy arrays and
+    the Python int ``n_graphs``), from batch ``start`` on, drawn as the
+    JAX launcher draws them: ``min(batch, 32)`` molecules of 12 atoms
+    and 24 edges over ``cfg.num_species`` species, batch ``s`` from
+    seed ``s`` (so a stream that starts later skips nothing it must
+    draw)."""
+    from repro_torch.data.graph import molecule_batch
+    seed = start
+    while True:
+        yield molecule_batch(n_graphs=min(batch, 32), n_atoms=12,
+                             n_edges=24, n_species=cfg.num_species,
+                             seed=seed)
+        seed += 1
+
+
+# MACE's optimizer, as the JAX launcher's
+GNN_OPTIMIZER = opt_lib.OptimizerConfig(kind="adam", lr=1e-3)
+
+
+def gnn_setup(cfg, batch: int, device="cuda", start: int = 0):
+    """(model, state, step_fn, data) of MACE: params drawn from a
+    generator seeded 0 on ``device``, ``GNN_OPTIMIZER`` (adam at lr
+    1e-3, global-norm clip 1.0) over ``MACE.energy_loss``, and
+    :func:`gnn_stream` from batch ``start`` on (``fit`` moves each
+    batch to the params' device)."""
+    from repro_torch.models.gnn.mace import MACE
+    device = resolve_device(device)
+    model = MACE(cfg, device=device)
+    params = model.init(torch.Generator(device=device).manual_seed(0))
+    state = TrainState.create(GNN_OPTIMIZER, params)
+    step = opt_lib.make_step_fn(GNN_OPTIMIZER, model.energy_loss)
+    return model, state, step, gnn_stream(cfg, batch, start)
+
+
 @dataclasses.dataclass
 class TrainRun:
     """What :func:`train` built and measured."""
 
     cfg: Any                        # the arch's config, overrides applied
-    model: Any                      # the recsys model; None for an LM
+    model: Any                      # the recsys or GNN model; None for an LM
     state: TrainState
     history: List[Dict]             # one entry per logged step
     seconds: float                  # wall time of ``fit``
@@ -170,11 +209,6 @@ def train(arch: str, *, smoke: bool = True, steps: int = 100,
     older one and the stream would run ahead of it by the steps
     between.)"""
     family, cfg = get_arch(arch, smoke=smoke)
-    if family == "gnn":
-        raise NotImplementedError(
-            f"training the gnn family ({arch!r}) is not ported yet; it "
-            f"waits for ROADMAP.md §1 item 7; trainable: the recsys and "
-            f"LM archs")
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
     start = (ckpt_lib.latest_step(ckpt_dir) if ckpt_dir else None) or 0
@@ -182,6 +216,9 @@ def train(arch: str, *, smoke: bool = True, steps: int = 100,
         model = None
         state, step, data = lm_setup(cfg, batch, seq, device=device,
                                      start=start)
+    elif family == "gnn":
+        model, state, step, data = gnn_setup(cfg, batch, device=device,
+                                             start=start)
     else:
         model, state, step, data = recsys_setup(cfg, batch, device=device,
                                                 start=start)
@@ -221,16 +258,11 @@ def main(argv: Optional[List[str]] = None) -> TrainRun:
                          "'cpu' runs the plain PyTorch ops)")
     args = ap.parse_args(argv)
     if args.arch not in ARCHS:
-        ap.error(f"arch {args.arch!r} is not ported; ported archs: "
-                 f"{sorted(ARCHS)}")
-    try:
-        return train(args.arch, smoke=args.smoke, steps=args.steps,
-                     batch=args.batch, seq=args.seq,
-                     ckpt_dir=args.ckpt_dir,
-                     ckpt_every=args.ckpt_every, fail_at=args.fail_at,
-                     log_every=args.log_every, device=args.device)
-    except NotImplementedError as e:
-        ap.error(str(e))
+        ap.error(f"unknown arch {args.arch!r}; archs: {sorted(ARCHS)}")
+    return train(args.arch, smoke=args.smoke, steps=args.steps,
+                 batch=args.batch, seq=args.seq, ckpt_dir=args.ckpt_dir,
+                 ckpt_every=args.ckpt_every, fail_at=args.fail_at,
+                 log_every=args.log_every, device=args.device)
 
 
 if __name__ == "__main__":

@@ -1,3 +1,3 @@
-"""Model families: the recsys family (DeepFM, two-tower) and the dense
-LMs (``lm.py``) are ported; MoE LMs and the GNN family follow their
-slices in ROADMAP.md."""
+"""Model families: the recsys family (DeepFM, AutoInt, BST, two-tower and
+the paper's backbones), the LMs (``lm.py``, dense and MoE) and the GNN
+family (``gnn/``: MACE)."""

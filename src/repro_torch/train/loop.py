@@ -38,9 +38,12 @@ class LoopConfig:
     metrics_hook: Optional[Callable[[int, Dict], None]] = None
 
 
-def _on_device(batch: Dict, device: torch.device) -> Dict:
-    return {k: (v if isinstance(v, torch.Tensor)
-                else torch.from_numpy(np.asarray(v))).to(device)
+def on_device(batch: Dict, device) -> Dict:
+    """The batch's arrays as tensors on ``device``; a Python number (a
+    graph batch's ``n_graphs``) stays one, so reading it needs no sync."""
+    return {k: v if isinstance(v, (int, float)) else
+            (v if isinstance(v, torch.Tensor)
+             else torch.from_numpy(np.asarray(v))).to(device)
             for k, v in batch.items()}
 
 
@@ -64,7 +67,7 @@ def fit(state: TrainState,
     detector = StragglerDetector(num_hosts=1)
 
     for step in range(start_step, cfg.total_steps):
-        batch = _on_device(next(data_iter), device)
+        batch = on_device(next(data_iter), device)
         timer.start()
         state, metrics = step_fn(state, batch)
         if device.type == "cuda":

@@ -256,5 +256,5 @@ def test_cli_runs_ivf_flags(flags, capsys):
 
 
 def test_cli_unknown_arch():
-    with pytest.raises(KeyError, match="not ported"):
-        serve.main(["--arch", "mace", "--engine", "--device", "cpu"])
+    with pytest.raises(KeyError, match="unknown arch"):
+        serve.main(["--arch", "no-such-arch", "--engine", "--device", "cpu"])

@@ -37,6 +37,7 @@ from repro_torch.kernels.pq_score import (INVALID_ID, pq_score,
                                           pq_topk, pq_topk_ref)
 from repro_torch.launch import engine
 from repro_torch.retrieval import IndexConfig, get_index
+from repro_torch.train.loop import on_device
 
 # dpq_assign: the kernel's fused dot may round differently in the last
 # bit from the plain version's matmul, so codes may differ only between
@@ -2403,3 +2404,117 @@ def test_bf16_checkpoint_roundtrip_on_card(cuda, tmp_path):
                     tree_leaves([restored.params, restored.opt_state])):
         assert b.is_cuda and a.dtype == b.dtype
         _same_bits(b, a)
+
+
+def _mace_grads(loss_fn, params, batch):
+    from repro_torch.core.schemes.base import tree_leaves
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    try:
+        return torch.autograd.grad(loss_fn(params, batch)[0], leaves)
+    finally:
+        for p in leaves:
+            p.requires_grad_(False)
+
+
+@pytest.mark.gpu
+def test_mace_smoke_on_card_matches_cpu(cuda):
+    """``gnn_setup`` at the smoke config from the same params and batches
+    on the card and on the CPU: the first batch's gradients within 1e-5
+    relative to 1 + |g|, then 3 adam steps' losses within 1e-4
+    relative; no kernel launched (MACE's path holds none)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.schemes.base import tree_map
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.train import gnn_setup
+    from repro_torch.train import optimizer as opt
+    _, cfg = get_arch("mace", smoke=True)
+    model, host, step, data = gnn_setup(cfg, 32, device="cpu")
+    card = opt.TrainState(tree_map(lambda t: t.to(cuda), host.params),
+                          tree_map(lambda t: t.to(cuda), host.opt_state))
+    counts = [f.launches for f in (mgqe_decode, dpq_assign, embedding_bag,
+                                   flash_attention, pq_topk)]
+    batch = next(data)
+    got = _mace_grads(model.energy_loss, card.params, on_device(batch, cuda))
+    want = _mace_grads(model.energy_loss, host.params, on_device(batch, "cpu"))
+    for g, w in zip(got, want):
+        assert float(((g.cpu() - w).abs() / (1 + w.abs())).max()) <= 1e-5
+    for _ in range(3):
+        card, mc = step(card, on_device(batch, cuda))
+        host, mh = step(host, on_device(batch, "cpu"))
+        assert abs(float(mc["loss"]) - float(mh["loss"])) <= \
+            1e-4 * abs(float(mh["loss"]))
+        batch = next(data)
+    assert counts == [f.launches for f in (mgqe_decode, dpq_assign,
+                                           embedding_bag, flash_attention,
+                                           pq_topk)]
+
+
+@pytest.mark.gpu
+def test_mace_step_repeats_on_card(cuda):
+    """One adam step of ``node_class_loss`` run twice from the same
+    state on a Zipf-sender graph (many rows onto the gather's backward
+    and the receiver sum), bit for bit; ``segment_sum`` and
+    ``gather_rows``' backward alone too."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.schemes.base import tree_leaves, tree_map
+    from repro_torch.data.graph import random_graph
+    from repro_torch.launch.train import GNN_OPTIMIZER
+    from repro_torch.models.gnn.mace import MACE, gather_rows, segment_sum
+    from repro_torch.train import optimizer as opt
+    _, cfg = get_arch("mace", smoke=True)
+    g = random_graph(2000, 20000, 16, n_classes=cfg.d_readout, seed=0)
+    model = MACE(cfg, device=cuda)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0),
+                        n_feat=16)
+    step = opt.make_step_fn(GNN_OPTIMIZER, model.node_class_loss)
+    runs = []
+    for _ in range(2):
+        state = opt.TrainState.create(GNN_OPTIMIZER,
+                                      tree_map(torch.clone, params))
+        runs.append(step(state, on_device(g, cuda))[0])
+    for a, b in zip(tree_leaves(runs[0].params), tree_leaves(runs[1].params)):
+        _same_bits(a, b)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    data = torch.randn((200_000, 16, 9), generator=gen, device=cuda)
+    ids = torch.randint(0, 1000, (200_000,), generator=gen, device=cuda)
+    _same_bits(segment_sum(data, ids, 1000), segment_sum(data, ids, 1000))
+    x = torch.randn((1000, 16, 9), generator=gen, device=cuda)
+
+    def grad():
+        t = x.clone().requires_grad_(True)
+        return torch.autograd.grad((gather_rows(t, ids) * data).sum(), t)[0]
+    _same_bits(grad(), grad())
+
+
+@pytest.mark.gpu
+def test_mace_rotation_invariant_on_card_and_fails_without_the_mask(
+        cuda, monkeypatch):
+    """Smoke config on the card, a molecule batch padded with a self-loop
+    a node: the energy moves under a rotation by less than JAX's bar
+    (atol 1e-4 + rtol 1e-3 |E|); with the edge mask planted away it
+    moves by more."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.graph import molecule_batch
+    from repro_torch.models.gnn.mace import MACE
+    _, cfg = get_arch("mace", smoke=True)
+    g = molecule_batch(4, 12, 24, n_species=cfg.num_species, seed=2)
+    n = len(g["positions"])
+    g["edge_index"] = np.concatenate(
+        [g["edge_index"], np.stack([np.arange(n)] * 2).astype(np.int32)], 1)
+    a = 0.9
+    rot = np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0],
+                    [-np.sin(a), 0, np.cos(a)]], np.float32)
+    model = MACE(cfg, device=cuda)
+    params = model.init()
+
+    def over():
+        e1 = model.apply(params, on_device(g, cuda))["energy"]
+        e2 = model.apply(params, on_device(dict(
+            g, positions=g["positions"] @ rot.T), cuda))["energy"]
+        return float(((e1 - e2).abs() - (1e-4 + 1e-3 * e1.abs())).max())
+    assert over() <= 0
+    monkeypatch.setattr(MACE, "_edge_mask",
+                        lambda self, dist: torch.ones_like(dist))
+    assert over() > 0

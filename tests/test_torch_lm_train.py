@@ -429,8 +429,9 @@ def test_fail_at_and_resume_equals_uninterrupted(arch, overrides, tmp_path):
         assert tree_leaves(whole.state.params)[0].dtype == torch.bfloat16
 
 
-def test_train_refuses_the_gnn_family_by_its_roadmap_item(monkeypatch):
-    monkeypatch.setattr(train_cli, "get_arch",
-                        lambda arch, smoke=True: ("gnn", None))
-    with pytest.raises(NotImplementedError, match="§1 item 7"):
-        train_cli.train("mace", device="cpu", steps=1)
+def test_train_refuses_the_gnn_family_by_its_roadmap_item():
+    """The gnn family's refusal went with its port (ROADMAP.md §1 item
+    7): ``train`` now takes ``mace`` through ``gnn_setup``."""
+    run = train_cli.train("mace", device="cpu", steps=1, log_every=1)
+    assert int(run.state.step) == 1 and np.isfinite(run.history[0]["loss"])
+    assert type(run.model).__name__ == "MACE"
