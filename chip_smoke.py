@@ -69,7 +69,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
    fired mid-stream; counts set to 0 just before and read just after.
    Phase 6 also serves each of its schemes behind a cache of 4,096 rows
    (every flush bit-identical to its uncached engine's: lrf's rows may
-   not depend on the batch);
+   not depend on the batch).  Then the distributed-serving phase
+   (``sharded_serving_phase``): the same field exported as mgqe, rq
+   and mpe, two-tower's 1M-item flat_pq (D=8, K=64, d=256) and the 1M
+   IVF index of phase 16, each served once on one device for the
+   reference results and saved to the host; 4 gloo ranks on cuda:0 as
+   a (data=2, model=2) mesh (``launch.mesh.spawn``), each placing only
+   its row block (its device holding 1/2 of the code or corpus bytes
+   plus the replicated codebooks, read from ``memory_allocated``) and
+   serving 200 requests through ``ServingEngine(mesh)``, uncached and
+   behind a 1,250,000-row hot block (a wholly cached flush launching
+   no decode; mgqe also refreshed), and batches of 464 and 465 through
+   ``RetrievalEngine(mesh)``: every flush and top-k bit-identical to
+   the single-device results on every rank, ``mgqe_decode``,
+   ``rq_decode_stages``, ``packed_decode``, ``pq_topk`` and
+   ``pq_score_batched`` launched on every rank, flush and search ms
+   beside the single device's and the wire bytes a flush; then one NCCL
+   rank through ``ServingEngine`` on a (1, 1) mesh (bit-identical), and
+   ``serve --mesh data=2,model=2`` under torchrun on 4 gloo ranks
+   sharing the card, exit 0;
 9. the fourth path, each phase freeing the card after it:
    ``embedding_bag`` against its plain version at deepfm's largest
    field as a full table (V = 10M, d = 10) and at two-tower's 10M-row
@@ -2094,6 +2112,396 @@ def check_async(futs, reqs, sync_engine, st) -> None:
     need(got.shape == want.shape
          and np.array_equal(got.view(np.int32), want.view(np.int32)),
          "async rows == synchronous rows")
+
+
+# ----------------------------------------------------------------------
+# distributed serving: a (data, model) mesh of gloo ranks on one card
+# ----------------------------------------------------------------------
+
+SHARD_MESH = (2, 2)                    # (data, model): 4 ranks, one card
+SHARD_TIMEOUT = 300.0                  # a group's start, collectives, join
+SHARD_BATCHES = (464, 465)             # retrieval: the flush, ragged
+SHARD_SEARCHES = 5                     # measured searches a batch
+SHARD_HEAD = 4096                      # ids of a wholly cached flush
+TT_ITEM_DIM = 256                      # two-tower's tower output width
+# the decode kernel each scheme of the phase launches
+SHARD_DECODE = {"mgqe": "mgqe_decode", "rq": "rq_decode_stages",
+                "mpe": "packed_decode"}
+
+
+def shard_schemes() -> dict:
+    """deepfm's largest field (10M rows) as phases 4 and 6 serve it:
+    mgqe (D=5, K=256/64), rq (M=5, K=256), mpe (8/4/2-bit tiers at 5%
+    and 25% of the ids) -> {name: EmbeddingConfig}."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.core import EmbeddingConfig
+    from repro_torch.core.partition import frequency_boundaries
+    from repro_torch.launch.engine import embedding_config_of_arch
+    family, cfg = get_arch("deepfm", smoke=False)
+    n = max(cfg.field_vocab_sizes)
+    return {
+        "mgqe": embedding_config_of_arch(family, cfg),
+        "rq": embedding_config_of_arch(
+            family, dataclasses.replace(cfg, embed_kind="rq")),
+        "mpe": EmbeddingConfig(
+            vocab_size=n, dim=cfg.embed_dim, kind="mpe",
+            num_subspaces=cfg.num_subspaces,
+            tier_boundaries=frequency_boundaries(n, (0.05, 0.25)),
+            tier_bits=(8, 4, 2))}
+
+
+def leaf_bytes(tree, leaves, rows: bool) -> int:
+    """Bytes of the leaves of ``tree`` whose spec says ``rows``."""
+    from repro_torch.core.schemes.base import tree_leaves
+    return sum(t.numel() * t.element_size()
+               for t, leaf in zip(tree_leaves(tree), leaves)
+               if leaf.rows == rows)
+
+
+def placed_check(what, before, local_rows, whole_rows, replicated,
+                 n_leaves, model_n) -> dict:
+    """The rank's device holds its 1/model_n of the row leaves plus the
+    replicated ones, and nothing more: the caching allocator rounds a
+    block up to 512 bytes, and a block past 1 MiB up to its 2 MiB
+    segment when the rest is under 1 MiB (PyTorch's CUDA allocator), so
+    each leaf may hold up to 2 MiB more than its bytes."""
+    import torch
+    torch.cuda.synchronize()
+    placed = torch.cuda.memory_allocated() - before
+    need(local_rows * model_n == whole_rows,
+         f"{what}: the rank holds 1/{model_n} of the rows")
+    need(local_rows + replicated <= placed
+         <= local_rows + replicated + (2 << 20) * n_leaves
+         and placed < whole_rows,
+         f"{what}: the device holds its block and the replicated leaves "
+         f"({placed} bytes allocated, {local_rows} + {replicated} placed, "
+         f"{whole_rows} in the whole table)")
+    return {"rows": local_rows, "whole_rows": whole_rows,
+            "replicated": replicated, "allocated": placed}
+
+
+def same_as(t, ref) -> bool:
+    """``torch.equal`` of a tensor and a numpy reference (-0.0 equal to
+    +0.0: a psum may turn one shard's -0.0 into +0.0)."""
+    import torch
+    return torch.equal(t.cpu(), torch.from_numpy(ref))
+
+
+def sharded_rank(rank, plan) -> dict:
+    """One rank of the distributed phase (a gloo process on the card):
+    the three schemes through ServingEngine(mesh), uncached and behind a
+    HOT_ROWS block, then flat_pq and ivf_pq through RetrievalEngine(mesh),
+    each held bit for bit (torch.equal) to the single-device engine's
+    results that the parent computed.  Returns the checks' numbers."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.core import Embedding, EmbeddingConfig
+    from repro_torch.launch.engine import (EngineStats, RetrievalEngine,
+                                           ServingEngine, drive_stream)
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.retrieval import IndexConfig, get_index
+    mesh = make_debug_mesh(*SHARD_MESH)
+    model_n = mesh.shape["model"]
+    need(mesh.device == torch.device("cuda", 0), "every rank on cuda:0")
+    counters = reset_counts()
+    reqs = plan["requests"]
+    out = {"serving": {}, "retrieval": {}}
+
+    def same_flushes(kept, want, what):
+        need(len(kept) == len(want), f"{what}: the flushes line up")
+        for (_, res), ref in zip(kept, want):
+            need(same_as(torch.cat(res), ref),
+                 f"{what}: flush rows == the single-device engine's")
+
+    for name, s in plan["serving"].items():
+        cfg = EmbeddingConfig(**s["cfg"])
+        art = torch.load(s["path"], map_location="cpu", mmap=True)
+        emb = Embedding(cfg, device=mesh.device)
+        leaves = emb.scheme.artifact_leaves()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        eng = ServingEngine(emb, art, mesh=mesh, max_queue=4096)
+        placed = placed_check(
+            name, before, leaf_bytes(eng.artifact, leaves, True),
+            leaf_bytes(art, leaves, True),
+            leaf_bytes(eng.artifact, leaves, False), len(leaves), model_n)
+        st = dataclasses.replace(drive_stream(eng, reqs))
+        same_flushes(drive_keeping_flushes(eng, reqs), s["rows"], name)
+        decode = counters[SHARD_DECODE[name]]
+        need(same_as(eng.lookup(np.arange(SHARD_HEAD)), s["head"]),
+             f"{name}: head rows")
+        hot = ServingEngine(emb, art, mesh=mesh, max_queue=4096,
+                            hot_rows=HOT_ROWS)
+        hst = dataclasses.replace(drive_stream(hot, reqs))
+        same_flushes(drive_keeping_flushes(hot, reqs), s["rows"],
+                     f"{name} behind a hot block")
+        n0 = decode.launches
+        cached = hot.lookup(np.arange(SHARD_HEAD))
+        need(decode.launches == n0 and same_as(cached, s["head"]),
+             f"{name}: a wholly cached flush launches no decode")
+        refreshed = None
+        if name == "mgqe":
+            t0 = time.perf_counter()
+            hot.refresh_hot_rows(np.arange(HOT_ROWS, 2 * HOT_ROWS))
+            torch.cuda.synchronize()
+            refreshed = time.perf_counter() - t0
+            same_flushes(drive_keeping_flushes(hot, reqs), s["rows"],
+                         f"{name} after a refresh")
+        out["serving"][name] = dict(
+            placed=placed, flush_ms=1e3 * st.seconds / st.flushes,
+            hot_flush_ms=1e3 * hst.seconds / hst.flushes,
+            hit_rate=hst.hit_rate, flushes=st.flushes,
+            padded=st.padded_lookups, refresh_s=refreshed)
+        del eng, hot, art
+        torch.cuda.empty_cache()
+
+    for name, r in plan["retrieval"].items():
+        index = get_index(IndexConfig(**r["cfg"]))
+        art = torch.load(r["path"], map_location="cpu", mmap=True)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        eng = RetrievalEngine(index, art, k=TOPK, block_q=16, mesh=mesh)
+        local = sum(eng.artifact[k].numel() * eng.artifact[k].element_size()
+                    for k in index.rows_leaves)
+        whole = sum(art[k].numel() * art[k].element_size()
+                    for k in index.rows_leaves)
+        rest = sum(t.numel() * t.element_size()
+                   for k, t in eng.artifact.items()
+                   if k not in index.rows_leaves)
+        placed = placed_check(name, before, local, whole, rest,
+                              len(eng.artifact), model_n)
+        ms = {}
+        for b, (ref_s, ref_i) in zip(SHARD_BATCHES, r["want"]):
+            q = r["queries"][:b]
+            eng.search(q)                          # the first launches
+            eng.stats_ = EngineStats()
+            for _ in range(SHARD_SEARCHES):
+                s_, i_ = eng.search(q)
+            need(same_as(s_, ref_s) and same_as(i_, ref_i),
+                 f"{name} B={b}: top-{TOPK} == the single-device search's")
+            ms[b] = 1e3 * eng.stats_.seconds / eng.stats_.flushes
+        out["retrieval"][name] = dict(placed=placed, ms=ms,
+                                      pad=eng.pad_multiple)
+        del eng, art
+        torch.cuda.empty_cache()
+    out["launches"] = {k: fn.launches for k, fn in counters.items()}
+    return out
+
+
+def nccl_world1_rank(rank, plan) -> dict:
+    """One NCCL rank on the card: a (1, 1) mesh, an all_reduce through
+    NCCL, and the mgqe field through ServingEngine(mesh), which takes the
+    single-device route (JAX's size-1 fallback): every flush bit for bit
+    the single-device engine's."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import Embedding, EmbeddingConfig
+    from repro_torch.launch.engine import ServingEngine, drive_stream
+    from repro_torch.launch.mesh import make_debug_mesh
+    mesh = make_debug_mesh(1, 1)
+    need(dist.get_backend() == "nccl", "the group runs on NCCL")
+    t = torch.full((8,), 3.0, device=mesh.device)
+    dist.all_reduce(t)
+    need(bool((t == 3.0).all()), "an NCCL all_reduce of one rank")
+    counters = reset_counts()
+    s = plan["serving"]["mgqe"]
+    emb = Embedding(EmbeddingConfig(**s["cfg"]), device=mesh.device)
+    eng = ServingEngine(emb, torch.load(s["path"], map_location="cpu",
+                                        mmap=True), mesh=mesh, max_queue=4096)
+    drive_stream(eng, plan["requests"])
+    kept = drive_keeping_flushes(eng, plan["requests"])
+    for (_, res), ref in zip(kept, s["rows"]):
+        need(same_as(torch.cat(res), ref),
+             "NCCL world 1: flush rows == the single-device engine's")
+    return {"launches": {k: fn.launches for k, fn in counters.items()},
+            "flushes": len(kept)}
+
+
+def sharded_serving_phase(card: str) -> dict:
+    """The distributed-serving phase (see the module docstring): the
+    parent exports and builds, serves each artifact on one device for
+    the reference rows, and saves the artifacts to the host; then 4 gloo
+    ranks on the card (``sharded_rank``), one NCCL rank
+    (``nccl_world1_rank``) and ``serve --mesh`` under torchrun.  Counts
+    set to 0 just before, read just after, the ranks' summed in;
+    returns them."""
+    import dataclasses
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.core import Embedding
+    from repro_torch.core.schemes.base import tree_map
+    from repro_torch.launch.engine import (EngineStats, RetrievalEngine,
+                                           ServingEngine, drive_stream,
+                                           random_requests)
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.retrieval import (IndexConfig, build_ivf_artifact,
+                                       get_index)
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    counters = reset_counts()
+    data_n, model_n = SHARD_MESH
+    world = data_n * model_n
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    schemes = shard_schemes()
+    n = schemes["mgqe"].vocab_size
+    reqs = random_requests(n, N_REQUESTS, REQ_BATCH, seed=29)
+    plan = {"requests": reqs, "serving": {}, "retrieval": {}}
+    single = {}
+    try:
+        # ---------------------------------- the parent: exports, references
+        for name, ecfg in schemes.items():
+            emb = Embedding(ecfg)
+            params = emb.init(emb.generator(0))
+            art = emb.export(params)
+            del params
+            eng = ServingEngine(emb, art, max_queue=4096)
+            st = dataclasses.replace(drive_stream(eng, reqs))
+            kept = drive_keeping_flushes(eng, reqs)
+            path = os.path.join(tmp, f"{name}.pt")
+            torch.save(tree_map(lambda t: t.cpu(), art), path)
+            # the references cross to the ranks as numpy arrays
+            plan["serving"][name] = {
+                "cfg": dataclasses.asdict(ecfg), "path": path,
+                "rows": [torch.cat(res).cpu().numpy() for _, res in kept],
+                "head": eng.lookup(np.arange(SHARD_HEAD)).cpu().numpy()}
+            single[name] = dict(ms=1e3 * st.seconds / st.flushes,
+                                padded=st.padded_lookups, flushes=st.flushes)
+            del eng, art, emb, kept
+            torch.cuda.empty_cache()
+        g = torch.Generator(device="cuda").manual_seed(31)
+        vecs = torch.randn((retrieval_candidates(), TT_ITEM_DIM),
+                           generator=g, device="cuda")
+        fcfg = IndexConfig(kind="flat_pq", num_subspaces=8,
+                           num_centroids=64)
+        fart = get_index(fcfg).build(
+            torch.Generator(device="cuda").manual_seed(1), vecs)
+        fq = torch.randn((max(SHARD_BATCHES), TT_ITEM_DIM), generator=g,
+                         device="cuda").cpu().numpy()
+        del vecs
+        ivecs, iq = ivf_scale_corpus(max(SHARD_BATCHES))
+        icfg = ivf_scale_config()
+        iart, _ = build_ivf_artifact(
+            torch.Generator(device="cuda").manual_seed(0), ivecs, icfg)
+        del ivecs
+        for name, cfg_i, art, q in (("flat_pq", fcfg, fart, fq),
+                                    ("ivf_pq", icfg, iart, iq)):
+            index = get_index(cfg_i)
+            eng = RetrievalEngine(index, art, k=TOPK, block_q=16)
+            want, ms = [], {}
+            for b in SHARD_BATCHES:
+                eng.search(q[:b])
+                eng.stats_ = EngineStats()
+                for _ in range(SHARD_SEARCHES):
+                    s_, i_ = eng.search(q[:b])
+                want.append((s_.cpu().numpy(), i_.cpu().numpy()))
+                ms[b] = 1e3 * eng.stats_.seconds / eng.stats_.flushes
+            path = os.path.join(tmp, f"{name}.pt")
+            torch.save({k: torch.as_tensor(v).cpu() for k, v in art.items()},
+                       path)
+            plan["retrieval"][name] = {"cfg": dataclasses.asdict(cfg_i),
+                                       "path": path, "queries": q,
+                                       "want": want}
+            single[name] = dict(ms=ms, pad=eng.pad_multiple)
+            del eng
+        del fart, iart
+        torch.cuda.empty_cache()
+        t_ref = time.perf_counter() - t_phase
+
+        # ---------------------------------------------- 4 gloo ranks
+        t0 = time.perf_counter()
+        ranks = spawn(sharded_rank, world, backend="gloo", device="cuda:0",
+                      args=(plan,), store_dir=tmp, timeout_s=SHARD_TIMEOUT)
+        t_ranks = time.perf_counter() - t0
+        # ------------------------------------------ one NCCL rank
+        t0 = time.perf_counter()
+        (nccl,) = spawn(nccl_world1_rank, 1, backend="nccl",
+                        device="cuda:0", args=(plan,), store_dir=tmp,
+                        timeout_s=SHARD_TIMEOUT)
+        t_nccl = time.perf_counter() - t0
+        # ------------------------------------ serve --mesh under torchrun
+        t0 = time.perf_counter()
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc-per-node", str(world), "-m", "repro_torch.launch.serve",
+               "--arch", "deepfm", "--full", "--engine", "--mesh",
+               f"data={data_n},model={model_n}", "--dist-backend", "gloo",
+               "--device", "cuda:0"]
+        env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+        proc = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True,
+                              text=True, timeout=SHARD_TIMEOUT)
+        t_cli = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    tail = [line for line in proc.stdout.splitlines()
+            if line.startswith(("mesh ", "engine"))]
+    log(f"serve --mesh (torchrun, {world} gloo ranks on cuda:0): exit "
+        f"{proc.returncode} in {t_cli:.1f}s; " + " | ".join(tail))
+    need(proc.returncode == 0, "torchrun ... serve --mesh exits 0:\n"
+         + proc.stdout[-4000:] + proc.stderr[-4000:])
+    need(any("row-sharded x2" in line for line in tail),
+         "serve --mesh printed the per-shard code bytes")
+
+    launches = {k: fn.launches for k, fn in counters.items()}
+    for r in ranks + [nccl]:
+        for k, v in r["launches"].items():
+            launches[k] += v
+    for name in SHARD_DECODE.values():
+        need(all(r["launches"][name] > 0 for r in ranks),
+             f"{name} launched on every rank")
+    for name in ("pq_topk", "pq_score_batched"):
+        need(all(r["launches"][name] > 0 for r in ranks),
+             f"{name} launched on every rank")
+    need(nccl["launches"]["mgqe_decode"] > 0, "NCCL world 1: mgqe_decode")
+
+    # what one flush puts on the wire, per rank, by collective: the
+    # ids' all-gather over data, the (B_global, d) partials' psum over
+    # model, the rows' all-gather over data (payloads, f32 rows)
+    for name, ecfg in schemes.items():
+        rows = [r["serving"][name] for r in ranks]
+        p = rows[0]["placed"]
+        b_global = rows[0]["padded"] / rows[0]["flushes"]
+        log(f"sharded {name} (mesh data={data_n}, model={model_n}, "
+            f"{world} gloo ranks on cuda:0): each rank's device holds "
+            f"{p['rows'] / 1e6:.3f} MB of codes (1/{model_n} of "
+            f"{p['whole_rows'] / 1e6:.3f}) + {p['replicated'] / 1e6:.4f} MB "
+            f"codebooks, {p['allocated']} bytes allocated; flush ms "
+            f"sharded {[round(r['flush_ms'], 5) for r in rows]} by rank vs "
+            f"single-device {single[name]['ms']:.5f}; behind "
+            f"{HOT_ROWS} hot rows {[round(r['hot_flush_ms'], 5) for r in rows]}"
+            f" (hit rate {rows[0]['hit_rate']:.4f})"
+            + (f", a refresh {rows[0]['refresh_s']:.3f}s"
+               if rows[0]["refresh_s"] is not None else "")
+            + f"; wire a flush (B_global {b_global:.0f}, d {ecfg.dim}): ids "
+            f"{4 * b_global:.0f} B, partials {4 * b_global * ecfg.dim:.0f} "
+            f"B, rows {4 * b_global * ecfg.dim:.0f} B; every flush "
+            f"bit-identical on every rank [{card}]")
+    for name in ("flat_pq", "ivf_pq"):
+        rows = [r["retrieval"][name] for r in ranks]
+        p = rows[0]["placed"]
+        d_q = plan["retrieval"][name]["queries"].shape[1]
+        log(f"sharded {name}: each rank's device holds "
+            f"{p['rows'] / 1e6:.3f} MB of corpus rows (1/{model_n} of "
+            f"{p['whole_rows'] / 1e6:.3f}) + {p['replicated'] / 1e6:.4f} MB "
+            f"replicated; search ms " + "; ".join(
+                f"B={b}: sharded {[round(r['ms'][b], 5) for r in rows]} vs "
+                f"single-device {single[name]['ms'][b]:.5f}"
+                for b in SHARD_BATCHES)
+            + f"; wire a query: {4 * d_q} B gathered, {model_n * TOPK * 12}"
+            f" B of partials (scores, tiebreaks, ids), {TOPK * 8} B of "
+            f"results; top-{TOPK} bit-identical on every rank [{card}]")
+    log(f"NCCL world 1: ServingEngine(mesh=(1, 1)) over {nccl['flushes']} "
+        f"flushes bit-identical, {t_nccl:.1f}s")
+    log(f"distributed phase {time.perf_counter() - t_phase:.1f}s (parent's "
+        f"exports and references {t_ref:.1f}s, 4 ranks {t_ranks:.1f}s, NCCL "
+        f"{t_nccl:.1f}s, torchrun {t_cli:.1f}s); gloo on one card moves the "
+        f"collectives through host memory: no interconnect is measured; "
+        f"launches {launches}")
+    return launches
 
 
 # ----------------------------------------------------------------------
@@ -4571,6 +4979,29 @@ def time_ivf_scoring(index, art, q) -> None:
         f"held bit-identical to the plain version")
 
 
+def ivf_scale_corpus(n_queries: int):
+    """The JAX bench's retrieval-scale corpus at IVF_ROWS rows (host
+    numpy) and ``n_queries`` queries."""
+    from repro_torch.data.synthetic import pq_clustered_corpus
+    from repro_torch.retrieval import suggest_nlist
+    return pq_clustered_corpus(
+        n=IVF_ROWS, d=IVF_DIM, num_subspaces=IVF_SUB, n_queries=n_queries,
+        n_clusters=min(2048, suggest_nlist(IVF_ROWS)), cluster_zipf_a=1.3)
+
+
+def ivf_scale_config():
+    """The JAX bench's ``bench_retrieval_scale`` index at IVF_ROWS rows,
+    probed at the widest of IVF_NPROBES."""
+    from repro_torch.retrieval import IndexConfig, suggest_nlist
+    n = IVF_ROWS
+    return IndexConfig(kind="ivf_pq", num_subspaces=IVF_SUB,
+                       num_centroids=IVF_K, iters=10, coarse_iters=10,
+                       nlist=suggest_nlist(n, max(IVF_NPROBES)),
+                       nprobe=max(IVF_NPROBES),
+                       train_sample=min(n, IVF_BLOCK),
+                       encode_block=min(n, IVF_BLOCK), list_cap_quantile=0.9)
+
+
 def ivf_scale_phase() -> dict:
     """The JAX bench's retrieval scale on the card (IVF_* above): the
     streamed build from a host corpus, the nprobe sweep on the device and
@@ -4580,25 +5011,17 @@ def ivf_scale_phase() -> dict:
     import dataclasses
     import numpy as np
     import torch
-    from repro_torch.data.synthetic import pq_clustered_corpus
     from repro_torch.kernels.pq_score import INVALID_ID
     from repro_torch.launch.engine import RetrievalEngine
-    from repro_torch.retrieval import (IndexConfig, build_ivf_artifact,
-                                       get_index, suggest_nlist)
+    from repro_torch.retrieval import build_ivf_artifact, get_index
 
     t_phase = time.perf_counter()
     n, k, b = IVF_ROWS, TOPK, TT_QUERIES
     t0 = time.perf_counter()
-    vecs, q_np = pq_clustered_corpus(
-        n=n, d=IVF_DIM, num_subspaces=IVF_SUB, n_queries=b,
-        n_clusters=min(2048, suggest_nlist(n)), cluster_zipf_a=1.3)
+    vecs, q_np = ivf_scale_corpus(b)
     gen_s = time.perf_counter() - t0
-    nlist = suggest_nlist(n, max(IVF_NPROBES))
-    cfg = IndexConfig(kind="ivf_pq", num_subspaces=IVF_SUB,
-                      num_centroids=IVF_K, iters=10, coarse_iters=10,
-                      nlist=nlist, nprobe=max(IVF_NPROBES),
-                      train_sample=min(n, IVF_BLOCK),
-                      encode_block=min(n, IVF_BLOCK), list_cap_quantile=0.9)
+    cfg = ivf_scale_config()
+    nlist = cfg.nlist
     log(f"ivf scale: corpus {n} x {IVF_DIM} f32 on the host "
         f"({vecs.nbytes / 1e6:.1f} MB, generated in {gen_s:.1f}s), "
         f"{b} queries; nlist={nlist} D={IVF_SUB} K={IVF_K} "
@@ -5952,6 +6375,7 @@ def main() -> int:
          for name in ("rq_decode_stages", "packed_decode")},
         c_launches, flush_b)
     h_launches = hot_cache_phase(card)
+    s_launches = sharded_serving_phase(card)
     bag_launches, bag_err, bag_times = bag_phase()
     ctr_launches = [ctr_serve_path(arch) for arch in CTR_ARCHS]
     ctr_launches += [ctr_train_path(arch) for arch in CTR_ARCHS]
@@ -6006,7 +6430,7 @@ def main() -> int:
         name = entry["name"]
         entry["launches"] = sum(p.get(name, 0) for p in
                                 (launches, c_launches, h_launches,
-                                 bag_launches, *ctr_launches,
+                                 s_launches, bag_launches, *ctr_launches,
                                  b_launches, *l_launches, g_launches,
                                  r_launches, *i_launches))
         if name == "dpq_assign":

@@ -73,8 +73,14 @@ class Embedding:
         """Serving artifact (the full table discarded)."""
         return self.scheme.attach_hot_rows(self.scheme.export(params))
 
-    def serve(self, artifact: dict, ids: torch.Tensor) -> torch.Tensor:
-        return self.scheme.serve(artifact, ids)
+    def serve(self, artifact: dict, ids: torch.Tensor, mesh=None,
+              model_axis: str = "model") -> torch.Tensor:
+        """Rows of ``ids``; with a ``mesh`` (a sharded_codes config),
+        through the sharded gather over this rank's artifact."""
+        if mesh is None:
+            return self.scheme.serve(artifact, ids)
+        return self.scheme.serve(artifact, ids, mesh=mesh,
+                                 model_axis=model_axis)
 
     # -------------------------------------------------- abstract shapes
     def serving_artifact_struct(self) -> dict:

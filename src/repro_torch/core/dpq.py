@@ -127,7 +127,8 @@ def quantize(e: torch.Tensor, centroids: torch.Tensor,
 def row_gather(table: torch.Tensor, ids: torch.Tensor,
                sharded: bool = False) -> torch.Tensor:
     """Rows ``table[ids]``, shape ids.shape + (d,).  Model-parallel
-    row gathers (``sharded``) are the distributed slice in ROADMAP.md.
+    row gathers (``sharded``) are the training half of the distributed
+    layer (ROADMAP.md §1 item 8).
 
     Advanced indexing, not ``index_select``: its backward is a sorted
     ``index_put_`` with accumulate, which gives the same bits on every
@@ -136,8 +137,9 @@ def row_gather(table: torch.Tensor, ids: torch.Tensor,
     one."""
     if sharded:
         raise NotImplementedError(
-            "sharded_rows gathers wait for the distributed slice in "
-            "ROADMAP.md")
+            "sharded_rows gathers (the model-parallel row gather and its "
+            "batch-sized backward) wait for the training half of the "
+            "distributed layer, ROADMAP.md §1 item 8")
     return table[ids.long()]
 
 

@@ -56,8 +56,9 @@ PIN_TO_CONFIG: Any = "pin-to-config"
 class ArtifactLeaf:
     """One leaf of a serving artifact, fully described.
 
-    ``rows=True`` marks O(vocab) leaves (row-sharded once the
-    distributed slice lands); everything else is replicated.
+    ``rows=True`` marks O(vocab) leaves (row-sharded over a mesh's
+    model axis, ``artifact_shard_specs``); everything else is
+    replicated.
     ``logical_bits`` overrides the storage-derived bit count for the
     size accounting — code tables are *stored* at uint8/int32
     granularity but *accounted* at their packed width (``log2ceil(K)``
@@ -114,6 +115,8 @@ class Scheme:
     """
 
     kind: str = "?"                    # set by @register_scheme
+    # whether ``quantized_gather`` can row-shard the codes over a mesh
+    supports_sharded_codes: bool = False
 
     def __init__(self, cfg):
         self.cfg = cfg
@@ -123,6 +126,12 @@ class Scheme:
     def validate(cls, cfg) -> None:
         """Kind-specific config validation (EmbeddingConfig.__post_init__
         calls this through the registry)."""
+
+    @classmethod
+    def variants(cls) -> Tuple[str, ...]:
+        """Sub-variant labels for enumeration (the sharded gather's
+        support list).  "-" means the scheme has no variants."""
+        return ("-",)
 
     # --------------------------------------------------------- required
     def init(self, gen: torch.Generator, dtype: torch.dtype) -> dict:
@@ -197,6 +206,17 @@ class Scheme:
                                      device="meta"),
             self.artifact_spec())
 
+    def artifact_shard_specs(self, model_axis: str = "model"):
+        """Spec tree (``sharding/rules.py``): ``rows`` leaves row-sharded
+        over ``model_axis``, everything else replicated ``()``."""
+        if not self.supports_sharded_codes:
+            raise ValueError(
+                f"no quantized artifact for kind={self.kind!r}")
+        return tree_map(
+            lambda leaf: (model_axis,) + (None,) * (len(leaf.shape) - 1)
+            if leaf.rows else (),
+            self.artifact_spec())
+
     def serving_size_bits(self) -> int:
         """Paper §1.1/§3.5 serving-size accounting, summed over the
         artifact spec (packed code widths, dtype-true float widths)."""
@@ -207,17 +227,27 @@ class QuantizedScheme(Scheme):
     """Base for codes+codebooks schemes (dpq, mgqe, rq, mpe).
 
     Serving decodes through a dispatched decode op: ``mgqe_decode``
-    (dpq, mgqe), ``rq_decode_stages`` (rq) or ``packed_decode`` (mpe)."""
+    (dpq, mgqe), ``rq_decode_stages`` (rq) or ``packed_decode`` (mpe).
+    The code tables may be row-sharded over a mesh's model axis; then
+    ``serve`` goes through the sharded quantized gather."""
+
+    supports_sharded_codes = True
 
     @property
     def code_dtype(self) -> torch.dtype:
         return torch.uint8 if self.cfg.num_centroids <= 256 else torch.int32
 
-    def serve(self, artifact: dict, ids: torch.Tensor) -> torch.Tensor:
-        if self.cfg.sharded_codes:
-            raise NotImplementedError(
-                "sharded_codes serving waits for the distributed slice in "
-                "ROADMAP.md")
+    def serve(self, artifact: dict, ids: torch.Tensor, mesh=None,
+              model_axis: str = "model") -> torch.Tensor:
+        """Rows of ``ids``.  With ``cfg.sharded_codes`` and a ``mesh``,
+        ``artifact`` is this rank's (``shard_quantized_artifact``) and
+        the rows come through ``quantized_gather`` (every rank passes
+        the same ids and gets the same rows); otherwise one device
+        decodes, as the JAX package does with no ambient mesh."""
+        if self.cfg.sharded_codes and mesh is not None:
+            from repro_torch.sharding.quantized import quantized_gather
+            return quantized_gather(artifact, ids, self.cfg,
+                                    model_axis=model_axis, mesh=mesh)
         return self.decode(artifact, ids)
 
     def precompute_hot_rows(self, artifact: dict) -> torch.Tensor:

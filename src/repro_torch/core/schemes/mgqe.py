@@ -55,6 +55,10 @@ class MultiGranularQuantizedEmbedding(QuantizedScheme):
                for i in range(len(cfg.tier_boundaries) - 1)):
             raise ValueError("tier boundaries must be strictly ascending")
 
+    @classmethod
+    def variants(cls):
+        return MGQE_VARIANTS
+
     @property
     def variant_label(self):
         return self.cfg.mgqe_variant

@@ -68,11 +68,11 @@ class EmbeddingConfig:
     param_dtype: str = "float32"
 
     # model-parallel row gathers on the training path (not ported yet:
-    # training is a later slice in ROADMAP.md)
+    # the training half of the distributed layer, ROADMAP.md §1 item 8)
     sharded_rows: bool = False
 
-    # serving code tables row-sharded over devices (not ported yet: the
-    # distributed slice in ROADMAP.md); serving with it set raises
+    # serving code tables row-sharded over a mesh's model axis: serve
+    # goes through sharding/quantized.py when given a mesh
     sharded_codes: bool = False
 
     # hot-row decode-ahead cache: the ``hot_rows`` hottest ids decoded

@@ -186,6 +186,12 @@ class AsyncServingEngine:
                  max_block_rows: Optional[int] = None,
                  refresh_every: int = 0,
                  clock: Callable[[], float] = time.monotonic):
+        if getattr(engine, "mesh", None) is not None:
+            # deadlines fire per rank, and the refresher runs beside the
+            # flushes: the ranks' collectives would not line up
+            raise ValueError("the async front-end serves a single-device "
+                             "engine; a mesh engine's ranks must flush "
+                             "together")
         self.engine = engine
         self.clock = clock
         self.policy = FlushPolicy(

@@ -32,8 +32,14 @@ and cold ids, only the cold remainder reaches the decode kernel, and a
 gather-and-select merges the two (DESIGN.md §9).
 ``launch/async_engine.py`` wraps either engine in a latency front-end.
 
+Either engine can serve a table or corpus row-sharded over a mesh
+(``launch/mesh.py``): one engine per rank, every rank fed the same
+request stream (as the JAX package's single controller feeds its whole
+mesh), each flush one sharded gather or top-k whose collectives every
+rank issues in the same order, and every rank's flush returning the
+full results.
+
 Stats accumulate across flushes; ``stats()`` reports requests/second.
-The sharded (mesh) paths are a later slice in ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -46,6 +52,7 @@ import torch
 
 from repro_torch.core.api import Embedding, resolve_device
 from repro_torch.core.schemes.base import tree_map
+from repro_torch.sharding.gather import data_shards as mesh_data_shards
 
 
 @dataclasses.dataclass
@@ -216,6 +223,26 @@ class _MicroBatchEngine:
         return self.stats_
 
 
+def _engine_device(device, mesh) -> torch.device:
+    """The engine's device: the mesh rank's under a mesh (``device``
+    may only repeat it), else ``device`` (the card by default)."""
+    if mesh is None:
+        return resolve_device("cuda" if device is None else device)
+    if device is not None and resolve_device(device) != mesh.device:
+        raise ValueError(f"device {device} is not the mesh rank's device "
+                         f"{mesh.device}")
+    return mesh.device
+
+
+def _mesh_data_shards(mesh, model_axis: str, what: str) -> int:
+    """Data shards of a mesh that has ``model_axis`` to shard ``what``
+    over."""
+    if model_axis not in mesh.shape:
+        raise ValueError(f"mesh {dict(mesh.shape)} has no {model_axis!r} "
+                         f"axis to shard {what} over")
+    return mesh_data_shards(mesh, model_axis)
+
+
 class ServingEngine(_MicroBatchEngine):
     """Micro-batching lookup engine over one exported embedding table.
 
@@ -225,6 +252,13 @@ class ServingEngine(_MicroBatchEngine):
     as their threads a block.
     Request ids are checked on the host against ``[0, vocab)``: on the
     card an out-of-range row index is a device-side fault, not a clamp.
+
+    With a ``mesh`` (``launch/mesh.py``) the code tables are row-sharded
+    over ``model_axis`` and the codebooks replicated, this rank's block
+    on its device (``sharding/rules.shard_quantized_artifact``); every
+    flush pads to ``block_b x data_shards`` and runs ONE sharded gather
+    (``sharding/quantized.quantized_gather``).  Every rank must submit
+    the same requests and flush together; each returns the full rows.
 
     **Hot-row cache** (DESIGN.md §9): with ``hot_rows`` = C > 0 (or the
     config's ``hot_rows``) the engine keeps a dense (C, d) block of the
@@ -248,7 +282,8 @@ class ServingEngine(_MicroBatchEngine):
                  block_b: Optional[int] = None,
                  max_queue: int = 65536,
                  backend: Optional[str] = None,
-                 device="cuda",
+                 device=None,
+                 mesh=None, model_axis: str = "model",
                  hot_rows: Optional[int] = None,
                  hot_ema_decay: float = 0.99,
                  hot_refresh_every: int = 0,
@@ -261,7 +296,23 @@ class ServingEngine(_MicroBatchEngine):
             # as threads a block, rounded up to whole warps (rq's l2
             # route takes it as it is)
             overrides["decode_block_b"] = block_b
-        device = resolve_device(device)
+        self.mesh, self.model_axis = mesh, model_axis
+        data_shards = 1
+        if mesh is not None:
+            cfg = emb.cfg
+            # the registry says which schemes' codes can be row-sharded
+            if not emb.scheme.supports_sharded_codes:
+                raise ValueError(
+                    f"sharded serving needs a quantized table, got "
+                    f"kind={cfg.kind!r}")
+            data_shards = _mesh_data_shards(mesh, model_axis, "codes")
+            model_n = mesh.shape[model_axis]
+            if model_n > 1 and cfg.vocab_size % model_n:
+                raise ValueError(
+                    f"vocab={cfg.vocab_size} does not divide over "
+                    f"{model_axis}={model_n}")
+            overrides["sharded_codes"] = True
+        device = _engine_device(device, mesh)
         rebuilt = bool(overrides) or emb.device != device
         if rebuilt:
             # rebuild so the decode path dispatches as asked
@@ -269,10 +320,17 @@ class ServingEngine(_MicroBatchEngine):
                             device=device)
         self.emb = emb
         self.block_b = emb.cfg.decode_block_b
-        super().__init__(pad_multiple=self.block_b, max_queue=max_queue,
-                         device=device)
+        self.data_shards = data_shards
+        # flushes pad to block_b per data shard
+        super().__init__(pad_multiple=self.block_b * data_shards,
+                         max_queue=max_queue, device=device)
         # device-resident once; requests only ship (B,) int32 ids
-        self.artifact = tree_map(lambda t: t.to(device), artifact)
+        if mesh is not None:
+            from repro_torch.sharding.rules import shard_quantized_artifact
+            self.artifact = shard_quantized_artifact(
+                artifact, emb.cfg, mesh, model_axis=model_axis)
+        else:
+            self.artifact = tree_map(lambda t: t.to(device), artifact)
 
         # ------------------------------------------------ hot-row cache
         vocab = emb.cfg.vocab_size
@@ -295,7 +353,9 @@ class ServingEngine(_MicroBatchEngine):
         self._freq: Optional[torch.Tensor] = None   # (vocab,) f32 EMA
         self._freq_event = None    # recorded after each counter update
         if self.hot_rows:
-            # seed with the head ids (frequency-sorted convention)
+            # seed with the head ids (frequency-sorted convention); the
+            # export's block serves only an engine that decodes exactly
+            # as the export did (under a mesh: re-decoded, sharded)
             block = None
             if ("hot" in artifact and not rebuilt
                     and artifact["hot"].shape[0] == self.hot_rows):
@@ -311,6 +371,12 @@ class ServingEngine(_MicroBatchEngine):
     def _hot_ids(self) -> Optional[np.ndarray]:
         return None if self._hot is None else self._hot[2]
 
+    def _serve(self, ids: torch.Tensor) -> torch.Tensor:
+        """The engine's serve path: the scheme's decode, or under a mesh
+        the sharded gather (a collective: every rank calls it at once)."""
+        return self.emb.serve(self.artifact, ids, mesh=self.mesh,
+                              model_axis=self.model_axis)
+
     def _decode_ids(self, ids_np: np.ndarray) -> torch.Tensor:
         """Decode arbitrary ids through the engine's own serve path,
         padded to the flush granularity, on the current stream — the
@@ -318,7 +384,7 @@ class ServingEngine(_MicroBatchEngine):
         n = len(ids_np)
         padded = np.zeros(n + (-n) % self.pad_multiple, np.int32)
         padded[:n] = ids_np
-        return self.emb.serve(self.artifact, self._upload(padded))[:n]
+        return self._serve(self._upload(padded))[:n]
 
     def prepare_hot_rows(self, ids_np: np.ndarray, block=None) -> tuple:
         """Build (but do not install) the cache state for an id set:
@@ -451,7 +517,7 @@ class ServingEngine(_MicroBatchEngine):
         hot, flat = staged
         if hot is None:
             self.stats_.decoded_lookups += int(flat.shape[0])
-            return self.emb.serve(self.artifact, flat)
+            return self._serve(flat)
         block, slot_map, _ = hot
         buf, hits, n_cold = self.split_flush(flat, n_valid, slot_map)
         self.stats_.hot_hits += hits
@@ -462,10 +528,11 @@ class ServingEngine(_MicroBatchEngine):
         if self.hot_track_freq:
             self._track(dev[dev.shape[0] - n_valid:])
         if not n_cold:
-            # wholly cache-served: a gather, no decode kernel
+            # wholly cache-served: a gather, no decode kernel (and under
+            # a mesh no collective: every rank sees the same ids)
             return block.index_select(0, slots)
         rank, cold = dev[b:2 * b], dev[2 * b:2 * b + n_cold]
-        cold_out = self.emb.serve(self.artifact, cold)
+        cold_out = self._serve(cold)
         # two O(B)-row gathers and a select: no scatter, no concatenate
         # (an O(C) copy of the block per flush)
         hot_rows = block.index_select(0, slots.clamp(min=0))
@@ -506,13 +573,20 @@ class RetrievalEngine(_MicroBatchEngine):
     stages only the probed lists to the device
     (``Index.search_host_staged``, one upload on the current stream) —
     upload ∝ B·nprobe·cap a flush, corpus-independent.  Single device
-    only: ``mesh`` (a distributed corpus) raises, naming its slice in
-    ROADMAP.md.
+    only (a sharded corpus already bounds each device's bytes).
+
+    With a ``mesh`` the O(corpus) rows are row-sharded over
+    ``model_axis``, this rank's block on its device
+    (``sharding/rules.shard_retrieval_artifact``); every flush pads to
+    ``block_q x data_shards`` and runs one per-shard top-k and merge
+    (``retrieval/sharded.sharded_topk``).  Every rank submits the same
+    queries and flushes together; each returns the full results.
     """
 
     def __init__(self, index, artifact: dict, k: int,
                  block_q: int = 64, max_queue: int = 4096, mesh=None,
-                 host_staged: Optional[bool] = None, device="cuda"):
+                 model_axis: str = "model",
+                 host_staged: Optional[bool] = None, device=None):
         if host_staged is None:
             host_staged = index.cfg.host_staged
         if host_staged:
@@ -524,20 +598,29 @@ class RetrievalEngine(_MicroBatchEngine):
                 raise ValueError(
                     f"index kind {index.cfg.kind!r} has no host-staged "
                     f"serve path")
+        self.mesh, self.model_axis = mesh, model_axis
+        data_shards = 1
         if mesh is not None:
-            raise NotImplementedError(
-                "a retrieval mesh (sharded corpus) waits for the "
-                "distributed slice in ROADMAP.md")
+            if not index.supports_sharded:
+                raise ValueError(f"index kind {index.cfg.kind!r} cannot be "
+                                 f"distributed")
+            data_shards = _mesh_data_shards(mesh, model_axis, "corpus rows")
         self.index, self.k = index, k
         self.block_q = block_q
         self.host_staged = bool(host_staged)
-        device = resolve_device(device)
-        super().__init__(pad_multiple=block_q, max_queue=max_queue,
-                         device=device)
+        self.data_shards = data_shards
+        device = _engine_device(device, mesh)
+        super().__init__(pad_multiple=block_q * data_shards,
+                         max_queue=max_queue, device=device)
         # device-resident once; requests only ship (B, d) f32 queries.
         # Host-staged: the host leaves stay on the CPU (pinned, for the
         # flushes' uploads), the small ones (coarse table, codebooks)
         # go to the device
+        if mesh is not None:
+            from repro_torch.sharding.rules import shard_retrieval_artifact
+            self.artifact = shard_retrieval_artifact(
+                artifact, index, mesh, model_axis=model_axis)
+            return
         host = set(index.host_leaves()) if self.host_staged else set()
         self.artifact = {name: self._place(leaf, name in host)
                          for name, leaf in artifact.items()}
@@ -561,6 +644,10 @@ class RetrievalEngine(_MicroBatchEngine):
     def _run(self, flat: torch.Tensor, n_valid: int):
         if self.host_staged:
             return self.index.search_host_staged(self.artifact, flat, self.k)
+        if self.mesh is not None:
+            from repro_torch.retrieval.sharded import sharded_topk
+            return sharded_topk(self.index, self.artifact, flat, self.k,
+                                model_axis=self.model_axis, mesh=self.mesh)
         return self.index.search(self.artifact, flat, self.k)
 
     def search(self, queries):

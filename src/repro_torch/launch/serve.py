@@ -11,7 +11,9 @@
   (``--hot-refresh N`` re-points them at observed traffic every N
   flushes), and with ``--async`` the stream arrives open-loop at
   ``--arrival-rate`` requests/s through the async front-end, which
-  reports p50/p99/p999 against ``--slo-ms``;
+  reports p50/p99/p999 against ``--slo-ms``; with ``--mesh
+  data=2,model=2`` the codes are row-sharded over the ranks of a mesh,
+  one process a rank under torchrun (``--dist-backend``);
 * ``--arch two-tower-retrieval`` without ``--engine``: build a
   ``flat_pq`` index (or with ``--retrieval ivf_pq`` an IVF index of
   ``--nprobe`` probes, its list tables kept in host memory with
@@ -33,6 +35,9 @@
         --host-staged
     PYTHONPATH=src python -m repro_torch.launch.serve --arch deepfm \\
         --full --batch 4096
+    PYTHONPATH=src python -m torch.distributed.run --standalone \\
+        --nproc-per-node 4 -m repro_torch.launch.serve --arch deepfm \\
+        --full --engine --mesh data=2,model=2 --dist-backend nccl
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-4b \\
         --full --batch 2 --prompt-len 4096 --decode-steps 16
 
@@ -40,13 +45,19 @@ run on the card and report lookups/second, queries/second or the
 batch's time, or the prefill's seconds and decode tokens/s;
 ``--device cpu`` runs the same paths on the CPU with the plain PyTorch
 ops.  ``--arch mace`` (the GNN family) is train-only and refused, as
-the JAX package's CLI refuses it.  The mesh paths of the JAX package's
-CLI are a later slice in ROADMAP.md.
+the JAX package's CLI refuses it.  Under ``--mesh`` every rank drives
+the same request stream and rank 0 prints; ``--dist-backend gloo``
+serves ranks that share one card (``--device cuda:0``) or CPU ranks
+(``--device cpu``).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import io
+import math
+import os
 import time
 from typing import Any, List, Optional
 
@@ -56,6 +67,19 @@ import torch
 from repro_torch.configs.registry import get_arch
 from repro_torch.core.types import KERNEL_BACKENDS
 from repro_torch.kernels.dispatch import pinned_backend
+from repro_torch.launch.mesh import BACKENDS
+
+
+def parse_mesh(spec: str):
+    """'data=2,model=2' -> (("data", "model"), (2, 2))."""
+    axes, shape = [], []
+    for part in spec.split(","):
+        name, _, n = part.partition("=")
+        if not n:
+            raise ValueError(f"bad mesh axis {part!r}; want name=N")
+        axes.append(name.strip())
+        shape.append(int(n))
+    return tuple(axes), tuple(shape)
 
 
 @dataclasses.dataclass
@@ -116,7 +140,8 @@ def serve_engine(family, cfg, n_requests: int, req_batch: int,
                  device="cuda", seed: int = 0, hot_rows: int = 0,
                  hot_refresh: int = 0, use_async: bool = False,
                  max_wait_us: float = 1000.0, arrival_rate: float = 500.0,
-                 slo_ms: float = 5.0, duration_s: float = 2.0) -> EngineRun:
+                 slo_ms: float = 5.0, duration_s: float = 2.0,
+                 mesh=None) -> EngineRun:
     """Request-stream demo of the micro-batching engine: N requests of
     random size <= req_batch against the arch's main embedding table
     (whichever scheme its ``embed_kind`` selects), a warm pass and then
@@ -124,13 +149,20 @@ def serve_engine(family, cfg, n_requests: int, req_batch: int,
     to power-law ids; ``hot_rows`` turns the hot-row cache on and
     ``hot_refresh`` re-points it every N flushes; ``use_async`` serves
     an open-loop stream through the async front-end instead
-    (:func:`serve_async_engine`, whose stats the run then holds)."""
+    (:func:`serve_async_engine`, whose stats the run then holds).
+    With a ``mesh`` (``launch/mesh.py``) every rank exports the same
+    artifact, keeps it on the host, and serves its block of the codes
+    through a sharded engine on its own device; every rank must make
+    the same call."""
     from repro_torch.core import Embedding
+    from repro_torch.core.schemes.base import tree_map
     from repro_torch.data.synthetic import zipf_request_stream
     from repro_torch.launch.engine import (ServingEngine, drive_stream,
                                            embedding_config_of_arch,
                                            random_requests)
     ecfg = embedding_config_of_arch(family, cfg)
+    if mesh is not None:
+        device = mesh.device
     emb = Embedding(ecfg, device=device)
     params = emb.init(emb.generator(seed))
     artifact = emb.export(params)
@@ -140,14 +172,30 @@ def serve_engine(family, cfg, n_requests: int, req_batch: int,
           f"d={ecfg.dim}; artifact "
           f"{emb.serving_size_bits()/8/1e6:.2f} MB "
           f"({100*emb.serving_size_bits()/full_bits:.1f}% of full)")
+    if mesh is not None:
+        # on the host: the engine puts only this rank's block on the
+        # device
+        artifact = tree_map(lambda t: t.cpu(), artifact)
+        if emb.scheme.supports_sharded_codes:
+            # the leaves tagged rows=True are the row-sharded ones
+            leaves = emb.scheme.artifact_leaves()
+            codes_mb = sum(leaf.storage_bits for leaf in leaves
+                           if leaf.rows) / 8e6
+            cb_mb = sum(leaf.storage_bits for leaf in leaves
+                        if not leaf.rows) / 8e6
+            model_n = mesh.shape.get("model", 1)
+            print(f"mesh {mesh.shape}: codes {codes_mb:.2f} MB row-sharded "
+                  f"x{model_n} -> {codes_mb / model_n:.2f} MB/shard, + "
+                  f"{cb_mb:.3f} MB codebooks replicated per rank")
     engine = ServingEngine(emb, artifact, backend=backend,
-                           max_queue=max_queue, device=device,
+                           max_queue=max_queue, device=device, mesh=mesh,
                            hot_rows=hot_rows or None,
                            hot_refresh_every=hot_refresh)
     if engine.hot_rows:
         width = engine.emb.scheme.hot_dtype.itemsize
         print(f"hot-row cache: {engine.hot_rows} rows pre-decoded "
-              f"({engine.hot_rows * ecfg.dim * width / 1e6:.2f} MB dense)"
+              f"({engine.hot_rows * ecfg.dim * width / 1e6:.2f} MB dense"
+              + (", replicated" if mesh is not None else "") + ")"
               + (f", refresh every {hot_refresh} flushes"
                  if hot_refresh else ""))
     if use_async:
@@ -166,8 +214,8 @@ def serve_engine(family, cfg, n_requests: int, req_batch: int,
     st = drive_stream(engine, reqs, reset_freq=bool(zipf_a))
     print(f"engine: {st.requests} requests / {st.lookups} lookups in "
           f"{st.flushes} flushes, {st.seconds:.6f}s on {engine.device} -> "
-          f"{st.lookups_per_s:,.0f} lookups/s (block_b={engine.block_b}, "
-          f"pad overhead "
+          f"{st.lookups_per_s:,.0f} lookups/s (block_b={engine.block_b} x "
+          f"{engine.data_shards} data shard(s), pad overhead "
           f"{100*(st.padded_lookups/st.lookups-1) if st.lookups else 0.0:.1f}%)")
     if engine.hot_rows:
         print(f"hot cache: hit rate {st.hit_rate:.1%} "
@@ -491,8 +539,17 @@ def main(argv=None):
                     help="backend of the embedding ops (LM: of every op "
                          "of the run)")
     ap.add_argument("--device", default="cuda",
-                    help="torch device to serve on (default: the card; "
-                         "'cpu' runs the plain PyTorch ops)")
+                    help="torch device to serve on (default: the card, "
+                         "under --mesh cuda:<LOCAL_RANK>; 'cpu' runs the "
+                         "plain PyTorch ops)")
+    ap.add_argument("--mesh", default=None, metavar="data=2,model=2",
+                    help="serve the engine's artifact sharded over this "
+                         "mesh (codes over 'model', the batch over the "
+                         "rest), one process a rank under torchrun")
+    ap.add_argument("--dist-backend", default="nccl", choices=BACKENDS,
+                    help="--mesh's process-group backend: nccl (one rank "
+                         "per card) or gloo (ranks that share a card, or "
+                         "CPU ranks)")
     args = ap.parse_args(argv)
 
     if args.zipf_a and args.zipf_a <= 1.0:
@@ -512,15 +569,20 @@ def main(argv=None):
                  f"rate-driven), got {args.arrival_rate}")
     family, cfg = get_arch(args.arch, smoke=args.smoke)
     if args.engine:
-        return serve_engine(family, cfg, args.requests, args.req_batch,
-                            backend=args.kernel_backend, zipf_a=args.zipf_a,
-                            device=args.device, hot_rows=args.hot_rows,
-                            hot_refresh=args.hot_refresh,
-                            use_async=args.use_async,
-                            max_wait_us=args.max_wait_us,
-                            arrival_rate=args.arrival_rate,
-                            slo_ms=args.slo_ms,
-                            duration_s=args.duration).stats
+        def run(mesh=None):
+            return serve_engine(
+                family, cfg, args.requests, args.req_batch,
+                backend=args.kernel_backend, zipf_a=args.zipf_a,
+                device=args.device, hot_rows=args.hot_rows,
+                hot_refresh=args.hot_refresh, use_async=args.use_async,
+                max_wait_us=args.max_wait_us,
+                arrival_rate=args.arrival_rate, slo_ms=args.slo_ms,
+                duration_s=args.duration, mesh=mesh).stats
+        if args.mesh:
+            return _serve_on_mesh(ap, args, run)
+        return run()
+    if args.mesh:
+        ap.error("--mesh requires --engine")
     if family == "gnn":
         raise SystemExit(f"{args.arch} has no serving path (train-only arch)")
     if family == "lm":
@@ -553,6 +615,44 @@ def main(argv=None):
                            nprobe=args.nprobe, topk=args.topk,
                            backend=args.kernel_backend,
                            host_staged=args.host_staged, device=args.device)
+
+
+def _serve_on_mesh(ap, args, run):
+    """``--mesh``: check it, join (or start, from torchrun's
+    environment) the process group, and run on this rank's mesh; ranks
+    other than 0 print nothing."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import Mesh, init_distributed
+    try:
+        axes, shape = parse_mesh(args.mesh)
+    except ValueError as e:
+        ap.error(str(e))
+    if "model" not in axes:
+        ap.error(f"mesh {dict(zip(axes, shape))} has no 'model' axis to "
+                 f"shard codes over")
+    if args.use_async:
+        ap.error("--async serves a single device; a mesh's ranks must "
+                 "flush together")
+    need = math.prod(shape)
+    world = (dist.get_world_size() if dist.is_initialized()
+             else int(os.environ.get("WORLD_SIZE", "1")))
+    if world != need:
+        ap.error(f"--mesh {args.mesh} needs {need} ranks, found {world} "
+                 f"(one process a rank: python -m torch.distributed.run "
+                 f"--nproc-per-node {need} -m repro_torch.launch.serve ...)")
+    device = None if args.device == "cuda" else args.device
+    started = not dist.is_initialized()
+    if started:
+        init_distributed(args.dist_backend, device=device)
+    try:
+        mesh = Mesh(shape, axes, device=device)
+        if dist.get_rank() == 0:
+            return run(mesh)
+        with contextlib.redirect_stdout(io.StringIO()):
+            return run(mesh)
+    finally:
+        if started:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -26,8 +26,9 @@ Top-k ordering contract (all kinds, all backends): entries sorted by
 (score desc, id asc); slots with fewer than ``k`` valid candidates
 carry ``score = -inf, id = INVALID_ID`` (``retrieval/topk.py``).
 
-Not ported yet, each raising with its slice in ROADMAP.md: the
-distributed search (``artifact_shard_specs``, ``local_topk``).
+A distributed corpus (``retrieval/sharded.py``) row-shards the
+``rows_leaves`` over a mesh's ``model`` axis (``artifact_shard_specs``)
+and merges every shard's ``local_topk``.
 """
 from __future__ import annotations
 
@@ -38,8 +39,6 @@ from typing import Dict, Optional, Tuple, Type
 import torch
 
 from repro_torch.core.types import KERNEL_BACKENDS
-
-_DISTRIBUTED = "the distributed slice (sharded retrieval) in ROADMAP.md"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -165,21 +164,32 @@ class Index:
         raise NotImplementedError(
             f"index kind {self.kind!r} has no host-staged serve path")
 
-    # ------------------------------------------- not ported: raise
+    # ------------------------------------------------------ distributed
+    @property
+    def supports_sharded(self) -> bool:
+        return bool(self.rows_leaves)
 
     def artifact_shard_specs(self, artifact: Dict,
                              model_axis: str = "model") -> Dict:
-        """Placement of each artifact leaf over a device mesh."""
-        raise NotImplementedError(
-            f"artifact_shard_specs of index kind {self.kind!r} waits for "
-            f"{_DISTRIBUTED}")
+        """Spec dict (``sharding/rules.py``): ``rows_leaves`` row-sharded
+        over ``model_axis``, everything else replicated ``()``."""
+        if not self.supports_sharded:
+            raise ValueError(
+                f"index kind {self.kind!r} cannot be distributed")
+        return {name: (model_axis,) + (None,) * (leaf.dim() - 1)
+                if name in self.rows_leaves else ()
+                for name, leaf in artifact.items()}
 
     def local_topk(self, artifact: Dict, queries: torch.Tensor, k: int, *,
-                   shard, num_shards: int):
-        """Per-shard top-k over the local artifact rows."""
+                   shard: int, num_shards: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Per-shard top-k over the LOCAL artifact rows (shard ``shard``
+        of ``num_shards`` along the model axis) -> ``(scores, tiebreak,
+        ids)``, each (B, k).  Ids must be GLOBAL and the tiebreak
+        shard-invariant, so the partials merge (``merge_topk``) into the
+        single-device search exactly."""
         raise NotImplementedError(
-            f"local_topk of index kind {self.kind!r} waits for "
-            f"{_DISTRIBUTED}")
+            f"index kind {self.kind!r} has no per-shard top-k")
 
 
 # ----------------------------------------------------------------------

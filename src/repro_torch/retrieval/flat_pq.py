@@ -21,7 +21,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels.dpq_assign import assign as dpq_assign_op
-from repro_torch.kernels.pq_score import (score_candidates,
+from repro_torch.kernels.pq_score import (INVALID_ID, score_candidates,
                                           score_candidates_batched,
                                           topk_candidates)
 from repro_torch.retrieval.base import Index, IndexConfig, register_index
@@ -183,3 +183,13 @@ class FlatPQ(Index):
         return topk_candidates(
             queries, artifact["centroids"], artifact["codes"], k,
             block_n=self.cfg.block_n, backend=self.cfg.kernel_backend)
+
+    def local_topk(self, artifact: Dict, queries: torch.Tensor, k: int, *,
+                   shard: int, num_shards: int):
+        """The shard's own ``search`` (``pq_topk``), its local row ids
+        made global (padding stays ``INVALID_ID``); the global id is
+        also the tiebreak."""
+        rows_local = artifact["codes"].shape[0]
+        s, i = self.search(artifact, queries, k)
+        gids = torch.where(i == INVALID_ID, i, i + shard * rows_local)
+        return s, gids, gids

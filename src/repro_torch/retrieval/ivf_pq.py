@@ -258,10 +258,11 @@ class IVFPQ(Index):
 
     def _topk(self, tables: Dict, queries: torch.Tensor,
               probe_s: torch.Tensor, chain: torch.Tensor, live: torch.Tensor,
-              k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-        """The LUTs of the whole batch in one product, then scoring and
-        selection per chunk of queries: a query's top-k does not depend
-        on the chunk it falls in."""
+              k: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(scores, positions, ids) of ``topk_by_position`` over the
+        probed candidates.  The LUTs of the whole batch in one product,
+        then scoring and selection per chunk of queries: a query's
+        top-k does not depend on the chunk it falls in."""
         luts = build_lut_batch(queries, tables["centroids"]
                                ).to(torch.float32).contiguous()  # (B, D, K)
         per_query = chain.shape[1] * chain.shape[2] * \
@@ -270,16 +271,32 @@ class IVFPQ(Index):
         for q0, q1 in self._query_chunks(queries.shape[0], per_query):
             s, i = self._score_probed(tables, luts[q0:q1], probe_s[q0:q1],
                                       chain[q0:q1], live[q0:q1])
-            top_s, _, top_i = topk_by_position(s, i, k)
-            outs.append((top_s, top_i))
-        return (torch.cat([o[0] for o in outs]),
-                torch.cat([o[1] for o in outs]))
+            outs.append(topk_by_position(s, i, k))
+        return tuple(torch.cat(parts) for parts in zip(*outs))
 
     def search(self, artifact: Dict, queries: torch.Tensor,
                k: int) -> Tuple[torch.Tensor, torch.Tensor]:
         probe_s, lists = self._probe(artifact, queries)
         chain, live = self._expand_chain(artifact["list_chain"], lists)
-        return self._topk(artifact, queries, probe_s, chain, live, k)
+        top_s, _, top_i = self._topk(artifact, queries, probe_s, chain,
+                                     live, k)
+        return top_s, top_i
+
+    def local_topk(self, artifact: Dict, queries: torch.Tensor, k: int, *,
+                   shard: int, num_shards: int):
+        """Per-shard top-k over the local extended lists: probe (the
+        coarse table is replicated), expand the chains to GLOBAL list
+        ids, mask the lists this shard does not hold, then score
+        (``pq_score_batched``) and select.  The candidate position —
+        (probe x chain x slot), the same on every shard — is the
+        tiebreak."""
+        lists_local = artifact["list_codes"].shape[0]
+        probe_s, lists = self._probe(artifact, queries)
+        chain, live = self._expand_chain(artifact["list_chain"], lists)
+        local = chain - shard * lists_local
+        hit = live & (local >= 0) & (local < lists_local)
+        return self._topk(artifact, queries, probe_s,
+                          local.clamp(0, lists_local - 1), hit, k)
 
     # ------------------------------------------------------ host-staged
     def stage_plan(self, chain_h: np.ndarray, lists: np.ndarray
@@ -353,14 +370,9 @@ class IVFPQ(Index):
         shape = slots.shape
         chain = dev[off:off + 4 * slots.size].view(torch.int32).view(shape)
         live_d = dev[off + 4 * slots.size:].view(torch.bool).view(shape)
-        return self._topk(staged, queries, probe_s, chain.long(), live_d, k)
-
-    def local_topk(self, artifact: Dict, queries: torch.Tensor, k: int, *,
-                   shard, num_shards: int):
-        """Per-shard top-k over the local extended lists."""
-        raise NotImplementedError(
-            f"local_topk of index kind {self.kind!r} waits for the "
-            f"distributed slice (sharded retrieval) in ROADMAP.md")
+        top_s, _, top_i = self._topk(staged, queries, probe_s, chain.long(),
+                                     live_d, k)
+        return top_s, top_i
 
 
 __all__ = ["ASSIGN_CHUNK_ELEMS", "CANDIDATE_CHUNK", "IVFPQ",

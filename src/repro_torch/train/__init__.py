@@ -2,4 +2,4 @@
 in place), LR schedules, checkpointing in the JAX package's on-disk
 layout with auto-resume, straggler detection and failure injection.
 Gradient compression and elastic (re-sharded) restore wait for the
-distributed slice in ROADMAP.md."""
+training half of the distributed layer (ROADMAP.md §1 item 8)."""

@@ -241,18 +241,21 @@ def test_not_ported_paths_raise():
     for fn in (lambda: dpq.lookup_train(params, torch.arange(3),
                                         sharded_rows=True),
                lambda: rows.apply(params, torch.arange(3))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(NotImplementedError, match="training half of "
+                           "the distributed layer, ROADMAP"):
             fn()
     # the hot-row cache is ported: export attaches the decoded head
     hot = Embedding(dataclasses.replace(cfg, hot_rows=4), device="cpu")
     hot_art = hot.export(params)
     assert torch.equal(hot_art["hot"],
                        hot.serve(hot_art, torch.arange(4)))
+    # sharded_codes serving is ported: with no mesh it decodes on one
+    # device, as JAX's serve does with no ambient mesh
     sharded = Embedding(dataclasses.replace(cfg, sharded_codes=True),
                         device="cpu")
     art = temb.export(params)
-    with pytest.raises(NotImplementedError, match="distributed"):
-        sharded.serve(art, torch.arange(3))
+    assert torch.equal(sharded.serve(art, torch.arange(3)),
+                       temb.serve(art, torch.arange(3)))
 
 
 def test_hot_rows_zero_export_is_the_scheme_export():

@@ -224,7 +224,7 @@ def test_serve_engine_of_every_kind_counters_equal_to_jax(kind, capsys):
 
 @pytest.mark.parametrize("argv", [
     ["--arch", "deepfm", "--device", "cpu", "--batch", "0"],   # no rows
-    ["--arch", "deepfm", "--engine", "--mesh", "data=2"],       # not ported
+    ["--arch", "deepfm", "--engine", "--mesh", "data=2"],       # no model axis
     ["--arch", "deepfm", "--engine", "--kernel-backend", "xla"],
     ["--arch", "deepfm", "--engine", "--zipf-a", "0.5"],
     ["--arch", "deepfm", "--device", "cpu", "--engine",

@@ -2518,3 +2518,146 @@ def test_mace_rotation_invariant_on_card_and_fails_without_the_mask(
     monkeypatch.setattr(MACE, "_edge_mask",
                         lambda self, dist: torch.ones_like(dist))
     assert over() > 0
+
+
+# ----------------------------------------------------------------------
+# distributed serving: gloo ranks sharing the card, one NCCL rank
+# ----------------------------------------------------------------------
+
+MESH_TIMEOUT = 240.0
+MESH_TABLES = {
+    "mgqe": dict(kind="mgqe", mgqe_variant="private_k", num_subspaces=4,
+                 num_centroids=16, tier_boundaries=(700, 1500),
+                 tier_num_centroids=(16, 8, 4)),
+    "rq": dict(kind="rq", num_levels=3, num_centroids=16),
+    "mpe": dict(kind="mpe", num_subspaces=8, tier_boundaries=(700, 1500),
+                tier_bits=(8, 4, 2)),
+}
+MESH_DECODE = {"mgqe": mgqe_decode, "rq": rq_decode_stages,
+               "mpe": packed_decode}
+
+
+def _mesh_tables():
+    """Each scheme's table (2,048 rows, d = 16, tiers cut inside model
+    shard 1) exported on the CPU: {name: (config fields, artifact)}."""
+    out = {}
+    for name, kw in MESH_TABLES.items():
+        cfg = EmbeddingConfig(vocab_size=2048, dim=16, decode_block_b=64,
+                              **kw)
+        emb = Embedding(cfg, device="cpu")
+        out[name] = (dataclasses.asdict(cfg),
+                     emb.export(emb.init(emb.generator(0))))
+    return out
+
+
+def _gather_on_card_rank(rank, tables, ids_list):
+    """quantized_gather and ServingEngine(mesh) on a (2, 2) mesh of
+    gloo ranks on cuda:0, each case against the single-device decode
+    kernel on the same card."""
+    from repro_torch.launch.engine import ServingEngine
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.sharding.quantized import quantized_gather
+    from repro_torch.sharding.rules import shard_quantized_artifact
+    mesh = make_debug_mesh(2, 2)
+    out = {}
+    for name, (cfg_d, art) in tables.items():
+        cfg = EmbeddingConfig(**cfg_d)
+        emb = Embedding(cfg, device=mesh.device)
+        dev = {k: ([t.to(mesh.device) for t in v] if isinstance(v, list)
+                   else v.to(mesh.device)) for k, v in art.items()}
+        scfg = dataclasses.replace(cfg, sharded_codes=True)
+        local = shard_quantized_artifact(art, scfg, mesh)
+        MESH_DECODE[name].launches = 0
+        same = []
+        for ids in ids_list:
+            ids_t = torch.from_numpy(ids).to(mesh.device)
+            want = emb.serve(dev, ids_t)
+            got = quantized_gather(local, ids_t, scfg, mesh=mesh)
+            same.append(torch.equal(got, want))
+        eng = ServingEngine(emb, art, mesh=mesh, hot_rows=256)
+        ref = ServingEngine(emb, art, device=mesh.device)
+        flat = np.concatenate(ids_list)
+        same.append(torch.equal(eng.lookup(flat), ref.lookup(flat)))
+        out[name] = (same, MESH_DECODE[name].launches)
+    return out
+
+
+@pytest.mark.gpu
+def test_quantized_gather_and_engine_on_card_with_gloo_ranks(cuda, tmp_path):
+    from repro_torch.launch.mesh import spawn
+    rng = np.random.default_rng(0)
+    ids_list = [rng.integers(0, 2048, n).astype(np.int32)
+                for n in (1, 7, 257, 1000)]
+    tables = _mesh_tables()
+    res = spawn(_gather_on_card_rank, 4, backend="gloo", device="cuda:0",
+                args=(tables, ids_list), store_dir=str(tmp_path),
+                timeout_s=MESH_TIMEOUT)
+    for out in res:
+        for name, (same, launches) in out.items():
+            assert all(same), name
+            assert launches > 0, name
+
+
+def _topk_on_card_rank(rank, cases):
+    from repro_torch.launch.engine import RetrievalEngine
+    from repro_torch.launch.mesh import make_debug_mesh
+    mesh = make_debug_mesh(2, 2)
+    pq_topk.launches = pq_score_batched.launches = 0
+    same = []
+    for cfg, art, q in cases:
+        index = get_index(cfg)
+        eng = RetrievalEngine(index, art, k=50, block_q=16, mesh=mesh)
+        ref = RetrievalEngine(index, art, k=50, block_q=16,
+                              device=mesh.device)
+        for b in (1, 33, 100):
+            got, want = eng.search(q[:b]), ref.search(q[:b])
+            same.append(torch.equal(got[0], want[0])
+                        and torch.equal(got[1], want[1]))
+    return same, pq_topk.launches, pq_score_batched.launches
+
+
+@pytest.mark.gpu
+def test_sharded_topk_on_card_with_gloo_ranks(cuda, tmp_path):
+    from repro_torch.launch.mesh import spawn
+    g = torch.Generator().manual_seed(0)
+    vecs = torch.randn((8192, 32), generator=g)
+    q = torch.randn((100, 32), generator=g).numpy()
+    cases = []
+    for cfg in (IndexConfig(num_subspaces=8, num_centroids=64, iters=3),
+                IndexConfig(kind="ivf_pq", num_subspaces=8, num_centroids=64,
+                            iters=3, nlist=32, nprobe=8,
+                            list_cap_quantile=0.6)):
+        art = get_index(cfg).build(torch.Generator().manual_seed(1), vecs)
+        cases.append((cfg, {k: v.cpu() for k, v in art.items()}, q))
+    res = spawn(_topk_on_card_rank, 4, backend="gloo", device="cuda:0",
+                args=(cases,), store_dir=str(tmp_path),
+                timeout_s=MESH_TIMEOUT)
+    for same, topk_launches, score_launches in res:
+        assert all(same)
+        assert topk_launches > 0 and score_launches > 0
+
+
+def _nccl_rank(rank, tables, ids):
+    import torch.distributed as dist
+    from repro_torch.launch.engine import ServingEngine
+    from repro_torch.launch.mesh import make_debug_mesh
+    mesh = make_debug_mesh(1, 1)
+    t = torch.ones(4, device=mesh.device)
+    dist.all_reduce(t)
+    cfg_d, art = tables["mgqe"]
+    emb = Embedding(EmbeddingConfig(**cfg_d), device=mesh.device)
+    eng = ServingEngine(emb, art, mesh=mesh)
+    ref = ServingEngine(emb, art, device=mesh.device)
+    return (dist.get_backend(), bool((t == 1).all()),
+            bool(torch.equal(eng.lookup(ids), ref.lookup(ids))))
+
+
+@pytest.mark.gpu
+def test_nccl_world_of_one_serves_through_the_mesh_engine(cuda, tmp_path):
+    from repro_torch.launch.mesh import spawn
+    tables = _mesh_tables()
+    ids = np.random.default_rng(1).integers(0, 2048, 999)
+    (res,) = spawn(_nccl_rank, 1, backend="nccl", device="cuda:0",
+                   args=(tables, ids), store_dir=str(tmp_path),
+                   timeout_s=MESH_TIMEOUT)
+    assert res == ("nccl", True, True)

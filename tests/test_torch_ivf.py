@@ -24,6 +24,7 @@ centroids and hold Lloyd's iterations from them.  The bars:
   engine: bit-identical to one another.
 """
 import dataclasses
+import types
 
 import jax
 import jax.numpy as jnp
@@ -619,11 +620,16 @@ def test_host_staged_engine_rejects_flat_and_mesh():
     iart = iidx.build(_gen(0), vecs)
     with pytest.raises(ValueError, match="single-device"):
         engine.RetrievalEngine(iidx, iart, k=10, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="distributed"):
-        engine.RetrievalEngine(get_index(_cfg()), iart, k=10, mesh=object(),
+    # a mesh is served now (tests/test_torch_sharded_retrieval.py): one
+    # without a model axis is refused, and the one-shard top-k is search
+    no_model = types.SimpleNamespace(shape={"data": 2}, axis_names=("data",),
+                                     device=torch.device("cpu"))
+    with pytest.raises(ValueError, match="has no 'model' axis"):
+        engine.RetrievalEngine(get_index(_cfg()), iart, k=10, mesh=no_model,
                                device="cpu")
-    with pytest.raises(NotImplementedError, match="distributed"):
-        iidx.local_topk(iart, vecs[:2], 3, shard=0, num_shards=1)
+    s, _, i = iidx.local_topk(iart, vecs[:2], 3, shard=0, num_shards=1)
+    want = iidx.search(iart, vecs[:2], 3)
+    assert torch.equal(s, want[0]) and torch.equal(i, want[1])
 
 
 def test_retrieval_engine_on_jax_artifact_matches_jax_engine():

@@ -13,6 +13,8 @@ versions (the CPU path of every op).  The bars:
 * Lloyd's iterations from the same initial centroids: centroids to
   1e-5, codes identical.
 """
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -477,11 +479,20 @@ def test_registry_holds_flat_pq_only():
 
 
 def test_unported_index_paths_raise():
+    """The distributed paths are ported (tests/test_torch_sharded_
+    retrieval.py): the corpus codes are placed row-sharded, the rest
+    replicated, as JAX's specs say, and a shard's top-k names corpus
+    rows by their global ids; flat's host-staged serving still raises."""
     index = get_index(IndexConfig())
-    with pytest.raises(NotImplementedError, match="distributed"):
-        index.artifact_shard_specs({})
-    with pytest.raises(NotImplementedError, match="distributed"):
-        index.local_topk({}, torch.zeros((1, 8)), 1, shard=0, num_shards=1)
+    art = {"codes": torch.zeros((6, 8), dtype=torch.uint8),
+           "centroids": torch.zeros((8, 4, 1))}
+    assert index.artifact_shard_specs(art) == {"codes": ("model", None),
+                                               "centroids": ()}
+    art["centroids"][:, 1] = 1.0
+    art["codes"][4] = 1
+    _, tb, ids = index.local_topk(art, torch.ones((1, 8)), 1, shard=3,
+                                  num_shards=4)
+    assert ids.tolist() == tb.tolist() == [[3 * 6 + 4]]
     assert not index.supports_host_staged
     with pytest.raises(NotImplementedError,
                        match="has no host-staged serve path"):
@@ -649,10 +660,16 @@ def test_retrieval_engine_flush_splits_scores_and_ids_per_request():
 
 
 def test_retrieval_engine_refuses_unported_modes():
+    """A mesh is served now (tests/test_torch_sharded_retrieval.py); one
+    without a model axis is refused as JAX's engine refuses it, and so
+    is host-staged flat_pq."""
     _, teng = _engines()
-    with pytest.raises(NotImplementedError, match="distributed"):
-        engine.RetrievalEngine(teng.index, teng.artifact, k=5, mesh=object(),
-                               device="cpu")
+    no_model = types.SimpleNamespace(shape={"data": 2}, axis_names=("data",),
+                                     device=torch.device("cpu"))
+    with pytest.raises(ValueError, match="has no 'model' axis to shard "
+                       "corpus rows over"):
+        engine.RetrievalEngine(teng.index, teng.artifact, k=5,
+                               mesh=no_model, device="cpu")
     with pytest.raises(ValueError, match="index kind 'flat_pq' has no "
                        "host-staged serve path"):
         engine.RetrievalEngine(teng.index, teng.artifact, k=5,
