@@ -87,7 +87,32 @@ Phases, each of which fails the run (non-zero exit, no result line):
    beside the single device's and the wire bytes a flush; then one NCCL
    rank through ``ServingEngine`` on a (1, 1) mesh (bit-identical), and
    ``serve --mesh data=2,model=2`` under torchrun on 4 gloo ranks
-   sharing the card, exit 0;
+   sharing the card, exit 0.  Then the distributed-training phase
+   (``sharded_training_phase``): deepfm's ``CONFIG`` (all 78 tables
+   row-sharded) trained 5 adagrad steps at B = 4,096 through the train
+   cell (``launch/cells.py::recsys_train_cell``) on 4 gloo ranks on
+   cuda:0 as a (data=2, model=2) mesh, each rank taking its data shard
+   of the global batches, held to 5 one-device steps on the same
+   batches (losses and every gradient adagrad consumed within MT_TOL
+   at the rows the batches read, every other row's gradient exactly
+   0, params within their float64 adagrad replay's bars); replicated
+   leaves bit-identical on every rank after each step, row blocks on
+   every rank of their model index; ``compressed_psum_mean`` over the
+   replicated gradient shares on the data axis each step (its
+   relative error printed; it feeds no update); a checkpoint of whole
+   arrays at step 3, resumed on the same mesh (bit for bit), on a
+   (1, 4) mesh of the same ranks and on one device (steps 4-5 within
+   the bars of the uninterrupted run); the trained tables of the 21
+   mgqe fields gathered, exported (``dpq_assign``) and served through
+   ``ServingEngine(mesh)`` (``mgqe_decode``), every flush bit-identical
+   to a one-device engine's on the same artifact; two-tower at its
+   widths, users and items cut to 2M, 3 steps on the mesh: losses and
+   the towers' first-step gradients within MT_TOL of one device (a
+   planted per-rank softmax must move the loss); deepfm's ``CONFIG``
+   on one NCCL rank, bit-identical to one device; and ``train --mesh
+   data=2,model=2`` under torchrun, exit 0; per-rank device bytes,
+   step ms beside one device's and the wire bytes a step printed;
+   counts set to 0 just before, read just after;
 9. the fourth path, each phase freeing the card after it:
    ``embedding_bag`` against its plain version at deepfm's largest
    field as a full table (V = 10M, d = 10) and at two-tower's 10M-row
@@ -2501,6 +2526,750 @@ def sharded_serving_phase(card: str) -> dict:
         f"{t_nccl:.1f}s, torchrun {t_cli:.1f}s); gloo on one card moves the "
         f"collectives through host memory: no interconnect is measured; "
         f"launches {launches}")
+    return launches
+
+
+# ----------------------------------------------------------------------
+# distributed recsys training: deepfm and two-tower on a (2, 2) mesh
+# ----------------------------------------------------------------------
+
+MT_MESH = (2, 2)                       # (data, model): 4 ranks, one card
+MT_STEPS = 5                           # deepfm's steps on the mesh
+MT_CKPT = 3                            # the step checkpointed and resumed
+MT_TOL = 1e-5                          # losses and gradients
+MT_TT_ROWS = 2_000_000                 # two-tower's users and items, cut
+MT_TT_STEPS = 3
+MT_NCCL_STEPS = 2
+MT_TIMED = 3                           # unrecorded steps timed, each side
+MT_SERVE_REQUESTS = 8                  # requests through each served field
+MT_TIMEOUT = 600.0                     # a group's start, collectives, join
+
+
+def mt_paths(tree, prefix="") -> list:
+    """Leaf paths of a param tree in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree)
+                for p in mt_paths(tree[k], f"{prefix}{k}/")]
+    if isinstance(tree, list):
+        return [p for i, v in enumerate(tree)
+                for p in mt_paths(v, f"{prefix}{i}/")]
+    return [prefix[:-1]]
+
+
+def mt_rows(cfg, batches) -> dict:
+    """{table path: the sorted rows any of ``batches`` reads} for
+    deepfm's field and first-order tables (column i of ``sparse_ids``)."""
+    import numpy as np
+    ids = np.concatenate([b["sparse_ids"] for b in batches])
+    return {f"{t}/f{i}/emb": np.unique(ids[:, i]).astype(np.int64)
+            for t in ("fields", "first_order")
+            for i in range(cfg.n_sparse)}
+
+
+def mt_sparse(leaves, paths, rows, split, j) -> list:
+    """Each leaf on the host at the rows ``rows`` names (a table), or
+    whole: a split leaf is this rank's block (model index ``j``) and
+    keeps the named rows inside it, as (global rows, values)."""
+    import torch
+    out = []
+    for t, path, cut in zip(leaves, paths, split):
+        if path not in rows:
+            out.append(t.detach().cpu().clone())
+            continue
+        r = rows[path]
+        n = t.shape[0]
+        lo = j * n if cut else 0
+        r = r[(r >= lo) & (r < lo + n)] if cut else r
+        out.append((r, t.detach()[torch.from_numpy(r - lo).to(t.device)]
+                    .cpu()))
+    return out
+
+
+def mt_merge(ranks: list, key: str) -> list:
+    """A run's sparse leaves whole: each split leaf's blocks from the
+    ranks of data index 0 (mesh order), in row order."""
+    import numpy as np
+    import torch
+    first = ranks[0][key]
+    if isinstance(first, dict):               # one entry a step
+        return {s: mt_merge([{key: r[key][s]} for r in ranks], key)
+                for s in first}
+    out = []
+    for i, leaf in enumerate(first):
+        if not isinstance(leaf, tuple):
+            out.append(leaf)
+            continue
+        parts = [r[key][i] for r in ranks]
+        at = np.concatenate([p[0] for p in parts])
+        need(bool((np.diff(at) > 0).all()), "the blocks' rows in order")
+        out.append(torch.cat([p[1] for p in parts]))
+    return out
+
+
+def mt_values(leaves) -> list:
+    return [t[1] if isinstance(t, tuple) else t for t in leaves]
+
+
+def mt_crc(tensors) -> int:
+    """crc32 over the bytes of ``tensors``, in turn."""
+    import zlib
+    import torch
+    c = 0
+    for t in tensors:
+        c = zlib.crc32(t.detach().cpu().contiguous().view(-1).view(
+            torch.uint8).numpy().tobytes(), c)
+    return c
+
+
+def mt_held(what, run, ref, start, acc=None) -> dict:
+    """``run`` against ``ref`` (each: its losses, its sparse tape a step
+    and its sparse final params), two runs of the same steps from the
+    common ``start`` (and adagrad accumulators ``acc``): the first
+    step's loss and consumed gradients within MT_TOL (both runs take it
+    from the same params); every param within float32 rounding of a
+    float64 adagrad over the run's own gradients and apart from
+    ``ref``'s by no more than the two replays are.  After the first
+    step the runs' params differ where adagrad's first step on an
+    element divides a gradient by its own size (a 1e-9 gap at |g| near
+    1e-8 moves it by ~lr), so the later losses and gradients are
+    reported, not barred.  Returns the largest gaps."""
+    from repro_torch.train.optimizer import adagrad_replay
+    steps = sorted(ref["tape"])
+    need(len(run["losses"]) == len(ref["losses"]) == len(steps),
+         f"{what}: the steps")
+    loss_gaps = [abs(a - b) / max(1.0, abs(b))
+                 for a, b in zip(run["losses"], ref["losses"])]
+    tape, rtape, grad_gaps = [], [], []
+    for s in steps:
+        g, rg = mt_values(run["tape"][s]), mt_values(ref["tape"][s])
+        grad_gaps.append(max(float((a - b).abs().max()) if a.numel()
+                             else 0.0 for a, b in zip(g, rg, strict=True)))
+        tape.append(("x", run["lr"], run["eps"], g))
+        rtape.append(("x", run["lr"], run["eps"], rg))
+    need(loss_gaps[0] <= MT_TOL and grad_gaps[0] <= MT_TOL,
+         f"{what}: the first step's loss and gradients within {MT_TOL} "
+         f"({loss_gaps[0]:.3g}, {grad_gaps[0]:.3g})")
+    p0 = mt_values(start)
+    a0 = None if acc is None else mt_values(acc)
+    r, _, s = adagrad_replay(p0, tape, acc=a0)
+    rr, _, rs = adagrad_replay(p0, rtape, acc=a0)
+    param_gap, share = 0.0, 0.0
+    for t, rt, x, rx, e, re_ in zip(mt_values(run["final"]),
+                                    mt_values(ref["final"]), r, rr, s, rs,
+                                    strict=True):
+        t, rt = t.double(), rt.double()
+        if not t.numel():
+            continue
+        need(bool(((t - x).abs() <= e).all()),
+             f"{what}: params within float32 rounding of their replay")
+        gap = (t - rt).abs()
+        param_gap = max(param_gap, float(gap.max()))
+        bound = (x - rx).abs() + e + re_
+        need(bool((gap <= bound).all()), f"{what}: params apart from the "
+             f"reference's by no more than the replays are")
+        share = max(share, float((gap / bound).max()))
+    return {"loss": [float(f"{x:.3g}") for x in loss_gaps],
+            "grad": [float(f"{x:.3g}") for x in grad_gaps],
+            "param": param_gap, "bound_share": share}
+
+
+def mt_whole_tree(params, split, mesh):
+    """This rank's params with every row block gathered whole over
+    ``model``: a tree one device's model reads."""
+    from repro_torch.core.schemes.base import tree_leaves
+    from repro_torch.sharding.collectives import all_gather
+    it = iter([all_gather(t, mesh, "model") if cut else t
+               for t, cut in zip(tree_leaves(params), split)])
+
+    def rebuild(tree):
+        if isinstance(tree, dict):
+            return {k: rebuild(tree[k]) for k in sorted(tree)}
+        if isinstance(tree, list):
+            return [rebuild(v) for v in tree]
+        return next(it)
+    return rebuild(params)
+
+
+def mt_one_device_gap(cell, state, grads, metrics, batch, mesh) -> tuple:
+    """The step's reduced (pre-clip) gradients and loss against one
+    device's at the same params on the global ``batch``: the params
+    gathered whole, ``model.loss`` with no mesh.  Returns (loss gap,
+    gradient gap, one device's gradients clipped by its global norm,
+    as this rank's blocks)."""
+    from repro_torch.core.schemes.base import tree_leaves
+    from repro_torch.launch.train import RECSYS_OPTIMIZER
+    from repro_torch.train.optimizer import clip_by_global_norm, loss_grads
+    whole = mt_whole_tree(state.params, cell.split, mesh)
+    ref, m = loss_grads(cell.model.loss, whole, batch)
+    j = mesh.axis_index("model")
+    blocks = []
+    for w, cut in zip(tree_leaves(ref), cell.split):
+        if cut:
+            n = w.shape[0] // mesh.shape["model"]
+            w = w[j * n:(j + 1) * n]
+        blocks.append(w)
+    gap = max(float((g - w).abs().max())
+              for g, w in zip(tree_leaves(grads), blocks))
+    clip_by_global_norm(ref, RECSYS_OPTIMIZER.grad_clip)  # blocks: views
+    loss_gap = abs(float(metrics["loss"]) - float(m["loss"])) / max(
+        1.0, abs(float(m["loss"])))
+    return loss_gap, gap, blocks
+
+
+def mt_per_rank_softmax_loss(model, params, batch, mesh) -> float:
+    """Two-tower's first-step loss with the softmax over each rank's own
+    items (a planted fault): weighted and summed over data as the cell
+    sums the real one."""
+    import torch
+    from repro_torch.models.recsys.two_tower import INV_TEMPERATURE
+    from repro_torch.sharding.collectives import psum
+    with torch.no_grad():
+        u, au = model.user_vec(params, batch["user_ids"], mesh)
+        v, av = model.item_vec(params, batch["item_ids"], mesh)
+        logits = (u @ v.T) * INV_TEMPERATURE - batch["item_logq"][None, :]
+        sm = torch.mean(torch.logsumexp(logits, -1) - torch.diagonal(logits))
+        loss = (sm + au + av) / mesh.shape["data"]
+        return float(psum(loss, mesh, "data"))
+
+
+def mt_run(cell, state, batches, rows, paths, mesh, steps, err=None,
+           ckpt=None, forced=False):
+    """``steps`` (step numbers) of ``cell`` on this rank from ``state``,
+    recorded: losses, the sparse tape, the crc of the replicated leaves
+    after each step; ``err`` (a list) takes the compressed mean's
+    relative error over the replicated gradient shares a step (its
+    error fed back); ``ckpt`` = (dir, step) saves the whole state;
+    ``forced`` also holds each step against one device's at the same
+    params (``mt_one_device_gap``: the loss and reduced gradients, and
+    the clipped gradients adagrad consumed at the batches' rows)."""
+    import torch
+    from repro_torch.core.schemes.base import tree_leaves
+    from repro_torch.launch.train import RECSYS_OPTIMIZER
+    from repro_torch.train import checkpoint as ckpt_lib
+    from repro_torch.train import compression
+    from repro_torch.train.loop import on_device
+    from repro_torch.train.optimizer import (TrainState, apply_updates,
+                                             record_adagrad)
+    j = mesh.axis_index("model")
+    data_n = mesh.shape["data"]
+    out = {"losses": [], "tape": {}, "rep_crc": [], "forced": []}
+    feedback = None
+    with record_adagrad() as tape:
+        for s in steps:
+            whole = {k: torch.from_numpy(v) for k, v in
+                     batches[s - 1].items()}
+            batch = on_device(cell.local_batch(whole), mesh.device)
+            grads, metrics = cell.grads(state, batch)
+            if err is not None:
+                shares = [g for g, cut in zip(tree_leaves(grads), cell.split)
+                          if not cut]
+                if feedback is None:
+                    feedback = compression.init_error_state(shares)
+                mean, feedback = compression.compressed_psum_mean(
+                    shares, feedback, mesh, "data")
+            grads, metrics = cell.reduce(grads, metrics)
+            if err is not None:
+                exact = torch.cat([g.reshape(-1) for g, cut in zip(
+                    tree_leaves(grads), cell.split) if not cut])
+                got = torch.cat([m.reshape(-1) for m in mean]) * data_n
+                err.append(float((got - exact).norm() / exact.norm()))
+            if forced:
+                loss_gap, grad_gap, ref = mt_one_device_gap(
+                    cell, state, grads, metrics,
+                    on_device(whole, mesh.device), mesh)
+            params, opt = apply_updates(
+                RECSYS_OPTIMIZER, state.params, grads, state.opt_state,
+                mesh=mesh, specs=cell.specs.params)
+            state = TrainState(params, opt)
+            out["losses"].append(float(metrics["loss"]))
+            _, lr, eps, g = tape.pop()
+            out["lr"], out["eps"] = lr, eps
+            sparse = mt_sparse(g, paths, rows, cell.split, j)
+            for t, sp in zip(g, sparse):        # nothing outside the rows
+                if isinstance(sp, tuple):
+                    need(int(torch.count_nonzero(t)) == int(
+                        torch.count_nonzero(sp[1])),
+                         "a table's gradient lies on the rows it read")
+            if forced:
+                clipped = mt_sparse(ref, paths, rows, cell.split, j)
+                clip_gap = max(float((a - b).abs().max()) if a.numel()
+                               else 0.0 for a, b in zip(
+                                   mt_values(sparse), mt_values(clipped)))
+                out["forced"].append((loss_gap, grad_gap, clip_gap))
+                del ref, clipped
+            out["tape"][s] = sparse
+            out["rep_crc"].append(mt_crc(
+                t for t, cut in zip(tree_leaves(state.params), cell.split)
+                if not cut))
+            if ckpt is not None and s == ckpt[1]:
+                ckpt_lib.save(ckpt[0], s, state, mesh=mesh, specs=cell.specs)
+    out["final"] = mt_sparse(tree_leaves(state.params), paths, rows,
+                             cell.split, j)
+    return state, out
+
+
+def mt_timed(step, state, batches, device) -> list:
+    """ms of each of ``batches``' steps, nothing recorded (host clock
+    around a synchronised step)."""
+    import torch
+    from repro_torch.train.loop import on_device
+    ms = []
+    for b in batches:
+        b = on_device(b, device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = step(state, b)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    return ms
+
+
+def mt_restored(cell, ckpt_dir, mesh):
+    """The checkpoint's step MT_CKPT placed on ``mesh`` for ``cell``."""
+    from repro_torch.sharding.rules import whole_like
+    from repro_torch.train import checkpoint as ckpt_lib
+    from repro_torch.train.optimizer import TrainState
+    template = TrainState(
+        whole_like(cell.state.params, cell.specs.params, mesh),
+        whole_like(cell.state.opt_state, cell.specs.opt_state, mesh))
+    return ckpt_lib.elastic_restore(ckpt_dir, MT_CKPT, template,
+                                    cell.specs, mesh)
+
+
+def mt_rank(rank, plan) -> dict:
+    """One rank of the distributed-training phase (a gloo process on the
+    card); see ``sharded_training_phase``."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.core import Embedding
+    from repro_torch.core.schemes.base import tree_leaves
+    from repro_torch.launch.cells import recsys_train_cell
+    from repro_torch.launch.engine import ServingEngine, random_requests
+    from repro_torch.launch.mesh import Mesh, make_debug_mesh
+    from repro_torch.models.recsys.fields import field_embedding_config
+    from repro_torch.sharding.collectives import all_gather
+    from repro_torch.train.loop import on_device
+    mesh = make_debug_mesh(*MT_MESH)
+    need(mesh.device == torch.device("cuda", 0), "every rank on cuda:0")
+    counters = reset_counts()
+    _, cfg = get_arch("deepfm", smoke=False)
+    batches, rows = plan["batches"], plan["rows"]
+    out = {}
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    cell = recsys_train_cell(cfg, mesh)
+    torch.cuda.synchronize()
+    out["t_init"] = time.perf_counter() - t0
+    out["state_bytes"] = torch.cuda.memory_allocated() - before
+    out["split"] = cell.split
+    paths = mt_paths(cell.state.params)
+    j = mesh.axis_index("model")
+    out["start"] = mt_sparse(tree_leaves(cell.state.params), paths, rows,
+                             cell.split, j)
+    torch.cuda.reset_peak_memory_stats()
+    rel = []
+    state, run = mt_run(cell, cell.state, batches, rows, paths, mesh,
+                        range(1, MT_STEPS + 1), err=rel,
+                        ckpt=(plan["ckpt"], MT_CKPT), forced=True)
+    out["peak"] = torch.cuda.max_memory_allocated() - before
+    out["run"], out["rel"] = run, rel
+    out["block_crc"] = [mt_crc([t]) for t in tree_leaves(state.params)]
+    # the same mesh, resumed from the checkpoint: bit for bit
+    restored = mt_restored(cell, plan["ckpt"], mesh)
+    out["at_ckpt"] = (mt_sparse(tree_leaves(restored.params), paths, rows,
+                                cell.split, j),
+                      mt_sparse(tree_leaves(restored.opt_state["acc"]),
+                                paths, rows, cell.split, j))
+    resumed, _ = mt_run(cell, restored, batches, rows, paths, mesh,
+                        range(MT_CKPT + 1, MT_STEPS + 1))
+    out["resumed_crc"] = [mt_crc([t]) for t in tree_leaves(resumed.params)]
+    del restored, resumed
+    # the trained tables gathered, exported and served, through the
+    # mesh and on one device
+    t0 = time.perf_counter()
+    served, codes_crc = [], {}
+    for i, v in enumerate(cfg.field_vocab_sizes):
+        ecfg = field_embedding_config(cfg, v)
+        if ecfg.kind != "mgqe":
+            continue
+        p = state.params["fields"][f"f{i}"]
+        whole = all_gather(p["emb"], mesh, "model")
+        emb = Embedding(ecfg, device=mesh.device)
+        art = emb.export({"emb": whole, "centroids": p["centroids"]})
+        del whole
+        codes_crc[i] = mt_crc([art["codes"]])
+        reqs = random_requests(v, MT_SERVE_REQUESTS, REQ_BATCH, seed=i)
+        got = drive_keeping_flushes(ServingEngine(emb, art, mesh=mesh),
+                                    reqs)
+        want = drive_keeping_flushes(ServingEngine(emb, art), reqs)
+        served.append(all(torch.equal(torch.cat(a), torch.cat(b))
+                          for (_, a), (_, b) in zip(got, want,
+                                                    strict=True)))
+        del art
+    out["served"], out["codes_crc"] = served, codes_crc
+    out["t_serve"] = time.perf_counter() - t0
+    out["ms"] = mt_timed(cell.step, state, [
+        cell.local_batch({k: torch.from_numpy(v) for k, v in b.items()})
+        for b in batches[:MT_TIMED]], mesh.device)
+    del state, cell
+    torch.cuda.empty_cache()
+    # (1, 4) over the same ranks, resumed from the checkpoint
+    m14 = Mesh((1, 4), ("data", "model"), device=mesh.device)
+    cell = recsys_train_cell(cfg, m14)
+    restored = mt_restored(cell, plan["ckpt"], m14)
+    cell.state = restored
+    _, run14 = mt_run(cell, restored, batches, rows, paths, m14,
+                      range(MT_CKPT + 1, MT_STEPS + 1))
+    out["run14"], out["split14"] = run14, cell.split
+    del cell, restored
+    torch.cuda.empty_cache()
+    # two-tower at its widths, users and items cut
+    _, tt_full = get_arch("two-tower-retrieval", smoke=False)
+    tcfg = dataclasses.replace(tt_full, n_users=MT_TT_ROWS,
+                               n_items=MT_TT_ROWS)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cell = recsys_train_cell(tcfg, mesh)
+    out["tt_state_bytes"] = torch.cuda.memory_allocated() - before
+    tb = [on_device(cell.local_batch({k: torch.from_numpy(v)
+                                      for k, v in b.items()}), mesh.device)
+          for b in plan["tt_batches"]]
+    out["tt_planted"] = mt_per_rank_softmax_loss(cell.model,
+                                                 cell.state.params, tb[0],
+                                                 mesh)
+    grads, _ = cell.reduce(*cell.grads(cell.state, tb[0]))
+    out["tt_grads"] = [g.cpu() for g, path in zip(
+        tree_leaves(grads), mt_paths(cell.state.params)) if "mlp" in path]
+    del grads
+    state, losses, ms = cell.state, [], []
+    for b in tb:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = cell.step(state, b)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        losses.append(float(m["loss"]))
+    out["tt_losses"], out["tt_ms"] = losses, ms
+    out["tt_peak"] = torch.cuda.max_memory_allocated() - before
+    out["launches"] = {k: fn.launches for k, fn in counters.items()}
+    return out
+
+
+def mt_nccl_rank(rank, plan) -> dict:
+    """One NCCL rank on the card: deepfm's ``CONFIG`` through the train
+    cell on a (1, 1) mesh, MT_NCCL_STEPS steps: its losses and the crc
+    of every param (the cell's size-1 route is the single device's)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_arch
+    from repro_torch.core.schemes.base import tree_leaves
+    from repro_torch.launch.cells import recsys_train_cell
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.train.loop import on_device
+    mesh = make_debug_mesh(1, 1)
+    need(dist.get_backend() == "nccl", "the group runs on NCCL")
+    _, cfg = get_arch("deepfm", smoke=False)
+    cell = recsys_train_cell(cfg, mesh)
+    state, losses = cell.state, []
+    for b in plan["batches"][:MT_NCCL_STEPS]:
+        state, m = cell.step(state, on_device(cell.local_batch(
+            {k: torch.from_numpy(v) for k, v in b.items()}), mesh.device))
+        losses.append(float(m["loss"]))
+    return {"losses": losses,
+            "crc": mt_crc(tree_leaves(state.params))}
+
+
+def mt_wire_bytes(b_global: int, split, leaves) -> dict:
+    """What a deepfm step puts on the wire per rank, by collective: per
+    split table the ids' gather (int32), the (B_global, d) partials'
+    psum and the cotangent's gather (float32); the replicated gradients
+    and metrics in one psum; the clip's sum."""
+    tables = [t for t, cut in zip(leaves, split) if cut]
+    reps = sum(t.numel() for t, cut in zip(leaves, split) if not cut)
+    ids = 4 * b_global * len(tables)
+    rows = sum(4 * b_global * t.shape[1] for t in tables)
+    return {"collectives": 3 * len(tables) + 2, "ids": ids,
+            "partials": rows, "cotangents": rows,
+            "replicated": 4 * (reps + 3), "clip": 4}
+
+
+def sharded_training_phase(card: str) -> dict:
+    """The distributed-training phase (see the module docstring): one
+    device's reference runs in this process, then 4 gloo ranks on the
+    card (``mt_rank``), one NCCL rank (``mt_nccl_rank``) and ``train
+    --mesh`` under torchrun.  Counts set to 0 just before, read just
+    after, the ranks' summed in; returns them."""
+    import dataclasses
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.core import Embedding
+    from repro_torch.core.schemes.base import tree_leaves
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.launch.train import recsys_setup, recsys_stream
+    from repro_torch.models.recsys.fields import field_embedding_config
+    from repro_torch.train import checkpoint as ckpt_lib
+    from repro_torch.train.loop import on_device
+    from repro_torch.train.optimizer import loss_grads, record_adagrad
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    counters = reset_counts()
+    data_n, model_n = MT_MESH
+    world = data_n * model_n
+    _, cfg = get_arch("deepfm", smoke=False)
+    stream = recsys_stream(cfg, CTR_BATCH)
+    batches = [{k: v.numpy() for k, v in next(stream).items()}
+               for _ in range(MT_STEPS)]
+    rows = mt_rows(cfg, batches)
+    _, tt_full = get_arch("two-tower-retrieval", smoke=False)
+    tcfg = dataclasses.replace(tt_full, n_users=MT_TT_ROWS,
+                               n_items=MT_TT_ROWS)
+    stream = recsys_stream(tcfg, CTR_BATCH)
+    tt_batches = [{k: v.numpy() for k, v in next(stream).items()}
+                  for _ in range(MT_TT_STEPS)]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_mesh_")
+    ckpt_dir = os.path.join(tmp, "ckpt")
+    plan = {"batches": batches, "rows": rows, "ckpt": ckpt_dir,
+            "tt_batches": tt_batches}
+    try:
+        # ------------------------------------- one device: the reference
+        model, state, step, _ = recsys_setup(cfg, CTR_BATCH)
+        paths = mt_paths(state.params)
+        whole = [False] * len(paths)
+        start = mt_sparse(tree_leaves(state.params), paths, rows, whole, 0)
+        single = {"losses": [], "tape": {}}
+        with record_adagrad() as tape:
+            for s, b in enumerate(batches, 1):
+                b = on_device({k: torch.from_numpy(v) for k, v in b.items()},
+                              "cuda")
+                state, m = step(state, b)
+                single["losses"].append(float(m["loss"]))
+                _, lr, eps, g = tape.pop()
+                single["tape"][s] = mt_sparse(g, paths, rows, whole, 0)
+                if s == MT_NCCL_STEPS:
+                    single["crc2"] = mt_crc(tree_leaves(state.params))
+        single["lr"], single["eps"] = lr, eps
+        single["final"] = mt_sparse(tree_leaves(state.params), paths, rows,
+                                    whole, 0)
+        codes_crc = {}
+        for i, v in enumerate(cfg.field_vocab_sizes):
+            ecfg = field_embedding_config(cfg, v)
+            if ecfg.kind == "mgqe":
+                codes_crc[i] = mt_crc([Embedding(ecfg).export(
+                    state.params["fields"][f"f{i}"])["codes"]])
+        # the state goes on (in place) to the timed steps: only its
+        # shapes serve later, as the restore's template
+        single["ms"] = mt_timed(step, state, [
+            {k: torch.from_numpy(v) for k, v in b.items()}
+            for b in batches[:MT_TIMED]], "cuda")
+        # two-tower: the loss of each step and the first step's towers'
+        # gradients
+        tmodel, tstate, tstep, _ = recsys_setup(tcfg, CTR_BATCH)
+        tb = [on_device({k: torch.from_numpy(v) for k, v in b.items()},
+                        "cuda") for b in tt_batches]
+        g, _ = loss_grads(tmodel.loss, tstate.params, tb[0])
+        tt_grads = [t.cpu() for t, path in zip(
+            tree_leaves(g), mt_paths(tstate.params)) if "mlp" in path]
+        del g
+        tt_losses, tt_ms = [], []
+        for b in tb:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tstate, m = tstep(tstate, b)
+            torch.cuda.synchronize()
+            tt_ms.append(1e3 * (time.perf_counter() - t0))
+            tt_losses.append(float(m["loss"]))
+        del tmodel, tstate, tstep, tb
+        gc.collect()
+        torch.cuda.empty_cache()
+        t_ref = time.perf_counter() - t_phase
+
+        # ----------------------------------------------- 4 gloo ranks
+        t0 = time.perf_counter()
+        ranks = spawn(mt_rank, world, backend="gloo", device="cuda:0",
+                      args=(plan,), store_dir=tmp, timeout_s=MT_TIMEOUT)
+        t_ranks = time.perf_counter() - t0
+        need(ckpt_lib.list_steps(ckpt_dir) == [MT_CKPT],
+             "the mesh wrote one checkpoint of whole arrays")
+        # one device resumed from the mesh's checkpoint
+        restored = ckpt_lib.elastic_restore(ckpt_dir, MT_CKPT, state)
+        at_ckpt = (mt_sparse(tree_leaves(restored.params), paths, rows,
+                             whole, 0),
+                   mt_sparse(tree_leaves(restored.opt_state["acc"]), paths,
+                             rows, whole, 0))
+        one = {"losses": [], "tape": {}}
+        with record_adagrad() as tape:
+            for s in range(MT_CKPT + 1, MT_STEPS + 1):
+                b = on_device({k: torch.from_numpy(v)
+                               for k, v in batches[s - 1].items()}, "cuda")
+                restored, m = step(restored, b)
+                one["losses"].append(float(m["loss"]))
+                _, one["lr"], one["eps"], g = tape.pop()
+                one["tape"][s] = mt_sparse(g, paths, rows, whole, 0)
+        one["final"] = mt_sparse(tree_leaves(restored.params), paths, rows,
+                                 whole, 0)
+        del model, state, step, restored
+        gc.collect()
+        torch.cuda.empty_cache()
+        # ------------------------------------------- one NCCL rank
+        t0 = time.perf_counter()
+        (nccl,) = spawn(mt_nccl_rank, 1, backend="nccl", device="cuda:0",
+                        args=(plan,), store_dir=tmp, timeout_s=MT_TIMEOUT)
+        t_nccl = time.perf_counter() - t0
+        # ---------------------------------- train --mesh under torchrun
+        t0 = time.perf_counter()
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc-per-node", str(world), "-m",
+               "repro_torch.launch.train", "--arch", "deepfm", "--full",
+               "--steps", "2", "--batch", str(CTR_BATCH), "--log-every", "1",
+               "--mesh", f"data={data_n},model={model_n}", "--dist-backend",
+               "gloo", "--device", "cuda:0", "--ckpt-dir",
+               os.path.join(tmp, "cli"), "--ckpt-every", "2"]
+        env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+        proc = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True,
+                              text=True, timeout=MT_TIMEOUT)
+        t_cli = time.perf_counter() - t0
+        cli_steps = ckpt_lib.list_steps(os.path.join(tmp, "cli"))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # -------------------------------------------------------- the bars
+    r0 = ranks[0]
+    split = r0["split"]
+    model_ranks = ranks[:model_n]                # data index 0
+    sharded = {"losses": r0["run"]["losses"], "lr": r0["run"]["lr"],
+               "eps": r0["run"]["eps"],
+               "tape": mt_merge([r["run"] for r in model_ranks], "tape"),
+               "final": mt_merge([r["run"] for r in model_ranks], "final")}
+    start_m = mt_merge(model_ranks, "start")
+    for a, b in zip(mt_values(start_m), mt_values(start), strict=True):
+        need(torch.equal(a, b), "the placed init is the single device's")
+    forced = [max(r["run"]["forced"][k][i] for r in ranks)
+              for k in range(MT_STEPS) for i in range(3)]
+    need(max(forced) <= MT_TOL, f"every step on the mesh: its loss, reduced "
+         f"gradients and clipped gradients within {MT_TOL} of one device's "
+         f"at the same params ({max(forced):.3g})")
+    gaps = mt_held("deepfm on the mesh vs one device", sharded, single,
+                   start)
+    for r in ranks:
+        need(r["run"]["losses"] == r0["run"]["losses"],
+             "every rank reports the same global losses")
+        need(r["run"]["rep_crc"] == r0["run"]["rep_crc"],
+             "replicated leaves bit-identical on every rank, every step")
+        need(r["resumed_crc"] == r["block_crc"],
+             "the same-mesh resume bit-identical to the uninterrupted run")
+        need(all(r["served"]) and len(r["served"]) == len(codes_crc),
+             "every trained field served through the mesh bit-identical "
+             "to one device")
+        need(r["launches"]["dpq_assign"] > 0
+             and r["launches"]["mgqe_decode"] > 0,
+             "dpq_assign and mgqe_decode launched on every rank")
+    for rank in range(model_n, world):               # data replicas
+        need(ranks[rank]["block_crc"] == ranks[rank % model_n]["block_crc"],
+             "a row block bit-identical on every rank of its model index")
+    # elastic: from the checkpoint, steps MT_CKPT+1.. on (1, 4) and on
+    # one device against the uninterrupted (2, 2) run
+    late = range(MT_CKPT + 1, MT_STEPS + 1)
+    ref = dict(sharded, losses=sharded["losses"][MT_CKPT:],
+               tape={s: sharded["tape"][s] for s in late})
+    p3 = mt_merge([{"p": r["at_ckpt"][0]} for r in model_ranks], "p")
+    a3 = mt_merge([{"a": r["at_ckpt"][1]} for r in model_ranks], "a")
+    for a, b in zip(mt_values(p3) + mt_values(a3),
+                    mt_values(at_ckpt[0]) + mt_values(at_ckpt[1]),
+                    strict=True):
+        need(torch.equal(a, b), "the checkpoint restores the same bits on "
+             "the mesh and on one device")
+    run14 = {"losses": ranks[0]["run14"]["losses"],
+             "lr": ranks[0]["run14"]["lr"], "eps": ranks[0]["run14"]["eps"],
+             "tape": mt_merge([r["run14"] for r in ranks], "tape"),
+             "final": mt_merge([r["run14"] for r in ranks], "final")}
+    gaps14 = mt_held("resumed on (1, 4)", run14, ref, p3, a3)
+    gaps1 = mt_held("resumed on one device", one, ref, p3, a3)
+    same_codes = sum(r0["codes_crc"][i] == c for i, c in codes_crc.items())
+    # two-tower: the global softmax
+    tt_gap = max(abs(a - b) / max(1.0, abs(b)) for a, b in
+                 zip(r0["tt_losses"], tt_losses))
+    need(len(r0["tt_losses"]) == MT_TT_STEPS and tt_gap <= MT_TOL,
+         f"two-tower on the mesh: losses within {MT_TOL} of one device "
+         f"({r0['tt_losses']} vs {tt_losses})")
+    tt_grad_gap = 0.0
+    for r in ranks:
+        for g, w in zip(r["tt_grads"], tt_grads, strict=True):
+            tt_grad_gap = max(tt_grad_gap, float((g - w).abs().max()))
+    need(tt_grad_gap <= MT_TOL, f"two-tower: the towers' first-step "
+         f"gradients within {MT_TOL} ({tt_grad_gap:.3g})")
+    planted = abs(r0["tt_planted"] - tt_losses[0])
+    need(planted > 1e-3, "a per-rank softmax (planted) moves the loss off "
+         "one device's")
+    # NCCL (1, 1): the single device's route, bit for bit
+    need(nccl["losses"] == single["losses"][:MT_NCCL_STEPS]
+         and nccl["crc"] == single["crc2"],
+         "NCCL (1, 1): losses and params bit-identical to one device")
+    tail = [line for line in proc.stdout.splitlines()
+            if line.startswith(("step ", "done"))]
+    log(f"train --mesh (torchrun, {world} gloo ranks on cuda:0): exit "
+        f"{proc.returncode} in {t_cli:.1f}s; " + " | ".join(tail))
+    need(proc.returncode == 0 and any(line.startswith("done") for line in tail)
+         and cli_steps == [2], "torchrun ... train --mesh exits 0, its "
+         "checkpoint written:\n" + proc.stdout[-4000:] + proc.stderr[-4000:])
+
+    launches = {k: fn.launches for k, fn in counters.items()}
+    for r in ranks:
+        for k, v in r["launches"].items():
+            launches[k] += v
+    wire = mt_wire_bytes(CTR_BATCH, split, mt_values(start))
+    log(f"sharded deepfm CONFIG (mesh data={data_n}, model={model_n}, "
+        f"{world} gloo ranks on cuda:0, B={CTR_BATCH}): {sum(split)} of "
+        f"{len(split)} param leaves row-sharded; each rank's device holds "
+        f"{[round(r['state_bytes'] / 1e9, 4) for r in ranks]} GB of params "
+        f"and accumulators (one device: whole), peak "
+        f"{[round(r['peak'] / 1e9, 4) for r in ranks]} GB above it "
+        f"during the steps; init and placement "
+        f"{[round(r['t_init'], 3) for r in ranks]} s; step ms by rank "
+        f"{[[round(x, 3) for x in r['ms']] for r in ranks]} vs "
+        f"one device {[round(x, 3) for x in single['ms']]}; wire a step per "
+        f"rank {wire} bytes ({sum(wire.values()) - wire['collectives']} in "
+        f"{wire['collectives']} collectives); losses "
+        f"{sharded['losses']} vs one device {single['losses']}; each step "
+        f"against one device at the same params (loss, reduced gradients, "
+        f"clipped gradients; max over ranks) "
+        f"{[float(f'{x:.3g}') for x in forced]}; against one device's own "
+        f"run (step 1 barred, then adagrad's replay bars) {gaps} [{card}]")
+    log(f"sharded deepfm: compressed_psum_mean (int8, error fed back) "
+        f"over the replicated gradient shares on the data axis, relative "
+        f"error a step by rank {[[round(x, 6) for x in r['rel']] for r in ranks]}")
+    log(f"sharded deepfm: checkpoint of whole arrays at step {MT_CKPT}; "
+        f"the same-mesh resume bit-identical on every rank; resumed on "
+        f"(1, 4): losses {run14['losses']}, gaps {gaps14}; on one device: "
+        f"losses {one['losses']}, gaps {gaps1} (the uninterrupted run "
+        f"{ref['losses']}); the trained tables of {len(codes_crc)} mgqe "
+        f"fields exported and served through ServingEngine(mesh) "
+        f"bit-identical to one device on every rank "
+        f"({[round(r['t_serve'], 2) for r in ranks]} s); their codes "
+        f"equal to the one-device run's export in {same_codes} of "
+        f"{len(codes_crc)} fields")
+    log(f"sharded two-tower ({MT_TT_ROWS} users and items of CONFIG's "
+        f"{tt_full.n_users}/{tt_full.n_items}, d={tcfg.embed_dim}, towers "
+        f"{tcfg.tower_mlp}): each rank's device holds "
+        f"{[round(r['tt_state_bytes'] / 1e9, 4) for r in ranks]} GB, peak "
+        f"{[round(r['tt_peak'] / 1e9, 4) for r in ranks]} GB; step ms by "
+        f"rank {[[round(x, 3) for x in r['tt_ms']] for r in ranks]} vs one "
+        f"device {[round(x, 3) for x in tt_ms]}; losses {r0['tt_losses']} "
+        f"vs {tt_losses} (gap {tt_gap:.3g}), the towers' first-step "
+        f"gradients within {tt_grad_gap:.3g}; a per-rank softmax "
+        f"(planted) {r0['tt_planted']:.6f} vs {tt_losses[0]:.6f}")
+    log(f"NCCL world 1: deepfm CONFIG {MT_NCCL_STEPS} steps on a (1, 1) "
+        f"mesh bit-identical to one device, {t_nccl:.1f}s")
+    log(f"distributed training phase {time.perf_counter() - t_phase:.1f}s "
+        f"(one device's references {t_ref:.1f}s, 4 ranks {t_ranks:.1f}s, "
+        f"NCCL {t_nccl:.1f}s, torchrun {t_cli:.1f}s); launches {launches}")
     return launches
 
 
@@ -6376,6 +7145,7 @@ def main() -> int:
         c_launches, flush_b)
     h_launches = hot_cache_phase(card)
     s_launches = sharded_serving_phase(card)
+    m_launches = sharded_training_phase(card)
     bag_launches, bag_err, bag_times = bag_phase()
     ctr_launches = [ctr_serve_path(arch) for arch in CTR_ARCHS]
     ctr_launches += [ctr_train_path(arch) for arch in CTR_ARCHS]
@@ -6430,7 +7200,8 @@ def main() -> int:
         name = entry["name"]
         entry["launches"] = sum(p.get(name, 0) for p in
                                 (launches, c_launches, h_launches,
-                                 s_launches, bag_launches, *ctr_launches,
+                                 s_launches, m_launches, bag_launches,
+                                 *ctr_launches,
                                  b_launches, *l_launches, g_launches,
                                  r_launches, *i_launches))
         if name == "dpq_assign":

@@ -127,7 +127,8 @@ class RecsysConfig:
     # kernel backend for the export and serving ops (auto | cuda |
     # torch); $REPRO_TORCH_KERNEL_BACKEND overrides "auto"
     kernel_backend: str = "auto"
-    # model-parallel row gathers (not ported yet)
+    # sets the large fields' ``sharded_rows`` (kept for parity: in the
+    # port the recsys rules' placement decides, sharding/rules.py)
     sharded_embedding: bool = False
     num_subspaces: int = 8
     num_centroids: int = 256

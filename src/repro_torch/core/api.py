@@ -3,6 +3,7 @@
 ``Embedding(cfg, device="cuda")`` exposes:
 
     init(gen)                  -> params dict (training table)
+    apply(params, ids, mesh)   -> (rows, aux loss)         # training path
     export(params)             -> serving artifact dict
     serve(artifact, ids)       -> emb                      # serving path
     serving_size_bits()        -> int
@@ -65,8 +66,10 @@ class Embedding:
             dtype = torch_dtype(self.cfg.param_dtype)
         return self.scheme.init(gen, dtype)
 
-    def apply(self, params: dict, ids: torch.Tensor):
-        return self.scheme.apply(params, ids)
+    def apply(self, params: dict, ids: torch.Tensor, mesh=None):
+        """Training rows of ``ids`` and the aux loss; with a ``mesh``,
+        from this rank's params as the recsys rules place them."""
+        return self.scheme.apply(params, ids, mesh=mesh)
 
     # ------------------------------------------------------------ serve
     def export(self, params: dict) -> dict:

@@ -38,10 +38,11 @@ def full_init(gen: torch.Generator, cfg: EmbeddingConfig,
                           dtype)}
 
 
-def full_lookup(params: dict, ids: torch.Tensor, cfg: EmbeddingConfig
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Training-path lookup of the full table: (rows, zero aux)."""
-    rows = row_gather(params["emb"], ids, sharded=cfg.sharded_rows)
+def full_lookup(params: dict, ids: torch.Tensor, cfg: EmbeddingConfig,
+                mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Training-path lookup of the full table: (rows, zero aux); under a
+    ``mesh``, as the table's placement left this rank."""
+    rows = row_gather(params["emb"], ids, mesh=mesh, rows=cfg.vocab_size)
     return rows, _zero(rows.device)
 
 
@@ -54,10 +55,11 @@ def lrf_init(gen: torch.Generator, cfg: EmbeddingConfig,
     return {"u": u, "v": v}
 
 
-def lrf_lookup(params: dict, ids: torch.Tensor, cfg: EmbeddingConfig
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Rows ``u[ids] @ v``, shape ids.shape + (d,), and a zero aux."""
-    rows = row_gather(params["u"], ids)
+def lrf_lookup(params: dict, ids: torch.Tensor, cfg: EmbeddingConfig,
+               mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Rows ``u[ids] @ v``, shape ids.shape + (d,), and a zero aux; under
+    a ``mesh``, ``u`` as its placement left this rank."""
+    rows = row_gather(params["u"], ids, mesh=mesh, rows=cfg.vocab_size)
     out = rows @ params["v"]
     return out, _zero(out.device)
 
@@ -128,8 +130,10 @@ def hash_ids(ids: torch.Tensor, buckets: int) -> torch.Tensor:
     return h % buckets
 
 
-def hash_lookup(params: dict, ids: torch.Tensor, cfg: EmbeddingConfig
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Rows of the hashed ids, and a zero aux."""
-    rows = row_gather(params["emb"], hash_ids(ids, cfg.hash_buckets))
+def hash_lookup(params: dict, ids: torch.Tensor, cfg: EmbeddingConfig,
+                mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Rows of the hashed ids, and a zero aux; under a ``mesh``, the
+    bucket table as its placement left this rank."""
+    rows = row_gather(params["emb"], hash_ids(ids, cfg.hash_buckets),
+                      mesh=mesh, rows=cfg.hash_buckets)
     return rows, _zero(rows.device)

@@ -8,10 +8,10 @@ discarded; only the integer codes and the centroid tables remain.
 
 Ported: initialisation, the nearest-centroid assignment, the
 straight-through forward (``quantize``, ``lookup_train``; the plain
-assignment, as in the JAX package), code export over the whole
+assignment, as in the JAX package) and its backward, the row gather
+(plain, or model-parallel under a mesh), code export over the whole
 vocabulary (the ``dpq_assign`` op) and the serving lookup (the
-``mgqe_decode`` op).  The backward tests, the loss and the training
-loop are the training slice in ROADMAP.md.
+``mgqe_decode`` op).
 
 MGQE (mgqe.py) reuses every function here via the ``k_limit`` argument:
 items restricted to the first K_i centroids mask distance slots
@@ -124,35 +124,56 @@ def quantize(e: torch.Tensor, centroids: torch.Tensor,
     return q_sub.reshape(e.shape), codes, aux
 
 
-def row_gather(table: torch.Tensor, ids: torch.Tensor,
-               sharded: bool = False) -> torch.Tensor:
-    """Rows ``table[ids]``, shape ids.shape + (d,).  Model-parallel
-    row gathers (``sharded``) are the training half of the distributed
-    layer (ROADMAP.md §1 item 8).
+def row_gather(table: torch.Tensor, ids: torch.Tensor, mesh=None,
+               rows: Optional[int] = None) -> torch.Tensor:
+    """Rows ``table[ids]``, shape ids.shape + (d,).
+
+    With a ``mesh`` the table is read as its placement left this rank
+    (``sharding/gather.py::placed_row_gather``): ``rows`` is its global
+    row count, a whole table is read plainly and a row block over
+    ``model`` through the model-parallel gather with its batch-sized
+    backward.  The placement decides, not ``cfg.sharded_rows``: deepfm's
+    dim-1 first-order tables carry no flag, yet the recsys rules place
+    them row-sharded.
 
     Advanced indexing, not ``index_select``: its backward is a sorted
     ``index_put_`` with accumulate, which gives the same bits on every
     run, where ``index_select``'s (``index_add_``, atomic adds on the
     card) does not, and a resumed run would drift from an uninterrupted
     one."""
-    if sharded:
-        raise NotImplementedError(
-            "sharded_rows gathers (the model-parallel row gather and its "
-            "batch-sized backward) wait for the training half of the "
-            "distributed layer, ROADMAP.md §1 item 8")
-    return table[ids.long()]
+    if mesh is None:
+        return table[ids.long()]
+    if rows is None:
+        raise ValueError("a row gather under a mesh needs the table's "
+                         "global row count (rows=)")
+    from repro_torch.sharding.gather import placed_row_gather
+    return placed_row_gather(table, ids, mesh, rows)
+
+
+def batch_fraction(mask: torch.Tensor, mesh=None) -> torch.Tensor:
+    """The share of the batch's items that ``mask`` selects, as float32:
+    over this rank's ids, or, under a ``mesh``, over the global batch
+    (the per-tier weight of the private variants' aux loss, which is
+    not a mean over items: a rank's share at the global weight makes
+    the ranks' B_local/B_global-weighted sum the single-device loss)."""
+    m = mask.to(torch.float32)
+    if mesh is None:
+        return torch.mean(m)
+    from repro_torch.sharding.gather import batch_mean
+    return batch_mean(m, mesh)
 
 
 def lookup_train(params: dict, ids: torch.Tensor,
                  k_limit: Optional[torch.Tensor] = None,
-                 beta: float = 0.25,
-                 sharded_rows: bool = False
+                 beta: float = 0.25, mesh=None, rows: Optional[int] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Training-path lookup: gather full rows, quantize, STE.
 
-    ids: (...,) int; returns (emb (..., d), aux_loss scalar).
+    ids: (...,) int, global ids (under a ``mesh``, this rank's data
+    shard of them, and ``rows`` the table's global row count); returns
+    (emb (..., d), aux_loss scalar: the mean over this rank's ids).
     """
-    e = row_gather(params["emb"], ids, sharded=sharded_rows)
+    e = row_gather(params["emb"], ids, mesh=mesh, rows=rows)
     q, _, aux = quantize(e, params["centroids"], k_limit=k_limit, beta=beta)
     return q, aux
 

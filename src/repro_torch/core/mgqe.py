@@ -15,8 +15,8 @@ Three variants, all built on dpq.py:
 
 Tier membership is pure arithmetic over frequency-sorted ids
 (partition.tier_of_ids) — no membership table.  Ported: init, the
-training-path forward (``lookup_train``) and export; the backward
-tests and the training loop are the training slice in ROADMAP.md.
+training-path lookup (``lookup_train``, on one device or under a mesh)
+and export.
 """
 from __future__ import annotations
 
@@ -80,16 +80,18 @@ def init(gen: torch.Generator, cfg: EmbeddingConfig,
 # training lookup
 # ----------------------------------------------------------------------
 
-def lookup_train(params: dict, ids: torch.Tensor,
-                 cfg: EmbeddingConfig) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (embeddings (..., d), aux_loss scalar)."""
+def lookup_train(params: dict, ids: torch.Tensor, cfg: EmbeddingConfig,
+                 mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (embeddings (..., d), aux_loss scalar).  Under a ``mesh``
+    the ids are this rank's data shard of the global ids, and the tier
+    budgets key on them, never on rows of the rank's block."""
     if cfg.mgqe_variant == "shared_k":
         k_limit = _tier_k_limits(cfg, ids)
         return dpq.lookup_train(params, ids, k_limit=k_limit, beta=cfg.beta,
-                                sharded_rows=cfg.sharded_rows)
+                                mesh=mesh, rows=cfg.vocab_size)
 
     # private variants: static loop over tiers, blend with masks
-    e = dpq.row_gather(params["emb"], ids, sharded=cfg.sharded_rows)
+    e = dpq.row_gather(params["emb"], ids, mesh=mesh, rows=cfg.vocab_size)
     tiers = tier_of_ids(ids, cfg.tier_boundaries)       # (...,)
     out = torch.zeros_like(e)
     aux = torch.zeros((), dtype=torch.float32, device=e.device)
@@ -99,8 +101,7 @@ def lookup_train(params: dict, ids: torch.Tensor,
         out = torch.where(mask[..., None], q_i, out)
         # weight tier aux by the fraction of items in the tier so the
         # total matches the masked-mean of per-item losses
-        frac = torch.mean(mask.to(torch.float32))
-        aux = aux + aux_i * frac
+        aux = aux + aux_i * dpq.batch_fraction(mask, mesh)
     return out, aux
 
 

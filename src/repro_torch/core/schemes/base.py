@@ -137,9 +137,12 @@ class Scheme:
     def init(self, gen: torch.Generator, dtype: torch.dtype) -> dict:
         raise NotImplementedError
 
-    def apply(self, params: dict, ids: torch.Tensor):
+    def apply(self, params: dict, ids: torch.Tensor, mesh=None):
         """Training-path forward: ids (...,) -> (rows (..., d), aux
-        loss scalar)."""
+        loss scalar).  Under a ``mesh`` (``launch/mesh.py``) the params
+        are this rank's (``sharding/rules.py``), the ids its data shard
+        of the global ids, and every table is read as its placement
+        left it (``core/dpq.py::row_gather``)."""
         raise NotImplementedError
 
     def export(self, params: dict) -> dict:

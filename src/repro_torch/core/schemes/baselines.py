@@ -20,8 +20,8 @@ class FullEmbedding(Scheme):
     def init(self, gen, dtype):
         return baselines.full_init(gen, self.cfg, dtype)
 
-    def apply(self, params, ids):
-        return baselines.full_lookup(params, ids, self.cfg)
+    def apply(self, params, ids, mesh=None):
+        return baselines.full_lookup(params, ids, self.cfg, mesh=mesh)
 
     def export(self, params):
         return params  # nothing to strip
@@ -51,8 +51,8 @@ class LowRankFactorization(Scheme):
     def init(self, gen, dtype):
         return baselines.lrf_init(gen, self.cfg, dtype)
 
-    def apply(self, params, ids):
-        return baselines.lrf_lookup(params, ids, self.cfg)
+    def apply(self, params, ids, mesh=None):
+        return baselines.lrf_lookup(params, ids, self.cfg, mesh=mesh)
 
     def export(self, params):
         return params
@@ -84,8 +84,8 @@ class ScalarQuantization(Scheme):
     def init(self, gen, dtype):
         return baselines.sq_init(gen, self.cfg, dtype)
 
-    def apply(self, params, ids):
-        return baselines.sq_lookup(params, ids, self.cfg)
+    def apply(self, params, ids, mesh=None):
+        return baselines.sq_lookup(params, ids, self.cfg, mesh=mesh)
 
     def export(self, params):
         return baselines.sq_export(params, self.cfg)
@@ -128,8 +128,8 @@ class HashingTrick(Scheme):
     def init(self, gen, dtype):
         return baselines.hash_init(gen, self.cfg, dtype)
 
-    def apply(self, params, ids):
-        return baselines.hash_lookup(params, ids, self.cfg)
+    def apply(self, params, ids, mesh=None):
+        return baselines.hash_lookup(params, ids, self.cfg, mesh=mesh)
 
     def export(self, params):
         return params

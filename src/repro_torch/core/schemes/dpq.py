@@ -23,10 +23,10 @@ class DifferentiableProductQuantization(QuantizedScheme):
         return dpq.init(gen, cfg.vocab_size, cfg.dim, cfg.num_subspaces,
                         cfg.num_centroids, dtype=dtype)
 
-    def apply(self, params, ids):
+    def apply(self, params, ids, mesh=None):
         cfg = self.cfg
-        return dpq.lookup_train(params, ids, beta=cfg.beta,
-                                sharded_rows=cfg.sharded_rows)
+        return dpq.lookup_train(params, ids, beta=cfg.beta, mesh=mesh,
+                                rows=cfg.vocab_size)
 
     def export(self, params):
         codes = dpq.export_codes(params, backend=self.cfg.kernel_backend)

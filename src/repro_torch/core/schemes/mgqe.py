@@ -67,8 +67,8 @@ class MultiGranularQuantizedEmbedding(QuantizedScheme):
     def init(self, gen, dtype):
         return mgqe.init(gen, self.cfg, dtype=dtype)
 
-    def apply(self, params, ids):
-        return mgqe.lookup_train(params, ids, self.cfg)
+    def apply(self, params, ids, mesh=None):
+        return mgqe.lookup_train(params, ids, self.cfg, mesh=mesh)
 
     # ------------------------------------------------------------ serve
     def export(self, params):

@@ -70,11 +70,12 @@ class MixedPrecisionEmbedding(QuantizedScheme):
                 for b_i in cfg.tier_bits],
         }
 
-    def apply(self, params, ids):
+    def apply(self, params, ids, mesh=None):
         """Training path: per-tier codebook quantization blended by tier
         masks (the same loop as the mgqe private variants)."""
         cfg = self.cfg
-        e = dpq.row_gather(params["emb"], ids, sharded=cfg.sharded_rows)
+        e = dpq.row_gather(params["emb"], ids, mesh=mesh,
+                           rows=cfg.vocab_size)
         tiers = tier_of_ids(ids, cfg.tier_boundaries)
         out = torch.zeros_like(e)
         aux = torch.zeros((), dtype=torch.float32, device=e.device)
@@ -82,7 +83,7 @@ class MixedPrecisionEmbedding(QuantizedScheme):
             q_i, _, aux_i = dpq.quantize(e, cent, beta=cfg.beta)
             mask = tiers == i
             out = torch.where(mask[..., None], q_i, out)
-            aux = aux + aux_i * torch.mean(mask.to(torch.float32))
+            aux = aux + aux_i * dpq.batch_fraction(mask, mesh)
         return out, aux
 
     # ------------------------------------------------------------ serve

@@ -91,9 +91,9 @@ class ResidualQuantization(QuantizedScheme):
         out = e + q_total.detach() - e.detach()
         return out, torch.stack(codes, dim=-1), aux
 
-    def apply(self, params, ids):
-        e = dpq.row_gather(params["emb"], ids,
-                           sharded=self.cfg.sharded_rows)
+    def apply(self, params, ids, mesh=None):
+        e = dpq.row_gather(params["emb"], ids, mesh=mesh,
+                           rows=self.cfg.vocab_size)
         out, _, aux = self._quantize(e, params["codebooks"])
         return out, aux
 

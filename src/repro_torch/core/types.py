@@ -67,8 +67,9 @@ class EmbeddingConfig:
     # parameter dtype for the dense tables ("float32" | "bfloat16")
     param_dtype: str = "float32"
 
-    # model-parallel row gathers on the training path (not ported yet:
-    # the training half of the distributed layer, ROADMAP.md §1 item 8)
+    # the JAX package's switch for its model-parallel row gather; in the
+    # port a table's placement under a mesh decides how it is read
+    # (core/dpq.py::row_gather), so the flag is kept for parity only
     sharded_rows: bool = False
 
     # serving code tables row-sharded over a mesh's model axis: serve

@@ -1,14 +1,17 @@
-"""The recsys model registry (``RecsysConfig.model`` -> model class) and
-MACE's FLOP model and shape resolution, from the JAX package's
-``launch/cells.py``, and the batch of a sampled subgraph
-(``sampled_graph``, the port's own).  Its dry-run cells (sharded train
-and serve steps) wait for the launch slice in ROADMAP.md.
+"""The recsys model registry (``RecsysConfig.model`` -> model class),
+the recsys train cell on a mesh, and MACE's FLOP model and shape
+resolution, from the JAX package's ``launch/cells.py``, and the batch
+of a sampled subgraph (``sampled_graph``, the port's own).  The
+dry-run cells (the other sharded train and serve steps, traced with no
+device) wait for the launch slice in ROADMAP.md.
 """
 from __future__ import annotations
 
-from typing import Tuple
+import dataclasses
+from typing import Any, Dict, List, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.configs.base import GNNConfig, RecsysConfig, ShapeSpec
 from repro_torch.data.graph import sampled_subgraph_sizes
@@ -47,6 +50,125 @@ def recsys_tables(model, batch) -> list:
         return [(("item_emb",), model.item_emb, model.ids(batch))]
     return [(("fields", f"f{i}"), e, batch["sparse_ids"][:, i])
             for i, e in enumerate(model.fields.embs)]
+
+
+# ======================================================================
+# the recsys train cell on a mesh
+# ======================================================================
+
+@dataclasses.dataclass
+class RecsysTrainCell:
+    """One rank's share of a recsys model trained with adagrad on a
+    mesh: what the JAX package runs as ``jax.jit(recsys_train_cell(...)
+    .fn, in_shardings=...)``, written out as one rank's explicit step.
+
+    ``state`` is this rank's, placed by ``specs`` (a ``TrainState`` of
+    the recsys rules' spec trees); ``split`` marks the param leaves the
+    placement cuts into row blocks over ``model``."""
+
+    model: Any
+    mesh: Any
+    state: Any
+    specs: Any
+    split: List[bool]
+    multi_pod: bool = False
+
+    @property
+    def data_shards(self) -> int:
+        from repro_torch.sharding.gather import data_shards
+        return data_shards(self.mesh, "model")
+
+    def local_batch(self, batch: Dict) -> Dict:
+        """This rank's data shard of a global batch (every rank draws the
+        same stream): each leaf's block under ``recsys_batch_spec``; a
+        batch that does not divide over the data axes raises."""
+        from repro_torch.sharding.rules import named, recsys_batch_spec
+        specs = named(self.mesh, recsys_batch_spec(batch, self.multi_pod))
+        return {k: specs[k].block(v) for k, v in batch.items()}
+
+    def grads(self, state, batch: Dict) -> Tuple[Any, Dict]:
+        """This rank's share of the global batch's gradients and metrics,
+        before any reduction: autograd of ``loss_local · B_local /
+        B_global``.  The weight is the point: under the JAX package's
+        GSPMD step the cotangent reaching the row gather is that of the
+        GLOBAL mean, and the gather's backward sums the data shards'
+        cotangents (an all-gather of ``dout``), so a rank that
+        backpropagated its local mean would hand each row block
+        ``data_shards`` times its true gradient."""
+        from repro_torch.train.optimizer import loss_grads
+        w = 1.0 / self.data_shards
+
+        def weighted(params, batch):
+            loss, metrics = self.model.loss(params, batch, mesh=self.mesh)
+            return loss * w, {k: v * w for k, v in metrics.items()}
+
+        return loss_grads(weighted, state.params, batch)
+
+    def reduce(self, grads, metrics: Dict) -> Tuple[Any, Dict]:
+        """The global batch's gradients and metrics from this rank's
+        shares: a replicated leaf's gradient (and every metric) summed —
+        not averaged, the weights already did — over the data axes, in
+        one collective; a row block's gradient is already whole (the
+        gather's backward gathered ``dout``) and is kept."""
+        from repro_torch.core.schemes.base import tree_leaves
+        from repro_torch.sharding.collectives import psum
+        from repro_torch.sharding.gather import data_axes_of
+        axes = data_axes_of(self.mesh, "model")
+        reps = [g for g, cut in zip(tree_leaves(grads), self.split)
+                if not cut]
+        names = list(metrics)
+        flat = torch.cat([g.reshape(-1).float() for g in reps]
+                         + [metrics[k].reshape(1).float() for k in names])
+        flat = psum(flat, self.mesh, axes)
+        at = 0
+        for g in reps:
+            g.copy_(flat[at:at + g.numel()].view_as(g))
+            at += g.numel()
+        return grads, {k: flat[at + i] for i, k in enumerate(names)}
+
+    def step(self, state, batch: Dict) -> Tuple[Any, Dict]:
+        """One adagrad step on this rank's data shard ``batch``: its
+        gradient shares, reduced (:meth:`reduce`), clipped by the global
+        norm (a row block's squares summed over ``model``) and applied
+        leaf by leaf to this rank's blocks; the metrics are the global
+        batch's."""
+        from repro_torch.launch.train import RECSYS_OPTIMIZER
+        from repro_torch.train.optimizer import TrainState, apply_updates
+        grads, metrics = self.reduce(*self.grads(state, batch))
+        params, opt_state = apply_updates(
+            RECSYS_OPTIMIZER, state.params, grads, state.opt_state,
+            mesh=self.mesh, specs=self.specs.params)
+        return TrainState(params, opt_state), metrics
+
+
+def recsys_train_cell(cfg: RecsysConfig, mesh, params=None,
+                      multi_pod: bool = False) -> RecsysTrainCell:
+    """This rank's :class:`RecsysTrainCell` of ``cfg`` on ``mesh``:
+    ``params`` (whole, on any device; default: drawn as
+    ``launch/train.py::recsys_setup`` draws them, from a generator
+    seeded 0 on the rank's device) placed by ``recsys_param_rules``,
+    and adagrad's state (``RECSYS_OPTIMIZER``) on the blocks.  Every
+    table the rules row-shard is read through the sharded row gather
+    (``core/dpq.py::row_gather``)."""
+    from repro_torch.launch.train import RECSYS_OPTIMIZER
+    from repro_torch.core.schemes.base import tree_leaves
+    from repro_torch.sharding.rules import (place, recsys_state_specs,
+                                            spec_leaves, splits)
+    from repro_torch.train.optimizer import TrainState
+    from repro_torch.train.optimizer import init as opt_init
+    model = recsys_model(cfg, device=mesh.device)
+    if params is None:
+        params = model.init(torch.Generator(device=mesh.device)
+                            .manual_seed(0))
+    p_spec, o_spec = recsys_state_specs(params, cfg, mesh)
+    placed = place(params, p_spec, mesh)
+    del params
+    split = [splits(sp, mesh) for sp in spec_leaves(p_spec)]
+    if len(split) != len(tree_leaves(placed)):
+        raise ValueError("the spec tree does not mirror the params")
+    state = TrainState(placed, opt_init(RECSYS_OPTIMIZER, placed))
+    return RecsysTrainCell(model, mesh, state, TrainState(p_spec, o_spec),
+                           split, multi_pod)
 
 
 # ======================================================================

@@ -23,7 +23,9 @@ Nothing here touches ``torch.distributed`` or the card at import.
 """
 from __future__ import annotations
 
+import contextlib
 import datetime
+import io
 import math
 import multiprocessing
 import os
@@ -166,6 +168,61 @@ def make_production_mesh(*, multi_pod: bool = False, device=None) -> Mesh:
     return Mesh((16, 16), ("data", "model"), device)
 
 
+def parse_mesh(spec: str):
+    """'data=2,model=2' -> (("data", "model"), (2, 2))."""
+    axes, shape = [], []
+    for part in spec.split(","):
+        name, _, n = part.partition("=")
+        if not n:
+            raise ValueError(f"bad mesh axis {part!r}; want name=N")
+        axes.append(name.strip())
+        shape.append(int(n))
+    return tuple(axes), tuple(shape)
+
+
+def mesh_of_spec(spec: str, command: str, sharded: str):
+    """(axes, shape) of a CLI's ``--mesh`` ('data=2,model=2'), checked
+    against the world torchrun started: a mesh with no ``model`` axis to
+    shard the ``sharded`` leaves over, or a world size that is not the
+    mesh's, raises ``ValueError``, naming ``command`` (``-m
+    repro_torch.launch.<cli>``)."""
+    import torch.distributed as dist
+    axes, shape = parse_mesh(spec)
+    if "model" not in axes:
+        raise ValueError(f"mesh {dict(zip(axes, shape))} has no 'model' "
+                         f"axis to shard {sharded} over")
+    need = math.prod(shape)
+    world = (dist.get_world_size() if dist.is_initialized()
+             else int(os.environ.get("WORLD_SIZE", "1")))
+    if world != need:
+        raise ValueError(
+            f"--mesh {spec} needs {need} ranks, found {world} (one process "
+            f"a rank: python -m torch.distributed.run --nproc-per-node "
+            f"{need} {command} ...)")
+    return axes, shape
+
+
+def run_on_mesh(axes, shape, backend: str, device, fn: Callable):
+    """``fn(mesh)`` on this rank's mesh, for a CLI under torchrun (one
+    process a rank): join the process group, or start it from
+    torchrun's environment with ``backend`` (and end it after), with
+    ``device`` the rank's (None: its card).  Ranks other than 0 print
+    nothing."""
+    import torch.distributed as dist
+    started = not dist.is_initialized()
+    if started:
+        init_distributed(backend, device=device)
+    try:
+        mesh = Mesh(shape, axes, device=device)
+        if dist.get_rank() == 0:
+            return fn(mesh)
+        with contextlib.redirect_stdout(io.StringIO()):
+            return fn(mesh)
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
 # ----------------------------------------------------------------------
 # local ranks for tests and demos
 # ----------------------------------------------------------------------
@@ -177,6 +234,10 @@ def _rank_main(fn, rank, world, backend, device, store, timeout_s, args,
     try:
         _start_group(backend, torch.device(device), "file://" + store,
                      rank, world, timeout_s)
+        # every rank's connections made before any rank goes on: one that
+        # ran ahead, finished and closed its group would cut a peer still
+        # connecting (gloo's "connectFullMesh failed")
+        dist.barrier()
         out = ("ok", fn(rank, *args))
     except BaseException:          # reported to the parent, not raised
         out = ("error", traceback.format_exc())
@@ -263,4 +324,5 @@ def spawn(fn: Callable, world: int, backend: str = "gloo", device="cpu",
 
 
 __all__ = ["BACKENDS", "DEFAULT_TIMEOUT_S", "Mesh", "init_distributed",
-           "make_debug_mesh", "make_production_mesh", "rank_device", "spawn"]
+           "make_debug_mesh", "make_production_mesh", "mesh_of_spec",
+           "parse_mesh", "rank_device", "run_on_mesh", "spawn"]

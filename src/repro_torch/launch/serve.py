@@ -53,11 +53,7 @@ serves ranks that share one card (``--device cuda:0``) or CPU ranks
 from __future__ import annotations
 
 import argparse
-import contextlib
 import dataclasses
-import io
-import math
-import os
 import time
 from typing import Any, List, Optional
 
@@ -67,19 +63,7 @@ import torch
 from repro_torch.configs.registry import get_arch
 from repro_torch.core.types import KERNEL_BACKENDS
 from repro_torch.kernels.dispatch import pinned_backend
-from repro_torch.launch.mesh import BACKENDS
-
-
-def parse_mesh(spec: str):
-    """'data=2,model=2' -> (("data", "model"), (2, 2))."""
-    axes, shape = [], []
-    for part in spec.split(","):
-        name, _, n = part.partition("=")
-        if not n:
-            raise ValueError(f"bad mesh axis {part!r}; want name=N")
-        axes.append(name.strip())
-        shape.append(int(n))
-    return tuple(axes), tuple(shape)
+from repro_torch.launch.mesh import BACKENDS, mesh_of_spec, run_on_mesh
 
 
 @dataclasses.dataclass
@@ -621,38 +605,16 @@ def _serve_on_mesh(ap, args, run):
     """``--mesh``: check it, join (or start, from torchrun's
     environment) the process group, and run on this rank's mesh; ranks
     other than 0 print nothing."""
-    import torch.distributed as dist
-    from repro_torch.launch.mesh import Mesh, init_distributed
-    try:
-        axes, shape = parse_mesh(args.mesh)
-    except ValueError as e:
-        ap.error(str(e))
-    if "model" not in axes:
-        ap.error(f"mesh {dict(zip(axes, shape))} has no 'model' axis to "
-                 f"shard codes over")
     if args.use_async:
         ap.error("--async serves a single device; a mesh's ranks must "
                  "flush together")
-    need = math.prod(shape)
-    world = (dist.get_world_size() if dist.is_initialized()
-             else int(os.environ.get("WORLD_SIZE", "1")))
-    if world != need:
-        ap.error(f"--mesh {args.mesh} needs {need} ranks, found {world} "
-                 f"(one process a rank: python -m torch.distributed.run "
-                 f"--nproc-per-node {need} -m repro_torch.launch.serve ...)")
-    device = None if args.device == "cuda" else args.device
-    started = not dist.is_initialized()
-    if started:
-        init_distributed(args.dist_backend, device=device)
     try:
-        mesh = Mesh(shape, axes, device=device)
-        if dist.get_rank() == 0:
-            return run(mesh)
-        with contextlib.redirect_stdout(io.StringIO()):
-            return run(mesh)
-    finally:
-        if started:
-            dist.destroy_process_group()
+        axes, shape = mesh_of_spec(args.mesh, "-m repro_torch.launch.serve",
+                                   "codes")
+    except ValueError as e:
+        ap.error(str(e))
+    device = None if args.device == "cuda" else args.device
+    return run_on_mesh(axes, shape, args.dist_backend, device, run)
 
 
 if __name__ == "__main__":

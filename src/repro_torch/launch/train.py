@@ -8,6 +8,10 @@
         --full --batch 1 --seq 4096 --steps 5
     PYTHONPATH=src python -m repro_torch.launch.train --arch mace \\
         --full --steps 5
+    PYTHONPATH=src python -m torch.distributed.run --standalone \\
+        --nproc-per-node 4 -m repro_torch.launch.train --arch deepfm \\
+        --full --steps 5 --batch 4096 --mesh data=2,model=2 \\
+        --dist-backend gloo --device cuda:0
 
 trains on the card unless ``--device cpu`` is given (``--smoke``, the
 reduced config, is the default; ``--full`` is the published one).  The
@@ -23,6 +27,15 @@ at lr 3e-4 (20 warmup steps, cosine to step 1,000) on uniform tokens,
 ``MACE.energy_loss`` with adam at lr 1e-3 on ``molecule_batch``es of
 ``min(--batch, 32)`` molecules of 12 atoms and 24 edges, batch ``s``
 drawn from seed ``s``, as the JAX launcher trains it.
+
+``--mesh data=D,model=M`` trains a recsys arch on a mesh, one process a
+rank under torchrun (``--dist-backend``: ``nccl`` for a card a rank,
+``gloo`` for ranks that share a card or run on the CPU): the recsys
+rules row-shard the large tables over ``model`` and the batch over
+``data`` (``launch/cells.py::recsys_train_cell``), every rank draws the
+same stream and takes its data shard, checkpoints hold whole arrays,
+and a resume places them on whatever mesh resumes.  Rank 0 prints.
+The LM and GNN rules are not ported: those archs refuse ``--mesh``.
 """
 from __future__ import annotations
 
@@ -38,6 +51,7 @@ import torch
 from repro_torch.configs.registry import ARCHS, get_arch
 from repro_torch.core.api import resolve_device
 from repro_torch.core.schemes.base import tree_leaves
+from repro_torch.launch.mesh import BACKENDS, mesh_of_spec, run_on_mesh
 from repro_torch.train import checkpoint as ckpt_lib
 from repro_torch.train import optimizer as opt_lib
 from repro_torch.train.loop import LoopConfig, fit
@@ -85,18 +99,22 @@ def recsys_stream(cfg, batch: int, start: int = 0):
         yield draw(rng)
 
 
+# every recsys arch's optimizer, as the JAX launcher's
+RECSYS_OPTIMIZER = opt_lib.OptimizerConfig(kind="adagrad", lr=1e-2)
+
+
 def recsys_setup(cfg, batch: int, device="cuda", start: int = 0):
     """(model, state, step_fn, data) of a recsys model: params drawn
-    from a generator seeded 0 on ``device``, adagrad at lr 1e-2, and
+    from a generator seeded 0 on ``device``, ``RECSYS_OPTIMIZER``
+    (adagrad at lr 1e-2, global-norm clip 1.0), and
     :func:`recsys_stream` from batch ``start`` on (``fit`` moves each
     batch to the params' device)."""
     from repro_torch.launch.cells import recsys_model
     device = resolve_device(device)
     model = recsys_model(cfg, device=device)
     params = model.init(torch.Generator(device=device).manual_seed(0))
-    ocfg = opt_lib.OptimizerConfig(kind="adagrad", lr=1e-2)
-    state = TrainState.create(ocfg, params)
-    step = opt_lib.make_step_fn(ocfg, model.loss)
+    state = TrainState.create(RECSYS_OPTIMIZER, params)
+    step = opt_lib.make_step_fn(RECSYS_OPTIMIZER, model.loss)
     return model, state, step, recsys_stream(cfg, batch, start)
 
 
@@ -181,6 +199,15 @@ def gnn_setup(cfg, batch: int, device="cuda", start: int = 0):
     return model, state, step, gnn_stream(cfg, batch, start)
 
 
+def _mesh_trains(arch: str, family: str) -> None:
+    """Raise unless ``arch`` trains on a mesh (the recsys archs)."""
+    if family != "recsys":
+        raise ValueError(
+            f"{arch}: training on a mesh is ported for the recsys archs "
+            f"only; the {family.upper()} parameter rules, ZeRO-1 and FSDP "
+            f"wait for ROADMAP.md §1 item 8")
+
+
 @dataclasses.dataclass
 class TrainRun:
     """What :func:`train` built and measured."""
@@ -195,8 +222,8 @@ class TrainRun:
 def train(arch: str, *, smoke: bool = True, steps: int = 100,
           batch: int = 32, seq: int = 64, ckpt_dir: str = "",
           ckpt_every: int = 0, fail_at: int = 0, log_every: int = 10,
-          device="cuda", overrides: Optional[Dict[str, Any]] = None
-          ) -> TrainRun:
+          device="cuda", overrides: Optional[Dict[str, Any]] = None,
+          mesh=None) -> TrainRun:
     """Train ``arch`` for ``steps`` steps (resuming from ``ckpt_dir``
     when it holds a committed checkpoint); ``fail_at`` > 0 raises
     ``SimulatedFailure`` after that step, as a crashed host would.
@@ -207,12 +234,23 @@ def train(arch: str, *, smoke: bool = True, steps: int = 100,
     so it trains on the batches an uninterrupted run would have.  (Were
     that checkpoint to fail validation, ``fit`` would fall back to an
     older one and the stream would run ahead of it by the steps
-    between.)"""
+    between.)
+
+    With a ``mesh`` (a recsys arch only) this rank trains its share,
+    ``device`` is the mesh's, and the returned state is this rank's."""
     family, cfg = get_arch(arch, smoke=smoke)
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
     start = (ckpt_lib.latest_step(ckpt_dir) if ckpt_dir else None) or 0
-    if family == "lm":
+    specs = None
+    if mesh is not None:
+        _mesh_trains(arch, family)
+        from repro_torch.launch.cells import recsys_train_cell
+        cell = recsys_train_cell(cfg, mesh)
+        model, state, step, specs = cell.model, cell.state, cell.step, \
+            cell.specs
+        data = map(cell.local_batch, recsys_stream(cfg, batch, start))
+    elif family == "lm":
         model = None
         state, step, data = lm_setup(cfg, batch, seq, device=device,
                                      start=start)
@@ -230,12 +268,14 @@ def train(arch: str, *, smoke: bool = True, steps: int = 100,
                               f"{k}={v:.6f}" for k, v in m.items()
                               if k != "step"), flush=True))
     t0 = time.perf_counter()
-    state, hist = fit(state, step, data, lcfg, injector=injector)
+    state, hist = fit(state, step, data, lcfg, injector=injector, mesh=mesh,
+                      specs=specs)
     seconds = time.perf_counter() - t0
     if hist:
         device = tree_leaves(state.params)[0].device
-        print(f"done: {steps} steps in {seconds:.1f}s on {device}; final "
-              f"loss {hist[-1]['loss']:.4f}")
+        where = "" if mesh is None else f" (a rank of mesh {mesh.shape})"
+        print(f"done: {steps} steps in {seconds:.1f}s on {device}{where}; "
+              f"final loss {hist[-1]['loss']:.4f}")
     return TrainRun(cfg, model, state, hist, seconds)
 
 
@@ -254,15 +294,37 @@ def main(argv: Optional[List[str]] = None) -> TrainRun:
                     help="inject a crash at this step (tests restart)")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda",
-                    help="torch device to train on (default: the card; "
-                         "'cpu' runs the plain PyTorch ops)")
+                    help="torch device to train on (default: the card, "
+                         "under --mesh cuda:<LOCAL_RANK>; 'cpu' runs the "
+                         "plain PyTorch ops)")
+    ap.add_argument("--mesh", default=None, metavar="data=2,model=2",
+                    help="train a recsys arch on this mesh (tables over "
+                         "'model', the batch over the rest), one process "
+                         "a rank under torchrun")
+    ap.add_argument("--dist-backend", default="nccl", choices=BACKENDS,
+                    help="--mesh's process-group backend: nccl (one rank "
+                         "per card) or gloo (ranks that share a card, or "
+                         "CPU ranks)")
     args = ap.parse_args(argv)
     if args.arch not in ARCHS:
         ap.error(f"unknown arch {args.arch!r}; archs: {sorted(ARCHS)}")
-    return train(args.arch, smoke=args.smoke, steps=args.steps,
-                 batch=args.batch, seq=args.seq, ckpt_dir=args.ckpt_dir,
-                 ckpt_every=args.ckpt_every, fail_at=args.fail_at,
-                 log_every=args.log_every, device=args.device)
+
+    def run(mesh=None):
+        return train(args.arch, smoke=args.smoke, steps=args.steps,
+                     batch=args.batch, seq=args.seq, ckpt_dir=args.ckpt_dir,
+                     ckpt_every=args.ckpt_every, fail_at=args.fail_at,
+                     log_every=args.log_every, device=args.device, mesh=mesh)
+
+    if not args.mesh:
+        return run()
+    try:
+        _mesh_trains(args.arch, get_arch(args.arch)[0])
+        axes, shape = mesh_of_spec(args.mesh, "-m repro_torch.launch.train",
+                                   "tables")
+    except ValueError as e:
+        ap.error(str(e))
+    device = None if args.device == "cuda" else args.device
+    return run_on_mesh(axes, shape, args.dist_backend, device, run)
 
 
 if __name__ == "__main__":

@@ -77,10 +77,11 @@ class AutoInt:
         b = x.shape[0]
         return init.dense(params["w_out"], x.reshape(b, -1))[:, 0]
 
-    def apply(self, params: Dict, batch: Dict
+    def apply(self, params: Dict, batch: Dict, mesh=None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
         """batch["sparse_ids"] (B, F) -> (logits (B,), aux)."""
-        x, aux = self.fields.apply(params["fields"], batch["sparse_ids"])
+        x, aux = self.fields.apply(params["fields"], batch["sparse_ids"],
+                                   mesh=mesh)
         return self._interact(params, x), aux
 
     def serve(self, params: Dict, artifacts: Dict,
@@ -88,11 +89,16 @@ class AutoInt:
         x = self.fields.serve(artifacts, batch["sparse_ids"])
         return self._interact(params, x)
 
-    def loss(self, params: Dict, batch: Dict
+    def loss(self, params: Dict, batch: Dict, mesh=None
              ) -> Tuple[torch.Tensor, Dict]:
         """Mean binary cross-entropy on the logits, written as the JAX
-        package writes it, plus the fields' aux loss."""
-        logits, aux = self.apply(params, batch)
+        package writes it, plus the fields' aux loss.
+
+        Under a ``mesh`` the params are this rank's (``sharding/
+        rules.py``) and the batch its data shard: the loss is this
+        rank's mean, which the training step weights by B_local /
+        B_global (``launch/cells.py``)."""
+        logits, aux = self.apply(params, batch, mesh=mesh)
         y = batch["label"].to(torch.float32)
         bce = torch.mean(torch.maximum(logits, torch.zeros_like(logits))
                          - logits * y

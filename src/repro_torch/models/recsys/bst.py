@@ -80,7 +80,15 @@ class BST:
         }
 
     def _trunk(self, params: Dict, seq_e: torch.Tensor) -> torch.Tensor:
-        x = seq_e + params["pos_emb"][None]
+        pos = params["pos_emb"]
+        if pos.shape[0] != self.cfg.seq_len + 1:
+            # the recsys rules' ``emb$`` places a pos_emb of >= 16·model
+            # rows row-sharded; its plain broadcast cannot read a block
+            raise ValueError(
+                f"pos_emb holds {pos.shape[0]} of its "
+                f"{self.cfg.seq_len + 1} rows: a row-sharded pos_emb "
+                f"is read plainly, which a placed block cannot give")
+        x = seq_e + pos[None]
         for p in params["blocks"]:
             x = _block(p, x, self.cfg.bst_heads)
         b = x.shape[0]
@@ -92,10 +100,11 @@ class BST:
         return torch.cat([batch["hist_ids"], batch["target_id"][:, None]],
                          dim=1)
 
-    def apply(self, params: Dict, batch: Dict
+    def apply(self, params: Dict, batch: Dict, mesh=None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
         """batch: hist_ids (B, L), target_id (B,) -> (logits, aux)."""
-        e, aux = self.item_emb.apply(params["item_emb"], self.ids(batch))
+        e, aux = self.item_emb.apply(params["item_emb"], self.ids(batch),
+                                     mesh=mesh)
         return self._trunk(params, e), aux
 
     def serve(self, params: Dict, artifact: Dict,
@@ -103,11 +112,16 @@ class BST:
         e = self.item_emb.serve(artifact, self.ids(batch))
         return self._trunk(params, e)
 
-    def loss(self, params: Dict, batch: Dict
+    def loss(self, params: Dict, batch: Dict, mesh=None
              ) -> Tuple[torch.Tensor, Dict]:
         """Mean binary cross-entropy on the logits, written as the JAX
-        package writes it, plus the item table's aux loss."""
-        logits, aux = self.apply(params, batch)
+        package writes it, plus the item table's aux loss.
+
+        Under a ``mesh`` the params are this rank's (``sharding/
+        rules.py``) and the batch its data shard: the loss is this
+        rank's mean, which the training step weights by B_local /
+        B_global (``launch/cells.py``)."""
+        logits, aux = self.apply(params, batch, mesh=mesh)
         y = batch["label"].to(torch.float32)
         bce = torch.mean(torch.maximum(logits, torch.zeros_like(logits))
                          - logits * y

@@ -63,19 +63,21 @@ class DeepFM:
         deep = mlp(params["mlp"], x.reshape(b, -1), act="relu")[:, 0]
         return fm + deep + fo + params["bias"]
 
-    def _first_order(self, params: Dict, ids: torch.Tensor) -> torch.Tensor:
+    def _first_order(self, params: Dict, ids: torch.Tensor,
+                     mesh=None) -> torch.Tensor:
         total = torch.zeros((ids.shape[0],), dtype=torch.float32,
                             device=ids.device)
         for i, e in enumerate(self.first_order):
-            o, _ = e.apply(params["first_order"][f"f{i}"], ids[:, i])
+            o, _ = e.apply(params["first_order"][f"f{i}"], ids[:, i],
+                           mesh=mesh)
             total = total + o[:, 0]
         return total
 
-    def apply(self, params: Dict, batch: Dict
+    def apply(self, params: Dict, batch: Dict, mesh=None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
         ids = batch["sparse_ids"]
-        x, aux = self.fields.apply(params["fields"], ids)
-        fo = self._first_order(params, ids)
+        x, aux = self.fields.apply(params["fields"], ids, mesh=mesh)
+        fo = self._first_order(params, ids, mesh=mesh)
         return self._logit(params, x, fo), aux
 
     def serve(self, params: Dict, artifacts: Dict,
@@ -85,12 +87,17 @@ class DeepFM:
         fo = self._first_order(params, ids)
         return self._logit(params, x, fo)
 
-    def loss(self, params: Dict, batch: Dict
+    def loss(self, params: Dict, batch: Dict, mesh=None
              ) -> Tuple[torch.Tensor, Dict]:
         """Mean binary cross-entropy on the logits, written as the JAX
         package writes it (``max(z, 0) - z*y + log1p(exp(-|z|))``), plus
-        the fields' aux loss."""
-        logits, aux = self.apply(params, batch)
+        the fields' aux loss.
+
+        Under a ``mesh`` the params are this rank's (``sharding/
+        rules.py``) and the batch its data shard: the loss is this
+        rank's mean, which the training step weights by B_local /
+        B_global (``launch/cells.py``)."""
+        logits, aux = self.apply(params, batch, mesh=mesh)
         y = batch["label"].to(torch.float32)
         bce = torch.mean(torch.maximum(logits, torch.zeros_like(logits))
                          - logits * y

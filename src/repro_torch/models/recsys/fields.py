@@ -84,13 +84,14 @@ class FieldEmbeddings:
         return {f"f{i}": e.init(gen, dtype=dtype)
                 for i, e in enumerate(self.embs)}
 
-    def apply(self, params: Dict, ids: torch.Tensor
+    def apply(self, params: Dict, ids: torch.Tensor, mesh=None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """ids (B, F) -> ((B, F, d), aux_loss)."""
+        """ids (B, F) -> ((B, F, d), aux_loss); with a ``mesh``, from this
+        rank's params, every table read as its placement left it."""
         outs = []
         aux = torch.zeros((), dtype=torch.float32, device=ids.device)
         for i, e in enumerate(self.embs):
-            o, a = e.apply(params[f"f{i}"], ids[:, i])
+            o, a = e.apply(params[f"f{i}"], ids[:, i], mesh=mesh)
             outs.append(o)
             aux = aux + a
         return torch.stack(outs, dim=1), aux

@@ -46,28 +46,48 @@ class TwoTower:
         }
 
     # ------------------------------------------------------------ towers
-    def user_vec(self, params, user_ids) -> Tuple[torch.Tensor, torch.Tensor]:
-        e, aux = self.user_emb.apply(params["user_emb"], user_ids)
+    def user_vec(self, params, user_ids, mesh=None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        e, aux = self.user_emb.apply(params["user_emb"], user_ids, mesh=mesh)
         v = mlp(params["user_mlp"], e, act="relu")
         return _l2norm(v), aux
 
-    def item_vec(self, params, item_ids) -> Tuple[torch.Tensor, torch.Tensor]:
-        e, aux = self.item_emb.apply(params["item_emb"], item_ids)
+    def item_vec(self, params, item_ids, mesh=None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        e, aux = self.item_emb.apply(params["item_emb"], item_ids, mesh=mesh)
         v = mlp(params["item_mlp"], e, act="relu")
         return _l2norm(v), aux
 
     # ------------------------------------------------------------- train
-    def loss(self, params: Dict, batch: Dict
+    def loss(self, params: Dict, batch: Dict, mesh=None
              ) -> Tuple[torch.Tensor, Dict]:
         """In-batch sampled softmax with logQ correction.
 
         batch: user_ids (B,), item_ids (B,), item_logq (B,) — log of
-        each item's sampling probability (its empirical frequency)."""
-        u, aux_u = self.user_vec(params, batch["user_ids"])
-        v, aux_v = self.item_vec(params, batch["item_ids"])
-        logits = (u @ v.T) * INV_TEMPERATURE - batch["item_logq"][None, :]
+        each item's sampling probability (its empirical frequency).
+
+        Under a ``mesh`` the batch is this rank's data shard and the
+        softmax still runs over the GLOBAL batch's items, as it does
+        under the JAX package's GSPMD step: the item vectors and their
+        logQ are all-gathered over the data axes (the vectors with a
+        backward, ``all_gather_grad``), each user's gold item sits at
+        its global position, and the loss is the mean over this rank's
+        users (the step weights it by B_local / B_global)."""
+        u, aux_u = self.user_vec(params, batch["user_ids"], mesh)
+        v, aux_v = self.item_vec(params, batch["item_ids"], mesh)
+        logq, gold_at = batch["item_logq"], 0
+        if mesh is not None:
+            from repro_torch.sharding.collectives import (all_gather,
+                                                          all_gather_grad)
+            from repro_torch.sharding.gather import (data_axes_of,
+                                                     data_shard_index)
+            axes = data_axes_of(mesh, "model")
+            gold_at = data_shard_index(mesh, axes) * v.shape[0]
+            v, logq = all_gather_grad(v, mesh, axes), all_gather(
+                logq, mesh, axes)
+        logits = (u @ v.T) * INV_TEMPERATURE - logq[None, :]
         logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.diagonal(logits)
+        gold = torch.diagonal(logits, offset=gold_at)
         sm = torch.mean(logz - gold)
         loss = sm + aux_u + aux_v
         return loss, {"loss": loss, "softmax": sm, "aux": aux_u + aux_v}

@@ -9,6 +9,11 @@ stages them through host memory).  An axis of size 1 costs nothing.
 Every rank of an axis's group must make the same calls in the same
 order, so callers decide whether to call from state that every rank
 shares (the ids of a flush, never a per-rank count).
+
+:func:`all_gather_grad` is the tiled gather that autograd sees through:
+its backward sums the cotangent over the same axes and keeps this
+rank's slice (a reduce-scatter), as the transpose of ``lax.all_gather``
+does.
 """
 from __future__ import annotations
 
@@ -64,4 +69,35 @@ def all_gather(x: torch.Tensor, mesh, axes: Axes,
     return x
 
 
-__all__ = ["all_gather", "axis_index", "psum"]
+def linear_index(mesh, axes: Axes) -> int:
+    """This rank's position among the ranks of ``axes``, in mesh order
+    (the block :func:`all_gather` puts this rank's ``x`` at)."""
+    idx = 0
+    for a in _axes(axes):
+        idx = idx * mesh.shape[a] + mesh.axis_index(a)
+    return idx
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes, ctx.rows = mesh, axes, x.shape[0]
+        return all_gather(x, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, grad):
+        i, n = linear_index(ctx.mesh, ctx.axes), ctx.rows
+        return psum(grad.contiguous(), ctx.mesh, ctx.axes)[i * n:(i + 1) * n], \
+            None, None
+
+
+def all_gather_grad(x: torch.Tensor, mesh, axes: Axes) -> torch.Tensor:
+    """:func:`all_gather` (tiled) with a backward: the cotangent summed
+    over ``axes`` and this rank's slice of it, so a loss that every rank
+    computes from the gathered rows gives each rank the whole gradient
+    of its own rows."""
+    return _AllGather.apply(x, mesh, _axes(axes))
+
+
+__all__ = ["all_gather", "all_gather_grad", "axis_index", "linear_index",
+           "psum"]

@@ -5,14 +5,15 @@ a tuple of axis names, or None (not split) — what a JAX
 ``PartitionSpec`` holds, and ``()`` replicates.  Spec trees are dicts
 and lists of specs (a tuple is always a spec, never a container).
 
-The serving half of the JAX package's ``sharding/rules.py``: the
-generic helpers and the placement of the quantized and retrieval
-serving artifacts — O(vocab) and O(corpus) leaves row-sharded over
-``model``, everything else replicated.  ``shard_*_artifact`` returns
-THIS rank's tree: each row-sharded leaf is its block, copied to the
-rank's device on its own, so no rank holds a whole code table or
-corpus on its device.  The LM/GNN/recsys parameter rules and the
-optimizer-state specs belong to the training half (ROADMAP §1 item 8).
+From the JAX package's ``sharding/rules.py``: the generic helpers,
+the placement of the quantized and retrieval serving artifacts —
+O(vocab) and O(corpus) leaves row-sharded over ``model``, everything
+else replicated — and the recsys training rules (params, adagrad state,
+batch).  ``shard_*_artifact`` and :func:`place` return THIS rank's
+tree: each row-sharded leaf is its block, copied to the rank's device
+on its own, so no rank holds a whole table on its device.  The LM and
+GNN parameter rules, ZeRO-1 and FSDP are still to port (ROADMAP §1
+item 8).
 """
 from __future__ import annotations
 
@@ -117,6 +118,29 @@ class NamedSpec:
         return self.block(t).to(self.mesh.device, copy=True)
 
 
+def spec_leaves(specs) -> list:
+    """A spec tree's specs in the order ``tree_leaves`` gives its tree's
+    leaves (dict keys sorted; a tuple is a spec, not a container)."""
+    if isinstance(specs, dict):
+        return [x for k in sorted(specs) for x in spec_leaves(specs[k])]
+    if isinstance(specs, list):
+        return [x for v in specs for x in spec_leaves(v)]
+    return [specs]
+
+
+def splits(spec: Tuple, mesh) -> bool:
+    """Whether a leaf placed by ``spec`` over ``mesh`` is cut into
+    blocks: some dim names axes of more than one rank (a spec over an
+    axis of size 1 places the whole leaf, as GSPMD does)."""
+    for axes in spec:
+        if axes is None:
+            continue
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        if math.prod(mesh.shape[a] for a in axes) > 1:
+            return True
+    return False
+
+
 def named(mesh, spec_tree_):
     """Every spec of the tree bound to ``mesh`` (None replicates)."""
     return _map_with_path(
@@ -124,12 +148,80 @@ def named(mesh, spec_tree_):
         spec_tree_)
 
 
-def _placed(artifact, specs, mesh):
-    return _zip_map(lambda t, ns: ns.place(t), artifact, named(mesh, specs))
+def place(tree, specs, mesh):
+    """This rank's ``tree`` (a tree of whole tensors, on any device): each
+    leaf's block under its spec, copied to ``mesh.device``."""
+    return _zip_map(lambda t, ns: ns.place(t), tree, named(mesh, specs))
 
 
 def _replicated(specs):
     return _map_with_path(lambda _, s: (), specs)
+
+
+def _divides(n: int, k: int) -> bool:
+    return k > 0 and n % k == 0
+
+
+# ----------------------------------------------------------------------
+# recsys training
+# ----------------------------------------------------------------------
+
+def recsys_param_rules(cfg, mesh) -> List:
+    """The JAX package's rules, verbatim: every ``emb$`` table of at
+    least 16·model rows that divide over ``model`` row-sharded —
+    deepfm's dim-1 ``first_order`` tables, the small fields and bst's
+    ``pos_emb`` included, whatever their config's ``sharded_rows`` —
+    lrf's ``u`` and code tables alike; codebooks and the dense layers
+    replicated.  A table these rules split is read through the sharded
+    row gather (``core/dpq.py::row_gather``)."""
+    model = mesh.shape["model"]
+
+    def table_spec(leaf):
+        if leaf.shape[0] >= 16 * model and _divides(leaf.shape[0], model):
+            return ("model", None)
+        return (None, None)
+
+    return [
+        (r"emb$", table_spec),                 # full tables + dpq/mgqe emb
+        (r"centroids", lambda l: ()),
+        (r"codes$", lambda l: table_spec(l)),
+        (r"/u$", table_spec),                  # lrf rows
+        (r"pos_emb$", lambda l: ()),
+        (r"mlp|tower|w_out|blocks|layers|router", lambda l: ()),
+    ]
+
+
+def recsys_batch_spec(batch_dict_template, multi_pod: bool) -> Any:
+    """Every batch leaf split over the data axes along its first dim (one
+    axis by its name, as ``PartitionSpec`` normalises a 1-tuple); a 0-d
+    leaf replicated."""
+    dp = dp_axes(multi_pod)
+    dp = dp[0] if len(dp) == 1 else dp
+    return _map_with_path(
+        lambda _, t: () if t.dim() == 0 else (dp,) + (None,) * (t.dim() - 1),
+        batch_dict_template)
+
+
+def recsys_state_specs(params_template, cfg, mesh):
+    """(param specs, adagrad state specs): the state is ``{"step": (),
+    "acc": param specs}``, as the JAX package's recsys train cell
+    shards it (the accumulators mirror the params)."""
+    p_spec = spec_tree(params_template, recsys_param_rules(cfg, mesh))
+    return p_spec, {"step": (), "acc": p_spec}
+
+
+def whole_like(tree, specs, mesh):
+    """Meta-device tensors of the whole leaves whose blocks ``tree``
+    holds under ``specs`` (each split dim times its axes' ranks): the
+    template a checkpoint of whole arrays restores against."""
+    def whole(t, spec):
+        shape = list(t.shape)
+        for dim, axes in enumerate(_pad_spec(tuple(spec), t.dim())):
+            if axes is not None:
+                axes = (axes,) if isinstance(axes, str) else tuple(axes)
+                shape[dim] *= math.prod(mesh.shape[a] for a in axes)
+        return torch.empty(shape, dtype=t.dtype, device="meta")
+    return _zip_map(whole, tree, specs)
 
 
 # ----------------------------------------------------------------------
@@ -156,7 +248,7 @@ def shard_quantized_artifact(artifact, cfg, mesh, model_axis: str = "model"):
     if model_axis not in mesh.shape or cfg.vocab_size % mesh.shape[
             model_axis]:
         specs = _replicated(specs)
-    return _placed(artifact, specs, mesh)
+    return place(artifact, specs, mesh)
 
 
 # ----------------------------------------------------------------------
@@ -180,16 +272,19 @@ def shard_retrieval_artifact(artifact, index, mesh,
     keeps every leaf whole (``sharded_topk``'s single-device route)."""
     specs = retrieval_artifact_specs(index, artifact, model_axis=model_axis)
     if model_axis not in mesh.shape:
-        return _placed(artifact, _replicated(specs), mesh)
+        return place(artifact, _replicated(specs), mesh)
     model_n = mesh.shape[model_axis]
     bad = {name: artifact[name].shape[0] for name in index.rows_leaves
            if artifact[name].shape[0] % model_n}
     if bad:
         raise ValueError(f"corpus rows {bad} do not divide over "
                          f"{model_axis}={model_n}")
-    return _placed(artifact, specs, mesh)
+    return place(artifact, specs, mesh)
 
 
-__all__ = ["NamedSpec", "dp_axes", "named", "quantized_artifact_specs",
+__all__ = ["NamedSpec", "dp_axes", "named", "place",
+           "quantized_artifact_specs", "recsys_batch_spec",
+           "recsys_param_rules", "recsys_state_specs",
            "retrieval_artifact_specs", "shard_quantized_artifact",
-           "shard_retrieval_artifact", "spec_tree"]
+           "shard_retrieval_artifact", "spec_leaves", "spec_tree", "splits",
+           "whole_like"]

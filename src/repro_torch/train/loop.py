@@ -52,12 +52,27 @@ def fit(state: TrainState,
         data_iter: Iterator,
         cfg: LoopConfig,
         injector: Optional[FailureInjector] = None,
-        resume: bool = True) -> Tuple[TrainState, List[Dict]]:
+        resume: bool = True, mesh=None,
+        specs: Optional[TrainState] = None
+        ) -> Tuple[TrainState, List[Dict]]:
     """Runs ``step_fn`` to ``total_steps``; resumes from the newest
-    committed checkpoint in ``ckpt_dir`` when present."""
+    committed checkpoint in ``ckpt_dir`` when present.
+
+    Under a ``mesh`` every rank runs it on its own ``state`` (placed by
+    ``specs``, a :class:`TrainState` of spec trees) and its own batches:
+    checkpoints hold the whole arrays (``checkpoint.save`` gathers
+    them) and a resume places this rank's blocks through
+    ``checkpoint.elastic_restore``, whatever mesh wrote them."""
     start_step = 0
     if resume and cfg.ckpt_dir:
-        restored, step = ckpt_lib.restore_latest(cfg.ckpt_dir, state)
+        template = state
+        if mesh is not None:
+            from repro_torch.sharding.rules import whole_like
+            template = TrainState(
+                whole_like(state.params, specs.params, mesh),
+                whole_like(state.opt_state, specs.opt_state, mesh))
+        restored, step = ckpt_lib.restore_latest(
+            cfg.ckpt_dir, template, spec_tree=specs, mesh=mesh)
         if restored is not None:
             state = restored
             start_step = step
@@ -81,7 +96,8 @@ def fit(state: TrainState,
 
         if cfg.ckpt_every and cfg.ckpt_dir \
                 and (step + 1) % cfg.ckpt_every == 0:
-            ckpt_lib.save(cfg.ckpt_dir, step + 1, state, keep=cfg.ckpt_keep)
+            ckpt_lib.save(cfg.ckpt_dir, step + 1, state, keep=cfg.ckpt_keep,
+                          mesh=mesh, specs=specs)
 
         if (step + 1) % cfg.log_every == 0 or step == cfg.total_steps - 1:
             m = {k: float(v) for k, v in metrics.items()}

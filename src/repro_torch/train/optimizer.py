@@ -183,12 +183,15 @@ def record_adagrad():
         _OPTIMIZERS["adagrad"] = rule
 
 
-def adagrad_replay(params, tape) -> Tuple[List[torch.Tensor], ...]:
+def adagrad_replay(params, tape,
+                   acc=None) -> Tuple[List[torch.Tensor], ...]:
     """The plain reference of a recorded adagrad run: adagrad in float64
-    on the CPU from ``params`` (the run's starting tree) over ``tape``'s
-    updates (:func:`record_adagrad`, one device's).  Returns (params,
-    accumulators, slack) as lists of leaves; ``slack`` is, per element,
-    what float32 rounding may add over the run: at step k, (k + 4) units
+    on the CPU from ``params`` (the run's starting tree) and ``acc`` (its
+    float32 accumulators there; default zeros, a run from its first
+    step) over ``tape``'s updates (:func:`record_adagrad`, one
+    device's).  Returns (params, accumulators, slack) as lists of
+    leaves; ``slack`` is, per element, what float32 rounding may add
+    over the run: at step k, (k + 4) units
     of 2^-24 relative to lr (k roundings of the accumulator, halved by
     the square root, and four of the update) and 2^-23 relative to the
     param.  A float32 run holds each element within its slack of the
@@ -196,7 +199,9 @@ def adagrad_replay(params, tape) -> Tuple[List[torch.Tensor], ...]:
     replay consumes the very gradients the run did."""
     p = [t.detach().to("cpu", torch.float64, copy=True)
          for t in tree_leaves(params)]
-    acc = [torch.zeros_like(t) for t in p]
+    acc = [torch.zeros_like(t) for t in p] if acc is None else [
+        t.detach().to("cpu", torch.float64, copy=True)
+        for t in tree_leaves(acc)]
     slack = [torch.zeros_like(t) for t in p]
     for k, (_, lr, eps, grads) in enumerate(tape, 1):
         for x, a, s, g in zip(p, acc, slack, grads):
@@ -234,21 +239,46 @@ def init(cfg: OptimizerConfig, params: Any) -> Dict:
     return state
 
 
-def _global_norm(leaves: List[torch.Tensor]) -> torch.Tensor:
+def _global_norm(leaves: List[torch.Tensor], mesh=None,
+                 split: Optional[List[bool]] = None) -> torch.Tensor:
     """sqrt of the sum of squares, leaf sums added left to right from
-    0.0 in tree order, as JAX's ``tree.reduce`` adds them."""
-    total = torch.zeros((), dtype=torch.float32,
-                        device=leaves[0].device if leaves else None)
-    for g in leaves:
-        total = total + torch.sum(torch.square(g.to(torch.float32)))
+    0.0 in tree order, as JAX's ``tree.reduce`` adds them.  Under a
+    ``mesh``, the leaves that ``split`` marks are this rank's blocks of
+    leaves row-sharded over ``model``: their sum is summed over
+    ``model`` (one collective), and a replicated leaf counts once."""
+    device = leaves[0].device if leaves else None
+    total = torch.zeros((), dtype=torch.float32, device=device)
+    sharded = torch.zeros((), dtype=torch.float32, device=device)
+    for i, g in enumerate(leaves):
+        sq = torch.sum(torch.square(g.to(torch.float32)))
+        if split is not None and split[i]:
+            sharded = sharded + sq
+        else:
+            total = total + sq
+    if mesh is not None and split is not None and any(split):
+        from repro_torch.sharding.collectives import psum
+        total = total + psum(sharded, mesh, "model")
     return torch.sqrt(total)
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, mesh=None, specs=None):
     """Scale ``grads`` in place so their global norm is at most
-    ``max_norm``; returns (grads, the norm before clipping)."""
+    ``max_norm``; returns (grads, the norm before clipping).
+
+    Under a ``mesh`` with ``specs`` (the params' spec tree,
+    ``sharding/rules.py``), ``grads`` are this rank's: a leaf whose spec
+    splits it holds its block and adds its squares over ``model``, a
+    replicated leaf counts once, so every rank clips by the one global
+    norm (a norm of this rank's blocks alone would differ by rank)."""
     leaves = tree_leaves(grads)
-    norm = _global_norm(leaves)
+    split = None
+    if mesh is not None and specs is not None:
+        from repro_torch.sharding.rules import spec_leaves, splits
+        split = [splits(s, mesh) for s in spec_leaves(specs)]
+        if len(split) != len(leaves):
+            raise ValueError(f"{len(split)} specs for {len(leaves)} "
+                             f"gradient leaves")
+    norm = _global_norm(leaves, mesh, split)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
     for g in leaves:
         g.mul_(scale.to(g.dtype))
@@ -295,17 +325,20 @@ def _pieces(n: int, params: List[torch.Tensor], grads: List[torch.Tensor],
 
 
 def apply_updates(cfg: OptimizerConfig, params, grads,
-                  state: Dict) -> Tuple[Any, Dict]:
+                  state: Dict, mesh=None, specs=None) -> Tuple[Any, Dict]:
     """One optimizer step, in place: ``params`` and the moment trees of
     ``state`` are updated where they lie and ``grads`` are consumed (a
     bf16 gradient is copied to float32 as its leaf's turn comes).
-    Returns (params, the new state with ``step`` + 1)."""
+    Returns (params, the new state with ``step`` + 1).  Under a ``mesh``
+    the trees are this rank's and ``specs`` the params' spec tree: the
+    clip takes the global norm (:func:`clip_by_global_norm`), then each
+    leaf updates on its own block, as every elementwise rule may."""
     rule = _rule(cfg.kind)
     step = state["step"]
     with torch.no_grad():
         lr = schedule_lr(cfg, step)
         if cfg.grad_clip is not None:
-            clip_by_global_norm(grads, cfg.grad_clip)
+            clip_by_global_norm(grads, cfg.grad_clip, mesh, specs)
         leaves, g_leaves = tree_leaves(params), tree_leaves(grads)
         moments = {k: tree_leaves(state[k]) for k in rule.state_keys}
         if rule.piece_elements:
@@ -334,27 +367,33 @@ class TrainState:
         return TrainState(params, init(cfg, params))
 
 
+def loss_grads(loss_fn: Callable, params, batch) -> Tuple[Any, Dict]:
+    """(gradient tree of ``loss_fn``'s loss in ``params``, its metrics
+    detached).  The params take part in autograd only here; a leaf the
+    loss does not reach gets zeros."""
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    try:
+        with torch.enable_grad():
+            loss, metrics = loss_fn(params, batch)
+            flat = torch.autograd.grad(loss, leaves, allow_unused=True)
+    finally:
+        for p in leaves:
+            p.requires_grad_(False)
+    by_id = {id(p): torch.zeros_like(p) if g is None else g
+             for p, g in zip(leaves, flat)}
+    grads = tree_map(lambda p: by_id[id(p)], params)
+    return grads, {k: v.detach() for k, v in metrics.items()}
+
+
 def make_step_fn(cfg: OptimizerConfig, loss_fn: Callable) -> Callable:
     """Standard step: state, batch -> (state, metrics).  ``loss_fn``
-    must return (loss, metrics_dict).  The params take part in autograd
-    only inside the step; the update is in place, so the returned state
-    holds the same tensors as the one passed in."""
+    must return (loss, metrics_dict).  The update is in place, so the
+    returned state holds the same tensors as the one passed in."""
 
     def step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
-        leaves = tree_leaves(state.params)
-        for p in leaves:
-            p.requires_grad_(True)
-        try:
-            with torch.enable_grad():
-                loss, metrics = loss_fn(state.params, batch)
-                flat = torch.autograd.grad(loss, leaves, allow_unused=True)
-        finally:
-            for p in leaves:
-                p.requires_grad_(False)
-        by_id = {id(p): torch.zeros_like(p) if g is None else g
-                 for p, g in zip(leaves, flat)}
-        grads = tree_map(lambda p: by_id[id(p)], state.params)
-        metrics = {k: v.detach() for k, v in metrics.items()}
+        grads, metrics = loss_grads(loss_fn, state.params, batch)
         params, opt_state = apply_updates(cfg, state.params, grads,
                                           state.opt_state)
         return TrainState(params, opt_state), metrics

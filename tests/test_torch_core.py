@@ -235,15 +235,21 @@ def test_not_ported_paths_raise():
     cfg = EmbeddingConfig(**CONFIGS["shared_k"])
     temb = Embedding(cfg, device="cpu")
     params = temb.init()
-    # the training forward is ported; its model-parallel row gather is not
+    # the model-parallel row gather is ported: with no mesh a
+    # sharded_rows table reads plainly, as JAX's does with no ambient
+    # mesh; under a mesh the gather needs the table's global row count,
+    # and training on a mesh refuses the LM and GNN archs
     rows = Embedding(dataclasses.replace(cfg, sharded_rows=True),
                      device="cpu")
-    for fn in (lambda: dpq.lookup_train(params, torch.arange(3),
-                                        sharded_rows=True),
-               lambda: rows.apply(params, torch.arange(3))):
-        with pytest.raises(NotImplementedError, match="training half of "
-                           "the distributed layer, ROADMAP"):
-            fn()
+    for got, want in zip(rows.apply(params, torch.arange(3)),
+                         temb.apply(params, torch.arange(3))):
+        assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="global row count"):
+        dpq.row_gather(params["emb"], torch.arange(3), mesh=object())
+    from repro_torch.launch.train import train
+    for arch in ("stablelm-3b", "mace"):
+        with pytest.raises(ValueError, match="ROADMAP.md §1 item 8"):
+            train(arch, device="cpu", mesh=object())
     # the hot-row cache is ported: export attaches the decoded head
     hot = Embedding(dataclasses.replace(cfg, hot_rows=4), device="cpu")
     hot_art = hot.export(params)

@@ -2661,3 +2661,131 @@ def test_nccl_world_of_one_serves_through_the_mesh_engine(cuda, tmp_path):
                    args=(tables, ids), store_dir=str(tmp_path),
                    timeout_s=MESH_TIMEOUT)
     assert res == ("nccl", True, True)
+
+
+# ----------------------------------------------------------------------
+# distributed recsys training: 4 gloo ranks sharing cuda:0
+# ----------------------------------------------------------------------
+
+MESH_TRAIN_BATCH = 256
+MESH_TRAIN_STEPS = 3
+MESH_TRAIN_TOL = 1e-5
+
+
+def _mesh_train_batches(cfg, n=MESH_TRAIN_STEPS):
+    from repro_torch.launch.train import recsys_stream
+    stream = recsys_stream(cfg, MESH_TRAIN_BATCH)
+    return [next(stream) for _ in range(n)]
+
+
+def _leaf_list(tree):
+    from repro_torch.core.schemes.base import tree_leaves
+    return [t.detach().cpu() for t in tree_leaves(tree)]
+
+
+def _mesh_train_rank(rank, what, ckpt_dir=None):
+    """deepfm's smoke config on a (2, 2) mesh of ranks on cuda:0:
+    ``steps`` -- each step's losses and reduced gradients; ``resume`` --
+    the final params of a run through step 3 and of one resumed from
+    its step-2 checkpoint; ``repeat`` -- one batch's reduced gradients
+    twice."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.cells import recsys_train_cell
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.train.loop import LoopConfig, fit
+    from repro_torch.train.optimizer import TrainState, apply_updates
+    from repro_torch.launch.train import RECSYS_OPTIMIZER
+    mesh = make_debug_mesh(2, 2)
+    _, cfg = get_arch("deepfm", smoke=True)
+    batches = _mesh_train_batches(cfg)
+
+    def cell_and_data(start=0):
+        cell = recsys_train_cell(cfg, mesh)
+        return cell, [on_device(cell.local_batch(b), mesh.device)
+                      for b in batches[start:]]
+
+    if what == "steps":
+        cell, data = cell_and_data()
+        state, out = cell.state, []
+        for b in data:
+            grads, metrics = cell.reduce(*cell.grads(state, b))
+            out.append((float(metrics["loss"]), _leaf_list(grads)))
+            params, opt = apply_updates(RECSYS_OPTIMIZER, state.params,
+                                        grads, state.opt_state, mesh=mesh,
+                                        specs=cell.specs.params)
+            state = TrainState(params, opt)
+        return out, cell.split
+    if what == "resume":
+        cell, data = cell_and_data()
+        state, _ = fit(cell.state, cell.step, iter(data), LoopConfig(
+            total_steps=2, ckpt_every=2, ckpt_dir=ckpt_dir), mesh=mesh,
+            specs=cell.specs)
+        state, _ = fit(state, cell.step, iter(data[2:]),
+                       LoopConfig(total_steps=1), resume=False)
+        cell2, data2 = cell_and_data(2)
+        resumed, _ = fit(cell2.state, cell2.step, iter(data2), LoopConfig(
+            total_steps=3, ckpt_dir=ckpt_dir), mesh=mesh, specs=cell2.specs)
+        return _leaf_list(state.params), _leaf_list(resumed.params)
+    cell, data = cell_and_data()
+    return [_leaf_list(cell.reduce(*cell.grads(cell.state, data[0]))[0])
+            for _ in range(2)]
+
+
+@pytest.mark.gpu
+def test_sharded_recsys_steps_on_card_match_one_device(cuda, tmp_path):
+    """3 adagrad steps of deepfm's smoke config on a (2, 2) mesh of gloo
+    ranks on the card: each step's loss and reduced gradients (a row
+    block's of its rows) within 1e-5 of one device's step on the
+    global batch."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.launch.train import recsys_setup
+    from repro_torch.train.optimizer import loss_grads
+    res = spawn(_mesh_train_rank, 4, backend="gloo", device="cuda:0",
+                args=("steps",), store_dir=str(tmp_path),
+                timeout_s=MESH_TIMEOUT)
+    _, cfg = get_arch("deepfm", smoke=True)
+    model, state, step, _ = recsys_setup(cfg, MESH_TRAIN_BATCH)
+    want = []
+    for b in _mesh_train_batches(cfg):
+        b = on_device(b, cuda)
+        grads, metrics = loss_grads(model.loss, state.params, b)
+        want.append((float(metrics["loss"]), _leaf_list(grads)))
+        state, _ = step(state, b)
+    for rank, (steps, split) in enumerate(res):
+        for (loss, grads), (w_loss, w_grads) in zip(steps, want,
+                                                    strict=True):
+            assert abs(loss - w_loss) <= MESH_TRAIN_TOL * max(1, abs(w_loss))
+            for g, w, cut in zip(grads, w_grads, split, strict=True):
+                if cut:
+                    n = g.shape[0]
+                    w = w[(rank % 2) * n:(rank % 2 + 1) * n]
+                torch.testing.assert_close(g, w, rtol=MESH_TRAIN_TOL,
+                                           atol=MESH_TRAIN_TOL)
+
+
+@pytest.mark.gpu
+def test_sharded_resume_on_card_is_bit_identical(cuda, tmp_path):
+    """A (2, 2) run checkpointed at step 2 (whole arrays) and resumed on
+    the same mesh ends bit for bit where the uninterrupted run does."""
+    from repro_torch.launch.mesh import spawn
+    res = spawn(_mesh_train_rank, 4, backend="gloo", device="cuda:0",
+                args=("resume", str(tmp_path / "ckpt")),
+                store_dir=str(tmp_path),
+                timeout_s=MESH_TIMEOUT)
+    for straight, resumed in res:
+        for a, b in zip(straight, resumed, strict=True):
+            _same_bits(b, a)
+
+
+@pytest.mark.gpu
+def test_sharded_backward_repeats_on_card(cuda, tmp_path):
+    """The sharded gather's backward (``dout`` gathered, an ordered
+    ``index_put_`` into the block) gives the same bits twice."""
+    from repro_torch.launch.mesh import spawn
+    res = spawn(_mesh_train_rank, 4, backend="gloo", device="cuda:0",
+                args=("repeat",), store_dir=str(tmp_path),
+                timeout_s=MESH_TIMEOUT)
+    for first, second in res:
+        for a, b in zip(first, second, strict=True):
+            _same_bits(b, a)
