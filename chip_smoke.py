@@ -179,8 +179,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    over 4 KV heads, hd=320), gemma3-27b's (B=1, S=4,096, 32 heads over
    16, hd=168), qwen3-moe-30b-a3b's (B=2, S=4,096, 32 heads over 4,
    hd=64), mixtral-8x7b's (B=1, S=8,192, 32 heads over 8, hd=128,
-   window 4,096), stablelm-3b's (B=1, S=2,048, 32 heads, hd=80), the JAX
-   tests' shapes and an odd length (bars: ``FLASH_TOL``; bf16 also per
+   window 4,096), stablelm-3b's (B=1, S=2,048, 32 heads, hd=80), a
+   mesh rank's of 13 (B=1, S=4,096: stablelm-3b's 16 of 32 heads,
+   qwen3's 16 over 2 of 4 KV heads), the JAX tests' shapes and an odd length (bars: ``FLASH_TOL``; bf16 also per
    row against the plain version in float32, ``FLASH_BF16_ROW_TOL``,
    which two planted faults must fail); ``dpq_assign`` at the LM token
    tables' widths (D=8, S=256, 320, 512 and 672, K=256 and 64, float32
@@ -242,8 +243,43 @@ Phases, each of which fails the run (non-zero exit, no result line):
    uninterrupted ones, bit for bit (a resume on the wrong batches must
    differ); then ``flash_attention``, its plain version and
    ``F.scaled_dot_product_attention`` timed at every layer shape of the
-   LM prefills and of training, the entry holding the mean per launch;
-13. the GNN phase (``gnn_phases``), freeing the card after it: MACE's
+   LM prefills and of training (13's included), the entry holding the
+   mean per launch;
+13. the LM mesh phase (``lm_mesh_phase``), after 12 and before its
+   attention timing: one device's references on the card, then one
+   NCCL rank and 4 gloo ranks on cuda:0 as a (data=2, model=2) mesh
+   (``launch.mesh.spawn``) and 3 as a (1, 3) mesh; counts set to 0
+   just before the ranks and read just after, summed over them.
+   ``launch/cells.py::lm_train_cell`` trains, each rank with its heads
+   (tensor parallel over model), its data shard and ZeRO-1 moments:
+   stablelm-3b's ``CONFIG`` with FSDP (f32 params, bf16 activations,
+   layer remat) at 2 x train_4k's sequence, one a data rank, cut to
+   ``LMM_LAYERS`` of 32 layers (4 ranks at 32 overflowed the card):
+   a step and a traced one (the collectives counted and timed with the
+   device synchronised around each), state bytes and peak a rank, the
+   first loss within ``LMM_BF16_LOSS_TOL`` of one device's, the trained
+   token table gathered over model, exported (``dpq_assign``) and
+   served (``mgqe_decode``) on rank 0, codes and rows held to the
+   plain versions; float32 checks at a depth cut (stablelm-3b at 2
+   layers, qwen3 at 1 at a capacity where nothing drops, found from
+   one device's routing) against one device: loss and ``LMM_SAMPLES``
+   gradient elements a leaf within 1e-5, stablelm-3b's params after
+   one adamw step too (elements of first-step |g| < 1e-6 within 2 lr);
+   qwen3-moe-30b-a3b's ``CONFIG`` (bf16) at ``QW_LAYERS`` of 48 with
+   ``moe_shard_map`` (128 experts over model = 2: the expert strategy,
+   all-to-all over model) two steps, the share of (token, choice) pairs
+   dropped at capacity 1.25 from one device's ``moe_ffn_grouped``;
+   ``train`` on the mesh failed in step 2 and resumed from its
+   checkpoint of whole arrays (stablelm-3b at 2 layers), bit-identical
+   to an uninterrupted run; stablelm-3b's float32 check's step on one
+   NCCL rank bit-identical to one device; and one qwen3 MoE layer at full width
+   on (1, 3) (128 experts % 3: the ffn strategy, d_ff over model) at
+   4,096 tokens, forward and backward within 1e-5 (gradients at each
+   leaf's scale) of one device's ``moe_ffn``; every rank's
+   ``flash_attention`` launches counted (the mesh-rank shapes also
+   checked in 11: stablelm-3b's 16 of 32 heads, qwen3's 16 over 2 of 4
+   KV heads); every number beside the card's name and power limit;
+14. the GNN phase (``gnn_phases``), freeing the card after it: MACE's
    ``configs/mace.py::CONFIG`` (2 layers, d_hidden 128, l_max 2,
    correlation order 3) trained GNN_STEPS adam steps through
    ``train.fit`` on three of ``GNN_SHAPES`` — molecule (128 molecules
@@ -267,7 +303,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    sum and the gather's backward against ``index_add_`` at
    minibatch_lg's scale, and a ``--full`` run failed at step 3 and
    resumed, bit for bit (a resume on the wrong batches must differ);
-14. free the card and drive the retrieval path at full width:
+15. free the card and drive the retrieval path at full width:
    two-tower retrieval at ``configs/two_tower_retrieval.py::CONFIG``
    (50M users, 10M items, embed_dim 256, towers 1024-512-256) through
    ``launch.serve.serve_retrieval`` — init, the ``flat_pq`` index over
@@ -281,12 +317,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    for bit, hold the index's codes (and ``dpq_assign`` run again on
    the same tower outputs) against the plain assignment, as in 3, and
    print the peak device memory;
-15. time the pq kernels at that path's shapes, as in 5,
+16. time the pq kernels at that path's shapes, as in 5,
    ``pq_score_batched`` also at a ragged B = 465, and ``pq_topk`` also
    on its worst case (scores rising with the id, held to the exact
    answer) and beside ``torch.topk(pq_score_batched(...))``, the two
    calls it fuses;
-16. the retrieval-scale phase: ``ivf_pq`` at the JAX bench's
+17. the retrieval-scale phase: ``ivf_pq`` at the JAX bench's
    ``bench_retrieval_scale`` widths and knobs (``IVF_*``) over a
    1,000,000-row Zipf-clustered corpus kept on the host (cut from the
    bench's default 10M rows for time), built through
@@ -309,7 +345,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    over 1M candidates (counted: one ``dpq_assign``): recall@100
    (reported), queries/s beside phase 14's flat_pq, every flush
    bit-identical to the device search;
-17. print one ``{"kernels": [...]}`` JSON line (launches summed over
+18. print one ``{"kernels": [...]}`` JSON line (launches summed over
    every path), then, last, the ``{"ok": true, "device": ...}`` line.
 
 It needs one card and no arguments, imports nothing of JAX, and runs
@@ -501,9 +537,11 @@ FLASH_TILE = 64
 # layers at the path's prefill, gemma3-27b's (hd = 5,376 / 32 = 168, not
 # a multiple of the tensor cores' k-depth of 16), qwen3-moe-30b-a3b's
 # (hd 64, 32 heads over 4), mixtral-8x7b's (hd 128, window 4,096 of an
-# 8,192-token prompt), stablelm-3b's, the JAX
-# tests' shapes (tests/test_kernels.py: cross-length, a window wider
-# than a tile) and an odd length
+# 8,192-token prompt), stablelm-3b's, a rank's heads on the LM mesh
+# phase's (data=2, model=2) mesh (stablelm-3b's 16 of 32, qwen3's 16 of
+# 32 over 2 of 4 KV heads), the JAX tests' shapes
+# (tests/test_kernels.py: cross-length, a window wider than a tile) and
+# an odd length
 FLASH_CASES = (
     ("gemma3-4b local", 2, 4096, 4096, 8, 4, 320, 1024),
     ("gemma3-4b global", 2, 4096, 4096, 8, 4, 320, FULL_WINDOW),
@@ -512,6 +550,8 @@ FLASH_CASES = (
     ("qwen3-moe-30b-a3b", 2, 4096, 4096, 32, 4, 64, FULL_WINDOW),
     ("mixtral-8x7b", 1, 8192, 8192, 32, 8, 128, 4096),
     ("stablelm-3b", 1, 2048, 2048, 32, 32, 80, FULL_WINDOW),
+    ("stablelm-3b mesh rank", 1, 4096, 4096, 16, 16, 80, FULL_WINDOW),
+    ("qwen3 mesh rank", 1, 4096, 4096, 16, 2, 64, FULL_WINDOW),
     ("jax gqa", 2, 256, 256, 4, 2, 64, FULL_WINDOW),
     ("jax window", 1, 128, 128, 4, 4, 32, 64),
     ("jax cross-length", 2, 128, 384, 8, 2, 64, FULL_WINDOW),
@@ -4797,10 +4837,11 @@ def recording_routes(into: list):
     from repro_torch.nn import moe
     sound = moe.moe_ffn
 
-    def recorded(params, x, *, top_k, capacity_factor=1.25):
+    def recorded(params, x, *, top_k, capacity_factor=1.25, **kw):
         into.append(moe.route(x.reshape(-1, x.shape[-1]), params["router"],
                               top_k)[1])
-        return sound(params, x, top_k=top_k, capacity_factor=capacity_factor)
+        return sound(params, x, top_k=top_k, capacity_factor=capacity_factor,
+                     **kw)
     moe.moe_ffn = recorded
     try:
         yield
@@ -6243,9 +6284,9 @@ def traced_spans():
                 return fn(*args, **kw)
         return run
 
-    def xent(h, labels, w_head, chunk):
+    def xent(h, labels, w_head, chunk, **kw):
         with record_function("xent"):
-            out = sound[1](h, labels, w_head, chunk)
+            out = sound[1](h, labels, w_head, chunk, **kw)
         span_backward(out, {h.grad_fn, w_head.grad_fn}, "xent")
         return out
     ops.attention_vjp = spanned("attention recompute", sound[0])
@@ -6609,6 +6650,761 @@ def lm_train_phases() -> tuple:
               b_launches["flash_attention"],
               serve_shape: s_launches["flash_attention"]}
     return [a_launches, b_launches, s_launches], shapes, gap
+
+
+# ----------------------------------------------------------------------
+# the LM mesh phase: LM training on a (data, model) mesh of gloo ranks
+# sharing the card
+# ----------------------------------------------------------------------
+
+LMM_MESH = (2, 2)                      # (data, model): 4 gloo ranks, one card
+LMM_ARCH = "stablelm-3b"
+# 4 ranks' state and activations at all 32 layers overflowed the card's
+# 80 GB in the first step, and a step's time grows with its layers'
+# host-staged gloo collectives: the depth is cut for memory and time,
+# the width kept (the whole script read 1,015.8 s of its 1,200 s at 16
+# layers; H100 80GB HBM3 at 700 W)
+LMM_LAYERS = 8
+LMM_BATCH = 2                          # train_4k's sequence, one a data rank
+LMM_STEPS = 2                          # a step, then a traced one
+LMM_CHECK_LAYERS = 2                   # stablelm-3b's float32 check's depth
+QW_CHECK_LAYERS = 1                    # qwen3's (its 128 experts in float32)
+LMM_SAMPLES = 4096                     # elements held a leaf
+LMM_TOL = 1e-5                         # the CPU tests' bar (float32)
+# bf16 activations: row-parallel partials rounded to bf16 before their
+# float32 sum, where one device rounds each product once
+LMM_BF16_LOSS_TOL = 2e-3
+# the resume's depth: two layers, so that a restore that swaps or
+# repeats layers of a stack cannot match
+LMM_RESUME_LAYERS = 2
+QW_ARCH = "qwen3-moe-30b-a3b"
+QW_LAYERS = 1                          # for the whole run's time
+FFN_MESH = (1, 3)                      # 128 experts % 3 != 0: the ffn strategy
+FFN_TOKENS = 4096
+LMM_TIMEOUT = 900.0
+
+
+def lmm_index(path: str, shape) -> "np.ndarray":
+    """LMM_SAMPLES flat indices of a leaf of ``shape`` (every index of a
+    smaller one), drawn from a seed of the leaf's path."""
+    import zlib
+    import numpy as np
+    n = math.prod(shape)
+    if n <= LMM_SAMPLES:
+        return np.arange(n)
+    rng = np.random.default_rng(zlib.crc32(path.encode()))
+    return np.sort(rng.choice(n, LMM_SAMPLES, replace=False))
+
+
+def lmm_block(spec, shape, mesh) -> tuple:
+    """(start, size) per dim of a rank's block of a leaf of ``shape``
+    under ``spec`` (``mesh`` None: the whole leaf)."""
+    out = []
+    for dim, axes in enumerate(spec):
+        if axes is None or mesh is None:
+            out.append((0, shape[dim]))
+            continue
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        n, i = 1, 0
+        for a in axes:
+            n *= mesh.shape[a]
+            i = i * mesh.shape[a] + mesh.axis_index(a)
+        out.append((i * (shape[dim] // n), shape[dim] // n))
+    return out
+
+
+def lmm_samples(leaves, paths, whole_shapes, specs, mesh) -> dict:
+    """{path: (mask, values)} of each leaf (this rank's block under its
+    spec) at its ``lmm_index`` elements: which of them the block holds,
+    and their values as float32 on the host."""
+    import numpy as np
+    import torch
+    out = {}
+    for t, path, shape, spec in zip(leaves, paths, whole_shapes, specs,
+                                    strict=True):
+        idx = lmm_index(path, shape)
+        spec = (None,) * len(shape) if spec is None else tuple(spec)
+        blk = lmm_block(spec, shape, mesh)
+        multi = np.unravel_index(idx, shape)
+        mask = np.ones(len(idx), bool)
+        for (start, size), m in zip(blk, multi):
+            mask &= (m >= start) & (m < start + size)
+        local = np.ravel_multi_index(
+            [m[mask] - start for (start, _), m in zip(blk, multi)],
+            [size for _, size in blk]) if len(shape) else np.zeros(
+                int(mask.sum()), np.int64)
+        vals = t.detach().reshape(-1)[torch.from_numpy(local).to(t.device)]
+        out[path] = (mask, vals.float().cpu().numpy())
+    return out
+
+
+def lmm_merge(ranks: list, key: str) -> dict:
+    """The ranks' ``lmm_samples`` of ``key`` merged: {path: values}, every
+    sampled element from a rank whose block holds it."""
+    import numpy as np
+    merged = {}
+    for r in ranks:
+        for path, (mask, vals) in r[key].items():
+            if path not in merged:
+                merged[path] = (np.zeros(len(mask), bool),
+                                np.zeros(len(mask), np.float32))
+            have, out = merged[path]
+            out[mask] = vals
+            have |= mask
+    for path, (have, _) in merged.items():
+        need(bool(have.all()), f"{key}: the ranks' blocks cover every "
+             f"sampled element of {path}")
+    return {path: out for path, (_, out) in merged.items()}
+
+
+def lmm_gap(got: dict, want: dict, tiny: dict = None, travel: float = 0.0,
+            leaf_scale: bool = False) -> float:
+    """The largest |got - want| over every sampled leaf as a multiple of
+    its bar ``LMM_TOL + LMM_TOL·|want|`` (so <= 1 passes); with
+    ``leaf_scale`` the bar's relative part is of the leaf's largest
+    |want|, for sums over thousands of tokens, whose rounding follows the
+    terms' size, not the sum's; elements whose first-step gradient is
+    tiny (``tiny``) barred at ``travel`` instead (adam moves them by
+    about lr whatever their gradient's size)."""
+    import numpy as np
+    worst = 0.0
+    need(set(got) == set(want), "the same sampled leaves")
+    for path in want:
+        g, w = got[path].astype(np.float64), want[path].astype(np.float64)
+        bar = LMM_TOL + LMM_TOL * (np.abs(w).max() if leaf_scale
+                                   else np.abs(w))
+        if tiny is not None:
+            bar = np.where(tiny[path], travel, bar)
+        worst = max(worst, float((np.abs(g - w) / bar).max()))
+    return worst
+
+
+def lmm_specs(cell) -> tuple:
+    """(paths, whole shapes, param specs, moment specs) of a cell's
+    leaves, in ``tree_leaves`` order."""
+    from repro_torch.launch.cells import _tree_paths
+    from repro_torch.sharding.rules import spec_leaves, whole_like
+    from repro_torch.core.schemes.base import tree_leaves
+    whole = whole_like(cell.state.params, cell.specs.params, cell.mesh)
+    return ([p for p, _ in _tree_paths(cell.specs.params)],
+            [tuple(t.shape) for t in tree_leaves(whole)],
+            spec_leaves(cell.specs.params),
+            spec_leaves(cell.specs.opt_state["m"]))
+
+
+@contextlib.contextmanager
+def grouped_moe(data_n: int, model_n: int, counts: list = None):
+    """Within the block, ``nn/moe.py::moe_ffn`` on one device computes
+    ``moe_ffn_sharded`` on a (data_n, model_n) mesh
+    (``moe_ffn_grouped``, its plain version).  ``counts`` collects
+    (pairs, kept, most pairs an expert got) a token group."""
+    import torch
+    from repro_torch.nn import moe
+    single = moe.moe_ffn
+
+    def twin(params, x, *, top_k, capacity_factor=1.25, mesh=None,
+             model_axis="model"):
+        e = params["router"].shape[-1]
+        if counts is not None:
+            b, s, d = x.shape
+            seq_n = model_n if moe.expert_parallel(e, model_n) else 1
+            bl, sl = b // data_n, s // seq_n
+            cap = moe.capacity(bl * sl, e, top_k, capacity_factor)
+            with torch.no_grad():
+                for di in range(data_n):
+                    for mi in range(seq_n):
+                        xg = x[di * bl:(di + 1) * bl,
+                               mi * sl:(mi + 1) * sl].reshape(-1, d)
+                        _, gate_i, _ = moe.route(xg, params["router"], top_k)
+                        flat = gate_i.reshape(-1)
+                        _, keep = moe.slots(flat, e, cap)
+                        counts.append((flat.numel(), int(keep.sum()), int(
+                            torch.bincount(flat, minlength=e).max())))
+        return moe.moe_ffn_grouped(params, x, top_k=top_k,
+                                   capacity_factor=capacity_factor,
+                                   data_n=data_n, model_n=model_n)
+
+    moe.moe_ffn = twin
+    try:
+        yield
+    finally:
+        moe.moe_ffn = single
+
+
+def no_drop_factor(counts: list, e: int, top_k: int, tokens: int) -> float:
+    """The least capacity factor whose ``capacity(tokens, ...)`` holds the
+    most pairs any expert got in ``counts``."""
+    most = max(c[2] for c in counts)
+    return most * e / (tokens * top_k)
+
+
+def lmm_configs(plan: dict) -> dict:
+    """The phase's configs: stablelm-3b's ``CONFIG`` with FSDP (bf16
+    activations) at LMM_LAYERS and its float32 check at
+    LMM_CHECK_LAYERS; qwen3's
+    ``CONFIG`` at QW_LAYERS with ``moe_shard_map`` and its float32
+    check at QW_CHECK_LAYERS and a capacity where nothing drops
+    (``plan["qw_factor"]``)."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    _, st = get_arch(LMM_ARCH, smoke=False)
+    _, qw = get_arch(QW_ARCH, smoke=False)
+    st = dataclasses.replace(st, fsdp_params=True)
+    qw = dataclasses.replace(qw, num_layers=QW_LAYERS, moe_shard_map=True)
+    f32 = dict(dtype="float32", param_dtype="float32")
+    return {"stablelm": dataclasses.replace(st, num_layers=min(
+                LMM_LAYERS, st.num_layers)),
+            "stablelm_check": dataclasses.replace(
+                st, num_layers=LMM_CHECK_LAYERS, **f32),
+            "qwen3": qw,
+            "qwen3_check": dataclasses.replace(
+                qw, num_layers=QW_CHECK_LAYERS,
+                moe_capacity_factor=plan.get("qw_factor", 16.0), **f32)}
+
+
+def lmm_one_device(cfg, batch: dict, update: bool, twin=None) -> dict:
+    """One device's first step of ``cfg`` from the cell's params (a
+    generator seeded 0 on the card): its loss, sampled gradients and,
+    with ``update``, sampled params after the cell's adamw step;
+    ``twin`` wraps the forward (the grouped MoE)."""
+    import functools
+    import torch
+    from repro_torch.core.schemes.base import tree_leaves
+    from repro_torch.launch.cells import _tree_paths
+    from repro_torch.models import lm
+    from repro_torch.train.optimizer import (OptimizerConfig, TrainState,
+                                             apply_updates, loss_grads)
+    params = lm.model_init(torch.Generator(device="cuda").manual_seed(0),
+                           cfg)
+    paths = [p for p, _ in _tree_paths(params)]
+    shapes = [tuple(t.shape) for t in tree_leaves(params)]
+    with twin or contextlib.nullcontext():
+        grads, metrics = loss_grads(functools.partial(lm.loss_fn, cfg=cfg),
+                                    params, batch)
+    out = {"loss": float(metrics["loss"]),
+           "grads": {k: v[1] for k, v in lmm_samples(
+               tree_leaves(grads), paths, shapes, [None] * len(paths),
+               None).items()}}
+    if update:
+        state = TrainState.create(OptimizerConfig(kind="adamw", lr=3e-4,
+                                                  grad_clip=1.0), params)
+        apply_updates(OptimizerConfig(kind="adamw", lr=3e-4, grad_clip=1.0),
+                      state.params, grads, state.opt_state)
+        out["params"] = {k: v[1] for k, v in lmm_samples(
+            tree_leaves(state.params), paths, shapes, [None] * len(paths),
+            None).items()}
+        del state
+    del params, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def lmm_cell_step(cell, batch, update: bool) -> dict:
+    """A cell's first step on the global ``batch``: its loss, the sampled
+    blocks of the gradients the update consumes and, with ``update``, of
+    the params after it."""
+    import torch
+    from repro_torch.core.schemes.base import tree_leaves
+    from repro_torch.train.loop import on_device
+    paths, shapes, p_specs, m_specs = lmm_specs(cell)
+    lb = on_device(cell.local_batch(batch), cell.mesh.device)
+    acc, metrics = cell.accumulate(cell.state, lb)
+    out = {"loss": float(metrics["loss"]),
+           "grads": lmm_samples(acc, paths, shapes, m_specs, cell.mesh)}
+    if update:
+        state = cell.update(cell.state, acc)
+        out["params"] = lmm_samples(tree_leaves(state.params), paths, shapes,
+                                    p_specs, cell.mesh)
+    del acc
+    torch.cuda.synchronize()
+    return out
+
+
+def lmm_timed_steps(cell, batch, steps: int) -> dict:
+    """``steps`` steps of a cell on the global ``batch``, the last traced:
+    the mesh's collectives counted and timed, the device synchronised
+    around each.  Losses, step ms, the traced step's collectives (count,
+    bytes a rank, seconds), peak device memory."""
+    import torch
+    from repro_torch.sharding.collectives import CommStats
+    from repro_torch.train.loop import on_device
+    lb = on_device(cell.local_batch(batch), cell.mesh.device)
+    state, losses, ms = cell.state, [], []
+    torch.cuda.reset_peak_memory_stats()
+    for s in range(steps):
+        if s == steps - 1:
+            cell.mesh.stats = CommStats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = cell.step(state, lb)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        losses.append(float(m["loss"]))
+    stats, cell.mesh.stats = cell.mesh.stats, None
+    cell.state = state
+    return {"losses": losses, "ms": ms, "comm": dataclasses.astuple(stats),
+            "peak": torch.cuda.max_memory_allocated()}
+
+
+def lmm_export_serve(cell, out: dict) -> None:
+    """The trained token table gathered over model, exported on rank 0
+    (``dpq_assign``) and a batch of its ids served (``mgqe_decode``):
+    codes held to the plain assignment, rows bit-identical to the plain
+    decode of the codes."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import Embedding
+    from repro_torch.core.mgqe import k_limit_for_all_rows
+    from repro_torch.sharding.collectives import all_gather
+    p = cell.state.params["embed"]
+    whole = all_gather(p["emb"], cell.mesh, "model")
+    if dist.get_rank() != 0:
+        return
+    ecfg = cell.cfg.embedding
+    emb = Embedding(ecfg, device=cell.mesh.device)
+    art = emb.export({"emb": whole, "centroids": p["centroids"]})
+    ids = torch.arange(0, ecfg.vocab_size, 7, device=whole.device)
+    rows = emb.serve(art, ids)
+    codes = art["codes"].long()[ids]
+    cent = art["centroids"]
+    plain = torch.cat([cent[d][codes[:, d]] for d in range(cent.shape[0])],
+                      dim=-1)
+    n = min(ASSIGN_BATCH, ecfg.vocab_size)
+    e = whole[:n].reshape(n, ecfg.num_subspaces, -1)
+    lim = k_limit_for_all_rows(ecfg, "cuda")[:n]
+    got = art["codes"][:n].to(torch.int32)
+    want = blocked_assign_ref_lim(e, cent, lim)
+    out["export"] = {"rows_equal": bool(torch.equal(bits(rows.float()),
+                                                    bits(plain.float()))),
+                     "gap": assign_gap(e, cent, lim, got, want),
+                     "differ": int((got != want).sum()), "rows": len(ids)}
+    del whole, art, rows, plain
+
+
+def lmm_rank(rank, plan) -> dict:
+    """One rank of the LM mesh phase (a gloo process on the card); see
+    ``lm_mesh_phase``."""
+    import io
+    import torch
+    from repro_torch.core.schemes.base import tree_leaves
+    from repro_torch.launch import train as train_cli
+    from repro_torch.launch.cells import lm_train_cell
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.train.resilience import SimulatedFailure
+    mesh = make_debug_mesh(*LMM_MESH)
+    need(mesh.device == torch.device("cuda", 0), "every rank on cuda:0")
+    counters = reset_counts()
+    cfgs = lmm_configs(plan)
+    batches = {name: {k: torch.from_numpy(v) for k, v in b.items()}
+               for name, b in plan["batches"].items()}
+    out = {"coords": (mesh.axis_index("data"), mesh.axis_index("model"))}
+    t0 = time.perf_counter()
+    for name in ("stablelm_check", "qwen3_check"):
+        torch.cuda.reset_peak_memory_stats()
+        cell = lm_train_cell(cfgs[name], mesh)
+        out[name] = lmm_cell_step(cell, batches[name.split("_")[0]],
+                                  update=name.startswith("st"))
+        out[name]["peak"] = torch.cuda.max_memory_allocated()
+        del cell
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["t_check"] = time.perf_counter() - t0
+    for name in ("stablelm", "qwen3"):
+        t0 = time.perf_counter()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        cell = lm_train_cell(cfgs[name], mesh)
+        torch.cuda.synchronize()
+        run = {"t_init": time.perf_counter() - t0,
+               "state_bytes": torch.cuda.memory_allocated() - before}
+        run.update(lmm_timed_steps(cell, batches[name], LMM_STEPS))
+        run["peak"] -= before
+        if name == "stablelm":
+            lmm_export_serve(cell, run)
+        out[name] = run
+        del cell
+        gc.collect()
+        torch.cuda.empty_cache()
+    # fail in the second step (index 1) with a checkpoint at step 1,
+    # resume; an uninterrupted run beside it
+    t0 = time.perf_counter()
+    kw = dict(smoke=False, steps=2, batch=LMM_BATCH, seq=lm_train_seq(),
+              log_every=1, mesh=mesh,
+              overrides={"num_layers": LMM_RESUME_LAYERS,
+                         "fsdp_params": True})
+    with contextlib.redirect_stdout(io.StringIO()):
+        try:
+            train_cli.train(LMM_ARCH, ckpt_dir=plan["ckpt"], ckpt_every=1,
+                            fail_at=1, **kw)
+            failed = False
+        except SimulatedFailure:
+            failed = True
+        resumed = train_cli.train(LMM_ARCH, ckpt_dir=plan["ckpt"], **kw)
+        whole = train_cli.train(LMM_ARCH, **kw)
+    out["resume"] = {
+        "failed": failed, "steps": [h["step"] for h in resumed.history],
+        "losses": [h["loss"] for h in resumed.history],
+        "whole": [h["loss"] for h in whole.history],
+        "same": all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(resumed.state.params)
+            + tree_leaves(resumed.state.opt_state),
+            tree_leaves(whole.state.params)
+            + tree_leaves(whole.state.opt_state), strict=True)),
+        "seconds": time.perf_counter() - t0}
+    del resumed, whole
+    out["launches"] = {k: fn.launches for k, fn in counters.items()}
+    return out
+
+
+def ffn_inputs() -> tuple:
+    """One qwen3 MoE layer at full width (d_model 2,048, d_ff 768, 128
+    experts), float32, and FFN_TOKENS tokens of x, drawn on the card
+    from fixed seeds."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.nn import moe
+    _, cfg = get_arch(QW_ARCH, smoke=False)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    params = moe.moe_init(gen, cfg.d_model, cfg.d_ff, cfg.num_experts)
+    x = torch.randn((1, FFN_TOKENS, cfg.d_model), generator=gen,
+                    device="cuda")
+    return params, x, cfg.num_experts_per_tok
+
+
+FFN_SPECS = {"router": (None, None), "w_gate": (None, None, "model"),
+             "w_up": (None, None, "model"), "w_down": (None, "model", None)}
+
+
+def ffn_loss_samples(params: dict, x, out, aux, grads, mesh) -> dict:
+    """The ffn check's loss and the samples of its output, the weights'
+    gradients (blocks under FFN_SPECS) and x's gradient."""
+    names = sorted(params)
+    whole = {"router": (x.shape[-1], params["router"].shape[-1])}
+    e, d = params["router"].shape[1], x.shape[-1]
+    f = params["w_down"].shape[1] * (1 if mesh is None else
+                                     mesh.shape["model"])
+    whole.update({"w_gate": (e, d, f), "w_up": (e, d, f),
+                  "w_down": (e, f, d)})
+    g = dict(zip(names + ["x"], grads))
+    return {"aux": float(aux), "out": lmm_samples(
+        [out], ["out"], [tuple(out.shape)], [None], None),
+        "grads": lmm_samples(
+            [g[k] for k in names] + [g["x"]], names + ["x"],
+            [whole[k] for k in names] + [tuple(x.shape)],
+            [FFN_SPECS[k] if mesh is not None else None for k in names]
+            + [None], mesh)}
+
+
+def ffn_forward_backward(params: dict, x, top_k: int, factor: float,
+                         mesh=None) -> dict:
+    """``moe_ffn_sharded`` on ``mesh`` (``moe_ffn`` without one) at
+    ``factor``: the loss sum(out * cos(out)) + aux and its gradients,
+    sampled."""
+    import torch
+    from repro_torch.nn import moe
+    for t in params.values():
+        t.requires_grad_(True)
+    x.requires_grad_(True)
+    kw = dict(top_k=top_k, capacity_factor=factor)
+    out, aux = (moe.moe_ffn(params, x, **kw) if mesh is None else
+                moe.moe_ffn_sharded(params, x, mesh=mesh, **kw))
+    loss = torch.sum(out * torch.cos(out)) + aux
+    names = sorted(params)
+    grads = torch.autograd.grad(loss, [params[k] for k in names] + [x])
+    res = ffn_loss_samples(params, x, out.detach(), aux.detach(), grads,
+                           mesh)
+    res["loss"] = float(loss.detach())
+    return res
+
+
+def ffn_rank(rank, plan) -> dict:
+    """One rank of the ffn strategy's check: a (data=1, model=3) mesh of
+    gloo ranks on the card, the layer's d_ff split over model."""
+    import torch
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.nn import moe
+    mesh = Mesh(FFN_MESH, ("data", "model"))
+    counters = reset_counts()
+    params, x, top_k = ffn_inputs()
+    need(not moe.expert_parallel(params["router"].shape[1],
+                                 mesh.shape["model"]),
+         "128 experts over model = 3 take the ffn strategy")
+    m, n = mesh.axis_index("model"), mesh.shape["model"]
+    f = params["w_gate"].shape[-1] // n
+    local = {"router": params["router"],
+             "w_gate": params["w_gate"][..., m * f:(m + 1) * f].clone(),
+             "w_up": params["w_up"][..., m * f:(m + 1) * f].clone(),
+             "w_down": params["w_down"][:, m * f:(m + 1) * f].clone()}
+    del params
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = ffn_forward_backward(local, x, top_k, plan["ffn_factor"], mesh)
+    torch.cuda.synchronize()
+    res["seconds"] = time.perf_counter() - t0
+    res["coords"] = (0, m)
+    res["launches"] = {k: fn.launches for k, fn in counters.items()}
+    return res
+
+
+def lmm_nccl_rank(rank, plan) -> dict:
+    """One NCCL rank on the card: stablelm-3b's float32 check (FSDP on,
+    LMM_CHECK_LAYERS layers) one step through ``lm_train_cell`` on a
+    (1, 1) mesh."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.cells import lm_train_cell
+    from repro_torch.launch.mesh import make_debug_mesh
+    mesh = make_debug_mesh(1, 1)
+    need(dist.get_backend() == "nccl", "the group runs on NCCL")
+    counters = reset_counts()
+    cell = lm_train_cell(lmm_configs(plan)["stablelm_check"], mesh)
+    batch = {k: torch.from_numpy(v)
+             for k, v in plan["batches"]["stablelm"].items()}
+    res = lmm_cell_step(cell, batch, update=True)
+    res["launches"] = {k: fn.launches for k, fn in counters.items()}
+    return res
+
+
+def lm_mesh_phase(card: str) -> tuple:
+    """The LM mesh phase (see the module docstring): one device's
+    references in this process, one NCCL rank, 4 gloo ranks on the card
+    as a (data=2, model=2) mesh (``lmm_rank``) and 3 as a (1, 3) mesh
+    (``ffn_rank``).  Counts set to 0 just before the ranks, read just
+    after, the ranks' summed.  Returns (launches, flash_attention's
+    (shape -> launches))."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.launch.train import lm_stream
+    from repro_torch.train import checkpoint as ckpt_lib
+    from repro_torch.train.loop import on_device
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    seq = lm_train_seq()
+    plan = {}
+    cfgs = lmm_configs(plan)
+    plan["batches"] = {name: {k: v.numpy() for k, v in next(lm_stream(
+        cfgs[name], LMM_BATCH, seq)).items()} for name in ("stablelm",
+                                                            "qwen3")}
+    dev = {name: on_device({k: torch.from_numpy(v) for k, v in b.items()},
+                           "cuda") for name, b in plan["batches"].items()}
+    # ------------------------------------ one device: the references
+    e, k = cfgs["qwen3"].num_experts, cfgs["qwen3"].num_experts_per_tok
+    group = LMM_BATCH // LMM_MESH[0] * seq // LMM_MESH[1]
+    counts = []
+    from repro_torch.models import lm
+    with torch.no_grad(), grouped_moe(*LMM_MESH, counts):
+        lm.forward(lm.model_init(torch.Generator(device="cuda")
+                                 .manual_seed(0), cfgs["qwen3"]),
+                   dev["qwen3"]["tokens"],
+                   dataclasses.replace(cfgs["qwen3"], moe_shard_map=False,
+                                       moe_capacity_factor=1.25))
+    dropped = 1 - sum(c[1] for c in counts) / sum(c[0] for c in counts)
+    counts = []
+    with torch.no_grad(), grouped_moe(*LMM_MESH, counts):
+        check = dataclasses.replace(cfgs["qwen3_check"],
+                                    moe_shard_map=False,
+                                    moe_capacity_factor=e / k)
+        lm.forward(lm.model_init(torch.Generator(device="cuda")
+                                 .manual_seed(0), check),
+                   dev["qwen3"]["tokens"], check)
+    plan["qw_factor"] = no_drop_factor(counts, e, k, group)
+    cfgs = lmm_configs(plan)
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts = []
+    ref = {"qwen3_check": lmm_one_device(
+        dataclasses.replace(cfgs["qwen3_check"], moe_shard_map=False),
+        dev["qwen3"], update=False, twin=grouped_moe(*LMM_MESH, counts))}
+    need(all(c[0] == c[1] for c in counts), "qwen3's check drops nothing "
+         f"at capacity factor {plan['qw_factor']:.4f}")
+    ref["stablelm_check"] = lmm_one_device(cfgs["stablelm_check"],
+                                           dev["stablelm"], update=True)
+    ref["stablelm"] = lmm_one_device(cfgs["stablelm"], dev["stablelm"],
+                                     update=False)
+    params, x, top_k = ffn_inputs()
+    with torch.no_grad():
+        from repro_torch.nn import moe
+        _, gate_i, _ = moe.route(x.reshape(-1, x.shape[-1]),
+                                 params["router"], top_k)
+        most = int(torch.bincount(gate_i.reshape(-1),
+                                  minlength=params["router"].shape[1]).max())
+    plan["ffn_factor"] = most * params["router"].shape[1] / (FFN_TOKENS
+                                                             * top_k)
+    ref["ffn"] = ffn_forward_backward(params, x, top_k, plan["ffn_factor"])
+    del params, x, dev
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_ref = time.perf_counter() - t_phase
+    log(f"lm mesh: one device's references {t_ref:.1f}s; this process "
+        f"holds {torch.cuda.memory_allocated() / 2**30:.3f} GiB "
+        f"({torch.cuda.memory_reserved() / 2**30:.3f} reserved) before the "
+        f"ranks start")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_lm_mesh_")
+    plan["ckpt"] = os.path.join(tmp, "ckpt")
+    counters = reset_counts()
+    try:
+        t0 = time.perf_counter()
+        (nccl,) = spawn(lmm_nccl_rank, 1, backend="nccl", device="cuda:0",
+                        args=(plan,), store_dir=tmp, timeout_s=LMM_TIMEOUT)
+        t_nccl = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ranks = spawn(lmm_rank, LMM_MESH[0] * LMM_MESH[1], backend="gloo",
+                      device="cuda:0", args=(plan,), store_dir=tmp,
+                      timeout_s=LMM_TIMEOUT)
+        t_ranks = time.perf_counter() - t0
+        ckpt_steps = ckpt_lib.list_steps(plan["ckpt"])
+        t0 = time.perf_counter()
+        ffn = spawn(ffn_rank, FFN_MESH[1], backend="gloo", device="cuda:0",
+                    args=(plan,), store_dir=tmp, timeout_s=LMM_TIMEOUT)
+        t_ffn = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    for r in [nccl] + ranks + ffn:
+        for name, v in r["launches"].items():
+            launches[name] += v
+
+    # ------------------------------------------------------- the bars
+    lr, steps = 3e-4, 1
+    for name in ("stablelm_check", "qwen3_check"):
+        got = {k: v for k, v in lmm_merge([r[name] for r in ranks],
+                                          "grads").items()}
+        gap = lmm_gap(got, ref[name]["grads"])
+        loss_gap = abs(ranks[0][name]["loss"] - ref[name]["loss"])
+        line = (f"lm mesh {name}: loss {ranks[0][name]['loss']:.7f} vs one "
+                f"device {ref[name]['loss']:.7f} (gap {loss_gap:.3g}); the "
+                f"gradients at {LMM_SAMPLES} elements a leaf within "
+                f"{gap:.3g} of the bar {LMM_TOL} + {LMM_TOL}|g|")
+        need(loss_gap <= LMM_TOL + LMM_TOL * abs(ref[name]["loss"]),
+             f"{name}: the mesh's loss within {LMM_TOL} of one device's")
+        need(gap <= 1.0, f"{name}: every sampled gradient within the bar")
+        if "params" in ref[name]:
+            tiny = {p: np.abs(v) < 1e-6
+                    for p, v in ref[name]["grads"].items()}
+            pgap = lmm_gap(lmm_merge([r[name] for r in ranks], "params"),
+                           ref[name]["params"], tiny, 2 * lr * steps)
+            line += (f"; params after the adamw step within {pgap:.3g} of "
+                     f"the bar ({sum(int(t.sum()) for t in tiny.values())} "
+                     f"elements of first-step |g| < 1e-6 barred at 2 lr)")
+            need(pgap <= 1.0, f"{name}: every sampled param within the bar")
+        log(line + f" [{card}]")
+    # NCCL (1, 1): the one-device route, bit for bit
+    same = nccl["loss"] == ref["stablelm_check"]["loss"] and all(
+        np.array_equal(nccl[key][p][1], ref["stablelm_check"][key][p])
+        for key in ("grads", "params") for p in ref["stablelm_check"][key])
+    need(same, "NCCL (1, 1): stablelm-3b's loss, gradients and params "
+         "bit-identical to one device's")
+    # stablelm-3b and qwen3 at CONFIG on the mesh
+    st, qw = ranks[0]["stablelm"], ranks[0]["qwen3"]
+    for r in ranks:
+        for name in ("stablelm", "qwen3"):
+            need(r[name]["losses"] == ranks[0][name]["losses"],
+                 f"{name}: every rank reports the same global losses")
+            need(all(math.isfinite(x) for x in r[name]["losses"]),
+                 f"{name}: finite losses")
+    st_gap = abs(st["losses"][0] - ref["stablelm"]["loss"])
+    need(st_gap <= LMM_BF16_LOSS_TOL, f"stablelm-3b on the mesh: the first "
+         f"loss within {LMM_BF16_LOSS_TOL} of one device's")
+    for name, cfg in (("stablelm", cfgs["stablelm"]), ("qwen3", cfgs["qwen3"])):
+        need(abs(ranks[0][name]["losses"][0] - math.log(cfg.vocab_size))
+             < 1.0, f"{name}: the first loss near ln V")
+    ex = ranks[0]["stablelm"]["export"]
+    need(ex["rows_equal"] and ex["gap"] <= ASSIGN_TOL,
+         "the trained table's export and served rows held to the plain "
+         "versions")
+    res = [r["resume"] for r in ranks]
+    need(all(x["failed"] and x["steps"] == [2] and x["same"]
+             and x["losses"] == x["whole"][1:] for x in res),
+         "the mesh run failed in step 2 resumed bit-identical to an "
+         "uninterrupted one")
+    need(ckpt_steps == [1], "one checkpoint of whole arrays, at step 1")
+    # the ffn strategy on (1, 3)
+    # each weight's gradient sums 4,096 tokens' terms: a partial summed
+    # over d_ff in another order moves an element by rounding of the
+    # terms (the router's, |g| up to ~220, by ~1e-4 on the CPU too)
+    fgap = lmm_gap(lmm_merge(ffn, "grads"), {p: v[1] for p, v in
+                                             ref["ffn"]["grads"].items()},
+                   leaf_scale=True)
+    ogap = lmm_gap(lmm_merge(ffn, "out"), {p: v[1] for p, v in
+                                           ref["ffn"]["out"].items()})
+    need(fgap <= 1.0 and ogap <= 1.0 and abs(ffn[0]["aux"] - ref["ffn"][
+        "aux"]) <= LMM_TOL, "the ffn strategy on (1, 3): outputs, aux and "
+         "gradients within the bar of one device's moe_ffn")
+    want_flash = {"stablelm": 2 * (LMM_CHECK_LAYERS + cfgs["stablelm"]
+                                   .num_layers * LMM_STEPS
+                                   + LMM_RESUME_LAYERS * 5),
+                  "qwen3": 2 * (QW_CHECK_LAYERS + QW_LAYERS * LMM_STEPS)}
+    for r in ranks:
+        need(r["launches"]["flash_attention"] == sum(want_flash.values()),
+             f"flash_attention launched {sum(want_flash.values())} times on "
+             f"every rank ({r['launches']})")
+    need(launches["dpq_assign"] == 1 and launches["mgqe_decode"] == 1,
+         "the trained table exported and served once")
+
+    def comm(run):
+        count, nbytes, secs = run["comm"]
+        return (f"{count} gloo collectives, {nbytes / 1e9:.3f} GB from this "
+                f"rank, {secs * 1e3:.1f} ms of the traced step's "
+                f"{run['ms'][-1]:.1f} ms (compute and launches "
+                f"{run['ms'][-1] - secs * 1e3:.1f} ms)")
+
+    for name, cfg in (("stablelm", cfgs["stablelm"]), ("qwen3", cfgs["qwen3"])):
+        runs = [r[name] for r in ranks]
+        log(f"lm mesh {cfg.name} ({cfg.num_layers} layers, params "
+            f"{cfg.param_dtype}, activations {cfg.dtype}, FSDP "
+            f"{cfg.fsdp_params}, moe_shard_map {cfg.moe_shard_map}) on "
+            f"(data={LMM_MESH[0]}, model={LMM_MESH[1]}), 4 gloo ranks on "
+            f"cuda:0, B={LMM_BATCH} x {seq}: losses {runs[0]['losses']}; "
+            f"step ms by rank {[[round(x, 1) for x in r['ms']] for r in runs]}"
+            f"; init and placement {[round(r['t_init'], 2) for r in runs]} s;"
+            f" state on each rank's device "
+            f"{[round(r['state_bytes'] / 2**30, 3) for r in runs]} GiB, peak "
+            f"above it {[round(r['peak'] / 2**30, 3) for r in runs]} GiB; "
+            f"rank 0's traced step: {comm(runs[0])} [{card}]")
+    log(f"lm mesh stablelm-3b: the first loss on the mesh "
+        f"{st['losses'][0]:.6f} vs one device's {ref['stablelm']['loss']:.6f}"
+        f" (gap {st_gap:.3g}, bar {LMM_BF16_LOSS_TOL}); NCCL (1, 1): the "
+        f"float32 check's step bit-identical to one device (loss, "
+        f"{LMM_SAMPLES} gradient and param elements a leaf); the trained table gathered, exported "
+        f"(codes: {ex['differ']} differ from the plain assignment, gap "
+        f"{ex['gap']:.3g}) and {ex['rows']} ids served bit-identical to the "
+        f"plain decode")
+    log(f"lm mesh qwen3 ({QW_LAYERS} of 48 layers, 128 experts over model "
+        f"= 2, the expert strategy): {dropped:.4%} of (token, choice) pairs "
+        f"dropped at capacity factor 1.25 (one device's grouped twin at "
+        f"init); the float32 check ({QW_CHECK_LAYERS} layer) at factor "
+        f"{plan['qw_factor']:.4f}, where nothing drops; peak above the "
+        f"ranks' start in the checks "
+        f"{[round(r['qwen3_check']['peak'] / 2**30, 3) for r in ranks]} GiB;"
+        f" the ffn strategy (one layer, 128 experts over "
+        f"model = 3, d_ff 768 -> 256 a rank, {FFN_TOKENS} tokens) at factor "
+        f"{plan['ffn_factor']:.4f}: outputs within {ogap:.3g} of the bar, "
+        f"gradients within {fgap:.3g} of it at each leaf's scale, aux {ffn[0]['aux']:.7f} vs "
+        f"{ref['ffn']['aux']:.7f}, forward and backward "
+        f"{[round(r['seconds'], 3) for r in ffn]} s a rank [{card}]")
+    log(f"lm mesh resume (stablelm-3b at {LMM_RESUME_LAYERS} layers, FSDP, "
+        f"ZeRO-1): failed in step 2, resumed from the step-1 checkpoint of "
+        f"whole arrays bit-identical to the uninterrupted run, "
+        f"{res[0]['seconds']:.1f} s for the three runs")
+    log(f"lm mesh phase {time.perf_counter() - t_phase:.1f}s (one device's "
+        f"references {t_ref:.1f}s, NCCL {t_nccl:.1f}s, 4 ranks "
+        f"{t_ranks:.1f}s, the ffn strategy's 3 ranks {t_ffn:.1f}s); "
+        f"launches {launches}")
+    shapes = {("stablelm-3b mesh rank", 1, seq, 16, 16, 80, FULL_WINDOW):
+              4 * want_flash["stablelm"],
+              ("qwen3 mesh rank", 1, seq, 16, 2, 64, FULL_WINDOW):
+              4 * want_flash["qwen3"],
+              # the NCCL rank's layers are the LM training phase's
+              (f"{cfgs['stablelm'].name} train", LMM_BATCH, seq, 32, 32, 80,
+               FULL_WINDOW): nccl["launches"]["flash_attention"]}
+    need(nccl["launches"]["flash_attention"] == 2 * LMM_CHECK_LAYERS,
+         "the NCCL rank launched flash_attention twice a layer")
+    return launches, shapes
 
 
 # ----------------------------------------------------------------------
@@ -7178,6 +7974,12 @@ def main() -> int:
     log(f"lm training phases {time.perf_counter() - t_train:.1f}s")
     l_launches += train_launches
     flash_shapes.update(train_shapes)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh_launches, mesh_shapes = lm_mesh_phase(card)
+    l_launches.append(mesh_launches)
+    for key, n in mesh_shapes.items():
+        flash_shapes[key] = flash_shapes.get(key, 0) + n
     lm_assign_gap = max(lm_assign_gap, train_gap)
     kernels.append(time_flash(
         flash_err, sum(p["flash_attention"] for p in l_launches),

@@ -261,6 +261,25 @@ def lm_params_from_numpy(params: dict, cfg, device) -> dict:
     return out
 
 
+def lm_state_from_numpy(params: dict, opt_state: dict, cfg, device,
+                        mesh=None, specs=None):
+    """A JAX LM training state — its params and adam(w) state (numpy
+    leaves) — as the port's ``TrainState``: the params through
+    :func:`lm_params_from_numpy`, the state through
+    :func:`opt_state_from_numpy`.  With a ``mesh`` and ``specs`` (a
+    ``TrainState`` of spec trees, ``sharding/rules.py::lm_state_specs``)
+    each leaf is this rank's block on ``mesh.device``, as
+    ``launch/cells.py::lm_train_cell`` places a whole state."""
+    from repro_torch.train.optimizer import TrainState
+    p = lm_params_from_numpy(params, cfg, device)
+    state = TrainState(p, opt_state_from_numpy(opt_state, p, device))
+    if mesh is None:
+        return state
+    from repro_torch.sharding.rules import place
+    return TrainState(place(state.params, specs.params, mesh),
+                      place(state.opt_state, specs.opt_state, mesh))
+
+
 def mace_params_from_numpy(params: dict, model, device) -> dict:
     """The JAX ``MACE`` params (numpy leaves) as the port's, leaf for
     leaf, each float32 leaf checked against ``model``'s config:

@@ -1,19 +1,29 @@
 """The recsys model registry (``RecsysConfig.model`` -> model class),
-the recsys train cell on a mesh, and MACE's FLOP model and shape
-resolution, from the JAX package's ``launch/cells.py``, and the batch
-of a sampled subgraph (``sampled_graph``, the port's own).  The
-dry-run cells (the other sharded train and serve steps, traced with no
-device) wait for the launch slice in ROADMAP.md.
+the recsys and LM train cells on a mesh, the LM config options
+(``LM_CFG_OPTS``), and MACE's FLOP model and shape resolution, from
+the JAX package's ``launch/cells.py``, and the batch of a sampled
+subgraph (``sampled_graph``, the port's own).  The dry-run cells (the
+serve steps on a mesh, traced with no device) wait for the launch
+slice in ROADMAP.md.
+
+Both train cells hold one convention on a mesh: each rank
+backpropagates its data shard's loss weighted B_local/B_global, the
+loss computed redundantly on every rank of ``model``; a gradient that
+comes out as a data shard's share is summed over the data axes, one
+that a collective's backward already summed (a row block read through
+the sharded gather, an FSDP leaf's reduce-scatter) is kept.
 """
 from __future__ import annotations
 
 import dataclasses
+import re
 from typing import Any, Dict, List, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.configs.base import GNNConfig, RecsysConfig, ShapeSpec
+from repro_torch.configs.base import (GNNConfig, LMConfig, RecsysConfig,
+                                      ShapeSpec)
 from repro_torch.data.graph import sampled_subgraph_sizes
 from repro_torch.models.gnn import so3
 from repro_torch.models.recsys.autoint import AutoInt
@@ -169,6 +179,241 @@ def recsys_train_cell(cfg: RecsysConfig, mesh, params=None,
     state = TrainState(placed, opt_init(RECSYS_OPTIMIZER, placed))
     return RecsysTrainCell(model, mesh, state, TrainState(p_spec, o_spec),
                            split, multi_pod)
+
+
+# ======================================================================
+# the LM train cell on a mesh
+# ======================================================================
+
+# the JAX package's named LM options (``_LM_CFG_OPTS``, as
+# ``launch/dryrun.py`` passes them) that place or shard the training state
+LM_CFG_OPTS = {
+    "moe_shard_map": dict(moe_shard_map=True),
+    "fsdp": dict(fsdp_params=True),
+    "kv_repeat": dict(attn_kv_repeat=True),
+}
+
+
+def lm_cfg_with_opts(cfg: LMConfig, opts) -> LMConfig:
+    """``cfg`` with each named option of ``LM_CFG_OPTS`` applied."""
+    for o in opts:
+        if o not in LM_CFG_OPTS:
+            raise ValueError(f"unknown LM opt {o!r}; known: "
+                             f"{', '.join(LM_CFG_OPTS)}")
+        cfg = dataclasses.replace(cfg, **LM_CFG_OPTS[o])
+    return cfg
+
+
+def _tree_paths(tree, path="") -> list:
+    """(path, leaf) of a tree of dicts and lists, in ``tree_leaves``
+    order (dict keys sorted)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in _tree_paths(tree[k], f"{path}/{k}" if path else k)]
+    if isinstance(tree, list):
+        return [x for i, v in enumerate(tree)
+                for x in _tree_paths(v, f"{path}/{i}")]
+    return [(path, tree)]
+
+
+@dataclasses.dataclass
+class LMTrainCell:
+    """One rank's share of an LM trained with adam(w) on a mesh: the JAX
+    package's ``lm_train_cell`` (a ``jax.jit`` step under GSPMD),
+    written out as one rank's explicit step.
+
+    ``state`` is this rank's: the params placed by ``lm_param_rules``,
+    the moments by ZeRO-1 (``specs``, a ``TrainState`` of the spec
+    trees).  ``reduced`` marks the param leaves whose gradient is a data
+    shard's share, summed over the data axes; the others (FSDP leaves,
+    the embedding's row blocks) come out of the backward whole."""
+
+    cfg: LMConfig
+    mesh: Any
+    state: Any
+    specs: Any
+    reduced: List[bool]
+    optimizer: Any
+    microbatches: int = 1
+
+    @property
+    def data_axes(self) -> tuple:
+        from repro_torch.sharding.gather import data_axes_of
+        return data_axes_of(self.mesh, "model")
+
+    @property
+    def data_shards(self) -> int:
+        from repro_torch.sharding.gather import data_shards
+        return data_shards(self.mesh, "model")
+
+    def local_batch(self, batch: Dict) -> Dict:
+        """This rank's rows of a global batch (every rank draws the same
+        stream): with one microbatch its block under ``lm_batch_spec``;
+        with ``m`` that block of each of the global batch's ``m`` row
+        blocks, in order (microbatch i is global rows i·B/m onward, as
+        the JAX cell splits it).  A batch that does not divide over the
+        data axes raises: that is the JAX cell's sequence-parallel B = 1
+        branch (``long_500k``), not ported."""
+        from repro_torch.sharding.rules import lm_batch_spec, named
+        m, n = self.microbatches, self.data_shards
+        b = batch["tokens"].shape[0]
+        if b % (m * n):
+            raise ValueError(
+                f"a global batch of {b} rows does not divide into "
+                f"{m} microbatch(es) over {n} data shard(s) (mesh "
+                f"{self.mesh.shape}); a batch smaller than the data axes "
+                f"takes the sequence-parallel branch of the JAX cell "
+                f"(long_500k, ROADMAP.md §1 item 9), not ported")
+        specs = named(self.mesh, lm_batch_spec("pod" in self.mesh.shape))
+        return {k: torch.cat([specs[k].block(v.reshape(
+            (m, b // m) + v.shape[1:])[i]) for i in range(m)])
+            for k, v in batch.items()}
+
+    def grads(self, state, batch: Dict) -> Tuple[Any, Dict]:
+        """This rank's share of the batch's gradients and metrics, before
+        any reduction: autograd of ``loss_local · B_local / B_global``
+        (the row gather's and the FSDP gathers' backward sum the data
+        shards' cotangents, so a rank that backpropagated its local mean
+        would hand them ``data_shards`` times their gradient)."""
+        from repro_torch.models import lm
+        from repro_torch.train.optimizer import loss_grads
+        w = 1.0 / self.data_shards
+
+        def weighted(params, batch):
+            loss, metrics = lm.loss_fn(params, batch, self.cfg,
+                                       mesh=self.mesh)
+            return loss * w, {k: v * w for k, v in metrics.items()}
+
+        return loss_grads(weighted, state.params, batch)
+
+    def reduce(self, grads) -> list:
+        """The gradient leaves as the moments are placed: each share that
+        ``reduced`` marks summed over the data axes (a bfloat16 one in
+        float32, rounded once), then each leaf's block under ZeRO-1
+        (``optimizer.zero1_cut``)."""
+        from repro_torch.core.schemes.base import tree_leaves
+        from repro_torch.sharding.collectives import block, psum
+        from repro_torch.sharding.rules import spec_leaves
+        from repro_torch.train.optimizer import zero1_cut
+        out = []
+        for g, red, ps, ms in zip(
+                tree_leaves(grads), self.reduced,
+                spec_leaves(self.specs.params),
+                spec_leaves(self.specs.opt_state["m"]), strict=True):
+            if red and self.data_shards > 1:
+                g = psum(g, self.mesh, self.data_axes)
+            cut = zero1_cut(ps, ms, self.mesh)
+            out.append(g if cut is None else
+                       block(g, self.mesh, cut[1], cut[0]))
+        return out
+
+    def accumulate(self, state, batch: Dict) -> Tuple[list, Dict]:
+        """The step's gradients on this rank's rows ``batch``
+        (:meth:`local_batch`) as the moments are placed, and the global
+        batch's metrics: per microbatch, its gradient shares reduced and
+        cut to the moments' blocks (:meth:`reduce`), accumulated in
+        float32 and divided by the microbatches, as the JAX cell's scan
+        does."""
+        from repro_torch.sharding.collectives import psum
+        m = self.microbatches
+        rows = batch["tokens"].shape[0] // m
+        acc, sums = None, None
+        for i in range(m):
+            part = {k: v[i * rows:(i + 1) * rows] for k, v in batch.items()}
+            grads, metrics = self.grads(state, part)
+            blocks = self.reduce(grads)
+            del grads
+            if m == 1:
+                acc, sums = blocks, metrics
+                break
+            if acc is None:
+                acc = [torch.zeros(g.shape, dtype=torch.float32,
+                                   device=g.device) for g in blocks]
+                sums = {k: torch.zeros_like(v) for k, v in metrics.items()}
+            for a, g in zip(acc, blocks):
+                a.add_(g)
+            sums = {k: sums[k] + v for k, v in metrics.items()}
+        if m > 1:
+            for a in acc:
+                a.div_(m)
+        names = list(sums)
+        flat = psum(torch.stack([sums[k].float() for k in names]),
+                    self.mesh, self.data_axes) / m
+        return acc, {k: flat[i] for i, k in enumerate(names)}
+
+    def update(self, state, grads: list) -> Any:
+        """The optimizer's step on :meth:`accumulate`'s gradients (which
+        it consumes), in place (``apply_updates_zero1``)."""
+        from repro_torch.train.optimizer import (TrainState,
+                                                 apply_updates_zero1)
+        params, opt_state = apply_updates_zero1(
+            self.optimizer, state.params, grads, state.opt_state, self.mesh,
+            self.specs.params, self.specs.opt_state["m"])
+        return TrainState(params, opt_state)
+
+    def step(self, state, batch: Dict) -> Tuple[Any, Dict]:
+        """One optimizer step on this rank's rows ``batch``: its
+        accumulated gradients (:meth:`accumulate`) and one update
+        (:meth:`update`).  The metrics are the global batch's."""
+        grads, metrics = self.accumulate(state, batch)
+        return self.update(state, grads), metrics
+
+
+def lm_train_cell(cfg: LMConfig, mesh, microbatches: int = 1, params=None,
+                  optimizer=None) -> LMTrainCell:
+    """This rank's :class:`LMTrainCell` of ``cfg`` on ``mesh``.
+
+    ``params`` (whole, on any device; default: drawn as
+    ``launch/train.py::lm_setup`` draws them, from a generator seeded 0
+    on the rank's device, each leaf placed as soon as it is drawn) are
+    placed by ``lm_param_rules``, adam's state (zeros) by
+    ``lm_state_specs``; ``convert.lm_state_from_numpy`` places a whole
+    state (a checkpoint restore places one too).  ``optimizer`` defaults
+    to the JAX cell's: adamw at lr 3e-4 with a global-norm clip of 1.0.
+    A split that does not divide, or that cuts heads, raises
+    (``rules.check_lm_leaf``)."""
+    from repro_torch.models import lm
+    from repro_torch.sharding.rules import (NamedSpec, check_lm_leaf,
+                                            leaf_spec, lm_param_rules,
+                                            lm_state_specs, map_with_path,
+                                            split_axes, zip_map)
+    from repro_torch.train.optimizer import OptimizerConfig, TrainState
+    optimizer = optimizer or OptimizerConfig(kind="adamw", lr=3e-4,
+                                             grad_clip=1.0)
+    rules = lm_param_rules(cfg, mesh)
+    whole: Dict[str, torch.Tensor] = {}
+
+    def place_leaf(path, t):
+        spec = leaf_spec(path, t, rules)
+        check_lm_leaf(cfg, mesh, path, t, spec)
+        whole[path] = torch.empty(t.shape, dtype=t.dtype, device="meta")
+        return NamedSpec(mesh, spec).place(t)
+
+    if params is None:
+        placed = lm.model_init(torch.Generator(device=mesh.device)
+                               .manual_seed(0), cfg, place=place_leaf)
+    else:
+        placed = map_with_path(place_leaf, params)
+    template = map_with_path(lambda path, _: whole[path], placed)
+    step = torch.zeros((), dtype=torch.int32)
+    p_spec, o_spec = lm_state_specs(cfg, mesh, template, {
+        "step": step, "m": template, "v": template})
+    def zeros(t, spec):
+        return torch.zeros(NamedSpec(mesh, spec).block(t).shape,
+                           dtype=torch.float32, device=mesh.device)
+
+    opt_state = {"step": step.to(mesh.device),
+                 "m": zip_map(zeros, template, o_spec["m"]),
+                 "v": zip_map(zeros, template, o_spec["v"])}
+    # a data shard's share, unless FSDP cut it over data or it is a row
+    # block the sharded gather read
+    reduced = [not ("data" in split_axes(spec, mesh) or (
+        re.fullmatch(r"embed/(emb|u)", path) is not None
+        and "model" in split_axes(spec, mesh)))
+        for path, spec in _tree_paths(p_spec)]
+    return LMTrainCell(cfg, mesh, TrainState(placed, opt_state),
+                       TrainState(p_spec, o_spec), reduced, optimizer,
+                       microbatches)
 
 
 # ======================================================================

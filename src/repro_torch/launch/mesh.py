@@ -80,6 +80,9 @@ class Mesh:
         device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
         self.device_mesh = init_device_mesh(device_type, shape,
                                             mesh_dim_names=axis_names)
+        # a ``sharding.collectives.CommStats`` to count the collectives
+        # made through this mesh; None counts nothing
+        self.stats = None
 
     def group(self, axis: str):
         """The process group of this rank's line along ``axis``."""

@@ -12,6 +12,10 @@
         --nproc-per-node 4 -m repro_torch.launch.train --arch deepfm \\
         --full --steps 5 --batch 4096 --mesh data=2,model=2 \\
         --dist-backend gloo --device cuda:0
+    PYTHONPATH=src python -m torch.distributed.run --standalone \\
+        --nproc-per-node 4 -m repro_torch.launch.train --arch stablelm-3b \\
+        --device cpu --steps 4 --mesh data=2,model=2 --dist-backend gloo \\
+        --opts fsdp
 
 trains on the card unless ``--device cpu`` is given (``--smoke``, the
 reduced config, is the default; ``--full`` is the published one).  The
@@ -28,14 +32,20 @@ at lr 3e-4 (20 warmup steps, cosine to step 1,000) on uniform tokens,
 ``min(--batch, 32)`` molecules of 12 atoms and 24 edges, batch ``s``
 drawn from seed ``s``, as the JAX launcher trains it.
 
-``--mesh data=D,model=M`` trains a recsys arch on a mesh, one process a
-rank under torchrun (``--dist-backend``: ``nccl`` for a card a rank,
-``gloo`` for ranks that share a card or run on the CPU): the recsys
-rules row-shard the large tables over ``model`` and the batch over
-``data`` (``launch/cells.py::recsys_train_cell``), every rank draws the
-same stream and takes its data shard, checkpoints hold whole arrays,
-and a resume places them on whatever mesh resumes.  Rank 0 prints.
-The LM and GNN rules are not ported: those archs refuse ``--mesh``.
+``--mesh data=D,model=M`` trains a recsys or LM arch on a mesh, one
+process a rank under torchrun (``--dist-backend``: ``nccl`` for a card
+a rank, ``gloo`` for ranks that share a card or run on the CPU): the
+recsys rules row-shard the large tables over ``model`` and the batch
+over ``data`` (``launch/cells.py::recsys_train_cell``); the LM rules
+split the layers over ``model`` (tensor parallel), the batch over
+``data`` and adam's moments over ``data`` too (ZeRO-1), with
+``--microbatches`` gradient accumulation
+(``launch/cells.py::lm_train_cell``, the LM optimizer above).  Every
+rank draws the same stream and takes its data shard, checkpoints hold
+whole arrays, and a resume places them on whatever mesh resumes.  Rank
+0 prints.  ``--opts`` applies the JAX package's named LM options
+``moe_shard_map``, ``fsdp`` and ``kv_repeat`` (``LM_CFG_OPTS``).
+The GNN rules are not ported: ``mace`` refuses ``--mesh``.
 """
 from __future__ import annotations
 
@@ -200,12 +210,13 @@ def gnn_setup(cfg, batch: int, device="cuda", start: int = 0):
 
 
 def _mesh_trains(arch: str, family: str) -> None:
-    """Raise unless ``arch`` trains on a mesh (the recsys archs)."""
-    if family != "recsys":
+    """Raise unless ``arch`` trains on a mesh (the recsys and LM
+    archs)."""
+    if family == "gnn":
         raise ValueError(
-            f"{arch}: training on a mesh is ported for the recsys archs "
-            f"only; the {family.upper()} parameter rules, ZeRO-1 and FSDP "
-            f"wait for ROADMAP.md §1 item 8")
+            f"{arch}: training on a mesh is ported for the recsys and LM "
+            f"archs; the GNN parameter rules and mace_cell wait for "
+            f"ROADMAP.md §1 item 8.3")
 
 
 @dataclasses.dataclass
@@ -223,7 +234,7 @@ def train(arch: str, *, smoke: bool = True, steps: int = 100,
           batch: int = 32, seq: int = 64, ckpt_dir: str = "",
           ckpt_every: int = 0, fail_at: int = 0, log_every: int = 10,
           device="cuda", overrides: Optional[Dict[str, Any]] = None,
-          mesh=None) -> TrainRun:
+          mesh=None, microbatches: int = 1) -> TrainRun:
     """Train ``arch`` for ``steps`` steps (resuming from ``ckpt_dir``
     when it holds a committed checkpoint); ``fail_at`` > 0 raises
     ``SimulatedFailure`` after that step, as a crashed host would.
@@ -236,14 +247,24 @@ def train(arch: str, *, smoke: bool = True, steps: int = 100,
     older one and the stream would run ahead of it by the steps
     between.)
 
-    With a ``mesh`` (a recsys arch only) this rank trains its share,
-    ``device`` is the mesh's, and the returned state is this rank's."""
+    With a ``mesh`` (a recsys or LM arch) this rank trains its share,
+    ``device`` is the mesh's, and the returned state is this rank's; an
+    LM accumulates ``microbatches`` microbatches a step there."""
     family, cfg = get_arch(arch, smoke=smoke)
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
+    if microbatches != 1 and (mesh is None or family != "lm"):
+        raise ValueError("microbatches are the LM train cell's: they take "
+                         "an LM arch on a mesh")
     start = (ckpt_lib.latest_step(ckpt_dir) if ckpt_dir else None) or 0
     specs = None
-    if mesh is not None:
+    if mesh is not None and family == "lm":
+        from repro_torch.launch.cells import lm_train_cell
+        cell = lm_train_cell(cfg, mesh, microbatches,
+                             optimizer=LM_OPTIMIZER)
+        model, state, step, specs = None, cell.state, cell.step, cell.specs
+        data = map(cell.local_batch, lm_stream(cfg, batch, seq, start))
+    elif mesh is not None:
         _mesh_trains(arch, family)
         from repro_torch.launch.cells import recsys_train_cell
         cell = recsys_train_cell(cfg, mesh)
@@ -298,9 +319,15 @@ def main(argv: Optional[List[str]] = None) -> TrainRun:
                          "under --mesh cuda:<LOCAL_RANK>; 'cpu' runs the "
                          "plain PyTorch ops)")
     ap.add_argument("--mesh", default=None, metavar="data=2,model=2",
-                    help="train a recsys arch on this mesh (tables over "
-                         "'model', the batch over the rest), one process "
-                         "a rank under torchrun")
+                    help="train a recsys or LM arch on this mesh (tables "
+                         "and layers over 'model', the batch over the "
+                         "rest), one process a rank under torchrun")
+    ap.add_argument("--microbatches", type=int, default=1,
+                    help="an LM's microbatches a step on a mesh (the "
+                         "gradients accumulated, one update)")
+    ap.add_argument("--opts", default="",
+                    help="comma-separated LM options of the JAX package's "
+                         "_LM_CFG_OPTS: moe_shard_map, fsdp, kv_repeat")
     ap.add_argument("--dist-backend", default="nccl", choices=BACKENDS,
                     help="--mesh's process-group backend: nccl (one rank "
                          "per card) or gloo (ranks that share a card, or "
@@ -308,19 +335,34 @@ def main(argv: Optional[List[str]] = None) -> TrainRun:
     args = ap.parse_args(argv)
     if args.arch not in ARCHS:
         ap.error(f"unknown arch {args.arch!r}; archs: {sorted(ARCHS)}")
+    family, cfg = get_arch(args.arch, smoke=args.smoke)
+    overrides = None
+    if args.opts:
+        from repro_torch.launch.cells import lm_cfg_with_opts
+        if family != "lm":
+            ap.error(f"--opts are LM options; {args.arch} is {family}")
+        try:
+            new = lm_cfg_with_opts(cfg, args.opts.split(","))
+        except ValueError as e:
+            ap.error(str(e))
+        overrides = {f.name: getattr(new, f.name)
+                     for f in dataclasses.fields(new)
+                     if getattr(new, f.name) != getattr(cfg, f.name)}
 
     def run(mesh=None):
         return train(args.arch, smoke=args.smoke, steps=args.steps,
                      batch=args.batch, seq=args.seq, ckpt_dir=args.ckpt_dir,
                      ckpt_every=args.ckpt_every, fail_at=args.fail_at,
-                     log_every=args.log_every, device=args.device, mesh=mesh)
+                     log_every=args.log_every, device=args.device,
+                     overrides=overrides, mesh=mesh,
+                     microbatches=args.microbatches)
 
     if not args.mesh:
         return run()
     try:
-        _mesh_trains(args.arch, get_arch(args.arch)[0])
+        _mesh_trains(args.arch, family)
         axes, shape = mesh_of_spec(args.mesh, "-m repro_torch.launch.train",
-                                   "tables")
+                                   "tables and layers")
     except ValueError as e:
         ap.error(str(e))
     device = None if args.device == "cuda" else args.device

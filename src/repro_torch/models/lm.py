@@ -29,6 +29,20 @@ The JAX package's ``models/lm.py``, for training and serving:
   recomputed in the backward, so the (B, S, V) logits never exist.
   Attention's backward is ``attend``'s recompute through the plain
   version.
+* On a mesh (``mesh=``, ``launch/mesh.py``) ``forward`` and ``loss_fn``
+  run one rank's share of the step on the params as
+  ``sharding/rules.py::lm_param_rules`` place them, with explicit
+  collectives (``sharding/collectives.py``): the token rows through the
+  model-parallel row gather; ``wq``/``wk``/``wv``, ``w_gate``/``w_up``
+  column-parallel and ``wo``/``w_down`` row-parallel over ``model``
+  (this rank's heads, or K/V expanded to every head and this rank's
+  taken where ``wk``/``wv`` stay whole); norms replicated; the MoE
+  block's grouped dispatch (``moe_shard_map``) on this rank's slice of
+  the sequence under the expert strategy, else the global
+  formulation; the vocab softmax over ``lm_head``'s column block; and
+  under FSDP each layer's weights gathered over ``data`` as the layer
+  runs (again in the remat recompute).  Without a mesh nothing
+  changes, bit for bit.
 """
 from __future__ import annotations
 
@@ -47,6 +61,7 @@ from repro_torch.nn import moe as moe_lib
 from repro_torch.nn.mlp import glu_ffn
 from repro_torch.nn.norm import rms_norm
 from repro_torch.nn.rope import apply_rope
+from repro_torch.sharding import collectives as coll
 
 
 # ----------------------------------------------------------------------
@@ -136,23 +151,38 @@ def param_spec(cfg: LMConfig) -> dict:
     return spec
 
 
-def model_init(gen: torch.Generator, cfg: LMConfig, dtype=None) -> dict:
+def model_init(gen: torch.Generator, cfg: LMConfig, dtype=None,
+               place=None) -> dict:
     """Params on the generator's device, ``dtype`` defaulting to
-    ``cfg.param_dtype`` (each table drawn and scaled in place)."""
+    ``cfg.param_dtype`` (each table drawn and scaled in place).
+    ``place(path, leaf)``, when given, replaces each leaf as soon as it
+    is drawn ("lm_head", "layers/ffn/w_up", "embed/emb"; e.g. by this
+    rank's block of it), so no more than one whole leaf exists at a
+    time; the draws are the same."""
     dtype = dtype or torch_dtype(cfg.param_dtype)
     spec = param_spec(cfg)
     emb = Embedding(cfg.embedding, device=gen.device)
+    place = place or (lambda path, t: t)
 
-    def build(tree):
+    def build(tree, path):
         if isinstance(tree, dict):
-            return {k: build(v) for k, v in tree.items()}
+            return {k: build(v, f"{path}/{k}" if path else k)
+                    for k, v in tree.items()}
         shape, std = tree
         if std == 0.0:
-            return torch.zeros(shape, dtype=dtype, device=gen.device)
-        return init.normal(gen, shape, std, dtype)
+            return place(path, torch.zeros(shape, dtype=dtype,
+                                           device=gen.device))
+        return place(path, init.normal(gen, shape, std, dtype))
 
-    params = {"embed": emb.init(gen, dtype=dtype)}
-    params.update(build(spec))
+    def placed(tree, path):
+        if isinstance(tree, dict):
+            return {k: placed(v, f"{path}/{k}") for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [placed(v, f"{path}/{i}") for i, v in enumerate(tree)]
+        return place(path, tree)
+
+    params = {"embed": placed(emb.init(gen, dtype=dtype), "embed")}
+    params.update(build(spec, ""))
     return params
 
 
@@ -179,42 +209,98 @@ def _unstack(tree, lead: Tuple[int, ...]) -> List[dict]:
 # single layer
 # ----------------------------------------------------------------------
 
-def _qkv(p, x, cfg: LMConfig):
+def _qkv(p, x, cfg: LMConfig, mesh=None):
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
-    q = (x @ p["wq"].to(x.dtype)).reshape(b, s, cfg.num_heads, hd)
-    k = (x @ p["wk"].to(x.dtype)).reshape(b, s, cfg.num_kv_heads, hd)
-    v = (x @ p["wv"].to(x.dtype)).reshape(b, s, cfg.num_kv_heads, hd)
+    if mesh is None or mesh.shape["model"] == 1:
+        q = (x @ p["wq"].to(x.dtype)).reshape(b, s, cfg.num_heads, hd)
+        k = (x @ p["wk"].to(x.dtype)).reshape(b, s, cfg.num_kv_heads, hd)
+        v = (x @ p["wv"].to(x.dtype)).reshape(b, s, cfg.num_kv_heads, hd)
+        return q, k, v
+    # column-parallel: this rank's heads, its kv heads with them
+    model_n = mesh.shape["model"]
+    heads = cfg.num_heads // model_n
+    x = coll.copy_to(x, mesh, "model")
+    q = (x @ p["wq"].to(x.dtype)).reshape(b, s, heads, hd)
+    if p["wk"].shape[-1] != cfg.num_kv_heads * hd:
+        k = (x @ p["wk"].to(x.dtype)).reshape(b, s, -1, hd)
+        v = (x @ p["wv"].to(x.dtype)).reshape(b, s, -1, hd)
+        return q, k, v
+    # wk/wv whole (attn_kv_repeat, or columns that do not split): K/V of
+    # every kv head, expanded to this rank's query heads (one each); the
+    # weights' gradient is summed over the model axis
+    wk = coll.copy_to(p["wk"], mesh, "model").to(x.dtype)
+    wv = coll.copy_to(p["wv"], mesh, "model").to(x.dtype)
+    first = coll.axis_index(mesh, "model") * heads
+    kv_of = torch.arange(first, first + heads, device=x.device) // (
+        cfg.num_heads // cfg.num_kv_heads)
+    k = (x @ wk).reshape(b, s, cfg.num_kv_heads, hd)[:, :, kv_of]
+    v = (x @ wv).reshape(b, s, cfg.num_kv_heads, hd)[:, :, kv_of]
     return q, k, v
 
 
-def _ffn_block(p, x, cfg: LMConfig):
+def _ffn_block(p, x, cfg: LMConfig, mesh=None):
     if cfg.is_moe:
-        # JAX takes its shard_map grouped dispatch for full sequences
-        # (train/prefill); decode (S == 1) keeps the global formulation
+        kw = dict(top_k=cfg.num_experts_per_tok,
+                  capacity_factor=cfg.moe_capacity_factor)
+        # the grouped dispatch for full sequences (train/prefill), as
+        # JAX's shard_map; decode (S == 1) keeps the global formulation
         if cfg.moe_shard_map and x.shape[1] > 1:
-            raise NotImplementedError(
-                f"{cfg.name}: moe_shard_map (the expert-sharded dispatch) "
-                f"waits for the distributed layer, ROADMAP.md §1 item 8; "
-                f"the port runs the single-device moe_ffn")
-        return moe_lib.moe_ffn(p["moe"], x, top_k=cfg.num_experts_per_tok,
-                               capacity_factor=cfg.moe_capacity_factor)
-    return (glu_ffn(p["ffn"], x, act=cfg.act),
-            torch.zeros((), dtype=torch.float32, device=x.device))
+            if mesh is None:
+                raise ValueError(
+                    f"{cfg.name}: moe_shard_map dispatches token groups "
+                    f"over a mesh: pass mesh= to forward/loss_fn (or set "
+                    f"moe_shard_map=False for the single-device moe_ffn)")
+            if not moe_lib.expert_parallel(cfg.num_experts,
+                                           mesh.shape["model"]):
+                return moe_lib.moe_ffn_sharded(p["moe"], x, mesh=mesh, **kw)
+            # the expert strategy's groups: this rank's slice of the
+            # sequence, the outputs gathered back over the model axis
+            out, aux = moe_lib.moe_ffn_sharded(
+                p["moe"], coll.scatter_to(x, mesh, "model", 1), mesh=mesh,
+                **kw)
+            return coll.gather_from(out, mesh, "model", 1), aux
+        return moe_lib.moe_ffn(p["moe"], x, mesh=mesh, **kw)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    if mesh is None:
+        return glu_ffn(p["ffn"], x, act=cfg.act), zero
+    # column-parallel w_gate/w_up, row-parallel w_down
+    out = glu_ffn(p["ffn"], coll.copy_to(x, mesh, "model"), act=cfg.act)
+    return coll.reduce_from(out, mesh, "model"), zero
+
+
+def _fsdp_gather(p: dict, dims: dict, mesh) -> dict:
+    """One layer's params with each leaf that FSDP splits over ``data``
+    (``dims``: its name -> the split dim, nested as ``p``) gathered
+    whole over ``data``; backward, a reduce-scatter."""
+    out = {}
+    for k, v in p.items():
+        if isinstance(v, dict):
+            out[k] = _fsdp_gather(v, dims.get(k, {}), mesh)
+        elif k in dims:
+            out[k] = coll.all_gather_grad(v, mesh, "data", dim=dims[k])
+        else:
+            out[k] = v
+    return out
 
 
 def layer_forward(p: dict, x: torch.Tensor, positions: torch.Tensor,
-                  window, theta, cfg: LMConfig, collect_kv: bool = False):
-    """Full-sequence layer (train / prefill).
+                  window, theta, cfg: LMConfig, collect_kv: bool = False,
+                  mesh=None, fsdp_dims: Optional[dict] = None):
+    """Full-sequence layer (train / prefill).  With a ``mesh``, one rank's
+    share over its placed params (the module docstring); ``fsdp_dims``
+    names the leaves FSDP splits over ``data`` (:func:`mesh_plan`).
 
     Returns (y, aux) or (y, aux, (k, v)) when collect_kv.
     """
+    if fsdp_dims:
+        p = _fsdp_gather(p, fsdp_dims, mesh)
     h = rms_norm(p["ln1"], x)
-    q, k, v = _qkv(p, h, cfg)
+    q, k, v = _qkv(p, h, cfg, mesh)
     q = apply_rope(q, positions, theta)
     k = apply_rope(k, positions, theta)
-    if cfg.attn_kv_repeat and cfg.num_kv_heads < cfg.num_heads:
-        g = cfg.num_heads // cfg.num_kv_heads
+    if cfg.attn_kv_repeat and k.shape[2] < q.shape[2]:
+        g = q.shape[2] // k.shape[2]
         k = torch.repeat_interleave(k, g, dim=2)
         v = torch.repeat_interleave(v, g, dim=2)
     s = x.shape[1]
@@ -228,9 +314,12 @@ def layer_forward(p: dict, x: torch.Tensor, positions: torch.Tensor,
     else:
         o = attn.chunked_attention(q, k, v, positions, positions, window,
                                    block=cfg.attention_block)
-    x = x + (o.reshape(x.shape[0], s, -1) @ p["wo"].to(x.dtype))
+    o = o.reshape(x.shape[0], s, -1) @ p["wo"].to(x.dtype)
+    if mesh is not None:                  # row-parallel
+        o = coll.reduce_from(o, mesh, "model")
+    x = x + o
     h2 = rms_norm(p["ln2"], x)
-    f, aux = _ffn_block(p, h2, cfg)
+    f, aux = _ffn_block(p, h2, cfg, mesh)
     y = x + f
     if collect_kv:
         return y, aux, (k, v)
@@ -304,9 +393,69 @@ def _remat_segments(cfg: LMConfig, plan: list, collect_kv: bool
     return [(plan[i:i + blk], True) for i in range(0, len(plan), blk)]
 
 
+def _meta(tree):
+    """``param_spec``-style (shape, std) leaves as meta tensors."""
+    if isinstance(tree, dict):
+        return {k: _meta(v) for k, v in tree.items()}
+    return torch.empty(tree[0], device="meta")
+
+
+def mesh_plan(cfg: LMConfig, mesh) -> Tuple[dict, dict]:
+    """(FSDP dims, local shapes) of ``cfg``'s params on ``mesh`` under
+    ``lm_param_rules``: for one layer, each leaf that FSDP splits over
+    ``data`` -> its split dim (nested as the layer's params); for every
+    leaf but the embedding's, its path -> the shape of a rank's block."""
+    from repro_torch.sharding.rules import lm_param_rules, spec_tree
+    rules = lm_param_rules(cfg, mesh)
+    layer = spec_tree({"layers": _meta(_layer_spec(cfg))}, rules)["layers"]
+
+    def fsdp(tree):
+        if isinstance(tree, dict):
+            out = {k: fsdp(v) for k, v in tree.items()}
+            return {k: v for k, v in out.items() if v != {}}
+        if mesh.shape["data"] == 1 or "data" not in tree:
+            return {}
+        return tree.index("data")
+
+    def local(path, t, spec):
+        shape = list(t.shape)
+        for dim, axes in enumerate(spec):
+            for a in (() if axes is None else
+                      (axes,) if isinstance(axes, str) else axes):
+                shape[dim] //= mesh.shape[a]
+        shapes[path] = tuple(shape)
+
+    template = _meta(param_spec(cfg))
+    specs = spec_tree(template, rules)
+    shapes: Dict[str, tuple] = {}
+
+    def walk(t, sp, path):
+        if isinstance(t, dict):
+            for k in t:
+                walk(t[k], sp[k], f"{path}/{k}" if path else k)
+        else:
+            local(path, t, sp)
+    walk(template, specs, "")
+    return fsdp(layer), shapes
+
+
+def _check_placed(params: dict, shapes: dict, mesh) -> None:
+    """Raise unless every non-embedding leaf is this rank's block."""
+    def walk(t, path):
+        if isinstance(t, dict):
+            for k, v in t.items():
+                walk(v, f"{path}/{k}" if path else k)
+        elif tuple(t.shape) != shapes[path]:
+            raise ValueError(
+                f"{path}: {tuple(t.shape)} is not a rank's block "
+                f"{shapes[path]} under lm_param_rules on mesh {mesh.shape} "
+                f"(place the params with lm_train_cell)")
+    walk({k: v for k, v in params.items() if k != "embed"}, "")
+
+
 def forward(params: dict, tokens: torch.Tensor, cfg: LMConfig,
             collect_kv: bool = False,
-            embed_artifact: Optional[dict] = None):
+            embed_artifact: Optional[dict] = None, mesh=None):
     """tokens (B, S) -> (hidden (B, S, d), aux, kv_stacks | None).
 
     kv_stacks (when collect_kv): per stack, (k, v) with the stack's
@@ -318,14 +467,28 @@ def forward(params: dict, tokens: torch.Tensor, cfg: LMConfig,
     Under autograd with ``cfg.remat``, each segment of
     :func:`_remat_segments` keeps only its input and recomputes its
     layers in the backward.
+
+    With a ``mesh``, ``params`` are this rank's blocks, ``tokens`` its
+    data shard and the hidden states come out replicated over ``model``
+    (the module docstring); the serving paths (``collect_kv``,
+    ``embed_artifact``) take no mesh.
     """
     dtype = torch_dtype(cfg.dtype)
     emb = Embedding(cfg.embedding, device=tokens.device)
+    fsdp_dims = None
+    if mesh is not None:
+        if collect_kv or embed_artifact is not None:
+            raise ValueError(
+                "LM serving on a mesh (prefill, decode, the served "
+                "embedding) waits for ROADMAP.md §1 item 8; forward takes "
+                "mesh= for training only")
+        fsdp_dims, shapes = mesh_plan(cfg, mesh)
+        _check_placed(params, shapes, mesh)
     if embed_artifact is not None:
         x = emb.serve(embed_artifact, tokens)
         aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     else:
-        x, aux = emb.apply(params["embed"], tokens)
+        x, aux = emb.apply(params["embed"], tokens, mesh=mesh)
         aux = aux.to(torch.float32)
     # the scale rounded to the activation dtype first, as JAX does
     x = x.to(dtype) * torch.tensor(cfg.d_model ** 0.5, dtype=dtype)
@@ -343,7 +506,8 @@ def forward(params: dict, tokens: torch.Tensor, cfg: LMConfig,
             for i, n in zip(idx, stacks[name]):
                 flat = flat * n + i
             out = layer_forward(layers[name][flat], x, positions, window,
-                                theta, cfg, collect_kv=collect_kv)
+                                theta, cfg, collect_kv=collect_kv,
+                                mesh=mesh, fsdp_dims=fsdp_dims)
             x, aux = out[0], aux + out[1]
             if collect_kv:
                 kvs[name].append(out[2])
@@ -374,7 +538,8 @@ def forward(params: dict, tokens: torch.Tensor, cfg: LMConfig,
 # ----------------------------------------------------------------------
 
 def chunked_xent(h: torch.Tensor, labels: torch.Tensor,
-                 w_head: torch.Tensor, chunk: int) -> torch.Tensor:
+                 w_head: torch.Tensor, chunk: int, mesh=None
+                 ) -> torch.Tensor:
     """Mean cross-entropy of ``h`` (B, S, d) against ``labels`` (B, S)
     under the head ``w_head`` (d, V), ``chunk`` positions at a time.
 
@@ -382,7 +547,14 @@ def chunked_xent(h: torch.Tensor, labels: torch.Tensor,
     only while it runs, forward or backward.  The logits are float32
     products of the head cast to the activations' dtype (JAX's
     ``preferred_element_type``); the gold logit is a row gather of
-    ``w_head.T``, not a pick from the logits."""
+    ``w_head.T``, not a pick from the logits.
+
+    With a ``mesh`` whose ``model`` axis splits the head's columns,
+    ``w_head`` is this rank's block (d, V/model_n) and the softmax is
+    vocab-parallel: each rank's float32 logits, the logsumexp combined
+    over ``model`` (an all-reduce max, then a psum of the exponentials),
+    the gold logit from the rank that owns the label's column (masked,
+    then a psum).  The mean is over this rank's (B, S)."""
     b, s, d = h.shape
     chunk = min(chunk, s)
     n_chunks = s // chunk
@@ -390,6 +562,7 @@ def chunked_xent(h: torch.Tensor, labels: torch.Tensor,
         raise ValueError(f"seq len {s} not a multiple of chunk {chunk}")
     w32 = w_head.to(h.dtype).to(torch.float32)
     w_rows = w_head.T                                    # (V, d)
+    model_n = 1 if mesh is None else mesh.shape["model"]
 
     def one(h_i, y_i):
         logits = h_i.to(torch.float32) @ w32             # (b, c, V) f32
@@ -398,6 +571,25 @@ def chunked_xent(h: torch.Tensor, labels: torch.Tensor,
         gold = torch.sum(h_i * w_y.to(h_i.dtype),
                          dim=-1).to(torch.float32)
         return torch.sum(logz - gold)
+
+    def one_parallel(h_i, y_i):
+        h_i = coll.copy_to(h_i, mesh, "model")
+        logits = h_i.to(torch.float32) @ w32             # (b, c, V/m) f32
+        top = coll.pmax(logits.amax(-1), mesh, "model")
+        sumexp = coll.reduce_from(
+            torch.exp(logits - top[..., None]).sum(-1), mesh, "model")
+        logz = torch.log(sumexp) + top
+        cols = w_rows.shape[0]
+        own = y_i.long() - coll.axis_index(mesh, "model") * cols
+        mine = (own >= 0) & (own < cols)
+        w_y = w_rows[own.clamp(0, cols - 1)]             # (b, c, d)
+        gold = torch.sum(h_i * w_y.to(h_i.dtype), dim=-1).to(torch.float32)
+        gold = coll.reduce_from(gold * mine.to(torch.float32), mesh,
+                                "model")
+        return torch.sum(logz - gold)
+
+    if model_n > 1:
+        one = one_parallel
 
     remat = torch.is_grad_enabled()
     losses = []
@@ -409,13 +601,15 @@ def chunked_xent(h: torch.Tensor, labels: torch.Tensor,
     return torch.sum(torch.stack(losses)) / (b * s)
 
 
-def loss_fn(params: dict, batch: dict, cfg: LMConfig
+def loss_fn(params: dict, batch: dict, cfg: LMConfig, mesh=None
             ) -> Tuple[torch.Tensor, dict]:
     """(xent + 0.01 * aux, {"loss", "xent", "aux"}) of ``batch``'s
-    ``tokens`` against its ``labels``."""
-    h, aux, _ = forward(params, batch["tokens"], cfg)
+    ``tokens`` against its ``labels``; with a ``mesh``, this rank's data
+    shard's, replicated over ``model`` (``launch/cells.py::LMTrainCell``
+    weights and sums the shards)."""
+    h, aux, _ = forward(params, batch["tokens"], cfg, mesh=mesh)
     xent = chunked_xent(h, batch["labels"], params["lm_head"],
-                        cfg.xent_chunk)
+                        cfg.xent_chunk, mesh=mesh)
     loss = xent + 0.01 * aux
     return loss, {"loss": loss, "xent": xent, "aux": aux}
 
@@ -530,4 +724,4 @@ def decode_step(params: dict, cache: dict, token: torch.Tensor,
 
 __all__ = ["cache_len_for_layer", "chunked_xent", "decode_step", "forward",
            "layer_decode", "layer_forward", "layer_windows", "loss_fn",
-           "make_cache", "model_init", "param_spec", "prefill"]
+           "make_cache", "mesh_plan", "model_init", "param_spec", "prefill"]

@@ -9,11 +9,17 @@ From the JAX package's ``sharding/rules.py``: the generic helpers,
 the placement of the quantized and retrieval serving artifacts —
 O(vocab) and O(corpus) leaves row-sharded over ``model``, everything
 else replicated — and the recsys training rules (params, adagrad state,
-batch).  ``shard_*_artifact`` and :func:`place` return THIS rank's
-tree: each row-sharded leaf is its block, copied to the rank's device
-on its own, so no rank holds a whole table on its device.  The LM and
-GNN parameter rules, ZeRO-1 and FSDP are still to port (ROADMAP §1
-item 8).
+batch), and the LM rules: tensor parallelism over ``model``, the
+batch over the data axes, ZeRO-1 moments and optional FSDP
+(:func:`lm_param_rules`, :func:`lm_state_specs`, :func:`lm_batch_spec`).
+``shard_*_artifact`` and :func:`place` return THIS rank's tree: each
+split leaf is its block, copied to the rank's device on its own, so no
+rank holds a whole table on its device.  The GNN rules are still to
+port (ROADMAP §1 item 8).
+
+Where GSPMD pads a split that does not divide, the port refuses it
+(:func:`check_lm_leaf`, as ``launch/cells.py::lm_train_cell`` places
+each leaf): a rank holds plain blocks of one size.
 """
 from __future__ import annotations
 
@@ -37,32 +43,43 @@ def _pad_spec(spec: Tuple, ndim: int) -> Tuple:
     return (None,) * pad + tuple(spec)
 
 
-def _map_with_path(fn, tree, path: str = ""):
+def map_with_path(fn, tree, path: str = ""):
     """``fn(path, leaf)`` over a tree of dicts and lists ("a/b/0"
     paths); tuples are leaves (they are specs)."""
     if isinstance(tree, dict):
-        return {k: _map_with_path(fn, v, f"{path}/{k}" if path else str(k))
+        return {k: map_with_path(fn, v, f"{path}/{k}" if path else str(k))
                 for k, v in tree.items()}
     if isinstance(tree, list):
-        return [_map_with_path(fn, v, f"{path}/{i}" if path else str(i))
+        return [map_with_path(fn, v, f"{path}/{i}" if path else str(i))
                 for i, v in enumerate(tree)]
     return fn(path, tree)
 
 
-def _zip_map(fn, tree, specs):
+def zip_map(fn, tree, specs):
     """``fn(leaf, spec)`` over a tree and its spec tree, which must have
     the same dict keys and list lengths."""
     if isinstance(tree, dict):
         if not isinstance(specs, dict) or set(tree) != set(specs):
             raise ValueError(f"artifact keys {sorted(tree)} do not match "
                              f"its spec tree {specs}")
-        return {k: _zip_map(fn, tree[k], specs[k]) for k in tree}
+        return {k: zip_map(fn, tree[k], specs[k]) for k in tree}
     if isinstance(tree, (list, tuple)):
         if not isinstance(specs, list) or len(specs) != len(tree):
             raise ValueError(f"{len(tree)} artifact leaves do not match "
                              f"the spec {specs}")
-        return [_zip_map(fn, t, s) for t, s in zip(tree, specs)]
+        return [zip_map(fn, t, s) for t, s in zip(tree, specs)]
     return fn(tree, specs)
+
+
+def leaf_spec(path: str, leaf, rules: List[Tuple[str, Callable]],
+              default: Tuple = ()) -> Tuple:
+    """The spec of one leaf at ``path`` (a tensor, or anything with its
+    ``shape`` and ``dim()``): the first rule whose regex matches the
+    path, leading dims padded with None."""
+    for pattern, fn in rules:
+        if re.search(pattern, path):
+            return _pad_spec(tuple(fn(leaf)), leaf.dim())
+    return _pad_spec(tuple(default), leaf.dim())
 
 
 def spec_tree(template: Any,
@@ -73,14 +90,8 @@ def spec_tree(template: Any,
     rules: list of (regex matched against the leaf's full path,
     fn(leaf) -> trailing-dims spec tuple).  First match wins; leading
     dims are padded with None."""
-    def assign(path, leaf):
-        ndim = leaf.dim()
-        for pattern, fn in rules:
-            if re.search(pattern, path):
-                return _pad_spec(tuple(fn(leaf)), ndim)
-        return _pad_spec(tuple(default), ndim)
-
-    return _map_with_path(assign, template)
+    return map_with_path(lambda path, leaf: leaf_spec(path, leaf, rules,
+                                                       default), template)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -128,22 +139,26 @@ def spec_leaves(specs) -> list:
     return [specs]
 
 
+def split_axes(spec: Tuple, mesh) -> Tuple[str, ...]:
+    """The axes of more than one rank that ``spec`` cuts a leaf over, in
+    mesh order (a spec over an axis of size 1 places the whole leaf, as
+    GSPMD does)."""
+    named = set()
+    for axes in spec:
+        if axes is not None:
+            named.update((axes,) if isinstance(axes, str) else axes)
+    return tuple(a for a in mesh.shape if a in named and mesh.shape[a] > 1)
+
+
 def splits(spec: Tuple, mesh) -> bool:
     """Whether a leaf placed by ``spec`` over ``mesh`` is cut into
-    blocks: some dim names axes of more than one rank (a spec over an
-    axis of size 1 places the whole leaf, as GSPMD does)."""
-    for axes in spec:
-        if axes is None:
-            continue
-        axes = (axes,) if isinstance(axes, str) else tuple(axes)
-        if math.prod(mesh.shape[a] for a in axes) > 1:
-            return True
-    return False
+    blocks: some dim names axes of more than one rank."""
+    return bool(split_axes(spec, mesh))
 
 
 def named(mesh, spec_tree_):
     """Every spec of the tree bound to ``mesh`` (None replicates)."""
-    return _map_with_path(
+    return map_with_path(
         lambda _, s: NamedSpec(mesh, () if s is None else tuple(s)),
         spec_tree_)
 
@@ -151,15 +166,153 @@ def named(mesh, spec_tree_):
 def place(tree, specs, mesh):
     """This rank's ``tree`` (a tree of whole tensors, on any device): each
     leaf's block under its spec, copied to ``mesh.device``."""
-    return _zip_map(lambda t, ns: ns.place(t), tree, named(mesh, specs))
+    return zip_map(lambda t, ns: ns.place(t), tree, named(mesh, specs))
 
 
 def _replicated(specs):
-    return _map_with_path(lambda _, s: (), specs)
+    return map_with_path(lambda _, s: (), specs)
 
 
 def _divides(n: int, k: int) -> bool:
     return k > 0 and n % k == 0
+
+
+# ----------------------------------------------------------------------
+# LM training
+# ----------------------------------------------------------------------
+
+def lm_param_rules(cfg, mesh) -> List:
+    """The JAX package's LM rules, verbatim: attention projections, the
+    FFN hidden dim, the experts (or their d_ff when the experts do not
+    divide over ``model``), the vocab rows and ``lm_head``'s columns over
+    ``model``; under ``cfg.fsdp_params`` the layer weights also over
+    ``data`` on one more dim where it divides; ``wk``/``wv`` whole under
+    ``attn_kv_repeat`` (the layer expands them to every head) or when
+    their columns do not divide; norms, router and centroids
+    replicated.  Each rule gives the trailing dims' spec; the layer
+    stacks' leading dims (``layers``, ``loc``/``glob``/``rem``) are
+    padded with None."""
+    model = mesh.shape["model"]
+    data = "data"
+    fsdp = cfg.fsdp_params
+
+    def maybe_fsdp(spec: Tuple, leaf, fsdp_dim: int) -> Tuple:
+        """Add data-axis sharding on dim ``fsdp_dim`` (within trailing
+        spec) when FSDP is on and the dim divides."""
+        if not fsdp:
+            return spec
+        spec = list(spec)
+        if spec[fsdp_dim] is None and _divides(
+                leaf.shape[leaf.dim() - len(spec) + fsdp_dim],
+                mesh.shape["data"]):
+            spec[fsdp_dim] = data
+        return tuple(spec)
+
+    def expert_spec(leaf, transpose: bool):
+        # (E, d, f) or (E, f, d): shard E if divisible, else the ff dim
+        e = leaf.shape[-3]
+        if _divides(e, model):
+            return maybe_fsdp(("model", None, None), leaf, 1)
+        if transpose:                 # (E, f, d)
+            return (None, "model", None)
+        return (None, None, "model")  # (E, d, f)
+
+    return [
+        # embedding tables: rows over model
+        (r"embed/emb$", lambda l: ("model", None)),
+        (r"embed/centroids", lambda l: (None, None, None)),
+        (r"embed/u$", lambda l: ("model", None)),
+        (r"embed/v$", lambda l: (None, None)),
+        # attention
+        (r"/wq$", lambda l: maybe_fsdp((None, "model"), l, 0)),
+        # kv-repeat mode: K/V are expanded to the full head count inside
+        # the layer, so wk/wv stay replicated
+        (r"/wk$|/wv$", lambda l: maybe_fsdp(
+            (None, None) if cfg.attn_kv_repeat
+            else ((None, "model") if _divides(l.shape[-1], model)
+                  else (None, None)), l, 0)),
+        (r"/wo$", lambda l: maybe_fsdp(("model", None), l, 1)),
+        # dense FFN
+        (r"ffn/w_gate$|ffn/w_up$", lambda l: maybe_fsdp((None, "model"), l,
+                                                         0)),
+        (r"ffn/w_down$", lambda l: maybe_fsdp(("model", None), l, 1)),
+        # MoE
+        (r"moe/router$", lambda l: (None, None)),
+        (r"moe/w_gate$|moe/w_up$", lambda l: expert_spec(l, False)),
+        (r"moe/w_down$", lambda l: expert_spec(l, True)),
+        # head / norms
+        (r"lm_head$", lambda l: (None, "model")),
+        (r"ln|norm", lambda l: ()),
+    ]
+
+
+def zero1_spec(leaf, spec: Tuple, mesh) -> Tuple:
+    """A moment's spec under ZeRO-1: its param's ``spec``, plus ``data``
+    on the first dim that is free and divides over ``data`` unless the
+    param already uses ``data`` (FSDP); a 0-d leaf replicated."""
+    if leaf.dim() == 0:
+        return ()
+    parts = list(spec) + [None] * (leaf.dim() - len(spec))
+    used = {a for a in parts if a is not None}
+    if "data" in used:
+        return tuple(parts)
+    for i in range(leaf.dim()):
+        if parts[i] is None and _divides(leaf.shape[i], mesh.shape["data"]):
+            parts[i] = "data"
+            break
+    return tuple(parts)
+
+
+def lm_state_specs(cfg, mesh, params_template, opt_template):
+    """(param specs, optimizer-state specs), as the JAX package's
+    ``lm_state_specs``: the params by :func:`lm_param_rules`; each
+    moment tree (``m``, ``v``, ``acc``, ``mom``) by :func:`zero1_spec`
+    of its param's; ``step`` and anything else replicated."""
+    p_spec = spec_tree(params_template, lm_param_rules(cfg, mesh))
+    o_spec = {}
+    for k, v in opt_template.items():
+        if k == "step":
+            o_spec[k] = ()
+        elif k in ("m", "v", "acc", "mom"):
+            o_spec[k] = zip_map(lambda t, s: zero1_spec(t, s, mesh), v,
+                                 p_spec)
+        else:
+            o_spec[k] = map_with_path(lambda _, t: (), v)
+    return p_spec, o_spec
+
+
+def lm_batch_spec(multi_pod: bool) -> dict:
+    """``tokens`` and ``labels`` split over the data axes by row (one axis
+    by its name, as ``PartitionSpec`` normalises a 1-tuple)."""
+    dp = dp_axes(multi_pod)
+    dp = dp[0] if len(dp) == 1 else dp
+    return {"tokens": (dp, None), "labels": (dp, None)}
+
+
+def check_lm_leaf(cfg, mesh, path: str, leaf, spec: Tuple) -> None:
+    """Raise unless ``spec`` gives each rank of ``mesh`` a whole block of
+    the leaf at ``path``: each split dim divides over its axes, and a
+    split of ``wq``'s (or ``wk``/``wv``'s) columns over ``model`` falls
+    on whole heads.  The message names the leaf, the axis and the
+    sizes.  (GSPMD pads such a split; a rank here holds plain blocks.)"""
+    spec = _pad_spec(tuple(spec), leaf.dim())
+    for dim, axes in enumerate(spec):
+        if axes is None:
+            continue
+        n = math.prod(mesh.shape[a] for a in
+                      ((axes,) if isinstance(axes, str) else axes))
+        if leaf.shape[dim] % n:
+            raise ValueError(
+                f"{path}: dim {dim} of size {leaf.shape[dim]} does not "
+                f"divide over {axes} = {n} (shape {tuple(leaf.shape)})")
+    heads = {"wq": cfg.num_heads, "wk": cfg.num_kv_heads,
+             "wv": cfg.num_kv_heads}.get(path.rsplit("/", 1)[-1])
+    model = mesh.shape["model"]
+    if heads is not None and spec[-1] == "model" and heads % model:
+        raise ValueError(
+            f"{path}: splitting its columns over model = {model} would cut "
+            f"heads: {heads} heads (head dim {cfg.resolved_head_dim}) do "
+            f"not divide over {model} (attn_kv_repeat keeps wk/wv whole)")
 
 
 # ----------------------------------------------------------------------
@@ -197,7 +350,7 @@ def recsys_batch_spec(batch_dict_template, multi_pod: bool) -> Any:
     leaf replicated."""
     dp = dp_axes(multi_pod)
     dp = dp[0] if len(dp) == 1 else dp
-    return _map_with_path(
+    return map_with_path(
         lambda _, t: () if t.dim() == 0 else (dp,) + (None,) * (t.dim() - 1),
         batch_dict_template)
 
@@ -221,7 +374,7 @@ def whole_like(tree, specs, mesh):
                 axes = (axes,) if isinstance(axes, str) else tuple(axes)
                 shape[dim] *= math.prod(mesh.shape[a] for a in axes)
         return torch.empty(shape, dtype=t.dtype, device="meta")
-    return _zip_map(whole, tree, specs)
+    return zip_map(whole, tree, specs)
 
 
 # ----------------------------------------------------------------------
@@ -282,9 +435,12 @@ def shard_retrieval_artifact(artifact, index, mesh,
     return place(artifact, specs, mesh)
 
 
-__all__ = ["NamedSpec", "dp_axes", "named", "place",
+__all__ = ["NamedSpec", "check_lm_leaf", "dp_axes",
+           "leaf_spec", "lm_batch_spec", "map_with_path", "zip_map",
+           "lm_param_rules", "lm_state_specs", "named", "place",
            "quantized_artifact_specs", "recsys_batch_spec",
            "recsys_param_rules", "recsys_state_specs",
            "retrieval_artifact_specs", "shard_quantized_artifact",
-           "shard_retrieval_artifact", "spec_leaves", "spec_tree", "splits",
-           "whole_like"]
+           "shard_retrieval_artifact", "spec_leaves", "spec_tree",
+           "split_axes", "splits",
+           "whole_like", "zero1_spec"]

@@ -240,24 +240,28 @@ def init(cfg: OptimizerConfig, params: Any) -> Dict:
 
 
 def _global_norm(leaves: List[torch.Tensor], mesh=None,
-                 split: Optional[List[bool]] = None) -> torch.Tensor:
+                 split: Optional[List[tuple]] = None) -> torch.Tensor:
     """sqrt of the sum of squares, leaf sums added left to right from
     0.0 in tree order, as JAX's ``tree.reduce`` adds them.  Under a
-    ``mesh``, the leaves that ``split`` marks are this rank's blocks of
-    leaves row-sharded over ``model``: their sum is summed over
-    ``model`` (one collective), and a replicated leaf counts once."""
+    ``mesh``, ``split`` gives each leaf the axes it is cut over (empty:
+    replicated): the cut leaves' sums are added per set of axes and
+    summed over those axes (one collective a set), and a replicated
+    leaf counts once."""
     device = leaves[0].device if leaves else None
     total = torch.zeros((), dtype=torch.float32, device=device)
-    sharded = torch.zeros((), dtype=torch.float32, device=device)
+    sharded: Dict[tuple, torch.Tensor] = {}
     for i, g in enumerate(leaves):
         sq = torch.sum(torch.square(g.to(torch.float32)))
-        if split is not None and split[i]:
-            sharded = sharded + sq
+        axes = split[i] if split is not None else ()
+        if axes:
+            sharded[axes] = sharded.get(axes, torch.zeros(
+                (), dtype=torch.float32, device=device)) + sq
         else:
             total = total + sq
-    if mesh is not None and split is not None and any(split):
+    if sharded:
         from repro_torch.sharding.collectives import psum
-        total = total + psum(sharded, mesh, "model")
+        for axes, part in sharded.items():
+            total = total + psum(part, mesh, axes)
     return torch.sqrt(total)
 
 
@@ -265,16 +269,18 @@ def clip_by_global_norm(grads, max_norm: float, mesh=None, specs=None):
     """Scale ``grads`` in place so their global norm is at most
     ``max_norm``; returns (grads, the norm before clipping).
 
-    Under a ``mesh`` with ``specs`` (the params' spec tree,
+    Under a ``mesh`` with ``specs`` (the gradients' placement: the
+    params' spec tree, or the moments' under ZeRO-1,
     ``sharding/rules.py``), ``grads`` are this rank's: a leaf whose spec
-    splits it holds its block and adds its squares over ``model``, a
-    replicated leaf counts once, so every rank clips by the one global
-    norm (a norm of this rank's blocks alone would differ by rank)."""
+    cuts it holds its block and adds its squares over the axes that cut
+    it, a replicated leaf counts once, so every rank clips by the one
+    global norm (a norm of this rank's blocks alone would differ by
+    rank)."""
     leaves = tree_leaves(grads)
     split = None
     if mesh is not None and specs is not None:
-        from repro_torch.sharding.rules import spec_leaves, splits
-        split = [splits(s, mesh) for s in spec_leaves(specs)]
+        from repro_torch.sharding.rules import spec_leaves, split_axes
+        split = [split_axes(s, mesh) for s in spec_leaves(specs)]
         if len(split) != len(leaves):
             raise ValueError(f"{len(split)} specs for {len(leaves)} "
                              f"gradient leaves")
@@ -345,6 +351,55 @@ def apply_updates(cfg: OptimizerConfig, params, grads,
             leaves, g_leaves, moments = _pieces(rule.piece_elements, leaves,
                                                 g_leaves, moments)
         rule.update(cfg, lr, step, leaves, _AsFloat32(g_leaves), moments)
+    return params, {**state, "step": step + 1}
+
+
+def zero1_cut(p_spec: Tuple, m_spec: Tuple, mesh) -> Optional[Tuple]:
+    """(dim, axes) along which ZeRO-1 cuts a moment finer than its param
+    (``sharding/rules.py::zero1_spec``), or None: the dim whose entry the
+    moment's spec names and the param's does not, over axes of more
+    than one rank."""
+    for dim, (p, m) in enumerate(zip(p_spec, m_spec)):
+        if m is not None and m != p:
+            axes = (m,) if isinstance(m, str) else tuple(m)
+            if any(mesh.shape[a] > 1 for a in axes):
+                return dim, axes
+    return None
+
+
+def apply_updates_zero1(cfg: OptimizerConfig, params, grads, state: Dict,
+                        mesh, p_specs, m_specs) -> Tuple[Any, Dict]:
+    """One optimizer step under ZeRO-1, in place: ``grads`` (a tree like
+    the params', or its leaves in ``tree_leaves`` order) are this rank's
+    blocks of the whole (reduced) gradients as the moments are placed
+    (``m_specs``, the tree of one moment's specs; ``p_specs`` the
+    params').  The clip takes the global norm over those blocks; each
+    rank updates the slice of each param that its moments cover, then
+    the updated slices are gathered over the axes ZeRO-1 cut them
+    over.  Returns (params, the new state with ``step`` + 1)."""
+    from repro_torch.sharding.collectives import all_gather, block
+    from repro_torch.sharding.rules import spec_leaves
+    rule = _rule(cfg.kind)
+    step = state["step"]
+    with torch.no_grad():
+        lr = schedule_lr(cfg, step)
+        if cfg.grad_clip is not None:
+            clip_by_global_norm(grads, cfg.grad_clip, mesh, m_specs)
+        leaves, g_leaves = tree_leaves(params), tree_leaves(grads)
+        cuts = [zero1_cut(p, m, mesh) for p, m in
+                zip(spec_leaves(p_specs), spec_leaves(m_specs),
+                    strict=True)]
+        slices = [p if cut is None else block(p, mesh, cut[1], cut[0])
+                  for p, cut in zip(leaves, cuts)]
+        moments = {k: tree_leaves(state[k]) for k in rule.state_keys}
+        p_up, g_up, m_up = slices, g_leaves, moments
+        if rule.piece_elements:
+            p_up, g_up, m_up = _pieces(rule.piece_elements, slices,
+                                       g_leaves, moments)
+        rule.update(cfg, lr, step, p_up, _AsFloat32(g_up), m_up)
+        for p, part, cut in zip(leaves, slices, cuts):
+            if cut is not None:
+                p.copy_(all_gather(part, mesh, cut[1], dim=cut[0]))
     return params, {**state, "step": step + 1}
 
 

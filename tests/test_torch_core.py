@@ -238,7 +238,8 @@ def test_not_ported_paths_raise():
     # the model-parallel row gather is ported: with no mesh a
     # sharded_rows table reads plainly, as JAX's does with no ambient
     # mesh; under a mesh the gather needs the table's global row count,
-    # and training on a mesh refuses the LM and GNN archs
+    # and training on a mesh refuses the GNN family (the LM archs train
+    # on one: tests/test_torch_lm_mesh.py)
     rows = Embedding(dataclasses.replace(cfg, sharded_rows=True),
                      device="cpu")
     for got, want in zip(rows.apply(params, torch.arange(3)),
@@ -247,9 +248,8 @@ def test_not_ported_paths_raise():
     with pytest.raises(ValueError, match="global row count"):
         dpq.row_gather(params["emb"], torch.arange(3), mesh=object())
     from repro_torch.launch.train import train
-    for arch in ("stablelm-3b", "mace"):
-        with pytest.raises(ValueError, match="ROADMAP.md §1 item 8"):
-            train(arch, device="cpu", mesh=object())
+    with pytest.raises(ValueError, match=r"ROADMAP.md §1 item 8\.3"):
+        train("mace", device="cpu", mesh=object())
     # the hot-row cache is ported: export attaches the decoded head
     hot = Embedding(dataclasses.replace(cfg, hot_rows=4), device="cpu")
     hot_art = hot.export(params)

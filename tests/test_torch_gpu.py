@@ -2789,3 +2789,204 @@ def test_sharded_backward_repeats_on_card(cuda, tmp_path):
     for first, second in res:
         for a, b in zip(first, second, strict=True):
             _same_bits(b, a)
+
+
+# ----------------------------------------------------------------------
+# LM training on a (2, 2) mesh of gloo ranks sharing the card
+# ----------------------------------------------------------------------
+
+LM_MESH_BATCH, LM_MESH_SEQ = 4, 16
+# (arch, config changes, microbatches): the chunked route (the
+# flash_attention kernel) at the smoke widths; FSDP, remat and
+# microbatches; both grouped-MoE strategies; the global MoE formulation
+LM_MESH_CASES = {
+    "stablelm-fsdp-remat-mb2": ("stablelm-3b", {"fsdp_params": True,
+                                                "remat": True}, 2),
+    "qwen3-expert": ("qwen3-moe-30b-a3b", {"moe_shard_map": True}, 1),
+    "qwen3-ffn": ("qwen3-moe-30b-a3b", {"moe_shard_map": True,
+                                        "num_experts": 3}, 1),
+    "mixtral": ("mixtral-8x7b", {}, 1),
+}
+
+
+def _lm_mesh_cfg(case):
+    from repro_torch.configs import get_arch
+    arch, changes, mb = LM_MESH_CASES[case]
+    _, cfg = get_arch(arch, smoke=True)
+    return dataclasses.replace(cfg, attention_impl="chunked",
+                               **changes), mb
+
+
+def _lm_mesh_batch(cfg):
+    toks = np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (LM_MESH_BATCH, LM_MESH_SEQ + 1))
+    return {"tokens": torch.from_numpy(toks[:, :-1].astype(np.int32)),
+            "labels": torch.from_numpy(toks[:, 1:].astype(np.int32))}
+
+
+def _lm_mesh_rank(rank, case):
+    """The first step of ``lm_train_cell`` on a (2, 2) mesh on cuda:0:
+    the global loss, the accumulated gradients' blocks (as the moments
+    are placed), their specs and this rank's coordinates."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.cells import lm_train_cell
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.sharding.rules import spec_leaves
+    mesh = make_debug_mesh(2, 2)
+    cfg, mb = _lm_mesh_cfg(case)
+    cell = lm_train_cell(cfg, mesh, mb)
+    flash_attention.launches = 0
+    acc, metrics = cell.accumulate(cell.state, on_device(
+        cell.local_batch(_lm_mesh_batch(cfg)), mesh.device))
+    return (float(metrics["loss"]), [g.float().cpu() for g in acc],
+            spec_leaves(cell.specs.opt_state["m"]),
+            (mesh.axis_index("data"), mesh.axis_index("model")),
+            flash_attention.launches)
+
+
+def _block_of(t: torch.Tensor, spec, coords) -> torch.Tensor:
+    """The block of ``t`` a rank at ``coords`` (data, model) of a (2, 2)
+    mesh holds under ``spec``."""
+    for dim, axes in enumerate(spec):
+        if axes is None:
+            continue
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        n, i = 1, 0
+        for a in axes:
+            n, i = n * 2, i * 2 + coords[("data", "model").index(a)]
+        t = t.narrow(dim, i * (t.shape[dim] // n), t.shape[dim] // n)
+    return t
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(LM_MESH_CASES))
+def test_lm_mesh_step_on_card_matches_one_device(cuda, tmp_path, case):
+    """One step of ``lm_train_cell`` on a (2, 2) mesh of 4 gloo ranks on
+    the card (the flash_attention kernel on each rank's heads): the loss
+    and every gradient leaf's block within 1e-5 of one device's step on
+    the global batch (the grouped MoE's plain version,
+    ``moe_ffn_grouped``, for ``moe_shard_map``), microbatches averaged
+    as the cell does."""
+    import functools
+    from repro_torch.core.schemes.base import tree_leaves
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.models import lm
+    from repro_torch.nn import moe
+    from repro_torch.train.optimizer import loss_grads
+    res = spawn(_lm_mesh_rank, 4, backend="gloo", device="cuda:0",
+                args=(case,), store_dir=str(tmp_path),
+                timeout_s=MESH_TIMEOUT)
+    cfg, mb = _lm_mesh_cfg(case)
+    params = lm.model_init(torch.Generator(device="cuda").manual_seed(0),
+                           cfg)
+    batch = on_device(_lm_mesh_batch(cfg), cuda)
+    single = moe.moe_ffn
+
+    def grouped(params, x, *, mesh=None, **kw):
+        return moe.moe_ffn_grouped(params, x, data_n=2, model_n=2, **kw)
+
+    if cfg.moe_shard_map:
+        moe.moe_ffn = grouped
+    try:
+        rows = LM_MESH_BATCH // mb
+        grads, loss = None, 0.0
+        for i in range(mb):
+            part = {k: v[i * rows:(i + 1) * rows] for k, v in batch.items()}
+            g, metrics = loss_grads(functools.partial(
+                lm.loss_fn, cfg=dataclasses.replace(cfg,
+                                                    moe_shard_map=False)),
+                params, part)
+            g = [x.float() for x in tree_leaves(g)]
+            grads = g if grads is None else [a + b for a, b in zip(grads, g)]
+            loss += float(metrics["loss"]) / mb
+    finally:
+        moe.moe_ffn = single
+    grads = [g / mb for g in grads]
+    for r_loss, blocks, specs, coords, launches in res:
+        assert abs(r_loss - loss) <= MESH_TRAIN_TOL * max(1.0, abs(loss))
+        assert launches > 0
+        for got, want, spec in zip(blocks, grads, specs, strict=True):
+            torch.testing.assert_close(got, _block_of(want, spec,
+                                                      coords).cpu(),
+                                       rtol=MESH_TRAIN_TOL,
+                                       atol=MESH_TRAIN_TOL)
+
+
+def _moe_mesh_rank(rank, e):
+    """``moe_ffn_sharded`` on a (2, 2) mesh on cuda:0 (8 experts: the
+    expert strategy; 3: the ffn strategy) at capacity 64: this data
+    shard's outputs (gathered over model), the aux and the gradients of
+    sum(out * cos(out)) + aux, summed over data."""
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.nn import moe
+    from repro_torch.sharding import collectives as coll
+    mesh = make_debug_mesh(2, 2)
+    params, x = _moe_mesh_inputs(e)
+    d, m = mesh.axis_index("data"), mesh.axis_index("model")
+    expert = moe.expert_parallel(e, 2)
+    dims = {"router": None, "w_gate": 0 if expert else 2,
+            "w_up": 0 if expert else 2, "w_down": 0 if expert else 1}
+    local = {k: v if dims[k] is None else v.narrow(
+        dims[k], m * v.shape[dims[k]] // 2, v.shape[dims[k]] // 2).clone()
+        for k, v in params.items()}
+    xd = x[d * 2:(d + 1) * 2].clone()
+    for t in list(local.values()) + [xd]:
+        t.requires_grad_(True)
+    kw = dict(top_k=2, capacity_factor=64.0, mesh=mesh)
+    if expert:
+        out, aux = moe.moe_ffn_sharded(
+            local, coll.scatter_to(xd, mesh, "model", 1), **kw)
+        out = coll.gather_from(out, mesh, "model", 1)
+    else:
+        out, aux = moe.moe_ffn_sharded(local, xd, **kw)
+    loss = torch.sum(out * torch.cos(out)) + aux / 2
+    names = sorted(local)
+    grads = torch.autograd.grad(loss, [local[k] for k in names] + [xd])
+    return (out.detach().cpu(), float(aux), (d, m), dims,
+            {k: coll.psum(g, mesh, "data").cpu()
+             for k, g in zip(names, grads)}, grads[-1].cpu())
+
+
+def _moe_mesh_inputs(e):
+    """JAX's test's shapes: d 32, d_ff 64, e experts, x (4, 16, 32)."""
+    from repro_torch.nn import moe
+    g = torch.Generator(device="cuda").manual_seed(e)
+    return moe.moe_init(g, 32, 64, e), torch.randn(
+        (4, 16, 32), generator=g, device="cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("e", [8, 3])
+def test_moe_ffn_sharded_on_card_both_strategies(cuda, tmp_path, e):
+    """``moe_ffn_sharded`` on a (2, 2) mesh of 4 gloo ranks on the card,
+    the expert strategy (8 experts, all-to-all over model) and the ffn
+    strategy (3 experts, d_ff over model): outputs, aux and every
+    gradient within 1e-5 of ``moe_ffn_grouped`` on one device."""
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.nn import moe
+    res = spawn(_moe_mesh_rank, 4, backend="gloo", device="cuda:0",
+                args=(e,), store_dir=str(tmp_path), timeout_s=MESH_TIMEOUT)
+    params, x = _moe_mesh_inputs(e)
+    for t in list(params.values()) + [x]:
+        t.requires_grad_(True)
+    out, aux = moe.moe_ffn_grouped(params, x, top_k=2, capacity_factor=64.0,
+                                   data_n=2, model_n=2)
+    names = sorted(params)
+    grads = torch.autograd.grad(torch.sum(out * torch.cos(out)) + aux,
+                                [params[k] for k in names] + [x])
+    want = dict(zip(names, grads))
+    for r_out, r_aux, (d, m), dims, r_grads, r_dx in res:
+        rows = slice(d * 2, (d + 1) * 2)
+        torch.testing.assert_close(r_out, out[rows].detach().cpu(),
+                                   rtol=MESH_TRAIN_TOL, atol=MESH_TRAIN_TOL)
+        assert abs(r_aux - float(aux)) <= MESH_TRAIN_TOL
+        torch.testing.assert_close(r_dx, grads[-1][rows].cpu(),
+                                   rtol=MESH_TRAIN_TOL, atol=MESH_TRAIN_TOL)
+        for k in names:
+            w = want[k]
+            if dims[k] is not None:
+                n = w.shape[dims[k]] // 2
+                w = w.narrow(dims[k], m * n, n)
+            torch.testing.assert_close(r_grads[k], w.cpu(),
+                                       rtol=MESH_TRAIN_TOL,
+                                       atol=MESH_TRAIN_TOL)

@@ -177,12 +177,19 @@ def test_kept_and_dropped_choices_share_slot_cap_minus_one(monkeypatch):
 
 
 def test_moe_shard_map_is_refused():
+    """Without a mesh there are no token groups: ``moe_shard_map`` (the
+    grouped dispatch, ``nn/moe.py::moe_ffn_sharded``) asks for
+    ``mesh=``, as JAX's asks for an ambient mesh; on a mesh it runs
+    (``tests/test_torch_lm_mesh.py``)."""
     _, cfg = get_arch("qwen3-moe-30b-a3b", smoke=True)
     cfg = dataclasses.replace(cfg, moe_shard_map=True)
     params = lm.model_init(torch.Generator().manual_seed(0), cfg)
     tokens = torch.zeros((1, 8), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="§1 item 8"):
+    with pytest.raises(ValueError, match="pass mesh="):
         lm.forward(params, tokens, cfg)
+    with pytest.raises(ValueError, match="pass mesh="):
+        moe.moe_ffn_sharded(params["layers"]["moe"], torch.zeros((1, 8, 64)),
+                            top_k=2, mesh=None)
 
 
 # ----------------------------------------------------------------------

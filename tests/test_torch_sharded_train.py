@@ -814,37 +814,43 @@ def test_elastic_restore_across_meshes_and_one_device(tmp_path):
                                        want, rtol=TOL, atol=TOL)
 
 
-def _cli_body(rank, cfg_kw_unused, argv):
-    """``launch.train``'s CLI on this rank: ``--mesh`` joins the group the
-    rank is in."""
+def _cli_body(rank, cfg_kw_unused, argvs):
+    """``launch.train``'s CLI on this rank, once per argv: ``--mesh``
+    joins the group the rank is in.  Each run's losses, and the shape of
+    the first run's field-0 table."""
     from repro_torch.launch import train as train_cli
-    run = train_cli.main(argv)
-    return [h["loss"] for h in run.history], str(run.state.params[
-        "fields"]["f0"]["emb"].shape)
+    runs = [train_cli.main(argv) for argv in argvs]
+    return [[h["loss"] for h in run.history] for run in runs], str(
+        runs[0].state.params["fields"]["f0"]["emb"].shape)
 
 
 def test_train_cli_on_a_mesh_and_its_refusals(tmp_path, capsys):
     """``train --mesh data=2,model=2`` on 4 CPU ranks: every rank's losses
-    within 1e-5 of one device's ``train``; deepfm's 50,000-row field
-    held as 25,000-row blocks.  An LM or GNN arch, a mesh without
-    ``model`` and a world of the wrong size are refused."""
+    within 1e-5 of one device's ``train``, for deepfm (its 50,000-row
+    field held as 25,000-row blocks) and for an LM arch (stablelm-3b,
+    through ``lm_train_cell``).  A GNN arch (its rules wait for ROADMAP
+    §1 item 8.3), a mesh without ``model`` and a world of the wrong size
+    are refused."""
     from repro_torch.launch import train as train_cli
-    argv = ["--arch", "deepfm", "--device", "cpu", "--steps", "3",
-            "--batch", "32", "--log-every", "1", "--mesh",
-            "data=2,model=2", "--dist-backend", "gloo"]
-    res = spawn(_cli_body, 4, args=(None, argv), store_dir=str(tmp_path),
+    mesh = ["--device", "cpu", "--steps", "3", "--log-every", "1",
+            "--mesh", "data=2,model=2", "--dist-backend", "gloo"]
+    argvs = [["--arch", "deepfm", "--batch", "32"] + mesh,
+             ["--arch", "stablelm-3b", "--batch", "4", "--seq", "16"] + mesh]
+    res = spawn(_cli_body, 4, args=(None, argvs), store_dir=str(tmp_path),
                 timeout_s=TIMEOUT)
-    single = train_cli.train("deepfm", steps=3, batch=32, log_every=1,
-                             device="cpu")
-    want = [h["loss"] for h in single.history]
+    want = [[h["loss"] for h in train_cli.train(
+        arch, steps=3, batch=batch, seq=16, log_every=1,
+        device="cpu").history]
+        for arch, batch in (("deepfm", 32), ("stablelm-3b", 4))]
     for losses, shape in res:
-        np.testing.assert_allclose(losses, want, rtol=TOL, atol=TOL)
+        for got, w in zip(losses, want, strict=True):
+            np.testing.assert_allclose(got, w, rtol=TOL, atol=TOL)
         assert shape == "torch.Size([25000, 10])"
     for arch, mesh, msg in (
-            ("stablelm-3b", "data=2,model=2", "ROADMAP.md §1 item 8"),
-            ("mace", "data=2,model=2", "ROADMAP.md §1 item 8"),
+            ("mace", "data=2,model=2", "ROADMAP.md §1 item 8.3"),
             ("deepfm", "data=4", "no 'model' axis"),
-            ("deepfm", "data=2,model=2", "needs 4 ranks, found 1")):
+            ("deepfm", "data=2,model=2", "needs 4 ranks, found 1"),
+            ("stablelm-3b", "data=2,model=2", "needs 4 ranks, found 1")):
         with pytest.raises(SystemExit):
             train_cli.main(["--arch", arch, "--device", "cpu", "--mesh",
                             mesh, "--dist-backend", "gloo"])
