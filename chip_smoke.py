@@ -279,6 +279,38 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``flash_attention`` launches counted (the mesh-rank shapes also
    checked in 11: stablelm-3b's 16 of 32 heads, qwen3's 16 over 2 of 4
    KV heads); every number beside the card's name and power limit;
+   then the LM serving mesh phase (``lm_serve_mesh_phase``): the token
+   tables of gemma3-4b and qwen3-moe-30b-a3b exported once on the card
+   (``dpq_assign``), one device's references in this process, then 4
+   gloo ranks on cuda:0 as a (data=2, model=2) mesh and 8 as a (1, 8)
+   mesh, each serving through ``launch/cells.py::lm_prefill_cell`` and
+   ``lm_decode_cell`` (its params placed by ``lm_param_rules`` as they
+   are drawn, its block of the codes, ``mgqe_decode``, and of the KV
+   cache by ``lm_cache_spec``; ``flash_attention`` on its heads); the
+   counts set to 0 just before the export and read after the ranks:
+   (a) gemma3-4b's ``CONFIG`` (34 layers, f32 params, bf16
+   activations) prefilling 2 x 4,096 and 16 decode steps fed one
+   device's tokens, every step's logits within ``LM_BARS`` of one
+   device's (and the top-1 rule), prefill seconds, decode tokens/s,
+   bytes a rank and one traced decode step's collectives (2 a layer,
+   the gather's 2, the logits' 1); (b) float32 at 7 layers, 1,100
+   tokens (past the local window), split cache off and on, on (2, 2)
+   and on (1, 8) (4 kv heads over 8: the cache's sequence over model,
+   the blocks' attention merged), logits within 1e-4 of one device and
+   greedy tokens identical, the merge without its pmax planted on (1,
+   8) and failing; (c) qwen3-moe-30b-a3b's ``CONFIG`` at 4 of 48
+   layers (the global MoE formulation, experts over model) at 2 x
+   1,024 and 8 steps within ``LM_BARS`` of one device with its experts
+   pinned to the mesh's routes, the share of the mesh's routes that
+   one device does not choose within ``LMS_FLIP_BAR`` (one device's
+   routes of the other prompt planted and failing), the share of
+   (token, choice) pairs dropped; (d) ``decode_32k`` through
+   ``lm_decode_cell``, its global batch of 128 cut to 4, a 22.8 GB
+   cache drawn from seeded generators (positions 0..32,759), 3 steps
+   timed beside their bytes bound and held to one device's steps on
+   the same cache within ``LM_BARS`` (beside one device's distance to
+   its steps with the decode attention in float32), and a fourth step
+   with one rank's cache rows swapped planted and failing it;
 14. the GNN phase (``gnn_phases``), freeing the card after it: MACE's
    ``configs/mace.py::CONFIG`` (2 layers, d_hidden 128, l_max 2,
    correlation order 3) trained GNN_STEPS adam steps through
@@ -356,6 +388,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import gc
+import itertools
 import json
 import math
 import os
@@ -552,6 +585,10 @@ FLASH_CASES = (
     ("stablelm-3b", 1, 2048, 2048, 32, 32, 80, FULL_WINDOW),
     ("stablelm-3b mesh rank", 1, 4096, 4096, 16, 16, 80, FULL_WINDOW),
     ("qwen3 mesh rank", 1, 4096, 4096, 16, 2, 64, FULL_WINDOW),
+    ("gemma3-4b serving mesh rank local", 1, 4096, 4096, 4, 2, 320, 1024),
+    ("gemma3-4b serving mesh rank global", 1, 4096, 4096, 4, 2, 320,
+     FULL_WINDOW),
+    ("gemma3-4b (1, 8) rank", 2, 1100, 1100, 1, 1, 320, 1024),
     ("jax gqa", 2, 256, 256, 4, 2, 64, FULL_WINDOW),
     ("jax window", 1, 128, 128, 4, 4, 32, 64),
     ("jax cross-length", 2, 128, 384, 8, 2, 64, FULL_WINDOW),
@@ -5315,8 +5352,10 @@ def time_flash(err: float, launches: int, shapes: dict) -> dict:
                                                      flash_attention_ref)
     times = {}
     for key, count in shapes.items():
-        arch, b, s, h, hkv, hd, win = key
-        q, k, v = flash_inputs(b, s, s, h, hkv, hd, torch.bfloat16,
+        # (arch, B, S, H, Hkv, hd, window[, dtype name]): bf16 unless named
+        arch, b, s, h, hkv, hd, win, *dtype = key
+        dtype = getattr(torch, dtype[0]) if dtype else torch.bfloat16
+        q, k, v = flash_inputs(b, s, s, h, hkv, hd, dtype,
                                seed=hd + win % 997)
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         pos = torch.arange(s, device="cuda")
@@ -5343,17 +5382,19 @@ def time_flash(err: float, launches: int, shapes: dict) -> dict:
                         .abs().max())
         pairs = visible_pairs(s, win) * b * h
         flops = 4 * hd * pairs
-        nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2
-        t_ops = flops / BF16_FLOP_PER_S * 1e3
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        t_ops = flops / (BF16_FLOP_PER_S if dtype == torch.bfloat16
+                         else F32_FLOP_PER_S) * 1e3
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         times[key] = (ms, plain, lib_ms, max(t_ops, t_bytes),
                       "operations" if t_ops >= t_bytes else "bytes")
         log(f"time flash_attention {arch} layer x{count} B={b} S={s} H={h} "
-            f"Hkv={hkv} hd={hd} window={win} bf16: kernel {ms:.5f} ms, "
+            f"Hkv={hkv} hd={hd} window={win} {dtype}: kernel {ms:.5f} ms, "
             f"plain {plain:.5f} ms, F.scaled_dot_product_attention "
             f"{lib_ms:.5f} ms ({sdpa_backend(lib)}; max |diff| to the "
             f"plain version {lib_err:.3g}), bound {max(t_ops, t_bytes):.5f} "
-            f"ms ({flops} FLOP over {pairs} visible pairs at 989 TFLOP/s, "
+            f"ms ({flops} FLOP over {pairs} visible pairs at "
+            f"{989 if dtype == torch.bfloat16 else 67} TFLOP/s, "
             f"{nbytes} bytes); {flops / ms / 1e9:.2f} TFLOP/s; host time to "
             f"launch {host:.5f} ms; the kernel at block_k 32 / 64: "
             f"{other[32]:.5f} / {other[64]:.5f} ms")
@@ -6663,8 +6704,9 @@ LMM_ARCH = "stablelm-3b"
 # 80 GB in the first step, and a step's time grows with its layers'
 # host-staged gloo collectives: the depth is cut for memory and time,
 # the width kept (the whole script read 1,015.8 s of its 1,200 s at 16
-# layers; H100 80GB HBM3 at 700 W)
-LMM_LAYERS = 8
+# layers; 1,205.5 s at 8 with the LM serving mesh phase, whose time
+# the cut to 4 pays; H100 80GB HBM3 at 700 W)
+LMM_LAYERS = 4
 LMM_BATCH = 2                          # train_4k's sequence, one a data rank
 LMM_STEPS = 2                          # a step, then a traced one
 LMM_CHECK_LAYERS = 2                   # stablelm-3b's float32 check's depth
@@ -7408,6 +7450,763 @@ def lm_mesh_phase(card: str) -> tuple:
 
 
 # ----------------------------------------------------------------------
+# the LM serving mesh phase: lm_prefill_cell and lm_decode_cell on ranks
+# ----------------------------------------------------------------------
+
+LMS_MESH = (2, 2)                      # (data, model): 4 gloo ranks, one card
+LMS_ARCH = "gemma3-4b"
+# (a): gemma3-4b's CONFIG at full width and depth, one prompt a data rank
+LMS_BATCH, LMS_PROMPT, LMS_STEPS = 2, 4096, 16
+LMS_MAX_SEQ = LMS_PROMPT + LMS_STEPS
+# (b): float32 at full width, gemma3-4b's loc, glob and rem stacks (7
+# layers), a prompt past the local window of 1,024 (the local ring
+# wraps), on (2, 2) (the kv heads over model) and on (1, 8) (4 kv heads
+# do not divide 8: the cache's sequence over model); the cache's 1,108
+# slots rounded up to whole blocks of 8
+LMS_CHECK_LAYERS = 7
+LMS_CHECK_PROMPT, LMS_CHECK_STEPS = 1100, 8
+LMS_CHECK_MAX_SEQ = 1112
+LMS_CHECK_TOL = 1e-4
+LMS_SEQ_MESH = (1, 8)
+# (c): qwen3-moe-30b-a3b's CONFIG (bf16) at full width, 4 of 48 layers,
+# the global MoE formulation (128 experts over model = 2)
+QWS_LAYERS = 4
+QWS_PROMPT, QWS_STEPS = 1024, 8
+# (d): LM_SHAPES' decode_32k through lm_decode_cell, its global batch of
+# 128 cut to 4 (4 x 32,768 slots of gemma3-4b's 34 layers: 22.8 GB of
+# bf16 cache); the cache drawn from seeded generators, positions
+# 0..32,759 written
+LMS_DECODE_BATCH = 4
+LMS_DECODE_VALID = 32760
+LMS_DECODE_STEPS = 3
+# LM_BARS' bars over their sound readings (gemma3-4b: 0.125 / 0.1016)
+LMS_NOISE_RULE = 1.25
+# (d)'s planted fault: in one step after the timed ones, the rank at
+# these (data, model) coordinates reads its cache block's two batch rows
+# swapped
+LMS_PLANT_COORDS = (0, 1)
+# (c)'s bar on the share of (token, choice) routes whose expert one
+# device does not choose, LM_BARS' rule over the reading of one device
+# against its own run with the attention in float32: 486 of 66,048
+# (the mesh read 467, one device's routes of the other prompt 57,672;
+# H100 80GB HBM3 at 700 W)
+LMS_FLIP_NOISE = 486 / 66048
+LMS_FLIP_BAR = LMS_NOISE_RULE * LMS_FLIP_NOISE
+LMS_TIMEOUT = 900.0
+
+
+def lms_configs() -> dict:
+    """The phase's configs: (a) and (d) gemma3-4b's CONFIG (f32 params,
+    bf16 activations); (b) its float32 check at LMS_CHECK_LAYERS, the
+    split cache off and on; (c) qwen3's CONFIG at QWS_LAYERS."""
+    from repro_torch.configs import get_arch
+    _, g = get_arch(LMS_ARCH, smoke=False)
+    _, q = get_arch(QW_ARCH, smoke=False)
+    check = dataclasses.replace(g, num_layers=LMS_CHECK_LAYERS,
+                                dtype="float32", param_dtype="float32")
+    return {"a": g, "b": check,
+            "b_split": dataclasses.replace(check,
+                                           split_local_global_cache=True),
+            "c": dataclasses.replace(q, num_layers=QWS_LAYERS), "d": g}
+
+
+def lms_prompts(cfg, batch: int, prompt: int, seed: int):
+    import numpy as np
+    return np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (batch, prompt)).astype(np.int32)
+
+
+@contextlib.contextmanager
+def counted_moe(counts: list):
+    """Within the block, ``nn/moe.py::moe_ffn`` also records (pairs, kept)
+    of each call's routing at its capacity (the global formulation's
+    slots, the mesh's as one device's), through the ``route`` of the
+    block's entry (a recorder entered after it sees the layer's own
+    calls alone)."""
+    import torch
+    from repro_torch.nn import moe
+    single, route = moe.moe_ffn, moe.route
+
+    def counted(params, x, *, top_k, capacity_factor=1.25, **kw):
+        e = params["router"].shape[-1]
+        xt = x.reshape(-1, x.shape[-1])
+        cap = moe.capacity(xt.shape[0], e, top_k, capacity_factor)
+        with torch.no_grad():
+            _, gate_i, _ = route(xt, params["router"], top_k)
+            _, keep = moe.slots(gate_i.reshape(-1), e, cap)
+        counts.append((keep.numel(), int(keep.sum()), x.shape[1]))
+        return single(params, x, top_k=top_k,
+                      capacity_factor=capacity_factor, **kw)
+
+    moe.moe_ffn = counted
+    try:
+        yield
+    finally:
+        moe.moe_ffn = single
+
+
+@contextlib.contextmanager
+def recorded_route_ids(into: list):
+    """Inside the block every call of ``nn/moe.py::route`` appends its
+    expert ids (T, k) to ``into`` (the global formulation's routes on a
+    mesh: every token of the batch, on every rank)."""
+    from repro_torch.nn import moe
+    sound = moe.route
+
+    def recorded(xt, router, top_k):
+        out = sound(xt, router, top_k)
+        into.append(out[1])
+        return out
+    moe.route = recorded
+    try:
+        yield
+    finally:
+        moe.route = sound
+
+
+@contextlib.contextmanager
+def f32_attention():
+    """Within the block the attention (a prefill's and a decode step's)
+    runs in float32 on the same bf16 inputs, its output rounded once: the
+    reading LM_BARS are set from."""
+    from repro_torch.nn import attention as attn
+    names = ("dense_attention", "chunked_attention", "decode_attention")
+    sound = {n: getattr(attn, n) for n in names}
+
+    def f32(fn):
+        def run(q, k, v, *args, **kw):
+            return fn(q.float(), k.float(), v.float(), *args, **kw).to(
+                q.dtype)
+        return run
+    for n in names:
+        setattr(attn, n, f32(sound[n]))
+    try:
+        yield
+    finally:
+        for n in names:
+            setattr(attn, n, sound[n])
+
+
+def route_flips(got: list, want: list) -> int:
+    """The (token, choice) routes of ``got`` whose expert is not among
+    the same token's choices in ``want`` (lists of (T, k) expert ids, a
+    ``route`` call each)."""
+    return sum(int((~(a[:, :, None] == b[:, None, :]).any(-1)).sum())
+               for a, b in zip(got, want))
+
+
+def lms_swap_rows(cache: dict) -> None:
+    """(d)'s planted fault, in place: this rank's cache block with its
+    two batch rows swapped in every layer's K and V."""
+    for name, leaves in cache.items():
+        if name == "pos":
+            continue
+        for t in leaves[:2]:
+            for idx in itertools.product(*map(range, t.shape[:-4])):
+                t[idx].copy_(t[idx].flip(0))
+
+
+def lms_fill_cache(cache: dict, cfg, batch: int, max_seq: int,
+                   mesh=None) -> None:
+    """Fill ``cache`` (whole, or with a ``mesh`` this rank's block under
+    ``lm_cache_spec``) in place: each layer's K and V of the whole cache
+    drawn from a generator seeded by its stack, layer and leaf (so every
+    rank draws the same whole cache and keeps its block), V about a mean
+    of its own for each batch row and kv head (so that a step's
+    attention output tells the rows and heads apart), kpos the
+    positions 0..LMS_DECODE_VALID-1 and -1 after; ``pos`` the next."""
+    import zlib
+    import numpy as np
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.sharding.rules import NamedSpec, lm_cache_spec
+    whole = lm.make_cache(cfg, batch, max_seq, device="meta")
+    specs = None if mesh is None else lm_cache_spec(cfg, batch, mesh, False,
+                                                    whole)
+    for name, leaves in whole.items():
+        if name == "pos":
+            continue
+        lead = tuple(leaves[0].shape[:-4])
+        clen = leaves[2].shape[-1]
+        kp = torch.arange(clen, dtype=torch.int32, device="cuda")
+        kp = torch.where(kp < LMS_DECODE_VALID, kp, -1).expand(batch, clen)
+        for flat in range(math.prod(lead)):
+            idx = tuple(int(i) for i in np.unravel_index(flat, lead))
+            for j in range(3):
+                if j == 2:
+                    t = kp
+                else:
+                    g = torch.Generator(device="cuda").manual_seed(
+                        zlib.crc32(f"{name}/{flat}/{j}".encode()))
+                    shape = tuple(leaves[j].shape[len(lead):])
+                    t = torch.randn(shape, generator=g, device="cuda")
+                    if j == 1:
+                        t += torch.randn((batch, 1) + shape[2:],
+                                         generator=g, device="cuda")
+                    t = t.to(cache[name][j].dtype)
+                if specs is not None:
+                    t = NamedSpec(mesh, specs[name][j][len(lead):]).block(t)
+                cache[name][j][idx].copy_(t)
+                del t
+    cache["pos"] = LMS_DECODE_VALID
+
+
+def lms_serve(cfg, mesh, art, prompts, max_seq: int, steps: int,
+              feed=None, params=None, trace: bool = False) -> dict:
+    """``lm_prefill_cell`` then ``steps`` decode steps of
+    ``lm_decode_cell`` on this rank (``mesh``; None: one device, through
+    ``models/lm.py`` on the card): each step fed ``feed``'s tokens (B,
+    steps) when given, else greedy.  Logits (this rank's rows, on the
+    host), tokens, prefill and decode seconds, peak bytes above the
+    start; with ``trace`` one more decode step with the mesh's
+    collectives counted.  Returns with ``served`` (the placed model)."""
+    import torch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.cells import lm_decode_cell, lm_prefill_cell
+    from repro_torch.models import lm
+    from repro_torch.sharding.collectives import CommStats
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    b, s = prompts.shape
+    out = {}
+    if mesh is None:
+        toks_in = torch.from_numpy(prompts).cuda()
+
+        def prefill():
+            return lm.prefill(params, toks_in, cfg, max_seq=max_seq,
+                              embed_artifact=art)
+
+        def decode(cache, tok):
+            return lm.decode_step(params, cache, tok, cfg,
+                                  embed_artifact=art)
+
+        def local(t):
+            return torch.as_tensor(t).cuda()
+    else:
+        spec = ShapeSpec("serve", "prefill", seq_len=s, global_batch=b)
+        pre = lm_prefill_cell(cfg, spec, mesh, artifact=art,
+                              max_seq=max_seq)
+        dec = lm_decode_cell(cfg, dataclasses.replace(
+            spec, kind="decode", seq_len=max_seq), mesh, served=pre.served)
+        torch.cuda.synchronize()
+        out["served_bytes"] = torch.cuda.memory_allocated() - before
+        toks_in = pre.local_tokens(prompts)
+        decode, local = dec.step, dec.local_tokens
+        out["served"] = pre.served
+
+        def prefill():
+            return pre.step(toks_in)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cache, logits = prefill()
+        torch.cuda.synchronize()
+        out["prefill_s"] = time.perf_counter() - t0
+        logits_all = [logits]
+        tok = torch.argmax(logits, -1).to(torch.int32)
+        toks = [tok]
+        t0 = time.perf_counter()
+        for i in range(steps):
+            if feed is not None:
+                tok = local(feed[:, i])
+            cache, logits = decode(cache, tok)
+            logits_all.append(logits)
+            tok = torch.argmax(logits, -1).to(torch.int32)
+            toks.append(tok)
+        torch.cuda.synchronize()
+        out["decode_s"] = time.perf_counter() - t0
+        out["logits"] = [x.float().cpu() for x in logits_all]
+        del logits_all
+        if trace:
+            mesh.stats = CommStats()
+            try:
+                decode(cache, tok)
+                out["comm"] = dataclasses.astuple(mesh.stats)
+            finally:
+                mesh.stats = None
+    out["tokens"] = torch.stack(toks, 1).cpu()
+    out["cache_bytes"] = sum(t.numel() * t.element_size()
+                             for name, leaves in cache.items()
+                             if name != "pos" for t in leaves)
+    out["peak"] = torch.cuda.max_memory_allocated() - before
+    del cache
+    return out
+
+
+def lms_decode_32k(cfg, mesh, served, params, art, feed,
+                   planted: bool = False) -> dict:
+    """decode_32k on this rank (``mesh``; None: one device): a cache of
+    LMS_DECODE_BATCH x the shape's 32,768 slots filled by
+    ``lms_fill_cache``, LMS_DECODE_STEPS steps fed ``feed``'s tokens,
+    each timed, then one more (``last``), with this rank's cache rows
+    swapped first where ``planted``; logits on the host, the cache's
+    bytes."""
+    import torch
+    from repro_torch.configs.base import LM_SHAPES
+    from repro_torch.launch.cells import lm_decode_cell
+    from repro_torch.models import lm
+    shape = next(s for s in LM_SHAPES if s.name == "decode_32k")
+    if mesh is None:
+        cache = lm.make_cache(cfg, LMS_DECODE_BATCH, shape.seq_len)
+
+        def step(cache, tok):
+            return lm.decode_step(params, cache, tok, cfg,
+                                  embed_artifact=art)
+
+        def local(t):
+            return torch.as_tensor(t).cuda()
+    else:
+        cell = lm_decode_cell(cfg, shape, mesh, batch=LMS_DECODE_BATCH,
+                              served=served)
+        need("cut to 4" in cell.note, f"decode_32k's cut named: {cell.note}")
+        cache = cell.make_cache()
+        step, local = cell.step, cell.local_tokens
+    lms_fill_cache(cache, cfg, LMS_DECODE_BATCH, shape.seq_len, mesh)
+    out = {"logits": [], "ms": [], "cache_bytes": sum(
+        t.numel() * t.element_size() for name, leaves in cache.items()
+        if name != "pos" for t in leaves)}
+    with torch.no_grad():
+        for i in range(LMS_DECODE_STEPS):
+            tok = local(feed[:, i])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cache, logits = step(cache, tok)
+            torch.cuda.synchronize()
+            out["ms"].append(1e3 * (time.perf_counter() - t0))
+            out["logits"].append(logits.float().cpu())
+        if planted:
+            lms_swap_rows(cache)
+        cache, logits = step(cache, local(feed[:, LMS_DECODE_STEPS]))
+        out["last"] = logits.float().cpu()
+    del cache
+    return out
+
+
+def lms_rank(rank, plan) -> dict:
+    """One rank of the LM serving mesh phase on (2, 2) (a gloo process on
+    the card): (b) both splits, (c), (a) with its traced step, then (d)
+    on (a)'s placed model; see ``lm_serve_mesh_phase``."""
+    import torch
+    from repro_torch.launch.mesh import make_debug_mesh
+    mesh = make_debug_mesh(*LMS_MESH)
+    need(mesh.device == torch.device("cuda", 0), "every rank on cuda:0")
+    counters = reset_counts()
+    cfgs = lms_configs()
+    out = {"coords": (mesh.axis_index("data"), mesh.axis_index("model"))}
+    for key in ("b", "b_split", "c"):
+        routes = []
+        with recorded_route_ids(routes):
+            run = lms_serve(cfgs[key], mesh, plan["art"][key],
+                            plan["prompts"][key], plan["max_seq"][key],
+                            plan["steps"][key], feed=plan["feed"].get(key))
+        run.pop("served")
+        run["routes"] = [t.cpu() for t in routes]
+        out[key] = run
+        del routes
+        gc.collect()
+        torch.cuda.empty_cache()
+    run = lms_serve(cfgs["a"], mesh, plan["art"]["a"], plan["prompts"]["a"],
+                    LMS_MAX_SEQ, LMS_STEPS, feed=plan["feed"]["a"],
+                    trace=True)
+    served = run.pop("served")
+    out["a"] = run
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out["d"] = lms_decode_32k(cfgs["d"], mesh, served, None, None,
+                              plan["feed"]["d"],
+                              planted=out["coords"] == LMS_PLANT_COORDS)
+    out["d"]["peak"] = torch.cuda.max_memory_allocated()
+    out["d"]["params_bytes"] = lms_bytes(served.params)
+    out["launches"] = {k: fn.launches for k, fn in counters.items()}
+    return out
+
+
+def lms_seq_rank(rank, plan) -> dict:
+    """One rank of (1, 8), where gemma3-4b's 4 kv heads do not divide
+    model: (b) with the split cache off and on, then (uncounted) the
+    planted fault, the sequence merge without its pmax."""
+    import torch
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.sharding import collectives as coll
+    mesh = make_debug_mesh(*LMS_SEQ_MESH)
+    counters = reset_counts()
+    cfgs = lms_configs()
+    out = {"coords": (mesh.axis_index("data"), mesh.axis_index("model"))}
+    for key in ("b", "b_split"):
+        run = lms_serve(cfgs[key], mesh, plan["art"][key],
+                        plan["prompts"][key], plan["max_seq"][key],
+                        plan["steps"][key])
+        run.pop("served")
+        out[key] = run
+    out["launches"] = {k: fn.launches for k, fn in counters.items()}
+    pmax = coll.pmax
+    coll.pmax = lambda x, mesh, axes: x.detach().clone()
+    try:
+        run = lms_serve(cfgs["b"], mesh, plan["art"]["b"],
+                        plan["prompts"]["b"], plan["max_seq"]["b"], 1)
+        out["planted"] = run["logits"]
+    finally:
+        coll.pmax = pmax
+    return out
+
+
+def lms_bytes(params: dict) -> int:
+    """The bytes of an LM's params but its embedding's (the token table
+    stripped: the artifact serves its rows)."""
+    from repro_torch.core.schemes.base import tree_leaves
+    return sum(t.numel() * t.element_size()
+               for name, tree in params.items() if name != "embed"
+               for t in tree_leaves(tree))
+
+
+def lms_top1(got, want, bar: float) -> bool:
+    """Top-1 tokens equal, or each row's pick within ``bar`` of the
+    reference's best logit (random weights leave near-ties)."""
+    import torch
+    pick = want.gather(-1, got.argmax(-1)[:, None])[:, 0]
+    return bool(torch.equal(got.argmax(-1), want.argmax(-1))) or bool(
+        ((want.max(-1).values - pick) <= bar).all())
+
+
+def lm_serve_mesh_phase(card: str) -> tuple:
+    """The LM serving mesh phase (see the module docstring): one device's
+    references in this process, then 4 gloo ranks on the card as a
+    (data=2, model=2) mesh (``lms_rank``) and 8 as a (1, 8) mesh
+    (``lms_seq_rank``).  The token tables exported once here; counts set
+    to 0 just before that export and read after the ranks, the ranks'
+    summed.  Returns (launches, flash_attention's (shape -> launches))."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.core import Embedding
+    from repro_torch.core.schemes.base import tree_map
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.models import lm
+    from repro_torch.sharding.rules import strip_embed_table
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfgs = lms_configs()
+    plan = {"prompts": {"a": lms_prompts(cfgs["a"], LMS_BATCH, LMS_PROMPT, 0),
+                        "b": lms_prompts(cfgs["b"], LMS_BATCH,
+                                         LMS_CHECK_PROMPT, 1),
+                        "c": lms_prompts(cfgs["c"], LMS_BATCH, QWS_PROMPT,
+                                         2)},
+            "max_seq": {"b": LMS_CHECK_MAX_SEQ, "b_split": LMS_CHECK_MAX_SEQ,
+                        "c": QWS_PROMPT + QWS_STEPS},
+            "steps": {"b": LMS_CHECK_STEPS, "b_split": LMS_CHECK_STEPS,
+                      "c": QWS_STEPS},
+            "feed": {"d": np.random.default_rng(3).integers(
+                0, cfgs["d"].vocab_size,
+                (LMS_DECODE_BATCH, LMS_DECODE_STEPS + 1)).astype(np.int32)},
+            "art": {}}
+    plan["prompts"]["b_split"] = plan["prompts"]["b"]
+    # ------------------------------------ the export, once, counted
+    counters = reset_counts()
+    params = {}
+    t0 = time.perf_counter()
+    for key in ("a", "c"):
+        cfg = cfgs[key]
+        params[key] = lm.model_init(torch.Generator(device="cuda")
+                                    .manual_seed(0), cfg)
+        emb = Embedding(dataclasses.replace(cfg.embedding,
+                                            param_dtype=cfg.param_dtype),
+                        device="cuda")
+        with torch.no_grad():
+            art = emb.export(params[key]["embed"])
+        plan["art"][key] = tree_map(lambda t: t.cpu(), art)
+        params[key] = strip_embed_table(params[key])
+        del art
+    t_export = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    # the 7-layer check draws the same token table first (model_init
+    # draws the embedding before the layers): one artifact serves both
+    for key in ("b", "b_split", "d"):
+        plan["art"][key] = plan["art"]["a"]
+    art = {k: tree_map(lambda t: t.cuda(), v) for k, v in plan["art"].items()}
+    # ------------------------------------ one device: the references
+    ref, moe_counts, one_routes, f32_routes = {}, [], [], []
+    with counted_moe(moe_counts), recorded_route_ids(one_routes):
+        ref["c"] = lms_serve(cfgs["c"], None, art["c"], plan["prompts"]["c"],
+                             plan["max_seq"]["c"], QWS_STEPS,
+                             params=params["c"])
+    one_routes = [t.cpu() for t in one_routes]
+    plan["feed"]["c"] = ref["c"]["tokens"][:, :-1].numpy()
+    # (c)'s noise reading: one device's routes with its attention in
+    # float32, fed the same tokens
+    with f32_attention(), recorded_route_ids(f32_routes):
+        lms_serve(cfgs["c"], None, art["c"], plan["prompts"]["c"],
+                  plan["max_seq"]["c"], QWS_STEPS, feed=plan["feed"]["c"],
+                  params=params.pop("c"))
+    f32_routes = [t.cpu() for t in f32_routes]
+    pre_n = [c for c in moe_counts if c[2] > 1]
+    dec_n = [c for c in moe_counts if c[2] == 1]
+    dropped = {what: 1 - sum(c[1] for c in n) / sum(c[0] for c in n)
+               for what, n in (("prefill", pre_n), ("decode", dec_n))}
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref["a"] = lms_serve(cfgs["a"], None, art["a"], plan["prompts"]["a"],
+                         LMS_MAX_SEQ, LMS_STEPS, params=params["a"])
+    plan["feed"]["a"] = ref["a"]["tokens"][:, :-1].numpy()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ref["d"] = lms_decode_32k(cfgs["d"], None, None, params["a"], art["d"],
+                              plan["feed"]["d"])
+    with f32_attention():
+        ref["d_f32"] = lms_decode_32k(cfgs["d"], None, None, params["a"],
+                                      art["d"], plan["feed"]["d"])
+    weights = lms_bytes(params["a"])
+    del params["a"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    for key in ("b", "b_split"):
+        p = strip_embed_table(lm.model_init(
+            torch.Generator(device="cuda").manual_seed(0), cfgs[key]))
+        ref[key] = lms_serve(cfgs[key], None, art[key], plan["prompts"][key],
+                             plan["max_seq"][key], plan["steps"][key],
+                             params=p)
+        del p
+        gc.collect()
+        torch.cuda.empty_cache()
+    del art
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_ref = time.perf_counter() - t_phase
+    log(f"lm serve mesh: the token tables exported once in {t_export:.1f}s "
+        f"(dpq_assign {launches['dpq_assign']}); one device's references "
+        f"{t_ref:.1f}s; this process holds "
+        f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB before the ranks")
+    counters = reset_counts()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_lm_serve_")
+    try:
+        t0 = time.perf_counter()
+        ranks = spawn(lms_rank, LMS_MESH[0] * LMS_MESH[1], backend="gloo",
+                      device="cuda:0", args=(plan,), store_dir=tmp,
+                      timeout_s=LMS_TIMEOUT)
+        t_ranks = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        seq = spawn(lms_seq_rank, LMS_SEQ_MESH[0] * LMS_SEQ_MESH[1],
+                    backend="gloo", device="cuda:0", args=(plan,),
+                    store_dir=tmp, timeout_s=LMS_TIMEOUT)
+        t_seq = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for name, fn in counters.items():
+        launches[name] += fn.launches
+    for r in ranks + seq:
+        for name, v in r["launches"].items():
+            launches[name] += v
+
+    # one device again, its routes pinned to the mesh's (the global
+    # formulation routes every token on every rank): a router near a tie
+    # flips on the psums' rounding, and a flip, or a drop it moves, on
+    # the last token's path moves its logits by more than bf16 noise
+    mesh_routes = ranks[0]["c"]["routes"]
+    need(all(len(r["c"]["routes"]) == len(mesh_routes) and all(
+        torch.equal(a, b) for a, b in zip(r["c"]["routes"], mesh_routes))
+        for r in ranks), "(c): every rank routes the same tokens alike")
+    n_routes = sum(t.numel() for t in mesh_routes)
+    flips = {"mesh": route_flips(mesh_routes, one_routes),
+             "f32": route_flips(f32_routes, one_routes),
+             # planted: a router fed the other prompt's rows
+             "planted": route_flips(mesh_routes, [
+                 t.reshape(LMS_BATCH, -1, t.shape[-1]).flip(0).reshape(
+                     t.shape) for t in one_routes])}
+    share = {k: v / n_routes for k, v in flips.items()}
+    p = strip_embed_table(lm.model_init(
+        torch.Generator(device="cuda").manual_seed(0), cfgs["c"]))
+    with pinned_routes([t.cuda() for t in mesh_routes]):
+        ref["c_pinned"] = lms_serve(
+            cfgs["c"], None, tree_map(lambda t: t.cuda(), plan["art"]["c"]),
+            plan["prompts"]["c"], plan["max_seq"]["c"], QWS_STEPS,
+            feed=plan["feed"]["c"], params=p)
+    del p
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------------- the bars
+    def rows(r, mesh, key):
+        d = r["coords"][0]
+        bl = (LMS_DECODE_BATCH if key == "d" else LMS_BATCH) // mesh[0]
+        return slice(d * bl, (d + 1) * bl)
+
+    def gaps(group, mesh, key, ref_key=None):
+        """Each step's largest |logit diff| over the ranks."""
+        return [max(float((r[key]["logits"][i]
+                           - want[rows(r, mesh, key)]).abs().max())
+                    for r in group)
+                for i, want in enumerate(ref[ref_key or key]["logits"])]
+
+    def top1(group, mesh, key, bar, ref_key=None):
+        return all(lms_top1(got, ref[ref_key or key]["logits"][i][
+            rows(r, mesh, key)], bar) for r in group
+            for i, got in enumerate(r[key]["logits"]))
+
+    def fmt(xs):
+        return [float(f"{x:.3g}") for x in xs]
+
+    bar_g = LM_BARS[LMS_ARCH][0]
+    bar_q = LM_BARS[QW_ARCH][0]
+    checks = []
+    for key, mesh_shape, group in (("b", LMS_MESH, ranks),
+                                   ("b_split", LMS_MESH, ranks),
+                                   ("b", LMS_SEQ_MESH, seq),
+                                   ("b_split", LMS_SEQ_MESH, seq)):
+        g = gaps(group, mesh_shape, key)
+        same = all(torch.equal(r[key]["tokens"],
+                               ref[key]["tokens"][rows(r, mesh_shape, key)])
+                   for r in group)
+        log(f"lm serve mesh (b) {cfgs[key].name} float32, {LMS_CHECK_LAYERS} "
+            f"layers, split cache {cfgs[key].split_local_global_cache}, on "
+            f"{mesh_shape}: prefill of {LMS_BATCH} x {LMS_CHECK_PROMPT} and "
+            f"{LMS_CHECK_STEPS} greedy steps, logits within {fmt(g)} of one "
+            f"device (bar {LMS_CHECK_TOL}); tokens identical: {same} "
+            f"[{card}]")
+        checks.append((max(g) <= LMS_CHECK_TOL and same,
+                       f"(b) {key} on {mesh_shape}: logits within "
+                       f"{LMS_CHECK_TOL} of one device and tokens identical"))
+    planted = max(float((r["planted"][1] - ref["b"]["logits"][1][
+        rows(r, LMS_SEQ_MESH, "b")]).abs().max()) for r in seq)
+    log(f"lm serve mesh (b) planted: the sequence merge without its pmax "
+        f"moves the first decode step's logits by {planted:.4g} (bar "
+        f"{LMS_CHECK_TOL})")
+    checks.append((planted > LMS_CHECK_TOL,
+                   "the planted merge fault fails (b)'s bar"))
+    a = [r["a"] for r in ranks]
+    g_a, t_a = gaps(ranks, LMS_MESH, "a"), top1(ranks, LMS_MESH, "a", bar_g)
+    count, nbytes, secs = a[0]["comm"]
+    layers = cfgs["a"].num_layers
+    tok_s = LMS_BATCH * LMS_STEPS / max(x["decode_s"] for x in a)
+    one_tok_s = LMS_BATCH * LMS_STEPS / ref["a"]["decode_s"]
+    log(f"lm serve mesh (a) {cfgs['a'].name} CONFIG ({layers} layers, f32 "
+        f"params, bf16 activations) on (data={LMS_MESH[0]}, model="
+        f"{LMS_MESH[1]}), 4 gloo ranks on cuda:0: prefill {LMS_BATCH} x "
+        f"{LMS_PROMPT} in {[round(x['prefill_s'], 3) for x in a]} s by rank "
+        f"(one device {ref['a']['prefill_s']:.3f} s), {LMS_STEPS} decode "
+        f"steps (fed one device's tokens) at {tok_s:.1f} tokens/s (one "
+        f"device {one_tok_s:.1f}); logits within {fmt(g_a)} of one device "
+        f"(bar {bar_g}), top-1 rule {t_a}; served model "
+        f"{[round(x['served_bytes'] / 1e9, 3) for x in a]} GB a rank, cache "
+        f"{[round(x['cache_bytes'] / 1e9, 3) for x in a]} GB, peak above "
+        f"the start {[round(x['peak'] / 1e9, 3) for x in a]} GB; a decode "
+        f"step's collectives (rank 0, traced): {count}, {nbytes / 1e6:.3f} "
+        f"MB from this rank, {secs * 1e3:.1f} ms [{card}]")
+    checks += [(max(g_a) <= bar_g and t_a, f"(a) {LMS_ARCH}: every step's "
+                f"logits within {bar_g} of one device and the top-1 rule"),
+               (count == 2 * layers + 3, f"a decode step's collectives: 2 a "
+                f"layer, the gather's 2 and the logits' 1 ({count})")]
+    c = [r["c"] for r in ranks]
+    g_c = gaps(ranks, LMS_MESH, "c", "c_pinned")
+    t_c = top1(ranks, LMS_MESH, "c", bar_q, "c_pinned")
+    log(f"lm serve mesh (c) {cfgs['c'].name} ({QWS_LAYERS} of 48 layers, "
+        f"bf16, 128 experts over model = 2, the global formulation): "
+        f"prefill {LMS_BATCH} x {QWS_PROMPT} in "
+        f"{[round(x['prefill_s'], 3) for x in c]} s, {QWS_STEPS} steps in "
+        f"{[round(x['decode_s'], 3) for x in c]} s; logits within "
+        f"{fmt(g_c)} of one device's with its experts pinned to the mesh's "
+        f"routes (bar {bar_q}), top-1 rule {t_c}; unpinned "
+        f"{fmt(gaps(ranks, LMS_MESH, 'c'))}; of {n_routes} (token, choice) "
+        f"routes, {flips['mesh']} ({share['mesh']:.4%}) choose an expert "
+        f"one device does not (bar {LMS_FLIP_BAR:.4%}), one device with "
+        f"its attention in float32 {flips['f32']} ({share['f32']:.4%}), "
+        f"planted (one device's routes of the other prompt) "
+        f"{flips['planted']} ({share['planted']:.4%}); pairs dropped at "
+        f"capacity 1.25 (one device's routing): prefill "
+        f"{dropped['prefill']:.4%}, decode {dropped['decode']:.4%}; served "
+        f"model {[round(x['served_bytes'] / 1e9, 3) for x in c]} GB a rank "
+        f"[{card}]")
+    checks += [(max(g_c) <= bar_q and t_c, f"(c) {QW_ARCH}: every step's "
+                f"logits within {bar_q} of one device (experts pinned) and "
+                f"the top-1 rule"),
+               (share["mesh"] <= LMS_FLIP_BAR, f"(c) {QW_ARCH}: the mesh's "
+                f"routes within {LMS_FLIP_BAR:.4%} of one device's"),
+               (share["planted"] > LMS_FLIP_BAR, "(c)'s planted routes of "
+                "the other prompt fail the routes' bar")]
+    # LM_BARS are set about 1.25x above a reading of bf16 noise: the
+    # logits' distance to the same run with its attention in float32 on
+    # the same bf16 inputs (gemma3-4b's prefill: 0.1016 -> 0.125); the
+    # reading at this shape is logged beside the bar
+    d = [r["d"] for r in ranks]
+    g_d = gaps(ranks, LMS_MESH, "d")
+    g_d32 = gaps(ranks, LMS_MESH, "d", "d_f32")
+    floor = [float((a_ - b_).abs().max()) for a_, b_ in
+             zip(ref["d"]["logits"], ref["d_f32"]["logits"])]
+    bar_d = bar_g
+    t_d = top1(ranks, LMS_MESH, "d", bar_d)
+    planted_d = max(float((r["d"]["last"] - ref["d"]["last"][
+        rows(r, LMS_MESH, "d")]).abs().max()) for r in ranks)
+    log(f"lm serve mesh (d) bf16 noise at 32,760 cached keys: one device's "
+        f"steps against its steps with the decode attention in float32 on "
+        f"the same cache {fmt(floor)} (LM_BARS' {bar_g} read at "
+        f"gemma3-4b's prefill); the mesh against the latter {fmt(g_d32)}; "
+        f"largest |logit| "
+        f"{float(max(x.abs().max() for x in ref['d']['logits'])):.4g}; "
+        f"planted (rank {LMS_PLANT_COORDS}'s cache rows swapped) the step "
+        f"after moves by {planted_d:.4g} (bar {bar_d:.4g})")
+    card_bytes = sum(x["params_bytes"] + x["cache_bytes"] for x in d)
+    one_bytes = weights + ref["d"]["cache_bytes"]
+    mesh_ms = [max(x["ms"][i] for x in d) for i in range(LMS_DECODE_STEPS)]
+    log(f"lm serve mesh (d) decode_32k through lm_decode_cell: "
+        f"{cfgs['d'].name}, its global batch of 128 cut to "
+        f"{LMS_DECODE_BATCH}, a {ref['d']['cache_bytes'] / 1e9:.2f} GB cache "
+        f"({[round(x['cache_bytes'] / 1e9, 3) for x in d]} GB a rank), "
+        f"positions 0..{LMS_DECODE_VALID - 1}: {LMS_DECODE_STEPS} steps "
+        f"{[round(x, 2) for x in mesh_ms]} ms (slowest rank) against a "
+        f"bytes bound of {card_bytes / HBM_BYTES_PER_S * 1e3:.2f} ms "
+        f"({card_bytes / 1e9:.2f} GB on the card: each rank's params and "
+        f"cache block); one device {[round(x, 2) for x in ref['d']['ms']]} "
+        f"ms against {one_bytes / HBM_BYTES_PER_S * 1e3:.2f} ms "
+        f"({one_bytes / 1e9:.2f} GB); logits within {fmt(g_d)} of one "
+        f"device (bar {bar_d:.4g}), top-1 rule {t_d}; peak a rank "
+        f"{[round(x['peak'] / 1e9, 3) for x in d]} GB [{card}]")
+    checks += [(max(g_d) <= bar_d and t_d,
+                f"(d) decode_32k: every step's logits within {bar_d:.4g} "
+                f"of one device on the same cache and the top-1 rule"),
+               (planted_d > bar_d, "(d)'s planted swap of one rank's cache "
+                "rows fails its bar")]
+    for ok, what in checks:
+        need(ok, what)
+    per_rank = {"a": layers, "b": LMS_CHECK_LAYERS}
+    for r in ranks:
+        need(r["launches"]["flash_attention"] == per_rank["a"]
+             + 2 * per_rank["b"], f"flash_attention on every (2, 2) rank: "
+             f"(a)'s {layers} layers and (b)'s twice {LMS_CHECK_LAYERS} "
+             f"({r['launches']})")
+        need(r["launches"]["mgqe_decode"] > 0, "mgqe_decode on every rank")
+    for r in seq:
+        need(r["launches"]["flash_attention"] == 2 * per_rank["b"],
+             f"flash_attention on every (1, 8) rank ({r['launches']})")
+    need(launches["dpq_assign"] > 0, "the token tables exported once")
+    n_loc = sum(1 for _, _, w, _ in lm._layer_plan(cfgs["a"], LMS_PROMPT)
+                if w < FULL_WINDOW)
+    c_loc = sum(1 for _, _, w, _ in lm._layer_plan(cfgs["b"],
+                                                   LMS_CHECK_PROMPT)
+                if w < FULL_WINDOW)
+    shapes = {}
+    for name, b, s, h, hkv, n_ranks, n_layers, n_loc_, dtype in (
+            ("gemma3-4b mesh rank", 1, LMS_PROMPT, 4, 2, 4, layers, n_loc,
+             "bfloat16"),
+            ("gemma3-4b f32 check (2, 2) rank", 1, LMS_CHECK_PROMPT, 4, 2, 4,
+             2 * LMS_CHECK_LAYERS, 2 * c_loc, "float32"),
+            ("gemma3-4b f32 check (1, 8) rank", LMS_BATCH, LMS_CHECK_PROMPT,
+             1, 1, 8, 2 * LMS_CHECK_LAYERS, 2 * c_loc, "float32")):
+        for window, n in ((LM_LOCAL_WINDOW, n_loc_),
+                          (FULL_WINDOW, n_layers - n_loc_)):
+            shapes[(name, b, s, h, hkv, 320, window, dtype)] = n * n_ranks
+    need(sum(shapes.values()) == sum(r["launches"]["flash_attention"]
+                                     for r in ranks + seq),
+         "every flash_attention launch of the phase has its shape")
+    log(f"lm serve mesh phase {time.perf_counter() - t_phase:.1f}s (one "
+        f"device's references {t_ref:.1f}s, 4 ranks {t_ranks:.1f}s, 8 ranks "
+        f"{t_seq:.1f}s); launches {launches}")
+    return launches, shapes
+
+
+# ----------------------------------------------------------------------
 # the GNN phase: MACE trained on the card
 # ----------------------------------------------------------------------
 
@@ -7979,6 +8778,12 @@ def main() -> int:
     mesh_launches, mesh_shapes = lm_mesh_phase(card)
     l_launches.append(mesh_launches)
     for key, n in mesh_shapes.items():
+        flash_shapes[key] = flash_shapes.get(key, 0) + n
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve_launches, serve_shapes = lm_serve_mesh_phase(card)
+    l_launches.append(serve_launches)
+    for key, n in serve_shapes.items():
         flash_shapes[key] = flash_shapes.get(key, 0) + n
     lm_assign_gap = max(lm_assign_gap, train_gap)
     kernels.append(time_flash(

@@ -280,6 +280,39 @@ def lm_state_from_numpy(params: dict, opt_state: dict, cfg, device,
                       place(state.opt_state, specs.opt_state, mesh))
 
 
+def lm_artifact_from_numpy(artifact: dict, cfg, device, mesh=None) -> dict:
+    """The JAX LM's served token artifact (numpy leaves; exported from a
+    table in ``cfg.param_dtype``) as the port's: through
+    :func:`artifact_from_numpy`, and with a ``mesh`` this rank's block
+    under ``sharding/rules.py::lm_artifact_specs`` on ``mesh.device``."""
+    ecfg = dataclasses.replace(cfg.embedding, param_dtype=cfg.param_dtype)
+    out = artifact_from_numpy(artifact, ecfg, device)
+    if mesh is None:
+        return out
+    from repro_torch.sharding.rules import lm_artifact_specs, place
+    return place(out, lm_artifact_specs(out), mesh)
+
+
+def lm_cache_from_numpy(cache: dict, cfg, device, mesh=None) -> dict:
+    """A JAX LM decode cache (``{"pos": int32, stack: (k, v, kpos)}``,
+    numpy leaves) as the port's (``pos`` a python int); with a ``mesh``
+    each leaf is this rank's block under
+    ``sharding/rules.py::lm_cache_spec`` (the data axes every axis but
+    ``model``) on ``mesh.device``."""
+    out = {"pos": int(np.asarray(cache["pos"]))}
+    for name, leaves in cache.items():
+        if name != "pos":
+            out[name] = tuple(tensor_from_numpy(a, device) for a in leaves)
+    if mesh is None:
+        return out
+    from repro_torch.sharding.rules import NamedSpec, lm_cache_spec
+    batch = next(v[2].shape[-2] for k, v in out.items() if k != "pos")
+    specs = lm_cache_spec(cfg, batch, mesh, "pod" in mesh.shape, out)
+    return {name: leaves if name == "pos" else tuple(
+        NamedSpec(mesh, sp).place(t) for t, sp in zip(leaves, specs[name]))
+        for name, leaves in out.items()}
+
+
 def mace_params_from_numpy(params: dict, model, device) -> dict:
     """The JAX ``MACE`` params (numpy leaves) as the port's, leaf for
     leaf, each float32 leaf checked against ``model``'s config:

@@ -5,7 +5,7 @@
     init(gen)                  -> params dict (training table)
     apply(params, ids, mesh)   -> (rows, aux loss)         # training path
     export(params)             -> serving artifact dict
-    serve(artifact, ids)       -> emb                      # serving path
+    serve(artifact, ids, mesh) -> emb                      # serving path
     serving_size_bits()        -> int
 
 Every method dispatches through the scheme plugin registry
@@ -77,9 +77,19 @@ class Embedding:
         return self.scheme.attach_hot_rows(self.scheme.export(params))
 
     def serve(self, artifact: dict, ids: torch.Tensor, mesh=None,
-              model_axis: str = "model") -> torch.Tensor:
+              model_axis: str = "model", per_rank: bool = False
+              ) -> torch.Tensor:
         """Rows of ``ids``; with a ``mesh`` (a sharded_codes config),
-        through the sharded gather over this rank's artifact."""
+        through the sharded gather over this rank's artifact.
+        ``per_rank``: ``ids`` are this rank's own and so are the rows,
+        through the gather's per-rank form whatever the config's
+        ``sharded_codes`` (an LM's token table on a mesh, its codes
+        placed by ``sharding/rules.py::lm_artifact_specs``)."""
+        if per_rank:
+            from repro_torch.sharding.quantized import quantized_gather
+            return quantized_gather(artifact, ids, self.cfg,
+                                    model_axis=model_axis, mesh=mesh,
+                                    per_rank=True)
         if mesh is None:
             return self.scheme.serve(artifact, ids)
         return self.scheme.serve(artifact, ids, mesh=mesh,

@@ -1,10 +1,10 @@
 """The recsys model registry (``RecsysConfig.model`` -> model class),
-the recsys and LM train cells on a mesh, the LM config options
-(``LM_CFG_OPTS``), and MACE's FLOP model and shape resolution, from
-the JAX package's ``launch/cells.py``, and the batch of a sampled
-subgraph (``sampled_graph``, the port's own).  The dry-run cells (the
-serve steps on a mesh, traced with no device) wait for the launch
-slice in ROADMAP.md.
+the recsys and LM train cells and the LM prefill and decode cells on a
+mesh, the LM config options (``LM_CFG_OPTS``), and MACE's FLOP model
+and shape resolution, from the JAX package's ``launch/cells.py``, and
+the batch of a sampled subgraph (``sampled_graph``, the port's own).
+The dry-run ``Cell``s (each step traced with no device) wait for the
+launch slice in ROADMAP.md.
 
 Both train cells hold one convention on a mesh: each rank
 backpropagates its data shard's loss weighted B_local/B_global, the
@@ -414,6 +414,212 @@ def lm_train_cell(cfg: LMConfig, mesh, microbatches: int = 1, params=None,
     return LMTrainCell(cfg, mesh, TrainState(placed, opt_state),
                        TrainState(p_spec, o_spec), reduced, optimizer,
                        microbatches)
+
+
+# ======================================================================
+# the LM serving cells on a mesh
+# ======================================================================
+
+@dataclasses.dataclass
+class ServedLM:
+    """The served model on one rank: the params without the token table
+    (``rules.strip_embed_table``), placed by ``lm_param_rules``, and the
+    token table's serving artifact, placed by ``lm_artifact_specs``
+    (this rank's block of the codes)."""
+
+    params: dict
+    artifact: dict
+
+
+def _first_rank(mesh) -> bool:
+    return all(mesh.axis_index(a) == 0 for a in mesh.axis_names)
+
+
+def _export_once(cfg: LMConfig, mesh, embed: dict) -> dict:
+    """The token table's artifact, exported (``dpq_assign``) on the
+    mesh's first rank from ``embed`` (its whole training params there;
+    ignored elsewhere) and broadcast, so every rank serves the same
+    codes."""
+    from repro_torch.core import Embedding
+    from repro_torch.core.schemes.base import tree_map
+    from repro_torch.sharding.collectives import broadcast
+    emb = Embedding(dataclasses.replace(cfg.embedding,
+                                        param_dtype=cfg.param_dtype),
+                    device=mesh.device)
+    if _first_rank(mesh):
+        with torch.no_grad():
+            art = emb.export(embed)
+    else:
+        art = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                             device=mesh.device),
+                       emb.serving_artifact_struct())
+    return tree_map(lambda t: broadcast(t, mesh, mesh.axis_names), art)
+
+
+def serve_placement(cfg: LMConfig, mesh, params=None, artifact=None,
+                    seed: int = 0) -> ServedLM:
+    """This rank's :class:`ServedLM` of ``cfg`` on ``mesh``.
+
+    ``params`` (whole, on any device; default: drawn from a generator
+    seeded ``seed`` on the rank's device, each leaf placed as soon as it
+    is drawn, so no rank holds more than one whole leaf at a time): every
+    leaf but the token table placed by ``lm_param_rules`` (a split of
+    ``wk``/``wv`` inside a head is allowed: the layer gathers it).
+    ``artifact`` (whole, numpy or tensors) placed by
+    ``lm_artifact_specs``; without one, the token table is exported once
+    (:func:`_export_once`) and placed."""
+    from repro_torch.models import lm
+    from repro_torch.sharding.rules import (NamedSpec, check_lm_leaf,
+                                            leaf_spec, lm_artifact_specs,
+                                            lm_param_rules, map_with_path,
+                                            place, strip_embed_table)
+    rules = lm_param_rules(cfg, mesh)
+    table = {}
+
+    def place_leaf(path, t):
+        if path == "embed/emb":
+            # kept whole only where it is exported
+            if artifact is None and _first_rank(mesh):
+                table["emb"] = t
+            return t.new_empty(0)
+        spec = leaf_spec(path, t, rules)
+        check_lm_leaf(cfg, mesh, path, t, spec, serving=True)
+        return NamedSpec(mesh, spec).place(t)
+
+    if params is None:
+        placed = lm.model_init(torch.Generator(device=mesh.device)
+                               .manual_seed(seed), cfg, place=place_leaf)
+    else:
+        placed = map_with_path(place_leaf, params)
+    placed = strip_embed_table(placed)
+    if artifact is None:
+        artifact = _export_once(cfg, mesh, {**placed["embed"], **table})
+        table.clear()
+    else:
+        from repro_torch.convert import tensor_from_numpy
+        from repro_torch.core.schemes.base import tree_map
+        artifact = tree_map(lambda t: t if isinstance(t, torch.Tensor)
+                            else tensor_from_numpy(t, "cpu"), artifact)
+    return ServedLM(placed, place(artifact, lm_artifact_specs(artifact),
+                                  mesh))
+
+
+def _data_rows(t, mesh) -> torch.Tensor:
+    """This rank's rows of a global batch ``t`` (every rank holds the
+    same), the batch over the data axes as the JAX cells' token specs
+    place it, on the rank's device.  A batch that does not divide takes
+    the JAX cells' sequence-parallel branch: refused."""
+    from repro_torch.models.lm import check_batch
+    from repro_torch.sharding.gather import data_axes_of
+    from repro_torch.sharding.rules import NamedSpec
+    t = torch.as_tensor(t)
+    check_batch(t.shape[0], mesh)
+    return NamedSpec(mesh, (data_axes_of(mesh, "model"),)).block(t).to(
+        mesh.device)
+
+
+def _lm_serve_batch(shape: ShapeSpec, batch) -> Tuple[int, str]:
+    """(global batch, the note's cut) of ``shape`` with ``batch=``."""
+    if batch is None or batch == shape.global_batch:
+        return shape.global_batch, ""
+    return batch, f"; global batch {shape.global_batch} cut to {batch}"
+
+
+@dataclasses.dataclass
+class LMPrefillCell:
+    """One rank's prefill of an LM on a mesh: the JAX package's
+    ``lm_prefill_cell`` (prompt -> KV cache and last-token logits on the
+    serving path) written out as one rank's step.  ``step`` takes this
+    rank's prompts (:meth:`local_tokens`) and returns its block of the
+    cache (``lm_cache_spec``) and its rows' logits (B_local, V)."""
+
+    cfg: LMConfig
+    mesh: Any
+    served: ServedLM
+    batch: int                      # global
+    seq_len: int
+    max_seq: int
+    note: str = ""
+
+    def local_tokens(self, tokens) -> torch.Tensor:
+        """This rank's prompts of the global (B, S) ``tokens``
+        (:func:`_data_rows`)."""
+        return _data_rows(tokens, self.mesh)
+
+    def step(self, tokens: torch.Tensor):
+        from repro_torch.models import lm
+        with torch.no_grad():
+            return lm.prefill(self.served.params, tokens, self.cfg,
+                              max_seq=self.max_seq,
+                              embed_artifact=self.served.artifact,
+                              mesh=self.mesh)
+
+
+@dataclasses.dataclass
+class LMDecodeCell:
+    """One rank's decode step of an LM on a mesh: the JAX package's
+    ``lm_decode_cell`` (one new token against a placed cache) written
+    out as one rank's step.  ``step`` takes this rank's block of the
+    cache (:meth:`make_cache`, or a prefill's) and its tokens
+    (:meth:`local_tokens`), updates the cache in place and returns it
+    with its rows' logits (B_local, V)."""
+
+    cfg: LMConfig
+    mesh: Any
+    served: ServedLM
+    batch: int                      # global
+    seq_len: int                    # the cache's length
+    note: str = ""
+
+    def make_cache(self) -> dict:
+        """This rank's block of an empty cache of the cell's shape."""
+        from repro_torch.models import lm
+        return lm.make_cache(self.cfg, self.batch, self.seq_len,
+                             mesh=self.mesh)
+
+    def local_tokens(self, token) -> torch.Tensor:
+        """This rank's rows of the global (B,) ``token``
+        (:func:`_data_rows`)."""
+        return _data_rows(token, self.mesh)
+
+    def step(self, cache: dict, token: torch.Tensor):
+        from repro_torch.models import lm
+        with torch.no_grad():
+            return lm.decode_step(self.served.params, cache, token,
+                                  self.cfg,
+                                  embed_artifact=self.served.artifact,
+                                  mesh=self.mesh)
+
+
+def lm_prefill_cell(cfg: LMConfig, shape: ShapeSpec, mesh, batch=None,
+                    params=None, artifact=None, max_seq=None, served=None,
+                    seed: int = 0) -> LMPrefillCell:
+    """This rank's :class:`LMPrefillCell` of ``cfg`` at ``shape`` (a
+    ``ShapeSpec`` of ``LM_SHAPES``: its global batch, cut by ``batch=``,
+    and prompt length) on ``mesh`` (its data axes are every axis but
+    ``model``, ``pod`` included).  The cache holds ``max_seq`` tokens (default: the
+    prompt's, as the JAX cell's).  The served model is ``served`` (a
+    placed :class:`ServedLM`, e.g. another cell's) or
+    :func:`serve_placement` of ``params`` and ``artifact``."""
+    b, cut = _lm_serve_batch(shape, batch)
+    served = served or serve_placement(cfg, mesh, params, artifact, seed)
+    return LMPrefillCell(cfg, mesh, served, b, shape.seq_len,
+                         max_seq or shape.seq_len,
+                         f"prefill B={b} S={shape.seq_len} (serving "
+                         f"path){cut}")
+
+
+def lm_decode_cell(cfg: LMConfig, shape: ShapeSpec, mesh, batch=None,
+                   params=None, artifact=None, served=None,
+                   seed: int = 0) -> LMDecodeCell:
+    """This rank's :class:`LMDecodeCell` of ``cfg`` at ``shape`` (its
+    global batch, cut by ``batch=``, and the cache's length) on
+    ``mesh``; the rest as :func:`lm_prefill_cell`."""
+    b, cut = _lm_serve_batch(shape, batch)
+    served = served or serve_placement(cfg, mesh, params, artifact, seed)
+    return LMDecodeCell(cfg, mesh, served, b, shape.seq_len,
+                        f"serve_step B={b} KV={shape.seq_len} (one new "
+                        f"token){cut}")
 
 
 # ======================================================================

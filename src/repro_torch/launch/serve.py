@@ -3,7 +3,11 @@
 * ``--arch gemma3-4b`` / ``stablelm-3b``: the LM served on the paper's
   path — init, export of the MGQE token table (``dpq_assign``), prefill
   of a batch of prompts (above 1,024 tokens through the
-  ``flash_attention`` kernel), then greedy decode (``serve_lm``);
+  ``flash_attention`` kernel), then greedy decode (``serve_lm``); with
+  ``--mesh data=2,model=2`` tensor-parallel over ``model``, the prompts
+  over ``data`` and the KV cache placed by ``lm_cache_spec``, one
+  process a rank under torchrun (it prints prefill seconds, decode
+  tokens/s, each rank's bytes and a decode step's collectives);
 * ``--engine``: export a quantized artifact, then serve a stream of
   batched requests through the micro-batching engine on the paper's
   Figure-1 path (codes + centroids, full table discarded); with
@@ -40,6 +44,10 @@
         --full --engine --mesh data=2,model=2 --dist-backend nccl
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-4b \\
         --full --batch 2 --prompt-len 4096 --decode-steps 16
+    PYTHONPATH=src python -m torch.distributed.run --standalone \\
+        --nproc-per-node 4 -m repro_torch.launch.serve --arch gemma3-4b \\
+        --full --batch 2 --prompt-len 4096 --mesh data=2,model=2 \\
+        --dist-backend gloo --device cuda:0
 
 run on the card and report lookups/second, queries/second or the
 batch's time, or the prefill's seconds and decode tokens/s;
@@ -406,17 +414,21 @@ def _sync(device) -> None:
 
 def serve_lm(cfg, batch: int, prompt_len: int, decode_steps: int,
              device="cuda", seed: int = 0,
-             params: Optional[dict] = None) -> LMRun:
+             params: Optional[dict] = None, mesh=None) -> LMRun:
     """An LM served as the paper serves its vocabulary: init (or
     ``params``, a trained model's, on ``device``), export the token
     table to codes + centroids (the full table is not read again),
     prefill ``batch`` prompts of ``prompt_len`` random tokens (numpy
     seed 0, as the JAX package draws them), then ``decode_steps``
-    greedy steps against the KV cache."""
+    greedy steps against the KV cache.  With a ``mesh``, through the
+    mesh's serving cells (:func:`serve_lm_on_mesh`)."""
     from repro_torch.core import Embedding
     from repro_torch.core.api import resolve_device
     from repro_torch.models import lm
 
+    if mesh is not None:
+        return serve_lm_on_mesh(cfg, batch, prompt_len, decode_steps, mesh,
+                                seed=seed, params=params)
     device = resolve_device(device)
     if params is None:
         params = lm.model_init(
@@ -464,6 +476,97 @@ def serve_lm(cfg, batch: int, prompt_len: int, decode_steps: int,
           f"({run.tokens_per_s:.1f} tok/s) on {device}; sample: "
           f"{run.tokens[0, :8].tolist()}")
     return run
+
+
+def _mb(nbytes: float) -> str:
+    return f"{nbytes / 1e6:.3f} MB"
+
+
+def serve_lm_on_mesh(cfg, batch: int, prompt_len: int, decode_steps: int,
+                     mesh, seed: int = 0,
+                     params: Optional[dict] = None) -> LMRun:
+    """:func:`serve_lm` on this rank of ``mesh``: the served model placed
+    as it is drawn (``launch/cells.py::serve_placement``; the token table
+    exported once, on the first rank), the prompts' data shard prefilled
+    through ``lm_prefill_cell`` into this rank's block of the cache
+    (``lm_cache_spec``) and decoded greedily through ``lm_decode_cell``;
+    then one more decode step traced (the mesh's ``CommStats``: its
+    collectives, bytes and seconds, the device synchronised around
+    each), on a cache one slot longer.  Every rank makes the same calls;
+    the run's logits are this rank's rows, its tokens every row
+    (gathered over the data axes)."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.cells import lm_decode_cell, lm_prefill_cell
+    from repro_torch.sharding.collectives import CommStats, all_gather
+    from repro_torch.sharding.gather import data_axes_of
+
+    device = mesh.device
+    max_seq = prompt_len + decode_steps + 1
+    prefill = lm_prefill_cell(cfg, ShapeSpec("serve", "prefill",
+                                             seq_len=prompt_len,
+                                             global_batch=batch),
+                              mesh, "pod" in mesh.shape, params=params,
+                              max_seq=max_seq, seed=seed)
+    decode = lm_decode_cell(cfg, ShapeSpec("serve", "decode",
+                                           seq_len=max_seq,
+                                           global_batch=batch),
+                            mesh, "pod" in mesh.shape, served=prefill.served)
+    served = prefill.served
+    codes = served.artifact["codes"]
+    print(f"mesh {mesh.shape}: token codes {tuple(codes.shape)} a rank "
+          f"(over model), {sum(t.numel() for t in _leaves(served.params))}"
+          f" served params a rank; the token table exported once")
+    rng = np.random.default_rng(0)
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (batch, prompt_len)).astype(np.int32))
+    local = prefill.local_tokens(prompts)
+    _sync(device)
+    t0 = time.perf_counter()
+    cache, logits = prefill.step(local)
+    _sync(device)
+    prefill_s = time.perf_counter() - t0
+    print(f"prefill: {prefill_s:.6f}s; logits {tuple(logits.shape)} a rank")
+    tok = torch.argmax(logits, -1).to(torch.int32)
+    out = [tok]
+    t0 = time.perf_counter()
+    for _ in range(decode_steps):
+        cache, step_logits = decode.step(cache, tok)
+        tok = torch.argmax(step_logits, -1).to(torch.int32)
+        out.append(tok)
+    _sync(device)
+    decode_s = time.perf_counter() - t0
+    mesh.stats = CommStats()
+    try:
+        decode.step(cache, tok)
+        stats = mesh.stats
+    finally:
+        mesh.stats = None
+    axes = data_axes_of(mesh, "model")
+    tokens = all_gather(torch.stack(out, 1), mesh, axes)
+    held = [sum(t.numel() * t.element_size() for t in _leaves(tree))
+            for tree in (served.params, served.artifact, cache)]
+    if device.type == "cuda":
+        held.append(torch.cuda.memory_allocated(device))
+    every = all_gather(torch.tensor([held], dtype=torch.float64,
+                                    device=device), mesh, mesh.axis_names)
+    run = LMRun(served.params, served.artifact, prompts, logits, tokens,
+                prefill_s, decode_s)
+    print(f"decoded {decode_steps} steps x B={batch} in {decode_s:.6f}s "
+          f"({run.tokens_per_s:.1f} tok/s) on {mesh.size} ranks; sample: "
+          f"{run.tokens[0, :8].tolist()}")
+    for r, row in enumerate(every.tolist()):
+        print(f"  rank {r}: params {_mb(row[0])}, codes {_mb(row[1])}, "
+              f"cache {_mb(row[2])}"
+              + (f", memory_allocated {_mb(row[3])}" if len(row) > 3
+                 else ""))
+    print(f"  a decode step's collectives (rank 0): {stats.count}, "
+          f"{_mb(stats.bytes)} sent, {stats.seconds:.6f}s")
+    return run
+
+
+def _leaves(tree) -> list:
+    from repro_torch.core.schemes.base import tree_leaves
+    return [t for t in tree_leaves(tree) if isinstance(t, torch.Tensor)]
 
 
 def main(argv=None):
@@ -529,7 +632,9 @@ def main(argv=None):
     ap.add_argument("--mesh", default=None, metavar="data=2,model=2",
                     help="serve the engine's artifact sharded over this "
                          "mesh (codes over 'model', the batch over the "
-                         "rest), one process a rank under torchrun")
+                         "rest), or an LM tensor-parallel over 'model' "
+                         "with its prompts over the rest, one process a "
+                         "rank under torchrun")
     ap.add_argument("--dist-backend", default="nccl", choices=BACKENDS,
                     help="--mesh's process-group backend: nccl (one rank "
                          "per card) or gloo (ranks that share a card, or "
@@ -563,19 +668,25 @@ def main(argv=None):
                 arrival_rate=args.arrival_rate, slo_ms=args.slo_ms,
                 duration_s=args.duration, mesh=mesh).stats
         if args.mesh:
-            return _serve_on_mesh(ap, args, run)
+            return _serve_on_mesh(ap, args, run, "codes")
         return run()
-    if args.mesh:
-        ap.error("--mesh requires --engine")
+    if args.mesh and family != "lm":
+        ap.error("--mesh requires --engine (or an LM arch)")
     if family == "gnn":
         raise SystemExit(f"{args.arch} has no serving path (train-only arch)")
     if family == "lm":
         if min(args.batch, args.prompt_len) < 1 or args.decode_steps < 0:
             ap.error("--batch and --prompt-len must be >= 1 and "
                      "--decode-steps >= 0")
-        with pinned_backend(args.kernel_backend):
-            return serve_lm(cfg, args.batch, args.prompt_len,
-                            args.decode_steps, device=args.device)
+        def run_lm(mesh=None):
+            with pinned_backend(args.kernel_backend):
+                return serve_lm(cfg, args.batch, args.prompt_len,
+                                args.decode_steps, device=args.device,
+                                mesh=mesh)
+        if args.mesh:
+            return _serve_on_mesh(ap, args, run_lm,
+                                  "the token codes and the heads")
+        return run_lm()
     if cfg.model != "two_tower":
         if args.batch < 1:
             ap.error(f"--batch must be >= 1, got {args.batch}")
@@ -601,16 +712,17 @@ def main(argv=None):
                            host_staged=args.host_staged, device=args.device)
 
 
-def _serve_on_mesh(ap, args, run):
+def _serve_on_mesh(ap, args, run, sharded: str):
     """``--mesh``: check it, join (or start, from torchrun's
     environment) the process group, and run on this rank's mesh; ranks
-    other than 0 print nothing."""
+    other than 0 print nothing.  ``sharded`` names what the ``model``
+    axis splits, for the refusal of a mesh without one."""
     if args.use_async:
         ap.error("--async serves a single device; a mesh's ranks must "
                  "flush together")
     try:
         axes, shape = mesh_of_spec(args.mesh, "-m repro_torch.launch.serve",
-                                   "codes")
+                                   sharded)
     except ValueError as e:
         ap.error(str(e))
     device = None if args.device == "cuda" else args.device

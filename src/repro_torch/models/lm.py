@@ -43,9 +43,20 @@ The JAX package's ``models/lm.py``, for training and serving:
   under FSDP each layer's weights gathered over ``data`` as the layer
   runs (again in the remat recompute).  Without a mesh nothing
   changes, bit for bit.
+* Served on a mesh (``prefill``, ``make_cache``, ``decode_step`` with
+  ``mesh=``; ``launch/cells.py::lm_prefill_cell``/``lm_decode_cell``)
+  each rank holds its block of the KV cache as
+  ``sharding/rules.py::lm_cache_spec`` places it: its batch rows with
+  its kv heads, or — where the kv heads do not divide over ``model`` —
+  every kv head over its block of the cache's slots, whose attention
+  the ranks merge (``nn/attention.py::decode_attention_split``).  The
+  token rows come from this rank's block of the served codes; the
+  decode layer is tensor-parallel as training's; the last token's
+  logits are gathered over ``model``.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, List, Optional, Tuple
 
@@ -210,33 +221,61 @@ def _unstack(tree, lead: Tuple[int, ...]) -> List[dict]:
 # ----------------------------------------------------------------------
 
 def _qkv(p, x, cfg: LMConfig, mesh=None):
+    """(q, k, v, kv_of): q of this rank's heads; k and v either the kv
+    heads of exactly those heads (``kv_of`` None: one device, or
+    ``wk``/``wv`` split on whole heads) or every kv head, ``kv_of`` then
+    the index of each of this rank's query heads' kv head."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
+    kv = cfg.num_kv_heads
     if mesh is None or mesh.shape["model"] == 1:
         q = (x @ p["wq"].to(x.dtype)).reshape(b, s, cfg.num_heads, hd)
-        k = (x @ p["wk"].to(x.dtype)).reshape(b, s, cfg.num_kv_heads, hd)
-        v = (x @ p["wv"].to(x.dtype)).reshape(b, s, cfg.num_kv_heads, hd)
-        return q, k, v
+        k = (x @ p["wk"].to(x.dtype)).reshape(b, s, kv, hd)
+        v = (x @ p["wv"].to(x.dtype)).reshape(b, s, kv, hd)
+        return q, k, v, None
     # column-parallel: this rank's heads, its kv heads with them
     model_n = mesh.shape["model"]
     heads = cfg.num_heads // model_n
     x = coll.copy_to(x, mesh, "model")
     q = (x @ p["wq"].to(x.dtype)).reshape(b, s, heads, hd)
-    if p["wk"].shape[-1] != cfg.num_kv_heads * hd:
-        k = (x @ p["wk"].to(x.dtype)).reshape(b, s, -1, hd)
-        v = (x @ p["wv"].to(x.dtype)).reshape(b, s, -1, hd)
-        return q, k, v
-    # wk/wv whole (attn_kv_repeat, or columns that do not split): K/V of
-    # every kv head, expanded to this rank's query heads (one each); the
-    # weights' gradient is summed over the model axis
-    wk = coll.copy_to(p["wk"], mesh, "model").to(x.dtype)
-    wv = coll.copy_to(p["wv"], mesh, "model").to(x.dtype)
+    if p["wk"].shape[-1] != kv * hd:
+        k = x @ p["wk"].to(x.dtype)
+        v = x @ p["wv"].to(x.dtype)
+        if kv % model_n == 0:
+            return q, k.reshape(b, s, -1, hd), v.reshape(b, s, -1, hd), None
+        # columns split inside a head (served: sharding/rules.py's
+        # check_lm_leaf lets it through): every rank's columns gathered,
+        # k's and v's in one collective
+        cols = k.shape[-1]
+        kv_all = coll.all_gather_grad(torch.cat([k, v], -1), mesh, "model",
+                                      dim=-1).reshape(b, s, model_n, 2, cols)
+        k = kv_all[:, :, :, 0].reshape(b, s, kv * hd)
+        v = kv_all[:, :, :, 1].reshape(b, s, kv * hd)
+    else:
+        # wk/wv whole (attn_kv_repeat, or columns that do not split); the
+        # weights' gradient is summed over the model axis
+        k = x @ coll.copy_to(p["wk"], mesh, "model").to(x.dtype)
+        v = x @ coll.copy_to(p["wv"], mesh, "model").to(x.dtype)
     first = coll.axis_index(mesh, "model") * heads
     kv_of = torch.arange(first, first + heads, device=x.device) // (
-        cfg.num_heads // cfg.num_kv_heads)
-    k = (x @ wk).reshape(b, s, cfg.num_kv_heads, hd)[:, :, kv_of]
-    v = (x @ wv).reshape(b, s, cfg.num_kv_heads, hd)[:, :, kv_of]
-    return q, k, v
+        cfg.num_heads // kv)
+    return q, k.reshape(b, s, kv, hd), v.reshape(b, s, kv, hd), kv_of
+
+
+def _seq_over_model(cfg: LMConfig, mesh) -> bool:
+    """Whether ``lm_cache_spec`` puts the cache's sequence over ``model``
+    (the kv heads do not divide over it)."""
+    return mesh is not None and cfg.num_kv_heads % mesh.shape["model"] != 0
+
+
+def _cached_heads(k, v, cfg: LMConfig, mesh, kv_of):
+    """The kv heads this rank's cache keeps of a layer's (k, v): its
+    block of them where ``lm_cache_spec`` puts them over ``model``, else
+    every one (the sequence is split instead)."""
+    if mesh is None or kv_of is None or _seq_over_model(cfg, mesh):
+        return k, v
+    return (coll.block(k, mesh, "model", 2).contiguous(),
+            coll.block(v, mesh, "model", 2).contiguous())
 
 
 def _ffn_block(p, x, cfg: LMConfig, mesh=None):
@@ -296,9 +335,13 @@ def layer_forward(p: dict, x: torch.Tensor, positions: torch.Tensor,
     if fsdp_dims:
         p = _fsdp_gather(p, fsdp_dims, mesh)
     h = rms_norm(p["ln1"], x)
-    q, k, v = _qkv(p, h, cfg, mesh)
+    q, k, v, kv_of = _qkv(p, h, cfg, mesh)
     q = apply_rope(q, positions, theta)
     k = apply_rope(k, positions, theta)
+    if collect_kv and mesh is not None:
+        cached = _cached_heads(k, v, cfg, mesh, kv_of)
+    if kv_of is not None:                 # each query head's kv head
+        k, v = k[:, :, kv_of], v[:, :, kv_of]
     if cfg.attn_kv_repeat and k.shape[2] < q.shape[2]:
         g = q.shape[2] // k.shape[2]
         k = torch.repeat_interleave(k, g, dim=2)
@@ -322,25 +365,44 @@ def layer_forward(p: dict, x: torch.Tensor, positions: torch.Tensor,
     f, aux = _ffn_block(p, h2, cfg, mesh)
     y = x + f
     if collect_kv:
-        return y, aux, (k, v)
+        return y, aux, (k, v) if mesh is None else cached
     return y, aux
 
 
 def layer_decode(p: dict, x: torch.Tensor, pos: int, window, theta,
-                 k_cache, v_cache, kpos_cache, cfg: LMConfig):
+                 k_cache, v_cache, kpos_cache, cfg: LMConfig, mesh=None,
+                 fsdp_dims: Optional[dict] = None):
     """One-token layer step.  x: (B, 1, d).  Returns (y, caches); the
-    caches are updated in place."""
+    caches are updated in place.
+
+    With a ``mesh``, one rank's share over its placed params and its
+    block of the caches (``lm_cache_spec``): column-parallel q/k/v,
+    row-parallel ``wo`` and FFN; where the cache's sequence is over
+    ``model``, the query heads gathered and the blocks' attention merged
+    (``attention.decode_attention_split``), this rank's heads kept."""
+    if fsdp_dims:
+        p = _fsdp_gather(p, fsdp_dims, mesh)
     h = rms_norm(p["ln1"], x)
-    q, k, v = _qkv(p, h, cfg)
+    q, k, v, kv_of = _qkv(p, h, cfg, mesh)
     pos_arr = torch.full((1,), pos, dtype=torch.int32, device=x.device)
     q = apply_rope(q, pos_arr, theta)
     k = apply_rope(k, pos_arr, theta)     # rotate BEFORE caching
+    k, v = _cached_heads(k, v, cfg, mesh, kv_of)
     k_cache, v_cache, kpos_cache = attn.cache_update(
-        k_cache, v_cache, kpos_cache, k, v, pos)
-    o = attn.decode_attention(q, k_cache, v_cache, kpos_cache, window)
-    x = x + (o.reshape(x.shape[0], 1, -1) @ p["wo"].to(x.dtype))
+        k_cache, v_cache, kpos_cache, k, v, pos, mesh=mesh)
+    if _seq_over_model(cfg, mesh):
+        o = attn.decode_attention_split(
+            coll.all_gather(q, mesh, "model", dim=2), k_cache, v_cache,
+            kpos_cache, window, mesh)
+        o = coll.block(o, mesh, "model", 2)
+    else:
+        o = attn.decode_attention(q, k_cache, v_cache, kpos_cache, window)
+    o = o.reshape(x.shape[0], 1, -1) @ p["wo"].to(x.dtype)
+    if mesh is not None:                  # row-parallel
+        o = coll.reduce_from(o, mesh, "model")
+    x = x + o
     h2 = rms_norm(p["ln2"], x)
-    f, _ = _ffn_block(p, h2, cfg)
+    f, _ = _ffn_block(p, h2, cfg, mesh)
     return x + f, k_cache, v_cache, kpos_cache
 
 
@@ -400,11 +462,14 @@ def _meta(tree):
     return torch.empty(tree[0], device="meta")
 
 
+@functools.lru_cache(maxsize=16)
 def mesh_plan(cfg: LMConfig, mesh) -> Tuple[dict, dict]:
     """(FSDP dims, local shapes) of ``cfg``'s params on ``mesh`` under
     ``lm_param_rules``: for one layer, each leaf that FSDP splits over
     ``data`` -> its split dim (nested as the layer's params); for every
-    leaf but the embedding's, its path -> the shape of a rank's block."""
+    leaf but the embedding's, its path -> the shape of a rank's block.
+    Cached per (config, mesh): a decode step reads it every call; the
+    results are not to be changed."""
     from repro_torch.sharding.rules import lm_param_rules, spec_tree
     rules = lm_param_rules(cfg, mesh)
     layer = spec_tree({"layers": _meta(_layer_spec(cfg))}, rules)["layers"]
@@ -470,22 +535,24 @@ def forward(params: dict, tokens: torch.Tensor, cfg: LMConfig,
 
     With a ``mesh``, ``params`` are this rank's blocks, ``tokens`` its
     data shard and the hidden states come out replicated over ``model``
-    (the module docstring); the serving paths (``collect_kv``,
-    ``embed_artifact``) take no mesh.
+    (the module docstring).  ``embed_artifact`` is then this rank's
+    (``sharding/rules.py::lm_artifact_specs``: its block of the codes),
+    read through the sharded gather's per-rank form; each layer's K/V
+    come out as ``lm_cache_spec`` places the cache's kv heads (this
+    rank's block of them, or every one where the sequence is split
+    instead, :func:`prefill` cutting it).
     """
     dtype = torch_dtype(cfg.dtype)
     emb = Embedding(cfg.embedding, device=tokens.device)
     fsdp_dims = None
     if mesh is not None:
-        if collect_kv or embed_artifact is not None:
-            raise ValueError(
-                "LM serving on a mesh (prefill, decode, the served "
-                "embedding) waits for ROADMAP.md §1 item 8; forward takes "
-                "mesh= for training only")
+        if collect_kv:
+            _check_servable(cfg)
         fsdp_dims, shapes = mesh_plan(cfg, mesh)
         _check_placed(params, shapes, mesh)
     if embed_artifact is not None:
-        x = emb.serve(embed_artifact, tokens)
+        x = emb.serve(embed_artifact, tokens, mesh=mesh,
+                      per_rank=mesh is not None)
         aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     else:
         x, aux = emb.apply(params["embed"], tokens, mesh=mesh)
@@ -618,24 +685,75 @@ def loss_fn(params: dict, batch: dict, cfg: LMConfig, mesh=None
 # serving: prefill + decode
 # ----------------------------------------------------------------------
 
+def _check_servable(cfg: LMConfig) -> None:
+    """Raise for a config that does not serve on a mesh:
+    ``attn_kv_repeat``'s prefill caches every query head (the JAX
+    package's too), a cache ``make_cache`` does not make."""
+    if cfg.attn_kv_repeat:
+        raise ValueError(
+            f"{cfg.name}: attn_kv_repeat's prefill caches K/V expanded to "
+            f"every query head, not the num_kv_heads that make_cache and "
+            f"lm_cache_spec lay out; serve it without attn_kv_repeat")
+
+
+def check_batch(batch: int, mesh) -> None:
+    """Raise unless a global ``batch`` divides over the data axes of
+    ``mesh``: one that does not takes the JAX cells' sequence-parallel
+    branch (B = 1, ``long_500k``), not served on a mesh here."""
+    from repro_torch.sharding.gather import data_shards
+    n = data_shards(mesh, "model")
+    if batch % n:
+        raise ValueError(
+            f"a batch of {batch} does not divide over {n} data shard(s) "
+            f"(mesh {mesh.shape}): the JAX cell's sequence-parallel branch "
+            f"(long_500k, the sequence over the data axes) waits for "
+            f"ROADMAP.md §1 item 9")
+
+
+def _cache_specs(cfg: LMConfig, batch: int, mesh, template) -> dict:
+    """``lm_cache_spec`` of a cache of global ``batch`` rows on ``mesh``
+    (:func:`check_batch` first)."""
+    from repro_torch.sharding.rules import lm_cache_spec
+    check_batch(batch, mesh)
+    return lm_cache_spec(cfg, batch, mesh, "pod" in mesh.shape, template)
+
+
+def _logits(x: torch.Tensor, w_head: torch.Tensor, mesh) -> torch.Tensor:
+    """float32 logits (B, V) of ``x`` (B, d): with a ``mesh``, from this
+    rank's column block of ``lm_head``, gathered over ``model``."""
+    out = (x @ w_head.to(x.dtype)).float()
+    if mesh is not None:
+        out = coll.all_gather(out, mesh, "model", dim=-1)
+    return out
+
+
 def prefill(params: dict, tokens: torch.Tensor, cfg: LMConfig,
             max_seq: Optional[int] = None,
-            embed_artifact: Optional[dict] = None):
+            embed_artifact: Optional[dict] = None, mesh=None):
     """Returns (cache, last-token logits (B, V) float32).
 
     max_seq: decode context budget the cache must hold (>= prompt
     length).  Defaults to the prompt length, i.e. a cache with no
     headroom — callers that decode further must size it explicitly.
+
+    With a ``mesh``: ``params`` and ``embed_artifact`` this rank's,
+    ``tokens`` its data shard (B_local, S); the cache comes back as this
+    rank's block under ``sharding/rules.py::lm_cache_spec`` and the
+    logits as (B_local, V), gathered over ``model``.
     """
     h, _, kvs = forward(params, tokens, cfg, collect_kv=True,
-                        embed_artifact=embed_artifact)
+                        embed_artifact=embed_artifact, mesh=mesh)
     s = tokens.shape[1]
     positions = torch.arange(s, dtype=torch.int32, device=tokens.device)
     max_seq = max_seq or s
+    seq_block = None
+    if _seq_over_model(cfg, mesh):
+        seq_block = (mesh.axis_index("model"), mesh.shape["model"])
 
     def to_cache(name, cache_len):
-        k, v = kvs[name]
-        return attn.cache_from_prefill(k, v, positions, cache_len)
+        k, v = kvs.pop(name)
+        return attn.cache_from_prefill(k, v, positions, cache_len,
+                                       seq_block=seq_block)
 
     cache = {"pos": s}
     if cfg.is_pattern and cfg.split_local_global_cache:
@@ -652,15 +770,31 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: LMConfig,
             cfg, cfg.sliding_window or (1 << 30), max_seq)
         cache["layers"] = to_cache("layers", clen)
 
-    logits = (h[:, -1] @ params["lm_head"].to(h.dtype)).float()
-    return cache, logits
+    return cache, _logits(h[:, -1], params["lm_head"], mesh)
 
 
 def make_cache(cfg: LMConfig, batch: int, max_seq: int, dtype=None,
-               device="cuda") -> dict:
+               device="cuda", mesh=None) -> dict:
     """An empty decode cache: per stack (k, v, kpos), kpos all -1; on the
-    card unless the caller passes ``device="cpu"``."""
+    card unless the caller passes ``device="cpu"``.  With a ``mesh``,
+    ``batch`` is global and the cache is this rank's block under
+    ``sharding/rules.py::lm_cache_spec``, on ``mesh.device``."""
     dtype = dtype or torch_dtype(cfg.dtype)
+    if mesh is not None:
+        from repro_torch.sharding.rules import NamedSpec
+        whole = make_cache(cfg, batch, max_seq, dtype, device="meta")
+        specs = _cache_specs(cfg, batch, mesh, whole)
+        out = {"pos": 0}
+        for name, leaves in whole.items():
+            if name == "pos":
+                continue
+            k, v, kp = (NamedSpec(mesh, sp).block(t).shape
+                        for t, sp in zip(leaves, specs[name]))
+            out[name] = (torch.zeros(k, dtype=dtype, device=mesh.device),
+                         torch.zeros(v, dtype=dtype, device=mesh.device),
+                         torch.full(kp, -1, dtype=torch.int32,
+                                    device=mesh.device))
+        return out
     hd, kv = cfg.resolved_head_dim, cfg.num_kv_heads
 
     def zeros(lead, clen):
@@ -683,21 +817,66 @@ def make_cache(cfg: LMConfig, batch: int, max_seq: int, dtype=None,
     return cache
 
 
+def check_cache(cache: dict, cfg: LMConfig, mesh, batch: int) -> None:
+    """Raise unless every leaf of ``cache`` is this rank's block under
+    ``lm_cache_spec`` of a cache of global ``batch`` rows (each stack's
+    length read from its kpos, which no spec of a dividing batch
+    splits)."""
+    from repro_torch.sharding.rules import NamedSpec
+    hd, kv = cfg.resolved_head_dim, cfg.num_kv_heads
+    whole = {}
+    for name, leaves in cache.items():
+        if name == "pos":
+            continue
+        kp = leaves[2]
+        shape = tuple(kp.shape[:-2]) + (batch, kp.shape[-1])
+        whole[name] = (torch.empty(shape + (kv, hd), device="meta"),
+                       torch.empty(shape + (kv, hd), device="meta"),
+                       torch.empty(shape, device="meta"))
+    specs = _cache_specs(cfg, batch, mesh, whole)
+    for name in whole:
+        for i, (t, w, sp) in enumerate(zip(cache[name], whole[name],
+                                           specs[name])):
+            want = tuple(NamedSpec(mesh, sp).block(w).shape)
+            if tuple(t.shape) != want:
+                raise ValueError(
+                    f"cache {name}/{i}: {tuple(t.shape)} is not this rank's "
+                    f"block {want} under lm_cache_spec {sp} on mesh "
+                    f"{mesh.shape} (make_cache(mesh=) or prefill(mesh=) "
+                    f"makes one)")
+
+
 def decode_step(params: dict, cache: dict, token: torch.Tensor,
-                cfg: LMConfig, embed_artifact: Optional[dict] = None):
+                cfg: LMConfig, embed_artifact: Optional[dict] = None,
+                mesh=None):
     """One decode step.  token (B,) int32 -> (new_cache, logits (B, V)).
 
     The caches are updated in place: ``new_cache`` holds the same
     tensors as ``cache`` and the next position.  embed_artifact:
     serving-time embedding (codes + centroids for DPQ/MGQE) — the
     paper's Figure-1 serving path; the training table when None.
+
+    With a ``mesh``: this rank's params, artifact and cache block
+    (checked: :func:`check_cache`), ``token`` its data shard (B_local,);
+    the tensor-parallel layer of :func:`layer_decode`, the MoE block in
+    the global formulation (``nn/moe.py::moe_ffn(mesh=)``), the logits
+    (B_local, V) gathered over ``model``.
     """
     dtype = torch_dtype(cfg.dtype)
     emb = Embedding(cfg.embedding, device=token.device)
+    fsdp_dims = None
+    if mesh is not None:
+        from repro_torch.sharding.gather import data_shards
+        _check_servable(cfg)
+        fsdp_dims, shapes = mesh_plan(cfg, mesh)
+        _check_placed(params, shapes, mesh)
+        check_cache(cache, cfg, mesh,
+                    token.shape[0] * data_shards(mesh, "model"))
     if embed_artifact is not None:
-        x = emb.serve(embed_artifact, token)
+        x = emb.serve(embed_artifact, token, mesh=mesh,
+                      per_rank=mesh is not None)
     else:
-        x, _ = emb.apply(params["embed"], token)
+        x, _ = emb.apply(params["embed"], token, mesh=mesh)
     # multiplied in f32, then cast, as JAX does
     x = (x[:, None, :] * cfg.d_model ** 0.5).to(dtype)      # (B, 1, d)
     pos = int(cache["pos"])
@@ -707,21 +886,24 @@ def decode_step(params: dict, cache: dict, token: torch.Tensor,
         plan = _layer_plan(cfg, 1 << 30)
     else:
         windows, thetas = layer_windows(cfg, 1 << 30)
-        # clamp windows to this cache's actual length
-        clen = cache["layers"][0].shape[2]
+        # clamp windows to this cache's actual length (kpos's: a rank's
+        # k block may hold a part of the sequence)
+        clen = cache["layers"][2].shape[-1]
         windows = torch.minimum(windows, torch.tensor(clen, dtype=torch.int32))
         plan = [("layers", (i,), w, t) for i, (w, t) in
                 enumerate(zip(windows.tolist(), thetas.tolist()))]
     for name, idx, window, theta in plan:
         k, v, kp = cache[name]
         x, _, _, _ = layer_decode(_index(params[name], *idx), x, pos, window,
-                                  theta, k[idx], v[idx], kp[idx], cfg)
+                                  theta, k[idx], v[idx], kp[idx], cfg,
+                                  mesh=mesh, fsdp_dims=fsdp_dims)
 
     x = rms_norm(params["final_norm"], x)
-    logits = (x[:, 0] @ params["lm_head"].to(x.dtype)).float()
-    return new_cache, logits
+    return new_cache, _logits(x[:, 0], params["lm_head"], mesh)
 
 
-__all__ = ["cache_len_for_layer", "chunked_xent", "decode_step", "forward",
+__all__ = ["cache_len_for_layer", "check_batch", "check_cache",
+           "chunked_xent",
+           "decode_step", "forward",
            "layer_decode", "layer_forward", "layer_windows", "loss_fn",
            "make_cache", "mesh_plan", "model_init", "param_spec", "prefill"]

@@ -14,7 +14,11 @@ predicate; window = FULL_WINDOW for global layers) and ``kpos >= 0``
 
 The decode-cache helpers update the caches in place (the JAX package
 returns new arrays): a layer's cache is a view into the stacked cache
-of its layer group, so a step writes one slot and copies nothing.
+of its layer group, so a step writes one slot and copies nothing.  On
+a mesh whose ``model`` axis splits the cache's sequence
+(``sharding/rules.py::lm_cache_spec``), each rank holds a block of the
+slots: :func:`decode_attention_split` merges the blocks' partial
+softmax statistics over the axis.
 """
 from __future__ import annotations
 
@@ -100,11 +104,47 @@ def decode_attention(q, k_cache, v_cache, kpos, window=FULL_WINDOW
     return out.reshape(q.shape).to(q.dtype)
 
 
+def decode_attention_split(q, k_block, v_block, kpos, window, mesh,
+                           axis: str = "model") -> torch.Tensor:
+    """:func:`decode_attention` over a cache whose sequence is split over
+    ``axis``: this rank holds the slots ``[i·S/n, (i+1)·S/n)`` of every
+    kv head (``k_block``, ``v_block`` (B, S/n, n_kv, hd)) and the whole
+    ``kpos`` (B, S); ``q`` (B, 1, n_q, hd) holds every query head, and
+    so does the output.
+
+    Each rank scores its block and returns partial statistics — the row
+    max, the sum of the exponentials and the unnormalised output, in
+    float32 — merged over ``axis``: the max by a ``pmax`` first, then
+    the sums and the outputs, shifted by it, in one ``psum``."""
+    from repro_torch.sharding import collectives as coll
+    n_kv = k_block.shape[2]
+    s_loc = k_block.shape[1]
+    qg = _split_heads(q, n_kv)[:, 0]                    # (B,kv,g,hd)
+    scale = q.shape[-1] ** -0.5
+    s = torch.einsum("bhgd,bkhd->bhgk", qg, k_block).float() * scale
+    if kpos.dim() == 1:
+        kpos = kpos[None]
+    qpos = torch.amax(kpos, dim=-1)                     # newest written token
+    start = coll.axis_index(mesh, axis) * s_loc
+    kp = kpos[:, start:start + s_loc]
+    delta = qpos[:, None] - kp
+    mask = (delta >= 0) & (delta < window) & (kp >= 0)
+    s = s.masked_fill(~mask[:, None, None, :], _NEG_INF)
+    top = coll.pmax(torch.amax(s, dim=-1), mesh, axis)  # (B,kv,g)
+    p = torch.exp(s - top[..., None])
+    o = torch.einsum("bhgk,bkhd->bhgd", p, v_block.float())
+    merged = coll.psum(torch.cat([o, p.sum(-1)[..., None]], dim=-1), mesh,
+                       axis)
+    out = merged[..., :-1] / merged[..., -1:]
+    return out.reshape(q.shape).to(q.dtype)
+
+
 # ----------------------------------------------------------------------
 # KV cache helpers (ring buffer for windowed layers, linear for global).
 # ----------------------------------------------------------------------
 
-def cache_update(k_cache, v_cache, kpos_cache, k_new, v_new, pos: int):
+def cache_update(k_cache, v_cache, kpos_cache, k_new, v_new, pos: int,
+                 mesh=None, axis: str = "model"):
     """Write one decode step's K/V at ring slot ``pos % cache_len``, in
     place, and return the three caches.
 
@@ -112,18 +152,31 @@ def cache_update(k_cache, v_cache, kpos_cache, k_new, v_new, pos: int):
     position (a python int).  Global layers size the cache at max-seq
     so the ring never wraps; local layers size it at the window.
     kpos_cache (B,S) tracks which token occupies each slot (-1 = empty).
-    """
-    slot = int(pos) % k_cache.shape[1]
+
+    A cache whose sequence is split over ``axis`` of ``mesh`` (``k_cache``
+    this rank's block of S/n slots, ``kpos_cache`` whole): the K/V go
+    only to the rank that owns the slot, the position to every rank."""
+    cache_len = kpos_cache.shape[-1]
+    slot = int(pos) % cache_len
+    kpos_cache[:, slot] = int(pos)
+    s_loc = k_cache.shape[1]
+    if s_loc != cache_len:
+        if slot // s_loc != mesh.axis_index(axis):
+            return k_cache, v_cache, kpos_cache
+        slot -= mesh.axis_index(axis) * s_loc
     k_cache[:, slot:slot + 1] = k_new.to(k_cache.dtype)
     v_cache[:, slot:slot + 1] = v_new.to(v_cache.dtype)
-    kpos_cache[:, slot] = int(pos)
     return k_cache, v_cache, kpos_cache
 
 
-def cache_from_prefill(k, v, kpos, cache_len: int):
+def cache_from_prefill(k, v, kpos, cache_len: int, seq_block=None):
     """Convert prefill K/V (..., B, S, kv, hd) + positions (S,) into a
     ring cache of ``cache_len`` slots laid out by ``token % cache_len``;
-    kpos comes back as (..., B, cache_len)."""
+    kpos comes back as (..., B, cache_len).
+
+    ``seq_block`` (i, n): the K/V of the slots ``[i·L/n, (i+1)·L/n)``
+    alone (L = ``cache_len``), the block of a cache whose sequence is
+    split n ways (``sharding/rules.py::lm_cache_spec``); kpos whole."""
     s = k.shape[-3]
     seq = k.dim() - 3
     lead = k.shape[:-3]
@@ -135,9 +188,17 @@ def cache_from_prefill(k, v, kpos, cache_len: int):
         v_c = torch.cat([v, v.new_zeros(shape)], dim=seq)
         kp = torch.cat([kpos, kpos.new_full((pad,), -1)])
         # slot of token t is t % cache_len == t while s <= cache_len
-        return k_c, v_c, kp.expand(lead + (cache_len,)).contiguous()
-    shift = s % cache_len
-    k_c = torch.roll(k[..., s - cache_len:, :, :], shift, dims=seq)
-    v_c = torch.roll(v[..., s - cache_len:, :, :], shift, dims=seq)
-    p_c = torch.roll(kpos[s - cache_len:], shift, dims=0)
-    return k_c, v_c, p_c.expand(lead + (cache_len,)).contiguous()
+    else:
+        shift = s % cache_len
+        k_c = torch.roll(k[..., s - cache_len:, :, :], shift, dims=seq)
+        v_c = torch.roll(v[..., s - cache_len:, :, :], shift, dims=seq)
+        kp = torch.roll(kpos[s - cache_len:], shift, dims=0)
+    if seq_block is not None:
+        i, n = seq_block
+        if cache_len % n:
+            raise ValueError(f"a cache of {cache_len} slots does not split "
+                             f"into {n} blocks of the sequence")
+        size = cache_len // n
+        k_c = k_c.narrow(seq, i * size, size).contiguous()
+        v_c = v_c.narrow(seq, i * size, size).contiguous()
+    return k_c, v_c, kp.expand(lead + (cache_len,)).contiguous()

@@ -2,11 +2,12 @@
 
 What a ``shard_map`` body calls in the JAX package — ``lax.psum``,
 ``lax.pmean``, ``lax.all_gather``, ``lax.all_to_all`` and
-``lax.axis_index`` — over ``torch.distributed`` on the mesh's per-axis
-process groups.  They take the list forms of ``all_gather``/
-``all_reduce`` and the single-tensor ``all_to_all_single``, which gloo
-runs on CUDA tensors too (it stages them through host memory; it has
-no list-form all-to-all there).  An axis of size 1 costs nothing.
+``lax.axis_index`` — and a broadcast from the first rank, over
+``torch.distributed`` on the mesh's per-axis process groups.  They
+take the list forms of ``all_gather``/``all_reduce`` and the
+single-tensor ``all_to_all_single``, which gloo runs on CUDA tensors
+too (it stages them through host memory; it has no list-form
+all-to-all there).  An axis of size 1 costs nothing.
 
 Every rank of an axis's group must make the same calls in the same
 order, so callers decide whether to call from state that every rank
@@ -131,6 +132,21 @@ def pmax(x: torch.Tensor, mesh, axes: Axes) -> torch.Tensor:
                 dist.all_reduce(out, op=dist.ReduceOp.MAX,
                                 group=mesh.group(a))
     return out
+
+
+def broadcast(x: torch.Tensor, mesh, axes: Axes) -> torch.Tensor:
+    """``x`` of the rank at index 0 of every one of ``axes``, on every
+    rank, in place (each axis in turn: after the last, every rank holds
+    the first rank's ``x``).  Ranks other than the first pass a tensor of
+    the same shape and dtype, whose values are overwritten."""
+    import torch.distributed as dist
+    for a in _axes(axes):
+        if mesh.shape[a] > 1:
+            group = mesh.group(a)
+            with _Recorded(mesh, x):
+                dist.broadcast(x, src=dist.get_global_rank(group, 0),
+                               group=group)
+    return x
 
 
 def all_gather(x: torch.Tensor, mesh, axes: Axes,
@@ -345,6 +361,6 @@ def pmean(x: torch.Tensor, mesh, axes: Axes,
 
 
 __all__ = ["CommStats", "all_gather", "all_gather_grad", "all_to_all",
-           "axes_size", "axis_index", "block", "copy_to", "gather_from",
-           "linear_index", "pmax", "pmean", "psum", "reduce_from",
-           "scatter_to"]
+           "axes_size", "axis_index", "block", "broadcast", "copy_to",
+           "gather_from", "linear_index", "pmax", "pmean", "psum",
+           "reduce_from", "scatter_to"]

@@ -15,7 +15,11 @@ follows the JAX package's ``shard_map`` body, on every rank:
 
 Every rank passes the same global ids and gets the same full rows,
 as the JAX package's caller gets the global array (the last gather is
-the one JAX makes when the data-sharded result is read whole).  Wire
+the one JAX makes when the data-sharded result is read whole).  An
+LM's tokens differ by data rank (``models/lm.py`` served on a mesh):
+``per_rank=True`` takes each rank's own ids and returns its own rows,
+the ids gathered over the data axes and the rows kept as one psum over
+``model`` leaves them.  Wire
 bytes a lookup: O(B_global · d · 4), independent of the vocabulary.
 
 The body keeps the JAX package's data-sharded form, in which each data
@@ -77,10 +81,17 @@ def _codes_rows(artifact: dict) -> int:
 
 
 def quantized_gather(artifact: dict, ids: torch.Tensor, cfg,
-                     model_axis: str = "model", mesh=None) -> torch.Tensor:
+                     model_axis: str = "model", mesh=None,
+                     per_rank: bool = False) -> torch.Tensor:
     """Sharded serving decode: ``ids`` (any shape, the same on every
     rank) -> rows ``ids.shape + (d,)`` on every rank, over this rank's
     ``artifact`` (``shard_quantized_artifact``).
+
+    ``per_rank``: ``ids`` are this rank's own (an LM's tokens: they differ
+    over the data axes, the same shape everywhere and the same on the
+    ranks of a model line), and so are the rows: the ids all-gathered
+    over the data axes, this rank's code block decoded, a psum over
+    ``model``, this data shard's rows kept (two collectives).
 
     Single-device decode — the JAX package's fallback — with no mesh, a
     mesh of one rank or without ``model_axis``, one model shard, an
@@ -105,6 +116,9 @@ def quantized_gather(artifact: dict, ids: torch.Tensor, cfg,
         raise ValueError(f"artifact holds {_codes_rows(artifact)} code rows,"
                          f" not this rank's block of {rows_local} (place "
                          f"it with shard_quantized_artifact)")
+    if per_rank:
+        return _per_rank_gather(artifact, ids, cfg, scheme, mesh, model_axis,
+                                data_axes, rows_local)
     # pad the flat batch to the data-shard granularity (id 0 is always
     # valid), so odd request sizes keep the O(B·d) wire path
     flat_ids = ids.reshape(-1)
@@ -118,6 +132,18 @@ def quantized_gather(artifact: dict, ids: torch.Tensor, cfg,
     ids_all = flat_ids[idx * b_local:(idx + 1) * b_local]
     if data_axes:
         ids_all = all_gather(ids_all, mesh, data_axes)
+    full = psum(_local_decode(artifact, ids_all, scheme, mesh, model_axis,
+                              rows_local), mesh, model_axis)
+    out = full[idx * b_local:(idx + 1) * b_local]
+    # --- the data-sharded result, read whole on every rank
+    if data_axes:
+        out = all_gather(out, mesh, data_axes)
+    return out[:flat].reshape(lead + (cfg.dim,))
+
+
+def _local_decode(artifact, ids_all, scheme, mesh, model_axis, rows_local):
+    """The rows of ``ids_all`` (global ids) this rank's code block holds,
+    zeros elsewhere."""
     local = ids_all - axis_index(mesh, model_axis) * rows_local
     hit = (local >= 0) & (local < rows_local)
     local = local.clamp(0, rows_local - 1)
@@ -125,15 +151,20 @@ def quantized_gather(artifact: dict, ids: torch.Tensor, cfg,
     # (mgqe's private variants, mpe) keys on the GLOBAL id
     # block_b=None: the decode op's Tunable picks the block, since the
     # all-gathered batch is not the shape cfg.decode_block_b was pinned to
-    rows = scheme.decode(artifact, local, tier_ids=ids_all,
-                         block_b=None)                     # (B_global, d)
-    rows = rows.masked_fill(~hit[:, None], 0)
-    full = psum(rows, mesh, model_axis)
-    out = full[idx * b_local:(idx + 1) * b_local]
-    # --- the data-sharded result, read whole on every rank
-    if data_axes:
-        out = all_gather(out, mesh, data_axes)
-    return out[:flat].reshape(lead + (cfg.dim,))
+    rows = scheme.decode(artifact, local, tier_ids=ids_all, block_b=None)
+    return rows.masked_fill(~hit[:, None], 0)
+
+
+def _per_rank_gather(artifact, ids, cfg, scheme, mesh, model_axis,
+                     data_axes, rows_local) -> torch.Tensor:
+    """:func:`quantized_gather`'s ``per_rank`` body."""
+    flat = ids.reshape(-1)
+    ids_all = all_gather(flat, mesh, data_axes) if data_axes else flat
+    full = psum(_local_decode(artifact, ids_all, scheme, mesh, model_axis,
+                              rows_local), mesh, model_axis)
+    idx = data_shard_index(mesh, data_axes)
+    out = full[idx * flat.numel():(idx + 1) * flat.numel()]
+    return out.reshape(tuple(ids.shape) + (cfg.dim,))
 
 
 __all__ = ["quantized_gather", "sharded_variants", "supports_sharding"]

@@ -11,7 +11,10 @@ O(vocab) and O(corpus) leaves row-sharded over ``model``, everything
 else replicated — and the recsys training rules (params, adagrad state,
 batch), and the LM rules: tensor parallelism over ``model``, the
 batch over the data axes, ZeRO-1 moments and optional FSDP
-(:func:`lm_param_rules`, :func:`lm_state_specs`, :func:`lm_batch_spec`).
+(:func:`lm_param_rules`, :func:`lm_state_specs`, :func:`lm_batch_spec`),
+and for LM serving the KV cache's placement (:func:`lm_cache_spec`),
+the served token table's (:func:`lm_artifact_specs`) and the served
+params (:func:`strip_embed_table`).
 ``shard_*_artifact`` and :func:`place` return THIS rank's tree: each
 split leaf is its block, copied to the rank's device on its own, so no
 rank holds a whole table on its device.  The GNN rules are still to
@@ -289,12 +292,15 @@ def lm_batch_spec(multi_pod: bool) -> dict:
     return {"tokens": (dp, None), "labels": (dp, None)}
 
 
-def check_lm_leaf(cfg, mesh, path: str, leaf, spec: Tuple) -> None:
+def check_lm_leaf(cfg, mesh, path: str, leaf, spec: Tuple,
+                  serving: bool = False) -> None:
     """Raise unless ``spec`` gives each rank of ``mesh`` a whole block of
     the leaf at ``path``: each split dim divides over its axes, and a
     split of ``wq``'s (or ``wk``/``wv``'s) columns over ``model`` falls
     on whole heads.  The message names the leaf, the axis and the
-    sizes.  (GSPMD pads such a split; a rank here holds plain blocks.)"""
+    sizes.  (GSPMD pads such a split; a rank here holds plain blocks.)
+    With ``serving``, ``wk``/``wv`` may split inside a head: the serving
+    layer gathers their columns over ``model`` (``models/lm.py``)."""
     spec = _pad_spec(tuple(spec), leaf.dim())
     for dim, axes in enumerate(spec):
         if axes is None:
@@ -306,13 +312,91 @@ def check_lm_leaf(cfg, mesh, path: str, leaf, spec: Tuple) -> None:
                 f"{path}: dim {dim} of size {leaf.shape[dim]} does not "
                 f"divide over {axes} = {n} (shape {tuple(leaf.shape)})")
     heads = {"wq": cfg.num_heads, "wk": cfg.num_kv_heads,
-             "wv": cfg.num_kv_heads}.get(path.rsplit("/", 1)[-1])
+             "wv": cfg.num_kv_heads}
+    if serving:
+        heads = {"wq": cfg.num_heads}
+    heads = heads.get(path.rsplit("/", 1)[-1])
     model = mesh.shape["model"]
     if heads is not None and spec[-1] == "model" and heads % model:
         raise ValueError(
             f"{path}: splitting its columns over model = {model} would cut "
             f"heads: {heads} heads (head dim {cfg.resolved_head_dim}) do "
             f"not divide over {model} (attn_kv_repeat keeps wk/wv whole)")
+
+
+# ----------------------------------------------------------------------
+# LM serving
+# ----------------------------------------------------------------------
+
+def lm_cache_spec(cfg, batch: int, mesh, multi_pod: bool,
+                  cache_template) -> dict:
+    """The decode cache's specs, as the JAX package's ``lm_cache_spec``:
+    the batch over the data axes when it divides, with the kv heads over
+    ``model`` when they divide, else the cache's sequence over
+    ``model``; a batch that does not divide (the B = 1 long-context
+    cell) puts the sequence over the data axes where it divides, and the
+    kv heads over ``model`` when they divide.  ``kpos`` (B, S) takes the
+    batch or sequence rule alone.
+
+    ``cache_template`` is a cache (``models/lm.py::make_cache``, on any
+    device): ``{"pos": ..., stack: (k, v, kpos)}``.  Returns ``{"pos":
+    (), stack: [k spec, v spec, kpos spec]}`` (a list: a tuple is a
+    spec here)."""
+    dp = dp_axes(multi_pod)
+    dp_n = math.prod(mesh.shape[a] for a in dp)
+    dp = dp[0] if len(dp) == 1 else dp
+    kv_ok = _divides(cfg.num_kv_heads, mesh.shape["model"])
+    b_ok = _divides(batch, dp_n)
+
+    def assign(leaf, is_kv: bool) -> Tuple:
+        ndim = leaf.dim()
+        lead = ndim - (4 if is_kv else 2)
+        parts = [None] * ndim
+        if b_ok:
+            parts[lead] = dp
+            if is_kv:
+                parts[lead + (2 if kv_ok else 1)] = "model"
+        else:
+            if _divides(leaf.shape[lead + 1], dp_n):
+                parts[lead + 1] = dp
+            if is_kv and kv_ok:
+                parts[lead + 2] = "model"
+        return tuple(parts)
+
+    out = {}
+    for name, leaves in cache_template.items():
+        if name == "pos":
+            out[name] = ()
+        else:
+            out[name] = [assign(t, i < 2) for i, t in enumerate(leaves)]
+    return out
+
+
+# the artifact leaves the JAX package's ``_lm_artifact_sharding`` puts
+# over ``model``: the code table, a full-embedding baseline's table, an
+# sq artifact's rows
+_LM_ARTIFACT_ROWS = ("codes", "emb", "q")
+
+
+def lm_artifact_specs(artifact) -> dict:
+    """The served token table's specs (the JAX package's
+    ``launch/cells.py::_lm_artifact_sharding``): its rows leaves over
+    ``model``, every other leaf (centroids, a hot block) replicated.
+    ``artifact``'s leaves may be tensors or numpy arrays."""
+    def spec(t, rows: bool) -> Tuple:
+        return ("model",) + (None,) * (len(t.shape) - 1) if rows else ()
+    return {k: map_with_path(
+        lambda _, t, rows=k in _LM_ARTIFACT_ROWS: spec(t, rows), v)
+        for k, v in artifact.items()}
+
+
+def strip_embed_table(params: dict) -> dict:
+    """The served params (the JAX package's ``_strip_embed_table``): the
+    token table dropped, its artifact serves the rows (Fig. 1); the
+    embedding's other leaves (centroids) stay."""
+    out = dict(params)
+    out["embed"] = {k: v for k, v in params["embed"].items() if k != "emb"}
+    return out
 
 
 # ----------------------------------------------------------------------
@@ -436,11 +520,12 @@ def shard_retrieval_artifact(artifact, index, mesh,
 
 
 __all__ = ["NamedSpec", "check_lm_leaf", "dp_axes",
-           "leaf_spec", "lm_batch_spec", "map_with_path", "zip_map",
+           "leaf_spec", "lm_artifact_specs", "lm_batch_spec",
+           "lm_cache_spec", "map_with_path", "zip_map",
            "lm_param_rules", "lm_state_specs", "named", "place",
            "quantized_artifact_specs", "recsys_batch_spec",
            "recsys_param_rules", "recsys_state_specs",
            "retrieval_artifact_specs", "shard_quantized_artifact",
            "shard_retrieval_artifact", "spec_leaves", "spec_tree",
-           "split_axes", "splits",
+           "split_axes", "splits", "strip_embed_table",
            "whole_like", "zero1_spec"]

@@ -2990,3 +2990,102 @@ def test_moe_ffn_sharded_on_card_both_strategies(cuda, tmp_path, e):
             torch.testing.assert_close(r_grads[k], w.cpu(),
                                        rtol=MESH_TRAIN_TOL,
                                        atol=MESH_TRAIN_TOL)
+
+
+# LM serving on a (data, model) mesh of 4 gloo ranks on the card: the
+# smoke configs on the chunked route (the flash_attention kernel on each
+# rank's heads), prefilled and decoded through the serving cells
+LM_SERVE_BATCH, LM_SERVE_PROMPT, LM_SERVE_STEPS = 2, 16, 4
+LM_SERVE_MAX_SEQ = 24                  # prompt + steps, in blocks of 4 slots
+LM_SERVE_CASES = {
+    "stablelm": ("stablelm-3b", {}, (2, 2)),
+    "gemma3-4b-split": ("gemma3-4b", {"split_local_global_cache": True},
+                        (2, 2)),
+    "gemma3-27b": ("gemma3-27b", {}, (2, 2)),
+    "mixtral": ("mixtral-8x7b", {}, (2, 2)),
+    "qwen3": ("qwen3-moe-30b-a3b", {}, (2, 2)),
+    # 2 kv heads over model = 4: the cache's sequence over model
+    "gemma3-4b-seq": ("gemma3-4b", {}, (1, 4)),
+}
+
+
+def _lm_serve_cfg(case):
+    from repro_torch.configs import get_arch
+    arch, changes, _ = LM_SERVE_CASES[case]
+    _, cfg = get_arch(arch, smoke=True)
+    return dataclasses.replace(cfg, attention_impl="chunked", **changes)
+
+
+def _lm_serve_prompts(cfg):
+    return np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (LM_SERVE_BATCH, LM_SERVE_PROMPT)).astype(np.int32)
+
+
+def _lm_serve_rank(rank, case):
+    """The serving cells of a case on its mesh on cuda:0 (params drawn
+    from a generator seeded 0 on the card, the token table exported once):
+    this rank's prefill and decode logits, its tokens, its coordinates
+    and its flash_attention launches."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.cells import lm_decode_cell, lm_prefill_cell
+    from repro_torch.launch.mesh import make_debug_mesh
+    mesh = make_debug_mesh(*LM_SERVE_CASES[case][2])
+    cfg = _lm_serve_cfg(case)
+    spec = ShapeSpec("t", "prefill", seq_len=LM_SERVE_PROMPT,
+                     global_batch=LM_SERVE_BATCH)
+    pre = lm_prefill_cell(cfg, spec, mesh, max_seq=LM_SERVE_MAX_SEQ)
+    dec = lm_decode_cell(cfg, dataclasses.replace(
+        spec, kind="decode", seq_len=LM_SERVE_MAX_SEQ), mesh,
+        served=pre.served)
+    flash_attention.launches = 0
+    cache, logits = pre.step(pre.local_tokens(_lm_serve_prompts(cfg)))
+    out, toks = [logits.cpu()], [torch.argmax(logits, -1).to(torch.int32)]
+    for _ in range(LM_SERVE_STEPS):
+        cache, logits = dec.step(cache, toks[-1])
+        out.append(logits.cpu())
+        toks.append(torch.argmax(logits, -1).to(torch.int32))
+    return (mesh.axis_index("data"), out, torch.stack(toks, 1).cpu(),
+            flash_attention.launches)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(LM_SERVE_CASES))
+def test_lm_serve_mesh_on_card_matches_one_device(cuda, tmp_path, case):
+    """``lm_prefill_cell`` and ``lm_decode_cell`` on 4 gloo ranks sharing
+    the card: every rank's prefill logits and each of 4 greedy decode
+    steps' within 1e-5 of one device's serve of the same params and
+    artifact, its tokens equal, the kernel launched on every rank."""
+    from repro_torch.core import Embedding
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.models import lm
+    res = spawn(_lm_serve_rank, 4, backend="gloo", device="cuda:0",
+                args=(case,), store_dir=str(tmp_path),
+                timeout_s=MESH_TIMEOUT)
+    cfg = _lm_serve_cfg(case)
+    params = lm.model_init(torch.Generator(device="cuda").manual_seed(0),
+                           cfg)
+    emb = Embedding(dataclasses.replace(cfg.embedding,
+                                        param_dtype=cfg.param_dtype),
+                    device="cuda")
+    with torch.no_grad():
+        art = emb.export(params["embed"])
+        cache, logits = lm.prefill(
+            params, torch.from_numpy(_lm_serve_prompts(cfg)).to(cuda), cfg,
+            max_seq=LM_SERVE_MAX_SEQ, embed_artifact=art)
+        want, toks = [logits.cpu()], [torch.argmax(logits, -1).to(
+            torch.int32)]
+        for _ in range(LM_SERVE_STEPS):
+            cache, logits = lm.decode_step(params, cache, toks[-1], cfg,
+                                           embed_artifact=art)
+            want.append(logits.cpu())
+            toks.append(torch.argmax(logits, -1).to(torch.int32))
+    toks = torch.stack(toks, 1).cpu()
+    bl = LM_SERVE_BATCH // LM_SERVE_CASES[case][2][0]
+    for d, got, r_toks, launches in res:
+        rows = slice(d * bl, (d + 1) * bl)
+        assert launches == cfg.num_layers
+        assert torch.equal(r_toks, toks[rows])
+        for g, w in zip(got, want, strict=True):
+            torch.testing.assert_close(g, w[rows], rtol=MESH_TRAIN_TOL,
+                                       atol=MESH_TRAIN_TOL)
