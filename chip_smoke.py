@@ -319,8 +319,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``random_graph``, d_feat 1,433, every node labelled) and
    minibatch_lg (``NeighborSampler`` batches of 1,024 seeds at fanout
    (15, 10) over a 232,965-node, 114,615,892-edge host graph, the loss
-   masked to the seeds); ogb_products does not fit one card (one
-   (E, C, 9) f32 edge tensor is 285 GB) — each with step ms beside
+   masked to the seeds; the host graph built in a child process
+   started with the script, beside the earlier phases); ogb_products
+   does not fit one card (one (E, C, 9) f32 edge tensor is 285 GB) —
+   each with step ms beside
    the FLOP bound, peak memory, finite losses and the sampler's host
    ms, molecule's and minibatch_lg's step once more profiled and split
    by profiler ranges (``GNN_SPANS``); then ``launch.train``'s CLI
@@ -335,7 +337,34 @@ Phases, each of which fails the run (non-zero exit, no result line):
    sum and the gather's backward against ``index_add_`` at
    minibatch_lg's scale, and a ``--full`` run failed at step 3 and
    resumed, bit for bit (a resume on the wrong batches must differ);
-15. free the card and drive the retrieval path at full width:
+15. the cells mesh phase (``cells_mesh_phase``): one device's
+   references in this process — each recsys ``CONFIG``'s params from
+   seed 0 (two-tower's users and items cut to ``CM_TT_ROWS``), a CTR
+   model's artifacts exported once (``dpq_assign``), the serve_p99
+   (B = 512) and serve_bulk (B = 262,144) logits and each data shard's
+   decoded rows, the retrieval_cand scores (``CM_CAND``: two-tower and
+   deepfm at 1,000,000 candidates, autoint's and bst's cut), MACE's
+   ``CONFIG`` stepped once on molecule, full_graph_sm and the GNN
+   phase's minibatch_lg sample (each step's gradients before the clip
+   kept; minibatch_lg's loss and gradients also in float64) — then 4
+   gloo ranks on cuda:0 as a (data=2, model=2) mesh (``cm_rank``):
+   ``recsys_serve_cell`` (rows bit-identical, logits within
+   ``CM_TOL``; ``mgqe_decode`` launched on every rank),
+   ``recsys_retrieval_cell`` (scores within ``CM_TOL``, two-tower's
+   top-100 ids identical, ``pq_score`` launched on every rank) and
+   ``mace_cell`` (the metrics within ``CM_TOL``, the reduced gradients
+   before the clip within ``CM_TOL`` of each leaf's largest, the params
+   after one adam step within the adam bars and moved; minibatch_lg's
+   float32 step a no-op on both sides, ``CM_NOOP_STEP``, so its params
+   unchanged, its float32 loss within ``CM_TOL`` relative plus
+   ``CM_NOISE_RULE`` times one device's float32 rounding, and its
+   float64 loss and reduced gradients within ``CM_TOL``); each with ms
+   a flush or step on the mesh and one device, its collectives (count,
+   bytes a rank) and bytes a rank; planted: a rank serving the next
+   rank's code blocks, a receiver sum keeping the next rank's node
+   block and a padded node in graph 0's energy must fail; counts set to
+   0 just before the export and read after the ranks, summed;
+16. free the card and drive the retrieval path at full width:
    two-tower retrieval at ``configs/two_tower_retrieval.py::CONFIG``
    (50M users, 10M items, embed_dim 256, towers 1024-512-256) through
    ``launch.serve.serve_retrieval`` — init, the ``flat_pq`` index over
@@ -349,12 +378,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    for bit, hold the index's codes (and ``dpq_assign`` run again on
    the same tower outputs) against the plain assignment, as in 3, and
    print the peak device memory;
-16. time the pq kernels at that path's shapes, as in 5,
+17. time the pq kernels at that path's shapes, as in 5,
    ``pq_score_batched`` also at a ragged B = 465, and ``pq_topk`` also
    on its worst case (scores rising with the id, held to the exact
    answer) and beside ``torch.topk(pq_score_batched(...))``, the two
    calls it fuses;
-17. the retrieval-scale phase: ``ivf_pq`` at the JAX bench's
+18. the retrieval-scale phase: ``ivf_pq`` at the JAX bench's
    ``bench_retrieval_scale`` widths and knobs (``IVF_*``) over a
    1,000,000-row Zipf-clustered corpus kept on the host (cut from the
    bench's default 10M rows for time), built through
@@ -375,9 +404,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    stay within their bound.  Then two-tower's ``CONFIG`` through
    ``serve_retrieval(index_kind="ivf_pq", nprobe=128, host_staged=True)``
    over 1M candidates (counted: one ``dpq_assign``): recall@100
-   (reported), queries/s beside phase 14's flat_pq, every flush
+   (reported), queries/s beside phase 16's flat_pq, every flush
    bit-identical to the device search;
-18. print one ``{"kernels": [...]}`` JSON line (launches summed over
+19. print one ``{"kernels": [...]}`` JSON line (launches summed over
    every path), then, last, the ``{"ok": true, "device": ...}`` line.
 
 It needs one card and no arguments, imports nothing of JAX, and runs
@@ -6032,7 +6061,7 @@ def two_tower_ivf_path(flat_qps: float) -> dict:
     """Two-tower's CONFIG through ``serve_retrieval(index_kind="ivf_pq",
     nprobe=TT_IVF_NPROBE, host_staged=True)`` over the retrieval
     corpus: counts set to 0 just before and read just after; recall and
-    queries/s beside phase 14's flat_pq; every flush bit-identical to the
+    queries/s beside phase 16's flat_pq; every flush bit-identical to the
     device search of the same queries.  Returns the launches."""
     import numpy as np
     import torch
@@ -8215,24 +8244,80 @@ def gnn_shape(name: str):
     return next(s for s in GNN_SHAPES if s.name == name)
 
 
-def gnn_host_graph(shape):
-    """minibatch_lg's host graph: ``random_graph`` over the shape's nodes
-    and edges at d_feat 128 (``mace_cell``'s width), its CSR and a
-    ``NeighborSampler`` at the shape's fanout, with the seconds of each
-    step and the host bytes of the graph."""
-    from repro_torch.data.graph import CSRGraph, NeighborSampler, random_graph
+def gnn_host_graph(shape, started):
+    """minibatch_lg's host graph, which the child process of
+    :func:`start_gnn_host_graph` built while the earlier phases ran:
+    ``random_graph`` over the shape's nodes and edges at d_feat 128
+    (``mace_cell``'s width), its CSR and a ``NeighborSampler`` at the
+    shape's fanout, with the seconds of each step and the host bytes of
+    the graph."""
+    import shutil
+    import numpy as np
+    from repro_torch.data.graph import CSRGraph, NeighborSampler
+    t0 = time.perf_counter()
+    proc, out_dir = started
+    try:
+        out, err = proc.communicate(timeout=600)
+        lines = [x for x in out.splitlines() if x.startswith("HOSTGRAPH ")]
+        if proc.returncode != 0 or len(lines) != 1:
+            log(out[-4000:])
+            log(err[-4000:])
+            need(False, "the host graph's child process ran to its end")
+        times = json.loads(lines[0].split(" ", 1)[1])
+        g = {k: np.load(os.path.join(out_dir, f"{k}.npy"))
+             for k in times["leaves"]}
+        csr = CSRGraph(np.load(os.path.join(out_dir, "indptr.npy")),
+                       np.load(os.path.join(out_dir, "indices.npy")),
+                       shape.n_nodes)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    host = sum(a.nbytes for a in g.values()) + csr.indptr.nbytes \
+        + csr.indices.nbytes
+    log(f"gnn host graph ({shape.name}): random_graph({shape.n_nodes:,} "
+        f"nodes, {shape.n_edges:,} edges, d_feat 128) "
+        f"{times['random_graph_s']:.1f}s, CSRGraph.from_edge_index "
+        f"{times['csr_s']:.1f}s in a child process beside the earlier "
+        f"phases; waited {time.perf_counter() - t0:.1f}s here; "
+        f"{host / 2**30:.2f} GiB kept on the host")
+    return g, NeighborSampler(csr, shape.fanout, seed=0)
+
+
+HOST_GRAPH_FLAG = "--gnn-host-graph"
+
+
+def start_gnn_host_graph():
+    """Start building minibatch_lg's host graph (numpy on the host, ~40 s,
+    no card) in a child process, so it overlaps the phases before the
+    GNN phase: (the process, the directory it writes to), which
+    :func:`gnn_host_graph` waits on."""
+    import tempfile
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_graph_")
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                             HOST_GRAPH_FLAG, out_dir], cwd=REPO,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    return proc, out_dir
+
+
+def gnn_host_graph_child(out_dir: str) -> int:
+    """The child's side of :func:`start_gnn_host_graph`: the graph's
+    leaves, its CSR's ``indptr`` and ``indices`` as .npy files in
+    ``out_dir``, and one line of their names and the seconds each step
+    took."""
+    import numpy as np
+    from repro_torch.data.graph import CSRGraph, random_graph
+    shape = gnn_shape("minibatch_lg")
     t0 = time.perf_counter()
     g = random_graph(shape.n_nodes, shape.n_edges, 128, seed=0)
     t1 = time.perf_counter()
     csr = CSRGraph.from_edge_index(g.pop("edge_index"), shape.n_nodes)
     t2 = time.perf_counter()
-    host = sum(a.nbytes for a in g.values()) + csr.indptr.nbytes \
-        + csr.indices.nbytes
-    log(f"gnn host graph ({shape.name}): random_graph({shape.n_nodes:,} "
-        f"nodes, {shape.n_edges:,} edges, d_feat 128) {t1 - t0:.1f}s, "
-        f"CSRGraph.from_edge_index {t2 - t1:.1f}s; "
-        f"{host / 2**30:.2f} GiB kept on the host")
-    return g, NeighborSampler(csr, shape.fanout, seed=0)
+    for name, a in dict(g, indptr=csr.indptr, indices=csr.indices).items():
+        np.save(os.path.join(out_dir, f"{name}.npy"), a)
+    print("HOSTGRAPH " + json.dumps({"leaves": sorted(g),
+                                     "random_graph_s": t1 - t0,
+                                     "csr_s": t2 - t1}), flush=True)
+    return 0
 
 
 def gnn_data(name: str, cfg, host=None):
@@ -8658,18 +8743,20 @@ def gnn_repeat_checks(cfg, full_graph: dict) -> None:
     need(bad > 0, "gnn: a resume on the wrong batches differs")
 
 
-def gnn_phases(card: str) -> dict:
+def gnn_phases(card: str, started) -> tuple:
     """The GNN phase (see the module docstring): MACE's CONFIG trained on
     GNN_SHAPE_NAMES and through the CLI with every kernel's launch count
     set to 0 just before and read just after (0 required: no Pallas
     function lies on the JAX path), then the card against the CPU, E(3),
-    repeatability and resume.  Returns the launches (all 0)."""
+    repeatability and resume.  Returns (the launches, all 0, and
+    minibatch_lg's first sampled subgraph, which the cells mesh phase
+    trains on)."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.launch import train as train_mod
     t_phase = time.perf_counter()
     _, cfg = get_arch("mace", smoke=False)
-    host = gnn_host_graph(gnn_shape("minibatch_lg"))
+    host = gnn_host_graph(gnn_shape("minibatch_lg"), started)
     counters = reset_counts()
     results = {}
     for name in GNN_SHAPE_NAMES:
@@ -8677,6 +8764,7 @@ def gnn_phases(card: str) -> dict:
             name, cfg, card, host if name == "minibatch_lg" else None)
         gc.collect()
         torch.cuda.empty_cache()
+    mini = gnn_first_sample(host)
     del host
     t_cli = time.perf_counter()
     run = train_mod.main(["--arch", "mace", "--full", "--steps",
@@ -8704,6 +8792,821 @@ def gnn_phases(card: str) -> dict:
                     f"({r['step_ms'] / r['bound_ms']:.1f}x its "
                     f"{r['bound_ms']:.3f} ms bound), peak "
                     f"{r['peak_gib']:.3f} GiB" for name, r in results.items()))
+    return launches, mini
+
+
+def gnn_first_sample(host) -> dict:
+    """A sampled subgraph of minibatch_lg on the GNN phase's sampler, from
+    the GNN_MINI_SEEDS seeds ``gnn_data``'s first batch takes."""
+    import numpy as np
+    from repro_torch.launch.cells import sampled_graph
+    g, sampler = host
+    shape = gnn_shape("minibatch_lg")
+    seeds = np.random.default_rng(1).choice(shape.n_nodes, GNN_MINI_SEEDS,
+                                            replace=False)
+    return sampled_graph(g, sampler.sample(seeds))
+
+
+# ----------------------------------------------------------------------
+# the cells mesh phase: the recsys serving and retrieval cells and
+# MACE's training cell, each rank's share on 4 gloo ranks of the card
+# ----------------------------------------------------------------------
+
+CM_MESH = (2, 2)                       # (data, model): 4 gloo ranks, one card
+CM_ARCHS = ("deepfm", "autoint", "bst", "two-tower-retrieval")
+CM_SERVE = ("serve_p99", "serve_bulk")
+CM_TT_ROWS = 2_000_000                 # two-tower's users and items, cut
+# retrieval_cand's 1,000,000 candidates, cut where the training path's
+# (B, D, 256) distances (and AutoInt's attention, BST's 21 ids a row)
+# would not fit 4 ranks and one device on the card
+CM_CAND = {"two-tower-retrieval": 1_000_000, "deepfm": 1_000_000,
+           "autoint": 262_144, "bst": 32_768}
+CM_USER = 7                            # the retrieval cell's query
+CM_TOL = 1e-5
+CM_TOPK = 100
+CM_FLUSHES = 1                         # timed flushes after the compared one
+CM_PLANT_GRAPHS = 127                  # molecules: 3,810 nodes pad to 3,812
+CM_TIMEOUT = 900.0
+# MACE's graphs whose float32 step is a no-op on one device and on the
+# mesh alike: the global-norm clip's squares overflow float32, so the
+# clip zeroes every gradient (ROADMAP.md §3 fact 4).  Their loss and
+# their reduced gradients before the clip are held in float64 too
+# (``mace_float64``), where nothing overflows; their float32 loss may
+# lie CM_NOISE_RULE times one device's own float32 rounding (read
+# against float64) from one device's, beyond 1e-5 relative
+CM_NOOP_STEP = ("minibatch_lg",)
+CM_NOISE_RULE = 4.0
+# a step that is not a no-op moves some param by more than this (adam's
+# first step moves an element of |g| >> eps by lr = 1e-3)
+CM_MOVED = 1e-4
+CM_DEVICE = "cuda"                     # the card; every rank on its index 0
+
+
+def cm_configs() -> dict:
+    """The phase's recsys configs: each ``CONFIG``, two-tower's users and
+    items cut to CM_TT_ROWS (50M users are 123 GB of f32 tables)."""
+    from repro_torch.configs import get_arch
+    out = {arch: get_arch(arch, smoke=False)[1] for arch in CM_ARCHS}
+    out["two-tower-retrieval"] = dataclasses.replace(
+        out["two-tower-retrieval"], n_users=CM_TT_ROWS, n_items=CM_TT_ROWS)
+    return out
+
+
+def cm_mace_config():
+    """MACE's ``CONFIG``."""
+    from repro_torch.configs import get_arch
+    return get_arch("mace", smoke=False)[1]
+
+
+def cm_recsys_shape(name: str):
+    from repro_torch.configs.base import RECSYS_SHAPES
+    return next(s for s in RECSYS_SHAPES if s.name == name)
+
+
+def cm_batch(arch: str, cfg, b: int, seed: int) -> dict:
+    """A global batch of ``b`` rows of uniform ids (numpy), the serving
+    cells' inputs (``label`` left out: the cells drop it)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    if arch == "two-tower-retrieval":
+        return {"user_ids": rng.integers(0, cfg.n_users, b).astype(np.int32),
+                "item_ids": rng.integers(0, cfg.n_items, b).astype(np.int32)}
+    if arch == "bst":
+        return {"hist_ids": rng.integers(0, cfg.n_items, (b, cfg.seq_len))
+                .astype(np.int32),
+                "target_id": rng.integers(0, cfg.n_items, b).astype(np.int32)}
+    return {"sparse_ids": np.stack([rng.integers(0, v, b) for v in
+                                    cfg.field_vocab_sizes], 1)
+            .astype(np.int32)}
+
+
+def cm_corpus(cfg, n: int) -> dict:
+    """The two-tower retrieval cell's PQ-coded corpus (numpy, seeded):
+    codes (n, n_sub) uint8 and (n_sub, 256, d_out / n_sub) centroids, the
+    JAX cell's shapes."""
+    import numpy as np
+    d_out = cfg.tower_mlp[-1]
+    n_sub = 16 if d_out % 16 == 0 else 8
+    rng = np.random.default_rng(5)
+    return {"codes": rng.integers(0, 256, (n, n_sub)).astype(np.uint8),
+            "centroids": (rng.normal(size=(n_sub, 256, d_out // n_sub))
+                          / np.sqrt(d_out)).astype(np.float32)}
+
+
+def cm_rows(model, artifacts, batch, mesh=None):
+    """The decoded rows a CTR model's serve reads (every field, or bst's
+    item table), through the same placed path."""
+    import torch
+    from repro_torch.models.recsys.fields import serve_placed
+    with torch.no_grad():
+        if model.cfg.model == "bst":
+            return serve_placed(model.item_emb, artifacts, model.ids(batch),
+                                mesh)
+        return model.fields.serve(artifacts, batch["sparse_ids"], mesh=mesh)
+
+
+def cm_wall_ms(fn, n: int) -> float:
+    """Wall ms of one ``fn()`` (the card synchronised), over ``n``."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def cm_counted(mesh, fn):
+    """(``fn()``, its wall ms, its collectives: count, bytes a rank and
+    seconds with the card synchronised around each)."""
+    import torch
+    from repro_torch.sharding.collectives import CommStats
+    mesh.stats = CommStats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+    finally:
+        stats, mesh.stats = mesh.stats, None
+    return out, (time.perf_counter() - t0) * 1e3, dataclasses.asdict(stats)
+
+
+def cm_gnn_graph(name: str, cfg, mini: dict) -> dict:
+    """MACE's graph of ``name`` (numpy): molecule 128 molecules of 30
+    atoms and 64 edges (seed 0); full_graph_sm a ``random_graph`` of its
+    sizes at d_feat 1,433 (seed 0); minibatch_lg the GNN phase's
+    sampled subgraph."""
+    from repro_torch.data.graph import molecule_batch, random_graph
+    shape = gnn_shape(name)
+    if name == "molecule":
+        return molecule_batch(shape.batch_graphs, shape.n_nodes,
+                              shape.n_edges, n_species=cfg.num_species,
+                              seed=0)
+    if name == "full_graph_sm":
+        return random_graph(shape.n_nodes, shape.n_edges, shape.d_feat,
+                            seed=0)
+    return mini
+
+
+def cm_plant_graph(cfg) -> dict:
+    """CM_PLANT_GRAPHS molecules: 3,810 nodes, which pad to 3,812 on 4
+    ranks."""
+    from repro_torch.data.graph import molecule_batch
+    shape = gnn_shape("molecule")
+    return molecule_batch(CM_PLANT_GRAPHS, shape.n_nodes, shape.n_edges,
+                          n_species=cfg.num_species, seed=5)
+
+
+def cm_recsys_reference(arch: str, cfg, tmp: str) -> dict:
+    """One device's outputs of ``arch``'s cells: params drawn from seed 0
+    on the card (as the cells draw them), a CTR model's artifacts
+    exported once (``dpq_assign``; saved to ``tmp`` for the ranks), each
+    serving batch's logits and each data shard's decoded rows (crc32),
+    the retrieval scores; ms a flush or a scoring call (the card
+    synchronised)."""
+    import torch
+    from repro_torch.core.schemes.base import tree_map
+    from repro_torch.launch.cells import (recsys_export, recsys_model,
+                                          serve_params)
+    from repro_torch.retrieval.flat_pq import adc_scores
+    from repro_torch.train.loop import on_device
+    model = recsys_model(cfg, device=CM_DEVICE)
+    params = model.init(torch.Generator(device=CM_DEVICE).manual_seed(0))
+    out = {"serve": {}, "crc": {}, "ms": {}, "art": None}
+    arts = sp = None
+    if arch != "two-tower-retrieval":
+        t0 = time.perf_counter()
+        arts = recsys_export(model, params)
+        torch.cuda.synchronize()
+        out["export_s"] = time.perf_counter() - t0
+        out["art"] = os.path.join(tmp, f"{arch}_art.pt")
+        torch.save(tree_map(lambda t: t.cpu(), arts), out["art"])
+        sp = serve_params(cfg, params)
+    data_n = CM_MESH[0]
+    for name in CM_SERVE:
+        b = cm_recsys_shape(name).batch
+        batch = on_device(cm_batch(arch, cfg, b, b), CM_DEVICE)
+
+        def flush():
+            with torch.no_grad():
+                if arts is None:
+                    u, _ = model.user_vec(params, batch["user_ids"])
+                    v, _ = model.item_vec(params, batch["item_ids"])
+                    return torch.sum(u * v, dim=-1)
+                return model.serve(sp, arts, batch)
+        out["serve"][name] = flush().cpu()
+        out["ms"][name] = cm_wall_ms(flush, CM_FLUSHES)
+        if arts is not None:
+            rows = cm_rows(model, arts, batch)
+            bl = b // data_n
+            out["crc"][name] = [mt_crc([rows[d * bl:(d + 1) * bl]])
+                                for d in range(data_n)]
+            del rows
+        del batch
+    n = CM_CAND[arch]
+    with torch.no_grad():
+        if arch == "two-tower-retrieval":
+            corpus = cm_corpus(cfg, n)
+            out["corpus"] = os.path.join(tmp, "corpus.pt")
+            torch.save(corpus, out["corpus"])
+            corpus = on_device(corpus, CM_DEVICE)
+            user = torch.tensor([CM_USER], dtype=torch.int32,
+                                device=CM_DEVICE)
+
+            def score():
+                u, _ = model.user_vec(params, user)
+                return adc_scores(corpus, u[0])
+        else:
+            cand = on_device(cm_batch(arch, cfg, n, 11), CM_DEVICE)
+
+            def score():
+                return model.apply(params, cand)[0]
+        out["retrieval"] = score().cpu()
+        out["ms"]["retrieval"] = cm_wall_ms(score, 1)
+    return out
+
+
+def cm_mace_reference(cfg, graphs: dict, plant: dict) -> dict:
+    """One device's adam step of MACE's CONFIG on each graph (params from
+    seed 0, ``gnn_model``): metrics, the params before and after (CPU),
+    the gradients before the clip and the step's clipped ones (adam's
+    m / (1 - b1)), ms of a second step; on a CM_NOOP_STEP graph also the
+    metrics and gradients in float64; and the loss on the planting
+    batch."""
+    import torch
+    from repro_torch.core.schemes.base import tree_leaves
+    from repro_torch.launch.cells import mace_shape
+    from repro_torch.launch.train import GNN_OPTIMIZER
+    from repro_torch.train.loop import on_device
+    out = {}
+    for name, g in graphs.items():
+        _, _, d_feat, task, _ = mace_shape(gnn_shape(name))
+        model, state, step = gnn_model(cfg, d_feat, task, device=CM_DEVICE)
+        fn = model.energy_loss if task == "energy" else model.node_class_loss
+        batch = on_device(g, CM_DEVICE)
+        res = {"task": task,
+               "init": [t.to("cpu", copy=True)
+                        for t in tree_leaves(state.params)],
+               "pre": [t.cpu() for t in leaf_grads(fn, state.params, batch)]}
+        if name in CM_NOOP_STEP:
+            grads, metrics = cm_float64_grads(fn, state.params, batch)
+            res["f64"] = {"metrics": metrics,
+                          "grads": [t.cpu() for t in tree_leaves(grads)]}
+            del grads
+        state, metrics = step(state, batch)
+        res["metrics"] = {k: float(v) for k, v in metrics.items()}
+        res["grads"] = [(m / (1 - GNN_OPTIMIZER.b1)).cpu()
+                        for m in tree_leaves(state.opt_state["m"])]
+        res["params"] = [t.to("cpu", copy=True)
+                         for t in tree_leaves(state.params)]
+        res["ms"] = cm_wall_ms(lambda: step(state, batch), 1)
+        out[name] = res
+        del state, step, batch, model
+        gc.collect()
+        torch.cuda.empty_cache()
+    model, state, _ = gnn_model(cfg, 0, "energy", device=CM_DEVICE)
+    with torch.no_grad():
+        out["plant_loss"] = float(model.energy_loss(
+            state.params, on_device(plant, CM_DEVICE))[0])
+    return out
+
+
+@contextlib.contextmanager
+def mace_float64():
+    """A stand-in: inside the block, MACE computes in float64 from float64
+    params and graph (its CG tables in float64, its readout not cast to
+    float32)."""
+    from repro_torch.models.gnn.mace import MACE
+    from repro_torch.nn.mlp import mlp
+    cgs, readout = MACE._cgs, MACE._readout
+    MACE._cgs = lambda self, device: [(a.double(), b.double())
+                                      for a, b in cgs(self, device)]
+    MACE._readout = lambda self, layer, x: mlp(layer["readout"], x[:, :, 0],
+                                               act="silu")
+    try:
+        yield
+    finally:
+        MACE._cgs, MACE._readout = cgs, readout
+
+
+def cm_float64_grads(fn, params, graph: dict) -> tuple:
+    """(gradient tree, metrics) of ``fn(params, graph)``'s loss with the
+    params and the graph's floats in float64 and MACE computing in
+    float64 (``mace_float64``): the reading, free of float32 overflow,
+    that a CM_NOOP_STEP graph's gradients are held to (MACE's node-class
+    terms reach 1e24 at CONFIG, ROADMAP §3 fact 4)."""
+    import torch
+    from repro_torch.core.schemes.base import tree_map
+    from repro_torch.train.optimizer import loss_grads
+    p64 = tree_map(lambda t: t.double(), params)
+    g64 = {k: v.double() if isinstance(v, torch.Tensor)
+           and v.is_floating_point() else v for k, v in graph.items()}
+    with mace_float64():
+        grads, metrics = loss_grads(fn, p64, g64)
+    return grads, {k: float(v) for k, v in metrics.items()}
+
+
+class CmOtherBlock:
+    """A mesh whose ``model`` coordinate is the next rank's: an artifact
+    placed through it hands this rank another rank's code block."""
+
+    def __init__(self, mesh):
+        self.mesh, self.shape, self.device = mesh, mesh.shape, mesh.device
+
+    def axis_index(self, axis):
+        i = self.mesh.axis_index(axis)
+        return (i + 1) % self.shape[axis] if axis == "model" else i
+
+
+def cm_roll_block(psum_scatter):
+    """A planted receiver sum that keeps the next rank's node block."""
+    import torch
+    from repro_torch.sharding.collectives import axes_size
+
+    def wrong(x, mesh, axes, dim=0):
+        step = x.shape[dim] // axes_size(mesh, axes)
+        return psum_scatter(torch.roll(x, -step, dims=dim), mesh, axes, dim)
+    return wrong
+
+
+def cm_rank_recsys(arch, cfg, mesh, plan, counters) -> dict:
+    """One rank's serving and retrieval cells of ``arch`` (see
+    ``cells_mesh_phase``)."""
+    import torch
+    from repro_torch.launch.cells import (recsys_retrieval_cell,
+                                          recsys_serve_cell)
+    from repro_torch.sharding.rules import place, recsys_artifact_specs
+    ref = plan["refs"][arch]
+    arts = None if ref["art"] is None else torch.load(ref["art"])
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    cell = recsys_serve_cell(cfg, cm_recsys_shape("serve_p99"), mesh,
+                             artifacts=arts)
+    out = {"placed": torch.cuda.memory_allocated() - before, "serve": {}}
+    mgqe0 = counters["mgqe_decode"].launches
+    for name in CM_SERVE:
+        b = cm_recsys_shape(name).batch
+        batch = cell.local_batch(cm_batch(arch, cfg, b, b))
+        t0 = time.perf_counter()
+        logits = cell.step(batch)
+        torch.cuda.synchronize()
+        first = (time.perf_counter() - t0) * 1e3
+        ms = cm_wall_ms(lambda: cell.step(batch), CM_FLUSHES)
+        _, counted_ms, stats = cm_counted(mesh, lambda: cell.step(batch))
+        res = {"logits": logits.cpu(), "first_ms": first, "ms": ms,
+               "counted_ms": counted_ms, "stats": stats}
+        if arts is not None:
+            res["crc"] = mt_crc([cm_rows(cell.model, cell.artifacts, batch,
+                                         mesh)])
+        out["serve"][name] = res
+        if arch == "deepfm" and name == "serve_p99":
+            sound = cell.artifacts
+            cell.artifacts = place(arts, recsys_artifact_specs(arts, mesh),
+                                   CmOtherBlock(mesh))
+            out["planted"] = (cell.step(batch).cpu(), mt_crc([cm_rows(
+                cell.model, cell.artifacts, batch, mesh)]))
+            cell.artifacts = sound
+    out["mgqe_decode"] = counters["mgqe_decode"].launches - mgqe0
+    out["serve_peak"] = torch.cuda.max_memory_allocated()
+    del cell, arts, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    n = CM_CAND[arch]
+    rcell = recsys_retrieval_cell(cfg, cm_recsys_shape("retrieval_cand"),
+                                  mesh, n_candidates=n)
+    pq0 = counters["pq_score"].launches
+    if arch == "two-tower-retrieval":
+        corpus = rcell.local_corpus(torch.load(ref["corpus"],
+                                               weights_only=False))
+        user = torch.tensor([CM_USER], dtype=torch.int32)
+        args = (corpus, user)
+    else:
+        args = (rcell.local_candidates(cm_batch(arch, cfg, n, 11)),)
+    scores, out["retrieval_ms"], out["retrieval_stats"] = cm_counted(
+        mesh, lambda: rcell.step(*args))
+    out["pq_score"] = counters["pq_score"].launches - pq0
+    out["scores"] = scores.cpu() if _cm_first(mesh) else mt_crc([scores])
+    out["retrieval_peak"] = torch.cuda.max_memory_allocated()
+    out["note"] = rcell.note
+    del rcell, args, scores
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _cm_first(mesh) -> bool:
+    return all(mesh.axis_index(a) == 0 for a in mesh.axis_names)
+
+
+def cm_rank_mace(cfg, mesh, plan) -> dict:
+    """One rank's MACE cells (see ``cells_mesh_phase``)."""
+    import torch
+    from repro_torch.core.schemes.base import tree_leaves, tree_map
+    from repro_torch.launch import cells
+    from repro_torch.models.gnn import mace
+    out = {}
+    for name, path in plan["graphs"].items():
+        graph = torch.load(path, weights_only=False)
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        cell = cells.mace_cell(cfg, gnn_shape(name), mesh)
+        g = cell.local_graph(graph)
+        placed = torch.cuda.memory_allocated() - before
+        f64 = None
+        if name in CM_NOOP_STEP:
+            grads, metrics = cm_float64_grads(cell.loss, cell.state.params,
+                                              g)
+            with torch.no_grad():
+                f64 = {"metrics": metrics, "grads": [
+                    t.cpu() for t in tree_leaves(cell.whole_params(
+                        cell.reduce(grads)))]}
+            del grads
+            gc.collect()
+            torch.cuda.empty_cache()
+        # the reduced gradients before the clip (which scales them in
+        # place), as the step computes them
+        pre, reduce = [], cell.reduce
+
+        def stash(grads):
+            out = reduce(grads)
+            pre.append(tree_map(torch.clone, out))
+            return out
+        cell.reduce = stash
+        (state, metrics), ms, stats = cm_counted(
+            mesh, lambda: cell.step(cell.state, g))
+        cell.reduce = reduce
+        res = {"metrics": {k: float(v) for k, v in metrics.items()},
+               "counted_ms": ms, "stats": stats, "placed": placed,
+               "n_local": g["positions"].shape[0],
+               "e_local": g["edge_index"].shape[1], "note": cell.note}
+        with torch.no_grad():
+            whole = [t.to("cpu", copy=True) for t in tree_leaves(
+                cell.whole_params(state.params))]
+            res["pre"] = [t.cpu() for t in tree_leaves(
+                cell.whole_params(pre[0]))]
+        del pre
+        res["params"] = whole if _cm_first(mesh) else mt_crc(whole)
+        res["crc"] = mt_crc(whole)
+        res["f64"] = f64
+        if name != "minibatch_lg":
+            res["ms"] = cm_wall_ms(lambda: cell.step(state, g), 1)
+        res["peak"] = torch.cuda.max_memory_allocated()
+        out[name] = res
+        del cell, g, state, graph, whole
+        gc.collect()
+        torch.cuda.empty_cache()
+    # planted faults, forward only, from seed 0's params
+    plant = torch.load(plan["plant"], weights_only=False)
+    cell = cells.mace_cell(cfg, gnn_shape("molecule"), mesh)
+    with torch.no_grad():
+        out["plant_sound"] = float(cell.loss(cell.state.params,
+                                             cell.local_graph(plant))[0])
+        sound = mace.psum_scatter
+        mace.psum_scatter = cm_roll_block(sound)
+        try:
+            out["plant_block"] = float(cell.loss(
+                cell.state.params, cell.local_graph(plant))[0])
+        finally:
+            mace.psum_scatter = sound
+        pad = cells.pad_graph
+
+        def into_graph0(graph, multiple, task):
+            n = len(graph["positions"])
+            padded = pad(graph, multiple, task)
+            padded["graph_id"][n:] = 0
+            return padded
+        cells.pad_graph = into_graph0
+        try:
+            out["plant_pad"] = float(cell.loss(cell.state.params,
+                                               cell.local_graph(plant))[0])
+        finally:
+            cells.pad_graph = pad
+    return out
+
+
+def cm_rank(rank, plan) -> dict:
+    """One rank of the cells mesh phase on (2, 2), a gloo process on the
+    card: every recsys arch's serving and retrieval cells, then MACE's
+    three cells and the planted faults; its kernel launches counted from
+    0."""
+    import torch
+    from repro_torch.launch.mesh import make_debug_mesh
+    mesh = make_debug_mesh(*CM_MESH)
+    need(mesh.device == torch.device(CM_DEVICE, 0), "every rank on "
+         f"{CM_DEVICE}:0")
+    counters = reset_counts()
+    cfgs = cm_configs()
+    out = {"coords": (mesh.axis_index("data"), mesh.axis_index("model"))}
+    for arch in CM_ARCHS:
+        out[arch] = cm_rank_recsys(arch, cfgs[arch], mesh, plan, counters)
+    out["mace"] = cm_rank_mace(cm_mace_config(), mesh, plan)
+    out["launches"] = {k: fn.launches for k, fn in counters.items()}
+    return out
+
+
+def cm_params_gap(got, want, grads, task) -> tuple:
+    """(largest |got - want| over the elements held at 1e-5, over the
+    rest, the rest's count, whether every element meets its bar).  The
+    rest are adam's ill-conditioned elements of the first step (``grads``
+    one device's clipped gradients; exact zeros update by 0 in both):
+    for the energy a |g| < 1e-6, held at 2·lr (``tests/
+    test_torch_lm_mesh.py``'s bar); for node classes a |g| below 1e-7 of
+    the global norm (at least 1), held at lr (``tests/
+    test_torch_gnn_train.py``'s, ROADMAP.md §3 fact 4)."""
+    import torch
+    if task == "energy":
+        tiny = [(g != 0) & (g.abs() < 1e-6) for g in grads]
+        held = 2e-3
+    else:
+        norm = max(float(torch.sqrt(sum(torch.sum(g.double() ** 2)
+                                        for g in grads))), 1.0)
+        tiny = [(g != 0) & (g.abs() / norm < 1e-7) for g in grads]
+        held = 1e-3
+    gap, tgap, n_tiny, ok = 0.0, 0.0, 0, True
+    for a, b, t in zip(got, want, tiny, strict=True):
+        d = (a - b).abs()
+        if bool((~t).any()):
+            gap = max(gap, float(d[~t].max()))
+            ok = ok and bool((d[~t] <= CM_TOL + CM_TOL * b[~t].abs()).all())
+        if bool(t.any()):
+            tgap = max(tgap, float(d[t].max()))
+            ok = ok and float(d[t].max()) <= held
+            n_tiny += int(t.sum())
+    return gap, tgap, n_tiny, ok
+
+
+def cm_grads_gap(got, want) -> float:
+    """Largest gap of two gradients, leaf by leaf, each relative to its
+    leaf's largest |g| in ``want`` (``gnn_card_vs_cpu``'s node-class
+    bar); a leaf that is 0 in ``want`` must be 0 in ``got``."""
+    gap = 0.0
+    for a, b in zip(got, want, strict=True):
+        scale = float(b.abs().max())
+        d = float((a.double() - b.double()).abs().max())
+        gap = max(gap, d / scale if scale > 0 else
+                  (0.0 if d == 0 else float("inf")))
+    return gap
+
+
+def cm_close(a: float, b: float) -> bool:
+    return abs(a - b) <= CM_TOL + CM_TOL * abs(b)
+
+
+def cells_mesh_phase(card: str, mini: dict) -> dict:
+    """The cells mesh phase (see the module docstring): one device's
+    references in this process (the recsys artifacts exported once
+    here), then 4 gloo ranks on the card as a (data=2, model=2) mesh
+    (``cm_rank``), each held to one device.  Counts set to 0 just
+    before the export and read after the ranks, the ranks' summed; the
+    phase fails unless every rank launched ``mgqe_decode`` in the
+    serving cells and ``pq_score`` in the two-tower retrieval cell.
+    Returns the launches."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.launch.mesh import spawn
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfgs = cm_configs()
+    gcfg = cm_mace_config()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cells_")
+    try:
+        counters = reset_counts()
+        refs = {}
+        for arch in CM_ARCHS:
+            refs[arch] = cm_recsys_reference(arch, cfgs[arch], tmp)
+            gc.collect()
+            torch.cuda.empty_cache()
+        graphs = {name: cm_gnn_graph(name, gcfg, mini)
+                  for name in GNN_SHAPE_NAMES}
+        plant = cm_plant_graph(gcfg)
+        g_ref = cm_mace_reference(gcfg, graphs, plant)
+        plan = {"refs": {a: {"art": r["art"], "corpus": r.get("corpus")}
+                         for a, r in refs.items()},
+                "graphs": {}, "plant": os.path.join(tmp, "plant.pt")}
+        for name, g in graphs.items():
+            plan["graphs"][name] = os.path.join(tmp, f"{name}.pt")
+            torch.save(g, plan["graphs"][name])
+        torch.save(plant, plan["plant"])
+        del graphs
+        launches = {name: fn.launches for name, fn in counters.items()}
+        gc.collect()
+        torch.cuda.empty_cache()
+        t_ref = time.perf_counter() - t_phase
+        log(f"cells mesh: one device's references {t_ref:.1f}s (exports "
+            + ", ".join(f"{a} {r['export_s']:.1f}s" for a, r in refs.items()
+                        if "export_s" in r)
+            + f", dpq_assign {launches['dpq_assign']}); this process holds "
+            f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB before the "
+            f"ranks")
+        counters = reset_counts()
+        t0 = time.perf_counter()
+        ranks = spawn(cm_rank, CM_MESH[0] * CM_MESH[1], backend="gloo",
+                      device=f"{CM_DEVICE}:0", args=(plan,), store_dir=tmp,
+                      timeout_s=CM_TIMEOUT)
+        t_ranks = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for name, fn in counters.items():
+        launches[name] += fn.launches
+    for r in ranks:
+        for name, n in r["launches"].items():
+            launches[name] += n
+    gib = 2 ** 30
+    # ------------------------------------------------ (a), (b) recsys
+    for arch in CM_ARCHS:
+        ref = refs[arch]
+        for name in CM_SERVE:
+            want = ref["serve"][name]
+            bl = want.shape[0] // CM_MESH[0]
+            gap, crc_ok = 0.0, True
+            for r in ranks:
+                got = r[arch]["serve"][name]
+                d = r["coords"][0]
+                part = want[d * bl:(d + 1) * bl]
+                gap = max(gap, float((got["logits"] - part).abs().max()))
+                need(torch.allclose(got["logits"], part, rtol=CM_TOL,
+                                    atol=CM_TOL),
+                     f"cells {arch} {name}: logits within {CM_TOL} of one "
+                     f"device")
+                if "crc" in got:
+                    crc_ok = crc_ok and got["crc"] == ref["crc"][name][d]
+            need(crc_ok, f"cells {arch} {name}: decoded rows bit-identical "
+                         f"to one device")
+            r0 = ranks[0][arch]["serve"][name]
+            cut = (f", users and items cut to {CM_TT_ROWS:,}"
+                   if arch == "two-tower-retrieval" else "")
+            log(f"cells serve ({arch} CONFIG{cut}, {name} "
+                f"B={want.shape[0]:,}, {card}): a flush "
+                f"{max(r[arch]['serve'][name]['ms'] for r in ranks):.3f} ms "
+                f"on the mesh (slowest rank, mean of {CM_FLUSHES}; first "
+                f"{r0['first_ms']:.3f}), one device {ref['ms'][name]:.3f} "
+                f"ms; collectives a flush {r0['stats']['count']} "
+                f"({r0['stats']['bytes'] / 1e6:.3f} MB a rank, "
+                f"{r0['stats']['seconds'] * 1e3:.3f} ms synchronised, the "
+                f"counted flush {r0['counted_ms']:.3f} ms); logits within "
+                f"{gap:.3g} (bar {CM_TOL})"
+                + (f"; rows bit-identical: {crc_ok}" if "crc" in r0 else ""))
+        mem = [r[arch]["placed"] / gib for r in ranks]
+        log(f"cells serve ({arch}): the served model a rank "
+            f"{min(mem):.3f}-{max(mem):.3f} GiB, serving peak "
+            f"{max(r[arch]['serve_peak'] for r in ranks) / gib:.3f} GiB; "
+            f"mgqe_decode launches a rank "
+            f"{[r[arch]['mgqe_decode'] for r in ranks]}")
+        if arch != "two-tower-retrieval":
+            need(all(r[arch]["mgqe_decode"] > 0 for r in ranks),
+                 f"cells {arch}: every rank launched mgqe_decode")
+        want = ref["retrieval"]
+        got = ranks[0][arch]["scores"]
+        same = all(r[arch]["scores"] == mt_crc([got]) for r in ranks[1:])
+        gap = float((got - want).abs().max())
+        need(same, f"cells {arch} retrieval: every rank holds the same "
+                   f"scores")
+        need(torch.allclose(got, want, rtol=CM_TOL, atol=CM_TOL),
+             f"cells {arch} retrieval: scores within {CM_TOL}")
+        extra = ""
+        if arch == "two-tower-retrieval":
+            top = torch.sort(got, descending=True, stable=True)[1][:CM_TOPK]
+            top_w = torch.sort(want, descending=True,
+                               stable=True)[1][:CM_TOPK]
+            need(torch.equal(top, top_w), "cells two-tower retrieval: the "
+                 "top-100 ids identical")
+            need(all(r[arch]["pq_score"] > 0 for r in ranks),
+                 "cells two-tower retrieval: every rank launched pq_score")
+            extra = (f"; top-{CM_TOPK} ids identical; pq_score launches a "
+                     f"rank {[r[arch]['pq_score'] for r in ranks]}")
+        r0 = ranks[0][arch]
+        log(f"cells retrieval ({arch}, {r0['note']}, {card}): "
+            f"{max(r[arch]['retrieval_ms'] for r in ranks):.3f} ms on the "
+            f"mesh (slowest rank, its first call, counted: the card "
+            f"synchronised around each collective), one device "
+            f"{ref['ms']['retrieval']:.3f} ms; collectives "
+            f"{r0['retrieval_stats']['count']} "
+            f"({r0['retrieval_stats']['bytes'] / 1e6:.3f} MB a rank, "
+            f"{r0['retrieval_stats']['seconds'] * 1e3:.3f} ms "
+            f"synchronised); peak "
+            f"{max(r[arch]['retrieval_peak'] for r in ranks) / gib:.3f} GiB "
+            f"a rank; scores within {gap:.3g} (bar {CM_TOL}){extra}")
+    # ------------------------------------------------ (c) MACE
+    for name in GNN_SHAPE_NAMES:
+        want = g_ref[name]
+        r0 = ranks[0]["mace"][name]
+        noop = name in CM_NOOP_STEP
+        gap, tgap, n_tiny, ok = cm_params_gap(r0["params"], want["params"],
+                                              want["grads"], want["task"])
+        pre_gap = max(cm_grads_gap(r["mace"][name]["pre"], want["pre"])
+                      for r in ranks)
+        moved = max(float((a - b).abs().max())
+                    for a, b in zip(r0["params"], want["init"], strict=True))
+        log(f"cells mace ({gcfg.name} CONFIG, {name}, {r0['note']}, "
+            f"{want['task']}, {card}): a rank's N {r0['n_local']:,} E "
+            f"{r0['e_local']:,}; the step "
+            + (f"{max(r['mace'][name]['ms'] for r in ranks):.3f} ms on the "
+               f"mesh (slowest rank, the second step), "
+               if "ms" in r0 else "")
+            + f"the counted step {r0['counted_ms']:.3f} ms, one device "
+            f"{want['ms']:.3f} ms; collectives a step "
+            f"{r0['stats']['count']} ({r0['stats']['bytes'] / 1e6:.3f} MB "
+            f"a rank, {r0['stats']['seconds'] * 1e3:.3f} ms "
+            f"synchronised); placed "
+            f"{max(r['mace'][name]['placed'] for r in ranks) / gib:.3f} "
+            f"GiB, peak "
+            f"{max(r['mace'][name]['peak'] for r in ranks) / gib:.3f} GiB a "
+            f"rank; metrics {[r['mace'][name]['metrics'] for r in ranks]} "
+            f"(one device {want['metrics']}); the reduced gradients before "
+            f"the clip within {pre_gap:.3g} of each leaf's largest "
+            + ("(float32, reported: see below)" if noop
+               else f"(bar {CM_TOL})")
+            + f"; {sum(int(g.count_nonzero()) for g in want['grads']):,} of "
+            f"{sum(g.numel() for g in want['grads']):,} one device's clipped "
+            f"elements not 0")
+        need(all(r["mace"][name]["crc"] == r0["crc"] for r in ranks),
+             f"cells mace {name}: every rank holds the same params")
+        for k, v in want["metrics"].items():
+            if noop and k == "loss":
+                continue
+            need(all(cm_close(r["mace"][name]["metrics"][k], v)
+                     for r in ranks),
+                 f"cells mace {name}: {k} within {CM_TOL} of one device")
+        if not noop:
+            need(pre_gap <= CM_TOL, f"cells mace {name}: the reduced "
+                 f"gradients within {CM_TOL} of one device's")
+            log(f"cells mace {name}: params within {gap:.3g} (bar {CM_TOL}) "
+                f"of one device's step, {n_tiny} ill-conditioned elements "
+                f"within {tgap:.3g} (bar "
+                f"{'2·lr' if want['task'] == 'energy' else 'lr'}); the step "
+                f"moved a param by up to {moved:.3g} (bar > {CM_MOVED})")
+            need(ok, f"cells mace {name}: params within the adam bar of one "
+                     f"device's step")
+            need(moved > CM_MOVED, f"cells mace {name}: the step moved the "
+                                   f"params")
+            continue
+        # a no-op step: its float32 loss and its float64 gradients
+        f64 = want["f64"]
+        one = want["metrics"]["loss"]
+        noise = abs(one - f64["metrics"]["loss"])
+        bar = CM_TOL * abs(one) + CM_NOISE_RULE * noise
+        gaps = [abs(r["mace"][name]["metrics"]["loss"] - one) for r in ranks]
+        g64 = max(cm_grads_gap(r["mace"][name]["f64"]["grads"], f64["grads"])
+                  for r in ranks)
+        m64 = [r["mace"][name]["f64"]["metrics"] for r in ranks]
+        still = all(bool(torch.equal(a, b)) for a, b in
+                    zip(want["params"], want["init"], strict=True))
+        log(f"cells mace {name}: the float32 step is a no-op on one device "
+            f"and on the mesh (the clip's squares overflow float32 and it "
+            f"zeroes every gradient, ROADMAP §3 fact 4): params unchanged "
+            f"bit for bit on one device {still}, the mesh's within {moved:.3g} "
+            f"of them; the float32 loss on the mesh within {max(gaps):.4g} "
+            f"of one device's {one:.8g}, whose own float32 rounding reads "
+            f"{noise:.4g} against float64; bar {CM_TOL} relative + "
+            f"{CM_NOISE_RULE} x that rounding = {bar:.4g}; in float64 the "
+            f"metrics {m64} (one device {f64['metrics']}) and the reduced "
+            f"gradients within {g64:.3g} of each leaf's largest (bar "
+            f"{CM_TOL}; {sum(int(g.count_nonzero()) for g in f64['grads']):,}"
+            f" elements not 0)")
+        need(still and moved == 0, f"cells mace {name}: the no-op step leaves "
+                                   f"the params as they were")
+        need(max(gaps) <= bar, f"cells mace {name}: the float32 loss within "
+                               f"its bar of one device")
+        need(all(cm_close(m[k], v) for m in m64
+                 for k, v in f64["metrics"].items()),
+             f"cells mace {name}: float64 metrics within {CM_TOL} of one "
+             f"device")
+        need(g64 <= CM_TOL, f"cells mace {name}: float64 reduced gradients "
+                            f"within {CM_TOL} of one device's")
+    # ------------------------------------------------ (d) planted
+    want = refs["deepfm"]["serve"]["serve_p99"]
+    bl = want.shape[0] // CM_MESH[0]
+    p_gap = min(float((r["deepfm"]["planted"][0]
+                       - want[r["coords"][0] * bl:(r["coords"][0] + 1) * bl])
+                      .abs().max()) for r in ranks)
+    p_rows = any(r["deepfm"]["planted"][1] == refs["deepfm"]["crc"][
+        "serve_p99"][r["coords"][0]] for r in ranks)
+    plant = g_ref["plant_loss"]
+    m = [r["mace"] for r in ranks]
+    n_plant = CM_PLANT_GRAPHS * gnn_shape("molecule").n_nodes
+    log(f"cells planted: deepfm served from the next rank's code blocks: "
+        f"logits off by at least {p_gap:.4g}, rows bit-identical on some "
+        f"rank: {p_rows}; MACE on {CM_PLANT_GRAPHS} molecules (N padded "
+        f"from {n_plant:,} to {-(-n_plant // 4) * 4:,}): loss one device "
+        f"{plant:.7g}, the mesh "
+        f"{[round(x['plant_sound'], 7) for x in m]}, the next rank's "
+        f"receiver block {[round(x['plant_block'], 7) for x in m]}, a "
+        f"padded node in graph 0's energy "
+        f"{[round(x['plant_pad'], 7) for x in m]}")
+    need(p_gap > 100 * CM_TOL and not p_rows, "cells planted: another "
+         "rank's code block fails the serving bars")
+    need(all(cm_close(x["plant_sound"], plant) for x in m),
+         "cells mace: the padded molecule batch within the bar")
+    need(all(not cm_close(x["plant_block"], plant) for x in m),
+         "cells planted: the wrong receiver block fails the loss bar")
+    need(all(not cm_close(x["plant_pad"], plant) for x in m),
+         "cells planted: a padded node in the energy fails the loss bar")
+    log(f"cells mesh phase {time.perf_counter() - t_phase:.1f}s (the ranks "
+        f"{t_ranks:.1f}s; {card}); launches {launches}")
     return launches
 
 
@@ -8717,7 +9620,21 @@ def main() -> int:
     import repro_torch  # noqa: F401  (fails outside a checkout)
     if sys.argv[1:] == [DETERMINISTIC_FLAG]:
         return deterministic_resume()
+    if sys.argv[1:2] == [HOST_GRAPH_FLAG]:
+        return gnn_host_graph_child(sys.argv[2])
+    started = start_gnn_host_graph()
+    try:
+        return main_phases(started)
+    finally:
+        if started[0].poll() is None:       # a phase failed before the GNN
+            started[0].kill()
+            started[0].wait()
 
+
+def main_phases(started) -> int:
+    """Every phase in turn (see the module docstring); ``started`` is
+    the host graph's child process (:func:`start_gnn_host_graph`)."""
+    import torch
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
@@ -8791,7 +9708,11 @@ def main() -> int:
         flash_shapes))
     gc.collect()
     torch.cuda.empty_cache()
-    g_launches = gnn_phases(card)
+    g_launches, mini = gnn_phases(card, started)
+    gc.collect()
+    torch.cuda.empty_cache()
+    c_launches_mesh = cells_mesh_phase(card, mini)
+    del mini
     gc.collect()
     torch.cuda.empty_cache()                 # free the card for two-tower
     r_launches, r_errs, (luts, codes), flat_qps = retrieval_path()
@@ -8810,7 +9731,7 @@ def main() -> int:
                                  s_launches, m_launches, bag_launches,
                                  *ctr_launches,
                                  b_launches, *l_launches, g_launches,
-                                 r_launches, *i_launches))
+                                 c_launches_mesh, r_launches, *i_launches))
         if name == "dpq_assign":
             entry["max_abs_err"] = max(entry["max_abs_err"], pq_errs[name],
                                        c_errs[name], lm_assign_gap,

@@ -1,17 +1,25 @@
-"""The recsys model registry (``RecsysConfig.model`` -> model class),
-the recsys and LM train cells and the LM prefill and decode cells on a
-mesh, the LM config options (``LM_CFG_OPTS``), and MACE's FLOP model
-and shape resolution, from the JAX package's ``launch/cells.py``, and
-the batch of a sampled subgraph (``sampled_graph``, the port's own).
-The dry-run ``Cell``s (each step traced with no device) wait for the
-launch slice in ROADMAP.md.
+"""The cells of the JAX package's ``launch/cells.py``, each written out
+as one rank's explicit share on the port's ``Mesh`` (one process a
+rank, explicit collectives): the recsys train, serve and retrieval
+cells, the LM train, prefill and decode cells and MACE's train cell;
+with them the recsys model registry (``RecsysConfig.model`` -> model
+class), the LM config options (``LM_CFG_OPTS``), MACE's FLOP model and
+shape resolution, and the batch of a sampled subgraph
+(``sampled_graph``, the port's own).  What is left of the JAX module is
+its dry run: ``Cell`` and ``build_cell`` (each step traced with no
+device) and the remaining named LM options (ROADMAP.md §1 item 9).
 
-Both train cells hold one convention on a mesh: each rank
+The recsys and LM train cells hold one convention: each rank
 backpropagates its data shard's loss weighted B_local/B_global, the
 loss computed redundantly on every rank of ``model``; a gradient that
 comes out as a data shard's share is summed over the data axes, one
 that a collective's backward already summed (a row block read through
-the sharded gather, an FSDP leaf's reduce-scatter) is kept.
+the sharded gather, an FSDP leaf's reduce-scatter) is kept.  The new
+cells hold two more: a serving cell's batch is a data shard (the ranks
+of a model line serve the same rows, each from its block of the tables
+or codes); a MACE rank's nodes and edges are a contiguous block over
+every axis, and every rank backpropagates the global loss
+(:class:`MaceTrainCell`).
 """
 from __future__ import annotations
 
@@ -623,6 +631,225 @@ def lm_decode_cell(cfg: LMConfig, shape: ShapeSpec, mesh, batch=None,
 
 
 # ======================================================================
+# the recsys serving and retrieval cells on a mesh
+# ======================================================================
+
+def _pad_to(n: int, mult: int) -> int:
+    return -(-n // mult) * mult
+
+
+def _all_axes(mesh) -> tuple:
+    """Every axis of ``mesh``, the data axes first and ``model`` last, as
+    the JAX cells spell ``dp_axes + ("model",)``."""
+    from repro_torch.sharding.gather import data_axes_of
+    return data_axes_of(mesh, "model") + ("model",)
+
+
+def _on_rank(t, mesh) -> torch.Tensor:
+    return torch.as_tensor(t).to(mesh.device)
+
+
+def serve_params(cfg: RecsysConfig, params: dict) -> dict:
+    """The served CTR params (the JAX cell's ``serve_params``): every
+    table an artifact serves (``fields/*/emb``, bst's ``item_emb/emb``)
+    stripped; deepfm's first-order tables, the codebooks and the dense
+    layers kept."""
+    def strip(d):
+        return {k: v for k, v in d.items() if k != "emb"}
+    if cfg.model == "bst":
+        return {**params, "item_emb": strip(params["item_emb"])}
+    return {**params, "fields": {f: strip(v)
+                                 for f, v in params["fields"].items()}}
+
+
+def recsys_export(model, params: dict) -> dict:
+    """A CTR model's served artifacts from its training params: every
+    field's (deepfm, autoint) or bst's item table's (``dpq_assign`` on
+    the card)."""
+    with torch.no_grad():
+        if model.cfg.model == "bst":
+            return model.item_emb.export(params["item_emb"])
+        return model.fields.export(params["fields"])
+
+
+def _placed_params(cfg: RecsysConfig, params: dict, mesh) -> dict:
+    from repro_torch.sharding.rules import place, recsys_param_rules, \
+        spec_tree
+    return place(params, spec_tree(params, recsys_param_rules(cfg, mesh)),
+                 mesh)
+
+
+@dataclasses.dataclass
+class RecsysServeCell:
+    """One rank's serve of a recsys model on a mesh: the JAX package's
+    ``recsys_serve_cell`` (a ``jax.jit`` of the serving fn under GSPMD)
+    written out as one rank's step.  The batch is a data shard: ``step``
+    takes this rank's rows (:meth:`local_batch`) and returns their
+    logits (B_local,).
+
+    A CTR model serves its quantized artifacts: ``artifacts`` is this
+    rank's, placed by ``recsys_artifact_specs`` (a code table of at
+    least 16·model rows that divide: its row block), ``params`` the
+    served params (:func:`serve_params`) placed by the recsys rules;
+    each field reads its block through the per-rank quantized gather
+    (``mgqe_decode`` on this rank's codes).  Two-tower scores ``sum(u ·
+    v)`` of its training towers (``artifacts`` None), the tables read
+    through the row gather."""
+
+    model: Any
+    mesh: Any
+    params: dict
+    artifacts: Any
+    note: str = ""
+
+    def local_batch(self, batch: Dict) -> Dict:
+        """This rank's data shard of a global batch (every rank holds the
+        same; ``label`` dropped) over the mesh's data axes (``pod`` too
+        where the mesh has it), on the rank's device."""
+        from repro_torch.sharding.rules import named, recsys_batch_spec
+        batch = {k: torch.as_tensor(v) for k, v in batch.items()
+                 if k != "label"}
+        specs = named(self.mesh, recsys_batch_spec(
+            batch, "pod" in self.mesh.shape))
+        return {k: specs[k].block(v).to(self.mesh.device)
+                for k, v in batch.items()}
+
+    def step(self, batch: Dict) -> torch.Tensor:
+        with torch.no_grad():
+            if self.model.cfg.model == "two_tower":
+                u, _ = self.model.user_vec(self.params, batch["user_ids"],
+                                           self.mesh)
+                v, _ = self.model.item_vec(self.params, batch["item_ids"],
+                                           self.mesh)
+                return torch.sum(u * v, dim=-1)
+            return self.model.serve(self.params, self.artifacts, batch,
+                                    mesh=self.mesh)
+
+
+def recsys_serve_cell(cfg: RecsysConfig, shape: ShapeSpec, mesh,
+                      params=None, artifacts=None) -> RecsysServeCell:
+    """This rank's :class:`RecsysServeCell` of ``cfg`` at ``shape`` (a
+    ``rec_serve`` entry of ``RECSYS_SHAPES``: its batch) on ``mesh``.  ``params`` (whole, on any device; default:
+    drawn as ``recsys_train_cell`` draws them) and, for a CTR model,
+    ``artifacts`` (whole, numpy or tensors; default: exported here from
+    ``params``, the same codes on every rank) are placed as the class
+    docstring says."""
+    from repro_torch.sharding.rules import place, recsys_artifact_specs
+    model = recsys_model(cfg, device=mesh.device)
+    if params is None:
+        params = model.init(torch.Generator(device=mesh.device)
+                            .manual_seed(0))
+    if cfg.model == "two_tower":
+        return RecsysServeCell(model, mesh, _placed_params(cfg, params,
+                                                           mesh), None,
+                               f"serve B={shape.batch}")
+    if artifacts is None:
+        artifacts = recsys_export(model, params)
+    placed = _placed_params(cfg, serve_params(cfg, params), mesh)
+    del params
+    arts = place(artifacts, recsys_artifact_specs(artifacts, mesh), mesh)
+    return RecsysServeCell(model, mesh, placed, arts,
+                           f"serve B={shape.batch} (quantized artifacts)")
+
+
+@dataclasses.dataclass
+class RecsysRetrievalCell:
+    """One rank's retrieval scoring on a mesh: the JAX package's
+    ``recsys_retrieval_cell``, one query against ``n_candidates``
+    candidates (padded to a multiple of the mesh's ranks), each rank
+    scoring its block of them over every axis; ``step`` returns all N
+    scores on every rank (the rank's block all-gathered).
+
+    Two-tower: the corpus's PQ codes (N, n_sub) uint8 (n_sub 16 where
+    the tower's output divides by 16, else 8) split over every axis
+    (:meth:`local_corpus`), the (n_sub, 256, d_out / n_sub) codebooks
+    replicated; the user
+    tower's vector (its table read through the row gather) scored on
+    this rank's block by ``flat_pq.adc_scores`` (``pq_score``).
+
+    A CTR model: ``model.apply`` of the training params (placed by the
+    recsys rules) on the candidates, which differ on every rank, model
+    included, where the row gather (``sharding/gather.py``) wants ids
+    equal on the ranks of a model line.  So a rank all-gathers its
+    block's ids over ``model`` first (KBs): the ranks of a model line
+    then score their data shard together, each holding its logits (the
+    dense layers run on each rank of the line), and the data shards'
+    logits are all-gathered."""
+
+    model: Any
+    mesh: Any
+    params: dict
+    n_candidates: int               # global, padded
+    note: str = ""
+
+    def local_corpus(self, corpus: Dict) -> Dict:
+        """This rank's corpus (whole on every rank, numpy or tensors): its
+        block of the codes over every axis, the centroids whole."""
+        from repro_torch.sharding.collectives import block
+        return {"codes": block(torch.as_tensor(corpus["codes"]), self.mesh,
+                               _all_axes(self.mesh)).to(self.mesh.device),
+                "centroids": _on_rank(corpus["centroids"], self.mesh)}
+
+    def local_candidates(self, batch: Dict) -> Dict:
+        """This rank's block over every axis of the candidates (a CTR
+        model's batch of ``n_candidates`` rows, ``label`` dropped)."""
+        from repro_torch.sharding.collectives import block
+        out = {}
+        for k, v in batch.items():
+            if k == "label":
+                continue
+            v = torch.as_tensor(v)
+            if v.shape[0] != self.n_candidates:
+                raise ValueError(f"{k}: {v.shape[0]} candidates, the cell "
+                                 f"scores {self.n_candidates}")
+            out[k] = block(v, self.mesh, _all_axes(self.mesh)).to(
+                self.mesh.device)
+        return out
+
+    def step(self, *args) -> torch.Tensor:
+        """Two-tower: ``step(corpus, user_id)`` (this rank's corpus, the
+        (1,) user id); a CTR model: ``step(candidates)`` (this rank's
+        block).  Returns the (N,) scores."""
+        from repro_torch.sharding.collectives import all_gather
+        from repro_torch.sharding.gather import data_axes_of
+        mesh = self.mesh
+        with torch.no_grad():
+            if self.model.cfg.model == "two_tower":
+                from repro_torch.retrieval.flat_pq import adc_scores
+                corpus, user_id = args
+                u, _ = self.model.user_vec(self.params,
+                                           _on_rank(user_id, mesh), mesh)
+                return all_gather(adc_scores(corpus, u[0]), mesh,
+                                  _all_axes(mesh))
+            (batch,) = args
+            line = {k: all_gather(v, mesh, "model") for k, v in batch.items()}
+            logits, _ = self.model.apply(self.params, line, mesh=mesh)
+            return all_gather(logits, mesh, data_axes_of(mesh, "model"))
+
+
+def recsys_retrieval_cell(cfg: RecsysConfig, shape: ShapeSpec, mesh,
+                          params=None, n_candidates=None
+                          ) -> RecsysRetrievalCell:
+    """This rank's :class:`RecsysRetrievalCell` of ``cfg`` at ``shape``
+    (``retrieval_cand``: its candidates, cut by ``n_candidates=``, padded
+    to a multiple of ``mesh.size``) on ``mesh``; ``params`` (whole, on
+    any device; default: drawn as ``recsys_train_cell`` draws them)
+    placed by the recsys rules."""
+    model = recsys_model(cfg, device=mesh.device)
+    if params is None:
+        params = model.init(torch.Generator(device=mesh.device)
+                            .manual_seed(0))
+    want = shape.n_candidates if n_candidates is None else n_candidates
+    n = _pad_to(want, mesh.size)
+    cut = "" if want == shape.n_candidates else \
+        f"; {shape.n_candidates} candidates cut to {want}"
+    what = ("ADC retrieval" if cfg.model == "two_tower"
+            else "candidate scoring")
+    return RecsysRetrievalCell(model, mesh, _placed_params(cfg, params, mesh),
+                               n, f"{what} 1x{n}{cut}")
+
+
+# ======================================================================
 # GNN (MACE)
 # ======================================================================
 
@@ -665,6 +892,201 @@ def mace_shape(shape: ShapeSpec) -> Tuple[int, int, int, str, int]:
                 shape.n_edges * shape.batch_graphs, 0, "energy",
                 shape.batch_graphs)
     return shape.n_nodes, shape.n_edges, shape.d_feat, "node_class", 0
+
+
+# the node and edge leaves of a MACE graph (the edge index is (2, E))
+_NODE_LEAVES = ("positions", "species", "node_feats", "labels",
+                "label_mask", "graph_id")
+
+
+def pad_graph(graph: dict, multiple: int, task: str) -> dict:
+    """``graph`` (numpy or tensors) with its nodes and edges padded to a
+    multiple of ``multiple``, as the JAX cell pads N and E, such that
+    the padding changes no result: padded edges are (0, 0) self-loops,
+    which the edge mask zeroes; padded nodes sit at the origin with
+    species 0, no edge, no label (``label_mask`` 0, made all ones for
+    the real nodes where the graph has none) and, for the energy task,
+    the graph id ``n_graphs``, which adds to no graph on a mesh
+    (``MACE.apply``)."""
+    g = {k: v if k == "n_graphs" else torch.as_tensor(v)
+         for k, v in graph.items()}
+    n = g["positions"].shape[0]
+    pn = (-n) % multiple
+    pe = (-g["edge_index"].shape[1]) % multiple
+    if task == "node_class" and "label_mask" not in g:
+        g["label_mask"] = torch.ones((n,), dtype=torch.float32)
+    fill = {"graph_id": int(g.get("n_graphs", 0))}
+    for k in _NODE_LEAVES:
+        if k in g and pn:
+            t = g[k]
+            g[k] = torch.cat([t, torch.full((pn,) + tuple(t.shape[1:]),
+                                            fill.get(k, 0), dtype=t.dtype)])
+    if pe:
+        ei = g["edge_index"]
+        g["edge_index"] = torch.cat(
+            [ei, torch.zeros((2, pe), dtype=ei.dtype)], dim=1)
+    return g
+
+
+@dataclasses.dataclass
+class MaceTrainCell:
+    """One rank's share of MACE trained with adam on a mesh: the JAX
+    package's ``mace_cell`` (a ``jax.jit`` step under GSPMD) written out
+    as one rank's step.
+
+    The graph's nodes and edges are split in contiguous blocks over
+    every axis (:meth:`local_graph`, after :func:`pad_graph`); the params
+    are placed by ``gnn_param_rules`` (channels over ``model``) and a
+    rank gathers each leaf's channel blocks over ``model`` before use
+    (``all_gather_grad``: backward, the cotangent summed over ``model``
+    and sliced).  ``MACE.apply(mesh=)`` gathers the node irreps and
+    keeps its block of the receiver sums; every rank backpropagates the
+    global loss, so a gradient is a rank's share: a channel block's is
+    summed over the data axes (its gather summed ``model``), a
+    replicated leaf's over every axis.  Adam's moments follow their
+    param's block (the JAX cell replicates them; the update is
+    elementwise, so the numbers are the same) and the global-norm clip
+    adds a block's squares over ``model``."""
+
+    model: Any
+    mesh: Any
+    state: Any
+    specs: Any
+    split: List[bool]
+    task: str
+    n_nodes: int                    # padded, as the JAX cell's
+    n_edges: int
+    n_graphs: int
+    note: str = ""
+
+    def local_graph(self, graph: dict) -> dict:
+        """This rank's share of a whole graph (every rank holds the same;
+        numpy or tensors), padded by :func:`pad_graph`: its block of the
+        nodes and of the edges over every axis on the rank's device, the
+        graphs' ``energy`` and ``n_graphs`` whole."""
+        from repro_torch.sharding.collectives import block
+        # in mesh order, as ``MACE.apply(mesh=)`` gathers the blocks
+        axes = tuple(self.mesh.axis_names)
+        g = pad_graph(graph, self.mesh.size, self.task)
+        out = {}
+        for k, v in g.items():
+            if k in _NODE_LEAVES:
+                v = block(v, self.mesh, axes)
+            elif k == "edge_index":
+                v = block(v, self.mesh, axes, dim=1)
+            out[k] = v if k == "n_graphs" else v.to(self.mesh.device)
+        return out
+
+    def whole_params(self, params: dict) -> dict:
+        """Every leaf whole: a channel block gathered over the axes its
+        spec names (``all_gather_grad``), a replicated leaf as it is."""
+        from repro_torch.sharding.collectives import all_gather_grad
+        from repro_torch.sharding.rules import split_axes, zip_map
+
+        def whole(t, spec):
+            for dim, axes in enumerate(spec):
+                if axes is not None and split_axes((axes,), self.mesh):
+                    t = all_gather_grad(t, self.mesh, axes, dim=dim)
+            return t
+        return zip_map(whole, params, self.specs.params)
+
+    def loss(self, params: dict, graph: dict) -> Tuple[Any, Dict]:
+        """The global batch's loss and metrics on every rank, from this
+        rank's params and share of the graph."""
+        fn = (self.model.energy_loss if self.task == "energy"
+              else self.model.node_class_loss)
+        return fn(self.whole_params(params), graph, mesh=self.mesh)
+
+    def grads(self, state, graph: dict) -> Tuple[Any, Dict]:
+        """This rank's shares of the gradients (a channel block's already
+        summed over ``model``) and the global metrics."""
+        from repro_torch.train.optimizer import loss_grads
+        return loss_grads(self.loss, state.params, graph)
+
+    def reduce(self, grads) -> Any:
+        """The whole gradients from this rank's shares: every leaf summed
+        over the data axes and a replicated one over ``model`` too, in
+        one flat collective each."""
+        from repro_torch.core.schemes.base import tree_leaves
+        from repro_torch.sharding.collectives import psum
+        from repro_torch.sharding.gather import data_axes_of
+        leaves = tree_leaves(grads)
+        for part, axes in ((leaves, data_axes_of(self.mesh, "model")),
+                           ([g for g, cut in zip(leaves, self.split)
+                             if not cut], ("model",))):
+            if not part:
+                continue
+            flat = psum(torch.cat([g.reshape(-1) for g in part]), self.mesh,
+                        axes)
+            at = 0
+            for g in part:
+                g.copy_(flat[at:at + g.numel()].view_as(g))
+                at += g.numel()
+        return grads
+
+    def step(self, state, graph: dict) -> Tuple[Any, Dict]:
+        """One adam step (``GNN_OPTIMIZER``) on this rank's share
+        ``graph`` (:meth:`local_graph`): the reduced gradients, clipped
+        by the global norm and applied leaf by leaf to this rank's
+        blocks; the metrics are the whole graph's."""
+        from repro_torch.launch.train import GNN_OPTIMIZER
+        from repro_torch.train.optimizer import TrainState, apply_updates
+        grads, metrics = self.grads(state, graph)
+        params, opt_state = apply_updates(
+            GNN_OPTIMIZER, state.params, self.reduce(grads),
+            state.opt_state, mesh=self.mesh, specs=self.specs.params)
+        return TrainState(params, opt_state), metrics
+
+
+# one (E, C, 9) float32 edge tensor of ogb_products at CONFIG's C = 128,
+# and the radial weights w_r (E, C·15)
+_OGB_EDGE_BYTES = 61_859_140 * 128 * 9 * 4
+_OGB_WR_BYTES = 61_859_140 * 128 * 15 * 4
+
+
+def mace_cell(cfg: GNNConfig, shape: ShapeSpec, mesh,
+              params=None) -> MaceTrainCell:
+    """This rank's :class:`MaceTrainCell` of ``cfg`` at ``shape`` (a
+    ``GNN_SHAPES`` entry, resolved by :func:`mace_shape`, N and E padded
+    to multiples of ``mesh.size``) on ``mesh``: ``params`` (whole, on
+    any device; default: drawn as ``launch/train.py::gnn_setup`` draws
+    them, a feature projection where the shape has features) placed by
+    ``gnn_param_rules``, adam's zeros on the blocks.  ``ogb_products``
+    is refused: one (E, C, 9) float32 edge tensor is 285 GB and its
+    radial weights 475 GB, and neither package has an edge-chunked
+    forward."""
+    from repro_torch.models.gnn.mace import MACE
+    from repro_torch.launch.train import GNN_OPTIMIZER
+    from repro_torch.core.schemes.base import tree_leaves
+    from repro_torch.sharding.rules import (gnn_param_rules, place,
+                                            spec_leaves, spec_tree, splits)
+    from repro_torch.train.optimizer import TrainState
+    from repro_torch.train.optimizer import init as opt_init
+    if shape.name == "ogb_products":
+        raise ValueError(
+            f"ogb_products ({shape.n_nodes:,} nodes, {shape.n_edges:,} "
+            f"edges) does not run: one (E, C, 9) float32 edge tensor is "
+            f"{_OGB_EDGE_BYTES / 1e9:.0f} GB and w_r (E, C·15) "
+            f"{_OGB_WR_BYTES / 1e9:.0f} GB, and neither package has an "
+            f"edge-chunked forward (ROADMAP.md §1 item 8)")
+    n, e, d_feat, task, n_graphs = mace_shape(shape)
+    n, e = _pad_to(n, mesh.size), _pad_to(e, mesh.size)
+    model = MACE(cfg, device=mesh.device)
+    if params is None:
+        params = model.init(torch.Generator(device=mesh.device)
+                            .manual_seed(0), n_feat=d_feat or None)
+    p_spec = spec_tree(params, gnn_param_rules(cfg, mesh))
+    placed = place(params, p_spec, mesh)
+    del params
+    split = [splits(sp, mesh) for sp in spec_leaves(p_spec)]
+    if len(split) != len(tree_leaves(placed)):
+        raise ValueError("the spec tree does not mirror the params")
+    state = TrainState(placed, opt_init(GNN_OPTIMIZER, placed))
+    o_spec = {"step": (), **{k: p_spec for k in state.opt_state
+                             if k != "step"}}
+    return MaceTrainCell(model, mesh, state, TrainState(p_spec, o_spec),
+                         split, task, n, e, n_graphs,
+                         f"{task} train_step N={n} E={e}")
 
 
 def sampled_graph(g: dict, sub: dict) -> dict:

@@ -16,6 +16,10 @@
         --nproc-per-node 4 -m repro_torch.launch.train --arch stablelm-3b \\
         --device cpu --steps 4 --mesh data=2,model=2 --dist-backend gloo \\
         --opts fsdp
+    PYTHONPATH=src python -m torch.distributed.run --standalone \\
+        --nproc-per-node 4 -m repro_torch.launch.train --arch mace \\
+        --full --steps 5 --mesh data=2,model=2 --dist-backend gloo \\
+        --device cuda:0
 
 trains on the card unless ``--device cpu`` is given (``--smoke``, the
 reduced config, is the default; ``--full`` is the published one).  The
@@ -32,7 +36,7 @@ at lr 3e-4 (20 warmup steps, cosine to step 1,000) on uniform tokens,
 ``min(--batch, 32)`` molecules of 12 atoms and 24 edges, batch ``s``
 drawn from seed ``s``, as the JAX launcher trains it.
 
-``--mesh data=D,model=M`` trains a recsys or LM arch on a mesh, one
+``--mesh data=D,model=M`` trains any arch on a mesh, one
 process a rank under torchrun (``--dist-backend``: ``nccl`` for a card
 a rank, ``gloo`` for ranks that share a card or run on the CPU): the
 recsys rules row-shard the large tables over ``model`` and the batch
@@ -45,7 +49,9 @@ rank draws the same stream and takes its data shard, checkpoints hold
 whole arrays, and a resume places them on whatever mesh resumes.  Rank
 0 prints.  ``--opts`` applies the JAX package's named LM options
 ``moe_shard_map``, ``fsdp`` and ``kv_repeat`` (``LM_CFG_OPTS``).
-The GNN rules are not ported: ``mace`` refuses ``--mesh``.
+``mace`` on a mesh splits each molecule batch's nodes and edges over
+every axis and its channels over ``model`` (``gnn_param_rules``,
+``launch/cells.py::mace_cell``), adam's moments on the channel blocks.
 """
 from __future__ import annotations
 
@@ -209,14 +215,13 @@ def gnn_setup(cfg, batch: int, device="cuda", start: int = 0):
     return model, state, step, gnn_stream(cfg, batch, start)
 
 
-def _mesh_trains(arch: str, family: str) -> None:
-    """Raise unless ``arch`` trains on a mesh (the recsys and LM
-    archs)."""
-    if family == "gnn":
-        raise ValueError(
-            f"{arch}: training on a mesh is ported for the recsys and LM "
-            f"archs; the GNN parameter rules and mace_cell wait for "
-            f"ROADMAP.md §1 item 8.3")
+def gnn_stream_shape(batch: int):
+    """The ``ShapeSpec`` of :func:`gnn_stream`'s batches (``molecule``'s
+    kind at ``min(batch, 32)`` molecules of 12 atoms and 24 edges), the
+    shape ``mace_cell`` places them by."""
+    from repro_torch.configs.base import ShapeSpec
+    return ShapeSpec("molecule_stream", "graph_batched", n_nodes=12,
+                     n_edges=24, batch_graphs=min(batch, 32))
 
 
 @dataclasses.dataclass
@@ -247,9 +252,9 @@ def train(arch: str, *, smoke: bool = True, steps: int = 100,
     older one and the stream would run ahead of it by the steps
     between.)
 
-    With a ``mesh`` (a recsys or LM arch) this rank trains its share,
-    ``device`` is the mesh's, and the returned state is this rank's; an
-    LM accumulates ``microbatches`` microbatches a step there."""
+    With a ``mesh`` this rank trains its share, ``device`` is the
+    mesh's, and the returned state is this rank's; an LM accumulates
+    ``microbatches`` microbatches a step there."""
     family, cfg = get_arch(arch, smoke=smoke)
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
@@ -264,8 +269,13 @@ def train(arch: str, *, smoke: bool = True, steps: int = 100,
                              optimizer=LM_OPTIMIZER)
         model, state, step, specs = None, cell.state, cell.step, cell.specs
         data = map(cell.local_batch, lm_stream(cfg, batch, seq, start))
+    elif mesh is not None and family == "gnn":
+        from repro_torch.launch.cells import mace_cell
+        cell = mace_cell(cfg, gnn_stream_shape(batch), mesh)
+        model, state, step, specs = cell.model, cell.state, cell.step, \
+            cell.specs
+        data = map(cell.local_graph, gnn_stream(cfg, batch, start))
     elif mesh is not None:
-        _mesh_trains(arch, family)
         from repro_torch.launch.cells import recsys_train_cell
         cell = recsys_train_cell(cfg, mesh)
         model, state, step, specs = cell.model, cell.state, cell.step, \
@@ -319,9 +329,10 @@ def main(argv: Optional[List[str]] = None) -> TrainRun:
                          "under --mesh cuda:<LOCAL_RANK>; 'cpu' runs the "
                          "plain PyTorch ops)")
     ap.add_argument("--mesh", default=None, metavar="data=2,model=2",
-                    help="train a recsys or LM arch on this mesh (tables "
-                         "and layers over 'model', the batch over the "
-                         "rest), one process a rank under torchrun")
+                    help="train on this mesh (tables, layers and MACE's "
+                         "channels over 'model', the batch or the graph's "
+                         "nodes over the rest), one process a rank under "
+                         "torchrun")
     ap.add_argument("--microbatches", type=int, default=1,
                     help="an LM's microbatches a step on a mesh (the "
                          "gradients accumulated, one update)")
@@ -360,9 +371,8 @@ def main(argv: Optional[List[str]] = None) -> TrainRun:
     if not args.mesh:
         return run()
     try:
-        _mesh_trains(args.arch, family)
         axes, shape = mesh_of_spec(args.mesh, "-m repro_torch.launch.train",
-                                   "tables and layers")
+                                   "tables, layers and channels")
     except ValueError as e:
         ap.error(str(e))
     device = None if args.device == "cuda" else args.device

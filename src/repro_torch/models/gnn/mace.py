@@ -31,6 +31,17 @@ port does its own way:
 * The 15 paths at l_max = 2 stay Python loops of small dense products,
   as in JAX: hundreds of small launches a step.
 
+**On a mesh** (``mesh=``, ``launch/cells.py::mace_cell``) the graph
+is this rank's: a contiguous block of the nodes and one of the edges
+over every axis, the edges' ids global, and the params whole (the cell
+gathers their channel blocks).  A layer all-gathers the node irreps
+(every rank's senders may lie in any block; backward, the cotangent
+summed and sliced), sums its edges' messages into all N receivers and
+keeps its block of the psum (:func:`~repro_torch.sharding.collectives.
+psum_scatter`); the losses sum their terms over every rank.  Each rank
+then backpropagates the global loss and holds its share of every
+gradient.
+
 MGQE applicability: the only categorical table is the species
 embedding (vocab ~100) — the paper's technique targets large vocabs,
 so MACE runs WITHOUT it (DESIGN.md §4).
@@ -51,6 +62,8 @@ from repro_torch.core.api import resolve_device
 from repro_torch.models.gnn import so3
 from repro_torch.nn import initializers as init
 from repro_torch.nn.mlp import mlp, mlp_init
+from repro_torch.sharding.collectives import (all_gather, all_gather_grad,
+                                              psum_scatter, reduce_from)
 
 
 # ----------------------------------------------------------------------
@@ -238,13 +251,18 @@ class MACE:
         return mlp(layer["readout"], x[:, :, 0], act="silu").to(torch.float32)
 
     # -------------------------------------------------------- forward
-    def apply(self, params: Dict, graph: Dict) -> Dict:
+    def apply(self, params: Dict, graph: Dict, mesh=None) -> Dict:
         """graph: positions (N,3), edge_index (2,E) [send, recv],
         species (N,) and/or node_feats (N,F), optional graph_id (N,)
         with n_graphs.
 
         Returns {"node_out": (N, d_readout), "energy": per-graph sums}.
-        """
+
+        With a ``mesh``, ``graph`` holds this rank's node block and edge
+        block (the module docstring) and ``node_out`` is the block's;
+        ``energy`` is every graph's, on every rank.  A node whose
+        ``graph_id`` is ``n_graphs`` (the cell's padding) adds to no
+        graph."""
         cfg = self.cfg
         pos = graph["positions"]
         edges = graph["edge_index"].long()
@@ -252,6 +270,9 @@ class MACE:
         n = pos.shape[0]
         c = cfg.d_hidden
         cgs = self._cgs(pos.device)
+        axes = () if mesh is None else tuple(mesh.axis_names)
+        pos_all = pos if mesh is None else all_gather(pos, mesh, axes)
+        n_all = pos_all.shape[0]
 
         h = gather_rows(params["species_emb"], graph["species"])
         if "node_feats" in graph and "feat_proj" in params:
@@ -261,7 +282,7 @@ class MACE:
         x = torch.cat([h[:, :, None], h.new_zeros((n, c, self.n_sh - 1))],
                       dim=-1)
 
-        rij = pos[recv] - pos[send]
+        rij = pos_all[recv] - pos_all[send]
         dist = torch.linalg.norm(rij, dim=-1)
         rbf = bessel_basis(dist, cfg.n_rbf, cfg.r_cut)          # (E, n_rbf)
         y_sh = so3.spherical_harmonics(cfg.l_max, rij)          # (E, S)
@@ -271,10 +292,13 @@ class MACE:
                                device=pos.device)
         for layer in params["layers"]:
             w_r = self._radial(layer, rbf, edge_mask)            # (E, C, P)
-            x_send = gather_rows(x, send)                        # (E, C, S)
+            x_all = x if mesh is None else all_gather_grad(x, mesh, axes)
+            x_send = gather_rows(x_all, send)                    # (E, C, S)
             phi = self._edge_tp(x_send, y_sh, w_r, cgs)
             # A-basis: scatter-sum messages to receivers
-            a = segment_sum(phi, recv, n)                        # (N, C, S)
+            a = segment_sum(phi, recv, n_all)                    # (N, C, S)
+            if mesh is not None:
+                a = psum_scatter(a, mesh, axes)
             a = self._mix_per_l(layer["a_mix"], a)
             # higher-order B-basis (correlation order 3)
             b2 = self._pairwise(a, a, layer["u2"], cgs)
@@ -287,19 +311,32 @@ class MACE:
 
         out = {"node_out": node_out}
         if "graph_id" in graph:
-            out["energy"] = segment_sum(node_out[:, 0], graph["graph_id"],
-                                        int(graph["n_graphs"]))
+            g = int(graph["n_graphs"])
+            if mesh is None:
+                out["energy"] = segment_sum(node_out[:, 0],
+                                            graph["graph_id"], g)
+            else:
+                part = segment_sum(node_out[:, 0], graph["graph_id"],
+                                   g + 1)[:g]
+                out["energy"] = reduce_from(part, mesh, axes)
         return out
 
     # ---------------------------------------------------------- losses
-    def energy_loss(self, params, graph) -> Tuple[torch.Tensor, Dict]:
-        out = self.apply(params, graph)
+    def energy_loss(self, params, graph, mesh=None
+                    ) -> Tuple[torch.Tensor, Dict]:
+        """Mean squared error of the graphs' energies; on a ``mesh``
+        every rank computes it from the summed energies (``graph["energy"]``
+        whole there)."""
+        out = self.apply(params, graph, mesh)
         err = out["energy"] - graph["energy"]
         loss = torch.mean(torch.square(err))
         return loss, {"loss": loss, "rmse": torch.sqrt(loss)}
 
-    def node_class_loss(self, params, graph) -> Tuple[torch.Tensor, Dict]:
-        out = self.apply(params, graph)
+    def node_class_loss(self, params, graph, mesh=None
+                        ) -> Tuple[torch.Tensor, Dict]:
+        """Masked mean cross-entropy and accuracy over the nodes; on a
+        ``mesh`` the masked sums are summed over every rank first."""
+        out = self.apply(params, graph, mesh)
         logits = out["node_out"]
         labels = graph["labels"].long()
         mask = graph.get("label_mask")
@@ -311,8 +348,12 @@ class MACE:
         # index_put_, not an atomic scatter-add
         gold = logits[torch.arange(labels.shape[0], device=labels.device),
                       labels]
-        denom = torch.clamp(torch.sum(mask), min=1.0)
-        loss = torch.sum((logz - gold) * mask) / denom
-        acc = torch.sum((torch.argmax(logits, dim=-1) == labels) * mask) \
-            / denom
+        sums = torch.stack([
+            torch.sum((logz - gold) * mask), torch.sum(mask),
+            torch.sum((torch.argmax(logits, dim=-1) == labels) * mask)])
+        if mesh is not None:
+            sums = reduce_from(sums, mesh, tuple(mesh.axis_names))
+        denom = torch.clamp(sums[1], min=1.0)
+        loss = sums[0] / denom
+        acc = sums[2] / denom
         return loss, {"loss": loss, "acc": acc}

@@ -84,9 +84,11 @@ class AutoInt:
                                    mesh=mesh)
         return self._interact(params, x), aux
 
-    def serve(self, params: Dict, artifacts: Dict,
-              batch: Dict) -> torch.Tensor:
-        x = self.fields.serve(artifacts, batch["sparse_ids"])
+    def serve(self, params: Dict, artifacts: Dict, batch: Dict,
+              mesh=None) -> torch.Tensor:
+        """Logits from the served artifacts; with a ``mesh``, this rank's
+        (:meth:`FieldEmbeddings.serve`)."""
+        x = self.fields.serve(artifacts, batch["sparse_ids"], mesh=mesh)
         return self._interact(params, x)
 
     def loss(self, params: Dict, batch: Dict, mesh=None

@@ -107,9 +107,12 @@ class BST:
                                      mesh=mesh)
         return self._trunk(params, e), aux
 
-    def serve(self, params: Dict, artifact: Dict,
-              batch: Dict) -> torch.Tensor:
-        e = self.item_emb.serve(artifact, self.ids(batch))
+    def serve(self, params: Dict, artifact: Dict, batch: Dict,
+              mesh=None) -> torch.Tensor:
+        """Logits from the item table's served artifact; with a ``mesh``,
+        this rank's (``fields.serve_placed``)."""
+        from repro_torch.models.recsys.fields import serve_placed
+        e = serve_placed(self.item_emb, artifact, self.ids(batch), mesh)
         return self._trunk(params, e)
 
     def loss(self, params: Dict, batch: Dict, mesh=None

@@ -80,11 +80,15 @@ class DeepFM:
         fo = self._first_order(params, ids, mesh=mesh)
         return self._logit(params, x, fo), aux
 
-    def serve(self, params: Dict, artifacts: Dict,
-              batch: Dict) -> torch.Tensor:
+    def serve(self, params: Dict, artifacts: Dict, batch: Dict,
+              mesh=None) -> torch.Tensor:
+        """Logits from the served artifacts; with a ``mesh``, this rank's
+        (``launch/cells.py::recsys_serve_cell``): the fields through
+        :meth:`FieldEmbeddings.serve`, the first-order tables (whole
+        params under the recsys rules) through the row gather."""
         ids = batch["sparse_ids"]
-        x = self.fields.serve(artifacts, ids)
-        fo = self._first_order(params, ids)
+        x = self.fields.serve(artifacts, ids, mesh=mesh)
+        fo = self._first_order(params, ids, mesh=mesh)
         return self._logit(params, x, fo)
 
     def loss(self, params: Dict, batch: Dict, mesh=None

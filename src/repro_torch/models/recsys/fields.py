@@ -100,8 +100,17 @@ class FieldEmbeddings:
         return {f"f{i}": e.export(params[f"f{i}"])
                 for i, e in enumerate(self.embs)}
 
-    def serve(self, artifacts: Dict, ids: torch.Tensor) -> torch.Tensor:
-        outs = [e.serve(artifacts[f"f{i}"], ids[:, i])
+    def serve(self, artifacts: Dict, ids: torch.Tensor, mesh=None
+              ) -> torch.Tensor:
+        """ids (B, F) -> (B, F, d) from the served artifacts; with a
+        ``mesh``, ``ids`` are this rank's data shard and ``artifacts``
+        this rank's (``sharding/rules.py::recsys_artifact_specs``): a
+        field kept whole is decoded here, a row-split code table read
+        through the per-rank quantized gather (``Embedding.serve(...,
+        per_rank=True)``), a row-split full table through the row gather
+        (``sharding/gather.py``).  The placement decides, as the row
+        gather's does."""
+        outs = [serve_placed(e, artifacts[f"f{i}"], ids[:, i], mesh)
                 for i, e in enumerate(self.embs)]
         return torch.stack(outs, dim=1)
 
@@ -116,6 +125,32 @@ class FieldEmbeddings:
     def full_size_bits(self) -> int:
         return sum(v * self.cfg.embed_dim * 32
                    for v in self.cfg.field_vocab_sizes)
+
+
+def serve_placed(emb: Embedding, artifact: Dict, ids: torch.Tensor,
+                 mesh=None) -> torch.Tensor:
+    """``emb``'s served rows of ``ids`` from ``artifact`` as its placement
+    over ``mesh`` left this rank (:meth:`FieldEmbeddings.serve`): whole
+    (every rows leaf holds the vocabulary), decoded here; else this
+    rank's row block of a code table (per-rank quantized gather) or of
+    a full table (the row gather; no other baseline has a split
+    path)."""
+    rows = emb.cfg.vocab_size
+    leaves = [t for name, t in artifact.items()
+              if name in ("codes", "emb", "q", "u")
+              and isinstance(t, torch.Tensor)]
+    if mesh is None or all(t.shape[0] == rows for t in leaves):
+        return emb.serve(artifact, ids)
+    if emb.scheme.supports_sharded_codes:
+        return emb.serve(artifact, ids, mesh=mesh, per_rank=True)
+    table = artifact.get("emb")
+    if set(artifact) != {"emb"} or table.shape[0] * mesh.shape[
+            "model"] != rows:
+        raise ValueError(f"a {emb.cfg.kind!r} artifact split over model "
+                         f"has no sharded serving path (only a full table "
+                         f"of the vocabulary's rows does)")
+    from repro_torch.sharding.gather import placed_row_gather
+    return placed_row_gather(table, ids, mesh, rows)
 
 
 # ----------------------------------------------------------------------

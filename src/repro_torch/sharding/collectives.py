@@ -33,6 +33,9 @@ the transposes under that convention:
   conjugates: the input of a column-parallel product (identity
   forward, psum backward) and the output of a row-parallel one (psum
   forward, identity backward);
+* :func:`psum_scatter` — this rank's block of a sum of partials over
+  the axes (MACE's receiver sum on a mesh); backward, the blocks'
+  cotangents gathered;
 * :func:`all_to_all` — backward, the reverse all-to-all;
 * :func:`pmean` — backward, the cotangent summed over the data axes
   among its axes and divided by their ranks.
@@ -320,20 +323,44 @@ def copy_to(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
 
 class _ReduceFrom(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh, axis):
-        return psum(x, mesh, axis)
+    def forward(ctx, x, mesh, axes):
+        return psum(x, mesh, axes)
 
     @staticmethod
     def backward(ctx, grad):
         return grad, None, None
 
 
-def reduce_from(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
-    """psum over ``axis`` forward, identity backward: the output of a
-    row-parallel product, replicated over ``axis`` after the sum."""
-    if mesh.shape[axis] == 1:
+def reduce_from(x: torch.Tensor, mesh, axis: Axes) -> torch.Tensor:
+    """psum over ``axis`` (one axis or several) forward, identity
+    backward: the output of a row-parallel product, or a loss's partial
+    sums, replicated over the axes after the sum."""
+    if axes_size(mesh, axis) == 1:
         return x
-    return _ReduceFrom.apply(x, mesh, axis)
+    return _ReduceFrom.apply(x, mesh, _axes(axis))
+
+
+class _PsumScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return block(psum(x, mesh, axes), mesh, axes, dim).clone()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_gather(grad.contiguous(), ctx.mesh, ctx.axes,
+                          dim=ctx.dim), None, None, None
+
+
+def psum_scatter(x: torch.Tensor, mesh, axes: Axes,
+                 dim: int = 0) -> torch.Tensor:
+    """This rank's block along ``dim`` of the sum of ``x`` over ``axes``
+    (``lax.psum_scatter``, tiled): each rank holds partial sums of the
+    whole and keeps its block of the total.  gloo has no reduce-scatter,
+    so the whole sum crosses (a psum) and the block is cut after.
+    Backward: the blocks' cotangents gathered, each rank's partial
+    feeding every block."""
+    return _PsumScatter.apply(x, mesh, _axes(axes), dim)
 
 
 class _PMean(torch.autograd.Function):
@@ -363,4 +390,4 @@ def pmean(x: torch.Tensor, mesh, axes: Axes,
 __all__ = ["CommStats", "all_gather", "all_gather_grad", "all_to_all",
            "axes_size", "axis_index", "block", "broadcast", "copy_to",
            "gather_from", "linear_index", "pmax", "pmean", "psum",
-           "reduce_from", "scatter_to"]
+           "psum_scatter", "reduce_from", "scatter_to"]

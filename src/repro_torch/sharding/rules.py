@@ -14,11 +14,12 @@ batch over the data axes, ZeRO-1 moments and optional FSDP
 (:func:`lm_param_rules`, :func:`lm_state_specs`, :func:`lm_batch_spec`),
 and for LM serving the KV cache's placement (:func:`lm_cache_spec`),
 the served token table's (:func:`lm_artifact_specs`) and the served
-params (:func:`strip_embed_table`).
+params (:func:`strip_embed_table`); the recsys serving cell's artifact
+placement (:func:`recsys_artifact_specs`); and MACE's rules, channels
+over ``model`` (:func:`gnn_param_rules`, :func:`gnn_graph_spec`).
 ``shard_*_artifact`` and :func:`place` return THIS rank's tree: each
 split leaf is its block, copied to the rank's device on its own, so no
-rank holds a whole table on its device.  The GNN rules are still to
-port (ROADMAP §1 item 8).
+rank holds a whole table on its device.
 
 Where GSPMD pads a split that does not divide, the port refuses it
 (:func:`check_lm_leaf`, as ``launch/cells.py::lm_train_cell`` places
@@ -461,6 +462,59 @@ def whole_like(tree, specs, mesh):
     return zip_map(whole, tree, specs)
 
 
+def recsys_artifact_specs(artifacts, mesh) -> Any:
+    """The served CTR artifacts' specs, as the JAX package's
+    ``recsys_serve_cell`` places them (its ``art_spec``): a leaf whose
+    path ends in ``codes``, ``/q``, ``emb`` or ``/u`` split by rows over
+    ``model`` when it has at least 16·model rows that divide over it,
+    kept whole otherwise; every other leaf (centroids, a per-tier list
+    of code tables, whose paths end in an index) replicated.
+    ``artifacts``' leaves may be tensors or numpy arrays."""
+    model = mesh.shape["model"]
+
+    def spec(path, t):
+        if path.endswith(("codes", "/q", "emb", "/u")) and \
+                t.shape[0] >= 16 * model and _divides(t.shape[0], model):
+            return ("model",) + (None,) * (len(t.shape) - 1)
+        return ()
+    return map_with_path(spec, artifacts)
+
+
+# ----------------------------------------------------------------------
+# GNN (MACE)
+# ----------------------------------------------------------------------
+
+def gnn_param_rules(cfg, mesh) -> List:
+    """The JAX package's MACE rules, verbatim: the channels over
+    ``model`` when ``d_hidden`` divides over it — ``species_emb``,
+    ``feat_proj/w``, ``a_mix`` and ``m1``/``m2``/``m3`` on their output
+    C, ``u2``/``u3`` on their C — else whole; the radial and readout
+    MLPs replicated (``feat_proj/b`` too: no rule names it)."""
+    ch = "model" if _divides(cfg.d_hidden, mesh.shape["model"]) else None
+    return [
+        (r"species_emb$", lambda l: (None, ch)),
+        (r"feat_proj/w$", lambda l: (None, ch)),
+        (r"radial/.*w$", lambda l: ()),
+        (r"a_mix$|m1$|m2$|m3$", lambda l: (None, ch)),
+        (r"u2$|u3$", lambda l: (ch, None)),
+        (r"readout", lambda l: ()),
+    ]
+
+
+def gnn_graph_spec(multi_pod: bool) -> dict:
+    """The JAX package's ``gnn_graph_spec``: node leaves and the edge
+    index's edges over the data axes (one axis by its name, as
+    ``PartitionSpec`` normalises a 1-tuple), ``energy`` replicated and
+    ``n_graphs`` (a Python int) not placed.  (``launch/cells.py::
+    mace_cell`` puts the nodes and edges over every axis instead, as the
+    JAX cell does.)"""
+    dp = dp_axes(multi_pod)
+    dp = dp[0] if len(dp) == 1 else dp
+    return {"positions": (dp, None), "species": (dp,),
+            "node_feats": (dp, None), "edge_index": (None, dp),
+            "graph_id": (dp,), "labels": (dp,), "energy": (), "n_graphs": None}
+
+
 # ----------------------------------------------------------------------
 # quantized serving artifacts
 # ----------------------------------------------------------------------
@@ -519,12 +573,12 @@ def shard_retrieval_artifact(artifact, index, mesh,
     return place(artifact, specs, mesh)
 
 
-__all__ = ["NamedSpec", "check_lm_leaf", "dp_axes",
-           "leaf_spec", "lm_artifact_specs", "lm_batch_spec",
-           "lm_cache_spec", "map_with_path", "zip_map",
+__all__ = ["NamedSpec", "check_lm_leaf", "dp_axes", "gnn_graph_spec",
+           "gnn_param_rules", "leaf_spec", "lm_artifact_specs",
+           "lm_batch_spec", "lm_cache_spec", "map_with_path", "zip_map",
            "lm_param_rules", "lm_state_specs", "named", "place",
-           "quantized_artifact_specs", "recsys_batch_spec",
-           "recsys_param_rules", "recsys_state_specs",
+           "quantized_artifact_specs", "recsys_artifact_specs",
+           "recsys_batch_spec", "recsys_param_rules", "recsys_state_specs",
            "retrieval_artifact_specs", "shard_quantized_artifact",
            "shard_retrieval_artifact", "spec_leaves", "spec_tree",
            "split_axes", "splits", "strip_embed_table",

@@ -237,9 +237,9 @@ def test_not_ported_paths_raise():
     params = temb.init()
     # the model-parallel row gather is ported: with no mesh a
     # sharded_rows table reads plainly, as JAX's does with no ambient
-    # mesh; under a mesh the gather needs the table's global row count,
-    # and training on a mesh refuses the GNN family (the LM archs train
-    # on one: tests/test_torch_lm_mesh.py)
+    # mesh; under a mesh the gather needs the table's global row count.
+    # Every arch trains on a mesh (MACE: tests/test_torch_mace_mesh.py)
+    # but ogb_products, which mace_cell refuses, naming its bytes
     rows = Embedding(dataclasses.replace(cfg, sharded_rows=True),
                      device="cpu")
     for got, want in zip(rows.apply(params, torch.arange(3)),
@@ -247,9 +247,13 @@ def test_not_ported_paths_raise():
         assert torch.equal(got, want)
     with pytest.raises(ValueError, match="global row count"):
         dpq.row_gather(params["emb"], torch.arange(3), mesh=object())
-    from repro_torch.launch.train import train
-    with pytest.raises(ValueError, match=r"ROADMAP.md §1 item 8\.3"):
-        train("mace", device="cpu", mesh=object())
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import GNN_SHAPES
+    from repro_torch.launch.cells import mace_cell
+    ogb = next(s for s in GNN_SHAPES if s.name == "ogb_products")
+    with pytest.raises(ValueError,
+                       match=r"285 GB .*\(ROADMAP.md §1 item 8\)"):
+        mace_cell(get_arch("mace")[1], ogb, object())
     # the hot-row cache is ported: export attaches the decoded head
     hot = Embedding(dataclasses.replace(cfg, hot_rows=4), device="cpu")
     hot_art = hot.export(params)

@@ -3089,3 +3089,216 @@ def test_lm_serve_mesh_on_card_matches_one_device(cuda, tmp_path, case):
         for g, w in zip(got, want, strict=True):
             torch.testing.assert_close(g, w[rows], rtol=MESH_TRAIN_TOL,
                                        atol=MESH_TRAIN_TOL)
+
+
+# ----------------------------------------------------------------------
+# the recsys serving and retrieval cells and MACE's training cell on a
+# (2, 2) mesh of gloo ranks sharing the card
+# ----------------------------------------------------------------------
+
+CELL_BATCH = 64
+CELL_CAND = {"deepfm": 256, "autoint": 256, "bst": 128,
+             "two-tower-retrieval": 4096}
+
+
+def _cell_cfg(arch):
+    from repro_torch.configs import get_arch
+    return get_arch(arch, smoke=True)[1]
+
+
+def _cell_batch(arch, cfg, b, seed):
+    rng = np.random.default_rng(seed)
+    if arch == "two-tower-retrieval":
+        return {"user_ids": rng.integers(0, cfg.n_users, b).astype(np.int32),
+                "item_ids": rng.integers(0, cfg.n_items, b).astype(np.int32)}
+    if arch == "bst":
+        return {"hist_ids": rng.integers(0, cfg.n_items, (b, cfg.seq_len))
+                .astype(np.int32),
+                "target_id": rng.integers(0, cfg.n_items, b).astype(np.int32)}
+    return {"sparse_ids": np.stack([rng.integers(0, v, b) for v in
+                                    cfg.field_vocab_sizes], 1)
+            .astype(np.int32)}
+
+
+def _cell_corpus(cfg, n):
+    rng = np.random.default_rng(5)
+    d_out = cfg.tower_mlp[-1]
+    n_sub = 16 if d_out % 16 == 0 else 8
+    return {"codes": rng.integers(0, 256, (n, n_sub)).astype(np.uint8),
+            "centroids": rng.normal(size=(n_sub, 256, d_out // n_sub))
+            .astype(np.float32)}
+
+
+def _cell_rows(model, artifacts, batch, mesh=None):
+    from repro_torch.models.recsys.fields import serve_placed
+    with torch.no_grad():
+        if model.cfg.model == "bst":
+            return serve_placed(model.item_emb, artifacts, model.ids(batch),
+                                mesh)
+        return model.fields.serve(artifacts, batch["sparse_ids"], mesh=mesh)
+
+
+def _recsys_cells_rank(rank, arch):
+    """The serving cell (params seeded 0 on the card, exported on the
+    rank) and the retrieval cell of ``arch`` on (2, 2): this rank's data
+    coordinate, logits, decoded rows, scores, and its mgqe_decode and
+    pq_score launches."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.kernels.mgqe_decode import mgqe_decode
+    from repro_torch.kernels.pq_score import pq_score
+    from repro_torch.launch.cells import (recsys_retrieval_cell,
+                                          recsys_serve_cell)
+    from repro_torch.launch.mesh import make_debug_mesh
+    mesh = make_debug_mesh(2, 2)
+    cfg = _cell_cfg(arch)
+    cell = recsys_serve_cell(cfg, ShapeSpec("t", "rec_serve",
+                                            batch=CELL_BATCH), mesh)
+    mgqe_decode.launches = pq_score.launches = 0
+    batch = cell.local_batch(_cell_batch(arch, cfg, CELL_BATCH, 1))
+    logits = cell.step(batch).cpu()
+    rows = None if cell.artifacts is None else _cell_rows(
+        cell.model, cell.artifacts, batch, mesh).cpu()
+    n = CELL_CAND[arch]
+    rcell = recsys_retrieval_cell(cfg, ShapeSpec(
+        "t", "rec_retrieval", batch=1, n_candidates=n), mesh)
+    if arch == "two-tower-retrieval":
+        scores = rcell.step(rcell.local_corpus(_cell_corpus(cfg, n)),
+                            torch.tensor([7], dtype=torch.int32))
+    else:
+        scores = rcell.step(rcell.local_candidates(
+            _cell_batch(arch, cfg, n, 2)))
+    return (mesh.axis_index("data"), logits, rows, scores.cpu(),
+            mgqe_decode.launches, pq_score.launches)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["deepfm", "autoint", "bst",
+                                  "two-tower-retrieval"])
+def test_recsys_cells_on_card_match_one_device(cuda, tmp_path, arch):
+    """``recsys_serve_cell`` and ``recsys_retrieval_cell`` on 4 gloo ranks
+    sharing the card: every rank's logits within 1e-5 of one device's
+    serve of the same params and artifacts (their decoded rows bit for
+    bit, ``mgqe_decode`` launched on every rank), the retrieval scores
+    within 1e-5 (two-tower: ``pq_score`` on every rank, the top-100 ids
+    identical)."""
+    from repro_torch.launch.cells import (recsys_export, recsys_model,
+                                          serve_params)
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.retrieval.flat_pq import adc_scores
+    res = spawn(_recsys_cells_rank, 4, backend="gloo", device="cuda:0",
+                args=(arch,), store_dir=str(tmp_path),
+                timeout_s=MESH_TIMEOUT)
+    cfg = _cell_cfg(arch)
+    model = recsys_model(cfg, device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    batch = on_device(_cell_batch(arch, cfg, CELL_BATCH, 1), "cuda")
+    n = CELL_CAND[arch]
+    with torch.no_grad():
+        if arch == "two-tower-retrieval":
+            u, _ = model.user_vec(params, batch["user_ids"])
+            v, _ = model.item_vec(params, batch["item_ids"])
+            want, rows = torch.sum(u * v, -1).cpu(), None
+            q, _ = model.user_vec(params, torch.tensor(
+                [7], dtype=torch.int32, device="cuda"))
+            scores = adc_scores(on_device(_cell_corpus(cfg, n), "cuda"),
+                                q[0]).cpu()
+        else:
+            arts = recsys_export(model, params)
+            want = model.serve(serve_params(cfg, params), arts, batch).cpu()
+            rows = _cell_rows(model, arts, batch).cpu()
+            scores = model.apply(params, on_device(
+                _cell_batch(arch, cfg, n, 2), "cuda"))[0].cpu()
+    bl = CELL_BATCH // 2
+    for d, logits, r_rows, r_scores, mgqe, pq in res:
+        part = slice(d * bl, (d + 1) * bl)
+        torch.testing.assert_close(logits, want[part], rtol=MESH_TRAIN_TOL,
+                                   atol=MESH_TRAIN_TOL)
+        torch.testing.assert_close(r_scores, scores, rtol=MESH_TRAIN_TOL,
+                                   atol=MESH_TRAIN_TOL)
+        if rows is not None:
+            _same_bits(r_rows, rows[part])
+            assert mgqe > 0
+        else:
+            assert pq == 1
+            top = torch.sort(r_scores, descending=True, stable=True)[1]
+            want_top = torch.sort(scores, descending=True, stable=True)[1]
+            assert torch.equal(top[:100], want_top[:100])
+
+
+def _mace_cell_graph(task):
+    """A graph whose N and E do not divide by 4 (both padded)."""
+    from repro_torch.data import graph
+    cfg = _cell_cfg("mace")
+    if task == "energy":
+        return graph.molecule_batch(n_graphs=7, n_atoms=9, n_edges=17,
+                                    n_species=cfg.num_species, seed=3)
+    return graph.random_graph(201, 1003, 12, n_classes=cfg.d_readout,
+                              seed=4)
+
+
+def _mace_cell_shape(task):
+    from repro_torch.configs.base import ShapeSpec
+    if task == "energy":
+        return ShapeSpec("t", "graph_batched", n_nodes=9, n_edges=17,
+                         batch_graphs=7)
+    return ShapeSpec("t", "graph_full", n_nodes=201, n_edges=1003,
+                     d_feat=12)
+
+
+def _mace_cell_rank(rank, task):
+    """One step of ``mace_cell`` (params seeded 0 on the card) on (2, 2):
+    the metrics and the params after, gathered whole."""
+    from repro_torch.core.schemes.base import tree_leaves
+    from repro_torch.launch.cells import mace_cell
+    from repro_torch.launch.mesh import make_debug_mesh
+    mesh = make_debug_mesh(2, 2)
+    cell = mace_cell(_cell_cfg("mace"), _mace_cell_shape(task), mesh)
+    state, metrics = cell.step(cell.state,
+                               cell.local_graph(_mace_cell_graph(task)))
+    with torch.no_grad():
+        whole = [t.cpu() for t in tree_leaves(
+            cell.whole_params(state.params))]
+    return {k: float(v) for k, v in metrics.items()}, whole
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("task", ["energy", "node_class"])
+def test_mace_cell_on_card_matches_one_device(cuda, tmp_path, task):
+    """``mace_cell``'s adam step on 4 gloo ranks sharing the card, on a
+    padded graph: metrics within 1e-5 of one device's step from the same
+    params, every param within 1e-5 but adam's ill-conditioned elements
+    (a first-step |g| < 1e-6, held at 2·lr), and the step moved the
+    params."""
+    from repro_torch.core.schemes.base import tree_leaves
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.launch.train import GNN_OPTIMIZER
+    from repro_torch.models.gnn.mace import MACE
+    from repro_torch.train import optimizer as opt
+    res = spawn(_mace_cell_rank, 4, backend="gloo", device="cuda:0",
+                args=(task,), store_dir=str(tmp_path),
+                timeout_s=MESH_TIMEOUT)
+    cfg = _cell_cfg("mace")
+    model = MACE(cfg, device="cuda")
+    d_feat = 12 if task == "node_class" else None
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        n_feat=d_feat)
+    loss = model.energy_loss if task == "energy" else model.node_class_loss
+    init = [t.to("cpu", copy=True) for t in tree_leaves(params)]
+    state, metrics = opt.make_step_fn(GNN_OPTIMIZER, loss)(
+        opt.TrainState.create(GNN_OPTIMIZER, params),
+        on_device(_mace_cell_graph(task), "cuda"))
+    grads = [(m / (1 - GNN_OPTIMIZER.b1)).cpu()
+             for m in tree_leaves(state.opt_state["m"])]
+    want = [t.cpu() for t in tree_leaves(state.params)]
+    for got_metrics, got in res:
+        for k, v in metrics.items():
+            assert abs(got_metrics[k] - float(v)) <= \
+                MESH_TRAIN_TOL * (1 + abs(float(v)))
+        for a, b, g in zip(got, want, grads, strict=True):
+            tiny = (g != 0) & (g.abs() < 1e-6)
+            torch.testing.assert_close(a[~tiny], b[~tiny],
+                                       rtol=MESH_TRAIN_TOL,
+                                       atol=MESH_TRAIN_TOL)
+            assert bool(((a - b).abs()[tiny] <= 2e-3).all())
+        assert max(float((a - i).abs().max())
+                   for a, i in zip(got, init)) > 1e-4

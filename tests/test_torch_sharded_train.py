@@ -827,27 +827,29 @@ def _cli_body(rank, cfg_kw_unused, argvs):
 def test_train_cli_on_a_mesh_and_its_refusals(tmp_path, capsys):
     """``train --mesh data=2,model=2`` on 4 CPU ranks: every rank's losses
     within 1e-5 of one device's ``train``, for deepfm (its 50,000-row
-    field held as 25,000-row blocks) and for an LM arch (stablelm-3b,
-    through ``lm_train_cell``).  A GNN arch (its rules wait for ROADMAP
-    §1 item 8.3), a mesh without ``model`` and a world of the wrong size
-    are refused."""
+    field held as 25,000-row blocks), for an LM arch (stablelm-3b,
+    through ``lm_train_cell``) and for MACE (through ``mace_cell``, 8
+    molecules a batch).  A mesh without ``model`` and a world of the
+    wrong size are refused."""
     from repro_torch.launch import train as train_cli
     mesh = ["--device", "cpu", "--steps", "3", "--log-every", "1",
             "--mesh", "data=2,model=2", "--dist-backend", "gloo"]
     argvs = [["--arch", "deepfm", "--batch", "32"] + mesh,
-             ["--arch", "stablelm-3b", "--batch", "4", "--seq", "16"] + mesh]
+             ["--arch", "stablelm-3b", "--batch", "4", "--seq", "16"] + mesh,
+             ["--arch", "mace", "--batch", "8"] + mesh]
     res = spawn(_cli_body, 4, args=(None, argvs), store_dir=str(tmp_path),
                 timeout_s=TIMEOUT)
     want = [[h["loss"] for h in train_cli.train(
         arch, steps=3, batch=batch, seq=16, log_every=1,
         device="cpu").history]
-        for arch, batch in (("deepfm", 32), ("stablelm-3b", 4))]
+        for arch, batch in (("deepfm", 32), ("stablelm-3b", 4),
+                            ("mace", 8))]
     for losses, shape in res:
         for got, w in zip(losses, want, strict=True):
             np.testing.assert_allclose(got, w, rtol=TOL, atol=TOL)
         assert shape == "torch.Size([25000, 10])"
     for arch, mesh, msg in (
-            ("mace", "data=2,model=2", "ROADMAP.md §1 item 8.3"),
+            ("mace", "data=2,model=2", "needs 4 ranks, found 1"),
             ("deepfm", "data=4", "no 'model' axis"),
             ("deepfm", "data=2,model=2", "needs 4 ranks, found 1"),
             ("stablelm-3b", "data=2,model=2", "needs 4 ranks, found 1")):
