@@ -84,10 +84,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the single-device results on every rank, ``mgqe_decode``,
    ``rq_decode_stages``, ``packed_decode``, ``pq_topk`` and
    ``pq_score_batched`` launched on every rank, flush and search ms
-   beside the single device's and the wire bytes a flush; then one NCCL
-   rank through ``ServingEngine`` on a (1, 1) mesh (bit-identical), and
-   ``serve --mesh data=2,model=2`` under torchrun on 4 gloo ranks
-   sharing the card, exit 0.  Then the distributed-training phase
+   beside the single device's and the wire bytes a flush; one NCCL rank
+   through ``ServingEngine`` on a (1, 1) mesh (bit-identical; queued,
+   run in the LM mesh phase's one NCCL process), and ``serve --mesh
+   data=2,model=2`` under torchrun on 4 gloo ranks sharing the card
+   (the smoke config), exit 0.  Then the distributed-training phase
    (``sharded_training_phase``): deepfm's ``CONFIG`` (all 78 tables
    row-sharded) trained 5 adagrad steps at B = 4,096 through the train
    cell (``launch/cells.py::recsys_train_cell``) on 4 gloo ranks on
@@ -109,8 +110,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    widths, users and items cut to 2M, 3 steps on the mesh: losses and
    the towers' first-step gradients within MT_TOL of one device (a
    planted per-rank softmax must move the loss); deepfm's ``CONFIG``
-   on one NCCL rank, bit-identical to one device; and ``train --mesh
-   data=2,model=2`` under torchrun, exit 0; per-rank device bytes,
+   on one NCCL rank, bit-identical to one device (queued as above);
+   and ``train --mesh data=2,model=2`` under torchrun (the smoke
+   config), exit 0; per-rank device bytes,
    step ms beside one device's and the wire bytes a step printed;
    counts set to 0 just before, read just after;
 9. the fourth path, each phase freeing the card after it:
@@ -188,13 +190,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
    and bfloat16) against the plain assignment; then, one phase an arch
    (``LM_PATHS``), each freeing the card after it, the arch's ``CONFIG``
    through ``launch.serve.serve_lm``: gemma3-4b (f32 weights), then in
-   bfloat16 qwen3-moe-30b-a3b (48 layers, 128 experts top-8, through
-   ``nn/moe.py``), gemma3-27b (62 layers, 5:1 local:global) at 2
-   prompts of 4,096 tokens, and mixtral-8x7b (8 experts top-2, window
-   4,096) cut to 26 of its 32 layers (87.0 GiB of weights do not fit the
-   card) at 1 prompt of 8,192 — init, MGQE export of the token table
-   (``dpq_assign``), prefill (``flash_attention`` on every layer,
-   ``mgqe_decode``), 16 greedy decode steps — with the counts set to 0
+   bfloat16 qwen3-moe-30b-a3b (24 of 48 layers, 128 experts top-8,
+   through ``nn/moe.py``), gemma3-27b (32 of 62 layers, 5:1
+   local:global) at 2 prompts of 4,096 tokens, and mixtral-8x7b (8
+   experts top-2, window 4,096) cut to 16 of its 32 layers (87.0 GiB of
+   weights do not fit the card) at 1 prompt of 8,192 — init, MGQE
+   export of the token table (``dpq_assign``), prefill
+   (``flash_attention`` on every layer, ``mgqe_decode``), 8 greedy
+   decode steps — with the counts set to 0
    just before and read just after; the token rows held bit-identical
    to the plain decode, the exported codes of a head, a tier-boundary
    and a tail slice to the plain assignment, the last-token logits to
@@ -231,9 +234,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    optimizer (the first two also timed alone as a cross-check); the
    trained table exported (``dpq_assign``) and
    served through ``launch.serve.serve_lm`` (a prefill of 1 x 4,096 and
-   16 decode steps, ``mgqe_decode``), counted likewise, rows and codes
+   8 decode steps, ``mgqe_decode``), counted likewise, rows and codes
    held as in 11 (the initial table's export must fail the codes'
-   bar); qwen3-moe-30b-a3b at full width, bf16 params, 8 of its 48
+   bar); qwen3-moe-30b-a3b at full width, bf16 params, 4 of its 48
    layers, trained 3 steps at 1 x 4,096 with the same prints; the five
    LM archs' smoke configs on the chunked route with layer remat on
    the card against the CPU (first-batch gradients within
@@ -260,8 +263,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    first loss within ``LMM_BF16_LOSS_TOL`` of one device's, the trained
    token table gathered over model, exported (``dpq_assign``) and
    served (``mgqe_decode``) on rank 0, codes and rows held to the
-   plain versions; float32 checks at a depth cut (stablelm-3b at 2
-   layers, qwen3 at 1 at a capacity where nothing drops, found from
+   plain versions; float32 checks at a depth cut (stablelm-3b and
+   qwen3 at 1 layer, qwen3 at a capacity where nothing drops, found from
    one device's routing) against one device: loss and ``LMM_SAMPLES``
    gradient elements a leaf within 1e-5, stablelm-3b's params after
    one adamw step too (elements of first-step |g| < 1e-6 within 2 lr);
@@ -270,9 +273,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
    all-to-all over model) two steps, the share of (token, choice) pairs
    dropped at capacity 1.25 from one device's ``moe_ffn_grouped``;
    ``train`` on the mesh failed in step 2 and resumed from its
-   checkpoint of whole arrays (stablelm-3b at 2 layers), bit-identical
+   checkpoint of whole arrays (stablelm-3b at 1 layer), bit-identical
    to an uninterrupted run; stablelm-3b's float32 check's step on one
-   NCCL rank bit-identical to one device; and one qwen3 MoE layer at full width
+   NCCL rank bit-identical to one device (in one NCCL process with the
+   distributed phases' queued checks); the traced steps' collectives
+   held to the dry run (``dry_check``: ``chip_smoke.py --dry-run``, a
+   child process started with the script, counts each mesh phase's
+   cells on an ``AbstractMesh`` of (2, 2) on the meta device through
+   ``launch/dryrun.py``); and one qwen3 MoE layer at full width
    on (1, 3) (128 experts % 3: the ffn strategy, d_ff over model) at
    4,096 tokens, forward and backward within 1e-5 (gradients at each
    leaf's scale) of one device's ``moe_ffn``; every rank's
@@ -289,7 +297,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    cache by ``lm_cache_spec``; ``flash_attention`` on its heads); the
    counts set to 0 just before the export and read after the ranks:
    (a) gemma3-4b's ``CONFIG`` (34 layers, f32 params, bf16
-   activations) prefilling 2 x 4,096 and 16 decode steps fed one
+   activations) prefilling 2 x 4,096 and 8 decode steps fed one
    device's tokens, every step's logits within ``LM_BARS`` of one
    device's (and the top-1 rule), prefill seconds, decode tokens/s,
    bytes a rank and one traced decode step's collectives (2 a layer,
@@ -297,7 +305,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    tokens (past the local window), split cache off and on, on (2, 2)
    and on (1, 8) (4 kv heads over 8: the cache's sequence over model,
    the blocks' attention merged), logits within 1e-4 of one device and
-   greedy tokens identical, the merge without its pmax planted on (1,
+   greedy tokens identical (4 steps), the merge without its pmax
+   planted on (1,
    8) and failing; (c) qwen3-moe-30b-a3b's ``CONFIG`` at 4 of 48
    layers (the global MoE formulation, experts over model) at 2 x
    1,024 and 8 steps within ``LM_BARS`` of one device with its experts
@@ -310,7 +319,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
    timed beside their bytes bound and held to one device's steps on
    the same cache within ``LM_BARS`` (beside one device's distance to
    its steps with the decode attention in float32), and a fourth step
-   with one rank's cache rows swapped planted and failing it;
+   with one rank's cache rows swapped planted and failing it; (e)
+   ``long_500k`` through ``build_cell(..., opts=("split_cache",))``:
+   gemma3-4b's ``CONFIG`` at float32 activations, B = 1 over 524,288
+   slots (the token on every rank, the five global layers' 26.8 GB
+   cache split over data, kv heads over model), drawn chunk by chunk
+   from seeded generators (``long_fill_cache``), 3 steps held to one
+   device's on the same cache within ``LMS_CHECK_TOL`` (float32) with
+   identical tokens, and a fourth with the two halves of one rank's
+   key block swapped planted and failing; (a)'s and (e)'s counted
+   decode steps held to the dry run (``dry_check``);
 14. the GNN phase (``gnn_phases``), freeing the card after it: MACE's
    ``configs/mace.py::CONFIG`` (2 layers, d_hidden 128, l_max 2,
    correlation order 3) trained GNN_STEPS adam steps through
@@ -362,8 +380,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    a flush or step on the mesh and one device, its collectives (count,
    bytes a rank) and bytes a rank; planted: a rank serving the next
    rank's code blocks, a receiver sum keeping the next rank's node
-   block and a padded node in graph 0's energy must fail; counts set to
-   0 just before the export and read after the ranks, summed;
+   block and a padded node in graph 0's energy must fail; each
+   counted flush, retrieval call and step's collectives (count, kinds,
+   bytes a rank) equal to the dry run's (minibatch_lg's at its
+   sample's sizes, its static shape's printed), each beside its three
+   roofline terms; counts set to 0 just before the export and read
+   after the ranks, summed;
 16. free the card and drive the retrieval path at full width:
    two-tower retrieval at ``configs/two_tower_retrieval.py::CONFIG``
    (50M users, 10M items, embed_dim 256, towers 1024-512-256) through
@@ -425,12 +447,6 @@ import subprocess
 import sys
 import time
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, f32 FLOP/s outside
-# the tensor cores.  The least time for a call is the larger of its
-# bytes over the first and its operations over the second.
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOP_PER_S = 67e12
-
 # dpq_assign: the kernel's fused dot may round differently in the last
 # bit from the plain version's matmul (bf16: the tensor cores sum the
 # exact products in another order), so a code may differ only where the
@@ -475,7 +491,7 @@ BAG_F32_TOL = 1e-5
 HOT_ROWS = 1_250_000
 HOT_ZIPF = (1.05, 1.2, 1.5)
 HOT_REQUESTS, HOT_REQ_BATCH, HOT_MAX_QUEUE = 120, 512, 8192
-HOT_PASSES = 3                         # measured passes, the best kept
+HOT_PASSES = 2                         # measured passes, the best kept
 # the moving head: Zipf(1.2) over a fixed permutation of the ids,
 # refreshed every REFRESH_EVERY flushes
 REFRESH_EVERY, REFRESH_REQUESTS = 4, 480
@@ -538,7 +554,7 @@ IVF_ROWS = 1_000_000
 IVF_DIM, IVF_SUB, IVF_K = 64, 8, 128
 IVF_BLOCK = 131_072
 IVF_NPROBES = (1, 4, 16, 64, 128)
-IVF_ITERS = 30
+IVF_ITERS = 15
 IVF_RECALL = 0.95
 # two-tower's CONFIG through serve_retrieval(index_kind="ivf_pq",
 # host_staged=True) at the sweep's widest probe
@@ -552,9 +568,10 @@ BB_USERS, BB_ITEMS, BB_DIM = 6040, 3416, 64
 # protocol's 2,000 made the phase 114-162 s on an H100 (the steps are
 # host-bound and the host varies), past its ~120 s budget; Fig. 3 at
 # 2,000 steps is ``python -m repro_torch.launch.backbones convergence
-# --full``.  At 400 steps FE has not yet left MGQE's plateau (its gap
-# opens after about step 500), so every verdict here reads TRACKS.
-BB_STEPS = 400
+# --full``.  At 400 steps FE had not yet left MGQE's plateau (its gap
+# opens after about step 500), so every verdict here reads TRACKS; the
+# 400 steps' 61.3 s of training are cut to 50 for the script's time.
+BB_STEPS = 50
 BB_EVAL = 500                          # HR@10's users
 BB_CHECK_STEPS = 10                    # the tiny card-vs-CPU runs
 BB_PROFILE_STEPS = 20                  # an MGQE run's steps under the profiler
@@ -564,22 +581,21 @@ BB_SUBSPACES = (16, 8, 4)
 # greedy decode steps after the prefill; gemma3-4b's prefill is also
 # mgqe_decode's LM shape (LM_ARCH, LM_BATCH x LM_PROMPT)
 LM_ARCH = "gemma3-4b"
-LM_BATCH, LM_PROMPT, LM_STEPS = 2, 4096, 16
+LM_BATCH, LM_PROMPT, LM_STEPS = 2, 4096, 8
 # (arch, prompts, prompt length, layers kept: None for the config's).
 # mixtral-8x7b's 32 layers hold 87.0 GiB of bf16 weights, more than the
-# card's 80 GB: 26 layers (70.8 GiB) run, the most that keep the phase's
-# peak under about 76 GiB (74.9 GiB at 26, 72.2 at 25: H100 SXM), on one
-# prompt past its 4,096 window, so the window bites in the flash kernel
-# and the decode cache is a 4,096-slot ring that wraps
+# card's 80 GB (26 layers, 70.8 GiB, fit: 74.9 GiB peak, H100 SXM); on
+# one prompt past its 4,096 window, so the window bites in the flash
+# kernel and the decode cache is a 4,096-slot ring that wraps.  For the
+# script's time, qwen3-moe-30b-a3b runs 24 of its 48 layers, gemma3-27b
+# 32 of 62 (five 5:1 groups and two remainder layers) and mixtral 16
+# (the phases took 28.8, 35.1 and 24.4 s at 48, 62 and 26)
 LM_PATHS = (
     (LM_ARCH, LM_BATCH, LM_PROMPT, None),
-    ("qwen3-moe-30b-a3b", 2, 4096, None),
-    ("gemma3-27b", 2, 4096, None),
-    ("mixtral-8x7b", 1, 8192, 26),
+    ("qwen3-moe-30b-a3b", 2, 4096, 24),
+    ("gemma3-27b", 2, 4096, 32),
+    ("mixtral-8x7b", 1, 8192, 16),
 )
-# H100 SXM dense bf16 tensor-core peak (data sheet): the attention
-# kernel's and bf16 dpq_assign's operation bound
-BF16_FLOP_PER_S = 989e12
 FULL_WINDOW = 1 << 30
 # flash_attention against its plain version: the JAX tests' own bars
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
@@ -675,14 +691,16 @@ LM_BARS = {
 # (73.9 GiB at 8 layers; 9 ran out of memory; H100 SXM).
 LM_TRAIN_ARCH = "stablelm-3b"
 LM_TRAIN_BATCH = 2
-LM_TRAIN_STEPS = 5
+LM_TRAIN_STEPS = 2
 MOE_TRAIN_ARCH = "qwen3-moe-30b-a3b"
-MOE_TRAIN_LAYERS = 8
+MOE_TRAIN_LAYERS = 4
 MOE_TRAIN_BATCH = 1
 MOE_TRAIN_STEPS = 3
 # C.4: stablelm-3b at full width, its depth cut for a resume check whose
-# checkpoints (params and both moments) stay a few GB
-LM_RESUME_LAYERS = 4
+# checkpoints (params and both moments) stay a few GB: two layers (99.0
+# s at four), so a restore that swaps or repeats a stack's layers still
+# cannot match
+LM_RESUME_LAYERS = 2
 LM_RESUME_BATCH = 1
 # C.2: the smoke configs on the card against the CPU
 LM_ARCHS = ("stablelm-3b", "gemma3-4b", "gemma3-27b", "mixtral-8x7b",
@@ -827,6 +845,18 @@ def need(cond: bool, what: str) -> None:
 # ----------------------------------------------------------------------
 # inputs at the main path's shapes
 # ----------------------------------------------------------------------
+
+def summed_bound(name: str, calls) -> dict:
+    """``op_roofline`` of several calls of the op ``name`` together
+    (``calls``: (args, kwargs) each): their FLOPs and bytes summed, then
+    over the peaks."""
+    from repro_torch.kernels.dispatch import op_cost
+    from repro_torch.roofline import kernel_roofline
+    costs = [op_cost(name, *a, **kw) for a, kw in calls]
+    return kernel_roofline(sum(c.flops for c in costs),
+                           sum(c.bytes for c in costs),
+                           dtype=costs[0].dtype)
+
 
 def decode_inputs(b, d, k, s, dtype, seed, code_hi=None):
     """codes (b, d) uint8 drawn up to ``code_hi`` (past K-1: clamped,
@@ -1340,6 +1370,7 @@ def time_kernels(errs: dict, launches: dict) -> list:
     from repro_torch.core import EmbeddingConfig
     from repro_torch.kernels.mgqe_decode import (decode, mgqe_decode,
                                                  mgqe_decode_ref)
+    from repro_torch.roofline import op_roofline
 
     out = []
     # mgqe_decode: deepfm table (D=5, K=256, S=2, f32), serve_bulk batch
@@ -1350,15 +1381,15 @@ def time_kernels(errs: dict, launches: dict) -> list:
     ms, host = time_ms(lambda: mgqe_decode(codes, cent))
     plain, _ = time_ms(lambda: mgqe_decode_ref(codes, cent))
     lib, lib_host = time_ms(lambda: F.embedding(offs, flat))
-    nbytes = b * d * 1 + d * k * s * 4 + b * d * s * 4
-    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    r = op_roofline("mgqe_decode", codes, cent)
+    nbytes, bound = r["bytes"], r["bound_ms"]
     out.append({"name": "mgqe_decode", "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/mgqe_decode.cu",
                 "replaces": "src/repro/kernels/mgqe_decode/mgqe_decode.py:54",
                 "launches": launches["mgqe_decode"],
                 "max_abs_err": errs["mgqe_decode"], "ms": ms,
-                "plain_ms": plain, "bound_ms": bound, "bound_by": "bytes",
-                "library_ms": lib})
+                "plain_ms": plain, "bound_ms": bound,
+                "bound_by": r["bound_by"], "library_ms": lib})
     log(f"time mgqe_decode B={b} D={d} K={k} S={s} f32: kernel {ms:.5f} ms, "
         f"plain {plain:.5f} ms, F.embedding {lib:.5f} ms, bound {bound:.5f} "
         f"ms ({nbytes} bytes); host time to launch: wrapper {host:.5f} ms, "
@@ -1376,9 +1407,10 @@ def time_kernels(errs: dict, launches: dict) -> list:
     f_codes, f_cent = codes[:fb].contiguous(), cent
     f_ms, _ = time_ms(lambda: mgqe_decode(f_codes, f_cent))
     _, op_host = time_ms(lambda: decode(f_codes, f_cent))
+    f_bound = op_roofline("mgqe_decode", f_codes, f_cent)["bound_ms"]
     log(f"time mgqe_decode B={fb} (one engine flush): kernel {f_ms:.5f} ms, "
-        f"bound {(fb * d * 9 + d * k * s * 4) / HBM_BYTES_PER_S * 1e3:.5f} "
-        f"ms; host time to launch through dispatch {op_host:.5f} ms")
+        f"bound {f_bound:.5f} ms; host time to launch through dispatch "
+        f"{op_host:.5f} ms")
 
     # mgqe_decode at gemma3-4b's prefill shape: the token rows of
     # LM_BATCH x LM_PROMPT prompt tokens, from its token table's
@@ -1397,9 +1429,8 @@ def time_kernels(errs: dict, launches: dict) -> list:
     l_plain, _ = time_ms(lambda: mgqe_decode_ref(l_codes, l_cent), iters=20,
                          hold=False)
     l_lib, _ = time_ms(lambda: F.embedding(l_offs, l_flat))
-    esz = l_cent.element_size()
-    l_bytes = lb * ld + ld * lk * ls * esz + lb * ld * ls * esz
-    l_bound = l_bytes / HBM_BYTES_PER_S * 1e3
+    r = op_roofline("mgqe_decode", l_codes, l_cent)
+    l_bytes, l_bound = r["bytes"], r["bound_ms"]
     l_pin, _ = time_ms(lambda: mgqe_decode(l_codes, l_cent, block_b=pin))
     log(f"time mgqe_decode B={lb} D={ld} K={lk} S={ls} {l_dtype} "
         f"({LM_ARCH}'s prefill, bit-identical to the plain version): kernel "
@@ -1422,24 +1453,15 @@ def time_kernels(errs: dict, launches: dict) -> list:
     return out
 
 
-def assign_bound(e, k, lim, launches):
-    """(bound ms, by, FLOP, bytes, centroid evaluations) of ``launches``
-    calls over the rows ``e`` (n, D, S): 2*S FLOP for every centroid a
-    row's budget reaches (against the dtype's peak) or each row, the
-    centroids (once a launch), the budgets and the codes moved once
-    (against HBM)."""
-    n, d, s = e.shape
-    item = e.element_size()
-    evaluated = d * (n * k if lim is None
-                     else int(lim.clamp(min=0, max=k).long().sum()))
-    flops = 2 * s * evaluated
-    nbytes = (n * d * s * item + launches * d * k * s * item
-              + (0 if lim is None else n * 4) + n * d * 4)
-    peak = F32_FLOP_PER_S if item == 4 else BF16_FLOP_PER_S
-    t_ops = flops / peak * 1e3
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
-            else "bytes", flops, nbytes, evaluated)
+def assign_bound(parts, cent) -> tuple:
+    """(bound ms, by, FLOP, bytes) of dpq_assign's launches over
+    ``parts`` ((rows, budgets) each) against ``cent``: their costs
+    summed (``summed_bound``): 2·S FLOP for every centroid a row's
+    budget reaches, the rows, budgets and codes once and the centroids
+    once a launch."""
+    r = summed_bound("dpq_assign", [((e, cent, lim), {})
+                                    for e, lim in parts])
+    return r["bound_ms"], r["bound_by"], r["flops"], r["bytes"]
 
 
 def time_assign_pass(what, e_all, cent, lim_all, batch, iters=5,
@@ -1470,8 +1492,8 @@ def time_assign_pass(what, e_all, cent, lim_all, batch, iters=5,
         mism += int((got != want).sum())
         gap = max(gap, assign_gap(e, cent, lim, got, want))
     need(gap <= ASSIGN_TOL, f"dpq_assign {what} within {ASSIGN_TOL}")
-    bound, by, flops, nbytes, evaluated = assign_bound(e_all, k, lim_all,
-                                                       len(parts))
+    bound, by, flops, nbytes = assign_bound(parts, cent)
+    evaluated = flops // (2 * cent.shape[2])
     n_l = len(parts)
     log(f"time dpq_assign {what}: {n_l} launch(es) of {batch} rows, D="
         f"{cent.shape[0]} K={k} S={cent.shape[2]} {e_all.dtype}"
@@ -1511,6 +1533,7 @@ def time_assign_shapes() -> dict:
     from repro_torch.kernels.dpq_assign import dpq_assign
     from repro_torch.core.mgqe import k_limit_for_all_rows
     from repro_torch.launch.engine import embedding_config_of_arch
+    from repro_torch.roofline import peak_flops
     # deepfm's export, batch by batch as export_codes runs it (65,536
     # rows, budgets of the sorted ids: 15 batches at K=256, one that
     # straddles the tier boundary, 137 at K=64); the kernel's walk, and
@@ -1539,12 +1562,13 @@ def time_assign_shapes() -> dict:
         log(f"  one batch {what}, rows {i}..{i + ASSIGN_BATCH} "
             f"({int((lim == k).sum())} at K={k}): kernel {ms:.5f} ms; host "
             f"time to launch: wrapper {host:.5f} ms")
-    t, by, flops, _, evaluated = assign_bound(e_all, k, lim_all, 1)
+    t, by, flops, _ = assign_bound([(e_all, lim_all)], cent)
+    evaluated = flops // (2 * s)
     # with the argmin: per (row, centroid) S FMAs, one FMA for the
     # distance and one compare-and-select, each at one lane-op a clock
     # (67 TFLOP/s = 33.5 T FMA lanes a second)
     n_b = -(-n // ASSIGN_BATCH)
-    argmin = evaluated * (s + 2) / (F32_FLOP_PER_S / 2) * 1e3 / n_b
+    argmin = evaluated * (s + 2) / (peak_flops("float32") / 2) * 1e3 / n_b
     log(f"  deepfm export bound per launch with the argmin (S + 2 lane "
         f"ops a centroid evaluation): {argmin:.5f} ms; tiled product "
         f"{tiled['ms']:.5f} ms a launch against the walk's "
@@ -1815,11 +1839,7 @@ def time_decode_kernels(errs: dict, launches: dict, flush_b: int) -> list:
                                                    packed_decode_ref,
                                                    packed_width)
     from repro_torch.kernels.packed_decode.packed_decode import packed_plan
-
-    def bound(nbytes, ops):
-        t_b = nbytes / HBM_BYTES_PER_S * 1e3
-        t_o = ops / F32_FLOP_PER_S * 1e3
-        return max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+    from repro_torch.roofline import op_roofline
 
     def rq_times(c, cb):
         """(kernel, plain, F.embedding_bag, bound, bound_by, bytes, host
@@ -1831,9 +1851,9 @@ def time_decode_kernels(errs: dict, launches: dict, flush_b: int) -> list:
         t_p, _ = time_ms(lambda: rq_decode_stages_ref(c, cb), iters=50)
         t_l, l_host = time_ms(lambda: F.embedding_bag(offs, flat,
                                                       mode="sum"))
-        nbytes = rows * m + m * k * d * 4 + rows * d * 4
-        t_b, by = bound(nbytes, rows * (m - 1) * d)
-        return t_k, t_p, t_l, t_b, by, nbytes, host, l_host
+        r = op_roofline("rq_decode_stages", c, cb)
+        return (t_k, t_p, t_l, r["bound_ms"], r["bound_by"], r["bytes"],
+                host, l_host)
 
     out = []
     sms = build.sm_count("cuda")
@@ -1862,9 +1882,9 @@ def time_decode_kernels(errs: dict, launches: dict, flush_b: int) -> list:
     cbs16 = cbs.to(torch.bfloat16)
     p16 = rq_plan(b, m, k, d, 1, 2, sms)
     ms16, _ = time_ms(lambda: rq_decode_stages(codes, cbs16))
+    b16 = op_roofline("rq_decode_stages", codes, cbs16)["bound_ms"]
     log(f"time rq_decode_stages B={b} bf16 {p16}: kernel {ms16:.5f} ms, "
-        f"bound {(b * m + m * k * d * 2 + b * d * 2) / HBM_BYTES_PER_S * 1e3:.5f}"
-        f" ms")
+        f"bound {b16:.5f} ms")
     # both routes either side of the smem route's least batch, and at
     # serve_bulk: the planner's rule
     for fb in (RQ_SMEM_MIN_ROWS // 2, RQ_SMEM_MIN_ROWS, b):
@@ -1887,12 +1907,12 @@ def time_decode_kernels(errs: dict, launches: dict, flush_b: int) -> list:
     _, op_host = time_ms(lambda: decode_stages(f_codes, cbs))
     log(f"time rq_decode_stages B=256 {rq_plan(256, m, k, d, 1, 4, sms)}: "
         f"kernel {f_ms:.5f} ms, bound "
-        f"{(256 * (m + d * 4) + m * k * d * 4) / HBM_BYTES_PER_S * 1e3:.5f} "
+        f"{op_roofline('rq_decode_stages', f_codes, cbs)['bound_ms']:.5f} "
         f"ms; host time to launch through dispatch {op_host:.5f} ms")
     # the bench's d = 64: 256 KB of codebooks, read through L2
     c64, cb64 = rq_inputs(b, 4, 256, 64, torch.float32, g)
     ms64, _ = time_ms(lambda: rq_decode_stages(c64, cb64))
-    t64, _ = bound(b * 4 + 4 * 256 * 64 * 4 + b * 64 * 4, b * 3 * 64)
+    t64 = op_roofline("rq_decode_stages", c64, cb64)["bound_ms"]
     log(f"time rq_decode_stages B={b} M=4 K=256 d=64 f32 "
         f"{rq_plan(b, 4, 256, 64, 1, 4, sms)}: kernel {ms64:.5f} ms, bound "
         f"{t64:.5f} ms")
@@ -1913,8 +1933,9 @@ def time_decode_kernels(errs: dict, launches: dict, flush_b: int) -> list:
         t_16, _ = time_ms(lambda: packed_decode(packed, cent16, nb))
         t_256, _ = time_ms(lambda: packed_decode(packed, cent, nb, 256))
         w = packed_width(dd, nb)
-        nbytes = b * w + dd * 2 ** nb * s * 4 + b * dd * s * 4
-        t_b, by = bound(nbytes, 0)
+        r = op_roofline("packed_decode", packed, cent, nb)
+        nbytes, t_b, by = r["bytes"], r["bound_ms"], r["bound_by"]
+        t_b16 = op_roofline("packed_decode", packed, cent16, nb)["bound_ms"]
         f_packed = packed[:flush_b].contiguous()
         t_f, _ = time_ms(lambda: packed_decode(f_packed, cent, nb))
         s_packed = packed[:256].contiguous()
@@ -1923,10 +1944,9 @@ def time_decode_kernels(errs: dict, launches: dict, flush_b: int) -> list:
         log(f"time packed_decode B={b} D={dd} S={s} bits={nb} W={w} "
             f"{packed_plan(b, dd, s, nb, 4, sms)}: kernel {t_k:.5f} ms, plain "
             f"{t_p:.5f} ms, bound {t_b:.5f} ms by {by} ({nbytes} bytes); "
-            f"bf16 {t_16:.5f} ms (bound "
-            f"{(b * w + dd * 2 ** nb * s * 2 + b * dd * s * 2) / HBM_BYTES_PER_S * 1e3:.5f}"
-            f" ms); at the schemes' block_b=256 {t_256:.5f} ms; at one flush "
-            f"(B={flush_b}) {t_f:.5f} ms; at B=256 {t_s:.5f} ms; host time "
+            f"bf16 {t_16:.5f} ms (bound {t_b16:.5f} ms); at the schemes' "
+            f"block_b=256 {t_256:.5f} ms; at one flush (B={flush_b}) "
+            f"{t_f:.5f} ms; at B=256 {t_s:.5f} ms; host time "
             f"to launch: wrapper {host:.5f} ms")
     mean = [sum(r[i] for r in rows.values()) / len(rows) for i in range(3)]
     out.append({"name": "packed_decode", "route": "cuda",
@@ -2252,7 +2272,7 @@ def check_async(futs, reqs, sync_engine, st) -> None:
 SHARD_MESH = (2, 2)                    # (data, model): 4 ranks, one card
 SHARD_TIMEOUT = 300.0                  # a group's start, collectives, join
 SHARD_BATCHES = (464, 465)             # retrieval: the flush, ragged
-SHARD_SEARCHES = 5                     # measured searches a batch
+SHARD_SEARCHES = 2                     # measured searches a batch
 SHARD_HEAD = 4096                      # ids of a wholly cached flush
 TT_ITEM_DIM = 256                      # two-tower's tower output width
 # the decode kernel each scheme of the phase launches
@@ -2450,6 +2470,92 @@ def nccl_world1_rank(rank, plan) -> dict:
             "flushes": len(kept)}
 
 
+MESH_CLIS_FLAG = "--mesh-clis"
+MESH_CLIS_MARK = "MESHCLIS train --mesh\n"
+
+
+def mesh_clis(ckpt_dir: str) -> int:
+    """One rank of the distributed training phase's torchrun: ``serve
+    --mesh`` then ``train --mesh`` (both the smoke config of deepfm on
+    (data=2, model=2), gloo on cuda:0) in the same process group, so the
+    two drives share one start; rank 0 prints MESH_CLIS_MARK between
+    them."""
+    import torch.distributed as dist
+    from repro_torch.launch import serve, train
+    from repro_torch.launch.mesh import init_distributed
+    mesh = ["--mesh", "data=2,model=2", "--dist-backend", "gloo",
+            "--device", "cuda:0"]
+    init_distributed("gloo", device="cuda:0")
+    try:
+        serve.main(["--arch", "deepfm", "--engine"] + mesh)
+        dist.barrier()
+        if dist.get_rank() == 0:
+            print(MESH_CLIS_MARK, end="", flush=True)
+        train.main(["--arch", "deepfm", "--steps", "2", "--batch",
+                    str(CTR_BATCH), "--log-every", "1", "--ckpt-dir",
+                    ckpt_dir, "--ckpt-every", "2"] + mesh)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+# the three distributed phases' NCCL (1, 1) checks, run in turn in one
+# NCCL process (``run_nccl_jobs``, at the LM mesh phase): one process
+# start for the three
+NCCL_JOBS = []
+_NCCL = {}
+
+
+def nccl_dir() -> str:
+    """A directory the deferred NCCL checks' files live in until they
+    run."""
+    import tempfile
+    if "dir" not in _NCCL:
+        _NCCL["dir"] = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    return _NCCL["dir"]
+
+
+def defer_nccl(name: str, fn, plan, check) -> None:
+    """Queue ``fn(0, plan)`` for the one NCCL process; ``check(result)``
+    holds its result when it has run."""
+    NCCL_JOBS.append((name, fn, plan, check))
+
+
+def nccl_jobs_rank(rank, jobs) -> dict:
+    """One NCCL rank on the card: every queued check in turn, each
+    timed."""
+    out = {}
+    for name, fn, plan in jobs:
+        t0 = time.perf_counter()
+        out[name] = fn(rank, plan)
+        out[name]["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def run_nccl_jobs(name: str, fn, plan, store_dir: str) -> tuple:
+    """The queued checks and ``fn(0, plan)`` (as ``name``) in one NCCL
+    process; every queued check held; returns (``fn``'s result, the
+    launches of the others, the process's seconds)."""
+    import shutil
+    from repro_torch.launch.mesh import spawn
+    jobs = [(n, f, p) for n, f, p, _ in NCCL_JOBS] + [(name, fn, plan)]
+    t0 = time.perf_counter()
+    try:
+        (res,) = spawn(nccl_jobs_rank, 1, backend="nccl", device="cuda:0",
+                       args=(jobs,), store_dir=store_dir,
+                       timeout_s=LMM_TIMEOUT)
+    finally:
+        shutil.rmtree(_NCCL.pop("dir", ""), ignore_errors=True)
+    seconds = time.perf_counter() - t0
+    launches = {}
+    for n, _, _, check in NCCL_JOBS:
+        check(res[n])
+        for k, v in res[n].get("launches", {}).items():
+            launches[k] = launches.get(k, 0) + v
+    NCCL_JOBS.clear()
+    return res[name], launches, seconds
+
+
 def sharded_serving_phase(card: str) -> dict:
     """The distributed-serving phase (see the module docstring): the
     parent exports and builds, serves each artifact on one device for
@@ -2549,36 +2655,28 @@ def sharded_serving_phase(card: str) -> dict:
         ranks = spawn(sharded_rank, world, backend="gloo", device="cuda:0",
                       args=(plan,), store_dir=tmp, timeout_s=SHARD_TIMEOUT)
         t_ranks = time.perf_counter() - t0
-        # ------------------------------------------ one NCCL rank
-        t0 = time.perf_counter()
-        (nccl,) = spawn(nccl_world1_rank, 1, backend="nccl",
-                        device="cuda:0", args=(plan,), store_dir=tmp,
-                        timeout_s=SHARD_TIMEOUT)
-        t_nccl = time.perf_counter() - t0
-        # ------------------------------------ serve --mesh under torchrun
-        t0 = time.perf_counter()
-        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-               "--nproc-per-node", str(world), "-m", "repro_torch.launch.serve",
-               "--arch", "deepfm", "--full", "--engine", "--mesh",
-               f"data={data_n},model={model_n}", "--dist-backend", "gloo",
-               "--device", "cuda:0"]
-        env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
-        proc = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True,
-                              text=True, timeout=SHARD_TIMEOUT)
-        t_cli = time.perf_counter() - t0
+        # ---------------- one NCCL rank (run with the LM mesh phase's)
+        import shutil as sh
+        mgqe = dict(plan["serving"]["mgqe"],
+                    path=sh.copy(plan["serving"]["mgqe"]["path"], nccl_dir()))
+
+        def nccl_check(nccl):
+            need(nccl["launches"]["mgqe_decode"] > 0,
+                 "NCCL world 1: mgqe_decode")
+            log(f"NCCL world 1: ServingEngine(mesh=(1, 1)) over "
+                f"{nccl['flushes']} flushes bit-identical (the distributed "
+                f"phase's check, {nccl['seconds']:.1f}s in the one NCCL "
+                f"process)")
+        defer_nccl("serving", nccl_world1_rank,
+                   {"serving": {"mgqe": mgqe}, "requests": plan["requests"]},
+                   nccl_check)
+        # serve --mesh under torchrun: with train --mesh, in the
+        # distributed training phase's one torchrun (``mesh_clis``)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    tail = [line for line in proc.stdout.splitlines()
-            if line.startswith(("mesh ", "engine"))]
-    log(f"serve --mesh (torchrun, {world} gloo ranks on cuda:0): exit "
-        f"{proc.returncode} in {t_cli:.1f}s; " + " | ".join(tail))
-    need(proc.returncode == 0, "torchrun ... serve --mesh exits 0:\n"
-         + proc.stdout[-4000:] + proc.stderr[-4000:])
-    need(any("row-sharded x2" in line for line in tail),
-         "serve --mesh printed the per-shard code bytes")
 
     launches = {k: fn.launches for k, fn in counters.items()}
-    for r in ranks + [nccl]:
+    for r in ranks:
         for k, v in r["launches"].items():
             launches[k] += v
     for name in SHARD_DECODE.values():
@@ -2587,7 +2685,6 @@ def sharded_serving_phase(card: str) -> dict:
     for name in ("pq_topk", "pq_score_batched"):
         need(all(r["launches"][name] > 0 for r in ranks),
              f"{name} launched on every rank")
-    need(nccl["launches"]["mgqe_decode"] > 0, "NCCL world 1: mgqe_decode")
 
     # what one flush puts on the wire, per rank, by collective: the
     # ids' all-gather over data, the (B_global, d) partials' psum over
@@ -2625,11 +2722,10 @@ def sharded_serving_phase(card: str) -> dict:
             + f"; wire a query: {4 * d_q} B gathered, {model_n * TOPK * 12}"
             f" B of partials (scores, tiebreaks, ids), {TOPK * 8} B of "
             f"results; top-{TOPK} bit-identical on every rank [{card}]")
-    log(f"NCCL world 1: ServingEngine(mesh=(1, 1)) over {nccl['flushes']} "
-        f"flushes bit-identical, {t_nccl:.1f}s")
     log(f"distributed phase {time.perf_counter() - t_phase:.1f}s (parent's "
-        f"exports and references {t_ref:.1f}s, 4 ranks {t_ranks:.1f}s, NCCL "
-        f"{t_nccl:.1f}s, torchrun {t_cli:.1f}s); gloo on one card moves the "
+        f"exports and references {t_ref:.1f}s, 4 ranks {t_ranks:.1f}s; its "
+        f"NCCL check runs with the LM mesh phase's, its torchrun drive with "
+        f"the distributed training phase's); gloo on one card moves the "
         f"collectives through host memory: no interconnect is measured; "
         f"launches {launches}")
     return launches
@@ -2644,9 +2740,9 @@ MT_STEPS = 5                           # deepfm's steps on the mesh
 MT_CKPT = 3                            # the step checkpointed and resumed
 MT_TOL = 1e-5                          # losses and gradients
 MT_TT_ROWS = 2_000_000                 # two-tower's users and items, cut
-MT_TT_STEPS = 3
+MT_TT_STEPS = 2
 MT_NCCL_STEPS = 2
-MT_TIMED = 3                           # unrecorded steps timed, each side
+MT_TIMED = 1                           # unrecorded steps timed, each side
 MT_SERVE_REQUESTS = 8                  # requests through each served field
 MT_TIMEOUT = 600.0                     # a group's start, collectives, join
 
@@ -3224,20 +3320,24 @@ def sharded_training_phase(card: str) -> dict:
         del model, state, step, restored
         gc.collect()
         torch.cuda.empty_cache()
-        # ------------------------------------------- one NCCL rank
-        t0 = time.perf_counter()
-        (nccl,) = spawn(mt_nccl_rank, 1, backend="nccl", device="cuda:0",
-                        args=(plan,), store_dir=tmp, timeout_s=MT_TIMEOUT)
-        t_nccl = time.perf_counter() - t0
-        # ---------------------------------- train --mesh under torchrun
+        # ---------------- one NCCL rank (run with the LM mesh phase's)
+        def nccl_check(nccl):
+            # NCCL (1, 1): the single device's route, bit for bit
+            need(nccl["losses"] == single["losses"][:MT_NCCL_STEPS]
+                 and nccl["crc"] == single["crc2"],
+                 "NCCL (1, 1): losses and params bit-identical to one "
+                 "device")
+            log(f"NCCL world 1: deepfm CONFIG {MT_NCCL_STEPS} steps on a "
+                f"(1, 1) mesh bit-identical to one device (the distributed "
+                f"training phase's check, {nccl['seconds']:.1f}s in the one "
+                f"NCCL process)")
+        defer_nccl("training", mt_nccl_rank,
+                   {"batches": plan["batches"][:MT_NCCL_STEPS]}, nccl_check)
+        # ------------- serve --mesh, then train --mesh, under torchrun
         t0 = time.perf_counter()
         cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-               "--nproc-per-node", str(world), "-m",
-               "repro_torch.launch.train", "--arch", "deepfm", "--full",
-               "--steps", "2", "--batch", str(CTR_BATCH), "--log-every", "1",
-               "--mesh", f"data={data_n},model={model_n}", "--dist-backend",
-               "gloo", "--device", "cuda:0", "--ckpt-dir",
-               os.path.join(tmp, "cli"), "--ckpt-every", "2"]
+               "--nproc-per-node", str(world), os.path.abspath(__file__),
+               MESH_CLIS_FLAG, os.path.join(tmp, "cli")]
         env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
         proc = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True,
                               text=True, timeout=MT_TIMEOUT)
@@ -3314,14 +3414,21 @@ def sharded_training_phase(card: str) -> dict:
     planted = abs(r0["tt_planted"] - tt_losses[0])
     need(planted > 1e-3, "a per-rank softmax (planted) moves the loss off "
          "one device's")
-    # NCCL (1, 1): the single device's route, bit for bit
-    need(nccl["losses"] == single["losses"][:MT_NCCL_STEPS]
-         and nccl["crc"] == single["crc2"],
-         "NCCL (1, 1): losses and params bit-identical to one device")
-    tail = [line for line in proc.stdout.splitlines()
+    served, _, trained = proc.stdout.partition(MESH_CLIS_MARK)
+    tail = [line for line in served.splitlines()
+            if line.startswith(("mesh ", "engine"))]
+    log(f"serve --mesh (torchrun, {world} gloo ranks on cuda:0, the smoke "
+        f"config): " + " | ".join(tail))
+    need(proc.returncode == 0, "torchrun ... serve --mesh, train --mesh "
+         "exits 0:\n" + proc.stdout[-4000:] + proc.stderr[-4000:])
+    need(any("row-sharded x2" in line for line in tail),
+         "serve --mesh printed the per-shard code bytes")
+    tail = [line for line in trained.splitlines()
             if line.startswith(("step ", "done"))]
-    log(f"train --mesh (torchrun, {world} gloo ranks on cuda:0): exit "
-        f"{proc.returncode} in {t_cli:.1f}s; " + " | ".join(tail))
+    log(f"train --mesh (torchrun, {world} gloo ranks on cuda:0, the smoke "
+        f"config; in the same ranks after serve --mesh, one start for the "
+        f"two): exit {proc.returncode} in {t_cli:.1f}s for both; "
+        + " | ".join(tail))
     need(proc.returncode == 0 and any(line.startswith("done") for line in tail)
          and cli_steps == [2], "torchrun ... train --mesh exits 0, its "
          "checkpoint written:\n" + proc.stdout[-4000:] + proc.stderr[-4000:])
@@ -3371,11 +3478,10 @@ def sharded_training_phase(card: str) -> dict:
         f"vs {tt_losses} (gap {tt_gap:.3g}), the towers' first-step "
         f"gradients within {tt_grad_gap:.3g}; a per-rank softmax "
         f"(planted) {r0['tt_planted']:.6f} vs {tt_losses[0]:.6f}")
-    log(f"NCCL world 1: deepfm CONFIG {MT_NCCL_STEPS} steps on a (1, 1) "
-        f"mesh bit-identical to one device, {t_nccl:.1f}s")
     log(f"distributed training phase {time.perf_counter() - t_phase:.1f}s "
         f"(one device's references {t_ref:.1f}s, 4 ranks {t_ranks:.1f}s, "
-        f"NCCL {t_nccl:.1f}s, torchrun {t_cli:.1f}s); launches {launches}")
+        f"torchrun {t_cli:.1f}s; its NCCL check runs with the LM mesh "
+        f"phase's); launches {launches}")
     return launches
 
 
@@ -3533,6 +3639,7 @@ def time_bag(table, ids, seg, b, w, what="uniform") -> dict:
     from repro_torch.kernels.embedding_bag import (embedding_bag,
                                                    embedding_bag_ref)
     from repro_torch.kernels.embedding_bag.embedding_bag import bag_plan
+    from repro_torch.roofline import op_roofline
     if w is not None:
         w = w.to(table.dtype)
     plan = bag_plan(b, table.shape[1], table.element_size(),
@@ -3549,13 +3656,9 @@ def time_bag(table, ids, seg, b, w, what="uniform") -> dict:
     lib_err = float((lib_fn().float() - embedding_bag(
         table, ids, seg, b, w).float()).abs().max())
     v, d = table.shape
-    el = table.element_size()
     nnz = ids.numel()
-    nbytes = (nnz * d * el + nnz * (ids.element_size() + seg.element_size())
-              + (0 if w is None else nnz * w.element_size()) + b * d * el)
-    ops = nnz * d * (1 if w is None else 2)
-    t_b = nbytes / HBM_BYTES_PER_S * 1e3
-    t_o = ops / F32_FLOP_PER_S * 1e3
+    r = op_roofline("embedding_bag", table, ids, seg, b, w)
+    nbytes, ops = r["bytes"], r["flops"]
     log(f"time embedding_bag {what} V={v} d={d} B={b} nnz={nnz} "
         f"{table.dtype} {'weighted' if w is not None else 'unweighted'} "
         f"(plan: tile {plan.tile} bags, chunk {plan.chunk} ids, grid "
@@ -3563,12 +3666,11 @@ def time_bag(table, ids, seg, b, w, what="uniform") -> dict:
         f"longest bag {int(torch.bincount(seg).max()) if nnz else 0}): "
         f"kernel {ms:.5f} "
         f"ms, plain {plain:.5f} ms, F.embedding_bag {lib:.5f} ms (max |diff| "
-        f"to the kernel {lib_err:.3g}), bound {max(t_b, t_o):.5f} ms by "
-        f"{'bytes' if t_b >= t_o else 'operations'} ({nbytes} bytes, {ops} "
+        f"to the kernel {lib_err:.3g}), bound {r['bound_ms']:.5f} ms by "
+        f"{r['bound_by']} ({nbytes} bytes, {ops} "
         f"operations); host time to launch: wrapper {host:.5f} ms")
     return {"ms": ms, "plain_ms": plain, "library_ms": lib,
-            "bound_ms": max(t_b, t_o),
-            "bound_by": "bytes" if t_b >= t_o else "operations"}
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"]}
 
 
 def bag_phase() -> tuple:
@@ -4070,7 +4172,8 @@ def resume_gap(arch: str, planted=None, **train_kw) -> tuple:
     if planted is not None:
         with planted():             # writes no checkpoint of its own
             bad_run = train(arch, ckpt_dir=ckpt_dir, **kw)
-    resumed = train(arch, ckpt_dir=ckpt_dir, ckpt_every=2, **kw)
+    # restored from the step-2 checkpoint; it writes none of its own
+    resumed = train(arch, ckpt_dir=ckpt_dir, **kw)
     whole = train(arch, **kw)
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     need([h["step"] for h in resumed.history] == [3, 4, 5],
@@ -4193,6 +4296,7 @@ def time_ctr_kernels() -> None:
     from repro_torch.kernels.mgqe_decode import mgqe_decode, mgqe_decode_ref
     from repro_torch.kernels.mgqe_decode.mgqe_decode import decode_plan
     from repro_torch.launch.engine import embedding_config_of_arch
+    from repro_torch.roofline import op_roofline
 
     sms = build.sm_count("cuda")
     for arch, b in (("autoint", CTR_BATCH),
@@ -4219,8 +4323,8 @@ def time_ctr_kernels() -> None:
         ms, host = time_ms(lambda: mgqe_decode(codes, cent))
         plain, _ = time_ms(lambda: mgqe_decode_ref(codes, cent))
         lib, _ = time_ms(lambda: F.embedding(offs, flat))
-        nbytes = b * d + d * k * s * 4 + b * d * s * 4
-        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        r = op_roofline("mgqe_decode", codes, cent)
+        nbytes, bound = r["bytes"], r["bound_ms"]
         log(f"time mgqe_decode B={b} D={d} K={k} S={s} f32 ({arch}'s served "
             f"batch, {decode_plan(b, d, k, s, 1, 4, sms)}): kernel "
             f"{ms:.5f} ms, plain {plain:.5f} ms, F.embedding {lib:.5f} ms, "
@@ -4588,6 +4692,7 @@ def time_bb_kernels() -> None:
     from repro_torch.kernels.dpq_assign.dpq_assign import choose_tiles
     from repro_torch.kernels.mgqe_decode import mgqe_decode, mgqe_decode_ref
     from repro_torch.kernels.mgqe_decode.mgqe_decode import decode_plan
+    from repro_torch.roofline import op_roofline
 
     sms = build.sm_count("cuda")
     for d in BB_SUBSPACES:
@@ -4612,7 +4717,7 @@ def time_bb_kernels() -> None:
             # launch queue stays shallow behind the held card
             plain, _ = time_ms(lambda: dpq_assign_ref(e, cent, lim),
                                iters=20)
-            bound, by, flops, nbytes, _ = assign_bound(e, 256, lim, 1)
+            bound, by, flops, nbytes = assign_bound([(e, lim)], cent)
             log(f"time dpq_assign vocab={n} D={d} K=256/64 S={s} f32 (a "
                 f"backbone table's export, tiles "
                 f"{choose_tiles(torch.float32, n, d, 256, s)}): kernel "
@@ -4641,8 +4746,8 @@ def time_bb_kernels() -> None:
         l2_ms, _ = time_ms(lambda: mgqe_decode(codes, cent, plan=l2))
         plain, _ = time_ms(lambda: mgqe_decode_ref(codes, cent))
         lib, _ = time_ms(lambda: F.embedding(offs, flat))
-        nbytes = b * d + d * 256 * s * 4 + b * d * s * 4
-        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        r = op_roofline("mgqe_decode", codes, cent)
+        nbytes, bound = r["bytes"], r["bound_ms"]
         log(f"time mgqe_decode B={b} D={d} K=256 S={s} f32 (the backbones' "
             f"candidates, {decode_plan(b, d, 256, s, 1, 4, sms)}): kernel "
             f"{ms:.5f} ms (on the l2 route {l2}: {l2_ms:.5f} ms), plain "
@@ -5081,34 +5186,6 @@ def lm_layer_statistics(run, cfg, fault) -> dict:
     return out
 
 
-def visible_pairs(s: int, window: int) -> int:
-    """(query, key) pairs a causal window lets through over S tokens."""
-    w = min(window, s)
-    return w * (w + 1) // 2 + (s - w) * w
-
-
-def lm_prefill_flops(cfg, b: int, s: int) -> int:
-    """The operations of one prefill as the port computes it: every
-    projection, attention's two products over each layer's visible
-    pairs, the FFN (an MoE layer's router and its capacity-padded expert
-    GEMMs: E x cap rows whatever the routing) and the last token's vocab
-    head."""
-    from repro_torch.models import lm
-    from repro_torch.nn import moe
-    d, hd, f = cfg.d_model, cfg.resolved_head_dim, cfg.d_ff
-    t = b * s
-    proj = 4 * t * d * hd * (cfg.num_heads + cfg.num_kv_heads)
-    if cfg.is_moe:
-        cap = moe.capacity(t, cfg.num_experts, cfg.num_experts_per_tok,
-                           cfg.moe_capacity_factor)
-        ffn = 2 * t * d * cfg.num_experts + 6 * cfg.num_experts * cap * d * f
-    else:
-        ffn = 6 * t * d * f
-    attn = sum(4 * hd * cfg.num_heads * b * visible_pairs(s, window)
-               for _, _, window, _ in lm._layer_plan(cfg, s))
-    return cfg.num_layers * (proj + ffn) + attn + 2 * b * d * cfg.vocab_size
-
-
 def lm_decode_bytes(run, cfg, b: int, max_seq: int) -> int:
     """The bytes one decode step must read: every weight but the token
     table (served from its artifact) and the whole KV cache (the
@@ -5188,6 +5265,7 @@ def lm_path(arch: str, batch: int, prompt: int, layers) -> tuple:
     from repro_torch.core.schemes.base import torch_dtype
     from repro_torch.launch.serve import serve_lm
     from repro_torch.models import lm
+    from repro_torch.roofline import HBM_BW, lm_prefill_flops, peak_flops
 
     t_phase = time.perf_counter()
     _, cfg = get_arch(arch, smoke=False)
@@ -5214,9 +5292,9 @@ def lm_path(arch: str, batch: int, prompt: int, layers) -> tuple:
     want = {"dpq_assign": -(-ecfg.vocab_size // ASSIGN_BATCH),
             "mgqe_decode": 1 + LM_STEPS, "flash_attention": cfg.num_layers}
     flops = lm_prefill_flops(cfg, batch, prompt)
-    prefill_bound = flops / BF16_FLOP_PER_S
+    prefill_bound = flops / peak_flops("bfloat16")
     step_bytes = lm_decode_bytes(run, cfg, batch, max_seq)
-    step_bound = step_bytes / HBM_BYTES_PER_S
+    step_bound = step_bytes / HBM_BW
     step_s = run.decode_seconds / LM_STEPS
     weight_gib = (cfg.param_count() * torch_dtype(cfg.param_dtype).itemsize
                   / 2**30)
@@ -5375,10 +5453,12 @@ def time_flash(err: float, launches: int, shapes: dict) -> dict:
     ``F.scaled_dot_product_attention`` call and its bound; the
     ``kernels`` entry holds the mean per launch over the paths' layers
     (``shapes``: (arch, B, S, H, Hkv, hd, window) -> layers)."""
+    from repro_torch.kernels.flash_attention.ops import visible_pairs
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_ref)
+    from repro_torch.roofline import op_roofline
     times = {}
     for key, count in shapes.items():
         # (arch, B, S, H, Hkv, hd, window[, dtype name]): bf16 unless named
@@ -5410,18 +5490,14 @@ def time_flash(err: float, launches: int, shapes: dict) -> dict:
                          - flash_attention_ref(q, k, v, window=win).float())
                         .abs().max())
         pairs = visible_pairs(s, win) * b * h
-        flops = 4 * hd * pairs
-        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-        t_ops = flops / (BF16_FLOP_PER_S if dtype == torch.bfloat16
-                         else F32_FLOP_PER_S) * 1e3
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        times[key] = (ms, plain, lib_ms, max(t_ops, t_bytes),
-                      "operations" if t_ops >= t_bytes else "bytes")
+        r = op_roofline("flash_attention", q, k, v, window=win)
+        flops, nbytes = r["flops"], r["bytes"]
+        times[key] = (ms, plain, lib_ms, r["bound_ms"], r["bound_by"])
         log(f"time flash_attention {arch} layer x{count} B={b} S={s} H={h} "
             f"Hkv={hkv} hd={hd} window={win} {dtype}: kernel {ms:.5f} ms, "
             f"plain {plain:.5f} ms, F.scaled_dot_product_attention "
             f"{lib_ms:.5f} ms ({sdpa_backend(lib)}; max |diff| to the "
-            f"plain version {lib_err:.3g}), bound {max(t_ops, t_bytes):.5f} "
+            f"plain version {lib_err:.3g}), bound {r['bound_ms']:.5f} "
             f"ms ({flops} FLOP over {pairs} visible pairs at "
             f"{989 if dtype == torch.bfloat16 else 67} TFLOP/s, "
             f"{nbytes} bytes); {flops / ms / 1e9:.2f} TFLOP/s; host time to "
@@ -5653,6 +5729,7 @@ def time_pq_kernels(errs: dict, launches: dict, luts, codes) -> list:
                                               pq_score_batched_ref,
                                               pq_score_ref, pq_topk,
                                               pq_topk_ref)
+    from repro_torch.roofline import op_roofline
     b, d, k = luts.shape
     n = codes.shape[0]
     src = "src/repro_torch/kernels/csrc/pq_score.cu"
@@ -5662,24 +5739,19 @@ def time_pq_kernels(errs: dict, launches: dict, luts, codes) -> list:
     lut1 = luts[0].contiguous()
     table1 = lut1.reshape(d * k, 1).contiguous()
 
-    def bound(nbytes, ops):
-        t_b = nbytes / HBM_BYTES_PER_S * 1e3
-        t_o = ops / F32_FLOP_PER_S * 1e3
-        return max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
-
     out = []
     cases = [
         ("pq_score", 62, lambda: pq_score(lut1, codes),
          lambda: pq_score_ref(lut1, codes),
          lambda: F.embedding_bag(offs, table1, mode="sum"),
-         n * d + d * k * 4 + n * 4, n * d, 1),
+         op_roofline("pq_score", lut1, codes), 1),
         ("pq_score_batched", 93, lambda: pq_score_batched(luts, codes),
          lambda: pq_score_batched_ref(luts, codes),
          lambda: F.embedding_bag(offs, table, mode="sum"),
-         n * d + b * d * k * 4 + b * n * 4, b * n * d, b),
+         op_roofline("pq_score_batched", luts, codes), b),
         ("pq_topk", 146, lambda: pq_topk(luts, codes, TOPK),
          lambda: pq_topk_ref(luts, codes, TOPK), None,
-         n * d + b * d * k * 4 + b * TOPK * 8, b * n * d, b),
+         op_roofline("pq_topk", luts, codes, TOPK), b),
     ]
     # pq_topk against the two-call composition it fuses (no single
     # library call computes it), and on its worst case: scores rising
@@ -5705,17 +5777,18 @@ def time_pq_kernels(errs: dict, launches: dict, luts, codes) -> list:
     luts465 = torch.cat([luts, luts[:1]]).contiguous()
     r_ms, _ = time_ms(lambda: pq_score_batched(luts465, codes), iters=20,
                       warmup=2)
-    r_bound = (n * d + 465 * d * k * 4 + 465 * n * 4) / HBM_BYTES_PER_S * 1e3
+    r465 = op_roofline("pq_score_batched", luts465, codes)
     log(f"time pq_score_batched N={n} B=465 D={d} K={k}: kernel {r_ms:.5f} "
-        f"ms, bound {r_bound:.5f} ms by bytes")
+        f"ms, bound {r465['bound_ms']:.5f} ms by {r465['bound_by']}")
     del luts465
-    for name, line, kern, plain_fn, lib_fn, nbytes, ops, bb in cases:
+    for name, line, kern, plain_fn, lib_fn, r, bb in cases:
         ms, host = time_ms(kern, iters=20, warmup=2)
         plain, _ = time_ms(plain_fn, iters=3, warmup=1, hold=False)
         lib = None
         if lib_fn is not None:
             lib, _ = time_ms(lib_fn, iters=20, warmup=2)
-        t, by = bound(nbytes, ops)
+        t, by, nbytes, ops = (r["bound_ms"], r["bound_by"], r["bytes"],
+                              r["flops"])
         out.append({"name": name, "route": "cuda", "source": src,
                     "replaces": f"{tpu}:{line}",
                     "launches": launches[name], "max_abs_err": errs[name],
@@ -5829,6 +5902,7 @@ def time_ivf_scoring(index, art, q) -> None:
     from repro_torch.kernels.pq_score import (build_lut_batch,
                                               pq_score_batched,
                                               pq_score_batched_ref)
+    from repro_torch.roofline import op_roofline
     _, lists = index._probe(art, q)
     chain, _ = index._expand_chain(art["list_chain"], lists)
     uniq = torch.unique(chain)
@@ -5848,22 +5922,25 @@ def time_ivf_scoring(index, art, q) -> None:
                        warmup=1, hold=False)
     lib, _ = time_ms(lambda: F.embedding_bag(offs, table, mode="sum"),
                      iters=20, warmup=2)
-    nbytes = n * d + b * d * k * 4 + b * n * 4
-    t_b = nbytes / HBM_BYTES_PER_S * 1e3
-    t_o = b * n * d / F32_FLOP_PER_S * 1e3
+    r = op_roofline("pq_score_batched", luts, codes)
+    nbytes = r["bytes"]
     log(f"time pq_score_batched at the ivf search (nprobe="
         f"{index.cfg.nprobe}: {len(uniq)} unique lists) N={n} B={b} D={d} "
         f"K={k}: kernel {ms:.5f} ms, plain {plain:.5f} ms, library "
-        f"{lib:.5f} ms (F.embedding_bag), bound {max(t_b, t_o):.5f} ms by "
-        f"{'bytes' if t_b >= t_o else 'operations'} ({nbytes} bytes); "
+        f"{lib:.5f} ms (F.embedding_bag), bound {r['bound_ms']:.5f} ms by "
+        f"{r['bound_by']} ({nbytes} bytes); "
         f"held bit-identical to the plain version")
 
 
 def ivf_scale_corpus(n_queries: int):
     """The JAX bench's retrieval-scale corpus at IVF_ROWS rows (host
-    numpy) and ``n_queries`` queries."""
+    numpy) and ``n_queries`` queries: the one the dry run's child drew
+    beside the earlier phases (:func:`dry_rows`), or drawn here."""
     from repro_torch.data.synthetic import pq_clustered_corpus
     from repro_torch.retrieval import suggest_nlist
+    if "proc" in _DRY and n_queries in IVF_CORPUS_QUERIES:
+        dry_rows()
+        return _DRY["corpus"].pop(n_queries)
     return pq_clustered_corpus(
         n=IVF_ROWS, d=IVF_DIM, num_subspaces=IVF_SUB, n_queries=n_queries,
         n_clusters=min(2048, suggest_nlist(IVF_ROWS)), cluster_zipf_a=1.3)
@@ -6129,30 +6206,6 @@ def lm_train_seq() -> int:
     """The training sequence: ``train_4k``'s (``configs/base.py::LM_SHAPES``)."""
     from repro_torch.configs.base import LM_SHAPES
     return next(s for s in LM_SHAPES if s.name == "train_4k").seq_len
-
-
-def lm_train_flops(cfg, b: int, s: int) -> tuple:
-    """(FLOP of one training step as the card must do it, the parts):
-    6·N·T for the weights that multiply each token (every projection,
-    the FFN, an MoE layer's router and its top-k experts only, the vocab
-    head; not the token table, a gather), the remat forward 2·N·T (every
-    layer and each xent chunk recomputed), and attention's products over
-    each layer's visible pairs: 4·hd a pair and head forward, again in
-    the remat forward, and 10·hd in the backward (P recomputed, then dV,
-    dP, dQ, dK)."""
-    from repro_torch.models import lm
-    t = b * s
-    d, hd = cfg.d_model, cfg.resolved_head_dim
-    ffn = 3 * d * cfg.d_ff
-    if cfg.is_moe:
-        ffn = ffn * cfg.num_experts_per_tok + d * cfg.num_experts
-    n = (cfg.num_layers * (d * hd * 2 * (cfg.num_heads + cfg.num_kv_heads)
-                           + ffn) + d * cfg.vocab_size)
-    pairs = sum(visible_pairs(s, window) for _, _, window, _ in
-                lm._layer_plan(cfg, s)) * b * cfg.num_heads
-    parts = {"weights": 6 * n * t, "remat": 2 * n * t,
-             "attention": 18 * hd * pairs}
-    return sum(parts.values()), parts
 
 
 @contextlib.contextmanager
@@ -6438,6 +6491,7 @@ def lm_train_run(arch: str, batch: int, seq: int, steps: int,
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.launch.train import train
+    from repro_torch.roofline import lm_train_flops, peak_flops
     full_layers = get_arch(arch, smoke=False)[1].num_layers
     gc.collect()
     torch.cuda.empty_cache()
@@ -6455,7 +6509,7 @@ def lm_train_run(arch: str, batch: int, seq: int, steps: int,
     times = sorted(h["step_time_s"] for h in run.history[1:])
     step_s = times[len(times) // 2]
     flops, parts = lm_train_flops(cfg, batch, seq)
-    bound_s = flops / BF16_FLOP_PER_S
+    bound_s = flops / peak_flops("bfloat16")
     want = 2 * cfg.num_layers * steps if cfg.remat else \
         cfg.num_layers * steps
     state_gib = cfg.param_count() * (
@@ -6734,20 +6788,23 @@ LMM_ARCH = "stablelm-3b"
 # host-staged gloo collectives: the depth is cut for memory and time,
 # the width kept (the whole script read 1,015.8 s of its 1,200 s at 16
 # layers; 1,205.5 s at 8 with the LM serving mesh phase, whose time
-# the cut to 4 pays; H100 80GB HBM3 at 700 W)
-LMM_LAYERS = 4
+# the cut to 4 paid; 1 for the dry run's and long_500k's time; H100
+# 80GB HBM3 at 700 W)
+LMM_LAYERS = 1
 LMM_BATCH = 2                          # train_4k's sequence, one a data rank
 LMM_STEPS = 2                          # a step, then a traced one
-LMM_CHECK_LAYERS = 2                   # stablelm-3b's float32 check's depth
+LMM_CHECK_LAYERS = 1                   # stablelm-3b's float32 check's depth
 QW_CHECK_LAYERS = 1                    # qwen3's (its 128 experts in float32)
 LMM_SAMPLES = 4096                     # elements held a leaf
 LMM_TOL = 1e-5                         # the CPU tests' bar (float32)
 # bf16 activations: row-parallel partials rounded to bf16 before their
 # float32 sum, where one device rounds each product once
 LMM_BF16_LOSS_TOL = 2e-3
-# the resume's depth: two layers, so that a restore that swaps or
-# repeats layers of a stack cannot match
-LMM_RESUME_LAYERS = 2
+# the resume's depth: one layer (127.1 s for the three runs at two, a
+# 1,140.5 s script; a resume repeats bit for bit at one as at two);
+# the one-device resume (LM_RESUME_LAYERS) keeps two, so a restore that
+# swaps or repeats layers of a stack cannot match there
+LMM_RESUME_LAYERS = 1
 QW_ARCH = "qwen3-moe-30b-a3b"
 QW_LAYERS = 1                          # for the whole run's time
 FFN_MESH = (1, 3)                      # 128 experts % 3 != 0: the ffn strategy
@@ -7014,7 +7071,7 @@ def lmm_timed_steps(cell, batch, steps: int) -> dict:
         losses.append(float(m["loss"]))
     stats, cell.mesh.stats = cell.mesh.stats, None
     cell.state = state
-    return {"losses": losses, "ms": ms, "comm": dataclasses.astuple(stats),
+    return {"losses": losses, "ms": ms, "comm": dataclasses.asdict(stats),
             "peak": torch.cuda.max_memory_allocated()}
 
 
@@ -7319,10 +7376,9 @@ def lm_mesh_phase(card: str) -> tuple:
     plan["ckpt"] = os.path.join(tmp, "ckpt")
     counters = reset_counts()
     try:
-        t0 = time.perf_counter()
-        (nccl,) = spawn(lmm_nccl_rank, 1, backend="nccl", device="cuda:0",
-                        args=(plan,), store_dir=tmp, timeout_s=LMM_TIMEOUT)
-        t_nccl = time.perf_counter() - t0
+        # the distributed phases' NCCL checks and this one, one process
+        nccl, nccl_launches, t_nccl = run_nccl_jobs("lm", lmm_nccl_rank,
+                                                    plan, tmp)
         t0 = time.perf_counter()
         ranks = spawn(lmm_rank, LMM_MESH[0] * LMM_MESH[1], backend="gloo",
                       device="cuda:0", args=(plan,), store_dir=tmp,
@@ -7416,9 +7472,13 @@ def lm_mesh_phase(card: str) -> tuple:
              f"every rank ({r['launches']})")
     need(launches["dpq_assign"] == 1 and launches["mgqe_decode"] == 1,
          "the trained table exported and served once")
+    # the distributed phases' NCCL checks ran in this phase's process
+    for name, v in nccl_launches.items():
+        launches[name] += v
 
     def comm(run):
-        count, nbytes, secs = run["comm"]
+        c = run["comm"]
+        count, nbytes, secs = c["count"], c["bytes"], c["seconds"]
         return (f"{count} gloo collectives, {nbytes / 1e9:.3f} GB from this "
                 f"rank, {secs * 1e3:.1f} ms of the traced step's "
                 f"{run['ms'][-1]:.1f} ms (compute and launches "
@@ -7458,12 +7518,16 @@ def lm_mesh_phase(card: str) -> tuple:
         f"gradients within {fgap:.3g} of it at each leaf's scale, aux {ffn[0]['aux']:.7f} vs "
         f"{ref['ffn']['aux']:.7f}, forward and backward "
         f"{[round(r['seconds'], 3) for r in ffn]} s a rank [{card}]")
+    for name in ("stablelm", "qwen3"):
+        dry_check(f"lm mesh {name}", [r[name]["comm"] for r in ranks],
+                  max(r[name]["ms"][-1] for r in ranks), card)
     log(f"lm mesh resume (stablelm-3b at {LMM_RESUME_LAYERS} layers, FSDP, "
         f"ZeRO-1): failed in step 2, resumed from the step-1 checkpoint of "
         f"whole arrays bit-identical to the uninterrupted run, "
         f"{res[0]['seconds']:.1f} s for the three runs")
     log(f"lm mesh phase {time.perf_counter() - t_phase:.1f}s (one device's "
-        f"references {t_ref:.1f}s, NCCL {t_nccl:.1f}s, 4 ranks "
+        f"references {t_ref:.1f}s, NCCL {t_nccl:.1f}s for the three "
+        f"phases' checks, {nccl['seconds']:.1f}s of it this phase's; 4 ranks "
         f"{t_ranks:.1f}s, the ffn strategy's 3 ranks {t_ffn:.1f}s); "
         f"launches {launches}")
     shapes = {("stablelm-3b mesh rank", 1, seq, 16, 16, 80, FULL_WINDOW):
@@ -7485,7 +7549,7 @@ def lm_mesh_phase(card: str) -> tuple:
 LMS_MESH = (2, 2)                      # (data, model): 4 gloo ranks, one card
 LMS_ARCH = "gemma3-4b"
 # (a): gemma3-4b's CONFIG at full width and depth, one prompt a data rank
-LMS_BATCH, LMS_PROMPT, LMS_STEPS = 2, 4096, 16
+LMS_BATCH, LMS_PROMPT, LMS_STEPS = 2, 4096, 8
 LMS_MAX_SEQ = LMS_PROMPT + LMS_STEPS
 # (b): float32 at full width, gemma3-4b's loc, glob and rem stacks (7
 # layers), a prompt past the local window of 1,024 (the local ring
@@ -7493,7 +7557,7 @@ LMS_MAX_SEQ = LMS_PROMPT + LMS_STEPS
 # do not divide 8: the cache's sequence over model); the cache's 1,108
 # slots rounded up to whole blocks of 8
 LMS_CHECK_LAYERS = 7
-LMS_CHECK_PROMPT, LMS_CHECK_STEPS = 1100, 8
+LMS_CHECK_PROMPT, LMS_CHECK_STEPS = 1100, 4
 LMS_CHECK_MAX_SEQ = 1112
 LMS_CHECK_TOL = 1e-4
 LMS_SEQ_MESH = (1, 8)
@@ -7522,6 +7586,159 @@ LMS_PLANT_COORDS = (0, 1)
 LMS_FLIP_NOISE = 486 / 66048
 LMS_FLIP_BAR = LMS_NOISE_RULE * LMS_FLIP_NOISE
 LMS_TIMEOUT = 900.0
+
+# (e): LM_SHAPES' long_500k (B = 1 over 524,288 cached positions) through
+# build_cell with the split_cache option: the token whole on every rank,
+# the global layers' cache sequence over data, the kv heads over model;
+# float32 activations (the global layers' cache 26.8 GB), its K and V
+# drawn chunk by chunk from seeded generators so a rank draws its block
+# alone, positions 0..LONG_VALID-1 written
+LONG_VALID = 524288 - 4
+LONG_STEPS = 3
+LONG_CHUNK = 65536
+LONG_PLANT_COORDS = (0, 1)             # the rank whose key halves swap
+
+
+def long_shape():
+    from repro_torch.configs.base import LM_SHAPES
+    return next(s for s in LM_SHAPES if s.name == "long_500k")
+
+
+def long_config():
+    """gemma3-4b's CONFIG with float32 activations (the split cache is
+    build_cell's ``split_cache`` option)."""
+    return dataclasses.replace(lms_configs()["a"], dtype="float32")
+
+
+def long_fill_cache(cache: dict, cfg, mesh=None) -> None:
+    """Fill ``cache`` (whole, or with a ``mesh`` this rank's block under
+    ``lm_cache_spec`` of B = 1) in place: each layer's K and V drawn
+    LONG_CHUNK slots at a time (an eighth of a shorter stack's) from a
+    generator seeded by its stack,
+    layer, leaf and chunk (a rank draws only the chunks of its block),
+    V about a mean of its own for each kv head; kpos the position each
+    slot holds after LONG_VALID tokens (the local rings wrapped), -1 for
+    the global layers' slots not yet written."""
+    import zlib
+    import numpy as np
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.sharding.collectives import linear_index
+    from repro_torch.sharding.rules import NamedSpec, lm_cache_spec
+    whole = lm._cache_template(cfg, 1, long_shape().seq_len)
+    specs = None if mesh is None else lm_cache_spec(cfg, 1, mesh, False,
+                                                    whole)
+    for name, leaves in whole.items():
+        if name == "pos":
+            continue
+        lead = tuple(leaves[0].shape[:-4])
+        clen = leaves[2].shape[-1]
+        slot = torch.arange(clen, dtype=torch.int64, device="cuda")
+        if clen >= LONG_VALID:
+            kp = torch.where(slot < LONG_VALID, slot, -1)
+        else:                            # a ring of clen slots
+            kp = LONG_VALID - 1 - (LONG_VALID - 1 - slot) % clen
+        kp = kp.to(torch.int32)[None]
+        for flat in range(math.prod(lead)):
+            idx = tuple(int(i) for i in np.unravel_index(flat, lead))
+            sp = [None, None, None] if specs is None else [
+                sp_[len(lead):] for sp_ in specs[name]]
+            kp_block = kp if sp[2] is None else NamedSpec(mesh, sp[2]).block(
+                kp)
+            cache[name][2][idx].copy_(kp_block)
+            for j in range(2):
+                dst = cache[name][j][idx]
+                # chunks on a grid of the whole sequence alone, so a
+                # block of up to 8 shards is whole chunks
+                step = min(LONG_CHUNK, clen // 8)
+                start, n = 0, clen
+                if sp[j] is not None and sp[j][1] is not None:
+                    n = dst.shape[1]
+                    start = NamedSpec(mesh, (None, sp[j][1])).block(
+                        torch.empty((1, clen), device="meta")).shape[1] \
+                        * linear_index(mesh, sp[j][1])
+                for c0 in range(start, start + n, step):
+                    g = torch.Generator(device="cuda").manual_seed(
+                        zlib.crc32(f"long/{name}/{flat}/{j}/{c0}".encode()))
+                    t = torch.randn((1, step) + tuple(leaves[j].shape[-2:]),
+                                    generator=g, device="cuda")
+                    if j == 1:
+                        t += torch.randn((1, 1) + tuple(leaves[j].shape[-2:-1])
+                                         + (1,), generator=g, device="cuda")
+                    if sp[j] is not None and sp[j][2] is not None:
+                        t = NamedSpec(mesh, (None, None, sp[j][2])).block(t)
+                    dst[:, c0 - start:c0 - start + step].copy_(t)
+                    del t
+    cache["pos"] = LONG_VALID
+
+
+def long_decode(step, cache, local, feed, planted=None, mesh=None) -> dict:
+    """LONG_STEPS decode steps of ``step`` on ``cache`` fed ``feed``'s
+    tokens, the first with the mesh's collectives counted (a ``mesh``),
+    each timed; then one more (``last``), ``planted(cache)`` applied
+    first where given.  Logits on the host."""
+    import torch
+    from repro_torch.sharding.collectives import CommStats
+    out = {"logits": [], "ms": []}
+    with torch.no_grad():
+        for i in range(LONG_STEPS):
+            if mesh is not None and i == 0:
+                mesh.stats = CommStats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                cache, logits = step(cache, local(feed[:, i]))
+                torch.cuda.synchronize()
+            finally:
+                if mesh is not None and i == 0:
+                    out["comm"] = dataclasses.asdict(mesh.stats)
+                    mesh.stats = None
+            out["ms"].append(1e3 * (time.perf_counter() - t0))
+            out["logits"].append(logits.float().cpu())
+        if planted is not None:
+            planted(cache)
+        cache, logits = step(cache, local(feed[:, LONG_STEPS]))
+        out["last"] = logits.float().cpu()
+    return out
+
+
+def long_swap_block(cache: dict) -> None:
+    """(e)'s planted fault, in place: the two halves of this rank's
+    block of the global layers' keys swapped, their values left in place,
+    so each key of the block stands beside another position's value (a
+    sequence block written at the wrong offset)."""
+    k = cache["glob"][0]
+    n = k.shape[-3] // 2
+    first = k.narrow(-3, 0, n).clone()
+    k.narrow(-3, 0, n).copy_(k.narrow(-3, n, n))
+    k.narrow(-3, n, n).copy_(first)
+
+
+def long_rank(mesh, plan) -> dict:
+    """(e) on this rank: long_500k's cell through ``build_cell`` (the
+    params drawn as (a)'s, the artifact (a)'s), its cache block filled
+    by ``long_fill_cache``, the steps of ``long_decode``."""
+    import torch
+    from repro_torch.launch.cells import build_cell
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cell = build_cell(LMS_ARCH, long_shape(), mesh, opts=("split_cache",),
+                      cfg=long_config(), artifact=plan["art"]["a"])
+    params, art, cache, _ = cell.args
+    long_fill_cache(cache, cell.cell.cfg, mesh)
+    cache_bytes = sum(t.numel() * t.element_size()
+                      for name, leaves in cache.items() if name != "pos"
+                      for t in leaves)
+    plant = mesh.axis_index("data"), mesh.axis_index("model")
+    out = long_decode(lambda c, t: cell.fn(params, art, c, t), cache,
+                      cell.cell.local_tokens, plan["feed"]["e"],
+                      long_swap_block if plant == LONG_PLANT_COORDS
+                      else None, mesh)
+    out.update(note=cell.note, cache_bytes=cache_bytes,
+               peak=torch.cuda.max_memory_allocated() - before)
+    return out
+
 
 
 def lms_configs() -> dict:
@@ -7751,7 +7968,7 @@ def lms_serve(cfg, mesh, art, prompts, max_seq: int, steps: int,
             mesh.stats = CommStats()
             try:
                 decode(cache, tok)
-                out["comm"] = dataclasses.astuple(mesh.stats)
+                out["comm"] = dataclasses.asdict(mesh.stats)
             finally:
                 mesh.stats = None
     out["tokens"] = torch.stack(toks, 1).cpu()
@@ -7848,6 +8065,10 @@ def lms_rank(rank, plan) -> dict:
                               planted=out["coords"] == LMS_PLANT_COORDS)
     out["d"]["peak"] = torch.cuda.max_memory_allocated()
     out["d"]["params_bytes"] = lms_bytes(served.params)
+    del served
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["e"] = long_rank(mesh, plan)
     out["launches"] = {k: fn.launches for k, fn in counters.items()}
     return out
 
@@ -7915,6 +8136,7 @@ def lm_serve_mesh_phase(card: str) -> tuple:
     from repro_torch.launch.mesh import spawn
     from repro_torch.models import lm
     from repro_torch.sharding.rules import strip_embed_table
+    from repro_torch.roofline import HBM_BW
     t_phase = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
@@ -7930,7 +8152,10 @@ def lm_serve_mesh_phase(card: str) -> tuple:
                       "c": QWS_STEPS},
             "feed": {"d": np.random.default_rng(3).integers(
                 0, cfgs["d"].vocab_size,
-                (LMS_DECODE_BATCH, LMS_DECODE_STEPS + 1)).astype(np.int32)},
+                (LMS_DECODE_BATCH, LMS_DECODE_STEPS + 1)).astype(np.int32),
+                "e": np.random.default_rng(4).integers(
+                    0, cfgs["d"].vocab_size,
+                    (1, LONG_STEPS + 1)).astype(np.int32)},
             "art": {}}
     plan["prompts"]["b_split"] = plan["prompts"]["b"]
     # ------------------------------------ the export, once, counted
@@ -7988,6 +8213,22 @@ def lm_serve_mesh_phase(card: str) -> tuple:
     with f32_attention():
         ref["d_f32"] = lms_decode_32k(cfgs["d"], None, None, params["a"],
                                       art["d"], plan["feed"]["d"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (e) on one device: the same params, the whole cache
+    t0 = time.perf_counter()
+    lcfg = dataclasses.replace(long_config(), split_local_global_cache=True)
+    cache = lm.make_cache(lcfg, 1, long_shape().seq_len)
+    long_fill_cache(cache, lcfg)
+    ref["e_bytes"] = sum(t.numel() * t.element_size()
+                         for name, leaves in cache.items() if name != "pos"
+                         for t in leaves)
+    ref["e"] = long_decode(lambda c, t: lm.decode_step(
+        params["a"], c, t, lcfg, embed_artifact=art["a"]), cache,
+        lambda t: torch.as_tensor(t).cuda(), plan["feed"]["e"])
+    ref["e"]["peak"] = torch.cuda.max_memory_allocated()
+    del cache
+    ref["e_s"] = time.perf_counter() - t0
     weights = lms_bytes(params["a"])
     del params["a"]
     gc.collect()
@@ -8107,7 +8348,8 @@ def lm_serve_mesh_phase(card: str) -> tuple:
                    "the planted merge fault fails (b)'s bar"))
     a = [r["a"] for r in ranks]
     g_a, t_a = gaps(ranks, LMS_MESH, "a"), top1(ranks, LMS_MESH, "a", bar_g)
-    count, nbytes, secs = a[0]["comm"]
+    c = a[0]["comm"]
+    count, nbytes, secs = c["count"], c["bytes"], c["seconds"]
     layers = cfgs["a"].num_layers
     tok_s = LMS_BATCH * LMS_STEPS / max(x["decode_s"] for x in a)
     one_tok_s = LMS_BATCH * LMS_STEPS / ref["a"]["decode_s"]
@@ -8185,10 +8427,10 @@ def lm_serve_mesh_phase(card: str) -> tuple:
         f"({[round(x['cache_bytes'] / 1e9, 3) for x in d]} GB a rank), "
         f"positions 0..{LMS_DECODE_VALID - 1}: {LMS_DECODE_STEPS} steps "
         f"{[round(x, 2) for x in mesh_ms]} ms (slowest rank) against a "
-        f"bytes bound of {card_bytes / HBM_BYTES_PER_S * 1e3:.2f} ms "
+        f"bytes bound of {card_bytes / HBM_BW * 1e3:.2f} ms "
         f"({card_bytes / 1e9:.2f} GB on the card: each rank's params and "
         f"cache block); one device {[round(x, 2) for x in ref['d']['ms']]} "
-        f"ms against {one_bytes / HBM_BYTES_PER_S * 1e3:.2f} ms "
+        f"ms against {one_bytes / HBM_BW * 1e3:.2f} ms "
         f"({one_bytes / 1e9:.2f} GB); logits within {fmt(g_d)} of one "
         f"device (bar {bar_d:.4g}), top-1 rule {t_d}; peak a rank "
         f"{[round(x['peak'] / 1e9, 3) for x in d]} GB [{card}]")
@@ -8197,8 +8439,42 @@ def lm_serve_mesh_phase(card: str) -> tuple:
                 f"of one device on the same cache and the top-1 rule"),
                (planted_d > bar_d, "(d)'s planted swap of one rank's cache "
                 "rows fails its bar")]
+    # (e) long_500k: the mesh against one device on the same cache
+    e = [r["e"] for r in ranks]
+    bar_e = LMS_CHECK_TOL
+    g_e = [max(float((x["logits"][i] - ref["e"]["logits"][i]).abs().max())
+               for x in e) for i in range(LONG_STEPS)]
+    same_e = all(torch.equal(x["logits"][i].argmax(-1),
+                             ref["e"]["logits"][i].argmax(-1))
+                 for x in e for i in range(LONG_STEPS))
+    planted_e = max(float((x["last"] - ref["e"]["last"]).abs().max())
+                    for x in e)
+    log(f"lm serve mesh (e) long_500k through build_cell ({e[0]['note']}): "
+        f"{cfgs['a'].name} at float32 activations, B = 1 over "
+        f"{long_shape().seq_len:,} slots, a {ref['e_bytes'] / 1e9:.2f} GB "
+        f"cache ({[round(x['cache_bytes'] / 1e9, 3) for x in e]} GB a rank), "
+        f"positions 0..{LONG_VALID - 1}: {LONG_STEPS} steps "
+        f"{[round(max(x['ms'][i] for x in e), 2) for i in range(LONG_STEPS)]}"
+        f" ms (slowest rank; the first counted) against one device's "
+        f"{[round(x, 2) for x in ref['e']['ms']]} ms; logits within "
+        f"{fmt(g_e)} of one device (bar {bar_e}), tokens identical "
+        f"{same_e}; planted (rank {LONG_PLANT_COORDS}'s global-layer key "
+        f"block halves swapped) the step after moves by "
+        f"{planted_e:.4g}; peak a rank "
+        f"{[round(x['peak'] / 1e9, 3) for x in e]} GB, one device "
+        f"{ref['e']['peak'] / 1e9:.3f} GB; one device's reference "
+        f"{ref['e_s']:.1f}s [{card}]")
+    checks += [(max(g_e) <= bar_e and same_e,
+                f"(e) long_500k: every step's logits within {bar_e} of one "
+                f"device on the same cache, the tokens identical"),
+               (planted_e > bar_e, "(e)'s planted swap of a rank's sequence "
+                "block fails its bar")]
     for ok, what in checks:
         need(ok, what)
+    dry_check("lm serve (a) decode", [r["a"]["comm"] for r in ranks],
+              1e3 * max(r["a"]["decode_s"] for r in ranks) / LMS_STEPS, card)
+    dry_check("long_500k", [x["comm"] for x in e],
+              max(x["ms"][0] for x in e), card)
     per_rank = {"a": layers, "b": LMS_CHECK_LAYERS}
     for r in ranks:
         need(r["launches"]["flash_attention"] == per_rank["a"]
@@ -8368,15 +8644,6 @@ def gnn_model(cfg, d_feat: int, task: str, device="cuda", seed: int = 0):
             opt.make_step_fn(GNN_OPTIMIZER, loss))
 
 
-def gnn_step_flops(cfg, n: int, e: int, d_feat: int) -> float:
-    """``mace_model_flops`` of a train step over ``n`` nodes and ``e``
-    edges, plus the feature projection's (forward and backward,
-    3 x 2·N·F·C)."""
-    from repro_torch.launch.cells import mace_model_flops
-    return mace_model_flops(cfg, n, e, train=True) \
-        + 6.0 * n * d_feat * cfg.d_hidden
-
-
 def gnn_spanned(name: str, fn):
     """``fn`` with its forward under the profiler range ``name`` and its
     output's backward nodes, back to its tensor inputs, under the same
@@ -8458,6 +8725,7 @@ def gnn_train_shape(name: str, cfg, card: str, host=None) -> dict:
     import torch
     from repro_torch.launch.cells import mace_shape
     from repro_torch.train.loop import LoopConfig, fit
+    from repro_torch.roofline import gnn_step_flops, peak_flops
     t0 = time.perf_counter()
     batches, d_feat, task, sample_ms = gnn_data(name, cfg, host)
     host_s = time.perf_counter() - t0
@@ -8475,15 +8743,15 @@ def gnn_train_shape(name: str, cfg, card: str, host=None) -> dict:
     flops = [gnn_step_flops(cfg, len(b["positions"]),
                             b["edge_index"].shape[1], d_feat)
              for b in batches[:GNN_STEPS]]
-    bound_ms = sum(flops) / len(flops) / F32_FLOP_PER_S * 1e3
+    bound_ms = sum(flops) / len(flops) / peak_flops("float32") * 1e3
     nodes = [len(b["positions"]) for b in batches[:GNN_STEPS]]
     edges = batches[0]["edge_index"].shape[1]
     n_up, e_up, *_ = mace_shape(gnn_shape(name))
+    up_ms = gnn_step_flops(cfg, n_up, e_up, d_feat) / peak_flops(
+        "float32") * 1e3
     upper = "" if n_up == max(nodes) else (
         f"; at the shape's static sizes (N {n_up:,}, E {e_up:,}, as "
-        f"mace_cell lowers it) "
-        f"{gnn_step_flops(cfg, n_up, e_up, d_feat) / F32_FLOP_PER_S * 1e3:.3f}"
-        f" ms")
+        f"mace_cell lowers it) {up_ms:.3f} ms")
     extra = (f"acc {[round(h['acc'], 4) for h in hist]}" if task != "energy"
              else f"rmse {[round(h['rmse'], 4) for h in hist]}")
     sampled = (f"; sampler {[round(x, 1) for x in sample_ms]} ms a batch on "
@@ -9577,6 +9845,36 @@ def cells_mesh_phase(card: str, mini: dict) -> dict:
              f"device")
         need(g64 <= CM_TOL, f"cells mace {name}: float64 reduced gradients "
                             f"within {CM_TOL} of one device's")
+    # ------------------------------------------- the dry run's counts
+    for arch in CM_ARCHS:
+        for name in CM_SERVE:
+            dry_check(f"cells {arch} {name}",
+                      [r[arch]["serve"][name]["stats"] for r in ranks],
+                      max(r[arch]["serve"][name]["counted_ms"]
+                          for r in ranks), card)
+        dry_check(f"cells {arch} retrieval",
+                  [r[arch]["retrieval_stats"] for r in ranks],
+                  max(r[arch]["retrieval_ms"] for r in ranks), card)
+    for name in ("molecule", "full_graph_sm"):
+        dry_check(f"cells mace {name}",
+                  [r["mace"][name]["stats"] for r in ranks],
+                  max(r["mace"][name]["counted_ms"] for r in ranks), card)
+    # minibatch_lg: the sample's own sizes (its static shape reported)
+    from repro_torch.configs.base import ShapeSpec
+    mini_r = ranks[0]["mace"]["minibatch_lg"]
+    n_all, e_all = 4 * mini_r["n_local"], 4 * mini_r["e_local"]
+    sample = ShapeSpec("minibatch_lg", "graph_full", n_nodes=n_all,
+                       n_edges=e_all, d_feat=128)
+    dry_check("cells mace minibatch_lg", [r["mace"]["minibatch_lg"]["stats"]
+                                          for r in ranks],
+              max(r["mace"]["minibatch_lg"]["counted_ms"] for r in ranks),
+              card, dry_count("mace", sample, cm_mace_config(), (), {}))
+    static = dry_rows()["cells mace minibatch_lg"]
+    log(f"dry run cells mace minibatch_lg at its static shape "
+        f"({gnn_shape('minibatch_lg').name}: the sample's sizes padded "
+        f"{n_all:,} nodes and {e_all:,} edges here): collectives by rank "
+        f"{[r['counted'] for r in static]}; terms (rank 0) "
+        f"{static[0]['terms']}")
     # ------------------------------------------------ (d) planted
     want = refs["deepfm"]["serve"]["serve_p99"]
     bl = want.shape[0] // CM_MESH[0]
@@ -9610,6 +9908,165 @@ def cells_mesh_phase(card: str, mini: dict) -> dict:
     return launches
 
 
+
+# ----------------------------------------------------------------------
+# the dry run of the mesh phases' cells: launch/dryrun.py's count of a
+# step on the meta device, at (2, 2), held to what the phases' gloo
+# ranks count
+# ----------------------------------------------------------------------
+
+DRY_FLAG = "--dry-run"
+DRY_MESH = (2, 2)                      # every mesh phase's (data, model)
+# the IVF corpus's query counts the child also draws (the distributed
+# phase's flush and the retrieval-scale phase's queries): 12.7 s of host
+# numpy each, off the card's path
+IVF_CORPUS_QUERIES = (max(SHARD_BATCHES), TT_QUERIES)
+_DRY = {}                              # the child process, then its rows
+
+
+def dry_cells() -> dict:
+    """The cells the mesh phases count collectives of, at their shapes
+    and cuts: name -> (arch, ShapeSpec, config, opts, build_cell's
+    keywords).  minibatch_lg's static shape (169,984 nodes) is reported;
+    its measured step is a sample's, held in ``cells_mesh_phase`` to a
+    dry run at the sample's own sizes."""
+    from repro_torch.configs.base import ShapeSpec
+    seq = lm_train_seq()
+    lmm, lms = lmm_configs({}), lms_configs()
+    train = ShapeSpec("train_4k", "train", seq_len=seq,
+                      global_batch=LMM_BATCH)
+    out = {"lm mesh stablelm": (LMM_ARCH, train, lmm["stablelm"], (), {}),
+           "lm mesh qwen3": (QW_ARCH, train, lmm["qwen3"], (), {}),
+           "lm serve (a) decode": (LMS_ARCH, ShapeSpec(
+               "serve", "decode", seq_len=LMS_MAX_SEQ,
+               global_batch=LMS_BATCH), lms["a"], (), {}),
+           "long_500k": (LMS_ARCH, long_shape(), long_config(),
+                         ("split_cache",), {})}
+    cfgs = cm_configs()
+    for arch in CM_ARCHS:
+        for name in CM_SERVE:
+            out[f"cells {arch} {name}"] = (arch, cm_recsys_shape(name),
+                                           cfgs[arch], (), {})
+        out[f"cells {arch} retrieval"] = (
+            arch, cm_recsys_shape("retrieval_cand"), cfgs[arch], (),
+            {"n_candidates": CM_CAND[arch]})
+    for name in ("molecule", "full_graph_sm", "minibatch_lg"):
+        out[f"cells mace {name}"] = ("mace", gnn_shape(name),
+                                     cm_mace_config(), (), {})
+    return out
+
+
+def dry_count(arch, shape, cfg, opts, kw) -> list:
+    """Each rank's count of one step of ``build_cell``'s cell on an
+    ``AbstractMesh`` of DRY_MESH (the meta device): its collectives
+    (count, bytes a rank, kinds, bytes by kind) and the three roofline
+    terms on H100 constants."""
+    from repro_torch.launch.cells import build_cell
+    from repro_torch.launch.dryrun import trace_step
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.roofline import terms
+    out = []
+    for rank in range(DRY_MESH[0] * DRY_MESH[1]):
+        mesh = AbstractMesh(DRY_MESH, ("data", "model"), rank)
+        cell = build_cell(arch, shape, mesh, opts=opts, cfg=cfg, **kw)
+        t = trace_step(cell, mesh)
+        k, c = t["counter"], t["comm"]
+        out.append({"counted": list(c.counted()), "terms": terms(
+            k.flops, k.bytes, c.axis_bytes, mesh.shape,
+            cell.model_flops).row()})
+        del cell, t
+    return out
+
+
+def start_dry_run():
+    """Start the dry run of :func:`dry_cells` (the meta device, no card)
+    in a child process beside the early phases; :func:`dry_rows` waits
+    on it."""
+    import tempfile
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_dry_")
+    _DRY["proc"] = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), DRY_FLAG, out_dir],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    _DRY["dir"] = out_dir
+    return _DRY["proc"]
+
+
+def dry_run_child(out_dir: str) -> int:
+    """The child's side of :func:`start_dry_run`: every cell's counts as
+    JSON in ``out_dir``, and the seconds it took."""
+    import torch
+    torch.set_num_threads(2)
+    import numpy as np
+    t0 = time.perf_counter()
+    rows = {name: dry_count(*spec) for name, spec in dry_cells().items()}
+    with open(os.path.join(out_dir, "dry.json"), "w") as f:
+        json.dump(rows, f)
+    t1 = time.perf_counter()
+    for nq in IVF_CORPUS_QUERIES:
+        vecs, q = ivf_scale_corpus(nq)
+        np.save(os.path.join(out_dir, f"ivf_{nq}_vecs.npy"), vecs)
+        np.save(os.path.join(out_dir, f"ivf_{nq}_queries.npy"), q)
+    print("DRYRUN " + json.dumps({"seconds": t1 - t0, "cells": len(rows),
+                                  "corpus_s": time.perf_counter() - t1}),
+          flush=True)
+    return 0
+
+
+def dry_rows() -> dict:
+    """The child's rows (waited for once)."""
+    import shutil
+    if "rows" not in _DRY:
+        t0 = time.perf_counter()
+        proc = _DRY["proc"]
+        try:
+            out, err = proc.communicate(timeout=900)
+            lines = [x for x in out.splitlines() if x.startswith("DRYRUN ")]
+            if proc.returncode != 0 or len(lines) != 1:
+                log(out[-4000:])
+                log(err[-4000:])
+                need(False, "the dry run's child process ran to its end")
+            with open(os.path.join(_DRY["dir"], "dry.json")) as f:
+                _DRY["rows"] = json.load(f)
+            import numpy as np
+            _DRY["corpus"] = {nq: tuple(np.load(os.path.join(
+                _DRY["dir"], f"ivf_{nq}_{leaf}.npy")) for leaf in
+                ("vecs", "queries")) for nq in IVF_CORPUS_QUERIES}
+        finally:
+            shutil.rmtree(_DRY["dir"], ignore_errors=True)
+        info = json.loads(lines[0].split(" ", 1)[1])
+        log(f"dry run: {info['cells']} cells x {DRY_MESH[0] * DRY_MESH[1]} "
+            f"ranks on the meta device in {info['seconds']:.1f}s, then the "
+            f"IVF corpus for {IVF_CORPUS_QUERIES} queries in "
+            f"{info['corpus_s']:.1f}s, in a child process beside the "
+            f"earlier phases; waited {time.perf_counter() - t0:.1f}s here")
+    return _DRY["rows"]
+
+
+def measured(stats: dict) -> list:
+    """A rank's ``CommStats`` (as a dict) in a dry row's form."""
+    return [stats["count"], stats["bytes"], dict(stats["kinds"]),
+            dict(stats["kind_bytes"])]
+
+
+def dry_check(name: str, stats: list, ms: float, card: str,
+              rows: list = None) -> None:
+    """Each rank's measured collectives (``stats``, in rank order) held
+    exactly to the dry run's count of the same cell (``rows``, default
+    the child's); the measured ``ms`` printed beside the three terms
+    (the gloo time is not held to the NVLink term)."""
+    rows = rows or dry_rows()[name]
+    got = [measured(s) for s in stats]
+    want = [r["counted"] for r in rows]
+    t = rows[0]["terms"]
+    log(f"dry run {name} on {DRY_MESH}: collectives by rank {got} against "
+        f"{want}; measured {ms:.3f} ms beside the terms (rank 0, H100 "
+        f"constants) compute {t['compute_ms']:.3f} | memory "
+        f"{t['memory_ms']:.3f} | collective {t['collective_ms']:.3f} ms -> "
+        f"{t['dominant']}-bound [{card}]")
+    need(got == want, f"dry run {name}: every rank's collectives, their "
+         f"kinds and bytes equal to the dry run's count")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -9622,13 +10079,19 @@ def main() -> int:
         return deterministic_resume()
     if sys.argv[1:2] == [HOST_GRAPH_FLAG]:
         return gnn_host_graph_child(sys.argv[2])
+    if sys.argv[1:2] == [DRY_FLAG]:
+        return dry_run_child(sys.argv[2])
+    if sys.argv[1:2] == [MESH_CLIS_FLAG]:
+        return mesh_clis(sys.argv[2])
     started = start_gnn_host_graph()
+    dry = start_dry_run()
     try:
         return main_phases(started)
     finally:
-        if started[0].poll() is None:       # a phase failed before the GNN
-            started[0].kill()
-            started[0].wait()
+        for proc in (started[0], dry):
+            if proc.poll() is None:         # a phase failed before its use
+                proc.kill()
+                proc.wait()
 
 
 def main_phases(started) -> int:

@@ -91,6 +91,18 @@ class LMConfig:
         head = self.vocab_size * self.d_model
         return self.num_layers * per_layer + emb + head
 
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: only routed experts)."""
+        if not self.is_moe:
+            return self.param_count()
+        hd = self.resolved_head_dim
+        attn = self.d_model * hd * (self.num_heads * 2 + self.num_kv_heads * 2)
+        ffn = 3 * self.d_model * self.d_ff * self.num_experts_per_tok \
+            + self.d_model * self.num_experts
+        per_layer = attn + ffn + 2 * self.d_model
+        return (self.num_layers * per_layer
+                + 2 * self.vocab_size * self.d_model)
+
 
 # ----------------------------------------------------------------------
 # GNN (MACE)

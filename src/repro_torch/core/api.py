@@ -49,7 +49,8 @@ class Embedding:
 
     def generator(self, seed: int = 0) -> torch.Generator:
         """A generator on this embedding's device, seeded."""
-        return torch.Generator(device=self.device).manual_seed(seed)
+        from repro_torch.nn.initializers import generator
+        return generator(self.device, seed)
 
     # ------------------------------------------------------------ train
     def init(self, gen: Optional[torch.Generator] = None,

@@ -27,6 +27,10 @@ whatever device the tensors are on.
 Block-size autotune
 -------------------
 
+``register_op`` also takes each op's ``cost``: the FLOPs and bytes a
+call must do (:class:`OpCost`), the count its roofline bound and a dry
+run (``counting``) read.
+
 ``register_op`` accepts a declared *tunable-params spec* — kwarg name
 -> :class:`Tunable` (default + candidate values).  :func:`tune` sweeps
 the candidate grid over example args, timing each combination on the
@@ -65,6 +69,9 @@ TUNE_CACHE_ENV = "REPRO_TORCH_KERNEL_TUNE_CACHE"
 
 _REGISTRY: Dict[str, Dict[str, Callable]] = {}
 _TUNABLES: Dict[str, Dict[str, "Tunable"]] = {}
+_COSTS: Dict[str, Optional[Callable]] = {}
+# the counter a dry run counts dispatched ops into (``counting``)
+_COUNTER: Any = None
 
 # (op, backend, shape-bucket) -> {param: value}
 _TUNED: Dict[Tuple[str, str, str], Dict[str, Any]] = {}
@@ -141,12 +148,56 @@ class Tunable:
     candidates: Tuple[Any, ...]
 
 
+@dataclasses.dataclass(frozen=True)
+class OpCost:
+    """What one call of an op must do, whatever runs it: its FLOPs, of
+    one type (``dtype``, the name of the torch dtype whose peak bounds
+    them), and the bytes it must move (each input read once, each output
+    written once).  The roofline's bound of a call
+    (``roofline/model.py::kernel_roofline``) and a dry run's count of a
+    dispatched op (``roofline/model.py::CostCounter``) read it."""
+
+    flops: float
+    bytes: float
+    dtype: str = "float32"
+
+
+def dtype_name(t: torch.Tensor) -> str:
+    """``torch.bfloat16`` -> ``"bfloat16"``."""
+    return str(t.dtype).rsplit(".", 1)[-1]
+
+
 def register_op(name: str, *, cuda: Callable, torch: Callable,
-                tunables: Optional[Dict[str, Tunable]] = None) -> None:
-    """Register one op's two implementations and its autotunable
-    block-geometry kwargs (an empty dict means nothing to sweep)."""
+                tunables: Optional[Dict[str, Tunable]] = None,
+                cost: Optional[Callable[..., OpCost]] = None) -> None:
+    """Register one op's two implementations, its autotunable
+    block-geometry kwargs (an empty dict means nothing to sweep) and
+    ``cost(*args, **kwargs)``: the :class:`OpCost` of a call."""
     _REGISTRY[name] = {"cuda": cuda, "torch": torch}
     _TUNABLES[name] = dict(tunables or {})
+    _COSTS[name] = cost
+
+
+def op_cost(name: str, *args, **kwargs) -> OpCost:
+    """The :class:`OpCost` of calling op ``name`` on these arguments."""
+    _impls(name)
+    if _COSTS.get(name) is None:
+        raise KeyError(f"kernel op {name!r} declares no cost")
+    return _COSTS[name](*args, **kwargs)
+
+
+@contextlib.contextmanager
+def counting(counter):
+    """Inside the block every dispatched op is counted as one op with its
+    cost: ``counter.add_op(name, cost)``, its implementation run under
+    ``counter.paused()`` (the aten ops of the plain version that gives
+    its output shapes on the meta device are not counted)."""
+    global _COUNTER
+    old, _COUNTER = _COUNTER, counter
+    try:
+        yield counter
+    finally:
+        _COUNTER = old
 
 
 def registered_ops() -> Dict[str, Dict[str, Callable]]:
@@ -182,6 +233,14 @@ def dispatch(name: str, *args, backend: Optional[str] = None, **kwargs):
         tuned = _cached(name, be, args)
         for p in unset:
             kwargs[p] = tuned.get(p, spec[p].default)
+    counter = _COUNTER
+    if counter is not None:
+        # the cost's own reads of the arguments are not the op's work
+        with counter.paused():
+            cost = op_cost(name, *args, **kwargs)
+            out = impls[be](*args, **kwargs)
+        counter.add_op(name, cost)
+        return out
     return impls[be](*args, **kwargs)
 
 
@@ -370,7 +429,8 @@ def tune(name: str, args_sets: Iterable, *, backend: Optional[str] = None,
     return out
 
 
-__all__ = ["BACKENDS", "ENV_VAR", "TUNE_CACHE_ENV", "Tunable",
-           "clear_tune_cache", "dispatch", "op_tunables",
+__all__ = ["BACKENDS", "ENV_VAR", "OpCost", "TUNE_CACHE_ENV", "Tunable",
+           "clear_tune_cache", "counting", "dispatch", "dtype_name",
+           "op_cost", "op_tunables",
            "register_op", "registered_ops", "resolve_backend",
            "save_tune_cache", "shape_bucket", "tune", "tuned_params"]

@@ -18,12 +18,25 @@ from repro_torch.kernels.embedding_bag.embedding_bag import embedding_bag
 from repro_torch.kernels.embedding_bag.ref import (embedding_bag_inorder,
                                                    embedding_bag_ref)
 
+def bag_cost(table, ids, seg, num_bags, weights=None) -> dispatch.OpCost:
+    """embedding_bag: each id's row, the ids, segment ids and weights
+    read once, the (num_bags, d) sums written; one add a row element
+    (two with weights)."""
+    nnz, d = ids.numel(), table.shape[1]
+    el = table.element_size()
+    nbytes = (nnz * d * el + nnz * (ids.element_size() + seg.element_size())
+              + (0 if weights is None else nnz * weights.element_size())
+              + num_bags * d * el)
+    return dispatch.OpCost(nnz * d * (1 if weights is None else 2), nbytes)
+
+
 dispatch.register_op(
     "embedding_bag",
     cuda=lambda table, ids, seg, num_bags, weights=None: embedding_bag(
         table, ids, seg, num_bags, weights),
     torch=embedding_bag_ref,
     tunables={},
+    cost=bag_cost,
 )
 
 

@@ -25,6 +25,22 @@ from repro_torch.kernels.flash_attention.flash_attention import (
     BLOCK_K, flash_attention)
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
+def visible_pairs(s: int, window: int) -> int:
+    """(query, key) pairs a causal window lets through over S tokens."""
+    w = min(window, s)
+    return w * (w + 1) // 2 + (s - w) * w
+
+
+def attention_cost(q, k, v, window=1 << 30, block_k=None) -> dispatch.OpCost:
+    """flash_attention: 4·hd FLOPs (QKᵀ and PV) for every visible (query,
+    key) pair of every head, in q's dtype; q, k and v read once and the
+    output (q's shape) written."""
+    b, s, h, hd = q.shape
+    pairs = visible_pairs(s, int(window)) * b * h
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    return dispatch.OpCost(4 * hd * pairs, nbytes, dispatch.dtype_name(q))
+
+
 dispatch.register_op(
     "flash_attention",
     cuda=lambda q, k, v, window=1 << 30, block_k=None: flash_attention(
@@ -32,6 +48,7 @@ dispatch.register_op(
     torch=lambda q, k, v, window=1 << 30, block_k=None: flash_attention_ref(
         q, k, v, window=window),
     tunables={"block_k": BLOCK_K},
+    cost=attention_cost,
 )
 
 # float32 score bytes the backward's recompute may hold for one group
@@ -95,5 +112,6 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _Attend.apply(q, k, v, window, block_k, backend)
 
 
-__all__ = ["RECOMPUTE_BYTES", "attend", "attention_vjp", "flash_attention",
-           "flash_attention_ref", "recompute_groups"]
+__all__ = ["RECOMPUTE_BYTES", "attend", "attention_cost", "attention_vjp",
+           "flash_attention", "flash_attention_ref", "recompute_groups",
+           "visible_pairs"]

@@ -27,12 +27,34 @@ from repro_torch.kernels.mgqe_decode.mgqe_decode import (BLOCK_B,
 from repro_torch.kernels.mgqe_decode.ref import (mgqe_decode_ref,
                                                  rq_decode_stages_ref)
 
+def _bytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def decode_cost(codes, cent, block_b=None) -> dispatch.OpCost:
+    """mgqe_decode: the codes and the centroids read once, the (B, D·S)
+    rows written; no arithmetic."""
+    b, d = codes.shape
+    return dispatch.OpCost(0, _bytes(codes) + _bytes(cent)
+                           + b * d * cent.shape[-1] * cent.element_size())
+
+
+def decode_stages_cost(codes, cbs, block_b=None) -> dispatch.OpCost:
+    """rq_decode_stages: the codes and codebooks read once, the (B, d)
+    rows written; (M - 1)·d float32 adds a row."""
+    b, m = codes.shape
+    d = cbs.shape[-1]
+    return dispatch.OpCost(b * (m - 1) * d, _bytes(codes) + _bytes(cbs)
+                           + b * d * cbs.element_size())
+
+
 dispatch.register_op(
     "mgqe_decode",
     cuda=lambda codes, cent, block_b=None: mgqe_decode(
         codes, cent, block_b=block_b),
     torch=lambda codes, cent, block_b=None: mgqe_decode_ref(codes, cent),
     tunables={"block_b": BLOCK_B},
+    cost=decode_cost,
 )
 
 dispatch.register_op(
@@ -41,6 +63,7 @@ dispatch.register_op(
         codes, cbs, block_b=block_b),
     torch=lambda codes, cbs, block_b=None: rq_decode_stages_ref(codes, cbs),
     tunables={"block_b": RQ_BLOCK_B},
+    cost=decode_stages_cost,
 )
 
 

@@ -22,6 +22,16 @@ from repro_torch.kernels.packed_decode.packed_decode import (BLOCK_B,
                                                              packed_decode)
 from repro_torch.kernels.packed_decode.ref import packed_decode_ref
 
+def packed_decode_cost(packed, cent, bits, block_b=None) -> dispatch.OpCost:
+    """packed_decode: the packed codes and the centroids read once, the
+    (B, D·S) rows written; no arithmetic."""
+    d, _, s = cent.shape
+    return dispatch.OpCost(
+        0, packed.numel() * packed.element_size()
+        + cent.numel() * cent.element_size()
+        + packed.shape[0] * d * s * cent.element_size())
+
+
 dispatch.register_op(
     "packed_decode",
     cuda=lambda packed, cent, bits, block_b=None: packed_decode(
@@ -29,6 +39,7 @@ dispatch.register_op(
     torch=lambda packed, cent, bits, block_b=None: packed_decode_ref(
         packed, cent, bits),
     tunables={"block_b": BLOCK_B},
+    cost=packed_decode_cost,
 )
 
 

@@ -33,12 +33,42 @@ from repro_torch.kernels.pq_score.ref import (INVALID_ID,
                                               pq_score_batched_ref,
                                               pq_score_ref, pq_topk_ref)
 
+def _bytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def score_cost(lut, codes, block_n=None) -> dispatch.OpCost:
+    """pq_score: the codes and the LUT read once, N float32 scores
+    written; D float32 adds a candidate."""
+    n, d = codes.shape
+    return dispatch.OpCost(n * d, _bytes(codes) + _bytes(lut) + n * 4)
+
+
+def score_batched_cost(luts, codes, block_n=None) -> dispatch.OpCost:
+    """pq_score_batched: the codes and the B LUTs read once, B·N float32
+    scores written; D adds a (query, candidate)."""
+    n, d = codes.shape
+    b = luts.shape[0]
+    return dispatch.OpCost(b * n * d, _bytes(codes) + _bytes(luts)
+                           + b * n * 4)
+
+
+def topk_cost(luts, codes, k, block_n=None) -> dispatch.OpCost:
+    """pq_topk: the scoring's reads and adds, B·k (score, id) pairs
+    written (8 bytes each)."""
+    n, d = codes.shape
+    b = luts.shape[0]
+    return dispatch.OpCost(b * n * d, _bytes(codes) + _bytes(luts)
+                           + b * k * 8)
+
+
 dispatch.register_op(
     "pq_score",
     cuda=lambda lut, codes, block_n=None: pq_score(lut, codes,
                                                    block_n=block_n),
     torch=lambda lut, codes, block_n=None: pq_score_ref(lut, codes),
     tunables={"block_n": SCORE_BLOCK_N},
+    cost=score_cost,
 )
 
 dispatch.register_op(
@@ -48,6 +78,7 @@ dispatch.register_op(
     torch=lambda luts, codes, block_n=None: pq_score_batched_ref(luts,
                                                                  codes),
     tunables={"block_n": SCORE_BLOCK_N},
+    cost=score_batched_cost,
 )
 
 dispatch.register_op(
@@ -56,6 +87,7 @@ dispatch.register_op(
                                                       block_n=block_n),
     torch=lambda luts, codes, k, block_n=None: pq_topk_ref(luts, codes, k),
     tunables={"block_n": TOPK_BLOCK_N},
+    cost=topk_cost,
 )
 
 

@@ -5,9 +5,12 @@ cells, the LM train, prefill and decode cells and MACE's train cell;
 with them the recsys model registry (``RecsysConfig.model`` -> model
 class), the LM config options (``LM_CFG_OPTS``), MACE's FLOP model and
 shape resolution, and the batch of a sampled subgraph
-(``sampled_graph``, the port's own).  What is left of the JAX module is
-its dry run: ``Cell`` and ``build_cell`` (each step traced with no
-device) and the remaining named LM options (ROADMAP.md §1 item 9).
+(``sampled_graph``, the port's own); and the JAX module's dry-run
+surface, :class:`Cell` and :func:`build_cell` with every named option,
+over those cells: on an ``AbstractMesh`` (``launch/mesh.py``) a cell is
+built on the meta device — params, optimizer state, exports and
+batches as meta tensors of one rank's shapes, nothing drawn — and its
+step traced by ``launch/dryrun.py``.
 
 The recsys and LM train cells hold one convention: each rank
 backpropagates its data shard's loss weighted B_local/B_global, the
@@ -25,7 +28,7 @@ from __future__ import annotations
 
 import dataclasses
 import re
-from typing import Any, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -38,6 +41,7 @@ from repro_torch.models.recsys.autoint import AutoInt
 from repro_torch.models.recsys.bst import BST
 from repro_torch.models.recsys.deepfm import DeepFM
 from repro_torch.models.recsys.two_tower import TwoTower
+from repro_torch.nn.initializers import generator
 
 _RECSYS_MODELS = {"autoint": AutoInt, "deepfm": DeepFM,
                   "two_tower": TwoTower, "bst": BST}
@@ -176,8 +180,7 @@ def recsys_train_cell(cfg: RecsysConfig, mesh, params=None,
     from repro_torch.train.optimizer import init as opt_init
     model = recsys_model(cfg, device=mesh.device)
     if params is None:
-        params = model.init(torch.Generator(device=mesh.device)
-                            .manual_seed(0))
+        params = model.init(generator(mesh.device, 0))
     p_spec, o_spec = recsys_state_specs(params, cfg, mesh)
     placed = place(params, p_spec, mesh)
     del params
@@ -194,9 +197,13 @@ def recsys_train_cell(cfg: RecsysConfig, mesh, params=None,
 # ======================================================================
 
 # the JAX package's named LM options (``_LM_CFG_OPTS``, as
-# ``launch/dryrun.py`` passes them) that place or shard the training state
+# ``launch/dryrun.py`` passes them)
 LM_CFG_OPTS = {
     "moe_shard_map": dict(moe_shard_map=True),
+    "remat_group": dict(remat_granularity="group"),
+    "split_cache": dict(split_local_global_cache=True),
+    "xent_chunk_256": dict(xent_chunk=256),
+    "attn_block_2048": dict(attention_block=2048),
     "fsdp": dict(fsdp_params=True),
     "kv_repeat": dict(attn_kv_repeat=True),
 }
@@ -260,8 +267,9 @@ class LMTrainCell:
         with ``m`` that block of each of the global batch's ``m`` row
         blocks, in order (microbatch i is global rows i·B/m onward, as
         the JAX cell splits it).  A batch that does not divide over the
-        data axes raises: that is the JAX cell's sequence-parallel B = 1
-        branch (``long_500k``), not ported."""
+        data axes raises: the JAX cell would split its sequence over them,
+        a training branch no registry cell takes (``long_500k``'s B = 1
+        is a decode cell's, :class:`LMDecodeCell`)."""
         from repro_torch.sharding.rules import lm_batch_spec, named
         m, n = self.microbatches, self.data_shards
         b = batch["tokens"].shape[0]
@@ -269,9 +277,9 @@ class LMTrainCell:
             raise ValueError(
                 f"a global batch of {b} rows does not divide into "
                 f"{m} microbatch(es) over {n} data shard(s) (mesh "
-                f"{self.mesh.shape}); a batch smaller than the data axes "
-                f"takes the sequence-parallel branch of the JAX cell "
-                f"(long_500k, ROADMAP.md §1 item 9), not ported")
+                f"{self.mesh.shape}); the JAX cell would split its sequence "
+                f"over the data axes, which the port's training step does "
+                f"not (long_500k's B = 1 is a decode cell's)")
         specs = named(self.mesh, lm_batch_spec("pod" in self.mesh.shape))
         return {k: torch.cat([specs[k].block(v.reshape(
             (m, b // m) + v.shape[1:])[i]) for i in range(m)])
@@ -378,8 +386,8 @@ def lm_train_cell(cfg: LMConfig, mesh, microbatches: int = 1, params=None,
     ``lm_state_specs``; ``convert.lm_state_from_numpy`` places a whole
     state (a checkpoint restore places one too).  ``optimizer`` defaults
     to the JAX cell's: adamw at lr 3e-4 with a global-norm clip of 1.0.
-    A split that does not divide, or that cuts heads, raises
-    (``rules.check_lm_leaf``)."""
+    A split that does not divide raises (``rules.check_lm_leaf``); one
+    inside a head places, the layer gathering its columns."""
     from repro_torch.models import lm
     from repro_torch.sharding.rules import (NamedSpec, check_lm_leaf,
                                             leaf_spec, lm_param_rules,
@@ -398,8 +406,8 @@ def lm_train_cell(cfg: LMConfig, mesh, microbatches: int = 1, params=None,
         return NamedSpec(mesh, spec).place(t)
 
     if params is None:
-        placed = lm.model_init(torch.Generator(device=mesh.device)
-                               .manual_seed(0), cfg, place=place_leaf)
+        placed = lm.model_init(generator(mesh.device, 0), cfg,
+                               place=place_leaf)
     else:
         placed = map_with_path(place_leaf, params)
     template = map_with_path(lambda path, _: whole[path], placed)
@@ -439,6 +447,11 @@ class ServedLM:
     artifact: dict
 
 
+def _abstract(mesh) -> bool:
+    """Whether ``mesh`` is an ``AbstractMesh`` (no process group)."""
+    return getattr(mesh, "abstract", False)
+
+
 def _first_rank(mesh) -> bool:
     return all(mesh.axis_index(a) == 0 for a in mesh.axis_names)
 
@@ -447,10 +460,16 @@ def _export_once(cfg: LMConfig, mesh, embed: dict) -> dict:
     """The token table's artifact, exported (``dpq_assign``) on the
     mesh's first rank from ``embed`` (its whole training params there;
     ignored elsewhere) and broadcast, so every rank serves the same
-    codes."""
+    codes; on an abstract mesh its shapes alone
+    (``serving_artifact_struct``)."""
     from repro_torch.core import Embedding
     from repro_torch.core.schemes.base import tree_map
     from repro_torch.sharding.collectives import broadcast
+    if _abstract(mesh):
+        # the JAX cells' ``_lm_artifact_struct``: the embedding config's
+        # own dtype, where a bf16 LM's export holds bf16 centroids
+        return Embedding(cfg.embedding,
+                         device=mesh.device).serving_artifact_struct()
     emb = Embedding(dataclasses.replace(cfg.embedding,
                                         param_dtype=cfg.param_dtype),
                     device=mesh.device)
@@ -472,7 +491,7 @@ def serve_placement(cfg: LMConfig, mesh, params=None, artifact=None,
     seeded ``seed`` on the rank's device, each leaf placed as soon as it
     is drawn, so no rank holds more than one whole leaf at a time): every
     leaf but the token table placed by ``lm_param_rules`` (a split of
-    ``wk``/``wv`` inside a head is allowed: the layer gathers it).
+    ``wq``/``wk``/``wv`` inside a head is allowed: the layer gathers it).
     ``artifact`` (whole, numpy or tensors) placed by
     ``lm_artifact_specs``; without one, the token table is exported once
     (:func:`_export_once`) and placed."""
@@ -491,12 +510,12 @@ def serve_placement(cfg: LMConfig, mesh, params=None, artifact=None,
                 table["emb"] = t
             return t.new_empty(0)
         spec = leaf_spec(path, t, rules)
-        check_lm_leaf(cfg, mesh, path, t, spec, serving=True)
+        check_lm_leaf(cfg, mesh, path, t, spec)
         return NamedSpec(mesh, spec).place(t)
 
     if params is None:
-        placed = lm.model_init(torch.Generator(device=mesh.device)
-                               .manual_seed(seed), cfg, place=place_leaf)
+        placed = lm.model_init(generator(mesh.device, seed), cfg,
+                               place=place_leaf)
     else:
         placed = map_with_path(place_leaf, params)
     placed = strip_embed_table(placed)
@@ -515,8 +534,9 @@ def serve_placement(cfg: LMConfig, mesh, params=None, artifact=None,
 def _data_rows(t, mesh) -> torch.Tensor:
     """This rank's rows of a global batch ``t`` (every rank holds the
     same), the batch over the data axes as the JAX cells' token specs
-    place it, on the rank's device.  A batch that does not divide takes
-    the JAX cells' sequence-parallel branch: refused."""
+    place it, on the rank's device.  A batch that does not divide is
+    refused (``models/lm.py::check_batch``; a decode cell replicates
+    it)."""
     from repro_torch.models.lm import check_batch
     from repro_torch.sharding.gather import data_axes_of
     from repro_torch.sharding.rules import NamedSpec
@@ -587,8 +607,13 @@ class LMDecodeCell:
 
     def local_tokens(self, token) -> torch.Tensor:
         """This rank's rows of the global (B,) ``token``
-        (:func:`_data_rows`)."""
-        return _data_rows(token, self.mesh)
+        (:func:`_data_rows`); a batch that does not divide over the data
+        axes (``long_500k``) whole on every rank, as the JAX cell
+        replicates it."""
+        from repro_torch.models.lm import batch_divides
+        if batch_divides(self.batch, self.mesh):
+            return _data_rows(token, self.mesh)
+        return torch.as_tensor(token).to(self.mesh.device)
 
     def step(self, cache: dict, token: torch.Tensor):
         from repro_torch.models import lm
@@ -596,7 +621,8 @@ class LMDecodeCell:
             return lm.decode_step(self.served.params, cache, token,
                                   self.cfg,
                                   embed_artifact=self.served.artifact,
-                                  mesh=self.mesh)
+                                  mesh=self.mesh, batch=self.batch,
+                                  max_seq=self.seq_len)
 
 
 def lm_prefill_cell(cfg: LMConfig, shape: ShapeSpec, mesh, batch=None,
@@ -665,7 +691,12 @@ def serve_params(cfg: RecsysConfig, params: dict) -> dict:
 def recsys_export(model, params: dict) -> dict:
     """A CTR model's served artifacts from its training params: every
     field's (deepfm, autoint) or bst's item table's (``dpq_assign`` on
-    the card)."""
+    the card); from params on the meta device, their shapes alone
+    (``serving_artifact_struct``)."""
+    if model.device.type == "meta":
+        if model.cfg.model == "bst":
+            return model.item_emb.serving_artifact_struct()
+        return model.fields.artifact_struct()
     with torch.no_grad():
         if model.cfg.model == "bst":
             return model.item_emb.export(params["item_emb"])
@@ -737,8 +768,7 @@ def recsys_serve_cell(cfg: RecsysConfig, shape: ShapeSpec, mesh,
     from repro_torch.sharding.rules import place, recsys_artifact_specs
     model = recsys_model(cfg, device=mesh.device)
     if params is None:
-        params = model.init(torch.Generator(device=mesh.device)
-                            .manual_seed(0))
+        params = model.init(generator(mesh.device, 0))
     if cfg.model == "two_tower":
         return RecsysServeCell(model, mesh, _placed_params(cfg, params,
                                                            mesh), None,
@@ -837,8 +867,7 @@ def recsys_retrieval_cell(cfg: RecsysConfig, shape: ShapeSpec, mesh,
     placed by the recsys rules."""
     model = recsys_model(cfg, device=mesh.device)
     if params is None:
-        params = model.init(torch.Generator(device=mesh.device)
-                            .manual_seed(0))
+        params = model.init(generator(mesh.device, 0))
     want = shape.n_candidates if n_candidates is None else n_candidates
     n = _pad_to(want, mesh.size)
     cut = "" if want == shape.n_candidates else \
@@ -943,10 +972,10 @@ class MaceTrainCell:
     keeps its block of the receiver sums; every rank backpropagates the
     global loss, so a gradient is a rank's share: a channel block's is
     summed over the data axes (its gather summed ``model``), a
-    replicated leaf's over every axis.  Adam's moments follow their
-    param's block (the JAX cell replicates them; the update is
-    elementwise, so the numbers are the same) and the global-norm clip
-    adds a block's squares over ``model``."""
+    replicated leaf's over every axis.  Adam's moments are whole on
+    every rank, as the JAX cell replicates them: a step gathers the
+    gradients and params whole, clips and updates them and keeps this
+    rank's block of each param."""
 
     model: Any
     mesh: Any
@@ -1026,16 +1055,29 @@ class MaceTrainCell:
 
     def step(self, state, graph: dict) -> Tuple[Any, Dict]:
         """One adam step (``GNN_OPTIMIZER``) on this rank's share
-        ``graph`` (:meth:`local_graph`): the reduced gradients, clipped
-        by the global norm and applied leaf by leaf to this rank's
-        blocks; the metrics are the whole graph's."""
+        ``graph`` (:meth:`local_graph`): the reduced gradients and the
+        params made whole (each channel block gathered over ``model``),
+        clipped by the global norm and applied to the whole moments,
+        this rank's block of each updated param kept; the metrics are
+        the whole graph's."""
+        from repro_torch.core.schemes.base import tree_leaves
         from repro_torch.launch.train import GNN_OPTIMIZER
+        from repro_torch.sharding.rules import NamedSpec, spec_leaves
         from repro_torch.train.optimizer import TrainState, apply_updates
         grads, metrics = self.grads(state, graph)
-        params, opt_state = apply_updates(
-            GNN_OPTIMIZER, state.params, self.reduce(grads),
-            state.opt_state, mesh=self.mesh, specs=self.specs.params)
-        return TrainState(params, opt_state), metrics
+        grads = self.reduce(grads)
+        with torch.no_grad():
+            whole_g = self.whole_params(grads)
+            whole_p = self.whole_params(state.params)
+            whole_p, opt_state = apply_updates(GNN_OPTIMIZER, whole_p,
+                                               whole_g, state.opt_state)
+            for p, w, spec in zip(tree_leaves(state.params),
+                                  tree_leaves(whole_p),
+                                  spec_leaves(self.specs.params),
+                                  strict=True):
+                if w is not p:
+                    p.copy_(NamedSpec(self.mesh, spec).block(w))
+        return TrainState(state.params, opt_state), metrics
 
 
 # one (E, C, 9) float32 edge tensor of ogb_products at CONFIG's C = 128,
@@ -1051,18 +1093,20 @@ def mace_cell(cfg: GNNConfig, shape: ShapeSpec, mesh,
     to multiples of ``mesh.size``) on ``mesh``: ``params`` (whole, on
     any device; default: drawn as ``launch/train.py::gnn_setup`` draws
     them, a feature projection where the shape has features) placed by
-    ``gnn_param_rules``, adam's zeros on the blocks.  ``ogb_products``
+    ``gnn_param_rules``, adam's zeros whole.  ``ogb_products``
     is refused: one (E, C, 9) float32 edge tensor is 285 GB and its
     radial weights 475 GB, and neither package has an edge-chunked
-    forward."""
+    forward.  On an abstract mesh it is built (shapes alone, as the JAX
+    package's dry run builds it)."""
     from repro_torch.models.gnn.mace import MACE
     from repro_torch.launch.train import GNN_OPTIMIZER
-    from repro_torch.core.schemes.base import tree_leaves
-    from repro_torch.sharding.rules import (gnn_param_rules, place,
-                                            spec_leaves, spec_tree, splits)
+    from repro_torch.core.schemes.base import tree_leaves, tree_map
+    from repro_torch.sharding.rules import (gnn_param_rules, map_with_path,
+                                            place, spec_leaves, spec_tree,
+                                            splits)
     from repro_torch.train.optimizer import TrainState
     from repro_torch.train.optimizer import init as opt_init
-    if shape.name == "ogb_products":
+    if shape.name == "ogb_products" and not _abstract(mesh):
         raise ValueError(
             f"ogb_products ({shape.n_nodes:,} nodes, {shape.n_edges:,} "
             f"edges) does not run: one (E, C, 9) float32 edge tensor is "
@@ -1073,17 +1117,19 @@ def mace_cell(cfg: GNNConfig, shape: ShapeSpec, mesh,
     n, e = _pad_to(n, mesh.size), _pad_to(e, mesh.size)
     model = MACE(cfg, device=mesh.device)
     if params is None:
-        params = model.init(torch.Generator(device=mesh.device)
-                            .manual_seed(0), n_feat=d_feat or None)
+        params = model.init(generator(mesh.device, 0), n_feat=d_feat or None)
     p_spec = spec_tree(params, gnn_param_rules(cfg, mesh))
     placed = place(params, p_spec, mesh)
-    del params
     split = [splits(sp, mesh) for sp in spec_leaves(p_spec)]
     if len(split) != len(tree_leaves(placed)):
         raise ValueError("the spec tree does not mirror the params")
-    state = TrainState(placed, opt_init(GNN_OPTIMIZER, placed))
-    o_spec = {"step": (), **{k: p_spec for k in state.opt_state
-                             if k != "step"}}
+    # the moments whole on every rank, as the JAX cell's
+    state = TrainState(placed, opt_init(GNN_OPTIMIZER, tree_map(
+        lambda t: torch.empty(t.shape, dtype=t.dtype, device=mesh.device),
+        params)))
+    del params
+    o_spec = {"step": (), **{k: map_with_path(lambda _, s: (), p_spec)
+                             for k in state.opt_state if k != "step"}}
     return MaceTrainCell(model, mesh, state, TrainState(p_spec, o_spec),
                          split, task, n, e, n_graphs,
                          f"{task} train_step N={n} E={e}")
@@ -1101,3 +1147,294 @@ def sampled_graph(g: dict, sub: dict) -> dict:
     return {"positions": g["positions"][ids], "species": g["species"][ids],
             "node_feats": g["node_feats"][ids], "labels": g["labels"][ids],
             "label_mask": mask, "edge_index": sub["edge_index"]}
+
+
+# ======================================================================
+# the dry run's surface: Cell and build_cell
+# ======================================================================
+
+@dataclasses.dataclass
+class Cell:
+    """One rank's cell as :func:`build_cell` returns it, the JAX package's
+    ``Cell``: ``fn(*args)`` is the rank's step on ``args`` (this rank's
+    state and inputs; on an ``AbstractMesh`` meta tensors of their
+    shapes), ``specs`` each argument's spec tree (the JAX cell's
+    ``in_shardings``), ``model_flops`` the useful FLOPs of the whole
+    step over every rank, ``donate`` the arguments the step consumes,
+    ``cell`` the per-rank cell object it is built over."""
+
+    arch: str
+    shape: str
+    fn: Callable
+    args: Tuple
+    specs: Tuple
+    model_flops: float
+    donate: Tuple[int, ...] = ()
+    note: str = ""
+    cell: Any = None
+
+
+def _meta_batch(struct: Dict, specs: Dict, mesh) -> Dict:
+    """This rank's block of each (shape, dtype) leaf of a global batch
+    ``struct`` under ``specs``, as empty tensors on the rank's device."""
+    from repro_torch.sharding.rules import NamedSpec
+    out = {}
+    for k, (shape, dtype) in struct.items():
+        whole = torch.empty(shape, dtype=dtype, device="meta")
+        local = NamedSpec(mesh, tuple(specs[k])).block(whole).shape
+        out[k] = torch.empty(local, dtype=dtype, device=mesh.device)
+    return out
+
+
+def recsys_dense_params(cfg: RecsysConfig) -> int:
+    """Rough dense (non-embedding) parameter count for MODEL_FLOPS, the
+    JAX package's ``_recsys_dense_params``."""
+    if cfg.model == "autoint":
+        d_out = cfg.n_attn_heads * cfg.d_attn
+        per = 4 * cfg.embed_dim * d_out + 3 * d_out * d_out * \
+            max(cfg.n_attn_layers - 1, 0)
+        return per + cfg.n_sparse * d_out
+    if cfg.model == "deepfm":
+        dims = (cfg.n_sparse * cfg.embed_dim,) + tuple(cfg.mlp_dims) + (1,)
+        return sum(a * b for a, b in zip(dims, dims[1:]))
+    if cfg.model == "bst":
+        d = cfg.embed_dim
+        blk = cfg.n_blocks * (4 * d * d + 8 * d * d)
+        s = cfg.seq_len + 1
+        dims = (s * d,) + tuple(cfg.tower_mlp) + (1,)
+        return blk + sum(a * b for a, b in zip(dims, dims[1:]))
+    if cfg.model == "two_tower":
+        dims = (cfg.embed_dim,) + tuple(cfg.tower_mlp)
+        return 2 * sum(a * b for a, b in zip(dims, dims[1:]))
+    raise ValueError(f"unknown recsys model {cfg.model!r}")
+
+
+def recsys_batch_struct(cfg: RecsysConfig, b: int) -> Dict:
+    """A recsys batch of ``b`` rows as {leaf: (shape, dtype)}, the JAX
+    cells' ``_recsys_batch_struct`` (int32 ids, float32 labels)."""
+    i32, f32 = torch.int32, torch.float32
+    if cfg.model == "two_tower":
+        return {"user_ids": ((b,), i32), "item_ids": ((b,), i32),
+                "item_logq": ((b,), f32)}
+    if cfg.model == "bst":
+        return {"hist_ids": ((b, cfg.seq_len), i32),
+                "target_id": ((b,), i32), "label": ((b,), f32)}
+    return {"sparse_ids": ((b, cfg.n_sparse), i32), "label": ((b,), f32)}
+
+
+def _data_spec(struct: Dict, multi_pod: bool) -> Dict:
+    """``recsys_batch_spec`` of a batch given as {leaf: (shape, dtype)}."""
+    from repro_torch.sharding.rules import recsys_batch_spec
+    return recsys_batch_spec({k: torch.empty(shape, dtype=dtype,
+                                             device="meta")
+                              for k, (shape, dtype) in struct.items()},
+                             multi_pod)
+
+
+def _all_axes_spec(struct: Dict, mesh) -> Dict:
+    return {k: (_all_axes(mesh),) + (None,) * (len(v[0]) - 1)
+            for k, v in struct.items()}
+
+
+def _recsys_cell(arch: str, cfg: RecsysConfig, shape: ShapeSpec, mesh,
+                 multi_pod: bool, n_candidates=None, params=None,
+                 artifact=None) -> Cell:
+    dense = recsys_dense_params(cfg)
+    if shape.kind == "rec_train":
+        tc = recsys_train_cell(cfg, mesh, params, multi_pod=multi_pod)
+        struct = recsys_batch_struct(cfg, shape.batch)
+        spec = _data_spec(struct, multi_pod)
+        batch = _meta_batch(struct, spec, mesh)
+        return Cell(arch, shape.name, tc.step, (tc.state, batch),
+                    (tc.specs, spec), 6.0 * dense * shape.batch, (0,),
+                    f"train_step B={shape.batch}", tc)
+    if shape.kind == "rec_serve":
+        sc = recsys_serve_cell(cfg, shape, mesh, params, artifact)
+        struct = recsys_batch_struct(cfg, shape.batch)
+        struct.pop("label", None)
+        struct.pop("item_logq", None)
+        spec = _data_spec(struct, multi_pod)
+        batch = _meta_batch(struct, spec, mesh)
+        if sc.artifacts is None:
+            def fn(params, batch):
+                return dataclasses.replace(sc, params=params).step(batch)
+            args = (sc.params, batch)
+        else:
+            def fn(params, artifacts, batch):
+                return dataclasses.replace(sc, params=params,
+                                           artifacts=artifacts).step(batch)
+            args = (sc.params, sc.artifacts, batch)
+        return Cell(arch, shape.name, fn, args, (None,) * (len(args) - 1)
+                    + (spec,), 2.0 * dense * shape.batch, (), sc.note, sc)
+    rc = recsys_retrieval_cell(cfg, shape, mesh, params,
+                               n_candidates=n_candidates)
+    n = rc.n_candidates
+    if cfg.model == "two_tower":
+        d_out = cfg.tower_mlp[-1]
+        n_sub = 16 if d_out % 16 == 0 else 8
+        struct = {"codes": ((n, n_sub), torch.uint8),
+                  "centroids": ((n_sub, 256, d_out // n_sub), torch.float32)}
+        spec = {"codes": (_all_axes(mesh), None), "centroids": ()}
+        corpus = _meta_batch(struct, spec, mesh)
+        user = torch.empty((1,), dtype=torch.int32, device=mesh.device)
+
+        def fn(params, corpus, user_id):
+            return dataclasses.replace(rc, params=params).step(corpus,
+                                                               user_id)
+        flops = 2.0 * dense / 2 + 2.0 * n * n_sub
+        return Cell(arch, shape.name, fn, (rc.params, corpus, user),
+                    (None, spec, ()), flops, (), rc.note, rc)
+    struct = recsys_batch_struct(cfg, n)
+    struct.pop("label")
+    spec = _all_axes_spec(struct, mesh)
+    batch = _meta_batch(struct, spec, mesh)
+
+    def fn(params, batch):
+        return dataclasses.replace(rc, params=params).step(batch)
+    return Cell(arch, shape.name, fn, (rc.params, batch), (None, spec),
+                2.0 * dense * n, (), rc.note, rc)
+
+
+def _lm_cell(arch: str, cfg: LMConfig, shape: ShapeSpec, mesh,
+             multi_pod: bool, microbatches: int, batch=None, params=None,
+             artifact=None) -> Cell:
+    from repro_torch.models import lm
+    from repro_torch.roofline import (lm_forward_model_flops,
+                                      lm_train_model_flops)
+    from repro_torch.sharding.rules import lm_batch_spec
+    b = shape.global_batch if batch is None else batch
+    n_active = cfg.active_param_count()
+    s = shape.seq_len
+    i32 = torch.int32
+    if shape.kind == "train":
+        tc = lm_train_cell(cfg, mesh, microbatches, params=params)
+        lm.check_batch(b, mesh)
+        if b % (microbatches * tc.data_shards):
+            raise ValueError(f"batch {b} not divisible into "
+                             f"{microbatches} microbatches over "
+                             f"{tc.data_shards} data shard(s)")
+        spec = lm_batch_spec(multi_pod)
+        data = _meta_batch({"tokens": ((b, s), i32),
+                            "labels": ((b, s), i32)}, spec, mesh)
+        return Cell(arch, shape.name, tc.step, (tc.state, data),
+                    (tc.specs, spec), lm_train_model_flops(n_active, b * s),
+                    (0,), f"train_step B={b} S={s}", tc)
+    dp = _all_axes(mesh)[:-1]
+    dp = dp[0] if len(dp) == 1 else dp
+    if shape.kind == "prefill":
+        pc = lm_prefill_cell(cfg, shape, mesh, batch=b, params=params,
+                             artifact=artifact)
+        lm.check_batch(b, mesh)
+        spec = (dp, None)
+        tokens = _meta_batch({"tokens": ((b, s), i32)}, {"tokens": spec},
+                             mesh)["tokens"]
+
+        def fn(params, artifact, tokens):
+            with torch.no_grad():
+                return lm.prefill(params, tokens, cfg, max_seq=pc.max_seq,
+                                  embed_artifact=artifact, mesh=mesh)
+        return Cell(arch, shape.name, fn,
+                    (pc.served.params, pc.served.artifact, tokens),
+                    (None, None, spec), lm_forward_model_flops(n_active, b * s),
+                    (), pc.note, pc)
+    dc = lm_decode_cell(cfg, shape, mesh, batch=b, params=params,
+                        artifact=artifact)
+    cache = dc.make_cache()
+    spec = (dp,) if lm.batch_divides(b, mesh) else ()
+    token = _meta_batch({"token": ((b,), i32)}, {"token": spec},
+                        mesh)["token"]
+
+    def fn(params, artifact, cache, token):
+        with torch.no_grad():
+            return lm.decode_step(params, cache, token, cfg,
+                                  embed_artifact=artifact, mesh=mesh,
+                                  batch=b, max_seq=s)
+    return Cell(arch, shape.name, fn,
+                (dc.served.params, dc.served.artifact, cache, token),
+                (None, None, None, spec), lm_forward_model_flops(n_active, b),
+                (2,), dc.note, dc)
+
+
+def _mace_cell(arch: str, cfg: GNNConfig, shape: ShapeSpec, mesh,
+               params=None) -> Cell:
+    mc = mace_cell(cfg, shape, mesh, params)
+    _, _, d_feat, task, _ = mace_shape(shape)
+    n, e = mc.n_nodes, mc.n_edges
+    f32, i32 = torch.float32, torch.int32
+    struct = {"positions": ((n, 3), f32), "species": ((n,), i32),
+              "edge_index": ((2, e), i32)}
+    if d_feat:
+        struct["node_feats"] = ((n, d_feat), f32)
+    if task == "node_class":
+        struct["labels"] = ((n,), i32)
+        struct["label_mask"] = ((n,), f32)
+    else:
+        struct["graph_id"] = ((n,), i32)
+        struct["energy"] = ((mc.n_graphs,), f32)
+    axes = tuple(mesh.axis_names)
+    spec = {k: ((None, axes) if k == "edge_index" else
+                () if k == "energy" else (axes,) + (None,) * (len(v[0]) - 1))
+            for k, v in struct.items()}
+    graph = _meta_batch(struct, spec, mesh)
+
+    def fn(state, graph):
+        if task == "energy":
+            graph = dict(graph, n_graphs=mc.n_graphs)
+        return mc.step(state, graph)
+    return Cell(arch, shape.name, fn, (mc.state, graph), (mc.specs, spec),
+                mace_model_flops(cfg, n, e, train=True), (0,), mc.note, mc)
+
+
+def build_cell(arch: str, shape: ShapeSpec, mesh, multi_pod: bool = False,
+               opts: Tuple[str, ...] = (), cfg=None, batch=None,
+               n_candidates=None, params=None, artifact=None) -> Cell:
+    """This rank's :class:`Cell` of ``arch`` at ``shape`` on ``mesh`` (a
+    ``Mesh``, or an ``AbstractMesh`` for a dry run), with the JAX
+    package's named options: ``microbatch<N>``; for an LM ``embed_full``
+    (a plain full-table embedding in place of MGQE),
+    ``embed_sharded_rows`` and every one of ``LM_CFG_OPTS``; for a
+    recsys model ``sharded_embedding``.  An unknown option raises,
+    naming the family.  ``cfg`` replaces the registry's config (a cut
+    one), ``batch`` an LM cell's global batch and ``n_candidates`` a
+    retrieval cell's candidates; ``params`` (whole) and ``artifact`` (a
+    served model's) go to the cell's constructor, which draws them when
+    None.  ``multi_pod`` must agree with the
+    mesh's ``pod`` axis: the cells take their data axes from the mesh."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.types import EmbeddingConfig
+    family, base = get_arch(arch)
+    cfg = base if cfg is None else cfg
+    if multi_pod != ("pod" in mesh.shape):
+        raise ValueError(f"multi_pod={multi_pod} on mesh {mesh.shape}: the "
+                         f"pod axis decides the data axes")
+    microbatches = 1
+    for o in opts:
+        if o.startswith("microbatch") and o[len("microbatch"):].isdigit():
+            microbatches = int(o[len("microbatch"):])
+        elif o == "embed_full" and family == "lm":
+            cfg = dataclasses.replace(
+                cfg, embedding=EmbeddingConfig(vocab_size=cfg.vocab_size,
+                                               dim=cfg.d_model))
+        elif o == "embed_sharded_rows" and family == "lm":
+            cfg = dataclasses.replace(
+                cfg, embedding=dataclasses.replace(cfg.embedding,
+                                                   sharded_rows=True))
+        elif family == "lm" and o in LM_CFG_OPTS:
+            cfg = dataclasses.replace(cfg, **LM_CFG_OPTS[o])
+        elif o == "sharded_embedding" and family == "recsys":
+            cfg = dataclasses.replace(cfg, sharded_embedding=True)
+        else:
+            raise ValueError(f"unknown opt {o!r} for family {family}")
+    if family == "lm":
+        cell = _lm_cell(arch, cfg, shape, mesh, multi_pod, microbatches,
+                        batch, params, artifact)
+    elif family == "gnn":
+        cell = _mace_cell(arch, cfg, shape, mesh, params)
+    elif family == "recsys":
+        cell = _recsys_cell(arch, cfg, shape, mesh, multi_pod, n_candidates,
+                            params, artifact)
+    else:
+        raise ValueError(f"unknown family {family!r}")
+    if opts:
+        cell.note += f" +opts[{','.join(opts)}]"
+    return cell

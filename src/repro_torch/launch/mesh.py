@@ -17,7 +17,11 @@ that share a card (NCCL refuses two ranks on one device; gloo carries
 the collectives of CUDA tensors through host memory).  :func:`spawn`
 starts a group of local ranks for tests and demos, as the JAX
 package's ``force_host_device_count`` gives one process several XLA
-host devices.
+host devices.  An :class:`AbstractMesh` (``jax.sharding.AbstractMesh``'s
+counterpart) names the same axes with no process group behind them: it
+stands for one rank of a mesh of any size, its device is ``meta``, and
+the collectives on it only count what they would move (the dry run,
+``launch/dryrun.py``).
 
 Nothing here touches ``torch.distributed`` or the card at import.
 """
@@ -84,6 +88,9 @@ class Mesh:
         # made through this mesh; None counts nothing
         self.stats = None
 
+    # the collectives run (``sharding/collectives.py``)
+    abstract = False
+
     def group(self, axis: str):
         """The process group of this rank's line along ``axis``."""
         return self.device_mesh.get_group(axis)
@@ -91,6 +98,59 @@ class Mesh:
     def axis_index(self, axis: str) -> int:
         """This rank's coordinate along ``axis``."""
         return self.device_mesh.get_local_rank(axis)
+
+
+class AbstractMesh:
+    """Named axes of a mesh that no process group backs, standing for its
+    rank ``rank`` (row-major, as :class:`Mesh` lays ranks out): the same
+    ``shape``, ``axis_names``, ``size``, ``axis_index`` and ``stats``,
+    ``device`` meta.  A collective on it makes no ``torch.distributed``
+    call: it counts into ``stats`` what the rank would send and returns
+    a meta tensor of the shape it would return
+    (``sharding/collectives.py``), so a cell built on it holds meta
+    tensors of exactly the rank's shapes."""
+
+    abstract = True
+
+    def __init__(self, shape: Sequence[int], axis_names: Sequence[str],
+                 rank: int = 0):
+        shape, axis_names = tuple(int(n) for n in shape), tuple(axis_names)
+        if len(shape) != len(axis_names) or len(set(axis_names)) != \
+                len(axis_names):
+            raise ValueError(f"mesh shape {shape} and axis names "
+                             f"{axis_names} must pair one to one")
+        self.shape: Dict[str, int] = dict(zip(axis_names, shape))
+        self.axis_names = axis_names
+        self.size = math.prod(shape)
+        if not 0 <= rank < self.size:
+            raise ValueError(f"rank {rank} is not one of the {self.size} "
+                             f"ranks of mesh {self.shape}")
+        self.rank = rank
+        self.device = torch.device("meta")
+        self.stats = None
+        coords, r = {}, rank
+        for a in reversed(axis_names):
+            r, coords[a] = divmod(r, self.shape[a])
+        self._coords = coords
+
+    def group(self, axis: str):
+        raise RuntimeError(f"an abstract mesh {self.shape} has no process "
+                           f"group (axis {axis!r})")
+
+    def axis_index(self, axis: str) -> int:
+        """The coordinate of the rank it stands for along ``axis``."""
+        return self._coords[axis]
+
+    def __repr__(self) -> str:
+        return f"AbstractMesh({self.shape}, rank={self.rank})"
+
+
+def abstract_production_mesh(*, multi_pod: bool = False,
+                             rank: int = 0) -> AbstractMesh:
+    """:func:`make_production_mesh`'s axes as an :class:`AbstractMesh`."""
+    if multi_pod:
+        return AbstractMesh((2, 16, 16), ("pod", "data", "model"), rank)
+    return AbstractMesh((16, 16), ("data", "model"), rank)
 
 
 # the device this process's group was started for (``_start_group``)
@@ -326,6 +386,7 @@ def spawn(fn: Callable, world: int, backend: str = "gloo", device="cpu",
     return [got[r] for r in range(world)]
 
 
-__all__ = ["BACKENDS", "DEFAULT_TIMEOUT_S", "Mesh", "init_distributed",
+__all__ = ["AbstractMesh", "BACKENDS", "DEFAULT_TIMEOUT_S", "Mesh",
+           "abstract_production_mesh", "init_distributed",
            "make_debug_mesh", "make_production_mesh", "mesh_of_spec",
            "parse_mesh", "rank_device", "run_on_mesh", "spawn"]

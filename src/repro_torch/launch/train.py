@@ -48,10 +48,12 @@ split the layers over ``model`` (tensor parallel), the batch over
 rank draws the same stream and takes its data shard, checkpoints hold
 whole arrays, and a resume places them on whatever mesh resumes.  Rank
 0 prints.  ``--opts`` applies the JAX package's named LM options
-``moe_shard_map``, ``fsdp`` and ``kv_repeat`` (``LM_CFG_OPTS``).
-``mace`` on a mesh splits each molecule batch's nodes and edges over
-every axis and its channels over ``model`` (``gnn_param_rules``,
-``launch/cells.py::mace_cell``), adam's moments on the channel blocks.
+(``launch/cells.py::LM_CFG_OPTS``: ``moe_shard_map``, ``remat_group``,
+``split_cache``, ``xent_chunk_256``, ``attn_block_2048``, ``fsdp``,
+``kv_repeat``).  ``mace`` on a mesh splits each molecule batch's nodes
+and edges over every axis and its channels over ``model``
+(``gnn_param_rules``, ``launch/cells.py::mace_cell``), adam's moments
+whole on every rank.
 """
 from __future__ import annotations
 
@@ -338,7 +340,7 @@ def main(argv: Optional[List[str]] = None) -> TrainRun:
                          "gradients accumulated, one update)")
     ap.add_argument("--opts", default="",
                     help="comma-separated LM options of the JAX package's "
-                         "_LM_CFG_OPTS: moe_shard_map, fsdp, kv_repeat")
+                         "_LM_CFG_OPTS (launch/cells.py::LM_CFG_OPTS)")
     ap.add_argument("--dist-backend", default="nccl", choices=BACKENDS,
                     help="--mesh's process-group backend: nccl (one rank "
                          "per card) or gloo (ranks that share a card, or "

@@ -164,7 +164,7 @@ class MACE:
         cfg = self.cfg
         c = cfg.d_hidden
         if gen is None:
-            gen = torch.Generator(device=self.device).manual_seed(0)
+            gen = init.generator(self.device, 0)
         params: Dict = {}
         if n_feat:
             params["feat_proj"] = init.dense_init(gen, n_feat, c)

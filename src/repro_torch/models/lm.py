@@ -237,29 +237,47 @@ def _qkv(p, x, cfg: LMConfig, mesh=None):
     model_n = mesh.shape["model"]
     heads = cfg.num_heads // model_n
     x = coll.copy_to(x, mesh, "model")
-    q = (x @ p["wq"].to(x.dtype)).reshape(b, s, heads, hd)
+    if _heads_cut(cfg, mesh):
+        # wq's columns split inside a head: every rank's gathered, q holds
+        # every head; so do k and v (the kv heads cannot divide either)
+        q = coll.all_gather_grad(x @ p["wq"].to(x.dtype), mesh, "model",
+                                 dim=-1).reshape(b, s, cfg.num_heads, hd)
+    else:
+        q = (x @ p["wq"].to(x.dtype)).reshape(b, s, heads, hd)
     if p["wk"].shape[-1] != kv * hd:
         k = x @ p["wk"].to(x.dtype)
         v = x @ p["wv"].to(x.dtype)
         if kv % model_n == 0:
             return q, k.reshape(b, s, -1, hd), v.reshape(b, s, -1, hd), None
-        # columns split inside a head (served: sharding/rules.py's
-        # check_lm_leaf lets it through): every rank's columns gathered,
-        # k's and v's in one collective
+        # columns split inside a head (sharding/rules.py's check_lm_leaf
+        # lets it through): every rank's columns gathered, k's and v's in
+        # one collective
         cols = k.shape[-1]
         kv_all = coll.all_gather_grad(torch.cat([k, v], -1), mesh, "model",
                                       dim=-1).reshape(b, s, model_n, 2, cols)
         k = kv_all[:, :, :, 0].reshape(b, s, kv * hd)
         v = kv_all[:, :, :, 1].reshape(b, s, kv * hd)
+        if _heads_cut(cfg, mesh):
+            return q, k.reshape(b, s, kv, hd), v.reshape(b, s, kv, hd), None
     else:
         # wk/wv whole (attn_kv_repeat, or columns that do not split); the
         # weights' gradient is summed over the model axis
         k = x @ coll.copy_to(p["wk"], mesh, "model").to(x.dtype)
         v = x @ coll.copy_to(p["wv"], mesh, "model").to(x.dtype)
+        if _heads_cut(cfg, mesh):
+            return q, k.reshape(b, s, kv, hd), v.reshape(b, s, kv, hd), None
     first = coll.axis_index(mesh, "model") * heads
     kv_of = torch.arange(first, first + heads, device=x.device) // (
         cfg.num_heads // kv)
     return q, k.reshape(b, s, kv, hd), v.reshape(b, s, kv, hd), kv_of
+
+
+def _heads_cut(cfg: LMConfig, mesh) -> bool:
+    """Whether ``lm_param_rules`` splits ``wq``'s columns inside a head
+    (the heads do not divide over ``model``): a rank's layer then holds
+    every head of q and keeps its column block of the attention's output
+    for its rows of ``wo``."""
+    return mesh is not None and cfg.num_heads % mesh.shape["model"] != 0
 
 
 def _seq_over_model(cfg: LMConfig, mesh) -> bool:
@@ -357,7 +375,10 @@ def layer_forward(p: dict, x: torch.Tensor, positions: torch.Tensor,
     else:
         o = attn.chunked_attention(q, k, v, positions, positions, window,
                                    block=cfg.attention_block)
-    o = o.reshape(x.shape[0], s, -1) @ p["wo"].to(x.dtype)
+    o = o.reshape(x.shape[0], s, -1)
+    if _heads_cut(cfg, mesh):             # this rank's columns of o
+        o = coll.block(o, mesh, "model", -1)
+    o = o @ p["wo"].to(x.dtype)
     if mesh is not None:                  # row-parallel
         o = coll.reduce_from(o, mesh, "model")
     x = x + o
@@ -371,15 +392,22 @@ def layer_forward(p: dict, x: torch.Tensor, positions: torch.Tensor,
 
 def layer_decode(p: dict, x: torch.Tensor, pos: int, window, theta,
                  k_cache, v_cache, kpos_cache, cfg: LMConfig, mesh=None,
-                 fsdp_dims: Optional[dict] = None):
+                 fsdp_dims: Optional[dict] = None, seq_axes=None,
+                 cache_len: Optional[int] = None):
     """One-token layer step.  x: (B, 1, d).  Returns (y, caches); the
     caches are updated in place.
 
     With a ``mesh``, one rank's share over its placed params and its
     block of the caches (``lm_cache_spec``): column-parallel q/k/v,
-    row-parallel ``wo`` and FFN; where the cache's sequence is over
-    ``model``, the query heads gathered and the blocks' attention merged
-    (``attention.decode_attention_split``), this rank's heads kept."""
+    row-parallel ``wo`` and FFN.  ``seq_axes`` are the axes the cache's
+    sequence is split over (default: ``model`` where the kv heads do not
+    divide over it, else none; :func:`decode_step` reads them off the
+    cache's specs) and ``cache_len`` its whole slots: the blocks'
+    attention is merged over them (``attention.decode_attention_split``;
+    a ``kpos`` split with the K/V takes the position from ``pos``).
+    Where this rank's cache holds every kv head but its q only its own
+    heads, the query heads are gathered over ``model`` first and this
+    rank's kept after."""
     if fsdp_dims:
         p = _fsdp_gather(p, fsdp_dims, mesh)
     h = rms_norm(p["ln1"], x)
@@ -388,16 +416,26 @@ def layer_decode(p: dict, x: torch.Tensor, pos: int, window, theta,
     q = apply_rope(q, pos_arr, theta)
     k = apply_rope(k, pos_arr, theta)     # rotate BEFORE caching
     k, v = _cached_heads(k, v, cfg, mesh, kv_of)
+    if seq_axes is None:
+        seq_axes = ("model",) if _seq_over_model(cfg, mesh) else ()
     k_cache, v_cache, kpos_cache = attn.cache_update(
-        k_cache, v_cache, kpos_cache, k, v, pos, mesh=mesh)
-    if _seq_over_model(cfg, mesh):
+        k_cache, v_cache, kpos_cache, k, v, pos, mesh=mesh,
+        axis=seq_axes or "model", cache_len=cache_len)
+    # every kv head cached here, this rank's query heads alone in q
+    all_heads = mesh is not None and _seq_over_model(cfg, mesh)
+    if all_heads and not _heads_cut(cfg, mesh):
+        q = coll.all_gather(q, mesh, "model", dim=2)
+    if seq_axes:
+        whole_kpos = kpos_cache.shape[-1] != k_cache.shape[1]
         o = attn.decode_attention_split(
-            coll.all_gather(q, mesh, "model", dim=2), k_cache, v_cache,
-            kpos_cache, window, mesh)
-        o = coll.block(o, mesh, "model", 2)
+            q, k_cache, v_cache, kpos_cache, window, mesh, seq_axes,
+            qpos=None if whole_kpos else pos)
     else:
         o = attn.decode_attention(q, k_cache, v_cache, kpos_cache, window)
-    o = o.reshape(x.shape[0], 1, -1) @ p["wo"].to(x.dtype)
+    o = o.reshape(x.shape[0], 1, -1)
+    if all_heads:                         # this rank's heads' columns
+        o = coll.block(o, mesh, "model", -1)
+    o = o @ p["wo"].to(x.dtype)
     if mesh is not None:                  # row-parallel
         o = coll.reduce_from(o, mesh, "model")
     x = x + o
@@ -697,25 +735,34 @@ def _check_servable(cfg: LMConfig) -> None:
 
 
 def check_batch(batch: int, mesh) -> None:
-    """Raise unless a global ``batch`` divides over the data axes of
-    ``mesh``: one that does not takes the JAX cells' sequence-parallel
-    branch (B = 1, ``long_500k``), not served on a mesh here."""
+    """Raise unless a global ``batch`` of prompts or training rows divides
+    over the data axes of ``mesh``.  The JAX cells put such a batch's
+    sequence over the data axes instead; the port's prefill and training
+    step have no sequence-parallel form (no registry cell needs one).  A
+    decode batch that does not divide (``long_500k``, B = 1) is served:
+    its tokens replicated, its cache's sequence split (:func:`decode_step`)."""
     from repro_torch.sharding.gather import data_shards
     n = data_shards(mesh, "model")
     if batch % n:
         raise ValueError(
-            f"a batch of {batch} does not divide over {n} data shard(s) "
-            f"(mesh {mesh.shape}): the JAX cell's sequence-parallel branch "
-            f"(long_500k, the sequence over the data axes) waits for "
-            f"ROADMAP.md §1 item 9")
+            f"a batch of {batch} prompts or training rows does not divide "
+            f"over {n} data shard(s) (mesh {mesh.shape}): the JAX cells "
+            f"split its sequence over the data axes, which the port's "
+            f"prefill and training step do not (a decode batch may: "
+            f"decode_step)")
 
 
 def _cache_specs(cfg: LMConfig, batch: int, mesh, template) -> dict:
-    """``lm_cache_spec`` of a cache of global ``batch`` rows on ``mesh``
-    (:func:`check_batch` first)."""
+    """``lm_cache_spec`` of a cache of global ``batch`` rows on ``mesh``."""
     from repro_torch.sharding.rules import lm_cache_spec
-    check_batch(batch, mesh)
     return lm_cache_spec(cfg, batch, mesh, "pod" in mesh.shape, template)
+
+
+def batch_divides(batch: int, mesh) -> bool:
+    """Whether a global ``batch`` divides over the data axes of ``mesh``
+    (else a decode's tokens are replicated, its cache's sequence split)."""
+    from repro_torch.sharding.gather import data_shards
+    return batch % data_shards(mesh, "model") == 0
 
 
 def _logits(x: torch.Tensor, w_head: torch.Tensor, mesh) -> torch.Tensor:
@@ -782,7 +829,7 @@ def make_cache(cfg: LMConfig, batch: int, max_seq: int, dtype=None,
     dtype = dtype or torch_dtype(cfg.dtype)
     if mesh is not None:
         from repro_torch.sharding.rules import NamedSpec
-        whole = make_cache(cfg, batch, max_seq, dtype, device="meta")
+        whole = _cache_template(cfg, batch, max_seq)
         specs = _cache_specs(cfg, batch, mesh, whole)
         out = {"pos": 0}
         for name, leaves in whole.items():
@@ -817,24 +864,57 @@ def make_cache(cfg: LMConfig, batch: int, max_seq: int, dtype=None,
     return cache
 
 
-def check_cache(cache: dict, cfg: LMConfig, mesh, batch: int) -> None:
-    """Raise unless every leaf of ``cache`` is this rank's block under
-    ``lm_cache_spec`` of a cache of global ``batch`` rows (each stack's
-    length read from its kpos, which no spec of a dividing batch
-    splits)."""
-    from repro_torch.sharding.rules import NamedSpec
+def _cache_template(cfg: LMConfig, batch: int, max_seq: int) -> dict:
+    """:func:`make_cache`'s layout as empty meta tensors (shapes alone:
+    nothing is filled, so a dry run's count sees no work)."""
     hd, kv = cfg.resolved_head_dim, cfg.num_kv_heads
-    whole = {}
-    for name, leaves in cache.items():
-        if name == "pos":
-            continue
-        kp = leaves[2]
-        shape = tuple(kp.shape[:-2]) + (batch, kp.shape[-1])
-        whole[name] = (torch.empty(shape + (kv, hd), device="meta"),
-                       torch.empty(shape + (kv, hd), device="meta"),
-                       torch.empty(shape, device="meta"))
+
+    def leaves(lead, clen):
+        k = torch.empty(lead + (batch, clen, kv, hd), device="meta")
+        return k, torch.empty_like(k), torch.empty(lead + (batch, clen),
+                                                   device="meta")
+
+    out = {"pos": 0}
+    if cfg.is_pattern:
+        w = (min(cfg.sliding_window, max_seq)
+             if cfg.split_local_global_cache else max_seq)
+        for name, lead in _stacks(cfg).items():
+            out[name] = leaves(lead, max_seq if name == "glob" else w)
+    else:
+        out["layers"] = leaves((cfg.num_layers,), cache_len_for_layer(
+            cfg, cfg.sliding_window or (1 << 30), max_seq))
+    return out
+
+
+def check_cache(cache: dict, cfg: LMConfig, mesh, batch: int,
+                max_seq: Optional[int] = None) -> dict:
+    """Raise unless every leaf of ``cache`` is this rank's block under
+    ``lm_cache_spec`` of a cache of global ``batch`` rows; return those
+    specs.  The whole cache is ``make_cache``'s of ``max_seq`` slots, or
+    (``max_seq`` None, a batch that divides over the data axes) of each
+    stack's length read from its kpos, which no spec of a dividing batch
+    splits."""
+    from repro_torch.sharding.rules import NamedSpec
+    if max_seq is not None:
+        whole = _cache_template(cfg, batch, max_seq)
+    elif not batch_divides(batch, mesh):
+        raise ValueError(f"a cache of {batch} rows on mesh {mesh.shape} "
+                         f"splits its sequence: pass max_seq")
+    else:
+        hd, kv = cfg.resolved_head_dim, cfg.num_kv_heads
+        whole = {"pos": 0}
+        for name, leaves in cache.items():
+            if name == "pos":
+                continue
+            kp = leaves[2]
+            shape = tuple(kp.shape[:-2]) + (batch, kp.shape[-1])
+            whole[name] = (torch.empty(shape + (kv, hd), device="meta"),
+                           torch.empty(shape + (kv, hd), device="meta"),
+                           torch.empty(shape, device="meta"))
     specs = _cache_specs(cfg, batch, mesh, whole)
     for name in whole:
+        if name == "pos":
+            continue
         for i, (t, w, sp) in enumerate(zip(cache[name], whole[name],
                                            specs[name])):
             want = tuple(NamedSpec(mesh, sp).block(w).shape)
@@ -844,11 +924,21 @@ def check_cache(cache: dict, cfg: LMConfig, mesh, batch: int) -> None:
                     f"block {want} under lm_cache_spec {sp} on mesh "
                     f"{mesh.shape} (make_cache(mesh=) or prefill(mesh=) "
                     f"makes one)")
+    return {name: (specs[name], whole[name][2].shape[-1])
+            for name in whole if name != "pos"}
+
+
+def _seq_axes(spec: tuple) -> tuple:
+    """The axes a cache stack's k spec splits its sequence over."""
+    axes = spec[-3]
+    return () if axes is None else (axes,) if isinstance(axes, str) \
+        else tuple(axes)
 
 
 def decode_step(params: dict, cache: dict, token: torch.Tensor,
                 cfg: LMConfig, embed_artifact: Optional[dict] = None,
-                mesh=None):
+                mesh=None, batch: Optional[int] = None,
+                max_seq: Optional[int] = None):
     """One decode step.  token (B,) int32 -> (new_cache, logits (B, V)).
 
     The caches are updated in place: ``new_cache`` holds the same
@@ -857,21 +947,27 @@ def decode_step(params: dict, cache: dict, token: torch.Tensor,
     paper's Figure-1 serving path; the training table when None.
 
     With a ``mesh``: this rank's params, artifact and cache block
-    (checked: :func:`check_cache`), ``token`` its data shard (B_local,);
-    the tensor-parallel layer of :func:`layer_decode`, the MoE block in
-    the global formulation (``nn/moe.py::moe_ffn(mesh=)``), the logits
-    (B_local, V) gathered over ``model``.
+    (checked: :func:`check_cache`) of a cache of global ``batch`` rows
+    and ``max_seq`` slots, ``token`` its data shard (B_local,) (the
+    default ``batch``: B_local times the data shards); the
+    tensor-parallel layer of :func:`layer_decode`, the MoE block in the
+    global formulation (``nn/moe.py::moe_ffn(mesh=)``), the logits
+    (B_local, V) gathered over ``model``.  A ``batch`` that does not
+    divide over the data axes (``long_500k``) comes replicated, ``token``
+    the whole batch on every rank, and needs ``max_seq``: the cache's
+    sequence is split over the data axes, each layer's attention merged
+    over them.
     """
     dtype = torch_dtype(cfg.dtype)
     emb = Embedding(cfg.embedding, device=token.device)
-    fsdp_dims = None
+    fsdp_dims, layout = None, {}
     if mesh is not None:
         from repro_torch.sharding.gather import data_shards
         _check_servable(cfg)
         fsdp_dims, shapes = mesh_plan(cfg, mesh)
         _check_placed(params, shapes, mesh)
-        check_cache(cache, cfg, mesh,
-                    token.shape[0] * data_shards(mesh, "model"))
+        batch = batch or token.shape[0] * data_shards(mesh, "model")
+        layout = check_cache(cache, cfg, mesh, batch, max_seq)
     if embed_artifact is not None:
         x = emb.serve(embed_artifact, token, mesh=mesh,
                       per_rank=mesh is not None)
@@ -886,23 +982,28 @@ def decode_step(params: dict, cache: dict, token: torch.Tensor,
         plan = _layer_plan(cfg, 1 << 30)
     else:
         windows, thetas = layer_windows(cfg, 1 << 30)
-        # clamp windows to this cache's actual length (kpos's: a rank's
-        # k block may hold a part of the sequence)
-        clen = cache["layers"][2].shape[-1]
+        # clamp windows to this cache's whole length
+        clen = layout["layers"][1] if layout else \
+            cache["layers"][2].shape[-1]
         windows = torch.minimum(windows, torch.tensor(clen, dtype=torch.int32))
         plan = [("layers", (i,), w, t) for i, (w, t) in
                 enumerate(zip(windows.tolist(), thetas.tolist()))]
     for name, idx, window, theta in plan:
         k, v, kp = cache[name]
+        kw = {}
+        if layout:
+            specs, whole_len = layout[name]
+            kw = {"seq_axes": _seq_axes(specs[0]), "cache_len": whole_len}
         x, _, _, _ = layer_decode(_index(params[name], *idx), x, pos, window,
                                   theta, k[idx], v[idx], kp[idx], cfg,
-                                  mesh=mesh, fsdp_dims=fsdp_dims)
+                                  mesh=mesh, fsdp_dims=fsdp_dims, **kw)
 
     x = rms_norm(params["final_norm"], x)
     return new_cache, _logits(x[:, 0], params["lm_head"], mesh)
 
 
-__all__ = ["cache_len_for_layer", "check_batch", "check_cache",
+__all__ = ["batch_divides", "cache_len_for_layer", "check_batch",
+           "check_cache",
            "chunked_xent",
            "decode_step", "forward",
            "layer_decode", "layer_forward", "layer_windows", "loss_fn",

@@ -55,7 +55,7 @@ class AutoInt:
         layer, ``w_out`` (its bias starts at zero)."""
         cfg = self.cfg
         if gen is None:
-            gen = torch.Generator(device=self.device).manual_seed(0)
+            gen = init.generator(self.device, 0)
         d_attn_out = cfg.n_attn_heads * cfg.d_attn
         fields = self.fields.init(gen, dtype)
         layers = []

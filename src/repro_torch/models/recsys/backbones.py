@@ -98,7 +98,7 @@ class _Backbone:
 
     def _gen(self, gen: Optional[torch.Generator]) -> torch.Generator:
         if gen is None:
-            gen = torch.Generator(device=self.device).manual_seed(0)
+            gen = init.generator(self.device, 0)
         return gen
 
     def export(self, params: Dict) -> Dict:

@@ -15,6 +15,7 @@ from repro_torch.configs.base import RecsysConfig
 from repro_torch.core.api import Embedding
 from repro_torch.core.types import EmbeddingConfig
 from repro_torch.models.recsys.fields import FieldEmbeddings
+from repro_torch.nn import initializers as init_lib
 from repro_torch.nn.mlp import mlp, mlp_init
 
 
@@ -37,7 +38,7 @@ class DeepFM:
         tables, MLP; the bias starts at zero."""
         cfg = self.cfg
         if gen is None:
-            gen = torch.Generator(device=self.device).manual_seed(0)
+            gen = init_lib.generator(self.device, 0)
         d_in = cfg.n_sparse * cfg.embed_dim
         return {
             "fields": self.fields.init(gen, dtype),

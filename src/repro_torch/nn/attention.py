@@ -18,7 +18,9 @@ of its layer group, so a step writes one slot and copies nothing.  On
 a mesh whose ``model`` axis splits the cache's sequence
 (``sharding/rules.py::lm_cache_spec``), each rank holds a block of the
 slots: :func:`decode_attention_split` merges the blocks' partial
-softmax statistics over the axis.
+softmax statistics over the axis.  A batch that does not divide over
+the data axes (``long_500k``, B = 1) splits the sequence over the data
+axes instead, its ``kpos`` with it.
 """
 from __future__ import annotations
 
@@ -73,8 +75,11 @@ def chunked_attention(q, k, v, qpos, kpos, window=FULL_WINDOW,
     not read: the kernel's tiles are its own."""
     s = q.shape[1]
     ar = torch.arange(s, dtype=qpos.dtype, device=qpos.device)
+    # values on the meta device (a dry run) cannot be read: shapes alone
+    values = qpos.device.type != "meta"
     if (qpos.shape != (s,) or kpos.shape != (k.shape[1],) or s != k.shape[1]
-            or not torch.equal(qpos, ar) or not torch.equal(kpos, ar)):
+            or values and not (torch.equal(qpos, ar)
+                               and torch.equal(kpos, ar))):
         raise ValueError("chunked_attention takes positions equal to "
                          "arange(S) for both queries and keys (the "
                          "kernel masks by index); use dense_attention "
@@ -105,12 +110,15 @@ def decode_attention(q, k_cache, v_cache, kpos, window=FULL_WINDOW
 
 
 def decode_attention_split(q, k_block, v_block, kpos, window, mesh,
-                           axis: str = "model") -> torch.Tensor:
+                           axis="model", qpos=None) -> torch.Tensor:
     """:func:`decode_attention` over a cache whose sequence is split over
-    ``axis``: this rank holds the slots ``[i·S/n, (i+1)·S/n)`` of every
-    kv head (``k_block``, ``v_block`` (B, S/n, n_kv, hd)) and the whole
-    ``kpos`` (B, S); ``q`` (B, 1, n_q, hd) holds every query head, and
-    so does the output.
+    ``axis`` (one axis or several, in mesh order): this rank holds the
+    slots ``[i·S/n, (i+1)·S/n)`` of every kv head it caches (``k_block``,
+    ``v_block`` (B, S/n, n_kv, hd)) and ``kpos`` whole (B, S) or its block
+    (B, S/n) alike; ``q`` (B, 1, n_q, hd) holds the query heads of those
+    kv heads, and so does the output.  ``qpos``, the newest written
+    position, is read from ``kpos`` when not given (a block of ``kpos``
+    needs it given).
 
     Each rank scores its block and returns partial statistics — the row
     max, the sum of the exponentials and the unnormalised output, in
@@ -124,9 +132,16 @@ def decode_attention_split(q, k_block, v_block, kpos, window, mesh,
     s = torch.einsum("bhgd,bkhd->bhgk", qg, k_block).float() * scale
     if kpos.dim() == 1:
         kpos = kpos[None]
-    qpos = torch.amax(kpos, dim=-1)                     # newest written token
-    start = coll.axis_index(mesh, axis) * s_loc
-    kp = kpos[:, start:start + s_loc]
+    if qpos is None:
+        qpos = torch.amax(kpos, dim=-1)                 # newest written token
+    else:
+        qpos = torch.full((kpos.shape[0],), int(qpos), dtype=kpos.dtype,
+                          device=kpos.device)
+    if kpos.shape[-1] == s_loc:
+        kp = kpos
+    else:
+        start = coll.linear_index(mesh, axis) * s_loc
+        kp = kpos[:, start:start + s_loc]
     delta = qpos[:, None] - kp
     mask = (delta >= 0) & (delta < window) & (kp >= 0)
     s = s.masked_fill(~mask[:, None, None, :], _NEG_INF)
@@ -144,7 +159,7 @@ def decode_attention_split(q, k_block, v_block, kpos, window, mesh,
 # ----------------------------------------------------------------------
 
 def cache_update(k_cache, v_cache, kpos_cache, k_new, v_new, pos: int,
-                 mesh=None, axis: str = "model"):
+                 mesh=None, axis="model", cache_len=None):
     """Write one decode step's K/V at ring slot ``pos % cache_len``, in
     place, and return the three caches.
 
@@ -153,17 +168,25 @@ def cache_update(k_cache, v_cache, kpos_cache, k_new, v_new, pos: int,
     so the ring never wraps; local layers size it at the window.
     kpos_cache (B,S) tracks which token occupies each slot (-1 = empty).
 
-    A cache whose sequence is split over ``axis`` of ``mesh`` (``k_cache``
-    this rank's block of S/n slots, ``kpos_cache`` whole): the K/V go
-    only to the rank that owns the slot, the position to every rank."""
-    cache_len = kpos_cache.shape[-1]
+    A cache whose sequence is split over ``axis`` of ``mesh`` (one axis or
+    several; ``k_cache`` this rank's block of S/n slots): the K/V go only
+    to the rank that owns the slot; the position to every rank where
+    ``kpos_cache`` is whole, to the owner alone where it is a block too.
+    ``cache_len`` is the whole cache's slots (default: ``kpos_cache``'s,
+    whole)."""
+    cache_len = cache_len or kpos_cache.shape[-1]
     slot = int(pos) % cache_len
-    kpos_cache[:, slot] = int(pos)
     s_loc = k_cache.shape[1]
+    if kpos_cache.shape[-1] == cache_len:
+        kpos_cache[:, slot] = int(pos)
     if s_loc != cache_len:
-        if slot // s_loc != mesh.axis_index(axis):
+        from repro_torch.sharding.collectives import linear_index
+        mine = linear_index(mesh, axis)
+        if slot // s_loc != mine:
             return k_cache, v_cache, kpos_cache
-        slot -= mesh.axis_index(axis) * s_loc
+        slot -= mine * s_loc
+    if kpos_cache.shape[-1] != cache_len:
+        kpos_cache[:, slot] = int(pos)
     k_cache[:, slot:slot + 1] = k_new.to(k_cache.dtype)
     v_cache[:, slot:slot + 1] = v_new.to(v_cache.dtype)
     return k_cache, v_cache, kpos_cache

@@ -5,6 +5,26 @@ from __future__ import annotations
 import torch
 
 
+class _MetaGenerator(torch.Generator):
+    """A CPU generator whose ``device`` reads meta: an init that draws with
+    ``generator=gen, device=gen.device`` then makes meta tensors of its
+    shapes and draws nothing (``torch.Generator`` cannot be made on
+    meta)."""
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("meta")
+
+
+def generator(device, seed: int = 0) -> torch.Generator:
+    """A generator seeded ``seed`` on ``device``; on the meta device, one
+    whose draws are shapes alone (``_MetaGenerator``)."""
+    device = torch.device(device)
+    if device.type == "meta":
+        return _MetaGenerator().manual_seed(seed)
+    return torch.Generator(device=device).manual_seed(seed)
+
+
 def normal(gen: torch.Generator, shape, stddev: float,
            dtype=torch.float32) -> torch.Tensor:
     """N(0, stddev^2) on the generator's device, scaled in place."""

@@ -41,14 +41,17 @@ the transposes under that convention:
   among its axes and divided by their ranks.
 
 A mesh whose ``stats`` holds a :class:`CommStats` counts every
-collective, its bytes and its seconds (the device synchronised around
-it); a mesh without one pays nothing.
+collective, its kind, its bytes and its seconds (the device
+synchronised around it); a mesh without one pays nothing.  On an
+:class:`~repro_torch.launch.mesh.AbstractMesh` every collective is
+counted and skipped in one place (``_collective``): its output keeps
+the shape the real one would have, its values are not computed.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Sequence, Union
+from typing import Dict, Sequence, Union
 
 import torch
 
@@ -61,40 +64,64 @@ def _axes(axes: Axes) -> tuple:
     return (axes,) if isinstance(axes, str) else tuple(axes)
 
 
+# the kinds a CommStats tells apart
+KINDS = ("all-reduce", "all-gather", "all-to-all", "broadcast")
+
+
 @dataclasses.dataclass
 class CommStats:
     """Collectives made through a mesh while it holds this object: their
     count, the bytes each rank sent into them and the host seconds they
-    took, the device synchronised before and after each."""
+    took, the device synchronised before and after each; ``kinds`` and
+    ``kind_bytes`` split the count and the bytes by kind (``KINDS``),
+    ``axis_bytes`` the bytes by the mesh axis the collective ran over.
+    On an :class:`~repro_torch.launch.mesh.AbstractMesh` the count and
+    the bytes are what a rank of a real mesh of its shape would make."""
 
     count: int = 0
     bytes: int = 0
     seconds: float = 0.0
+    kinds: Dict[str, int] = dataclasses.field(default_factory=dict)
+    kind_bytes: Dict[str, int] = dataclasses.field(default_factory=dict)
+    axis_bytes: Dict[str, int] = dataclasses.field(default_factory=dict)
+
+    def add(self, kind: str, axis: str, nbytes: int,
+            seconds: float) -> None:
+        self.count += 1
+        self.bytes += nbytes
+        self.seconds += seconds
+        self.kinds[kind] = self.kinds.get(kind, 0) + 1
+        self.kind_bytes[kind] = self.kind_bytes.get(kind, 0) + nbytes
+        self.axis_bytes[axis] = self.axis_bytes.get(axis, 0) + nbytes
+
+    def counted(self) -> tuple:
+        """(count, bytes, kinds, kind_bytes): what a dry run predicts."""
+        return (self.count, self.bytes, dict(sorted(self.kinds.items())),
+                dict(sorted(self.kind_bytes.items())))
 
 
-class _Recorded:
-    """``with _Recorded(mesh, t):`` times one collective on ``t`` into
-    ``mesh.stats`` when the mesh has one."""
-
-    def __init__(self, mesh, t: torch.Tensor):
-        self.stats = getattr(mesh, "stats", None)
-        self.t = t
-
-    def __enter__(self):
-        if self.stats is not None:
-            if self.t.is_cuda:
-                torch.cuda.synchronize(self.t.device)
-            self.t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        if self.stats is not None and exc[0] is None:
-            if self.t.is_cuda:
-                torch.cuda.synchronize(self.t.device)
-            self.stats.seconds += time.perf_counter() - self.t0
-            self.stats.count += 1
-            self.stats.bytes += self.t.numel() * self.t.element_size()
-        return False
+def _collective(mesh, kind: str, axis: str, t: torch.Tensor, call) -> None:
+    """Make one collective of ``kind`` over ``axis`` that sends ``t``:
+    ``call()`` makes
+    it, unless ``mesh`` is abstract (then the caller's output tensor,
+    already of the right shape, is the result); counted into
+    ``mesh.stats`` when the mesh has one, timed with the device
+    synchronised before and after."""
+    stats = getattr(mesh, "stats", None)
+    abstract = getattr(mesh, "abstract", False)
+    if stats is None:
+        if not abstract:
+            call()
+        return
+    if t.is_cuda:
+        torch.cuda.synchronize(t.device)
+    t0 = time.perf_counter()
+    if not abstract:
+        call()
+    if t.is_cuda:
+        torch.cuda.synchronize(t.device)
+    stats.add(kind, axis, t.numel() * t.element_size(),
+              time.perf_counter() - t0)
 
 
 def axis_index(mesh, axis: str) -> int:
@@ -119,9 +146,8 @@ def psum(x: torch.Tensor, mesh, axes: Axes) -> torch.Tensor:
     out = x.to(wide) if wide is not None else x.clone()
     for a in _axes(axes):
         if mesh.shape[a] > 1:
-            with _Recorded(mesh, out):
-                dist.all_reduce(out, op=dist.ReduceOp.SUM,
-                                group=mesh.group(a))
+            _collective(mesh, "all-reduce", a, out, lambda: dist.all_reduce(
+                out, op=dist.ReduceOp.SUM, group=mesh.group(a)))
     return out.to(x.dtype) if wide is not None else out
 
 
@@ -131,9 +157,8 @@ def pmax(x: torch.Tensor, mesh, axes: Axes) -> torch.Tensor:
     out = x.detach().clone()
     for a in _axes(axes):
         if mesh.shape[a] > 1:
-            with _Recorded(mesh, out):
-                dist.all_reduce(out, op=dist.ReduceOp.MAX,
-                                group=mesh.group(a))
+            _collective(mesh, "all-reduce", a, out, lambda: dist.all_reduce(
+                out, op=dist.ReduceOp.MAX, group=mesh.group(a)))
     return out
 
 
@@ -145,10 +170,11 @@ def broadcast(x: torch.Tensor, mesh, axes: Axes) -> torch.Tensor:
     import torch.distributed as dist
     for a in _axes(axes):
         if mesh.shape[a] > 1:
-            group = mesh.group(a)
-            with _Recorded(mesh, x):
+            def call(a=a):
+                group = mesh.group(a)
                 dist.broadcast(x, src=dist.get_global_rank(group, 0),
                                group=group)
+            _collective(mesh, "broadcast", a, x, call)
     return x
 
 
@@ -174,8 +200,8 @@ def all_gather(x: torch.Tensor, mesh, axes: Axes,
         if n == 1:
             continue
         parts = [torch.empty_like(x) for _ in range(n)]
-        with _Recorded(mesh, x):
-            dist.all_gather(parts, x, group=mesh.group(a))
+        _collective(mesh, "all-gather", a, x, lambda: dist.all_gather(
+            parts, x, group=mesh.group(a)))
         x = torch.cat(parts)
     return x
 
@@ -215,8 +241,9 @@ def _all_to_all(x: torch.Tensor, mesh, axis: str, split_dim: int,
     # the list form on CUDA tensors)
     blocks = x.movedim(split_dim, 0).contiguous()
     out = torch.empty_like(blocks)
-    with _Recorded(mesh, blocks):
-        dist.all_to_all_single(out, blocks, group=mesh.group(axis))
+    _collective(mesh, "all-to-all", axis, blocks,
+                lambda: dist.all_to_all_single(out, blocks,
+                                               group=mesh.group(axis)))
     return torch.cat([c.movedim(0, split_dim)
                       for c in out.chunk(n, dim=0)], dim=concat_dim)
 
@@ -387,7 +414,7 @@ def pmean(x: torch.Tensor, mesh, axes: Axes,
     return _PMean.apply(x, mesh, _axes(axes), model_axis)
 
 
-__all__ = ["CommStats", "all_gather", "all_gather_grad", "all_to_all",
+__all__ = ["CommStats", "KINDS", "all_gather", "all_gather_grad", "all_to_all",
            "axes_size", "axis_index", "block", "broadcast", "copy_to",
            "gather_from", "linear_index", "pmax", "pmean", "psum",
            "psum_scatter", "reduce_from", "scatter_to"]

@@ -293,15 +293,14 @@ def lm_batch_spec(multi_pod: bool) -> dict:
     return {"tokens": (dp, None), "labels": (dp, None)}
 
 
-def check_lm_leaf(cfg, mesh, path: str, leaf, spec: Tuple,
-                  serving: bool = False) -> None:
+def check_lm_leaf(cfg, mesh, path: str, leaf, spec: Tuple) -> None:
     """Raise unless ``spec`` gives each rank of ``mesh`` a whole block of
-    the leaf at ``path``: each split dim divides over its axes, and a
-    split of ``wq``'s (or ``wk``/``wv``'s) columns over ``model`` falls
-    on whole heads.  The message names the leaf, the axis and the
-    sizes.  (GSPMD pads such a split; a rank here holds plain blocks.)
-    With ``serving``, ``wk``/``wv`` may split inside a head: the serving
-    layer gathers their columns over ``model`` (``models/lm.py``)."""
+    the leaf at ``path``: each split dim divides over its axes.  The
+    message names the leaf, the axis and the sizes.  (GSPMD pads such a
+    split; a rank here holds plain blocks.)  A split of ``wq``'s,
+    ``wk``'s or ``wv``'s columns inside a head is allowed, training and
+    serving alike: the layer gathers their columns over ``model``
+    (``models/lm.py``)."""
     spec = _pad_spec(tuple(spec), leaf.dim())
     for dim, axes in enumerate(spec):
         if axes is None:
@@ -312,17 +311,6 @@ def check_lm_leaf(cfg, mesh, path: str, leaf, spec: Tuple,
             raise ValueError(
                 f"{path}: dim {dim} of size {leaf.shape[dim]} does not "
                 f"divide over {axes} = {n} (shape {tuple(leaf.shape)})")
-    heads = {"wq": cfg.num_heads, "wk": cfg.num_kv_heads,
-             "wv": cfg.num_kv_heads}
-    if serving:
-        heads = {"wq": cfg.num_heads}
-    heads = heads.get(path.rsplit("/", 1)[-1])
-    model = mesh.shape["model"]
-    if heads is not None and spec[-1] == "model" and heads % model:
-        raise ValueError(
-            f"{path}: splitting its columns over model = {model} would cut "
-            f"heads: {heads} heads (head dim {cfg.resolved_head_dim}) do "
-            f"not divide over {model} (attn_kv_repeat keeps wk/wv whole)")
 
 
 # ----------------------------------------------------------------------

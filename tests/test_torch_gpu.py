@@ -3302,3 +3302,147 @@ def test_mace_cell_on_card_matches_one_device(cuda, tmp_path, task):
             assert bool(((a - b).abs()[tiny] <= 2e-3).all())
         assert max(float((a - i).abs().max())
                    for a, i in zip(got, init)) > 1e-4
+
+
+# ----------------------------------------------------------------------
+# long_500k's sequence-parallel decode, and each op's cost
+# ----------------------------------------------------------------------
+
+LONG_PROMPT, LONG_MAX_SEQ, LONG_STEPS = 12, 32, 3
+
+
+def _long_rank(rank, mesh_shape):
+    """gemma3-4b's smoke config through ``build_cell``'s long_500k cell
+    (B = 1, ``split_cache``) on cuda:0: a prompt prefilled on one device
+    of this rank (the cache placed by ``lm_cache_spec``'s B = 1 branch),
+    then LONG_STEPS greedy steps fed the one-device run's tokens; the
+    logits of both routes."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.cells import build_cell
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import lm
+    from repro_torch.sharding.collectives import all_gather
+    from repro_torch.sharding.rules import (NamedSpec, lm_cache_spec,
+                                            strip_embed_table)
+    mesh = make_debug_mesh(*mesh_shape)
+    _, cfg = get_arch("gemma3-4b", smoke=True)
+    shape = ShapeSpec("long_500k", "decode", seq_len=LONG_MAX_SEQ,
+                      global_batch=1)
+    cell = build_cell("gemma3-4b", shape, mesh, opts=("split_cache",),
+                      cfg=cfg)
+    scfg = cell.cell.cfg
+    params, art, _, _ = cell.args
+    # one device: the same draw (the cell's params come from a generator
+    # seeded 0 on the card, as here), whole
+    whole = strip_embed_table(lm.model_init(
+        torch.Generator(device="cuda").manual_seed(0), scfg))
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        0, scfg.vocab_size, (1, LONG_PROMPT)).astype(np.int32)).cuda()
+    with torch.no_grad():
+        full_art = dict(art)
+        full_art["codes"] = all_gather(art["codes"], mesh, "model")
+        cache, logits = lm.prefill(whole, toks, scfg, max_seq=LONG_MAX_SEQ,
+                                   embed_artifact=full_art)
+        specs = lm_cache_spec(scfg, 1, mesh, False, cache)
+        block = {k: v if k == "pos" else tuple(
+            NamedSpec(mesh, sp).block(t).contiguous()
+            for t, sp in zip(v, specs[k])) for k, v in cache.items()}
+        one, mine = [], []
+        for _ in range(LONG_STEPS):
+            tok = torch.argmax(logits, -1).to(torch.int32)
+            block, got = cell.fn(params, art, block,
+                                 cell.cell.local_tokens(tok))
+            cache, logits = lm.decode_step(whole, cache, tok, scfg,
+                                           embed_artifact=full_art)
+            one.append(logits.cpu())
+            mine.append(got.cpu())
+    return one, mine
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mesh_shape", [(2, 2), (4, 1)])
+def test_long_500k_split_decode_on_card_matches_one_device(cuda, tmp_path,
+                                                           mesh_shape):
+    """long_500k's cell on 4 gloo ranks sharing the card (the cache's
+    sequence over data, kv heads over model on (2, 2)) against the same
+    rank's one-device decode of the same cache: every step's logits
+    within 1e-5 (float32), the tokens equal."""
+    from repro_torch.launch.mesh import spawn
+    res = spawn(_long_rank, 4, backend="gloo", device="cuda:0",
+                args=(mesh_shape,), store_dir=str(tmp_path), timeout_s=300)
+    for one, mine in res:
+        for a, b in zip(one, mine, strict=True):
+            np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=1e-5,
+                                       atol=1e-5)
+            assert torch.equal(a.argmax(-1), b.argmax(-1))
+
+
+@pytest.mark.gpu
+def test_each_op_cost_is_its_rows_bound(cuda):
+    """Every op's ``cost`` on card tensors at its kernel's path shape is
+    the bound column's count (PERF.md §6: bytes read once and written
+    once over HBM, FLOPs over the dtype's peak), and a dispatched call
+    inside the counter counts once at that cost."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.roofline import CostCounter, kernel_roofline, peak_flops
+    from repro_torch.roofline import HBM_BW
+    g = torch.Generator(device="cuda").manual_seed(0)
+    b, d, k, s, n, q = 4096, 5, 256, 2, 1 << 20, 8
+    codes = torch.randint(0, k, (b, d), generator=g, device="cuda",
+                          dtype=torch.uint8)
+    cent = torch.randn((d, k, s), generator=g, device="cuda")
+    cbs = torch.randn((d, k, 10), generator=g, device="cuda")
+    packed = pack_codes(torch.randint(0, 16, (b, d), generator=g,
+                                      device="cuda", dtype=torch.int32), 4)
+    pcent = torch.randn((d, 16, s), generator=g, device="cuda")
+    e = torch.randn((b, d, s), generator=g, device="cuda")
+    lim = torch.full((b,), 64, device="cuda", dtype=torch.int32)
+    table = torch.randn((100_000, 16), generator=g, device="cuda")
+    ids = torch.randint(0, 100_000, (8192,), generator=g, device="cuda")
+    seg = torch.sort(torch.randint(0, 512, (8192,), generator=g,
+                                   device="cuda")).values.to(torch.int32)
+    qh = torch.randn((1, 256, 4, 64), generator=g, device="cuda",
+                     dtype=torch.bfloat16)
+    kh = torch.randn((1, 256, 2, 64), generator=g, device="cuda",
+                     dtype=torch.bfloat16)
+    luts = torch.randn((4, q, k), generator=g, device="cuda")
+    pq = torch.randint(0, k, (n, q), generator=g, device="cuda",
+                       dtype=torch.uint8)
+    pairs = 256 * 257 // 2
+    cases = {
+        "mgqe_decode": ((codes, cent), {},
+                        (0, b * d + d * k * s * 4 + b * d * s * 4)),
+        "rq_decode_stages": ((codes, cbs), {},
+                             (b * (d - 1) * 10,
+                              b * d + d * k * 10 * 4 + b * 10 * 4)),
+        "packed_decode": ((packed, pcent, 4), {},
+                          (0, packed.numel() + d * 16 * s * 4
+                           + b * d * s * 4)),
+        "dpq_assign": ((e, cent, lim), {},
+                       (2 * s * d * b * 64,
+                        b * d * s * 4 + d * k * s * 4 + b * d * 4 + b * 4)),
+        "embedding_bag": ((table, ids, seg, 512), {},
+                          (8192 * 16, 8192 * 16 * 4 + 8192 * 12
+                           + 512 * 16 * 4)),
+        "flash_attention": ((qh, kh, kh), {},
+                            (4 * 64 * pairs * 4, (2 * qh.numel()
+                                                  + 2 * kh.numel()) * 2)),
+        "pq_score": ((luts[0], pq), {}, (n * q, n * q + q * k * 4 + n * 4)),
+        "pq_score_batched": ((luts, pq), {},
+                             (4 * n * q, n * q + 4 * q * k * 4 + 4 * n * 4)),
+        "pq_topk": ((luts, pq, 100), {},
+                    (4 * n * q, n * q + 4 * q * k * 4 + 4 * 100 * 8)),
+    }
+    assert set(cases) == set(dispatch.registered_ops())
+    for name, (args, kw, (flops, nbytes)) in cases.items():
+        cost = dispatch.op_cost(name, *args, **kw)
+        assert (cost.flops, cost.bytes) == (flops, nbytes), name
+        bound = kernel_roofline(cost.flops, cost.bytes, dtype=cost.dtype)
+        assert bound["bound_ms"] == pytest.approx(1e3 * max(
+            nbytes / HBM_BW, flops / peak_flops(cost.dtype))), name
+        counter = CostCounter()
+        with dispatch.counting(counter), counter:
+            dispatch.dispatch(name, *args, **kw)
+        assert counter.ops == {name: 1}, name
+        assert counter.bytes == nbytes, name

@@ -180,15 +180,21 @@ def test_a_split_that_does_not_divide_is_refused():
 
 
 def test_a_split_that_cuts_heads_is_refused():
-    """qwen3's smoke config has 2 kv heads of 16: ``wk``'s 32 columns
-    divide over model = 4, into half heads; kv repeat keeps them whole
-    and places."""
+    """A split that cuts heads is placed and gathered, no longer refused.
+    qwen3's smoke config has 2 kv heads of 16: ``wk``'s 32 columns
+    divide over model = 4, into half heads.  The cell places that split
+    as GSPMD does, so that a rank holds JAX's argument bytes on the
+    production meshes; the layer gathers the columns over ``model``,
+    every rank computes every head's attention (redundantly) and keeps
+    its column block of the output for ``wo`` (``models/lm.py::
+    _heads_cut``; ``tests/test_torch_build_cell.py`` holds such a step
+    to JAX).  With kv repeat the heads stay whole on every rank."""
     from repro_torch.launch.cells import lm_train_cell
     _, cfg = get_arch("qwen3-moe-30b-a3b", smoke=True)
-    with pytest.raises(ValueError, match=r"layers/wk: splitting its "
-                                         r"columns over model = 4 would cut "
-                                         r"heads: 2 heads"):
-        lm_train_cell(cfg, _FakeMesh(1, 4))
+    cell = lm_train_cell(cfg, _FakeMesh(1, 4))
+    assert cell.specs.params["layers"]["wk"][-1] == "model"
+    assert cell.state.params["layers"]["wk"].shape[-1] == \
+        cfg.num_kv_heads * cfg.resolved_head_dim // 4
     cell = lm_train_cell(dataclasses.replace(cfg, attn_kv_repeat=True),
                          _FakeMesh(1, 4))
     assert cell.specs.params["layers"]["wk"] == (None, None, None)

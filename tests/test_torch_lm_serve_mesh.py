@@ -226,19 +226,28 @@ def test_cache_from_prefill_block_is_jax_cache_block(s, cache_len, n):
 # ----------------------------------------------------------------------
 
 def test_a_batch_that_does_not_divide_the_data_axes_is_refused():
-    """B = 1 over two data shards is the JAX cells' sequence-parallel
-    branch (long_500k), named; the cells' tokens likewise."""
+    """B = 1 over two data shards: a prefill's prompts are refused (the
+    JAX cell's sequence-parallel tokens, which the port's prefill has
+    not), named; a decode batch is served as the JAX cell serves
+    ``long_500k``: the token whole on every rank and the cache's
+    sequence over the data axes."""
     from repro_torch.launch.cells import LMDecodeCell, LMPrefillCell
     _, cfg = get_arch("gemma3-4b", smoke=True)
     m = _mesh(2, 2)
-    with pytest.raises(ValueError, match=r"batch of 1 does not divide over "
-                                         r"2 data shard.*long_500k.*item 9"):
-        lm.make_cache(cfg, 1, 16, mesh=m)
-    for cell in (LMPrefillCell(cfg, m, None, 1, 16, 16),
-                 LMDecodeCell(cfg, m, None, 1, 16)):
-        with pytest.raises(ValueError, match="ROADMAP.md §1 item 9"):
-            cell.local_tokens(np.zeros((1, 16) if isinstance(
-                cell, LMPrefillCell) else (1,), np.int32))
+    cache = lm.make_cache(cfg, 1, 16, mesh=m)
+    whole = lm.make_cache(cfg, 1, 16, device="cpu")
+    for name, leaves in whole.items():
+        if name != "pos":
+            for i, (got, want) in enumerate(zip(cache[name], leaves)):
+                seq = -3 if i < 2 else -1         # k, v; kpos
+                assert got.shape[seq] * 2 == want.shape[seq]
+    with pytest.raises(ValueError, match=r"1 prompts or training rows does "
+                                         r"not divide over 2 data shard"):
+        LMPrefillCell(cfg, m, None, 1, 16, 16).local_tokens(
+            np.zeros((1, 16), np.int32))
+    token = LMDecodeCell(cfg, m, None, 1, 16).local_tokens(
+        np.zeros((1,), np.int32))
+    assert tuple(token.shape) == (1,)
 
 
 def test_a_cache_block_of_the_wrong_shape_is_refused():
